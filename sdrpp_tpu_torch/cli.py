@@ -1,0 +1,141 @@
+"""Command-line entry point of the port: ``run``.
+
+``run`` reads IQ from a test source or a WAV file, demodulates one channel
+on the given device and writes the audio to a WAV file — the counterpart
+of ``sdrpp_tpu``'s ``run`` (sdrpp_tpu/cli.py:110-254) without its
+checkpoint, trace, watchdog and container options. ``--device`` is
+required: nothing picks a device for you.
+
+Usage: python -m sdrpp_tpu_torch run --source test:2400000 --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+import numpy as np
+import torch
+
+log = logging.getLogger("sdrpp_tpu_torch")
+
+
+def _make_source(spec: str):
+    """'test:<samplerate>' -> the synthetic test source (a -20 dBFS tone at
+    +100 kHz over -90 dBFS noise, as the JAX cli's default); anything else
+    is an IQ WAV path (decoded up front)."""
+    from sdrpp_tpu.io.sources import TestSource
+
+    if spec.startswith("test:"):
+        fs = float(spec.split(":", 1)[1])
+        return TestSource(fs, tones=[(100000.0, -20.0)], noise_dbfs=-90.0)
+    return _WavIQ(spec)
+
+
+class _WavIQ:
+    """A whole IQ WAV capture, read in blocks (stereo L=I R=Q, mono Q=I)."""
+
+    def __init__(self, path):
+        from sdrpp_tpu.io.wav import read_wav_iq
+
+        self.samplerate, self._iq = read_wav_iq(path)
+        self.num_frames = len(self._iq)
+        self._pos = 0
+
+    def read(self, n: int) -> np.ndarray:
+        out = self._iq[self._pos:self._pos + n]
+        self._pos += n
+        return out
+
+
+def _auto_block(fs: float, if_rate: float, block_multiple: int,
+                if_target: int = 65536, floor: int = 262144,
+                ceil: int = 1 << 22) -> int:
+    """Input block size so the post-VFO IF block reaches ``if_target``
+    samples (where the chunk-parallel loops engage with full lanes),
+    clamped to [floor, ceil] and rounded to the chain's block multiple
+    (sdrpp_tpu/cli.py:663)."""
+    want = int(if_target * fs / max(if_rate, 1.0))
+    want = min(max(floor, want), ceil)
+    return max(block_multiple, (want // block_multiple) * block_multiple)
+
+
+def cmd_run(argv):
+    p = argparse.ArgumentParser(prog="sdrpp_tpu_torch run")
+    p.add_argument("--source", required=True,
+                   help="'test:<samplerate>' or an IQ WAV path")
+    p.add_argument("--device", required=True,
+                   help="torch device to run on, e.g. cuda or cpu")
+    p.add_argument("--mode", default="wfm",
+                   choices=["wfm", "nfm", "am", "usb", "lsb", "dsb"])
+    p.add_argument("--offset", type=float, default=0.0, help="VFO offset Hz")
+    p.add_argument("--bandwidth", type=float, default=None)
+    p.add_argument("--out", default="audio.wav")
+    p.add_argument("--blocks", type=int, default=0, help="0 = until EOF")
+    p.add_argument("--block-size", type=int, default=None,
+                   help="input samples per device step (default: auto, so "
+                        "the IF block engages the chunk-parallel loops)")
+    p.add_argument("--squelch", type=float, default=None)
+    p.add_argument("--deemphasis", default=None,
+                   choices=[None, "22us", "50us", "75us"])
+    args = p.parse_args(argv)
+
+    from sdrpp_tpu.io.sinks import RecorderSink
+
+    from .models.radio import RadioChannel
+
+    device = torch.device(args.device)
+    src = _make_source(args.source)
+    fs = src.samplerate
+    chan = RadioChannel(args.mode, fs, offset=args.offset,
+                        bandwidth=args.bandwidth, squelch_level=args.squelch,
+                        deemphasis=args.deemphasis, device=device)
+    bm = chan.block_multiple
+    block = _auto_block(fs, chan.if_rate, bm) if args.block_size is None \
+        else max(bm, (args.block_size // bm) * bm)
+    cap = getattr(src, "num_frames", None)
+    if args.block_size is None and cap is not None and cap >= bm:
+        block = min(block, (cap // bm) * bm)  # short captures: one block
+    log.info("mode=%s fs=%g block=%d device=%s -> audio %g", args.mode, fs,
+             block, device, chan.audio_rate)
+
+    state = chan.init_state()
+    sink = RecorderSink(args.out, int(chan.audio_rate),
+                        channels=2 if chan.stereo_out else 1)
+    total = nblocks = 0
+    t0 = time.perf_counter()
+    while args.blocks == 0 or nblocks < args.blocks:
+        if cap is not None and total + block > cap:
+            break
+        x = torch.from_numpy(np.ascontiguousarray(src.read(block),
+                                                  np.complex64)).to(device)
+        state, audio = chan(state, x)
+        sink.write(audio.cpu().numpy())
+        total += block
+        nblocks += 1
+        if args.blocks == 0 and cap is None and nblocks >= 100:
+            break
+    sink.close()
+    dt = time.perf_counter() - t0
+    log.info("processed %d samples in %.3f s (%.3f Msamp/s) -> %s", total, dt,
+             total / max(dt, 1e-9) / 1e6, args.out)
+    return 0
+
+
+COMMANDS = {"run": cmd_run}
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help") or argv[0] not in COMMANDS:
+        print(__doc__)
+        print("commands:", ", ".join(COMMANDS))
+        return 0 if argv and argv[0] in ("-h", "--help") else 1
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    return COMMANDS[argv[0]](argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main() or 0)

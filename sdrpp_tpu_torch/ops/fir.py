@@ -1,0 +1,149 @@
+"""FIR filtering: overlap-save FFT correlation and strided decimation.
+
+The counterpart of ``sdrpp_tpu.ops.fir`` (reference:
+core/src/dsp/filter/fir.h:67-84, decimating_fir.h:49-69). The carried
+state is the last ``ntaps-1`` input samples; taps are applied by
+*correlation* (y[i] = sum_j taps[j] * buf[i+j], buf = [tail | x]), so the
+overlap-save form multiplies by the spectrum of the reversed taps.
+
+Taps are designed on the host; each block moves its taps (or their
+spectrum, per block length) to its device once and keeps them there.
+
+Decimation keeps the reference's phase semantics (first output at the
+carried offset, then every R-th input sample); block lengths must be a
+multiple of R. The JAX package picks a strided convolution or an unrolled
+polyphase sum by backend; the port runs the strided ``conv1d`` (a
+correlation: conv1d does not flip its kernel) on every device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils.blocks import Block
+
+__all__ = ["fir_correlate", "FIR", "fir_init_tail",
+           "decimating_fir_correlate", "strided_correlate", "taps_spectrum"]
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def _fft_len(n: int, m: int) -> int:
+    return _next_pow2(n + 2 * (m - 1))
+
+
+def taps_spectrum(taps: np.ndarray, fft_len: int, device) -> torch.Tensor:
+    """FFT of the zero-padded reversed taps (host float64, then complex64
+    on ``device``)."""
+    rev = np.asarray(taps)[::-1]
+    padded = np.zeros(fft_len, dtype=np.complex128)
+    padded[: rev.shape[0]] = rev
+    return torch.from_numpy(np.fft.fft(padded).astype(np.complex64)).to(device)
+
+
+def fir_init_tail(ntaps: int, dtype=torch.complex64, lead_shape=(), *,
+                  device) -> torch.Tensor:
+    """Zeroed delay-line tail of ntaps-1 samples (reference fir.h:24-27)."""
+    return torch.zeros((*lead_shape, ntaps - 1), dtype=dtype, device=device)
+
+
+def fir_correlate(tail: torch.Tensor, x: torch.Tensor, taps: np.ndarray,
+                  spec: torch.Tensor | None = None):
+    """Filter one block; returns (new_tail, y) with y.shape == x.shape.
+
+    y[i] = sum_j taps[j] * buf[i + j] with buf = concat([tail, x]) (the
+    reference's sliding correlation, fir.h:67-76), over any leading axes.
+    ``spec`` is ``taps_spectrum(taps, fft_len)``, built here when not given.
+    """
+    taps = np.asarray(taps)
+    m = taps.shape[0]
+    n = x.shape[-1]
+    if m == 1:
+        # degenerate single-tap case (e.g. NFM's dummy filter)
+        return tail, x * taps[0].item()
+    buf = torch.cat([tail, x], dim=-1)  # [..., n + m - 1]
+    fft_len = _fft_len(n, m)
+    if spec is None:
+        spec = taps_spectrum(taps, fft_len, x.device)
+    xf = torch.fft.fft(buf.to(torch.complex64), n=fft_len, dim=-1)
+    y_full = torch.fft.ifft(xf * spec, dim=-1)
+    # full linear convolution index (m-1) is correlation output 0
+    y = y_full[..., m - 1: m - 1 + n]
+    if not x.is_complex() and not np.iscomplexobj(taps):
+        y = y.real.to(x.dtype)
+    return buf[..., n:].clone(), y
+
+
+class FIR(Block):
+    """1:1 FIR filter block with carried tail (reference fir.h:6-100)."""
+
+    def __init__(self, taps: np.ndarray, dtype=torch.complex64, lead_shape=(),
+                 *, device):
+        self.taps = np.asarray(taps)
+        self.dtype = dtype
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+        self._specs: dict[int, torch.Tensor] = {}
+
+    def init_state(self):
+        return fir_init_tail(self.taps.shape[0], self.dtype, self.lead_shape,
+                             device=self.device)
+
+    def __call__(self, state, x):
+        fft_len = _fft_len(x.shape[-1], self.taps.shape[0])
+        spec = self._specs.get(fft_len)
+        if spec is None and self.taps.shape[0] > 1:
+            spec = self._specs[fft_len] = taps_spectrum(self.taps, fft_len,
+                                                        self.device)
+        return fir_correlate(state, x, self.taps, spec)
+
+
+def strided_correlate(buf: torch.Tensor, weight: torch.Tensor, stride: int,
+                      out_n: int) -> torch.Tensor:
+    """y[..., c, k] = sum_j weight[c, 0, j] * buf[..., stride*k + j] for
+    k < out_n: one float32 ``conv1d`` over [..., L] real or complex
+    ``buf`` (complex as two real planes) with real ``weight`` [C, 1, K].
+    Returns [..., C, out_n], complex when ``buf`` is."""
+    lead = buf.shape[:-1]
+    L = buf.shape[-1]
+    if buf.is_complex():
+        planes = torch.view_as_real(buf).movedim(-1, -2).reshape(-1, 1, L)
+    else:
+        planes = buf.reshape(-1, 1, L)
+    out = F.conv1d(planes, weight, stride=stride)[..., :out_n]
+    C = weight.shape[0]
+    if not buf.is_complex():
+        return out.reshape(*lead, C, out_n)
+    out = out.reshape(*lead, 2, C, out_n).movedim(-3, -1)
+    return torch.view_as_complex(out.contiguous())
+
+
+def _real_weight(taps: np.ndarray, device) -> torch.Tensor:
+    if np.iscomplexobj(taps):
+        raise ValueError("decimating FIR with complex taps is not ported")
+    return torch.from_numpy(np.asarray(taps, np.float32).reshape(1, 1, -1)
+                            .copy()).to(device)
+
+
+def decimating_fir_correlate(tail: torch.Tensor, x: torch.Tensor,
+                             taps: np.ndarray, decimation: int,
+                             weight: torch.Tensor | None = None):
+    """FIR + keep-every-R-th-output (reference decimating_fir.h:49-69):
+    y[k] = sum_j taps[j] * buf[R*k + j]. The block length must be a
+    multiple of ``decimation``. ``weight`` is the taps as a [1, 1, m]
+    float32 tensor on x's device, built here when not given."""
+    taps = np.asarray(taps)
+    m = taps.shape[0]
+    n = x.shape[-1]
+    r = int(decimation)
+    if n % r:
+        raise ValueError(f"block length {n} must be a multiple of decimation {r}")
+    if weight is None:
+        weight = _real_weight(taps, x.device)
+    buf = torch.cat([tail, x], dim=-1)  # [..., n + m - 1]
+    y = strided_correlate(buf, weight, r, n // r)[..., 0, :]
+    return buf[..., n:].clone(), y

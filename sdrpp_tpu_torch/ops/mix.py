@@ -1,0 +1,79 @@
+"""Complex NCO mixing (frequency translation) with per-block phase carry.
+
+The counterpart of ``sdrpp_tpu.ops.mix`` (reference:
+core/src/dsp/channel/frequency_xlator.h:44-48). The whole block is mixed
+at once: ``out[i] = in[i] * exp(j*(phi0 + i*omega))``, carry
+``phi0 + n*omega mod 2pi``. The per-sample ramp ``(i*omega) mod 2pi`` is
+built on the host in float64 and moved to the device once per block
+length: a float32 ramp built on the device drifts over 654k-sample blocks.
+
+The JAX package picks a product-of-phasors or an angle form by backend;
+the port runs the angle form (``cos``/``sin`` of the wrapped ramp) on
+every device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.blocks import Block
+
+__all__ = ["mix", "mix_ramp", "FrequencyXlator", "hz_to_rads"]
+
+TWO_PI = 2.0 * np.pi
+_TWO_PI32 = float(np.float32(TWO_PI))
+
+
+def hz_to_rads(freq: float, samplerate: float) -> float:
+    return TWO_PI * (freq / samplerate)
+
+
+def mix_ramp(n: int, omega: float, device) -> torch.Tensor:
+    """The wrapped per-sample ramp ``(i*omega) mod 2pi``, float64 on the
+    host, float32 on ``device``."""
+    ramp = np.mod(np.arange(n, dtype=np.float64) * float(omega), TWO_PI)
+    return torch.from_numpy(ramp.astype(np.float32)).to(device)
+
+
+def mix(phase: torch.Tensor, x: torch.Tensor, omega: float,
+        ramp: torch.Tensor | None = None):
+    """Mix block ``x`` with an NCO at ``omega`` rad/sample starting at
+    ``phase`` (float32, shaped like x's leading axes). Returns
+    (new_phase, y). ``ramp`` is ``mix_ramp(n, omega)``, built here when
+    not given."""
+    n = x.shape[-1]
+    if ramp is None:
+        ramp = mix_ramp(n, omega, x.device)
+    ph = torch.remainder(phase[..., None] + ramp, _TWO_PI32)
+    y = x * torch.complex(torch.cos(ph), torch.sin(ph))
+    step = float(np.float32(np.mod(n * float(omega), TWO_PI)))
+    new_phase = torch.remainder(phase + step, _TWO_PI32)
+    return new_phase, y
+
+
+class FrequencyXlator(Block):
+    """Frequency translation block (reference frequency_xlator.h:6-66).
+
+    ``offset_hz`` rotates the spectrum by +offset (the RxVFO passes the
+    negated VFO offset to center the channel, reference rx_vfo.h:30).
+    The ramp for each block length is built once and kept.
+    """
+
+    def __init__(self, offset_hz: float, samplerate: float, lead_shape=(),
+                 *, device):
+        self.omega = float(hz_to_rads(offset_hz, samplerate))
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+        self._ramps: dict[int, torch.Tensor] = {}
+
+    def init_state(self):
+        return torch.zeros(self.lead_shape, dtype=torch.float32,
+                           device=self.device)
+
+    def __call__(self, state, x):
+        n = x.shape[-1]
+        ramp = self._ramps.get(n)
+        if ramp is None:
+            ramp = self._ramps[n] = mix_ramp(n, self.omega, self.device)
+        return mix(state, x, self.omega, ramp)
