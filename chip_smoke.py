@@ -3,23 +3,48 @@
 
     python3 chip_smoke.py
 
-Drives the port's receive path on the card and fails (non-zero exit, no
-result line) if any phase fails:
+Drives the port's two main paths on the card, the analog receive path
+and the Meteor LRPT decode path, and fails (non-zero exit, no result
+line) if any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
-2. build: compiles csrc/loop_scan.cu for sm_90a from this checkout;
-3. kernels: ``lane_scan`` (PLL [640, 128], AGC [4230, 6]) and
-   ``single_scan`` (AGC [6544], PLL [65440]) against their plain PyTorch
-   versions on the card, same seeded inputs, with times from CUDA events;
-4. the slice: a 2.4 Msps composite (WFM stereo at +300 kHz, AM at
-   -500 kHz, USB at -700 kHz) through ``Receiver(2.4e6, block_size=654400,
-   device="cuda")`` for 8 blocks; both kernels' launch counts must rise,
-   outputs must be finite, each tone must land with SNR > 30 dB and the
-   WFM L/R separation must exceed 20 dB;
+2. build: compiles csrc/loop_scan.cu, mm_clock.cu and viterbi.cu for
+   sm_90a from this checkout, one nvcc each, all at once;
+3. kernels: every entry against its plain PyTorch version on the card,
+   same seeded inputs, with times from CUDA events: ``lane_scan`` (PLL
+   [640, 128], AGC [4230, 6], FastAGC and Costas order 4 / "meteor"
+   [2048, 64]), ``single_scan`` (AGC [6544], PLL [65440], FastAGC and
+   Costas order 4 [8192]), ``mm_symbols`` (the meteor block's
+   [1, 65543] row; its symbols held, as a prefix, against the plain
+   version on the first 16391 samples, where the kernel's final state is
+   held as well), ``viterbi_acs_batched`` and
+   ``viterbi_traceback_batched`` ([528, 4288, 2] as the 30-s pass
+   launches them, held on their first 8 windows, and [1, 4288, 2]). A
+   case's ``ms`` is the kernel at ``shape``, its ``plain_ms`` the plain
+   version on ``plain_shape`` (the same, or the prefix held); ``path``
+   names the path that launches ``shape``. A row's ms and plain_ms are
+   the sums over the cases at a path's shapes, one launch each;
+4. the receive slice: a 2.4 Msps composite (WFM stereo at +300 kHz, AM
+   at -500 kHz, USB at -700 kHz) through ``Receiver(2.4e6,
+   block_size=654400, device="cuda")`` for 8 blocks; both loop entries'
+   launch counts must rise, outputs must be finite, each tone must land
+   with SNR > 30 dB and the WFM L/R separation must exceed 20 dB;
 5. card against CPU: the first two blocks again on device="cpu" (plain
    loop versions); audio RMS difference below -40 dB;
 6. the normal entry point: ``cli.main(["run", ...])`` on the card writes
-   48 kHz stereo WAV audio.
+   48 kHz stereo WAV audio;
+7. the meteor slice: a synthetic 30-s Meteor M2 LRPT pass (260 CADUs of
+   seeded payloads, QPSK at 72 ksym/s, carrier 50 Hz and symbol clock
+   20 ppm off, Es/N0 12 dB, at +250 kHz in a 2.4 Msps stream) through
+   ``RxVFO`` and ``MeteorLRPTDecoder(device="cuda")`` at
+   ``cli._auto_block``'s block, then ``finalize``: every VCDU must come
+   back equal to its payload, and lane_scan, mm_symbols and both Viterbi
+   entries must be launched;
+8. card against CPU: the first two demod blocks again on device="cpu";
+   equal symbol counts, symbols within METEOR_CPU_TOL (max) and
+   METEOR_CPU_RMS_TOL (RMS) after the lock;
+9. the entry point: ``cli.main(["decode", "meteor", ...])`` on the card
+   recovers the three payloads of the committed golden capture.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
@@ -46,13 +71,53 @@ VFOS = {"wfm": dict(mode="wfm", offset=300e3, deemphasis="50us"),
 # shifted up by 1350 Hz, so a 1.5 kHz audio tone sits 150 Hz above it
 TONES = {"am": 1000.0, "usb": 1500.0}
 SETTLE = 1000  # audio samples of the zero-state start-up transient
-KERNEL_SOURCE = "sdrpp_tpu_torch/csrc/loop_scan.cu"
+SOURCES = {"lane_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
+           "single_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
+           "mm_symbols": "sdrpp_tpu_torch/csrc/mm_clock.cu",
+           "viterbi_acs_batched": "sdrpp_tpu_torch/csrc/viterbi.cu",
+           "viterbi_traceback_batched": "sdrpp_tpu_torch/csrc/viterbi.cu"}
 REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
-            "single_scan": "sdrpp_tpu/ops/scans_pallas.py:68"}
+            "single_scan": "sdrpp_tpu/ops/scans_pallas.py:68",
+            "mm_symbols": "sdrpp_tpu/ops/clock_recovery_pallas.py:35",
+            "viterbi_acs_batched": "sdrpp_tpu/ops/fec_pallas.py:51",
+            "viterbi_traceback_batched": "sdrpp_tpu/ops/fec_pallas.py:132"}
 # kernel vs plain version: the same float32 operations in the same order,
 # no FMA contraction (--fmad=false), IEEE division -> expected 0. The
-# tolerance is 1e-6 on PLL phasors, 1e-6 of the largest gain for the AGC.
+# tolerance is 1e-6 on PLL phasors, 1e-6 of the largest gain for the AGCs
+# and of the largest symbol for the MM; the Viterbi entries are held
+# bit-exact. The Costas orders 2/4/8 rotate by cosf/sinf in the kernel and
+# torch.cos/torch.sin in the plain version, which may differ by an ulp; a
+# locked loop contracts such a difference, so Costas phasors are held to
+# COSTAS_TOL.
 KERNEL_TOL = 1e-6
+COSTAS_TOL = 1e-4
+# mm_symbols on the meteor path: [1, tail + 65536 IF samples]
+MM_TAIL = 7
+MM_BLOCK = 65536
+MM_PLAIN = 16384             # samples of the row the plain version runs
+# meteor slice
+METEOR_FS = 2.4e6
+METEOR_IF = 150000.0
+METEOR_OFFSET = 250e3
+METEOR_SECONDS = 30.0
+METEOR_CADUS = 260
+METEOR_LEAD_SYMS = 7200      # 0.1 s of random QPSK before the first CADU
+METEOR_ESN0_DB = 12.0
+METEOR_CARRIER_HZ = 50.0     # carrier offset from the VFO centre
+METEOR_CLOCK_PPM = 20.0      # symbol clock error
+# card vs CPU on the first two demod blocks: the RRC FIR runs through
+# cuFFT on the card and pocketfft on the CPU (ulp-level differences), and
+# the M&M flips a sign decision wherever a noisy interpolated sample lies
+# within rounding of 0; both loops then re-converge within tens of
+# symbols. Held: equal symbol counts, max |diff| <= METEOR_CPU_TOL (5 % of
+# a symbol's amplitude) and RMS |diff| <= METEOR_CPU_RMS_TOL (measured
+# 1.34e-3 on the H100) after the acquisition; a systematic kernel error
+# fails the RMS even where no single symbol exceeds the max
+METEOR_CPU_SKIP = 4000       # symbols of acquisition left out
+METEOR_CPU_TOL = 0.05
+METEOR_CPU_RMS_TOL = 5e-3
+GOLDEN_WAV = "tests/data/meteor_lrpt_150000Hz.wav"
+GOLDEN_PAYLOAD = "tests/data/meteor_lrpt_payload.bin"
 
 
 def log(*args):
@@ -144,23 +209,67 @@ def phase_kernels(dev):
 
     a6 = amps(4230, 6, 0.05)
     a1 = amps(6544, 1, 0.2)[:, 0]
+    fagc = K.fast_agc_body(1.0, 10e6, 0.001)
+    ca, cb = _critically_damped(0.005)
+    costas4 = K.costas_body(4, ca, cb, -np.pi, np.pi)
+    meteor = K.costas_body("meteor", ca, cb, -np.pi, np.pi)
+
+    def qpsk(n, c, phases=None):
+        """Locked QPSK-like streams with a slow carrier and noise."""
+        pts = (np.pi / 4 + np.pi / 2 * np.arange(4)) if phases is None \
+            else np.asarray(phases)
+        ph = (pts[rng.integers(0, 4, (n, c))] + 1e-4 * np.arange(n)[:, None]
+              + rng.uniform(-0.05, 0.05, c))
+        v = np.exp(1j * ph) + 0.05 * (rng.standard_normal((n, c))
+                                      + 1j * rng.standard_normal((n, c)))
+        return v.astype(np.complex64)
+
+    def streams(v, order):
+        re, im = t(v.real.copy()), t(v.imag.copy())
+        return K.costas_streams(re, im, order)
+
+    # the meteor demod's chunked FastAGC and Costas launch [W + L, K] =
+    # [1024 + 1024, 64] per 65,536-sample IF block
+    ml, mk = 2048, 64
+    seed2 = np.stack([np.zeros(mk), np.full(mk, 1e-4)]).astype(np.float32)
+    vq, vm = qpsk(ml, mk), qpsk(ml, mk, K.METEOR_PHASES)
+    v1 = qpsk(8192, 1)[:, 0]
+    # (entry, body, shape, path launching that shape or None, kernel,
+    #  plain, body, carry, streams); "costas_meteor" is the broken-
+    # modulation option and the [8192] cases are the exact branch, which
+    # the smoke's paths do not take
     cases = [
-        ("lane_scan", "pll", [640, 128], K.lane_scan, K.lane_scan_plain, pll,
+        ("lane_scan", "pll", [640, 128], "receive", K.lane_scan,
+         K.lane_scan_plain, pll,
          t(np.stack([np.zeros(128), np.full(128, w19)]).astype(np.float32)),
          [t(phases(640, 128))]),
-        ("lane_scan", "agc", [4230, 6], K.lane_scan, K.lane_scan_plain,
-         agc(48000.0), t(np.stack([np.full(6, 0.05), np.full(6, 20.0)])
-                          .astype(np.float32)),
+        ("lane_scan", "agc", [4230, 6], "receive", K.lane_scan,
+         K.lane_scan_plain, agc(48000.0),
+         t(np.stack([np.full(6, 0.05), np.full(6, 20.0)]).astype(np.float32)),
          [t(a6), t(suffix(a6))]),
-        ("single_scan", "agc", [6544], K.single_scan, K.single_scan_plain,
-         agc(24000.0), t(np.array([0.0, 1e7], np.float32)),
+        ("single_scan", "agc", [6544], "receive", K.single_scan,
+         K.single_scan_plain, agc(24000.0), t(np.array([0.0, 1e7], np.float32)),
          [t(a1), t(suffix(a1))]),
-        ("single_scan", "pll", [65440], K.single_scan, K.single_scan_plain,
-         pll, t(np.array([0.0, w19], np.float32)),
+        ("single_scan", "pll", [65440], None, K.single_scan,
+         K.single_scan_plain, pll, t(np.array([0.0, w19], np.float32)),
          [t(phases(65440, 1)[:, 0])]),
+        ("lane_scan", "fast_agc", [ml, mk], "meteor", K.lane_scan,
+         K.lane_scan_plain, fagc, t(np.ones((1, mk), np.float32)),
+         [t(np.abs(qpsk(ml, mk)) * 0.3)]),
+        ("lane_scan", "costas4", [ml, mk], "meteor", K.lane_scan,
+         K.lane_scan_plain, costas4, t(seed2), streams(vq, 4)),
+        ("lane_scan", "costas_meteor", [ml, mk], None, K.lane_scan,
+         K.lane_scan_plain, meteor, t(seed2), streams(vm, "meteor")),
+        ("single_scan", "fast_agc", [8192], None, K.single_scan,
+         K.single_scan_plain, fagc, t(np.ones(1, np.float32)),
+         [t(np.abs(v1) * 0.3)]),
+        ("single_scan", "costas4", [8192], None, K.single_scan,
+         K.single_scan_plain, costas4, t(np.array([0.0, 1e-4], np.float32)),
+         streams(v1, 4)),
     ]
     results = []
-    for entry, body_name, shape, fn, plain, body, state, streams in cases:
+    for (entry, body_name, shape, path, fn, plain, body, state,
+         streams) in cases:
         out, fin = fn(body, state, streams)
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: fn(body, state, streams), reps=20)
@@ -170,11 +279,14 @@ def phase_kernels(dev):
             ref["out"], ref["fin"] = plain(body, state, streams)
 
         plain_ms = cuda_ms(run_plain, reps=1)
-        if body_name == "pll":  # wrapped phases: compare phasors
+        if body_name == "pll" or body_name.startswith("costas"):
+            # wrapped phases: compare phasors (phases and final carry)
+            pairs = ((out, ref["out"]), (fin[:1], ref["fin"][:1]))
             err = max(float((torch.polar(torch.ones_like(a), a)
                              - torch.polar(torch.ones_like(b), b)).abs().max())
-                      for a, b in ((out, ref["out"]), (fin, ref["fin"])))
-            tol = KERNEL_TOL
+                      for a, b in pairs)
+            err = max(err, float((fin[1:] - ref["fin"][1:]).abs().max()))
+            tol = KERNEL_TOL if body_name == "pll" else COSTAS_TOL
         else:  # gains: absolute error, tolerance relative to the largest
             err = max(float((a - b).abs().max())
                       for a, b in ((out, ref["out"]), (fin, ref["fin"])))
@@ -185,8 +297,135 @@ def phase_kernels(dev):
             raise AssertionError(f"{entry}[{body_name}] disagrees with its "
                                  f"plain version: {err} > {tol}")
         results.append(dict(entry=entry, body=body_name, shape=shape,
-                            max_abs_err=err, tol=tol, ms=ms,
-                            plain_ms=plain_ms))
+                            plain_shape=shape, path=path, max_abs_err=err,
+                            tol=tol, ms=ms, plain_ms=plain_ms))
+    return results
+
+
+def phase_kernels_digital(dev):
+    """mm_symbols and the two Viterbi entries at the meteor path's shapes
+    against their plain versions. The plain side runs on a prefix (it is a
+    Python loop of a few torch operations per symbol or trellis step):
+    both recurrences are causal and the Viterbi windows independent, so
+    the kernel's output at the path's shape must start with the plain
+    version's."""
+    import torch
+    from sdrpp_tpu_torch.models.digital import MeteorDemod
+    from sdrpp_tpu_torch.models.lrpt import CCSDS_CONV_POLYS
+    from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+    from sdrpp_tpu_torch.ops.fec import ConvCode
+
+    rng = np.random.default_rng(2)
+    results = []
+
+    # M&M as the meteor demod runs it: 72 ksym/s QPSK (rectangular hold)
+    # at 150 kHz, one [1, tail + 65536] row per block
+    mm = MeteorDemod(device=dev).recov
+    n = MM_BLOCK
+    sps = METEOR_IF / 72000.0
+    sym = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n)))
+    x = sym[(np.arange(n) / sps).astype(np.int64)]
+    x = (x + 0.1 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         ).astype(np.complex64)
+    st = mm.init_state()
+
+    def args(m):
+        buf = torch.cat([st["tail"], torch.from_numpy(x[:m]).to(dev)])
+        fstate = torch.zeros((1, 10), dtype=torch.float32, device=dev)
+        fstate[0, 1] = st["freq"]
+        return (buf[None], st["offset"].reshape(1), fstate, mm._bank,
+                mm.max_symbols(m), mm.mu_gain, mm.omega_gain, mm.min_freq,
+                mm.max_freq)
+
+    full, part = args(n), args(MM_PLAIN)
+    if full[0].shape[1] != MM_TAIL + MM_BLOCK:
+        raise AssertionError(f"mm_symbols row {list(full[0].shape)}")
+    got_full = MK.mm_symbols(*full)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: MK.mm_symbols(*full), reps=10)
+    ms_part = cuda_ms(lambda: MK.mm_symbols(*part), reps=10)
+    got = MK.mm_symbols(*part)
+    ref = {}
+    plain_ms = cuda_ms(lambda: ref.setdefault("r", MK.mm_symbols_plain(*part)),
+                       reps=1)
+    want = ref["r"]
+    # on the plain version's row: symbols, mask, offset and state
+    if not torch.equal(got[1], want[1]) or not torch.equal(got[2], want[2]):
+        raise AssertionError("mm_symbols: valid mask or offset differs from "
+                             "the plain version")
+    # on the path's row: its first symbols are the plain version's
+    nsym = int(want[1].sum())
+    if not bool(got_full[1][0, :nsym].all()):
+        raise AssertionError("mm_symbols: the path row's valid prefix is "
+                             "shorter than the plain version's")
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[3] - want[3]).abs().max()),
+              float((got_full[0][0, :nsym] - want[0][0, :nsym]).abs().max()))
+    tol = KERNEL_TOL * float(want[0].abs().max())
+    shape, plain_shape = list(full[0].shape), list(part[0].shape)
+    log(f"kernel mm_symbols {shape} ({int(got_full[1].sum())} symbols; the "
+        f"first {nsym} held against the plain version on {plain_shape}): "
+        f"max abs err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms at "
+        f"{shape}, {ms_part:.4f} ms at {plain_shape}, plain {plain_ms:.1f} "
+        f"ms at {plain_shape}")
+    if not err <= tol:
+        raise AssertionError(f"mm_symbols disagrees with its plain version: "
+                             f"{err} > {tol}")
+    results.append(dict(entry="mm_symbols", body="complex", shape=shape,
+                        plain_shape=plain_shape, path="meteor",
+                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                        ms_at_plain_shape=ms_part))
+
+    # Viterbi: noisy coded windows; 528 is the 30-s pass's window count
+    code = ConvCode(2, 7, CCSDS_CONV_POLYS, device=dev)
+    T = 4096 + 2 * 96
+    for B, path in ((528, "meteor"), (1, None)):
+        # integral soft bits (u8 convention) around random coded bits
+        soft = np.clip(np.round(255.0 * rng.integers(0, 2, (B, T, 2))
+                                + rng.normal(0, 60, (B, T, 2))), 0, 255)
+        soft = torch.from_numpy(soft.astype(np.float32)).to(dev)
+        bp = min(B, 8)
+        dec = FK.viterbi_acs_batched(soft, code._expected)
+        torch.cuda.synchronize()
+        acs_ms = cuda_ms(
+            lambda: FK.viterbi_acs_batched(soft, code._expected), reps=5)
+        acs_part = cuda_ms(
+            lambda: FK.viterbi_acs_batched(soft[:bp], code._expected), reps=5)
+        ref = {}
+        acs_plain_ms = cuda_ms(lambda: ref.setdefault(
+            "d", FK.viterbi_acs_batched_plain(soft[:bp], code._expected)),
+            reps=1)
+        acs_diff = int((dec[:bp] != ref["d"]).sum())
+        out = FK.viterbi_traceback_batched(dec)
+        torch.cuda.synchronize()
+        tb_ms = cuda_ms(lambda: FK.viterbi_traceback_batched(dec), reps=5)
+        tb_part = cuda_ms(lambda: FK.viterbi_traceback_batched(dec[:bp]),
+                          reps=5)
+        tb_plain_ms = cuda_ms(lambda: ref.setdefault(
+            "b", FK.viterbi_traceback_batched_plain(dec[:bp])), reps=1)
+        tb_diff = int((out[:bp] != ref["b"]).sum())
+        log(f"kernel viterbi_acs_batched [{B}, {T}, 2]: {acs_diff} decisions "
+            f"of the first {bp} windows differ, kernel {acs_ms:.4f} ms, "
+            f"{acs_part:.4f} ms at [{bp}, {T}, 2], plain {acs_plain_ms:.1f} "
+            f"ms at [{bp}, {T}, 2]")
+        log(f"kernel viterbi_traceback_batched [{B}, {T}, 64]: {tb_diff} bits "
+            f"of the first {bp} windows differ, kernel {tb_ms:.4f} ms, "
+            f"{tb_part:.4f} ms at [{bp}, {T}, 64], plain {tb_plain_ms:.1f} "
+            f"ms at [{bp}, {T}, 64]")
+        if acs_diff or tb_diff:
+            raise AssertionError("a Viterbi kernel is not bit-exact against "
+                                 "its plain version")
+        results.append(dict(entry="viterbi_acs_batched", body="k7",
+                            shape=[B, T, 2], plain_shape=[bp, T, 2],
+                            path=path, max_abs_err=float(acs_diff), tol=0.0,
+                            ms=acs_ms, plain_ms=acs_plain_ms,
+                            ms_at_plain_shape=acs_part))
+        results.append(dict(entry="viterbi_traceback_batched", body="k7",
+                            shape=[B, T, 64], plain_shape=[bp, T, 64],
+                            path=path, max_abs_err=float(tb_diff), tol=0.0,
+                            ms=tb_ms, plain_ms=tb_plain_ms,
+                            ms_at_plain_shape=tb_part))
     return results
 
 
@@ -301,6 +540,169 @@ def phase_cli():
     return {"frames": int(data.shape[0])}
 
 
+def meteor_pass(seed: int = 5):
+    """The synthetic pass: (payloads [N, 892], a block generator of
+    complex64 2.4 Msps IQ). QPSK symbols from the port's encode_cadus,
+    after METEOR_LEAD_SYMS random symbols and followed by random symbols
+    to METEOR_SECONDS; rectangular hold at the offset symbol clock, the
+    carrier at METEOR_OFFSET + METEOR_CARRIER_HZ, AWGN at METEOR_ESN0_DB
+    over the 2.4 MHz band."""
+    from sdrpp_tpu_torch.decoders.meteor_lrpt import encode_cadus
+
+    rng = np.random.default_rng(seed)
+    payloads = rng.integers(0, 256, (METEOR_CADUS, 892), dtype=np.uint8)
+    rs = 72000.0 * (1.0 + METEOR_CLOCK_PPM * 1e-6)
+    nsym = int(METEOR_SECONDS * rs) + 2
+    qpsk = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, nsym)))
+    data = encode_cadus(payloads)
+    syms = qpsk.astype(np.complex64)
+    syms[METEOR_LEAD_SYMS:METEOR_LEAD_SYMS + len(data)] = data
+    # unit symbol energy; noise power over the band = fs / (rs Es/N0)
+    sigma = np.sqrt(METEOR_FS / rs / 10 ** (METEOR_ESN0_DB / 10) / 2)
+    f_c = METEOR_OFFSET + METEOR_CARRIER_HZ
+
+    def block(start: int, n: int) -> np.ndarray:
+        t = (start + np.arange(n)) / METEOR_FS
+        x = syms[np.minimum((t * rs).astype(np.int64), nsym - 1)] \
+            * np.exp(2j * np.pi * f_c * t)
+        x += sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        return x.astype(np.complex64)
+
+    return payloads, block
+
+
+def phase_meteor():
+    """The meteor main path on the card: RxVFO -> MeteorLRPTDecoder ->
+    finalize. Returns (results, the first two blocks' IF input)."""
+    import torch
+    from sdrpp_tpu_torch import cli
+    from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
+    from sdrpp_tpu_torch.models.channel import RxVFO
+    from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+    from sdrpp_tpu_torch.ops import scans_kernels as K
+
+    t_gen = time.perf_counter()
+    payloads, gen = meteor_pass()
+    gen_s = time.perf_counter() - t_gen
+    vfo = RxVFO(METEOR_FS, METEOR_IF, bandwidth=METEOR_IF,
+                offset=METEOR_OFFSET, device="cuda")
+    dec = MeteorLRPTDecoder(METEOR_IF, device="cuda")
+    block = cli._auto_block(METEOR_FS, METEOR_IF, vfo.block_multiple)
+    nblocks = int(METEOR_SECONDS * METEOR_FS) // block
+    vstate = vfo.init_state()
+    first_if, block_ms, gen_block_s = [], [], []
+    kernels = (K.lane_scan, K.single_scan, MK.mm_symbols,
+               FK.viterbi_acs_batched, FK.viterbi_traceback_batched)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    for k in range(nblocks):
+        t0 = time.perf_counter()
+        iq = gen(k * block, block)
+        gen_block_s.append(time.perf_counter() - t0)
+        x = torch.from_numpy(iq).to("cuda")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        vstate, y = vfo(vstate, x)
+        dec.process(y)
+        end.record()
+        torch.cuda.synchronize()
+        block_ms.append(start.elapsed_time(end))
+        if k < 2:
+            first_if.append(y.cpu())
+    t0 = time.perf_counter()
+    _, vcdus, info = dec.finalize()
+    torch.cuda.synchronize()
+    fin_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    nsyms = len(dec.symbols)
+    if_block = vfo.out_count(block)
+    med_ms = float(np.median(block_ms[1:]))
+    sym_rate = nsyms / nblocks / (med_ms / 1e3)  # symbols/s processed
+    log(f"meteor: {nblocks} blocks of {block} samples ({if_block} at "
+        f"{METEOR_IF:g} Hz), {nsyms} symbols; median {med_ms / 1e3:.4f} "
+        f"s/block over blocks 2..{nblocks} (CUDA events, RxVFO + demod); "
+        f"{sym_rate:.0f} symbols/s = {sym_rate / 72000.0:.2f}x the 72 ksym/s "
+        f"real-time rate; signal made in {gen_s + sum(gen_block_s):.1f} s")
+    log(f"meteor finalize: {fin_s:.3f} s (viterbi "
+        f"{dec.timings['viterbi_s']:.3f}, sync {dec.timings['sync_s']:.3f}, "
+        f"RS {dec.timings['rs_s']:.3f}); {info}; peak device memory "
+        f"{peak_mib:.1f} MiB")
+    log(f"meteor launches: {launches}")
+    for name in ("lane_scan", "mm_symbols", "viterbi_acs_batched",
+                 "viterbi_traceback_batched"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the meteor path")
+    if len(vcdus) != len(payloads) or not np.array_equal(vcdus, payloads):
+        got = sum(any(np.array_equal(v, p) for v in vcdus) for p in payloads)
+        raise AssertionError(f"meteor: {len(vcdus)} VCDUs, {got} of "
+                             f"{len(payloads)} payloads recovered")
+    return {"blocks": nblocks, "block": block, "if_block": if_block,
+            "symbols": nsyms, "block_ms": block_ms,
+            "median_s_per_block": med_ms / 1e3, "symbols_per_s": sym_rate,
+            "realtime_x": sym_rate / 72000.0, "finalize_s": fin_s,
+            "peak_mib": peak_mib,
+            **dec.timings, "vcdus": int(len(vcdus)), **info,
+            "launches": launches}, first_if
+
+
+def phase_meteor_cpu(first_if):
+    """The first two demod blocks on the CPU (plain loops) against the
+    card, from the same IF input."""
+    import torch
+    from sdrpp_tpu_torch.models.digital import MeteorDemod
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = MeteorDemod(device=dev)
+        st = d.init_state()
+        syms = []
+        for y in first_if:
+            st, (s, v) = d(st, y.to(dev))
+            syms.append(s[v].cpu())
+        out[dev] = torch.cat(syms).numpy()
+    card, cpu = out["cuda"], out["cpu"]
+    if len(card) != len(cpu):
+        raise AssertionError(f"meteor card vs cpu: {len(card)} vs {len(cpu)} "
+                             f"symbols")
+    d = np.abs(card[METEOR_CPU_SKIP:] - cpu[METEOR_CPU_SKIP:])
+    err, rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+    err_all = float(np.abs(card - cpu).max())
+    log(f"meteor card vs cpu: {len(card)} symbols each; from symbol "
+        f"{METEOR_CPU_SKIP} max |diff| {err:.3g} (tol {METEOR_CPU_TOL}), RMS "
+        f"{rms:.3g} (tol {METEOR_CPU_RMS_TOL}); {err_all:.3g} overall")
+    if not (err <= METEOR_CPU_TOL and rms <= METEOR_CPU_RMS_TOL):
+        raise AssertionError("meteor: card and CPU disagree")
+    return {"symbols": int(len(card)), "max_diff": err, "rms_diff": rms,
+            "max_diff_all": err_all}
+
+
+def phase_decode_cli():
+    from sdrpp_tpu_torch import cli
+
+    golden = np.fromfile(GOLDEN_PAYLOAD, np.uint8).reshape(3, 892)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "meteor.s"
+        t0 = time.perf_counter()
+        rc = cli.main(["decode", "meteor", "--source", GOLDEN_WAV,
+                       "--device", "cuda", "--out", str(out)])
+        secs = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"cli decode returned {rc}")
+        soft = np.fromfile(out, np.int8)
+        vcdus = np.fromfile(Path(tmp) / "meteor_vcdu.bin",
+                            np.uint8).reshape(-1, 892)
+    found = [any(np.array_equal(v, p) for v in vcdus) for p in golden]
+    log(f"cli decode meteor: {len(soft)} soft bytes, {len(vcdus)} VCDUs, "
+        f"golden payloads found {found} in {secs:.2f} s")
+    if not all(found):
+        raise AssertionError("cli decode meteor missed a golden payload")
+    return {"soft_bytes": int(len(soft)), "vcdus": int(len(vcdus)),
+            "seconds": secs}
+
+
 def main() -> int:
     import torch
 
@@ -316,14 +718,19 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    lib = cuda_lib.build("loop_scan")
+    names = ("loop_scan", "mm_clock", "viterbi")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(cuda_lib.build, names))
     build_s = time.perf_counter() - t0
-    log(f"build: {lib.name} in {build_s:.2f} s")
-    log(lib.with_suffix(".log").read_text().strip())
+    log(f"build: {', '.join(l.name for l in libs)} in {build_s:.2f} s")
+    for lib in libs:
+        log(lib.with_suffix(".log").read_text().strip())
 
     dev = torch.device("cuda")
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev) + phase_kernels_digital(dev)
 
     iq = composite(NBLOCKS * BLOCK)
     audio, block_ms, wall_s, launches = phase_slice(iq)
@@ -336,21 +743,29 @@ def main() -> int:
     checks = check_audio(audio)
     cpu = phase_cpu(iq, audio)
     cli_res = phase_cli()
+    meteor, first_if = phase_meteor()
+    meteor_cpu = phase_meteor_cpu(first_if)
+    decode_cli = phase_decode_cli()
 
     rows = []
-    for entry in ("lane_scan", "single_scan"):
+    for entry in SOURCES:
         mine = [k for k in kernels if k["entry"] == entry]
-        on_path = [k for k in mine if k["shape"] != [65440]]
+        on_path = [k for k in mine if k["path"]]
+        by_path = {"receive": launches.get(entry, 0),
+                   "meteor": meteor["launches"].get(entry, 0)}
         rows.append({
-            "name": entry, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[entry], "launches": launches[entry],
+            "name": entry, "route": "cuda", "source": SOURCES[entry],
+            "replaces": REPLACES[entry], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(k["max_abs_err"] for k in mine),
             "ms": sum(k["ms"] for k in on_path),
             "plain_ms": sum(k["plain_ms"] for k in on_path),
             "cases": mine})
     log(json.dumps({"slice": {"block_ms": block_ms, "wall_s": wall_s,
                               "launches": launches, **checks},
-                    "card_vs_cpu": cpu, "cli": cli_res}))
+                    "card_vs_cpu": cpu, "cli": cli_res, "meteor": meteor,
+                    "meteor_card_vs_cpu": meteor_cpu,
+                    "decode_cli": decode_cli}))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

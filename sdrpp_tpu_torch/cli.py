@@ -1,12 +1,16 @@
-"""Command-line entry point of the port: ``run``.
+"""Command-line entry points of the port: ``run`` and ``decode``.
 
 ``run`` reads IQ from a test source or a WAV file, demodulates one channel
 on the given device and writes the audio to a WAV file — the counterpart
 of ``sdrpp_tpu``'s ``run`` (sdrpp_tpu/cli.py:110-254) without its
-checkpoint, trace, watchdog and container options. ``--device`` is
-required: nothing picks a device for you.
+checkpoint, trace, watchdog and container options. ``decode meteor`` runs
+the Meteor M2 LRPT decoder (sdrpp_tpu/cli.py:677-823) and writes the s8
+x84 soft-symbol file and ``<out>_vcdu.bin``; the other decode modes are
+not ported yet. ``--device`` is required: nothing picks a device for you.
 
 Usage: python -m sdrpp_tpu_torch run --source test:2400000 --device cuda
+       python -m sdrpp_tpu_torch decode meteor --source capture.wav \
+           --device cuda
 """
 
 from __future__ import annotations
@@ -62,6 +66,23 @@ def _auto_block(fs: float, if_rate: float, block_multiple: int,
     return max(block_multiple, (want // block_multiple) * block_multiple)
 
 
+def _blocks(src, block: int, max_blocks: int, device):
+    """Yield ``block``-sample complex64 tensors on ``device`` from
+    ``src``: ``max_blocks`` of them (0 = until a capture's end, or 100
+    blocks of an endless source)."""
+    cap = getattr(src, "num_frames", None)
+    total = nblocks = 0
+    while max_blocks == 0 or nblocks < max_blocks:
+        if cap is not None and total + block > cap:
+            return
+        yield torch.from_numpy(np.ascontiguousarray(
+            src.read(block), np.complex64)).to(device)
+        total += block
+        nblocks += 1
+        if max_blocks == 0 and cap is None and nblocks >= 100:
+            return
+
+
 def cmd_run(argv):
     p = argparse.ArgumentParser(prog="sdrpp_tpu_torch run")
     p.add_argument("--source", required=True,
@@ -104,19 +125,12 @@ def cmd_run(argv):
     state = chan.init_state()
     sink = RecorderSink(args.out, int(chan.audio_rate),
                         channels=2 if chan.stereo_out else 1)
-    total = nblocks = 0
+    total = 0
     t0 = time.perf_counter()
-    while args.blocks == 0 or nblocks < args.blocks:
-        if cap is not None and total + block > cap:
-            break
-        x = torch.from_numpy(np.ascontiguousarray(src.read(block),
-                                                  np.complex64)).to(device)
+    for x in _blocks(src, block, args.blocks, device):
         state, audio = chan(state, x)
         sink.write(audio.cpu().numpy())
         total += block
-        nblocks += 1
-        if args.blocks == 0 and cap is None and nblocks >= 100:
-            break
     sink.close()
     dt = time.perf_counter() - t0
     log.info("processed %d samples in %.3f s (%.3f Msamp/s) -> %s", total, dt,
@@ -124,7 +138,64 @@ def cmd_run(argv):
     return 0
 
 
-COMMANDS = {"run": cmd_run}
+def cmd_decode(argv):
+    p = argparse.ArgumentParser(prog="sdrpp_tpu_torch decode")
+    p.add_argument("mode", choices=["meteor"])
+    p.add_argument("--source", required=True,
+                   help="'test:<samplerate>' or an IQ WAV path")
+    p.add_argument("--device", required=True,
+                   help="torch device to run on, e.g. cuda or cpu")
+    p.add_argument("--offset", type=float, default=0.0, help="VFO offset Hz")
+    p.add_argument("--out", default="meteor.s",
+                   help="soft-symbol file; VCDUs go to <out>_vcdu.bin")
+    p.add_argument("--blocks", type=int, default=0, help="0 = until EOF")
+    p.add_argument("--block-size", type=int, default=None,
+                   help="input samples per step (default: auto, so the "
+                        "decoder-rate block engages the chunked loops)")
+    args = p.parse_args(argv)
+
+    from pathlib import Path
+
+    from .decoders.meteor_lrpt import MeteorLRPTDecoder
+    from .models.channel import RxVFO
+
+    device = torch.device(args.device)
+    target = 150000.0
+    src = _make_source(args.source)
+    fs = src.samplerate
+    vfo = None
+    if fs != target or args.offset:
+        vfo = RxVFO(fs, target, bandwidth=target, offset=args.offset,
+                    device=device)
+        vstate = vfo.init_state()
+    dec = MeteorLRPTDecoder(target, device=device)
+
+    bm = vfo.block_multiple if vfo else 1
+    block = _auto_block(fs, target, bm) if args.block_size is None \
+        else max(bm, (args.block_size // bm) * bm)
+    cap = getattr(src, "num_frames", None)
+    if cap is not None and cap >= bm:
+        block = min(block, (cap // bm) * bm)  # short captures: one block
+    log.info("decode meteor fs=%g block=%d device=%s", fs, block, device)
+
+    t0 = time.perf_counter()
+    for x in _blocks(src, block, args.blocks, device):
+        if vfo is not None:
+            vstate, x = vfo(vstate, x)
+        dec.process(x)
+    soft, vcdus, info = dec.finalize()
+    soft.tofile(args.out)
+    vpath = str(Path(args.out).with_suffix("")) + "_vcdu.bin"
+    with open(vpath, "wb") as f:
+        f.write(vcdus.tobytes())
+    log.info("%d soft bytes -> %s; %d/%d CADUs (rotation %d) -> %s in "
+             "%.3f s", len(soft), args.out, info["vcdus_ok"],
+             info["cadus_seen"], info["rotation"], vpath,
+             time.perf_counter() - t0)
+    return 0
+
+
+COMMANDS = {"run": cmd_run, "decode": cmd_decode}
 
 
 def main(argv=None):

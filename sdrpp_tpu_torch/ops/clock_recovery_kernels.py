@@ -1,0 +1,206 @@
+"""The M&M clock-recovery kernel and the chunked block's exact branch.
+
+The counterpart of ``sdrpp_tpu.ops.clock_recovery_pallas`` and
+``clock_recovery_chunked``. ``mm_symbols`` runs a whole block's M&M
+recurrence for C independent streams in one launch (replaces the Pallas
+kernel ``_mm_chunk_call``, clock_recovery_pallas.py:35). On a CUDA tensor
+it launches ``csrc/mm_clock.cu`` (built on first use; a failed build
+raises) and adds one to its ``launches`` count; on a CPU tensor it runs
+``mm_symbols_plain``, a Python loop over symbols on [C] vectors, operation
+for operation the kernel's. Any other device raises.
+
+``MMClockRecovery`` (ops/clock_recovery.py) is the block that calls it,
+the counterpart of both ``MMClockRecovery`` and ``MMClockRecoveryPallas``:
+the port has one path, the kernel's. ``MMClockRecoveryChunked`` carries
+the JAX chunked block's state tree (a ``hist`` of raw samples) and always
+takes its exact branch, which is what the JAX package does off the TPU and
+under SDRPP_TPU_LOOPS=exact; the group-predictive chunked MM
+(``mm_symbols_chunked``) was built around TPU gathers and is not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..utils import cuda_lib
+from .clock_recovery import MMClockRecovery
+
+__all__ = ["mm_symbols", "mm_symbols_plain", "MMClockRecoveryChunked"]
+
+
+def _check(buf, offset, fstate, bank):
+    if buf.ndim != 2:
+        raise ValueError("buf must be [C, n + taps - 1]")
+    C = buf.shape[0]
+    kf = 10 if buf.is_complex() else 3
+    if buf.dtype not in (torch.complex64, torch.float32):
+        raise ValueError("buf must be complex64 or float32")
+    if offset.dtype != torch.int32 or tuple(offset.shape) != (C,):
+        raise ValueError("offset must be int32 [C]")
+    if fstate.dtype != torch.float32 or tuple(fstate.shape) != (C, kf):
+        raise ValueError(f"fstate must be float32 [C, {kf}]")
+    if bank.dtype != torch.float32 or bank.ndim != 2:
+        raise ValueError("bank must be float32 [phases, taps]")
+    for t in (offset, fstate, bank):
+        if t.device != buf.device:
+            raise ValueError("mm_symbols takes tensors on one device")
+    n = buf.shape[1] - (bank.shape[1] - 1)
+    if n < 1:
+        raise ValueError("empty block")
+    return n
+
+
+def mm_symbols_plain(buf, offset, fstate, bank, max_syms, mu, omega_gain,
+                     min_freq, max_freq):
+    """Plain PyTorch version of ``mm_symbols``."""
+    n = _check(buf, offset, fstate, bank)
+    C = buf.shape[0]
+    P, T = bank.shape
+    cplx = buf.is_complex()
+    dev = buf.device
+    # [planes, C, n + T - 1] real planes: real arithmetic only, so each
+    # product and sum rounds once, as in the kernel
+    planes = (torch.stack([buf.real, buf.imag]) if cplx else buf[None]).float()
+    npl = planes.shape[0]
+    mu, og = float(np.float32(mu)), float(np.float32(omega_gain))
+    lo, hi = float(np.float32(min_freq)), float(np.float32(max_freq))
+    taps_idx = torch.arange(T, device=dev)
+    offset = offset.clone()
+    s = list(fstate.unbind(1))
+    outs = torch.zeros((npl, C, max_syms), dtype=torch.float32, device=dev)
+    valid = torch.zeros((C, max_syms), dtype=torch.bool, device=dev)
+
+    def sign(v):
+        return torch.where(v > 0, 1.0, -1.0)
+
+    for k in range(max_syms):
+        active = offset < n
+        if not bool(active.any()):
+            break
+        phase, freq = s[0], s[1]
+        ph = torch.clamp(torch.floor(phase * float(P)).long(), 0, P - 1)
+        base = torch.clamp(offset, 0, n - 1).long()
+        idx = (base[:, None] + taps_idx).expand(npl, C, T)
+        prod = torch.gather(planes, 2, idx) * bank[ph]  # [planes, C, T]
+        acc = torch.zeros((npl, C), dtype=torch.float32, device=dev)
+        for j in range(T):
+            acc = acc + prod[..., j]
+        if cplx:
+            accr, acci = acc[0], acc[1]
+            c0r, c0i = sign(accr), sign(acci)
+            err = ((accr - s[4]) * s[6] + (acci - s[5]) * s[7]) \
+                - ((c0r - s[8]) * s[2] + (c0i - s[9]) * s[3])
+            new_err = [accr, acci, s[2], s[3], c0r, c0i, s[6], s[7]]
+        else:
+            last = s[2]
+            err = sign(last) * acc[0] - last * sign(acc[0])
+            new_err = [acc[0]]
+        err = torch.clamp(err, -1.0, 1.0)
+        new_freq = torch.clamp(freq + og * err, lo, hi)
+        new_phase = phase + new_freq + mu * err
+        delta = torch.floor(new_phase)
+        new_offset = (offset + delta.to(torch.int32)).to(torch.int32)
+        new_phase = new_phase - delta
+
+        def sel(a, b):
+            return torch.where(active, a, b)
+
+        offset = sel(new_offset, offset)
+        s = [sel(new_phase, phase), sel(new_freq, freq)] + \
+            [sel(a, b) for a, b in zip(new_err, s[2:])]
+        outs[:, :, k] = torch.where(active, acc, 0.0)
+        valid[:, k] = active
+    syms = torch.complex(outs[0], outs[1]) if cplx else outs[0]
+    return syms, valid, (offset - n).to(torch.int32), torch.stack(s, dim=1)
+
+
+def _launch(buf, offset, fstate, bank, n, max_syms, params):
+    lib = cuda_lib.load("mm_clock")
+    C = buf.shape[0]
+    P, T = bank.shape
+    cplx = buf.is_complex()
+    dev = buf.device
+    if cplx:
+        xr, xi = buf.real.contiguous(), buf.imag.contiguous()
+    else:
+        xr, xi = buf.contiguous(), None
+    bank = bank.contiguous()
+    off = offset.contiguous().clone()
+    fst = fstate.contiguous().clone()
+    outr = torch.empty((C, max_syms), dtype=torch.float32, device=dev)
+    outi = torch.empty_like(outr) if cplx else None
+    valid = torch.empty((C, max_syms), dtype=torch.uint8, device=dev)
+    fn = getattr(lib, "mm_symbols_complex" if cplx else "mm_symbols_real")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(ptr(xr), ptr(xi), n, C, ptr(bank), P, T, ptr(off), ptr(fst),
+                ptr(outr), ptr(outi), ptr(valid), max_syms, *params, stream)
+    if rc != 0:
+        raise RuntimeError(f"mm_symbols launch failed: CUDA error {rc} at "
+                           f"n={n}, C={C}")
+    syms = torch.complex(outr, outi) if cplx else outr
+    return syms, valid.bool(), off, fst
+
+
+def mm_symbols(buf, offset, fstate, bank, max_syms, mu, omega_gain, min_freq,
+               max_freq):
+    """Run the M&M loop over C streams of one block.
+
+    ``buf`` [C, n + T - 1] complex64 or float32: each stream's carried
+    tail followed by the block. ``offset`` [C] int32 and ``fstate``
+    [C, 10 | 3] float32: the carried state (phase, freq, then the error
+    history as re/im pairs p1 p2 c1 c2, or ``last``). ``bank`` [P, T]
+    float32. Returns (symbols [C, max_syms], valid [C, max_syms] bool, a
+    prefix, next offset [C], next fstate)."""
+    n = _check(buf, offset, fstate, bank)
+    max_syms = int(max_syms)
+    params = tuple(float(np.float32(v))
+                   for v in (mu, omega_gain, min_freq, max_freq))
+    if buf.device.type == "cpu":
+        return mm_symbols_plain(buf, offset, fstate, bank, max_syms, *params)
+    if buf.device.type != "cuda":
+        raise RuntimeError(f"mm_symbols runs on CUDA or CPU tensors, not "
+                           f"{buf.device}")
+    result = _launch(buf, offset, fstate, bank, n, max_syms, params)
+    mm_symbols.launches += 1
+    return result
+
+
+mm_symbols.launches = 0
+
+
+class MMClockRecoveryChunked(MMClockRecovery):
+    """The JAX chunked MM block's interface (clock_recovery_chunked.py:477):
+    its state tree grows ``hist``, the last ``warmup + tap_count - 1`` raw
+    samples. This port always runs the exact recurrence."""
+
+    def __init__(self, *args, warmup: int = 512, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.warmup = int(warmup)
+
+    def _hist_len(self):
+        return self.warmup + self.tap_count - 1
+
+    def init_state(self):
+        st = super().init_state()
+        st["hist"] = torch.zeros(self._hist_len(), dtype=self.dtype,
+                                 device=self.device)
+        return st
+
+    def __call__(self, state, x):
+        sub = {k: v for k, v in state.items() if k != "hist"}
+        sub, out = super().__call__(sub, x)
+        hist = torch.cat([state["hist"], x.to(self.dtype)])[-self._hist_len():]
+        return {**sub, "hist": hist}, out

@@ -5,7 +5,8 @@ recurrences (DC blocker, de-emphasis) run as a blocked two-level scan in
 plain torch ops: within a block of ``_SCAN_BLOCK`` samples, one matrix
 product with the lower-triangular power matrix a^(i-j); across blocks, the
 same scan again over the block ends (a^B per step), recursively. The
-nonlinear loops (PLL, AGC) run through the loop-scan kernel wrappers of
+nonlinear loops (PLL, AGC, FastAGC, Costas) run through the loop-scan
+kernel wrappers of
 ``scans_kernels`` (CUDA kernel on CUDA tensors, plain loop on CPU tensors).
 All blocks filter along the LAST axis and broadcast over leading axes.
 """
@@ -25,7 +26,9 @@ __all__ = [
     "DCBlocker",
     "Deemphasis",
     "AGC",
+    "FastAGC",
     "PLL",
+    "Costas",
     "Squelch",
 ]
 
@@ -211,6 +214,70 @@ class PLL(Block):
             self.min_freq, self.max_freq)
         y = torch.complex(torch.cos(out_phases), torch.sin(out_phases))
         return {"phase": phase_f, "freq": freq_f}, y
+
+
+class FastAGC(Block):
+    """Per-sample integrating AGC: out = in*gain; gain += (setPoint -
+    |out|)*rate, clamped to maxGain (reference:
+    core/src/dsp/loop/fast_agc.h:62-88). The state is the gain itself, as
+    in the JAX block. The recurrence runs in the loop-scan kernel
+    (``scans_kernels.fast_agc_gains``)."""
+
+    def __init__(self, set_point: float, max_gain: float, rate: float,
+                 init_gain: float = 1.0, lead_shape=(), *, device):
+        self.set_point = np.float32(set_point)
+        self.max_gain = np.float32(max_gain)
+        self.rate = np.float32(rate)
+        self.init_gain = np.float32(init_gain)
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+
+    def init_state(self):
+        return torch.full(self.lead_shape, float(self.init_gain),
+                          dtype=torch.float32, device=self.device)
+
+    def __call__(self, state, x):
+        from .scans_kernels import fast_agc_gains
+
+        gains, gain_f = fast_agc_gains(torch.abs(x), state, self.set_point,
+                                       self.max_gain, self.rate)
+        return gain_f, x * gains
+
+
+class Costas(Block):
+    """Costas loop of order 2/4/8 (reference: core/src/dsp/loop/costas.h:6-46):
+    out[i] = in[i]*phasor(-phase); advance(error(out[i])). The recurrence
+    runs in the loop-scan kernel (``scans_kernels.costas_phases``), which
+    emits the phases; the rotation is applied here, vectorized."""
+
+    def __init__(self, order: int, bandwidth: float, init_phase: float = 0.0,
+                 init_freq: float = 0.0, min_freq: float = -float(FL_PI),
+                 max_freq: float = float(FL_PI), lead_shape=(), *, device):
+        if order not in (2, 4, 8):
+            raise ValueError(f"invalid costas order {order}")
+        self.order = order
+        self.alpha, self.beta = _critically_damped(bandwidth)
+        self.init_phase = np.float32(init_phase)
+        self.init_freq = np.float32(init_freq)
+        self.min_freq = np.float32(min_freq)
+        self.max_freq = np.float32(max_freq)
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+
+    def init_state(self):
+        def full(v):
+            return torch.full(self.lead_shape, float(v), dtype=torch.float32,
+                              device=self.device)
+
+        return {"phase": full(self.init_phase), "freq": full(self.init_freq)}
+
+    def __call__(self, state, x):
+        from .scans_kernels import costas_phases, rotate_back
+
+        out_phases, phase_f, freq_f = costas_phases(
+            x.real, x.imag, state["phase"], state["freq"], self.order,
+            self.alpha, self.beta, self.min_freq, self.max_freq)
+        return {"phase": phase_f, "freq": freq_f}, rotate_back(x, out_phases)
 
 
 class Squelch(Block):

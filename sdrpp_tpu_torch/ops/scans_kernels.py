@@ -1,4 +1,5 @@
-"""The loop-scan kernels (PLL, AGC) and the chunk-parallel loops.
+"""The loop-scan kernels (PLL, AGC, FastAGC, Costas) and the chunk-parallel
+loops.
 
 The counterpart of ``sdrpp_tpu.ops.scans_pallas``. Two entry points run a
 per-sample recurrence ("body") sequentially in time:
@@ -15,8 +16,8 @@ version (``lane_scan_plain`` / ``single_scan_plain``): a Python loop over
 time on [C] vectors, operation for operation the kernel's body. Any other
 device raises.
 
-The chunk-parallel loops (``pll_phases_chunked``, ``agc_gains_chunked``)
-cut a long block into K overlapping lanes that each re-acquire over a
+The chunk-parallel loops (``pll_phases_chunked``, ``agc_gains_chunked``,
+``fast_agc_gains_chunked``, ``costas_phases_chunked``) cut a long block into K overlapping lanes that each re-acquire over a
 W-sample warm-up window and run them through ``lane_scan``; see the JAX
 module for the approximation contract. Whether a loop runs chunked or
 exact is decided by ``_chunk_lanes_for`` alone, on every device, so the
@@ -32,14 +33,20 @@ import numpy as np
 import torch
 
 from ..utils import cuda_lib
-from .scans import AGC, FL_PI, PLL
+from .scans import AGC, FL_PI, PLL, Costas, FastAGC
 
-__all__ = ["LoopBody", "pll_body", "agc_body", "lane_scan", "single_scan",
-           "lane_scan_plain", "single_scan_plain", "pll_phases", "agc_gains",
-           "suffix_max", "pll_phases_chunked", "agc_gains_chunked",
-           "PLLChunked", "AGCChunked"]
+__all__ = ["LoopBody", "pll_body", "agc_body", "fast_agc_body", "costas_body",
+           "lane_scan", "single_scan", "lane_scan_plain", "single_scan_plain",
+           "pll_phases", "agc_gains", "fast_agc_gains", "costas_streams",
+           "costas_phases", "rotate_back", "suffix_max", "pll_phases_chunked",
+           "agc_gains_chunked", "fast_agc_gains_chunked",
+           "costas_phases_chunked", "PLLChunked", "AGCChunked",
+           "FastAGCChunked", "CostasChunked"]
 
 _TWO_PI = np.float32(2.0) * FL_PI
+
+METEOR_PHASES = (0.47439988279190737, 2.1777839908413044,
+                 3.8682349942715186, -0.29067248091319986)
 
 
 class LoopBody(NamedTuple):
@@ -106,6 +113,78 @@ def agc_body(set_point, attack, decay, max_gain, max_output_amp) -> LoopBody:
         return (amp2, gain2), gain2
 
     return LoopBody("agc", 2, 2, params, step)
+
+
+def fast_agc_body(set_point, max_gain, rate) -> LoopBody:
+    """The FastAGC recurrence (scans_pallas.py:276 _fast_agc_make_body):
+    out[t] is the gain BEFORE consuming |x[t]|."""
+    sp, mg, r = (float(np.float32(v)) for v in (set_point, max_gain, rate))
+
+    def step(carry, ins):
+        (gain,) = carry
+        (a,) = ins
+        return (torch.clamp(gain + (sp - a * gain) * r, max=mg),), gain
+
+    return LoopBody("fast_agc", 1, 1, (sp, mg, r), step)
+
+
+def _wrap(d, pi, two_pi):
+    d = torch.where(d > pi, d - two_pi, d)
+    return torch.where(d <= -pi, d + two_pi, d)
+
+
+def costas_body(order, alpha, beta, min_freq, max_freq) -> LoopBody:
+    """The Costas recurrence (scans_pallas.py:310 _costas_make_body).
+    ``order`` 2/4/8: streams re/im, the sample rotated by -phase inside
+    the body; "meteor": streams atan2/|v| (``costas_streams``), the
+    phase-domain broken-modulation error. out[t] is the phase BEFORE
+    consuming sample t."""
+    if order not in (2, 4, 8, "meteor"):
+        raise ValueError(f"invalid costas order {order}")
+    alpha, beta = float(np.float32(alpha)), float(np.float32(beta))
+    lo, hi = float(np.float32(min_freq)), float(np.float32(max_freq))
+    pi, two_pi = float(FL_PI), float(_TWO_PI)
+    k8 = float(np.float32(np.sqrt(2.0) - 1.0))
+    phases = [float(np.float32(p)) for p in METEOR_PHASES]
+
+    def sign(v):
+        return torch.where(v > 0, 1.0, -1.0)
+
+    def step(carry, ins):
+        phase, freq = carry
+        a, b = ins
+        if order == "meteor":
+            d0 = _wrap(a - phase, pi, two_pi)
+            best = torch.zeros_like(d0)
+            best_abs = torch.full_like(d0, 1e9)
+            for p in phases:
+                d = _wrap(d0 - p, pi, two_pi)
+                take = torch.abs(d) < best_abs
+                best = torch.where(take, d, best)
+                best_abs = torch.where(take, torch.abs(d), best_abs)
+            err = best * b
+        else:
+            c, s = torch.cos(-phase), torch.sin(-phase)
+            rr = a * c - b * s
+            ri = a * s + b * c
+            if order == 2:
+                err = rr * ri
+            elif order == 4:
+                err = sign(rr) * ri - sign(ri) * rr
+            else:
+                sr, si = sign(rr), sign(ri)
+                err = torch.where(torch.abs(rr) >= torch.abs(ri),
+                                  sr * ri - si * rr * k8,
+                                  sr * ri * k8 - si * rr)
+        err = torch.clamp(err, -1.0, 1.0)
+        freq = torch.clamp(freq + beta * err, lo, hi)
+        new = phase + freq + alpha * err
+        new = torch.remainder(new + pi, two_pi) - pi
+        new = torch.where(new <= -pi, new + two_pi, new)
+        return (new, freq), phase
+
+    name = "costas_meteor" if order == "meteor" else f"costas{order}"
+    return LoopBody(name, 2, 2, (alpha, beta, lo, hi), step)
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +341,41 @@ def agc_gains(amps, smax, amp0, gain0, set_point, attack, decay, max_gain,
     return out, fin[0], fin[1]
 
 
+def fast_agc_gains(amps, gain0, set_point, max_gain, rate):
+    """Exact FastAGC gain recurrence -> (gains, gain_f); the counterpart of
+    scans_pallas.fast_agc_gains_pallas."""
+    out, fin = _dispatch_scan(fast_agc_body(set_point, max_gain, rate),
+                              gain0.float()[None], [amps.float()])
+    return out, fin[0]
+
+
+def costas_streams(re, im, order):
+    """The two streams the Costas body consumes (scans_pallas.py:378):
+    re/im for orders 2/4/8, atan2/|v| for "meteor"."""
+    re, im = re.float(), im.float()
+    if order == "meteor":
+        return [torch.atan2(im, re), torch.sqrt(re * re + im * im)]
+    return [re, im]
+
+
+def costas_phases(re, im, phase0, freq0, order, alpha, beta, min_freq,
+                  max_freq):
+    """Exact Costas recurrence -> (out_phases, phase_f, freq_f); the
+    counterpart of scans_pallas.costas_phases_pallas."""
+    state = torch.stack([phase0.float(), freq0.float()])
+    out, fin = _dispatch_scan(
+        costas_body(order, alpha, beta, min_freq, max_freq), state,
+        costas_streams(re, im, order))
+    return out, fin[0], fin[1]
+
+
+def rotate_back(x, phases):
+    """x * phasor(-phases): the Costas loop's mixed-down output."""
+    return x * torch.complex(torch.cos(-phases), torch.sin(-phases))
+
+
 # ---------------------------------------------------------------------------
-# Chunk-parallel approximate loops (scans_pallas.py:590-727)
+# Chunk-parallel approximate loops (scans_pallas.py:590-833)
 # ---------------------------------------------------------------------------
 
 def _lane_slice(ext, K, L, W):
@@ -362,6 +474,89 @@ def agc_gains_chunked(amps, hist, set_point, attack, decay, max_gain,
     out = out[..., W:].reshape(*lead, K * L)[..., :n]
     new_hist = amps[..., n - W:].float().clone()
     return out, new_hist, fin[0, ..., -1], fin[1, ..., -1]
+
+
+def fast_agc_gains_chunked(amps, hist, set_point, max_gain, rate,
+                           lanes_k: int = 128):
+    """Chunk-parallel FastAGC gain recurrence. Seeds each lane at the
+    steady-state gain for its warm-up window's mean amplitude. Returns
+    (gains, new_hist, gain_f)."""
+    n = amps.shape[-1]
+    lead = amps.shape[:-1]
+    W = hist.shape[-1]
+    lanes, L, _ = _build_lanes([amps], [hist], lanes_k)
+    mean_amp = torch.mean(lanes[0][..., :W], dim=-1)
+    sp = torch.full_like(mean_amp, float(np.float32(set_point)))
+    seed_gain = torch.where(
+        mean_amp > 0, torch.clamp(sp / mean_amp, max=float(np.float32(max_gain))),
+        1.0)
+    out, fin = _run_lanes(fast_agc_body(set_point, max_gain, rate),
+                          seed_gain[None], lanes)
+    out = out[..., W:].reshape(*lead, lanes_k * L)[..., :n]
+    return out, amps[..., n - W:].float().clone(), fin[0, ..., -1]
+
+
+def costas_phases_chunked(s1, s2, hist1, hist2, phase0, freq0, order, alpha,
+                          beta, min_freq, max_freq, lanes_k: int = 128):
+    """Chunk-parallel Costas recurrence with seam rotation alignment
+    (scans_pallas.py:730; see it for the seeding and the contract).
+    ``s1``/``s2`` follow ``costas_streams``; ``hist1``/``hist2`` are the
+    previous block's last W stream samples. Orders 2/4/8 seed each lane's
+    frequency by a coherence-gated M-th-power estimate over its warm-up
+    window and snap every lane into lane 0's constellation rotation,
+    measured on the lane overlaps; "meteor" has a unique lock point and
+    needs neither. Returns (out_phases, new_hist1, new_hist2, phase_f,
+    freq_f)."""
+    n = s1.shape[-1]
+    lead = s1.shape[:-1]
+    W = hist1.shape[-1]
+    K = lanes_k
+    pi, two_pi = float(FL_PI), float(_TWO_PI)
+    lo, hi = float(np.float32(min_freq)), float(np.float32(max_freq))
+    (a, b), L, _ = _build_lanes([s1, s2], [hist1, hist2], K)
+    phase0, freq0 = phase0.float(), freq0.float()
+    carried = freq0[..., None].expand(*lead, K)
+    meteor = order == "meteor"
+    if meteor:
+        seed_freq = carried
+    else:
+        M = float(int(order))
+        ang = torch.atan2(b[..., :W], a[..., :W])
+        d = M * (ang[..., 1:] - ang[..., :-1])
+        zr, zi = torch.mean(torch.cos(d), -1), torch.mean(torch.sin(d), -1)
+        est = torch.atan2(zi, zr) / M
+        coh = torch.sqrt(zr * zr + zi * zi)
+        energy = torch.mean(a[..., :W] ** 2 + b[..., :W] ** 2, dim=-1)
+        ok = (coh > 0.5) & (energy > 1e-12)
+        seed_freq = torch.clamp(torch.where(ok, est, carried), lo, hi)
+    t0 = (torch.arange(K, dtype=torch.float32, device=a.device) * float(L)
+          - float(W))
+    seed_phase = torch.remainder(phase0[..., None] + seed_freq * t0 + pi,
+                                 two_pi) - pi
+    out, fin = _run_lanes(
+        costas_body(order, alpha, beta, min_freq, max_freq),
+        torch.stack([seed_phase, seed_freq]), [a, b])
+    if meteor:
+        rot = torch.zeros((*lead, K), dtype=torch.float32, device=a.device)
+    else:
+        step_rot = float(_TWO_PI / np.float32(M))
+        tail = min(W, 32)
+        # lane j's warm-up index t and lane j-1's payload index L+t hold
+        # the phase for the SAME input sample
+        d_seam = (out[..., 1:, W - tail:W]
+                  - out[..., :-1, L + W - tail:L + W])
+        d_hat = torch.atan2(torch.mean(torch.sin(d_seam), -1),
+                            torch.mean(torch.cos(d_seam), -1))
+        d0 = torch.remainder(out[..., 0, W] - phase0 + pi, two_pi) - pi
+        k_rot = torch.round(torch.cat([d0[..., None], d_hat], dim=-1)
+                            / step_rot)
+        rot = torch.cumsum(k_rot, dim=-1) * step_rot
+    out = torch.remainder(out[..., W:] - rot[..., None] + pi, two_pi) - pi
+    out = out.reshape(*lead, K * L)[..., :n]
+    phase_f = torch.remainder(fin[0, ..., -1] - rot[..., -1] + pi,
+                              two_pi) - pi
+    return (out, s1[..., n - W:].float().clone(),
+            s2[..., n - W:].float().clone(), phase_f, fin[1, ..., -1])
 
 
 def _chunk_lanes_for(n: int, warmup: int, max_lanes: int,
@@ -465,3 +660,81 @@ class AGCChunked(AGC):
             amps, state["hist"], self.set_point, self.attack, self.decay,
             self.max_gain, self.max_output_amp, lanes_k=k)
         return {"amp": amp_f, "gain": gain_f, "hist": hist}, x * gains
+
+
+class FastAGCChunked(FastAGC):
+    """FastAGC, chunk-parallel for long blocks and exact otherwise. State:
+    {"gain", "hist"}, ``hist`` the last ``warmup`` input amplitudes."""
+
+    def __init__(self, *args, warmup: int = 1024, max_lanes: int = 512,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.warmup = int(warmup)
+        self.max_lanes = int(max_lanes)
+
+    def init_state(self):
+        # constant history at set_point/init_gain: lane 0's first-block
+        # seed gain lands exactly on the configured init_gain
+        hist = torch.full((*self.lead_shape, self.warmup),
+                          float(self.set_point / self.init_gain),
+                          dtype=torch.float32, device=self.device)
+        return {"gain": super().init_state(), "hist": hist}
+
+    def __call__(self, state, x):
+        amps = torch.abs(x)
+        k = _chunk_lanes_for(x.shape[-1], self.warmup, self.max_lanes,
+                             _lanes_of(x))
+        if k < 1:
+            gain_f, y = FastAGC.__call__(self, state["gain"], x)
+            hist = torch.cat([state["hist"], amps], dim=-1)[..., -self.warmup:]
+            return {"gain": gain_f, "hist": hist}, y
+        gains, hist, gain_f = fast_agc_gains_chunked(
+            amps, state["hist"], self.set_point, self.max_gain, self.rate,
+            lanes_k=k)
+        return {"gain": gain_f, "hist": hist}, x * gains
+
+
+class CostasChunked(Costas):
+    """Costas loop (order 2/4/8), chunk-parallel for long blocks with seam
+    rotation alignment, exact otherwise. State grows ``hist_re`` /
+    ``hist_im``, the last ``warmup`` input samples."""
+
+    def __init__(self, *args, warmup: int = 512, max_lanes: int = 512,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.warmup = int(warmup)
+        self.max_lanes = int(max_lanes)
+
+    def init_state(self):
+        st = super().init_state()
+        # synthetic history: a locked constellation point riding the
+        # configured (init_phase, init_freq) carrier (zero loop error)
+        pi, two_pi = float(FL_PI), float(_TWO_PI)
+        t = torch.arange(self.warmup, dtype=torch.float32,
+                         device=self.device) - float(self.warmup)
+        off = 0.0 if self.order == 2 else float(FL_PI / self.order)
+        ramp = float(self.init_phase) + float(self.init_freq) * t + off
+        ramp = torch.remainder(ramp + pi, two_pi) - pi
+        shape = (*self.lead_shape, self.warmup)
+        st["hist_re"] = torch.cos(ramp).expand(shape).clone()
+        st["hist_im"] = torch.sin(ramp).expand(shape).clone()
+        return st
+
+    def __call__(self, state, x):
+        k = _chunk_lanes_for(x.shape[-1], self.warmup, self.max_lanes,
+                             _lanes_of(x))
+        if k < 1:
+            sub = {"phase": state["phase"], "freq": state["freq"]}
+            sub, y = Costas.__call__(self, sub, x)
+
+            def keep(h, s):
+                return torch.cat([h, s.float()], dim=-1)[..., -self.warmup:]
+
+            return {**sub, "hist_re": keep(state["hist_re"], x.real),
+                    "hist_im": keep(state["hist_im"], x.imag)}, y
+        out_phases, hre, him, phase_f, freq_f = costas_phases_chunked(
+            x.real, x.imag, state["hist_re"], state["hist_im"],
+            state["phase"], state["freq"], self.order, self.alpha,
+            self.beta, self.min_freq, self.max_freq, lanes_k=k)
+        return {"phase": phase_f, "freq": freq_f, "hist_re": hre,
+                "hist_im": him}, rotate_back(x, out_phases)
