@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card, the analog receive path
-and the Meteor LRPT decode path, and fails (non-zero exit, no result
-line) if any phase fails:
+Drives the port's main paths on the card (the analog receive path, the
+Meteor LRPT decode path, the /256 wideband front end with its 64-channel
+bank, and the scanner bank) and fails (non-zero exit, no result line) if
+any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
-2. build: compiles csrc/loop_scan.cu, mm_clock.cu and viterbi.cu for
-   sm_90a from this checkout, one nvcc each, all at once;
+2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu and
+   decim_fir.cu for sm_90a from this checkout, one nvcc each, all at once;
 3. kernels: every entry against its plain PyTorch version on the card,
    same seeded inputs, with times from CUDA events: ``lane_scan`` (PLL
    [640, 128], AGC [4230, 6], FastAGC and Costas order 4 / "meteor"
@@ -19,16 +20,25 @@ line) if any phase fails:
    version on the first 16391 samples, where the kernel's final state is
    held as well), ``viterbi_acs_batched`` and
    ``viterbi_traceback_batched`` ([528, 4288, 2] as the 30-s pass
-   launches them, held on their first 8 windows, and [1, 4288, 2]). A
+   launches them, held on their first 8 windows, and [1, 4288, 2]), and
+   ``decimating_fir`` at the first r >= 8 stage of each path (wideband
+   [1, 2^24] /32 143 taps, bank [64, 262144] /16 72 taps, meteor
+   [1, 1048576] /8 54 taps, receive USB and AM [1, 654400] /8 44 and 36
+   taps), beside the strided ``conv1d`` it replaced (``library_ms``). A
    case's ``ms`` is the kernel at ``shape``, its ``plain_ms`` the plain
    version on ``plain_shape`` (the same, or the prefix held); ``path``
-   names the path that launches ``shape``. A row's ms and plain_ms are
-   the sums over the cases at a path's shapes, one launch each;
+   names the path that launches ``shape``; ``bound_ms`` is the least time
+   the card could take for the case's bytes (each input read once, each
+   output written once, at 3.35 TB/s) or operations (float32 at
+   67 TFLOP/s), whichever is larger. A row's ms, plain_ms, bound_ms and
+   library_ms are the sums over the cases at a path's shapes, one launch
+   each;
 4. the receive slice: a 2.4 Msps composite (WFM stereo at +300 kHz, AM
    at -500 kHz, USB at -700 kHz) through ``Receiver(2.4e6,
    block_size=654400, device="cuda")`` for 8 blocks; both loop entries'
-   launch counts must rise, outputs must be finite, each tone must land
-   with SNR > 30 dB and the WFM L/R separation must exceed 20 dB;
+   and decimating_fir's launch counts must rise, outputs must be finite,
+   each tone must land with SNR > 30 dB and the WFM L/R separation must
+   exceed 20 dB;
 5. card against CPU: the first two blocks again on device="cpu" (plain
    loop versions); audio RMS difference below -40 dB;
 6. the normal entry point: ``cli.main(["run", ...])`` on the card writes
@@ -38,16 +48,42 @@ line) if any phase fails:
    20 ppm off, Es/N0 12 dB, at +250 kHz in a 2.4 Msps stream) through
    ``RxVFO`` and ``MeteorLRPTDecoder(device="cuda")`` at
    ``cli._auto_block``'s block, then ``finalize``: every VCDU must come
-   back equal to its payload, and lane_scan, mm_symbols and both Viterbi
-   entries must be launched;
+   back equal to its payload, and lane_scan, mm_symbols, both Viterbi
+   entries and decimating_fir must be launched;
 8. card against CPU: the first two demod blocks again on device="cpu";
    equal symbol counts, symbols within METEOR_CPU_TOL (max) and
    METEOR_CPU_RMS_TOL (RMS) after the lock;
 9. the entry point: ``cli.main(["decode", "meteor", ...])`` on the card
-   recovers the three payloads of the committed golden capture.
+   recovers the three payloads of the committed golden capture;
+10. the wideband path: bench.py's chain (``parallel.wideband``: the /256
+    cascade at 1.572864 Gsps, then the shared-FFT channelizer into 64
+    channels, Squelch, NFM discriminator and audio FIR) on WIDE_BLOCKS
+    blocks of 2^24 samples of one seamlessly repeating block (seeded
+    noise plus NFM carriers on 8 channels), uploaded once; per-block
+    CUDA-event ms, input Gsamp/s, decimating_fir launches, peak memory;
+    every carrier channel's tone SNR > 30 dB, all audio finite;
+11. card against CPU: the first four wideband blocks on device="cpu",
+    audio RMS difference below -40 dB from audio sample 1000 on;
+12. bench.py's SSB bank (lane_scan launches must rise) and muted NFM bank
+    (odd channels' audio exactly 0, even channels' not) at 6.144 Msps;
+13. the entry point: ``cli.main(["bank", ...])`` with no --device (the
+    card): 64 NFM channels from test:6144000, --channelizer time and fft,
+    4 blocks each, 64 WAVs each; on the time channelizer decimating_fir
+    launches on 64 rows;
+14. tests/test_golden.py's NFM bank through ``ScannerBank`` on the card
+    against the committed golden, below -40 dB after the settle.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --profile
+
+builds the kernels and, instead of the phases above, profiles (with
+torch.profiler) PROFILE_BLOCKS steady blocks of the wideband chain and
+PROFILE_CALLS calls of decimating_fir at each FIR_CASES shape: device time
+by kernel, the device's busy and idle share of the host-clock window, and
+each kernel launch's own device time beside the wrapper's host time per
+call. It prints one JSON line and no result line.
 """
 
 from __future__ import annotations
@@ -75,12 +111,57 @@ SOURCES = {"lane_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "single_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "mm_symbols": "sdrpp_tpu_torch/csrc/mm_clock.cu",
            "viterbi_acs_batched": "sdrpp_tpu_torch/csrc/viterbi.cu",
-           "viterbi_traceback_batched": "sdrpp_tpu_torch/csrc/viterbi.cu"}
+           "viterbi_traceback_batched": "sdrpp_tpu_torch/csrc/viterbi.cu",
+           "decimating_fir": "sdrpp_tpu_torch/csrc/decim_fir.cu"}
 REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
             "single_scan": "sdrpp_tpu/ops/scans_pallas.py:68",
             "mm_symbols": "sdrpp_tpu/ops/clock_recovery_pallas.py:35",
             "viterbi_acs_batched": "sdrpp_tpu/ops/fec_pallas.py:51",
-            "viterbi_traceback_batched": "sdrpp_tpu/ops/fec_pallas.py:132"}
+            "viterbi_traceback_batched": "sdrpp_tpu/ops/fec_pallas.py:132",
+            "decimating_fir": "sdrpp_tpu/ops/fir_pallas.py:74"}
+# the paths each kernel must be launched on
+REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
+            "meteor": ("lane_scan", "mm_symbols", "viterbi_acs_batched",
+                       "viterbi_traceback_batched", "decimating_fir"),
+            "wideband": ("decimating_fir",),
+            "ssb_bank": ("lane_scan",),
+            "muted_bank": (),
+            "bank": ("decimating_fir",),
+            "bank_fft": ()}
+# H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and float32
+# operations/s outside the tensor cores; a case's bound is the larger of
+# its bytes and its operations over these
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per lane step of each loop body, counted from the
+# bodies in ops/scans_kernels.py (a comparison, a select or a
+# transcendental counts as one)
+LOOP_OPS = {"pll": 18, "agc": 16, "fast_agc": 5, "costas4": 26,
+            "costas_meteor": 44}
+MM_OPS_PER_SYMBOL = 57     # 8 taps x 2 planes x (mul + add) + the loop
+ACS_OPS_PER_STATE = 6      # two path sums, a compare, a select, 2 metrics
+# decimating_fir cases: (path, rows, n, plan ratio); the kernel runs the
+# plan's first stage (r >= 8)
+FIR_CASES = [("wideband", 1, 1 << 24, 256), ("bank", 64, 262144, 128),
+             ("meteor", 1, 1048576, 16), ("receive", 1, 654400, 32),
+             ("receive", 1, 654400, 64)]
+# the wideband path (bench.py's chain at its widths)
+WIDE_BLOCKS = 16         # 512 audio samples a block: 6.7 Hz bins
+WIDE_CARRIERS = (3, 11, 19, 27, 36, 44, 52, 60)   # 8 of the 64 channels
+WIDE_TONE = 700.0          # Hz, rounded to a multiple of fs / 2^24
+# Hz; the 12.5 kHz channel filter cuts this signal's Bessel sidebands
+# beyond 6.25 kHz (the 10th of a 656 Hz tone), which lands as harmonic
+# distortion near -30 dB: the tone's SNR is held against the band outside
+# the tone and its harmonics, and the SINAD (distortion counted) reported
+WIDE_DEVIATION = 5000.0
+WIDE_AMP = 0.1
+WIDE_NOISE = 1e-3
+WIDE_SETTLE = 1000         # audio samples left out of the tone SNR
+WIDE_CPU_BLOCKS = 4        # blocks compared card vs CPU
+WIDE_CPU_SETTLE = 1000     # audio samples of the chain's start left out
+BANK_BLOCK = 1 << 18       # bench.py's bank block at 6.144 Msps
+PROFILE_BLOCKS = 5
+PROFILE_CALLS = 20
 # kernel vs plain version: the same float32 operations in the same order,
 # no FMA contraction (--fmad=false), IEEE division -> expected 0. The
 # tolerance is 1e-6 on PLL phasors, 1e-6 of the largest gain for the AGCs
@@ -118,6 +199,8 @@ METEOR_CPU_TOL = 0.05
 METEOR_CPU_RMS_TOL = 5e-3
 GOLDEN_WAV = "tests/data/meteor_lrpt_150000Hz.wav"
 GOLDEN_PAYLOAD = "tests/data/meteor_lrpt_payload.bin"
+GOLDEN_CHAINS = "tests/data/golden_chains.npz"
+GOLDEN_SETTLE = 400        # IF samples of the NFM bank's zero-state start
 
 
 def log(*args):
@@ -153,9 +236,24 @@ def band_power(audio: np.ndarray, fs: float, f0: float, halfwidth: float = 20.0)
     return p[near].sum(), p[band & ~near].sum()
 
 
-def snr_db(audio, fs, f0):
-    s, n = band_power(audio, fs, f0)
+def snr_db(audio, fs, f0, halfwidth: float = 20.0):
+    s, n = band_power(audio, fs, f0, halfwidth)
     return 10 * np.log10(s / max(n, 1e-30))
+
+
+def tone_snr_sinad(audio, fs, f0, halfwidth: float = 40.0):
+    """(SNR, SINAD) in dB of a tone at f0: its power within +-halfwidth
+    over the 100 Hz..15 kHz band's power outside the tone and its
+    harmonics (SNR), or outside the tone only (SINAD)."""
+    w = np.hanning(len(audio))
+    p = np.abs(np.fft.rfft(audio * w)) ** 2
+    f = np.fft.rfftfreq(len(audio), 1.0 / fs)
+    near = np.abs(f - f0) <= halfwidth
+    harm = np.abs(f - f0 * np.maximum(np.round(f / f0), 1.0)) <= halfwidth
+    band = (f >= 100.0) & (f <= 15000.0)
+    s = p[near].sum()
+    return (10 * np.log10(s / max(p[band & ~harm].sum(), 1e-30)),
+            10 * np.log10(s / max(p[band & ~near].sum(), 1e-30)))
 
 
 def rms_db(got, want):
@@ -175,6 +273,44 @@ def cuda_ms(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the operations over its float32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def kernel_fns():
+    """Every kernel wrapper of the port by name; each carries ``launches``."""
+    from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+    from sdrpp_tpu_torch.ops import fir_kernels as DK
+    from sdrpp_tpu_torch.ops import scans_kernels as K
+
+    return {"lane_scan": K.lane_scan, "single_scan": K.single_scan,
+            "mm_symbols": MK.mm_symbols,
+            "viterbi_acs_batched": FK.viterbi_acs_batched,
+            "viterbi_traceback_batched": FK.viterbi_traceback_batched,
+            "decimating_fir": DK.decimating_fir}
+
+
+def reset_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts(path: str) -> dict:
+    """The launch counts since ``reset_counts``; fails unless every kernel
+    ``path`` requires was launched."""
+    counts = {name: fn.launches for name, fn in kernel_fns().items()}
+    log(f"{path} launches: {counts}")
+    for name in REQUIRED[path]:
+        if counts[name] < 1:
+            raise AssertionError(f"{name} was not launched on the {path} path")
+    return counts
 
 
 def phase_kernels(dev):
@@ -291,14 +427,19 @@ def phase_kernels(dev):
             err = max(float((a - b).abs().max())
                       for a, b in ((out, ref["out"]), (fin, ref["fin"])))
             tol = KERNEL_TOL * float(ref["out"].abs().max())
+        nbytes = 4 * (sum(x.numel() for x in streams) + out.numel()
+                      + 2 * state.numel())
+        bms, bby = bound(nbytes, LOOP_OPS[body_name] * out.numel())
         log(f"kernel {entry}[{body_name}] {shape}: max abs err {err:.3g} "
-            f"(tol {tol:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+            f"(tol {tol:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {bms:.5f} ms ({bby})")
         if not err <= tol:
             raise AssertionError(f"{entry}[{body_name}] disagrees with its "
                                  f"plain version: {err} > {tol}")
         results.append(dict(entry=entry, body=body_name, shape=shape,
                             plain_shape=shape, path=path, max_abs_err=err,
-                            tol=tol, ms=ms, plain_ms=plain_ms))
+                            tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                            bound_by=bby, library_ms=None))
     return results
 
 
@@ -364,18 +505,23 @@ def phase_kernels_digital(dev):
               float((got_full[0][0, :nsym] - want[0][0, :nsym]).abs().max()))
     tol = KERNEL_TOL * float(want[0].abs().max())
     shape, plain_shape = list(full[0].shape), list(part[0].shape)
+    nsym_full = int(got_full[1].sum())
+    bms, bby = bound(full[0].numel() * 8 + mm._bank.numel() * 4
+                     + got_full[1].numel() * 9 + 2 * 11 * 4,
+                     MM_OPS_PER_SYMBOL * nsym_full)
     log(f"kernel mm_symbols {shape} ({int(got_full[1].sum())} symbols; the "
         f"first {nsym} held against the plain version on {plain_shape}): "
         f"max abs err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms at "
         f"{shape}, {ms_part:.4f} ms at {plain_shape}, plain {plain_ms:.1f} "
-        f"ms at {plain_shape}")
+        f"ms at {plain_shape}, bound {bms:.5f} ms ({bby})")
     if not err <= tol:
         raise AssertionError(f"mm_symbols disagrees with its plain version: "
                              f"{err} > {tol}")
     results.append(dict(entry="mm_symbols", body="complex", shape=shape,
                         plain_shape=plain_shape, path="meteor",
                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                        ms_at_plain_shape=ms_part))
+                        ms_at_plain_shape=ms_part, bound_ms=bms,
+                        bound_by=bby, library_ms=None))
 
     # Viterbi: noisy coded windows; 528 is the 30-s pass's window count
     code = ConvCode(2, 7, CCSDS_CONV_POLYS, device=dev)
@@ -416,16 +562,90 @@ def phase_kernels_digital(dev):
         if acs_diff or tb_diff:
             raise AssertionError("a Viterbi kernel is not bit-exact against "
                                  "its plain version")
+        acs_bound = bound(soft.numel() * 4 + dec.numel(),
+                          ACS_OPS_PER_STATE * dec.numel())
+        tb_bound = bound(dec.numel() + out.numel(), 4 * out.numel())
         results.append(dict(entry="viterbi_acs_batched", body="k7",
                             shape=[B, T, 2], plain_shape=[bp, T, 2],
                             path=path, max_abs_err=float(acs_diff), tol=0.0,
                             ms=acs_ms, plain_ms=acs_plain_ms,
-                            ms_at_plain_shape=acs_part))
+                            ms_at_plain_shape=acs_part,
+                            bound_ms=acs_bound[0], bound_by=acs_bound[1],
+                            library_ms=None))
         results.append(dict(entry="viterbi_traceback_batched", body="k7",
                             shape=[B, T, 64], plain_shape=[bp, T, 64],
                             path=path, max_abs_err=float(tb_diff), tol=0.0,
                             ms=tb_ms, plain_ms=tb_plain_ms,
-                            ms_at_plain_shape=tb_part))
+                            ms_at_plain_shape=tb_part,
+                            bound_ms=tb_bound[0], bound_by=tb_bound[1],
+                            library_ms=None))
+    return results
+
+
+def phase_kernels_fir(dev):
+    """decimating_fir at the first r >= 8 stage of each path against its
+    plain version, beside the strided conv1d (TF32 off) the port ran
+    before it (library_ms), which computes the same sum from the
+    [tail | x] planes."""
+    import torch
+    import torch.nn.functional as F
+    from sdrpp_tpu_torch.ops import fir_kernels as DK
+    from sdrpp_tpu_torch.ops.resample import decim_plan
+
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN TF32 is on: the library time would not "
+                             "be a float32 convolution")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = []
+    for path, rows, n, ratio in FIR_CASES:
+        r, taps = decim_plan(ratio)[0]
+        m = taps.shape[0]
+        w = torch.from_numpy(taps.astype(np.float32)).to(dev)
+        x = torch.randn((rows, n), generator=gen, dtype=torch.complex64,
+                        device=dev)
+        tail = torch.randn((rows, m - 1), generator=gen,
+                           dtype=torch.complex64, device=dev)
+        new_tail, y = DK.decimating_fir(tail, x, w, r)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: DK.decimating_fir(tail, x, w, r), reps=20)
+        ref = {}
+        DK.decimating_fir_plain(tail, x, w, r)  # warm
+        plain_ms = cuda_ms(lambda: ref.setdefault(
+            "r", DK.decimating_fir_plain(tail, x, w, r)), reps=1)
+        want_tail, want = ref["r"]
+        err = max(float((y - want).abs().max()),
+                  float((new_tail - want_tail).abs().max()))
+        tol = KERNEL_TOL * float(want.abs().max())
+        L = n + m - 1
+        planes = torch.view_as_real(torch.cat([tail, x], -1)).movedim(
+            -1, -2).reshape(rows * 2, 1, L).contiguous()
+        weight = w.reshape(1, 1, m)
+        lib = F.conv1d(planes, weight, stride=r)[..., :n // r]
+        lib_err = float((torch.view_as_complex(
+            lib.reshape(rows, 2, -1).movedim(-2, -1).contiguous())
+            - want).abs().max())
+        torch.cuda.synchronize()
+        library_ms = cuda_ms(lambda: F.conv1d(planes, weight, stride=r),
+                             reps=20)
+        nbytes = (rows * (m - 1 + n) * 8 + m * 4
+                  + rows * (n // r + m - 1) * 8)
+        bms, bby = bound(nbytes, rows * (n // r) * m * 2 * 2)
+        log(f"kernel decimating_fir [{rows}, {n}] /{r} {m} taps ({path}): "
+            f"max abs err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.2f} ms, conv1d {library_ms:.4f} ms "
+            f"(differs from the plain sum by {lib_err:.3g}), bound "
+            f"{bms:.4f} ms ({bby}, {nbytes / 1e6:.1f} MB)")
+        if not err <= tol:
+            raise AssertionError(f"decimating_fir disagrees with its plain "
+                                 f"version at [{rows}, {n}] /{r}: {err} > "
+                                 f"{tol}")
+        results.append(dict(entry="decimating_fir", body=f"r{r}_m{m}",
+                            shape=[rows, n], plain_shape=[rows, n],
+                            path=path, max_abs_err=err, tol=tol, ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            library_err=lib_err, bound_ms=bms, bound_by=bby,
+                            bytes=nbytes))
+        del x, tail, planes, lib, ref
     return results
 
 
@@ -441,13 +661,11 @@ def make_receiver(device):
 def phase_slice(iq):
     """The main path on the card; returns per-block audio and timings."""
     import torch
-    from sdrpp_tpu_torch.ops import scans_kernels as K
 
     rx = make_receiver("cuda")
     audio = {name: [] for name in VFOS}
     block_ms, wall_s = [], []
-    K.lane_scan.launches = 0
-    K.single_scan.launches = 0
+    reset_counts()
     for k in range(NBLOCKS):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
@@ -459,12 +677,7 @@ def phase_slice(iq):
         block_ms.append(start.elapsed_time(end))
         for name, a in out.items():
             audio[name].append(a.cpu().numpy())
-    launches = {"lane_scan": K.lane_scan.launches,
-                "single_scan": K.single_scan.launches}
-    log(f"slice launches: {launches}")
-    for entry, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"{entry} was not launched on the main path")
+    launches = read_counts("receive")
     for name, blocks in audio.items():
         for a in blocks:
             if not np.isfinite(a).all():
@@ -523,8 +736,8 @@ def phase_cpu(iq, audio):
 
 
 def phase_cli():
-    from sdrpp_tpu.io.wav import read_wav
     from sdrpp_tpu_torch import cli
+    from sdrpp_tpu_torch.io.wav import read_wav
 
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "wfm.wav"
@@ -578,9 +791,6 @@ def phase_meteor():
     from sdrpp_tpu_torch import cli
     from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
     from sdrpp_tpu_torch.models.channel import RxVFO
-    from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
-    from sdrpp_tpu_torch.ops import fec_kernels as FK
-    from sdrpp_tpu_torch.ops import scans_kernels as K
 
     t_gen = time.perf_counter()
     payloads, gen = meteor_pass()
@@ -592,11 +802,8 @@ def phase_meteor():
     nblocks = int(METEOR_SECONDS * METEOR_FS) // block
     vstate = vfo.init_state()
     first_if, block_ms, gen_block_s = [], [], []
-    kernels = (K.lane_scan, K.single_scan, MK.mm_symbols,
-               FK.viterbi_acs_batched, FK.viterbi_traceback_batched)
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels:
-        fn.launches = 0
+    reset_counts()
     for k in range(nblocks):
         t0 = time.perf_counter()
         iq = gen(k * block, block)
@@ -615,7 +822,7 @@ def phase_meteor():
     _, vcdus, info = dec.finalize()
     torch.cuda.synchronize()
     fin_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = read_counts("meteor")
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     nsyms = len(dec.symbols)
     if_block = vfo.out_count(block)
@@ -630,11 +837,6 @@ def phase_meteor():
         f"{dec.timings['viterbi_s']:.3f}, sync {dec.timings['sync_s']:.3f}, "
         f"RS {dec.timings['rs_s']:.3f}); {info}; peak device memory "
         f"{peak_mib:.1f} MiB")
-    log(f"meteor launches: {launches}")
-    for name in ("lane_scan", "mm_symbols", "viterbi_acs_batched",
-                 "viterbi_traceback_batched"):
-        if launches[name] < 1:
-            raise AssertionError(f"{name} was not launched on the meteor path")
     if len(vcdus) != len(payloads) or not np.array_equal(vcdus, payloads):
         got = sum(any(np.array_equal(v, p) for v in vcdus) for p in payloads)
         raise AssertionError(f"meteor: {len(vcdus)} VCDUs, {got} of "
@@ -703,6 +905,374 @@ def phase_decode_cli():
             "seconds": secs}
 
 
+def wideband_block(dev):
+    """One 2^24-sample block at 1.572864 Gsps that repeats seamlessly:
+    seeded numpy noise plus NFM carriers (WIDE_TONE at WIDE_DEVIATION) at
+    the WIDE_CARRIERS channels' offsets, every frequency rounded to a
+    multiple of fs / 2^24 = 93.75 Hz and every phase computed from an
+    integer sample index modulo 2^24. Returns (block on ``dev``, tone Hz,
+    H2D seconds of the noise block)."""
+    import torch
+    from sdrpp_tpu_torch.parallel import wideband as W
+
+    n = W.WIDE_BLOCK
+    rng = np.random.default_rng(7)
+    noise = (WIDE_NOISE * (rng.standard_normal(n)
+                           + 1j * rng.standard_normal(n))).astype(np.complex64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = torch.from_numpy(noise).to(dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    bin_hz = W.FS_WIDE / n
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+
+    def turns(k):  # exp argument of a k-bin tone, exact modulo 2^24
+        return (2 * np.pi / n) * torch.remainder(k * i, n).double()
+
+    kt = int(round(WIDE_TONE / bin_hz))
+    beta = WIDE_DEVIATION / (kt * bin_hz)
+    mod = beta * torch.sin(turns(kt))
+    offsets = W.bank_offsets()
+    carriers = torch.zeros(n, dtype=torch.complex128, device=dev)
+    for ch in WIDE_CARRIERS:
+        kc = int(round(offsets[ch] / bin_hz))
+        carriers += WIDE_AMP * torch.exp(1j * (turns(kc) + mod))
+    x = (x + carriers).to(torch.complex64)
+    del carriers, mod, i
+    return x, kt * bin_hz, h2d_s
+
+
+def phase_wideband():
+    """bench.py's wideband chain on the card: WIDE_BLOCKS blocks of the
+    one uploaded block. Returns (results, block, per-block audio)."""
+    import torch
+    from sdrpp_tpu_torch.parallel import wideband as W
+
+    x, tone, h2d_s = wideband_block("cuda")
+    chain = W.make_chain("wideband", device="cuda")
+    state = chain.init_state()
+    audio, block_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for _ in range(WIDE_BLOCKS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, y = chain(state, x)
+        end.record()
+        torch.cuda.synchronize()
+        block_ms.append(start.elapsed_time(end))
+        audio.append(y.cpu().numpy())
+    launches = read_counts("wideband")
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    med_ms = float(np.median(block_ms[1:]))
+    gsps = W.WIDE_BLOCK / (med_ms / 1e3) / 1e9
+    for a in audio:
+        if not np.isfinite(a).all():
+            raise AssertionError("wideband: non-finite audio")
+    whole = np.concatenate(audio, -1)
+    snrs, sinads = {}, {}
+    for ch in WIDE_CARRIERS:
+        snrs[ch], sinads[ch] = tone_snr_sinad(whole[ch, WIDE_SETTLE:],
+                                              W.IF_RATE, tone)
+    h2d_gbs = x.numel() * 8 / h2d_s / 1e9
+    log(f"wideband: {WIDE_BLOCKS} blocks of {W.WIDE_BLOCK} samples at "
+        f"{W.FS_WIDE / 1e9:.6f} Gsps -> {W.CHANNELS} channels x "
+        f"{audio[0].shape[-1]} audio samples; median {med_ms:.3f} ms/block "
+        f"over blocks 2..{WIDE_BLOCKS} (CUDA events) = {gsps:.3f} Gsamp/s "
+        f"input ({gsps * 1e9 / W.FS_WIDE:.2f}x real time); one H2D of the "
+        f"128 MiB block {h2d_s * 1e3:.1f} ms ({h2d_gbs:.2f} GB/s); peak "
+        f"device memory {peak_mib:.1f} MiB")
+    log(f"wideband tone {tone:g} Hz SNR (SINAD) by carrier channel: "
+        + ", ".join(f"{ch}: {snrs[ch]:.1f} ({sinads[ch]:.1f}) dB"
+                    for ch in WIDE_CARRIERS))
+    if not min(snrs.values()) > 30.0:
+        raise AssertionError(f"wideband: tone SNR {min(snrs.values()):.2f} dB")
+    return {"block": W.WIDE_BLOCK, "blocks": WIDE_BLOCKS, "block_ms": block_ms,
+            "median_ms": med_ms, "gsamples_per_s": gsps,
+            "h2d_ms": h2d_s * 1e3, "h2d_gb_per_s": h2d_gbs,
+            "peak_mib": peak_mib, "tone_hz": tone,
+            "snr_db": {str(k): v for k, v in snrs.items()},
+            "sinad_db": {str(k): v for k, v in sinads.items()},
+            "launches": launches}, x, audio
+
+
+def phase_wideband_cpu(x, audio):
+    """The first WIDE_CPU_BLOCKS wideband blocks on the CPU (plain kernels,
+    pocketfft) against the card, from audio sample WIDE_CPU_SETTLE on: the
+    first block starts every stage from zero state, and the channels with
+    no carrier (unmuted for that block) discriminate the start's splatter
+    near -100 dB, where ulp-level differences of the two FFTs decide the
+    phase; the audio FIR carries that into the next block. Also reported:
+    the carrier channels alone, from audio sample 0."""
+    from sdrpp_tpu_torch.parallel import wideband as W
+
+    chain = W.make_chain("wideband", device="cpu")
+    state = chain.init_state()
+    xc = x.cpu()
+    cpu = []
+    for _ in range(WIDE_CPU_BLOCKS):
+        state, y = chain(state, xc)
+        cpu.append(y.numpy())
+    got = np.concatenate(audio[:WIDE_CPU_BLOCKS], -1)
+    want = np.concatenate(cpu, -1)
+    diff = rms_db(got[:, WIDE_CPU_SETTLE:], want[:, WIDE_CPU_SETTLE:])
+    carriers = list(WIDE_CARRIERS)
+    diff_carriers = rms_db(got[carriers], want[carriers])
+    diff_all = rms_db(got, want)
+    log(f"wideband card vs cpu: {diff:.1f} dB over blocks 1-"
+        f"{WIDE_CPU_BLOCKS} from audio sample {WIDE_CPU_SETTLE}; carrier "
+        f"channels {diff_carriers:.1f} dB from sample 0; all {diff_all:.1f} "
+        f"dB from sample 0")
+    if not diff < -40.0:
+        raise AssertionError("wideband: card and CPU disagree")
+    return {"settled_db": diff, "carriers_db": diff_carriers,
+            "whole_db": diff_all}
+
+
+def phase_banks():
+    """bench.py's SSB bank (its AGC runs in lane_scan with the channels as
+    lanes) and muted NFM bank at 6.144 Msps, BANK_BLOCK samples a block."""
+    import torch
+    from sdrpp_tpu_torch.parallel import wideband as W
+
+    n = BANK_BLOCK
+    offsets = W.bank_offsets()
+    t = np.arange(n) / W.FS_MID
+    rng = np.random.default_rng(3)
+    res = {}
+
+    ssb = W.make_chain("ssb", device="cuda")
+    x = 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    for ch in range(0, W.CHANNELS, 8):  # USB tones 1 kHz above 8 channels
+        x = x + 0.05 * np.exp(2j * np.pi * (offsets[ch] + 1000.0) * t)
+    xs = torch.from_numpy(x.astype(np.complex64)).to("cuda")
+    state = ssb.init_state()
+    reset_counts()
+    ms = []
+    for _ in range(4):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, y = ssb(state, xs)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        if not torch.isfinite(y).all():
+            raise AssertionError("ssb bank: non-finite audio")
+    res["ssb_bank"] = {"block_ms": ms, "median_ms": float(np.median(ms[1:])),
+                       "launches": read_counts("ssb_bank")}
+
+    muted = W.make_chain("muted", device="cuda")
+    x = 1e-4 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    for ch in range(0, W.CHANNELS, 2):  # bench.py:349-353
+        x = x + 0.25 * np.exp(1j * (2 * np.pi * offsets[ch] * t
+                                    + 0.5 * np.sin(2 * np.pi * 1000.0 * t)))
+    xs = torch.from_numpy(x.astype(np.complex64)).to("cuda")
+    state = muted.init_state()
+    reset_counts()
+    ms = []
+    for _ in range(4):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, y = muted(state, xs)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        per_ch = y.abs().sum(-1).cpu().numpy()
+        if not ((per_ch[1::2] == 0.0).all() and (per_ch[0::2] > 0.0).all()):
+            raise AssertionError("muted bank: odd channels not exactly 0 or "
+                                 "even channels silent")
+    res["muted_bank"] = {"block_ms": ms, "median_ms": float(np.median(ms[1:])),
+                         "launches": read_counts("muted_bank")}
+    for name, r in res.items():
+        log(f"{name}: {W.CHANNELS} channels, {n} samples a block at "
+            f"{W.FS_MID / 1e6:g} Msps, median {r['median_ms']:.3f} ms/block "
+            f"(CUDA events, blocks 2..4)")
+    return res
+
+
+def phase_bank_cli():
+    """``cli bank`` with no --device: 64 NFM channels from test:6144000,
+    the time and the fft channelizer; 64 WAVs each. Records the rows of
+    every decimating_fir launch."""
+    from sdrpp_tpu_torch import cli
+    from sdrpp_tpu_torch.io.wav import read_wav
+    from sdrpp_tpu_torch.ops import fir_kernels as DK
+    from sdrpp_tpu_torch.parallel import wideband as W
+
+    offsets = ",".join(f"{o:.1f}" for o in W.bank_offsets())
+    rows_seen = []
+    launch = DK._launch
+
+    def spy(tail, x, taps, m, r):
+        rows_seen.append(int(np.prod(x.shape[:-1])))
+        return launch(tail, x, taps, m, r)
+
+    res = {}
+    DK._launch = spy
+    try:
+        for chz in ("time", "fft"):
+            rows_seen.clear()
+            with tempfile.TemporaryDirectory() as tmp:
+                reset_counts()
+                t0 = time.perf_counter()
+                rc = cli.main(["bank", "--source", "test:6144000",
+                               f"--offsets={offsets}", "--mode", "nfm",
+                               "--channelizer", chz, "--blocks", "4",
+                               "--out-dir", tmp])
+                secs = time.perf_counter() - t0
+                if rc:
+                    raise AssertionError(f"cli bank returned {rc}")
+                counts = read_counts("bank" if chz == "time" else "bank_fft")
+                wavs = sorted(Path(tmp).glob("ch*.wav"))
+                info, data = read_wav(wavs[0])
+            log(f"cli bank --channelizer {chz}: {len(wavs)} WAVs of "
+                f"{data.shape[0]} frames at {info.samplerate} Hz in "
+                f"{secs:.2f} s; decimating_fir rows {sorted(set(rows_seen))}")
+            if len(wavs) != W.CHANNELS or data.shape[0] != 4 * 262144 // 128:
+                raise AssertionError(f"cli bank --channelizer {chz} wrote "
+                                     f"{len(wavs)} WAVs of {data.shape[0]} "
+                                     f"frames")
+            if chz == "time" and set(rows_seen) != {W.CHANNELS}:
+                raise AssertionError(f"cli bank: decimating_fir rows "
+                                     f"{rows_seen}, expected {W.CHANNELS}")
+            res[chz] = {"wavs": len(wavs), "seconds": secs,
+                        "launches": counts, "rows": sorted(set(rows_seen))}
+    finally:
+        DK._launch = launch
+    return res
+
+
+def phase_golden_bank():
+    """tests/test_golden.py's NFM bank through ScannerBank on the card.
+    From zero state the discriminator starts on the channel filters'
+    leading edge (the first ~300 IF samples), where rounding decides the
+    phase; it is held from GOLDEN_SETTLE on."""
+    import torch
+    from sdrpp_tpu_torch.parallel.vfo_bank import ScannerBank
+
+    fs = 512000.0
+    offs = np.array([-128000.0, 64000.0])
+    bank = ScannerBank(offs, fs, mode="nfm", if_rate=32000.0,
+                       bandwidth=12500.0)
+    n = bank.block_multiple * (65536 // bank.block_multiple)
+    t = np.arange(n) / fs
+    iq = (0.4 * np.exp(1j * (2 * np.pi * 64000.0 * t
+                             + np.cumsum(2 * np.pi * 5000.0
+                                         * np.sin(2 * np.pi * 700.0 * t) / fs)))
+          ).astype(np.complex64)
+    _, audio = bank(bank.init_state(), torch.from_numpy(iq).to("cuda"))
+    got = audio.cpu().numpy()
+    want = np.load(GOLDEN_CHAINS)["nfm_bank"]
+    if got.shape != want.shape:
+        raise AssertionError(f"golden bank shape {got.shape} != {want.shape}")
+    settled = rms_db(got[:, GOLDEN_SETTLE:], want[:, GOLDEN_SETTLE:])
+    whole = rms_db(got, want)
+    log(f"NFM-bank golden on the card: {settled:.1f} dB from IF sample "
+        f"{GOLDEN_SETTLE}, {whole:.1f} dB whole")
+    if not settled < -40.0:
+        raise AssertionError("NFM-bank golden: the card disagrees")
+    return {"settled_db": settled, "whole_db": whole}
+
+
+def device_intervals(prof):
+    """(name, start us, end us) of every device activity in a profile."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def busy_us(spans):
+    """Length of the union of the [start, end) spans."""
+    total, end = 0.0, None
+    for _, a, b in sorted(spans, key=lambda t: t[1]):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def profile_paths():
+    """The --profile mode: see the module docstring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sdrpp_tpu_torch.ops import fir_kernels as DK
+    from sdrpp_tpu_torch.ops.resample import decim_plan
+    from sdrpp_tpu_torch.parallel import wideband as W
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    x, _, _ = wideband_block("cuda")
+    chain = W.make_chain("wideband", device="cuda")
+    state = chain.init_state()
+    for _ in range(3):  # warm: plans, cuFFT plans, the kernel's build
+        state, y = chain(state, x)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_BLOCKS):
+            state, y = chain(state, x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = device_intervals(prof)
+    by_name = {}
+    for name, a, b in spans:
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + b - a, c + 1)
+    busy = busy_us(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    out["wideband"] = {
+        "blocks": PROFILE_BLOCKS, "wall_ms_per_block": wall_us / PROFILE_BLOCKS
+        / 1e3, "device_busy_ms_per_block": busy / PROFILE_BLOCKS / 1e3,
+        "idle_share": 1.0 - busy / wall_us,
+        "device_ops_per_block": len(spans) / PROFILE_BLOCKS,
+        "by_kernel_ms_per_block": {n: t / PROFILE_BLOCKS / 1e3
+                                   for n, (t, c) in top[:12]}}
+    log(f"profile wideband: {out['wideband']['wall_ms_per_block']:.3f} ms "
+        f"per block (host clock), device busy "
+        f"{out['wideband']['device_busy_ms_per_block']:.3f} ms, idle "
+        f"{100 * out['wideband']['idle_share']:.1f} %, "
+        f"{out['wideband']['device_ops_per_block']:.0f} device operations "
+        f"per block")
+    for n, (t, c) in top[:12]:
+        log(f"  {t / PROFILE_BLOCKS / 1e3:8.4f} ms/block  x{c // PROFILE_BLOCKS:<3d} "
+            f"{n[:100]}")
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out["decimating_fir"] = []
+    for path, rows, n, ratio in FIR_CASES:
+        r, taps = decim_plan(ratio)[0]
+        m = taps.shape[0]
+        w = torch.from_numpy(taps.astype(np.float32)).to("cuda")
+        xs = torch.randn((rows, n), generator=gen, dtype=torch.complex64,
+                         device="cuda")
+        tail = torch.zeros((rows, m - 1), dtype=torch.complex64,
+                           device="cuda")
+        DK.decimating_fir(tail, xs, w, r)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_CALLS):
+                DK.decimating_fir(tail, xs, w, r)
+            host_us = (time.perf_counter() - t0) * 1e6 / PROFILE_CALLS
+            torch.cuda.synchronize()
+        kern = [b - a for name, a, b in device_intervals(prof)
+                if "decim_fir" in name]
+        dev_us = float(np.median(kern))
+        out["decimating_fir"].append({"path": path, "shape": [rows, n],
+                                      "r": r, "m": m, "device_us": dev_us,
+                                      "host_us_per_call": host_us})
+        log(f"profile decimating_fir [{rows}, {n}] /{r} ({path}): kernel "
+            f"{dev_us:.1f} us on the device (median of {len(kern)}), "
+            f"{host_us:.1f} us of host time per call")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -721,7 +1291,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    names = ("loop_scan", "mm_clock", "viterbi")
+    names = ("loop_scan", "mm_clock", "viterbi", "decim_fir")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(cuda_lib.build, names))
     build_s = time.perf_counter() - t0
@@ -729,8 +1299,13 @@ def main() -> int:
     for lib in libs:
         log(lib.with_suffix(".log").read_text().strip())
 
+    if "--profile" in sys.argv[1:]:
+        print(gpu)
+        print(json.dumps({"profile": profile_paths()}))
+        return 0
     dev = torch.device("cuda")
-    kernels = phase_kernels(dev) + phase_kernels_digital(dev)
+    kernels = (phase_kernels(dev) + phase_kernels_digital(dev)
+               + phase_kernels_fir(dev))
 
     iq = composite(NBLOCKS * BLOCK)
     audio, block_ms, wall_s, launches = phase_slice(iq)
@@ -746,13 +1321,25 @@ def main() -> int:
     meteor, first_if = phase_meteor()
     meteor_cpu = phase_meteor_cpu(first_if)
     decode_cli = phase_decode_cli()
+    wide, wide_x, wide_audio = phase_wideband()
+    wide_cpu = phase_wideband_cpu(wide_x, wide_audio)
+    del wide_x
+    banks = phase_banks()
+    bank_cli = phase_bank_cli()
+    golden_bank = phase_golden_bank()
 
+    paths = {"receive": launches, "meteor": meteor["launches"],
+             "wideband": wide["launches"],
+             "ssb_bank": banks["ssb_bank"]["launches"],
+             "muted_bank": banks["muted_bank"]["launches"],
+             "bank": bank_cli["time"]["launches"],
+             "bank_fft": bank_cli["fft"]["launches"]}
     rows = []
     for entry in SOURCES:
         mine = [k for k in kernels if k["entry"] == entry]
         on_path = [k for k in mine if k["path"]]
-        by_path = {"receive": launches.get(entry, 0),
-                   "meteor": meteor["launches"].get(entry, 0)}
+        by_path = {p: c.get(entry, 0) for p, c in paths.items()}
+        lib = [k["library_ms"] for k in on_path]
         rows.append({
             "name": entry, "route": "cuda", "source": SOURCES[entry],
             "replaces": REPLACES[entry], "launches": sum(by_path.values()),
@@ -760,12 +1347,17 @@ def main() -> int:
             "max_abs_err": max(k["max_abs_err"] for k in mine),
             "ms": sum(k["ms"] for k in on_path),
             "plain_ms": sum(k["plain_ms"] for k in on_path),
+            "bound_ms": sum(k["bound_ms"] for k in on_path),
+            "bound_by": max(on_path, key=lambda k: k["bound_ms"])["bound_by"],
+            "library_ms": None if None in lib else sum(lib),
             "cases": mine})
     log(json.dumps({"slice": {"block_ms": block_ms, "wall_s": wall_s,
                               "launches": launches, **checks},
                     "card_vs_cpu": cpu, "cli": cli_res, "meteor": meteor,
                     "meteor_card_vs_cpu": meteor_cpu,
-                    "decode_cli": decode_cli}))
+                    "decode_cli": decode_cli, "wideband": wide,
+                    "wideband_card_vs_cpu": wide_cpu, "banks": banks,
+                    "bank_cli": bank_cli, "golden_bank": golden_bank}))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

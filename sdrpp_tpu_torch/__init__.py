@@ -2,14 +2,20 @@
 
 A port of the JAX package ``sdrpp_tpu`` (which stays the reference) with
 the same module names and layout: ``ops`` (taps, FIR, resampling, mixing,
-scans and the loop kernels), ``models`` (RxVFO, demodulators,
-RadioChannel), ``signal_path``, ``receiver`` and ``cli``. Blocks are
+the channelizer, scans and the kernels' wrappers), ``models`` (RxVFO,
+demodulators, RadioChannel, the Meteor chain), ``decoders``,
+``parallel`` (the VFO/scanner bank and bench.py's bank chains), ``io``
+(its own numpy-only WAV, source and sink modules), ``signal_path``,
+``receiver`` and ``cli``. It imports nothing of ``sdrpp_tpu``. Blocks are
 ``(state, x) -> (state, y)`` callables over torch tensors; state is a
 tree of tensors with the JAX state tree's keys and shapes.
 
-Every constructor takes an explicit ``device``. The per-sample loops (PLL,
-AGC) run in the hand-written CUDA kernel ``csrc/loop_scan.cu`` on CUDA
-tensors and in a plain PyTorch loop on CPU tensors.
+The inner blocks take an explicit ``device``; the entry points
+(``Receiver``, ``MeteorLRPTDecoder``, ``ScannerBank``, the CLI) default
+to ``cuda`` and fail without a card. Every Pallas kernel of the JAX
+package is a hand-written CUDA kernel here (``csrc/*.cu``: the loop scans,
+the M&M, the Viterbi, the decimating FIR), launched on CUDA tensors;
+on CPU tensors each wrapper runs its plain PyTorch version.
 
 TF32 is switched off here, at import: cuDNN would otherwise run the
 float32 strided convolutions of the decimators in TF32 (about three

@@ -1,16 +1,21 @@
-"""Command-line entry points of the port: ``run`` and ``decode``.
+"""Command-line entry points of the port: ``run``, ``bank`` and ``decode``.
 
 ``run`` reads IQ from a test source or a WAV file, demodulates one channel
-on the given device and writes the audio to a WAV file — the counterpart
-of ``sdrpp_tpu``'s ``run`` (sdrpp_tpu/cli.py:110-254) without its
-checkpoint, trace, watchdog and container options. ``decode meteor`` runs
-the Meteor M2 LRPT decoder (sdrpp_tpu/cli.py:677-823) and writes the s8
-x84 soft-symbol file and ``<out>_vcdu.bin``; the other decode modes are
-not ported yet. ``--device`` is required: nothing picks a device for you.
+and writes the audio to a WAV file — the counterpart of ``sdrpp_tpu``'s
+``run`` (sdrpp_tpu/cli.py:110-254) without its checkpoint, trace, watchdog
+and container options. ``bank`` demodulates many channels at once through
+the batched ``ScannerBank`` and writes one WAV per channel
+(sdrpp_tpu/cli.py:257-331). ``decode meteor`` runs the Meteor M2 LRPT
+decoder (sdrpp_tpu/cli.py:677-823) and writes the s8 x84 soft-symbol file
+and ``<out>_vcdu.bin``; the other decode modes are not ported yet.
 
-Usage: python -m sdrpp_tpu_torch run --source test:2400000 --device cuda
-       python -m sdrpp_tpu_torch decode meteor --source capture.wav \
-           --device cuda
+Every command runs on the CUDA card unless ``--device`` names another
+torch device (``--device cpu``); without a card it fails.
+
+Usage: python -m sdrpp_tpu_torch run --source test:2400000
+       python -m sdrpp_tpu_torch bank --source test:6144000 \
+           --offsets=-100e3,0,100e3 --mode nfm
+       python -m sdrpp_tpu_torch decode meteor --source capture.wav
 """
 
 from __future__ import annotations
@@ -29,29 +34,13 @@ log = logging.getLogger("sdrpp_tpu_torch")
 def _make_source(spec: str):
     """'test:<samplerate>' -> the synthetic test source (a -20 dBFS tone at
     +100 kHz over -90 dBFS noise, as the JAX cli's default); anything else
-    is an IQ WAV path (decoded up front)."""
-    from sdrpp_tpu.io.sources import TestSource
+    is an IQ WAV path, read block by block to its end."""
+    from .io.sources import FileSource, TestSource
 
     if spec.startswith("test:"):
         fs = float(spec.split(":", 1)[1])
         return TestSource(fs, tones=[(100000.0, -20.0)], noise_dbfs=-90.0)
-    return _WavIQ(spec)
-
-
-class _WavIQ:
-    """A whole IQ WAV capture, read in blocks (stereo L=I R=Q, mono Q=I)."""
-
-    def __init__(self, path):
-        from sdrpp_tpu.io.wav import read_wav_iq
-
-        self.samplerate, self._iq = read_wav_iq(path)
-        self.num_frames = len(self._iq)
-        self._pos = 0
-
-    def read(self, n: int) -> np.ndarray:
-        out = self._iq[self._pos:self._pos + n]
-        self._pos += n
-        return out
+    return FileSource(spec, loop=False)
 
 
 def _auto_block(fs: float, if_rate: float, block_multiple: int,
@@ -83,12 +72,17 @@ def _blocks(src, block: int, max_blocks: int, device):
             return
 
 
+def _add_device_arg(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu runs "
+                        "the plain PyTorch versions of the kernels)")
+
+
 def cmd_run(argv):
     p = argparse.ArgumentParser(prog="sdrpp_tpu_torch run")
     p.add_argument("--source", required=True,
                    help="'test:<samplerate>' or an IQ WAV path")
-    p.add_argument("--device", required=True,
-                   help="torch device to run on, e.g. cuda or cpu")
+    _add_device_arg(p)
     p.add_argument("--mode", default="wfm",
                    choices=["wfm", "nfm", "am", "usb", "lsb", "dsb"])
     p.add_argument("--offset", type=float, default=0.0, help="VFO offset Hz")
@@ -103,8 +97,7 @@ def cmd_run(argv):
                    choices=[None, "22us", "50us", "75us"])
     args = p.parse_args(argv)
 
-    from sdrpp_tpu.io.sinks import RecorderSink
-
+    from .io.sinks import RecorderSink
     from .models.radio import RadioChannel
 
     device = torch.device(args.device)
@@ -143,8 +136,7 @@ def cmd_decode(argv):
     p.add_argument("mode", choices=["meteor"])
     p.add_argument("--source", required=True,
                    help="'test:<samplerate>' or an IQ WAV path")
-    p.add_argument("--device", required=True,
-                   help="torch device to run on, e.g. cuda or cpu")
+    _add_device_arg(p)
     p.add_argument("--offset", type=float, default=0.0, help="VFO offset Hz")
     p.add_argument("--out", default="meteor.s",
                    help="soft-symbol file; VCDUs go to <out>_vcdu.bin")
@@ -195,7 +187,78 @@ def cmd_decode(argv):
     return 0
 
 
-COMMANDS = {"run": cmd_run, "decode": cmd_decode}
+def cmd_bank(argv):
+    """Demodulate many channels at once: one batched ScannerBank
+    computation, one WAV recording per channel."""
+    p = argparse.ArgumentParser(prog="sdrpp_tpu_torch bank")
+    p.add_argument("--source", required=True,
+                   help="'test:<samplerate>' or an IQ WAV path")
+    p.add_argument("--offsets", required=True,
+                   help="comma-separated VFO offsets in Hz; use the "
+                        "--offsets=-200e3,0,150e3 form when the first "
+                        "offset is negative")
+    p.add_argument("--mode", default="nfm",
+                   choices=["nfm", "am", "usb", "lsb", "cw", "wfm"])
+    p.add_argument("--bandwidth", type=float, default=12500.0)
+    p.add_argument("--if-rate", type=float, default=48000.0)
+    p.add_argument("--squelch", type=float, default=None)
+    p.add_argument("--channelizer", default="time", choices=["time", "fft"],
+                   help="'fft' = shared-FFT channelizer (one wideband FFT "
+                        "for all channels; needs integer fs/if ratio)")
+    p.add_argument("--out-dir", default="bank_audio")
+    p.add_argument("--container", default="wav", choices=["wav"],
+                   help="recording container (flac and mp3 are not "
+                        "ported yet)")
+    p.add_argument("--blocks", type=int, default=4)
+    p.add_argument("--block-size", type=int, default=262144)
+    _add_device_arg(p)
+    args = p.parse_args(argv)
+
+    from pathlib import Path
+
+    from .io.sinks import RecorderSink
+    from .parallel.vfo_bank import ScannerBank
+
+    device = torch.device(args.device)
+    src = _make_source(args.source)
+    fs = src.samplerate
+    offsets = np.array([float(o) for o in args.offsets.split(",")])
+    bank = ScannerBank(offsets, fs, mode=args.mode, if_rate=args.if_rate,
+                       bandwidth=args.bandwidth, squelch_level=args.squelch,
+                       channelizer=args.channelizer, device=device)
+    bm = bank.block_multiple
+    block = max(bm, (args.block_size // bm) * bm)
+    log.info("%d-channel %s bank, fs=%g, block=%d, device=%s", len(offsets),
+             args.mode, fs, block, device)
+
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # WFM leaves the bank stereo, resampled to 48 kHz; the other modes
+    # leave it mono at the IF rate
+    rate = 48000 if bank.af is not None else int(args.if_rate)
+    sinks = [RecorderSink(out_dir / f"ch{i}_{int(o):+d}Hz.{args.container}",
+                          rate, container=args.container,
+                          channels=2 if args.mode == "wfm" else 1)
+             for i, o in enumerate(offsets)]
+    state = bank.init_state()
+    total = 0
+    t0 = time.perf_counter()
+    for x in _blocks(src, block, args.blocks, device):
+        state, audio = bank(state, x)
+        audio = audio.cpu().numpy()
+        for i, sink in enumerate(sinks):
+            sink.write(audio[i])
+        total += block
+    for sink in sinks:
+        sink.close()
+    dt = time.perf_counter() - t0
+    log.info("processed %d samples in %.3f s (%.3f Msamp/s x %d channels); "
+             "%d channel recordings -> %s/", total, dt,
+             total / max(dt, 1e-9) / 1e6, len(offsets), len(sinks), out_dir)
+    return 0
+
+
+COMMANDS = {"run": cmd_run, "bank": cmd_bank, "decode": cmd_decode}
 
 
 def main(argv=None):

@@ -82,7 +82,7 @@ class MeteorLRPTDecoder:
 
     def __init__(self, samplerate: float = 150000.0,
                  symbolrate: float = 72000.0, oqpsk: bool = False,
-                 broken_modulation: bool = False, *, device):
+                 broken_modulation: bool = False, *, device="cuda"):
         from ..models.digital import MeteorDemod
 
         self.device = torch.device(device)

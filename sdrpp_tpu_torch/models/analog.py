@@ -1,15 +1,15 @@
-"""Analog demodulators: AM, SSB/DSB, NFM, WFM (stereo).
+"""Analog demodulators: AM, SSB/DSB, CW, NFM, WFM (stereo).
 
 The counterpart of ``sdrpp_tpu.models.analog`` (reference:
 core/src/dsp/demod/*.h; radio-module defaults from
 decoder_modules/radio/src/demodulators/*.h: WFM 240 kHz IF, NFM/USB/LSB/DSB
-48 kHz, AM 24 kHz). Audio is float32 [..., n] mono; WFM emits [..., n, 2]
+48 kHz, AM 24 kHz, CW 3 kHz). Audio is float32 [..., n] mono; WFM emits [..., n, 2]
 stereo. The loops are the chunk-parallel classes of ``ops.scans_kernels``:
 exact for short blocks, chunk-parallel for long ones, by the same rule as
 the JAX package. Each demodulator runs the radio module's settings; the
 JAX blocks' alternative settings that no caller selects (carrier AGC,
-AGC off, NFM high-pass, WFM mono) are not ported, nor are CW, the WFM
-RDS tap and the runtime-bandwidth variants.
+AGC off, NFM high-pass, WFM mono) are not ported, nor are the WFM RDS
+tap and the runtime-bandwidth variants.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ..ops.scans import DCBlocker
 from ..ops.scans_kernels import AGCChunked as AGC, PLLChunked as PLL
 from ..utils.blocks import Block
 
-__all__ = ["AMDemod", "SSBDemod", "NFMDemod", "WFMDemod"]
+__all__ = ["AMDemod", "SSBDemod", "CWDemod", "NFMDemod", "WFMDemod"]
 
 
 class AMDemod(Block):
@@ -84,6 +84,36 @@ class SSBDemod(Block):
                                       lead_shape=lead_shape, device=device)
         self.agc = AGC(1.0, 50.0 / samplerate, 5.0 / samplerate, 10e6, 10.0,
                        float("inf"), lead_shape=lead_shape, device=device)
+
+    def init_state(self):
+        return {"xlator": self.xlator.init_state(), "agc": self.agc.init_state()}
+
+    def __call__(self, state, x):
+        xs, x = self.xlator(state["xlator"], x)
+        y = convert.complex_to_real(x)
+        ags, y = self.agc(state["agc"], y)
+        return {"xlator": xs, "agc": ags}, y
+
+
+class CWDemod(Block):
+    """CW demodulator with BFO tone (reference: core/src/dsp/demod/cw.h:9-105).
+
+    Translate by +tone, real part, AGC with maxOutputAmp/initGain = 1.0.
+    Radio-module defaults: IF 3 kHz, tone 800 Hz. The AGC runs enabled;
+    the JAX block's manual-gain setting (``agc_enabled=False``) is not
+    ported and raises.
+    """
+
+    def __init__(self, tone: float = 800.0, samplerate: float = 3000.0,
+                 agc_enabled: bool = True, agc_attack: float = 100.0,
+                 agc_decay: float = 5.0, lead_shape=(), *, device):
+        if not agc_enabled:
+            raise NotImplementedError("CWDemod with the AGC off is not "
+                                      "ported to sdrpp_tpu_torch")
+        self.xlator = FrequencyXlator(tone, samplerate, lead_shape=lead_shape,
+                                      device=device)
+        self.agc = AGC(1.0, agc_attack / samplerate, agc_decay / samplerate,
+                       10e6, 1.0, 1.0, lead_shape=lead_shape, device=device)
 
     def init_state(self):
         return {"xlator": self.xlator.init_state(), "agc": self.agc.init_state()}

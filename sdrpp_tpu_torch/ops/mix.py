@@ -9,7 +9,7 @@ length: a float32 ramp built on the device drifts over 654k-sample blocks.
 
 The JAX package picks a product-of-phasors or an angle form by backend;
 the port runs the angle form (``cos``/``sin`` of the wrapped ramp) on
-every device.
+every device, for one NCO and for a bank of them (``mix_bank``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import torch
 
 from ..utils.blocks import Block
 
-__all__ = ["mix", "mix_ramp", "FrequencyXlator", "hz_to_rads"]
+__all__ = ["mix", "mix_ramp", "mix_bank", "mix_bank_tables",
+           "FrequencyXlator", "FrequencyXlatorBank", "hz_to_rads"]
 
 TWO_PI = 2.0 * np.pi
 _TWO_PI32 = float(np.float32(TWO_PI))
@@ -77,3 +78,73 @@ class FrequencyXlator(Block):
         if ramp is None:
             ramp = self._ramps[n] = mix_ramp(n, self.omega, self.device)
         return mix(state, x, self.omega, ramp)
+
+
+def mix_bank_tables(n: int, omegas: np.ndarray, device):
+    """The per-channel wrapped phase ramp of a block of ``n`` samples,
+    factored as i = a*K + b into two tables built on the host in float64:
+    ``hi`` [C, n/K] and ``lo`` [C, K], and the per-block phase step [C],
+    each float32 on ``device``."""
+    omegas = np.asarray(omegas, dtype=np.float64)
+    k = 1 << min(12, max(1, (int(n).bit_length() // 2)))
+    while n % k:
+        k >>= 1
+    a = n // k
+    hi = np.mod(np.arange(a, dtype=np.float64)[None, :] * (k * omegas[:, None]),
+                TWO_PI)
+    lo = np.mod(np.arange(k, dtype=np.float64)[None, :] * omegas[:, None],
+                TWO_PI)
+    step = np.mod(n * omegas, TWO_PI)
+    return tuple(torch.from_numpy(t.astype(np.float32)).to(device)
+                 for t in (hi, lo, step))
+
+
+def mix_bank(phase: torch.Tensor, x: torch.Tensor, omegas: np.ndarray,
+             tables=None):
+    """Mix a wideband block against a bank of NCOs, one per channel (the
+    reference's per-VFO rotator, frequency_xlator.h:44-48, batched).
+
+    ``phase`` [C] float32 carried phases; ``x`` [n] (shared) or [C, n];
+    ``omegas`` static rad/sample per channel; ``tables`` is
+    ``mix_bank_tables(n, omegas)``, built here when not given. Returns
+    (new_phase [C], y [C, n]). The phase of sample i = a*K + b is
+    ``(phi + hi[a]) + lo[b]`` wrapped to [0, 2pi), in the JAX package's
+    order."""
+    n = x.shape[-1]
+    if tables is None:
+        tables = mix_bank_tables(n, omegas, x.device)
+    hi, lo, step = tables
+    c = hi.shape[0]
+    new_phase = torch.remainder(phase + step, _TWO_PI32)
+    ph = phase[:, None, None] + hi[:, :, None] + lo[:, None, :]
+    ph = torch.remainder(ph, _TWO_PI32).reshape(c, n)
+    return new_phase, x * torch.complex(torch.cos(ph), torch.sin(ph))
+
+
+class FrequencyXlatorBank(Block):
+    """Per-channel frequency translation over a channel axis.
+
+    ``offsets_hz``: per-channel offsets (the bank mixes by +offset; pass
+    negated VFO offsets as RxVFO does, rx_vfo.h:30). State: the carried
+    [C] phase. The tables for each block length are built once and kept.
+    """
+
+    def __init__(self, offsets_hz, samplerate: float, *, device):
+        self.omegas = np.asarray(
+            [hz_to_rads(o, samplerate) for o in np.asarray(offsets_hz)],
+            np.float64)
+        self.channels = self.omegas.shape[0]
+        self.device = torch.device(device)
+        self._tables: dict[int, tuple] = {}
+
+    def init_state(self):
+        return torch.zeros((self.channels,), dtype=torch.float32,
+                           device=self.device)
+
+    def __call__(self, state, x):
+        n = x.shape[-1]
+        tables = self._tables.get(n)
+        if tables is None:
+            tables = self._tables[n] = mix_bank_tables(n, self.omegas,
+                                                       self.device)
+        return mix_bank(state, x, self.omegas, tables)

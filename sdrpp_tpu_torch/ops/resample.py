@@ -7,7 +7,12 @@ lengths are a multiple of ``decim``, so the resampler's phase pattern is
 the same in every block.
 
 The power-of-2 pre-decimator uses the reference's stage plans and
-coefficient tables (``decim_taps.npz``, a copy of the JAX package's).
+coefficient tables (``decim_taps.npz``, a copy of the JAX package's). Its
+stages with r >= 8 (the JAX package's Pallas decimator's domain) run the
+decimating-FIR kernel ``fir_kernels.decimating_fir`` on every device: on a
+CUDA tensor the hand-written kernel, on a CPU tensor its plain version.
+Stages with r < 8 are one strided ``conv1d``, as the JAX package leaves
+them to XLA.
 
 The JAX package picks a zero-stuffed, a grouped or a gathered polyphase
 form by backend; the port runs one form on every device: the grouped form
@@ -27,6 +32,7 @@ import torch
 from ..utils.blocks import Block
 from .fir import _real_weight, decimating_fir_correlate, fir_init_tail, \
     strided_correlate
+from .fir_kernels import decimating_fir
 from .taps import low_pass
 
 __all__ = [
@@ -80,7 +86,11 @@ class PowerDecimator(Block):
         self.lead_shape = tuple(lead_shape)
         self.device = torch.device(device)
         self.stages = decim_plan(ratio) if ratio > 1 else []
-        self._weights = [_real_weight(t, self.device) for _, t in self.stages]
+        # r >= 8: the taps as an [m] vector for the kernel; else a
+        # [1, 1, m] conv1d weight
+        self._weights = [_real_weight(t, self.device).reshape(-1) if r >= 8
+                         else _real_weight(t, self.device)
+                         for r, t in self.stages]
 
     def init_state(self):
         return tuple(fir_init_tail(taps.shape[0], self.dtype, self.lead_shape,
@@ -92,7 +102,10 @@ class PowerDecimator(Block):
             return state, x
         new_states = []
         for (r, taps), w, tail in zip(self.stages, self._weights, state):
-            tail, x = decimating_fir_correlate(tail, x, taps, r, w)
+            if r >= 8:
+                tail, x = decimating_fir(tail, x, w, r)
+            else:
+                tail, x = decimating_fir_correlate(tail, x, taps, r, w)
             new_states.append(tail)
         return tuple(new_states), x
 

@@ -1,0 +1,163 @@
+"""VFO bank: N digital down-converters + demodulators over a channel axis.
+
+The counterpart of ``sdrpp_tpu.parallel.vfo_bank``. The reference runs one
+thread chain per VFO (core/src/signal_path/iq_frontend.cpp:122-142; one
+VFO = RxVFO, channel/rx_vfo.h:6-135); here the bank is one batched
+computation: the shared wideband block is mixed against a bank of NCOs
+into [channels, n], then resampled, filtered, squelched and demodulated
+with a leading channel axis. The multi-chip placement of the JAX package
+(``shard``, ``sharded_step``) is not ported (ROADMAP A10). State trees keep
+the JAX package's keys, so ``utils.blocks.state_from_numpy`` carries a JAX
+bank state into the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.analog import AMDemod, CWDemod, NFMDemod, SSBDemod, WFMDemod
+from ..ops import taps as taps_mod
+from ..ops.channelizer import FFTChannelizerBank
+from ..ops.fir import FIR
+from ..ops.mix import FrequencyXlatorBank
+from ..ops.resample import RationalResampler
+from ..ops.scans import Squelch
+from ..utils.blocks import Block
+
+__all__ = ["VFOBank", "ScannerBank"]
+
+
+class VFOBank(Block):
+    """Bank of RxVFOs: per-channel mix -> shared-plan resample -> channel LPF.
+
+    All channels share out_samplerate/bandwidth (the scanner pattern);
+    offsets differ per channel. Input: wideband [n] complex64 (or [C, n]).
+    Output: [C, n_out].
+    """
+
+    def __init__(self, offsets_hz, in_samplerate: float, out_samplerate: float,
+                 bandwidth: float, *, device):
+        offsets_hz = np.asarray(offsets_hz, np.float64)
+        self.channels = len(offsets_hz)
+        ls = (self.channels,)
+        self.xlator = FrequencyXlatorBank(-offsets_hz, in_samplerate,
+                                          device=device)
+        self.resamp = RationalResampler(in_samplerate, out_samplerate,
+                                        lead_shape=ls, device=device)
+        self.block_multiple = self.resamp.block_multiple
+        self.filter = None
+        if bandwidth != out_samplerate:
+            fw = bandwidth / 2.0
+            self.filter = FIR(taps_mod.low_pass(fw, fw * 0.1, out_samplerate),
+                              dtype=torch.complex64, lead_shape=ls,
+                              device=device)
+
+    def out_count(self, n: int) -> int:
+        return self.resamp.out_count(n)
+
+    def init_state(self):
+        return {
+            "xlator": self.xlator.init_state(),
+            "resamp": self.resamp.init_state(),
+            "filter": self.filter.init_state() if self.filter else (),
+        }
+
+    def __call__(self, state, x):
+        xs, y = self.xlator(state["xlator"], x)
+        rs, y = self.resamp(state["resamp"], y)
+        fs = ()
+        if self.filter is not None:
+            fs, y = self.filter(state["filter"], y)
+        return {"xlator": xs, "resamp": rs, "filter": fs}, y
+
+
+_DEMODS = {
+    "am": lambda rate, bw, ls, dev: AMDemod(bandwidth=bw, samplerate=rate,
+                                            lead_shape=ls, device=dev),
+    "nfm": lambda rate, bw, ls, dev: NFMDemod(bandwidth=bw, samplerate=rate,
+                                              lead_shape=ls, device=dev),
+    "usb": lambda rate, bw, ls, dev: SSBDemod("usb", bandwidth=bw,
+                                              samplerate=rate, lead_shape=ls,
+                                              device=dev),
+    "lsb": lambda rate, bw, ls, dev: SSBDemod("lsb", bandwidth=bw,
+                                              samplerate=rate, lead_shape=ls,
+                                              device=dev),
+    "cw": lambda rate, bw, ls, dev: CWDemod(samplerate=rate, lead_shape=ls,
+                                            device=dev),
+    # broadcast FM stereo: demod at the IF rate; the bank resamples the
+    # stereo pair to the audio rate afterwards (wfm.h:246)
+    "wfm": lambda rate, bw, ls, dev: WFMDemod(deviation=bw / 2.0,
+                                              samplerate=rate, lead_shape=ls,
+                                              device=dev),
+}
+
+
+class ScannerBank(Block):
+    """Multi-channel scanner: VFO bank + per-channel squelch + demod bank.
+
+    ``channelizer``: "time" (``VFOBank``: NCO bank, power-of-2 cascade and
+    polyphase resampler) or "fft" (``FFTChannelizerBank``; needs an
+    integer in/IF rate ratio). Output: [C, n_audio] float32 audio per
+    channel ([C, n_audio, 2] for WFM). The device defaults to ``cuda``;
+    without a card construction raises rather than falling back.
+    """
+
+    def __init__(self, offsets_hz, in_samplerate: float, mode: str = "usb",
+                 if_rate: float = 48000.0, bandwidth: float = 2700.0,
+                 squelch_level: float | None = None,
+                 audio_rate: float = 48000.0, channelizer: str = "time", *,
+                 device="cuda"):
+        self.channels = len(np.asarray(offsets_hz))
+        self.mode = mode
+        ls = (self.channels,)
+        if channelizer == "fft":
+            self.vfo = FFTChannelizerBank(offsets_hz, in_samplerate, if_rate,
+                                          bandwidth=min(bandwidth, if_rate),
+                                          device=device)
+        elif channelizer == "time":
+            self.vfo = VFOBank(offsets_hz, in_samplerate, if_rate,
+                               min(bandwidth, if_rate), device=device)
+        else:
+            raise ValueError(f"unknown channelizer {channelizer!r}")
+        self.squelch = (Squelch(squelch_level, lead_shape=ls, device=device)
+                        if squelch_level is not None else None)
+        self.demod = _DEMODS[mode](if_rate, bandwidth, ls, device)
+        # WFM demodulates stereo at the IF rate; resample the stereo
+        # planes down to the audio rate
+        self.af = None
+        if mode == "wfm" and audio_rate != if_rate:
+            self.af = RationalResampler(if_rate, audio_rate,
+                                        dtype=torch.float32,
+                                        lead_shape=(self.channels, 2),
+                                        device=device)
+        self.block_multiple = self.vfo.block_multiple
+        if self.af is not None:
+            # the input block must give an IF count divisible by the AF
+            # stage's multiple: one vfo multiple of input yields q IF
+            # samples, so the input needs af_bm/gcd(q, af_bm) of them
+            q = self.vfo.out_count(self.vfo.block_multiple)
+            af_bm = self.af.block_multiple
+            self.block_multiple = (self.vfo.block_multiple
+                                   * (af_bm // int(np.gcd(q, af_bm))))
+
+    def init_state(self):
+        return {
+            "vfo": self.vfo.init_state(),
+            "squelch": self.squelch.init_state() if self.squelch else (),
+            "demod": self.demod.init_state(),
+            "af": self.af.init_state() if self.af else (),
+        }
+
+    def __call__(self, state, x):
+        vs, y = self.vfo(state["vfo"], x)
+        ss = ()
+        if self.squelch is not None:
+            ss, y = self.squelch(state["squelch"], y)
+        ds, audio = self.demod(state["demod"], y)
+        afs = ()
+        if self.af is not None:
+            # [C, n, 2] stereo -> [C, 2, n] planes -> resample -> back
+            afs, planes = self.af(state["af"], audio.transpose(-1, -2))
+            audio = planes.transpose(-1, -2)
+        return {"vfo": vs, "squelch": ss, "demod": ds, "af": afs}, audio

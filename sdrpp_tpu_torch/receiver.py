@@ -6,8 +6,10 @@ a host loop pulls IQ blocks from the selected source, runs the front end
 and every radio channel on the device, and routes per-channel audio to
 sinks and FFT lines to a bounded ring. Runs eagerly: adding, removing or
 retuning a VFO rebuilds the channel table and keeps the other channels'
-state. Sources and sinks are the JAX package's host-only (jax-free)
-``io.sources`` / ``io.sinks``.
+state. Sources and sinks are the port's own numpy-only ``io.sources`` /
+``io.sinks``. The device defaults to ``cuda``: without a card the
+receiver raises rather than running on the CPU, which a caller asks for
+with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -15,9 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdrpp_tpu.io.sinks import SinkManager
-from sdrpp_tpu.io.sources import SourceManager
-
+from .io.sinks import SinkManager
+from .io.sources import SourceManager
 from .models.radio import RadioChannel
 from .ops.windows import Window
 from .signal_path import IQFrontEnd
@@ -30,7 +31,7 @@ class Receiver:
                  decim_ratio: int = 1, dc_blocking: bool = True,
                  invert_iq: bool = False, fft_size: int = 65536,
                  fft_rate: float = 20.0, fft_window: Window = Window.NUTTALL,
-                 audio_rate: float = 48000.0, *, device):
+                 audio_rate: float = 48000.0, *, device="cuda"):
         self.samplerate = float(samplerate)
         self.block_size = int(block_size)
         self.audio_rate = float(audio_rate)

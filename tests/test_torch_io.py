@@ -1,0 +1,180 @@
+"""The port's own host I/O (sdrpp_tpu_torch.io) against the JAX package's
+originals, and the port's independence from both JAX and that package.
+
+The copies are the same numpy code, so everything is held exactly: the
+bytes of every WAV the writers produce, the samples every reader returns
+and the blocks of the seeded test source.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from sdrpp_tpu.io import sinks as jsinks
+from sdrpp_tpu.io import sources as jsources
+from sdrpp_tpu.io import wav as jwav
+from sdrpp_tpu_torch.io import sinks as tsinks
+from sdrpp_tpu_torch.io import sources as tsources
+from sdrpp_tpu_torch.io import wav as twav
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "sdrpp_tpu_torch"
+FORMATS = ["u8", "i16", "i24", "i32", "f32"]
+
+
+def _audio(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.clip(0.4 * rng.standard_normal(shape), -1.2, 1.2).astype(np.float32)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("channels", [1, 2])
+def test_wav_writer_bytes_and_readers_match(tmp_path, fmt, channels):
+    data = _audio((1000, channels) if channels > 1 else 1000)
+    a, b = tmp_path / "jax.wav", tmp_path / "port.wav"
+    jwav.write_wav(a, 48000, data, fmt)
+    twav.write_wav(b, 48000, data, fmt)
+    assert a.read_bytes() == b.read_bytes()
+    (ji, jd), (ti, td) = jwav.read_wav(a), twav.read_wav(a)
+    assert (ji.samplerate, ji.channels, ji.bits, ji.format) == \
+        (ti.samplerate, ti.channels, ti.bits, ti.format)
+    np.testing.assert_array_equal(jd, td)
+    (jr, jiq), (tr, tiq) = jwav.read_wav_iq(a), twav.read_wav_iq(a)
+    assert jr == tr
+    np.testing.assert_array_equal(jiq, tiq)
+
+
+@pytest.mark.parametrize("loop", [True, False])
+def test_file_source_matches(tmp_path, loop):
+    path = tmp_path / "capture_145800000Hz.wav"
+    jwav.write_wav(path, 250000, _audio((3000, 2), 1), "i16")
+    j, t = jsources.FileSource(path, loop=loop), tsources.FileSource(path,
+                                                                     loop=loop)
+    assert (j.samplerate, j.num_frames, j.center_freq) == \
+        (t.samplerate, t.num_frames, t.center_freq) == (250000.0, 3000,
+                                                        145800000.0)
+    for n in (1000, 1500, 900, 700):
+        np.testing.assert_array_equal(j.read(n), t.read(n))
+        assert j.pos == t.pos
+    j.seek(2990)
+    t.seek(2990)
+    np.testing.assert_array_equal(j.read(20), t.read(20))
+
+
+def test_test_source_blocks_match():
+    kw = dict(tones=[(100000.0, -20.0), (-35000.0, -40.0)], noise_dbfs=-90.0)
+    j = jsources.TestSource(2400000.0, **kw)
+    t = tsources.TestSource(2400000.0, **kw)
+    for n in (65536, 1000, 4097):
+        np.testing.assert_array_equal(j.read(n), t.read(n))
+
+
+def test_source_manager():
+    m = tsources.SourceManager()
+    src = tsources.TestSource(48000.0)
+    m.register("test", src)
+    assert m.names() == ["test"] and m.source is None
+    assert m.select("test") is src
+    m.tune(1e6)
+    assert src.center_freq == 1e6
+    with pytest.raises(KeyError):
+        m.select("missing")
+    m.unregister("test")
+    assert m.source is None
+
+
+def test_sinks_match(tmp_path):
+    data = _audio(4800, 2)
+    a, b = tmp_path / "a.wav", tmp_path / "b.wav"
+    for mod, path in ((jsinks, a), (tsinks, b)):
+        rec = mod.RecorderSink(path, 48000, container="wav")
+        sm = mod.SinkManager()
+        buf = mod.BufferSink()
+        sm.register_stream("x", 48000.0, rec)
+        sm.register_stream("y", 48000.0, buf)
+        sm.set_volume("x", 0.5)
+        for k in range(3):
+            sm.write("x", data[k * 1600:(k + 1) * 1600])
+            sm.write("y", data[k * 1600:(k + 1) * 1600])
+        sm.set_muted("y", True)
+        sm.write("y", data[:100])
+        sm.close()
+        assert buf.data().shape == (4900,) and (buf.data()[-100:] == 0).all()
+    assert a.read_bytes() == b.read_bytes()
+
+
+@pytest.mark.parametrize("container", ["flac", "mp3"])
+def test_unported_containers_raise(tmp_path, container):
+    with pytest.raises(NotImplementedError, match="A9"):
+        tsinks.RecorderSink(tmp_path / f"a.{container}", 48000,
+                            container=container)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """``cli run``, ``cli decode meteor`` and ``cli bank`` on the CPU, then
+    an import of every module of the port (but ``__main__``, which runs
+    the CLI), in a fresh interpreter: no module named jax, jax.*,
+    sdrpp_tpu or sdrpp_tpu.* is loaded."""
+    modules = sorted(
+        ".".join(("sdrpp_tpu_torch",) + p.relative_to(PACKAGE).with_suffix("")
+                 .parts).removesuffix(".__init__")
+        for p in PACKAGE.rglob("*.py") if p.name != "__main__.py")
+    code = f"""
+import importlib, sys
+from sdrpp_tpu_torch.cli import main
+tmp = {str(tmp_path)!r}
+assert main(['run', '--source', 'test:480000', '--mode', 'nfm', '--blocks',
+             '1', '--block-size', '48000', '--device', 'cpu', '--out',
+             tmp + '/run.wav']) == 0
+assert main(['decode', 'meteor', '--source', 'test:300000', '--blocks', '1',
+             '--block-size', '32768', '--device', 'cpu', '--out',
+             tmp + '/m.s']) == 0
+assert main(['bank', '--source', 'test:768000', '--offsets=-100e3,100e3',
+             '--mode', 'usb', '--channelizer', 'fft', '--blocks', '1',
+             '--block-size', '16384', '--device', 'cpu', '--out-dir',
+             tmp + '/bank']) == 0
+for name in {modules!r}:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ('jax', 'sdrpp_tpu') or m.startswith(('jax.',
+                                                           'sdrpp_tpu.')))
+assert not bad, bad
+print('IMPORTED', len({modules!r}))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"IMPORTED {len(modules)}" in proc.stdout
+    assert len(list((tmp_path / "bank").iterdir())) == 2
+    assert "sdrpp_tpu_torch.io.wav" in modules
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """With no device named, the top-level objects and every command run
+    on CUDA; where torch has no card they raise instead of falling back
+    to the CPU."""
+    import torch
+
+    from sdrpp_tpu_torch.cli import main
+    from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
+    from sdrpp_tpu_torch.parallel.vfo_bank import ScannerBank
+    from sdrpp_tpu_torch.receiver import Receiver
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for make in (lambda: Receiver(240000.0, block_size=48000, fft_size=1024),
+                 lambda: MeteorLRPTDecoder(),
+                 lambda: ScannerBank([0.0], 768000.0, mode="nfm")):
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()
+    for argv in (["run", "--source", "test:240000", "--blocks", "1",
+                  "--out", str(tmp_path / "a.wav")],
+                 ["bank", "--source", "test:768000", "--offsets", "0",
+                  "--blocks", "1", "--out-dir", str(tmp_path / "bank")],
+                 ["decode", "meteor", "--source", "test:150000", "--blocks",
+                  "1", "--out", str(tmp_path / "m.s")]):
+        with pytest.raises((RuntimeError, AssertionError)):
+            main(argv)

@@ -207,6 +207,7 @@ def test_cli_run_on_cpu_imports_no_jax(tmp_path):
         f" '--out', {str(out)!r}])\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'sdrpp_tpu' not in sys.modules, 'sdrpp_tpu was imported'\n"
         "print('JAX-FREE')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
