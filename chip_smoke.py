@@ -10,7 +10,9 @@ any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu and
-   decim_fir.cu for sm_90a from this checkout, one nvcc each, all at once;
+   decim_fir.cu for sm_90a from this checkout, one nvcc each, and
+   decimating_fir's compiled host path csrc/decim_fir_host.cpp with the
+   host compiler, all at once;
 3. kernels: every entry against its plain PyTorch version on the card,
    same seeded inputs, with times from CUDA events: ``lane_scan`` (PLL
    [640, 128], AGC [4230, 6], FastAGC and Costas order 4 / "meteor"
@@ -18,13 +20,25 @@ any phase fails:
    Costas order 4 [8192]), ``mm_symbols`` (the meteor block's
    [1, 65543] row; its symbols held, as a prefix, against the plain
    version on the first 16391 samples, where the kernel's final state is
-   held as well), ``viterbi_acs_batched`` and
+   held as well; the walker's clock64() cycles per symbol; off the
+   path, C = 3 streams with their
+   own states, the float variant and two consecutive blocks with the
+   state carried, [*, 8199] rows that cross four ring stages; a [64, 8]
+   bank must raise),
+   ``viterbi_acs_batched`` and
    ``viterbi_traceback_batched`` ([528, 4288, 2] as the 30-s pass
    launches them, held on their first 8 windows, and [1, 4288, 2]), and
-   ``decimating_fir`` at the first r >= 8 stage of each path (wideband
+   ``decimating_fir`` (each case's time a call back to back, its device
+   time alone behind a sleep kernel, and its host time a call) at the
+   first r >= 8 stage of each path (wideband
    [1, 2^24] /32 143 taps, bank [64, 262144] /16 72 taps, meteor
    [1, 1048576] /8 54 taps, receive USB and AM [1, 654400] /8 44 and 36
-   taps), beside the strided ``conv1d`` it replaced (``library_ms``). A
+   taps; off the paths the /128 stage's r = 128 with 726 taps, a
+   256-sample block shorter than its tail, and 300 outputs a row), beside
+   the strided ``conv1d`` it replaced (``library_ms``; the two timed in
+   turns, FIR_ROUNDS rounds, medians), and float32 rows [3, 262144] /16;
+   then wrong arguments on the card must raise ValueError and launch
+   nothing, and a strided view must give what its copy gives. A
    case's ``ms`` is the kernel at ``shape``, its ``plain_ms`` the plain
    version on ``plain_shape`` (the same, or the prefix held); ``path``
    names the path that launches ``shape``; ``bound_ms`` is the least time
@@ -71,7 +85,12 @@ any phase fails:
     4 blocks each, 64 WAVs each; on the time channelizer decimating_fir
     launches on 64 rows;
 14. tests/test_golden.py's NFM bank through ``ScannerBank`` on the card
-    against the committed golden, below -40 dB after the settle.
+    against the committed golden, below -40 dB after the settle;
+15. when the parent commit is unpacked at _scratch/parent (``git archive
+    <parent> | tar -x -C _scratch/parent``): an A/B of the meteor block
+    time and decimating_fir at every FIR_CASES shape, each tree in its own
+    process, parent, change, change, parent, printed as one "ab" line;
+    without it the phase says so and is skipped.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
@@ -142,9 +161,16 @@ MM_OPS_PER_SYMBOL = 57     # 8 taps x 2 planes x (mul + add) + the loop
 ACS_OPS_PER_STATE = 6      # two path sums, a compare, a select, 2 metrics
 # decimating_fir cases: (path, rows, n, plan ratio); the kernel runs the
 # plan's first stage (r >= 8)
-FIR_CASES = [("wideband", 1, 1 << 24, 256), ("bank", 64, 262144, 128),
-             ("meteor", 1, 1048576, 16), ("receive", 1, 654400, 32),
-             ("receive", 1, 654400, 64)]
+FIR_CASES = [("wideband", 1, 1 << 24, 256, "c64"),
+             ("bank", 64, 262144, 128, "c64"),
+             ("meteor", 1, 1048576, 16, "c64"),
+             ("receive", 1, 654400, 32, "c64"),
+             ("receive", 1, 654400, 64, "c64"),
+             # off the paths: the /128 stage (r = 128, 726 taps); a block
+             # shorter than the tail (n < m - 1); 300 outputs a row, not a
+             # multiple of the kernel's 128-output tile; float32 rows
+             (None, 1, 1 << 20, 8192, "c64"), (None, 1, 256, 8192, "c64"),
+             (None, 2, 9600, 256, "c64"), (None, 3, 262144, 128, "f32")]
 # the wideband path (bench.py's chain at its widths)
 WIDE_BLOCKS = 16         # 512 audio samples a block: 6.7 Hz bins
 WIDE_CARRIERS = (3, 11, 19, 27, 36, 44, 52, 60)   # 8 of the 64 channels
@@ -161,6 +187,7 @@ WIDE_CPU_BLOCKS = 4        # blocks compared card vs CPU
 WIDE_CPU_SETTLE = 1000     # audio samples of the chain's start left out
 BANK_BLOCK = 1 << 18       # bench.py's bank block at 6.144 Msps
 PROFILE_BLOCKS = 5
+FIR_ROUNDS = 5             # alternating kernel / conv1d timing rounds
 PROFILE_CALLS = 20
 # kernel vs plain version: the same float32 operations in the same order,
 # no FMA contraction (--fmad=false), IEEE division -> expected 0. The
@@ -176,6 +203,11 @@ COSTAS_TOL = 1e-4
 MM_TAIL = 7
 MM_BLOCK = 65536
 MM_PLAIN = 16384             # samples of the row the plain version runs
+MM_EXTRA_BLOCK = 8192        # the off-path M&M cases' block (4 ring stages)
+# the A/B against the parent tree (when it is unpacked there): meteor
+# blocks timed per run, in the order parent, change, change, parent
+AB_PARENT = "_scratch/parent"
+AB_BLOCKS = 6
 # meteor slice
 METEOR_FS = 2.4e6
 METEOR_IF = 150000.0
@@ -273,6 +305,24 @@ def cuda_ms(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 5):
+    """Median milliseconds of one fn() on the device alone: a sleep kernel
+    holds the stream while the host enqueues the events and the call, so
+    the host's time is not in the interval."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def bound(nbytes: float, ops: float):
@@ -443,6 +493,130 @@ def phase_kernels(dev):
     return results
 
 
+def mm_signal(rng, n: int, cplx: bool) -> np.ndarray:
+    """The meteor IF at the M&M: 72 ksym/s QPSK held at 150 kHz plus noise
+    (its real part for the float variant)."""
+    sps = METEOR_IF / 72000.0
+    sym = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n)))
+    x = sym[(np.arange(n) / sps).astype(np.int64)]
+    x = (x + 0.1 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+         ).astype(np.complex64)
+    return x if cplx else x.real.copy()
+
+
+def mm_bound(buf, bank, syms):
+    """bound() of one mm_symbols call: the row and bank read, symbols and
+    count written, and the state; MM_OPS_PER_SYMBOL per symbol."""
+    nsym = int((syms != 0).sum())
+    return bound(buf.numel() * buf.element_size() + bank.numel() * 4
+                 + syms.numel() * syms.element_size() + syms.shape[0] * 92,
+                 MM_OPS_PER_SYMBOL * nsym)
+
+
+def mm_extra_cases(dev, mm, rng):
+    """mm_symbols against its plain version off the meteor row: C = 3
+    streams with their own states, the float variant, and two consecutive
+    blocks through ``MMClockRecovery`` with the state carried (the card's
+    block against the CPU's, whose wrapper runs the plain version). Each
+    row crosses several of the kernel's 2048-sample ring stages. Bit-exact
+    expected: masks, offsets and counts equal, symbols and states within
+    KERNEL_TOL of the largest symbol."""
+    import torch
+    from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
+    from sdrpp_tpu_torch.ops.clock_recovery import MMClockRecovery
+
+    n = MM_EXTRA_BLOCK
+    prm = (mm.mu_gain, mm.omega_gain, mm.min_freq, mm.max_freq)
+    omega = float(np.float32(mm.omega))
+    results = []
+
+    def hold(body, shape, got, want, ms, plain_ms, bnd):
+        exact = all(torch.equal(a.cpu(), b.cpu()) for a, b in
+                    ((got[1], want[1]), (got[2], want[2])))
+        err = max(float((a.cpu() - b.cpu()).abs().max())
+                  for a, b in ((got[0], want[0]), (got[3], want[3])))
+        tol = KERNEL_TOL * float(want[0].abs().max())
+        log(f"kernel mm_symbols[{body}] {shape}: {int(want[1].sum())} "
+            f"symbols, masks and offsets {'equal' if exact else 'DIFFER'}, "
+            f"max abs err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.1f} ms")
+        if not (exact and err <= tol):
+            raise AssertionError(f"mm_symbols[{body}] disagrees with its "
+                                 f"plain version")
+        results.append(dict(entry="mm_symbols", body=body, shape=shape,
+                            plain_shape=shape, path=None, max_abs_err=err,
+                            tol=tol, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bnd[0], bound_by=bnd[1],
+                            library_ms=None))
+
+    def run(body, a):
+        got = MK.mm_symbols(*a)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: MK.mm_symbols(*a), reps=5)
+        ref = {}
+        plain_ms = cuda_ms(lambda: ref.setdefault(
+            "r", MK.mm_symbols_plain(*a)), reps=1)
+        hold(body, list(a[0].shape), got, ref["r"], ms, plain_ms,
+             mm_bound(a[0], a[3], got[0]))
+
+    # three streams, each with its own offset and phase
+    buf = torch.from_numpy(np.stack([mm_signal(rng, n + 7, True)
+                                     for _ in range(3)])).to(dev)
+    fst = torch.zeros((3, 10), dtype=torch.float32, device=dev)
+    fst[:, 0] = torch.tensor([0.0, 0.25, 0.75], device=dev)
+    fst[:, 1] = omega
+    off = torch.tensor([0, 1, 3], dtype=torch.int32, device=dev)
+    run("complex_c3", (buf, off, fst, mm._bank, mm.max_symbols(n), *prm))
+    # the float variant
+    buf = torch.from_numpy(mm_signal(rng, n + 7, False)[None]).to(dev)
+    fst = torch.tensor([[0.5, omega, 0.0]], dtype=torch.float32, device=dev)
+    off = torch.zeros(1, dtype=torch.int32, device=dev)
+    run("float", (buf, off, fst, mm._bank, mm.max_symbols(n), *prm))
+    # two consecutive blocks, the state carried by the block on each
+    # device; the card's kernel calls are recorded, and each block's kernel
+    # and plain times are taken on its own recorded arguments
+    x = mm_signal(rng, 2 * n, True)
+    blocks = {}
+    calls = []
+    kernel = MK.mm_symbols
+
+    def record(*a, **kw):
+        calls.append(a)
+        return kernel(*a, **kw)
+
+    # the wrapper counts through its module's name, record while patched
+    record.launches = 0
+
+    for d in (dev, "cpu"):
+        rec = MMClockRecovery(METEOR_IF / 72000.0, 0.001, 0.01, 0.01,
+                              complex_input=True, device=d)
+        state = rec.init_state()
+        outs = []
+        MK.mm_symbols = record if d != "cpu" else kernel
+        try:
+            for k in range(2):
+                state, (syms, valid) = rec(state, torch.from_numpy(
+                    x[k * n:(k + 1) * n]).to(d))
+                # symbols, mask, next offset, next (phase, freq, p1 .. c2)
+                outs.append((syms, valid, state["offset"], torch.stack(
+                    [state["phase"], state["freq"]]
+                    + [v for f in ("p1", "p2", "c1", "c2")
+                       for v in (state[f].real, state[f].imag)])))
+        finally:
+            MK.mm_symbols = kernel
+        blocks[str(d)] = outs
+    got, want = blocks[str(dev)], blocks["cpu"]
+    if len(calls) != 2:
+        raise AssertionError(f"MMClockRecovery made {len(calls)} mm_symbols "
+                             f"calls over two blocks, not 2")
+    for k, a in enumerate(calls):
+        ms = cuda_ms(lambda: kernel(*a), reps=5)
+        plain_ms = cuda_ms(lambda: MK.mm_symbols_plain(*a), reps=1)
+        hold(f"complex_block{k + 1}_of_2", list(a[0].shape), got[k], want[k],
+             ms, plain_ms, mm_bound(a[0], a[3], got[k][0][None]))
+    return results
+
+
 def phase_kernels_digital(dev):
     """mm_symbols and the two Viterbi entries at the meteor path's shapes
     against their plain versions. The plain side runs on a prefix (it is a
@@ -464,12 +638,8 @@ def phase_kernels_digital(dev):
     # at 150 kHz, one [1, tail + 65536] row per block
     mm = MeteorDemod(device=dev).recov
     n = MM_BLOCK
-    sps = METEOR_IF / 72000.0
-    sym = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, n)))
-    x = sym[(np.arange(n) / sps).astype(np.int64)]
-    x = (x + 0.1 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
-         ).astype(np.complex64)
     st = mm.init_state()
+    x = mm_signal(rng, n, True)
 
     def args(m):
         buf = torch.cat([st["tail"], torch.from_numpy(x[:m]).to(dev)])
@@ -482,7 +652,8 @@ def phase_kernels_digital(dev):
     full, part = args(n), args(MM_PLAIN)
     if full[0].shape[1] != MM_TAIL + MM_BLOCK:
         raise AssertionError(f"mm_symbols row {list(full[0].shape)}")
-    got_full = MK.mm_symbols(*full)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    got_full = MK.mm_symbols(*full, cycles=cycles)
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: MK.mm_symbols(*full), reps=10)
     ms_part = cuda_ms(lambda: MK.mm_symbols(*part), reps=10)
@@ -506,14 +677,16 @@ def phase_kernels_digital(dev):
     tol = KERNEL_TOL * float(want[0].abs().max())
     shape, plain_shape = list(full[0].shape), list(part[0].shape)
     nsym_full = int(got_full[1].sum())
+    cps = int(cycles[0]) / nsym_full
     bms, bby = bound(full[0].numel() * 8 + mm._bank.numel() * 4
                      + got_full[1].numel() * 9 + 2 * 11 * 4,
                      MM_OPS_PER_SYMBOL * nsym_full)
-    log(f"kernel mm_symbols {shape} ({int(got_full[1].sum())} symbols; the "
-        f"first {nsym} held against the plain version on {plain_shape}): "
-        f"max abs err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms at "
-        f"{shape}, {ms_part:.4f} ms at {plain_shape}, plain {plain_ms:.1f} "
-        f"ms at {plain_shape}, bound {bms:.5f} ms ({bby})")
+    log(f"kernel mm_symbols {shape} ({nsym_full} symbols; the first {nsym} "
+        f"held against the plain version on {plain_shape}): max abs err "
+        f"{err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms at {shape}, "
+        f"{ms_part:.4f} ms at {plain_shape}, plain {plain_ms:.1f} ms at "
+        f"{plain_shape}, bound {bms:.5f} ms ({bby}); walker {cps:.1f} "
+        f"cycles per symbol (clock64)")
     if not err <= tol:
         raise AssertionError(f"mm_symbols disagrees with its plain version: "
                              f"{err} > {tol}")
@@ -521,8 +694,23 @@ def phase_kernels_digital(dev):
                         plain_shape=plain_shape, path="meteor",
                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                         ms_at_plain_shape=ms_part, bound_ms=bms,
-                        bound_by=bby, library_ms=None))
-
+                        bound_by=bby, library_ms=None,
+                        cycles_per_symbol=cps))
+    results += mm_extra_cases(dev, mm, rng)
+    # the kernel takes the 128 x 8 bank only: another raises on the card,
+    # with no launch and no fallback to the plain version
+    before = MK.mm_symbols.launches
+    try:
+        MK.mm_symbols(full[0], full[1], full[2], mm._bank[:64], *full[4:])
+    except ValueError as e:
+        if "[128, 8] bank" not in str(e):
+            raise AssertionError(f"mm_symbols raised {e!r} on a [64, 8] "
+                                 f"bank") from e
+    else:
+        raise AssertionError("mm_symbols took a [64, 8] bank on the card")
+    if MK.mm_symbols.launches != before:
+        raise AssertionError("mm_symbols counted a launch it refused")
+    log("mm_symbols on CUDA: a [64, 8] bank raises ValueError")
     # Viterbi: noisy coded windows; 528 is the 30-s pass's window count
     code = ConvCode(2, 7, CCSDS_CONV_POLYS, device=dev)
     T = 4096 + 2 * 96
@@ -597,17 +785,36 @@ def phase_kernels_fir(dev):
                              "be a float32 convolution")
     gen = torch.Generator(device=dev).manual_seed(3)
     results = []
-    for path, rows, n, ratio in FIR_CASES:
+    for path, rows, n, ratio, dt in FIR_CASES:
         r, taps = decim_plan(ratio)[0]
         m = taps.shape[0]
+        dtype, nc = ((torch.complex64, 2) if dt == "c64"
+                     else (torch.float32, 1))
         w = torch.from_numpy(taps.astype(np.float32)).to(dev)
-        x = torch.randn((rows, n), generator=gen, dtype=torch.complex64,
-                        device=dev)
-        tail = torch.randn((rows, m - 1), generator=gen,
-                           dtype=torch.complex64, device=dev)
+        x = torch.randn((rows, n), generator=gen, dtype=dtype, device=dev)
+        tail = torch.randn((rows, m - 1), generator=gen, dtype=dtype,
+                           device=dev)
         new_tail, y = DK.decimating_fir(tail, x, w, r)
+        L = n + m - 1
+        buf = torch.cat([tail, x], -1)
+        planes = (torch.view_as_real(buf).movedim(-1, -2) if nc == 2
+                  else buf[:, None]).reshape(rows * nc, 1, L).contiguous()
+        weight = w.reshape(1, 1, m)
+        lib = F.conv1d(planes, weight, stride=r)[..., :n // r]
         torch.cuda.synchronize()
-        ms = cuda_ms(lambda: DK.decimating_fir(tail, x, w, r), reps=20)
+        # the kernel and the conv1d in turns, FIR_ROUNDS rounds of 20 calls
+        # each, medians: at the host-bound shapes both see the same host
+        ms, library_ms = (float(np.median(t)) for t in zip(*[
+            (cuda_ms(lambda: DK.decimating_fir(tail, x, w, r), reps=20),
+             cuda_ms(lambda: F.conv1d(planes, weight, stride=r), reps=20))
+            for _ in range(FIR_ROUNDS)]))
+        # the wrapper's host time per call (enqueue only), beside ms
+        t0 = time.perf_counter()
+        for _ in range(20):
+            DK.decimating_fir(tail, x, w, r)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        dev_ms = device_ms(lambda: DK.decimating_fir(tail, x, w, r))
         ref = {}
         DK.decimating_fir_plain(tail, x, w, r)  # warm
         plain_ms = cuda_ms(lambda: ref.setdefault(
@@ -616,36 +823,68 @@ def phase_kernels_fir(dev):
         err = max(float((y - want).abs().max()),
                   float((new_tail - want_tail).abs().max()))
         tol = KERNEL_TOL * float(want.abs().max())
-        L = n + m - 1
-        planes = torch.view_as_real(torch.cat([tail, x], -1)).movedim(
-            -1, -2).reshape(rows * 2, 1, L).contiguous()
-        weight = w.reshape(1, 1, m)
-        lib = F.conv1d(planes, weight, stride=r)[..., :n // r]
-        lib_err = float((torch.view_as_complex(
-            lib.reshape(rows, 2, -1).movedim(-2, -1).contiguous())
-            - want).abs().max())
-        torch.cuda.synchronize()
-        library_ms = cuda_ms(lambda: F.conv1d(planes, weight, stride=r),
-                             reps=20)
-        nbytes = (rows * (m - 1 + n) * 8 + m * 4
-                  + rows * (n // r + m - 1) * 8)
-        bms, bby = bound(nbytes, rows * (n // r) * m * 2 * 2)
-        log(f"kernel decimating_fir [{rows}, {n}] /{r} {m} taps ({path}): "
-            f"max abs err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.2f} ms, conv1d {library_ms:.4f} ms "
+        lib = lib.reshape(rows, nc, -1)
+        lib = (torch.view_as_complex(lib.movedim(-2, -1).contiguous())
+               if nc == 2 else lib[:, 0])
+        lib_err = float((lib - want).abs().max())
+        nbytes = (rows * (m - 1 + n) * 4 * nc + m * 4
+                  + rows * (n // r + m - 1) * 4 * nc)
+        bms, bby = bound(nbytes, rows * (n // r) * m * 2 * nc)
+        log(f"kernel decimating_fir [{rows}, {n}] {dt} /{r} {m} taps ({path}): "
+            f"max abs err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms "
+            f"a call ({dev_ms:.4f} ms on the device, {host_us:.1f} us of "
+            f"host time), plain {plain_ms:.2f} "
+            f"ms, conv1d {library_ms:.4f} ms "
             f"(differs from the plain sum by {lib_err:.3g}), bound "
             f"{bms:.4f} ms ({bby}, {nbytes / 1e6:.1f} MB)")
         if not err <= tol:
             raise AssertionError(f"decimating_fir disagrees with its plain "
                                  f"version at [{rows}, {n}] /{r}: {err} > "
                                  f"{tol}")
-        results.append(dict(entry="decimating_fir", body=f"r{r}_m{m}",
+        results.append(dict(entry="decimating_fir", body=f"{dt}_r{r}_m{m}",
                             shape=[rows, n], plain_shape=[rows, n],
                             path=path, max_abs_err=err, tol=tol, ms=ms,
                             plain_ms=plain_ms, library_ms=library_ms,
-                            library_err=lib_err, bound_ms=bms, bound_by=bby,
+                            device_ms=dev_ms, host_us=host_us,
+                            library_err=lib_err,
+                            bound_ms=bms, bound_by=bby,
                             bytes=nbytes))
-        del x, tail, planes, lib, ref
+        del x, tail, buf, planes, lib, ref
+    # the compiled host path makes the plain path's checks and launches
+    # nothing on wrong arguments
+    r, taps = decim_plan(128)[0]
+    w = torch.from_numpy(taps.astype(np.float32)).to(dev)
+    x = torch.zeros((2, 8 * r), dtype=torch.complex64, device=dev)
+    tail = torch.zeros((2, w.shape[0] - 1), dtype=torch.complex64,
+                       device=dev)
+    before = DK.decimating_fir.launches
+    c128 = torch.complex128
+    for what, args in (("complex64 or float32", (tail.to(c128), x.to(c128),
+                                                  w, r)),
+                       ("taps", (tail, x, w.double(), r)),
+                       ("tail", (tail[:1], x, w, r)),
+                       ("tail", (tail.real.contiguous(), x, w, r)),
+                       ("one device", (tail, x, w.cpu(), r)),
+                       ("multiple of decimation", (tail, x, w, r + 1))):
+        try:
+            DK.decimating_fir(*args)
+        except ValueError as e:
+            if what not in str(e):
+                raise AssertionError(f"decimating_fir on CUDA raised "
+                                     f"{e!r}, expected {what!r}") from e
+        else:
+            raise AssertionError(f"decimating_fir on CUDA took bad "
+                                 f"arguments ({what})")
+    if DK.decimating_fir.launches != before:
+        raise AssertionError("decimating_fir counted a launch it refused")
+    # a non-contiguous view gives what its contiguous copy gives
+    xs = torch.randn((2, 16 * r), generator=gen, device=dev)[:, ::2]
+    a = DK.decimating_fir(tail.real.contiguous(), xs, w, r)
+    b = DK.decimating_fir(tail.real.contiguous(), xs.contiguous(), w, r)
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        raise AssertionError("decimating_fir on a strided view differs")
+    log("decimating_fir on CUDA: six wrong arguments raise ValueError, a "
+        "strided view equals its copy")
     return results
 
 
@@ -1104,9 +1343,9 @@ def phase_bank_cli():
     rows_seen = []
     launch = DK._launch
 
-    def spy(tail, x, taps, m, r):
+    def spy(tail, x, taps, r):
         rows_seen.append(int(np.prod(x.shape[:-1])))
-        return launch(tail, x, taps, m, r)
+        return launch(tail, x, taps, r)
 
     res = {}
     DK._launch = spy
@@ -1173,6 +1412,114 @@ def phase_golden_bank():
     if not settled < -40.0:
         raise AssertionError("NFM-bank golden: the card disagrees")
     return {"settled_db": settled, "whole_db": whole}
+
+
+# run from the root of a tree (the parent's or this one) in a subprocess,
+# through the package's public entry points only: argv[1] is a JSON object
+# of the settings; prints one "AB {...}" line
+AB_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
+from sdrpp_tpu_torch.models.channel import RxVFO
+from sdrpp_tpu_torch.ops import fir_kernels as DK
+from sdrpp_tpu_torch.ops.resample import decim_plan
+
+a = json.loads(sys.argv[1])
+fs, block, blocks = a["fs"], a["block"], a["blocks"]
+
+
+def events_ms(fn, reps):
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+# seeded 72 ksym/s QPSK at the VFO offset plus noise, made in bulk
+rng = np.random.default_rng(a["seed"])
+n = blocks * block
+k = (np.arange(n) * (72000.0 / fs)).astype(np.int64)
+sym = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, k[-1] + 1)))
+iq = (sym[k] * np.exp(2j * np.pi * a["offset"] / fs * np.arange(n))
+      + 0.1 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)))
+iq = iq.astype(np.complex64)
+vfo = RxVFO(fs, a["if"], bandwidth=a["if"], offset=a["offset"], device="cuda")
+dec = MeteorLRPTDecoder(a["if"], device="cuda")
+vs, ms = vfo.init_state(), []
+for b in range(blocks):
+    x = torch.from_numpy(iq[b * block:(b + 1) * block]).to("cuda")
+    torch.cuda.synchronize()
+
+    def step():
+        global vs
+        vs, y = vfo(vs, x)
+        dec.process(y)
+
+    ms.append(events_ms(step, 1))
+g = torch.Generator(device="cuda").manual_seed(3)
+fir = {}
+for rows, n, ratio in a["cases"]:
+    r, taps = decim_plan(ratio)[0]
+    w = torch.from_numpy(taps.astype(np.float32)).cuda()
+    x = torch.randn((rows, n), generator=g, dtype=torch.complex64,
+                    device="cuda")
+    tail = torch.zeros((rows, taps.shape[0] - 1), dtype=torch.complex64,
+                       device="cuda")
+    DK.decimating_fir(tail, x, w, r)
+    torch.cuda.synchronize()
+    fir[f"[{rows}, {n}] /{r}"] = events_ms(
+        lambda: DK.decimating_fir(tail, x, w, r), 20)
+print("AB " + json.dumps({"meteor_block_ms": float(np.median(ms[1:])),
+                          "decimating_fir_ms": fir}))
+"""
+
+
+def phase_ab(block: int):
+    """The A/B against the parent tree, when one is unpacked at AB_PARENT
+    (``git archive <parent> | tar -x -C _scratch/parent``): the meteor
+    block time (RxVFO + MeteorLRPTDecoder.process on seeded QPSK, median
+    of blocks 2..AB_BLOCKS of the meteor path's ``block`` samples, CUDA
+    events) and decimating_fir at every complex FIR_CASES shape (CUDA
+    events, 20 calls), each tree in its own process through the package's
+    public entry points, in the order parent, change, change, parent.
+    Returns None without a parent tree."""
+    root = Path(__file__).resolve().parent
+    parent = root / AB_PARENT
+    if not (parent / "sdrpp_tpu_torch").is_dir():
+        log(f"ab: no parent tree at {AB_PARENT}; skipped")
+        return None
+    settings = json.dumps({
+        "cases": [[rows, n, ratio] for _, rows, n, ratio, dt in FIR_CASES
+                  if dt == "c64"],
+        "fs": METEOR_FS, "if": METEOR_IF, "offset": METEOR_OFFSET,
+        "block": block, "blocks": AB_BLOCKS, "seed": 5})
+    runs = []
+    for name, tree in (("parent", parent), ("change", root),
+                       ("change", root), ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", AB_SCRIPT, settings],
+                              cwd=tree, capture_output=True, text=True,
+                              timeout=600)
+        line = [l for l in proc.stdout.splitlines() if l.startswith("AB ")]
+        if proc.returncode or not line:
+            raise AssertionError(f"ab: the {name} run failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        runs.append({"tree": name, **json.loads(line[-1][3:])})
+    res = {"order": [r["tree"] for r in runs], "runs": runs}
+    for tree in ("parent", "change"):
+        mine = [r for r in runs if r["tree"] == tree]
+        res[tree] = {"meteor_block_ms": [r["meteor_block_ms"] for r in mine],
+                     "decimating_fir_ms": {
+                         k: [r["decimating_fir_ms"][k] for r in mine]
+                         for k in mine[0]["decimating_fir_ms"]}}
+    log("ab " + json.dumps({k: res[k] for k in ("order", "parent",
+                                                  "change")}))
+    return res
 
 
 def device_intervals(prof):
@@ -1245,14 +1592,13 @@ def profile_paths():
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out["decimating_fir"] = []
-    for path, rows, n, ratio in FIR_CASES:
+    for path, rows, n, ratio, dt in FIR_CASES:
         r, taps = decim_plan(ratio)[0]
         m = taps.shape[0]
+        dtype = torch.complex64 if dt == "c64" else torch.float32
         w = torch.from_numpy(taps.astype(np.float32)).to("cuda")
-        xs = torch.randn((rows, n), generator=gen, dtype=torch.complex64,
-                         device="cuda")
-        tail = torch.zeros((rows, m - 1), dtype=torch.complex64,
-                           device="cuda")
+        xs = torch.randn((rows, n), generator=gen, dtype=dtype, device="cuda")
+        tail = torch.zeros((rows, m - 1), dtype=dtype, device="cuda")
         DK.decimating_fir(tail, xs, w, r)
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
@@ -1267,7 +1613,7 @@ def profile_paths():
         out["decimating_fir"].append({"path": path, "shape": [rows, n],
                                       "r": r, "m": m, "device_us": dev_us,
                                       "host_us_per_call": host_us})
-        log(f"profile decimating_fir [{rows}, {n}] /{r} ({path}): kernel "
+        log(f"profile decimating_fir [{rows}, {n}] {dt} /{r} ({path}): kernel "
             f"{dev_us:.1f} us on the device (median of {len(kern)}), "
             f"{host_us:.1f} us of host time per call")
     return out
@@ -1292,8 +1638,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = ("loop_scan", "mm_clock", "viterbi", "decim_fir")
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = list(pool.map(cuda_lib.build, names))
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(cuda_lib.build_host, "decim_fir_host")
+        libs = list(pool.map(cuda_lib.build, names)) + [host.result()]
     build_s = time.perf_counter() - t0
     log(f"build: {', '.join(l.name for l in libs)} in {build_s:.2f} s")
     for lib in libs:
@@ -1327,6 +1674,7 @@ def main() -> int:
     banks = phase_banks()
     bank_cli = phase_bank_cli()
     golden_bank = phase_golden_bank()
+    ab = phase_ab(meteor["block"])
 
     paths = {"receive": launches, "meteor": meteor["launches"],
              "wideband": wide["launches"],
@@ -1357,7 +1705,8 @@ def main() -> int:
                     "meteor_card_vs_cpu": meteor_cpu,
                     "decode_cli": decode_cli, "wideband": wide,
                     "wideband_card_vs_cpu": wide_cpu, "banks": banks,
-                    "bank_cli": bank_cli, "golden_bank": golden_bank}))
+                    "bank_cli": bank_cli, "golden_bank": golden_bank,
+                    "ab": ab}))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

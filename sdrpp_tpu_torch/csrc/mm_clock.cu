@@ -10,134 +10,431 @@
 // +-1, the phase-control-loop advance (CLAMP_PHASE = false) and
 // offset += floor(phase). The TPU's 4096-sample SMEM chunking and its
 // argsort compaction were TPU memory limits and are gone: one launch runs
-// the whole block, and the valid symbols form a prefix of the output.
-//
-// Design: one thread per stream walks symbols while offset < n (and at
-// most max_syms of them), keeps the loop and error state in registers and
-// reads its input row [tail | block] from global memory (consecutive
-// symbols read overlapping 8-sample windows, so the loads hit L1). The
-// 128 x 8 bank (4 KB) sits in shared memory, loaded once per block.
+// the whole block, and the symbols form a prefix of the output whose
+// length the kernel writes as a count.
 //
 // What bounds it on an H100: each symbol depends on the previous one
-// through the offset (which sets the addresses of the next window) and the
-// phase (which picks the bank row), so a stream runs one dependent chain
-// per symbol: load latency plus the sequential 8-tap sums, the error and
-// the loop arithmetic. It is latency-bound, not bandwidth- or FLOP-bound;
-// more streams per launch would fill the card, this slice has one.
+// through the offset (which sets the next window) and the phase (which
+// picks the bank row), so a stream is one dependent chain, about 31,500
+// symbols per meteor block. Latency, not bytes or flops: the chain's
+// instructions times their latencies, per symbol.
+//
+// Design: one CTA of three warps per stream, warp-specialised.
+// - Warp 1 streams the row [tail | block] through a ring of kStages
+//   shared-memory stages of kStage samples (plus a kT-sample halo, so a
+//   window never straddles two stages) with cp.async, and hands each stage
+//   to the walker through an mbarrier pair (full / empty).
+// - Lane 0 of warp 0 walks the symbols, reading its window and its bank
+//   row (8 taps and 128 phases, fixed at compile time) from shared memory
+//   only, with the loop state in registers. Its chain is shortened without
+//   changing one rounding:
+//   * the next offset step and bank row come from one round-down add,
+//     np + 1.5 * 2^16, whose low mantissa bits are floor(np * 128): its
+//     bits >> 7 and & 127 are floor(np) and floor(frac(np) * 128) for
+//     |np| < 2^15 (any other np takes the reference's steps);
+//   * the next window and bank row are loaded before the loop's exit and
+//     stage checks resolve (at a masked, always valid address), so no
+//     branch sits on the chain; the rare check that fails reloads;
+//   * tap 0's 0 + x * w is one fma(x, w, 0): it rounds once, like the
+//     product, and turns -0 into +0, like the sum;
+//   * the error's decision term (c0 - c2) * conj(p1) is computed for all
+//     four sign pairs of c0 from the previous symbols, off the chain, and
+//     picked by the new signs;
+//   * clip(freq + gain * clip(err, -1, 1), lo, hi) is computed as one
+//     clip of freq + gain * err to bounds taken from freq +- gain off the
+//     chain (both are monotone in err, so for finite err the results are
+//     identical).
+// - The walker stores each symbol into a shared-memory ring of kOutStage;
+//   warp 2 writes each filled stage out coalesced, then zero-fills the
+//   output past the count. The walker stores nothing to global memory per
+//   symbol.
+// A window outside the ring (a negative offset, or a step back across a
+// stage, which no caller's gains produce) is read from global memory with
+// the reference's clamp; results are the same.
+//
+// On the H100 the shared-memory window and the fixed taps and phases cut
+// the walker's clock64 cycles per symbol by more than half against a
+// walker that reads its window from global memory, and the cuts above
+// take it lower (chip_smoke.py prints the count). Orderings that looked
+// shorter on paper measured longer (the hand-off branch after the next
+// loads, a biased stage offset, two symbols per trip) and are not used.
 //
 // Numerics: built with --fmad=false and no fast math, so every product
 // and sum rounds once, in the order of the plain PyTorch version
-// (ops/clock_recovery_kernels.mm_symbols_plain): taps summed from 0 to
-// T-1 starting at 0.0f.
+// (ops/clock_recovery_kernels.mm_symbols_plain): taps summed from 0 to 7
+// starting at 0.0f.
 //
 // C ABI (bound with ctypes): each entry returns cudaGetLastError() after
 // the launch. `offset` [C] int32 and `fstate` [C, KF] float32 hold the
-// carried state on entry and the next block's state on exit (offset
-// relative to the next block). KF = 10 for complex streams
+// carried state; `offset_out` and `fstate_out` receive the next block's
+// (offset relative to the next block). KF = 10 for complex streams
 // (phase, freq, p1, p2, c1, c2 as re/im pairs), 3 for float streams
-// (phase, freq, last).
+// (phase, freq, last). `count` [C] int32 receives each stream's symbol
+// count; `cycles` [C] int64, when not null, the walker's clock64() cycles
+// over its walk.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr int kT = 8;            // interpolation taps
+constexpr int kP = 128;          // interpolation phases
+constexpr int kStage = 2048;     // input samples per ring stage (power of 2)
+constexpr int kSlot = kStage + kT;
+constexpr int kStages = 3;
+constexpr int kOutStage = 1024;  // symbols per output stage
+constexpr int kOutStages = 2;
+constexpr int kThreads = 96;     // walker, loader and writer warps
+// np + kMagic rounded down has the mantissa step 1/128 for |np| < 2^15
+constexpr float kMagic = 98304.0f;           // 1.5 * 2^16, bits 0x47C00000
+constexpr int kMagicHi = 0x47C00000 >> 7;    // its low 7 bits are 0
+constexpr float kMagicRange = 32768.0f;
+
+template <bool CPLX>
+struct Sample;
+template <>
+struct Sample<true> {
+  using T = float2;
+};
+template <>
+struct Sample<false> {
+  using T = float;
+};
 
 __device__ __forceinline__ float step_sign(float v) {
   return v > 0.0f ? 1.0f : -1.0f;
 }
 
-template <bool CPLX>
-__global__ void mm_kernel(const float* __restrict__ xr,
-                          const float* __restrict__ xi, int n, int C,
-                          const float* __restrict__ bank, int P, int T,
-                          int* __restrict__ offs, float* __restrict__ fst,
-                          float* __restrict__ outr, float* __restrict__ outi,
-                          unsigned char* __restrict__ valid, int max_syms,
-                          float mu, float omega_gain, float min_freq,
-                          float max_freq) {
-  extern __shared__ float sbank[];
-  for (int i = threadIdx.x; i < P * T; i += blockDim.x) sbank[i] = bank[i];
-  __syncthreads();
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+// keeps a value in a register, opaque to the optimizer, so a select
+// between precomputed values is not rewritten into arithmetic on the chain
+__device__ __forceinline__ float opaque(float v) {
+  asm("" : "+f"(v));
+  return v;
+}
 
-  constexpr int KF = CPLX ? 10 : 3;
-  const size_t row = static_cast<size_t>(c) * (n + T - 1);
-  const float* br = xr + row;
-  const float* bi = CPLX ? xi + row : nullptr;
-  float s[KF];
-#pragma unroll
-  for (int j = 0; j < KF; ++j) s[j] = fst[c * KF + j];
-  int offset = offs[c];
-  float phase = s[0], freq = s[1];
-  const size_t orow = static_cast<size_t>(c) * max_syms;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  int k = 0;
-  for (; k < max_syms && offset < n; ++k) {
-    const int ph = min(max(static_cast<int>(floorf(phase * static_cast<float>(P))), 0),
-                       P - 1);
-    const int base = min(max(offset, 0), n - 1);
-    const float* w = sbank + ph * T;
-    float accr = 0.0f, acci = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < T; ++j) {
-      accr = accr + br[base + j] * w[j];
-      if (CPLX) acci = acci + bi[base + j] * w[j];
-    }
-    float err;
-    if (CPLX) {
-      // ((out - p2) * conj(c1) - (c0 - c2) * conj(p1)).real
-      const float c0r = step_sign(accr), c0i = step_sign(acci);
-      const float ar = accr - s[4], ai = acci - s[5];
-      const float dr = c0r - s[8], di = c0i - s[9];
-      err = (ar * s[6] + ai * s[7]) - (dr * s[2] + di * s[3]);
-      // shift the error history: p2 = p1, p1 = out, c2 = c1, c1 = c0
-      s[4] = s[2];
-      s[5] = s[3];
-      s[2] = accr;
-      s[3] = acci;
-      s[8] = s[6];
-      s[9] = s[7];
-      s[6] = c0r;
-      s[7] = c0i;
-    } else {
-      const float last = s[2];
-      err = step_sign(last) * accr - last * step_sign(accr);
-      s[2] = accr;
-    }
-    err = fminf(fmaxf(err, -1.0f), 1.0f);
-    freq = fminf(fmaxf(freq + omega_gain * err, min_freq), max_freq);
-    const float np = (phase + freq) + mu * err;
-    const float delta = floorf(np);
-    offset += static_cast<int>(delta);
-    phase = np - delta;
-    outr[orow + k] = accr;
-    if (CPLX) outi[orow + k] = acci;
-    valid[orow + k] = 1;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
-  for (; k < max_syms; ++k) {
-    outr[orow + k] = 0.0f;
-    if (CPLX) outi[orow + k] = 0.0f;
-    valid[orow + k] = 0;
-  }
-  s[0] = phase;
-  s[1] = freq;
-  offs[c] = offset - n;
-#pragma unroll
-  for (int j = 0; j < KF; ++j) fst[c * KF + j] = s[j];
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
 }
 
 template <bool CPLX>
-int launch(const float* xr, const float* xi, int n, int C, const float* bank,
-           int P, int T, int* offs, float* fst, float* outr, float* outi,
-           unsigned char* valid, int max_syms, float mu, float omega_gain,
-           float min_freq, float max_freq, cudaStream_t stream) {
-  const int threads = C < 128 ? ((C + 31) / 32) * 32 : 128;
-  const int blocks = (C + threads - 1) / threads;
-  const size_t smem = static_cast<size_t>(P) * T * sizeof(float);
-  mm_kernel<CPLX><<<blocks, threads, smem, stream>>>(
-      xr, xi, n, C, bank, P, T, offs, fst, outr, outi, valid, max_syms, mu,
-      omega_gain, min_freq, max_freq);
+struct Shared {
+  using T = typename Sample<CPLX>::T;
+  T ring[kStages][kSlot];
+  T out[kOutStages][kOutStage];
+  alignas(16) float bank[kP * kT];
+  uint64_t in_full[kStages], in_empty[kStages];
+  uint64_t out_full[kOutStages], out_empty[kOutStages];
+  int out_count[kOutStages], out_last[kOutStages];
+};
+
+template <bool CPLX>
+__global__ void __launch_bounds__(kThreads)
+mm_kernel(const typename Sample<CPLX>::T* __restrict__ x, int n,
+          const float* __restrict__ bank, const int* __restrict__ offs_in,
+          const float* __restrict__ fst_in, int* __restrict__ offs_out,
+          float* __restrict__ fst_out, typename Sample<CPLX>::T* __restrict__ out,
+          int* __restrict__ count, int max_syms, float mu, float omega_gain,
+          float min_freq, float max_freq, long long* __restrict__ cycles) {
+  using T = typename Sample<CPLX>::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Shared<CPLX>& sh = *reinterpret_cast<Shared<CPLX>*>(smem_raw);
+  const int c = blockIdx.x;
+  const int len = n + kT - 1;
+  const T* row = x + static_cast<size_t>(c) * len;
+  const int nst = (n - 1) / kStage + 1;  // stages a walk can reach
+
+  for (int i = threadIdx.x; i < kP * kT; i += kThreads) sh.bank[i] = bank[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sh.in_full[s], 32);
+      mbar_init(&sh.in_empty[s], 1);
+    }
+    for (int s = 0; s < kOutStages; ++s) {
+      mbar_init(&sh.out_full[s], 1);
+      mbar_init(&sh.out_empty[s], 32);
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == 1) {  // loader: stage g holds row[g * kStage, + kSlot)
+    for (int g = 0; g < nst; ++g) {
+      const int slot = g % kStages;
+      if (g >= kStages) mbar_wait(&sh.in_empty[slot], ((g / kStages) - 1) & 1);
+      T* dst = sh.ring[slot];
+      const int p0 = g * kStage;
+      for (int i = lane; i < kSlot; i += 32) {
+        if (p0 + i < len)
+          cp_async<sizeof(T)>(dst + i, row + p0 + i);
+        else
+          dst[i] = T{};
+      }
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      mbar_arrive(&sh.in_full[slot]);
+    }
+    return;
+  }
+
+  if (warp == 2) {  // writer: each filled output stage, then the zeros
+    T* orow = out + static_cast<size_t>(c) * max_syms;
+    int done = 0;
+    for (int o = 0;; ++o) {
+      const int slot = o % kOutStages;
+      mbar_wait(&sh.out_full[slot], (o / kOutStages) & 1);
+      const int cnt = sh.out_count[slot];
+      const int last = sh.out_last[slot];
+      for (int i = lane; i < cnt; i += 32) orow[done + i] = sh.out[slot][i];
+      done += cnt;
+      mbar_arrive(&sh.out_empty[slot]);
+      if (last) break;
+    }
+    for (int i = done + lane; i < max_syms; i += 32) orow[i] = T{};
+    return;
+  }
+
+  if (lane != 0) return;
+  // ---- the walker ----
+  constexpr int KF = CPLX ? 10 : 3;
+  float st[KF];
+#pragma unroll
+  for (int j = 0; j < KF; ++j) st[j] = fst_in[c * KF + j];
+  float phase = st[0], freq = st[1];
+  // complex error history: p1 = out[-1], p2 = out[-2], c1, c2 its signs
+  float p1r = st[2], p1i = CPLX ? st[3] : 0.0f;
+  float p2r = CPLX ? st[4] : 0.0f, p2i = CPLX ? st[5] : 0.0f;
+  float c1r = CPLX ? st[6] : 0.0f, c1i = CPLX ? st[7] : 0.0f;
+  float c2r = CPLX ? st[8] : 0.0f, c2i = CPLX ? st[9] : 0.0f;
+  int offset = offs_in[c];
+
+  // rel = offset - sbase, the offset in the stage
+  int g = 0, sbase = 0, rel = 0, lim = n, ph = 0;
+  mbar_wait(&sh.in_full[0], 0);
+  const T* slot_ptr = sh.ring[0];
+  T win[kT];
+  float taps[kT];
+  auto fetch_taps = [&](int p) {
+    const float4* b = reinterpret_cast<const float4*>(sh.bank + p * kT);
+    const float4 b0 = b[0], b1 = b[1];
+    taps[0] = b0.x; taps[1] = b0.y; taps[2] = b0.z; taps[3] = b0.w;
+    taps[4] = b1.x; taps[5] = b1.y; taps[6] = b1.z; taps[7] = b1.w;
+  };
+  auto fetch_ring = [&](int r, int p) {  // r masked: always a valid address
+    const T* w = slot_ptr + (r & (kStage - 1));
+#pragma unroll
+    for (int j = 0; j < kT; ++j) win[j] = w[j];
+    fetch_taps(p);
+  };
+  // the window at `offset` (< n) and the row of phase: advance the ring to
+  // the offset's stage, or read behind it from global memory
+  auto position = [&]() {
+    ph = min(max(static_cast<int>(floorf(phase * static_cast<float>(kP))), 0),
+             kP - 1);
+    while (offset >= sbase + kStage) {
+      mbar_arrive(&sh.in_empty[g % kStages]);
+      ++g;
+      sbase += kStage;
+      mbar_wait(&sh.in_full[g % kStages], (g / kStages) & 1);
+    }
+    slot_ptr = sh.ring[g % kStages];
+    rel = offset - sbase;
+    lim = n - sbase;
+    if (rel >= 0) {
+      fetch_ring(rel, ph);
+    } else {
+      const int base = min(max(offset, 0), n - 1);
+#pragma unroll
+      for (int j = 0; j < kT; ++j) win[j] = row[base + j];
+      fetch_taps(ph);
+    }
+  };
+
+  // the decision-term candidates and the freq bounds of the next symbol
+  float dpp = 0.0f, dpm = 0.0f, dmp = 0.0f, dmm = 0.0f;
+  float last_p = 0.0f, last_m = 0.0f, last_s = 0.0f;
+  float f_lo = 0.0f, f_hi = 0.0f;
+  auto prepare = [&]() {
+    if constexpr (CPLX) {
+      const float dpr = (1.0f - c2r) * p1r, dmr = (-1.0f - c2r) * p1r;
+      const float dpi = (1.0f - c2i) * p1i, dmi = (-1.0f - c2i) * p1i;
+      dpp = opaque(dpr + dpi);
+      dpm = opaque(dpr + dmi);
+      dmp = opaque(dmr + dpi);
+      dmm = opaque(dmr + dmi);
+    } else {
+      last_p = opaque(p1r * 1.0f);
+      last_m = opaque(p1r * -1.0f);
+      last_s = step_sign(p1r);
+    }
+    const float a = freq + omega_gain, b = freq - omega_gain;
+    f_lo = opaque(fminf(fmaxf(fminf(a, b), min_freq), max_freq));
+    f_hi = opaque(fminf(fmaxf(fmaxf(a, b), min_freq), max_freq));
+  };
+
+  int o = 0, ko = 0;
+  T* optr = sh.out[0];
+  const long long t0 = cycles ? clock64() : 0;
+  int k = 0;
+  bool live = max_syms > 0 && offset < n;
+  if (live) {
+    position();
+    prepare();
+  }
+  while (live) {
+    float err;
+    T sym;
+    if constexpr (CPLX) {
+      // fma(x, w, 0) rounds once, like 0 + x * w (and gives +0 for -0)
+      float accr = __fmaf_rn(win[0].x, taps[0], 0.0f);
+      float acci = __fmaf_rn(win[0].y, taps[0], 0.0f);
+#pragma unroll
+      for (int j = 1; j < kT; ++j) {
+        accr = accr + win[j].x * taps[j];
+        acci = acci + win[j].y * taps[j];
+      }
+      // ((out - p2) * conj(c1) - (c0 - c2) * conj(p1)).real
+      const float d = accr > 0.0f ? (acci > 0.0f ? dpp : dpm)
+                                  : (acci > 0.0f ? dmp : dmm);
+      err = ((accr - p2r) * c1r + (acci - p2i) * c1i) - d;
+      // shift the error history: p2 = p1, p1 = out, c2 = c1, c1 = c0
+      p2r = p1r;
+      p2i = p1i;
+      p1r = accr;
+      p1i = acci;
+      c2r = c1r;
+      c2i = c1i;
+      c1r = step_sign(accr);
+      c1i = step_sign(acci);
+      sym = make_float2(accr, acci);
+    } else {
+      float acc = __fmaf_rn(win[0], taps[0], 0.0f);
+#pragma unroll
+      for (int j = 1; j < kT; ++j) acc = acc + win[j] * taps[j];
+      err = last_s * acc - (acc > 0.0f ? last_p : last_m);
+      p1r = acc;
+      sym = acc;
+    }
+    const float errc = fminf(fmaxf(err, -1.0f), 1.0f);
+    freq = fminf(fmaxf(freq + omega_gain * err, f_lo), f_hi);
+    const float np = (phase + freq) + mu * errc;
+    ++k;
+    *optr++ = sym;
+    if (++ko == kOutStage) {  // hand the stage to the writer
+      const int slot = o % kOutStages;
+      sh.out_count[slot] = ko;
+      sh.out_last[slot] = 0;
+      mbar_arrive(&sh.out_full[slot]);
+      ++o;
+      ko = 0;
+      if (o >= kOutStages)
+        mbar_wait(&sh.out_empty[o % kOutStages], ((o / kOutStages) - 1) & 1);
+      optr = sh.out[o % kOutStages];
+    }
+    // the next window and row, loaded before the checks resolve
+    const int bits = __float_as_int(__fadd_rd(np, kMagic));
+    const int ph_n = bits & (kP - 1);
+    const int rel_n = rel + ((bits >> 7) - kMagicHi);
+    fetch_ring(rel_n, ph_n);
+    const float delta = floorf(np);
+    phase = np - delta;
+    prepare();
+    if (fabsf(np) < kMagicRange && static_cast<unsigned>(rel_n) < kStage &&
+        rel_n < lim && k < max_syms) {
+      rel = rel_n;
+      ph = ph_n;
+      continue;
+    }
+    offset = sbase + rel + static_cast<int>(delta);
+    if (k >= max_syms || offset >= n) break;
+    position();
+  }
+  if (cycles) cycles[c] = clock64() - t0;
+  const int slot = o % kOutStages;
+  sh.out_count[slot] = ko;
+  sh.out_last[slot] = 1;
+  mbar_arrive(&sh.out_full[slot]);
+  // release the stages the loader still has to fill, so it can finish
+  mbar_arrive(&sh.in_empty[g % kStages]);
+  for (int gg = g + 1; gg < nst; ++gg) {
+    mbar_wait(&sh.in_full[gg % kStages], (gg / kStages) & 1);
+    mbar_arrive(&sh.in_empty[gg % kStages]);
+  }
+  st[0] = phase;
+  st[1] = freq;
+  st[2] = p1r;
+  if constexpr (CPLX) {
+    st[3] = p1i;
+    st[4] = p2r;
+    st[5] = p2i;
+    st[6] = c1r;
+    st[7] = c1i;
+    st[8] = c2r;
+    st[9] = c2i;
+  }
+  offs_out[c] = offset - n;
+  count[c] = k;
+#pragma unroll
+  for (int j = 0; j < KF; ++j) fst_out[c * KF + j] = st[j];
+}
+
+template <bool CPLX>
+int launch(const void* x, int n, int C, const float* bank, const int* offs_in,
+           const float* fst_in, int* offs_out, float* fst_out, void* out,
+           int* count, int max_syms, float mu, float omega_gain,
+           float min_freq, float max_freq, long long* cycles,
+           cudaStream_t stream) {
+  using T = typename Sample<CPLX>::T;
+  if (n < 1 || C < 1 || max_syms < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = sizeof(Shared<CPLX>);
+  // the attribute is per device: set it once on each
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(mm_kernel<CPLX>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) attr_set[dev] = true;
+  }
+  mm_kernel<CPLX><<<C, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), n, bank, offs_in, fst_in, offs_out, fst_out,
+      static_cast<T*>(out), count, max_syms, mu, omega_gain, min_freq,
+      max_freq, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,32 +442,29 @@ int launch(const float* xr, const float* xi, int n, int C, const float* bank,
 
 extern "C" {
 
-// Complex M&M: xr/xi = [C, n + T - 1] planes of [tail | block]; outr/outi
-// and valid = [C, max_syms]; fstate [C, 10].
-int mm_symbols_complex(const float* xr, const float* xi, int n, int C,
-                       const float* bank, int P, int T, int* offset,
-                       float* fstate, float* outr, float* outi,
-                       unsigned char* valid, int max_syms, float mu,
-                       float omega_gain, float min_freq, float max_freq,
+// Complex M&M: x = [C, n + 7] complex64 rows of [tail | block]; bank
+// [128, 8]; out [C, max_syms] complex64; fstate [C, 10].
+int mm_symbols_complex(const void* x, int n, int C, const float* bank,
+                       const int* offset, const float* fstate,
+                       int* offset_out, float* fstate_out, void* out,
+                       int* count, int max_syms, float mu, float omega_gain,
+                       float min_freq, float max_freq, long long* cycles,
                        void* stream) {
-  return launch<true>(xr, xi, n, C, bank, P, T, offset, fstate, outr, outi,
-                      valid, max_syms, mu, omega_gain, min_freq, max_freq,
-                      static_cast<cudaStream_t>(stream));
+  return launch<true>(x, n, C, bank, offset, fstate, offset_out, fstate_out,
+                      out, count, max_syms, mu, omega_gain, min_freq,
+                      max_freq, cycles, static_cast<cudaStream_t>(stream));
 }
 
-// Float M&M: x = [C, n + T - 1]; out and valid = [C, max_syms];
-// fstate [C, 3].
-int mm_symbols_real(const float* x, const float* unused, int n, int C,
-                    const float* bank, int P, int T, int* offset,
-                    float* fstate, float* out, float* unused_out,
-                    unsigned char* valid, int max_syms, float mu,
-                    float omega_gain, float min_freq, float max_freq,
-                    void* stream) {
-  (void)unused;
-  (void)unused_out;
-  return launch<false>(x, nullptr, n, C, bank, P, T, offset, fstate, out,
-                       nullptr, valid, max_syms, mu, omega_gain, min_freq,
-                       max_freq, static_cast<cudaStream_t>(stream));
+// Float M&M: x = [C, n + 7] float32; out [C, max_syms] float32; fstate
+// [C, 3].
+int mm_symbols_real(const void* x, int n, int C, const float* bank,
+                    const int* offset, const float* fstate, int* offset_out,
+                    float* fstate_out, void* out, int* count, int max_syms,
+                    float mu, float omega_gain, float min_freq,
+                    float max_freq, long long* cycles, void* stream) {
+  return launch<false>(x, n, C, bank, offset, fstate, offset_out, fstate_out,
+                       out, count, max_syms, mu, omega_gain, min_freq,
+                       max_freq, cycles, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -7,7 +7,11 @@ kernel ``_mm_chunk_call``, clock_recovery_pallas.py:35). On a CUDA tensor
 it launches ``csrc/mm_clock.cu`` (built on first use; a failed build
 raises) and adds one to its ``launches`` count; on a CPU tensor it runs
 ``mm_symbols_plain``, a Python loop over symbols on [C] vectors, operation
-for operation the kernel's. Any other device raises.
+for operation the kernel's. Any other device raises. The kernel takes the
+128 x 8 bank every caller builds (a CUDA call with another bank shape
+raises), reads the complex64 row as it is and writes each stream's symbol
+count, from which the wrapper builds the valid prefix mask with one
+comparison on the device.
 
 ``MMClockRecovery`` (ops/clock_recovery.py) is the block that calls it,
 the counterpart of both ``MMClockRecovery`` and ``MMClockRecoveryPallas``:
@@ -117,53 +121,66 @@ def mm_symbols_plain(buf, offset, fstate, bank, max_syms, mu, omega_gain,
     return syms, valid, (offset - n).to(torch.int32), torch.stack(s, dim=1)
 
 
-def _launch(buf, offset, fstate, bank, n, max_syms, params):
-    lib = cuda_lib.load("mm_clock")
+KERNEL_PHASES, KERNEL_TAPS = 128, 8   # the bank shape the kernel takes
+_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+             + [ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
+_positions: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _prefix_mask(count, max_syms):
+    """[C, max_syms] bool: position < count, one comparison on the device
+    against a cached arange."""
+    key = (max_syms, count.device)
+    pos = _positions.get(key)
+    if pos is None:
+        pos = _positions[key] = torch.arange(max_syms, dtype=torch.int32,
+                                             device=count.device)
+    return pos < count[:, None]
+
+
+def _launch(buf, offset, fstate, bank, n, max_syms, params, cycles):
+    if tuple(bank.shape) != (KERNEL_PHASES, KERNEL_TAPS):
+        raise ValueError(f"the mm_symbols kernel takes a [{KERNEL_PHASES}, "
+                         f"{KERNEL_TAPS}] bank, not {list(bank.shape)}")
     C = buf.shape[0]
-    P, T = bank.shape
-    cplx = buf.is_complex()
     dev = buf.device
-    if cplx:
-        xr, xi = buf.real.contiguous(), buf.imag.contiguous()
-    else:
-        xr, xi = buf.contiguous(), None
-    bank = bank.contiguous()
-    off = offset.contiguous().clone()
-    fst = fstate.contiguous().clone()
-    outr = torch.empty((C, max_syms), dtype=torch.float32, device=dev)
-    outi = torch.empty_like(outr) if cplx else None
-    valid = torch.empty((C, max_syms), dtype=torch.uint8, device=dev)
-    fn = getattr(lib, "mm_symbols_complex" if cplx else "mm_symbols_real")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ptr(xr), ptr(xi), n, C, ptr(bank), P, T, ptr(off), ptr(fst),
-                ptr(outr), ptr(outi), ptr(valid), max_syms, *params, stream)
+    buf, offset, fstate, bank = (t if t.is_contiguous() else t.contiguous()
+                                 for t in (buf, offset, fstate, bank))
+    if cycles is not None and (cycles.dtype != torch.int64
+                               or tuple(cycles.shape) != (C,)
+                               or cycles.device != dev
+                               or not cycles.is_contiguous()):
+        raise ValueError("cycles must be a contiguous int64 [C] tensor on "
+                         "buf's device")
+    off = offset.new_empty(offset.shape)
+    fst = fstate.new_empty(fstate.shape)
+    syms = buf.new_empty((C, max_syms))
+    count = offset.new_empty((C,))
+    fn = cuda_lib.bind("mm_clock", "mm_symbols_complex" if buf.is_complex()
+                       else "mm_symbols_real", _ARGTYPES)
+    rc = cuda_lib.launch(fn, dev, buf.data_ptr(), n, C, bank.data_ptr(),
+                         offset.data_ptr(), fstate.data_ptr(), off.data_ptr(),
+                         fst.data_ptr(), syms.data_ptr(), count.data_ptr(),
+                         max_syms, *params,
+                         None if cycles is None else cycles.data_ptr())
     if rc != 0:
         raise RuntimeError(f"mm_symbols launch failed: CUDA error {rc} at "
                            f"n={n}, C={C}")
-    syms = torch.complex(outr, outi) if cplx else outr
-    return syms, valid.bool(), off, fst
+    return syms, _prefix_mask(count, max_syms), off, fst
 
 
 def mm_symbols(buf, offset, fstate, bank, max_syms, mu, omega_gain, min_freq,
-               max_freq):
+               max_freq, cycles=None):
     """Run the M&M loop over C streams of one block.
 
     ``buf`` [C, n + T - 1] complex64 or float32: each stream's carried
     tail followed by the block. ``offset`` [C] int32 and ``fstate``
     [C, 10 | 3] float32: the carried state (phase, freq, then the error
     history as re/im pairs p1 p2 c1 c2, or ``last``). ``bank`` [P, T]
-    float32. Returns (symbols [C, max_syms], valid [C, max_syms] bool, a
-    prefix, next offset [C], next fstate)."""
+    float32 ([128, 8] on CUDA). Returns (symbols [C, max_syms], valid
+    [C, max_syms] bool, a prefix, next offset [C], next fstate); symbols
+    past the prefix are 0. On CUDA, ``cycles`` (an int64 [C] tensor, or
+    None) receives each stream's clock64() cycles over its walk."""
     n = _check(buf, offset, fstate, bank)
     max_syms = int(max_syms)
     params = tuple(float(np.float32(v))
@@ -173,7 +190,7 @@ def mm_symbols(buf, offset, fstate, bank, max_syms, mu, omega_gain, min_freq,
     if buf.device.type != "cuda":
         raise RuntimeError(f"mm_symbols runs on CUDA or CPU tensors, not "
                            f"{buf.device}")
-    result = _launch(buf, offset, fstate, bank, n, max_syms, params)
+    result = _launch(buf, offset, fstate, bank, n, max_syms, params, cycles)
     mm_symbols.launches += 1
     return result
 

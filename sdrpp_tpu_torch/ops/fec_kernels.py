@@ -80,18 +80,14 @@ def viterbi_acs_batched(soft, expected):
     if expected.shape[0] != 2 * KERNEL_STATES or R > KERNEL_MAX_RATE:
         raise ValueError(f"the kernel takes {KERNEL_STATES} states and at "
                          f"most {KERNEL_MAX_RATE} soft bits per step")
-    lib = cuda_lib.load("viterbi")
     soft, expected = soft.contiguous(), expected.contiguous()
     dec = torch.empty((B, T, KERNEL_STATES), dtype=torch.int8,
                       device=soft.device)
-    fn = lib.viterbi_acs_batched
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    with torch.cuda.device(soft.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(soft.data_ptr(), expected.data_ptr(), dec.data_ptr(), B, T, R,
-                stream)
+    fn = cuda_lib.bind("viterbi", "viterbi_acs_batched",
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+    rc = cuda_lib.launch(fn, soft.device, soft.data_ptr(), expected.data_ptr(),
+                         dec.data_ptr(), B, T, R)
     if rc != 0:
         raise RuntimeError(f"viterbi_acs_batched launch failed: CUDA error "
                            f"{rc} at B={B}, T={T}, R={R}")
@@ -124,16 +120,12 @@ def viterbi_traceback_batched(dec):
     B, T, S = dec.shape
     if S != KERNEL_STATES:
         raise ValueError(f"the kernel takes {KERNEL_STATES} states")
-    lib = cuda_lib.load("viterbi")
     dec = dec.contiguous()
     bits = torch.empty((B, T), dtype=torch.uint8, device=dec.device)
-    fn = lib.viterbi_traceback_batched
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + \
-        [ctypes.c_void_p]
-    with torch.cuda.device(dec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(dec.data_ptr(), bits.data_ptr(), B, T, stream)
+    fn = cuda_lib.bind("viterbi", "viterbi_traceback_batched",
+                       [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+    rc = cuda_lib.launch(fn, dec.device, dec.data_ptr(), bits.data_ptr(), B, T)
     if rc != 0:
         raise RuntimeError(f"viterbi_traceback_batched launch failed: CUDA "
                            f"error {rc} at B={B}, T={T}")

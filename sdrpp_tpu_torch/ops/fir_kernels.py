@@ -8,8 +8,10 @@ replaces the Pallas kernel ``_run`` (fir_pallas.py:74, called through
 
     y[o] = sum_{j<m} taps[j] * buf[r*o + j],   buf = [tail | x].
 
-On a CUDA tensor it launches ``csrc/decim_fir.cu`` (built on first use; a
-failed build raises) and adds one to its ``launches`` count; on a CPU
+On a CUDA tensor it launches ``csrc/decim_fir.cu`` through a compiled
+host path, ``csrc/decim_fir_host.cpp``, which checks the arguments,
+allocates the outputs and launches in one C++ call (both built on first
+use; a failed build raises), and adds one to its ``launches`` count; on a CPU
 tensor it runs ``decimating_fir_plain``, the same sum in the same order
 (j = 0..m-1 from 0.0, one rounding per product and per sum) on real
 float32 planes. Any other device raises.
@@ -37,20 +39,31 @@ from ..utils import cuda_lib
 __all__ = ["decimating_fir", "decimating_fir_plain"]
 
 
+_C64, _F32 = torch.complex64, torch.float32
+
+
 def _check(tail, x, taps, r):
-    if x.dtype not in (torch.complex64, torch.float32):
+    """Validates the arguments; returns (m, r). On CUDA tensors the
+    compiled host path (csrc/decim_fir_host.cpp) makes the same checks."""
+    dtype = x.dtype
+    if dtype != _C64 and dtype != _F32:
         raise ValueError("x must be complex64 or float32")
-    if taps.dtype != torch.float32 or taps.ndim != 1 or taps.shape[0] < 1:
+    if taps.dtype != _F32 or taps.dim() != 1 or taps.shape[0] < 1:
         raise ValueError("taps must be a float32 vector")
     m = taps.shape[0]
-    if tail.dtype != x.dtype or tuple(tail.shape) != (*x.shape[:-1], m - 1):
-        raise ValueError(f"tail must be {x.dtype} {[*x.shape[:-1], m - 1]}, "
-                         f"got {tail.dtype} {list(tail.shape)}")
-    if tail.device != x.device or taps.device != x.device:
+    ts, xs = tail.shape, x.shape
+    nd = len(xs)
+    if (tail.dtype != dtype or len(ts) != nd or ts[-1] != m - 1
+            or (nd == 2 and ts[0] != xs[0])
+            or (nd > 2 and ts[:-1] != xs[:-1])):
+        raise ValueError(f"tail must be {dtype} {[*xs[:-1], m - 1]}, "
+                         f"got {tail.dtype} {list(ts)}")
+    device = x.device
+    if tail.device != device or taps.device != device:
         raise ValueError("decimating_fir takes tensors on one device")
     r = int(r)
-    if r < 1 or x.shape[-1] % r:
-        raise ValueError(f"block length {x.shape[-1]} must be a multiple of "
+    if r < 1 or xs[-1] % r:
+        raise ValueError(f"block length {xs[-1]} must be a multiple of "
                          f"decimation {r}")
     return m, r
 
@@ -76,30 +89,26 @@ def decimating_fir_plain(tail, x, taps, r):
     return buf[..., n:].clone(), y
 
 
-def _launch(tail, x, taps, m, r):
+_host = None
+
+
+def _bind_host():
+    """decim_fir_host.decim_fir (csrc/decim_fir_host.cpp), bound to the
+    kernel library's two C entries; both built and loaded on first use."""
+    global _host
     lib = cuda_lib.load("decim_fir")
-    lead = x.shape[:-1]
-    n = x.shape[-1]
-    rows = 1
-    for d in lead:
-        rows *= int(d)
-    xs = x.reshape(rows, n).contiguous()
-    ts = tail.reshape(rows, m - 1).contiguous()
-    taps = taps.contiguous()
-    y = torch.empty((rows, n // r), dtype=x.dtype, device=x.device)
-    new_tail = torch.empty((rows, m - 1), dtype=x.dtype, device=x.device)
-    fn = lib.decim_fir_c64 if x.is_complex() else lib.decim_fir_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ts.data_ptr(), xs.data_ptr(), taps.data_ptr(),
-                new_tail.data_ptr(), y.data_ptr(), rows, n, m, r, stream)
-    if rc != 0:
-        raise RuntimeError(f"decimating_fir launch failed: CUDA error {rc} "
-                           f"at rows={rows}, n={n}, m={m}, r={r}")
-    return new_tail.reshape(*lead, m - 1), y.reshape(*lead, n // r)
+    mod = cuda_lib.load_host("decim_fir_host")
+    mod.bind(*(ctypes.cast(getattr(lib, e), ctypes.c_void_p).value
+               for e in ("decim_fir_c64", "decim_fir_f32")))
+    _host = mod.decim_fir
+    return _host
+
+
+def _launch(tail, x, taps, r):
+    """The compiled host path: the checks of ``_check`` (ValueError), the
+    outputs allocated in x's leading shape, non-contiguous inputs copied,
+    and the kernel launched on x's current stream."""
+    return (_host or _bind_host())(tail, x, taps, r)
 
 
 def decimating_fir(tail, x, taps, r):
@@ -109,15 +118,15 @@ def decimating_fir(tail, x, taps, r):
     ``tail`` [..., m-1] is the carried input, ``taps`` the [m] float32
     taps on x's device. Returns ``(new_tail, y)``: the last m-1 samples of
     ``[tail | x]`` and ``y`` [..., n/r]."""
-    m, r = _check(tail, x, taps, r)
-    if x.device.type == "cpu":
+    if x.is_cuda:
+        result = _launch(tail, x, taps, r)
+        decimating_fir.launches += 1
+        return result
+    if x.is_cpu:
         return decimating_fir_plain(tail, x, taps, r)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"decimating_fir runs on CUDA or CPU tensors, not "
-                           f"{x.device}")
-    result = _launch(tail, x, taps, m, r)
-    decimating_fir.launches += 1
-    return result
+    _check(tail, x, taps, r)
+    raise RuntimeError(f"decimating_fir runs on CUDA or CPU tensors, not "
+                       f"{x.device}")
 
 
 decimating_fir.launches = 0

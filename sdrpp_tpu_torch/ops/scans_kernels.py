@@ -242,20 +242,18 @@ def single_scan_plain(body: LoopBody, state, streams, valid=None):
 def _launch(body: LoopBody, state, streams, valid):
     """Run csrc/loop_scan.cu's entry for ``body`` over time-major [n, C]
     streams on the current CUDA stream."""
-    lib = cuda_lib.load("loop_scan")
     n, C = streams[0].shape
     streams = [s.contiguous() for s in streams]
     fin = state.contiguous().clone()
     out = torch.empty((n, C), dtype=torch.float32, device=state.device)
-    fn = getattr(lib, f"loop_scan_{body.name}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * len(body.params) + [ctypes.c_void_p])
+    fn = cuda_lib.bind("loop_scan", f"loop_scan_{body.name}",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * len(body.params)
+                       + [ctypes.c_void_p])
     s1 = streams[1].data_ptr() if len(streams) > 1 else None
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(streams[0].data_ptr(), s1, out.data_ptr(), fin.data_ptr(),
-                n, C, valid, *body.params, stream)
+    rc = cuda_lib.launch(fn, state.device, streams[0].data_ptr(), s1,
+                         out.data_ptr(), fin.data_ptr(), n, C, valid,
+                         *body.params)
     if rc != 0:
         raise RuntimeError(f"loop_scan_{body.name} launch failed: CUDA error "
                            f"{rc} at n={n}, C={C}")
