@@ -10,14 +10,25 @@ any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu and
-   decim_fir.cu for sm_90a from this checkout, one nvcc each, and
-   decimating_fir's compiled host path csrc/decim_fir_host.cpp with the
-   host compiler, all at once;
+   decim_fir.cu for sm_90a from this checkout, one nvcc each, and the
+   kernels' compiled host paths, csrc/kernels_host.cpp, with the host
+   compiler, all at once;
 3. kernels: every entry against its plain PyTorch version on the card,
-   same seeded inputs, with times from CUDA events: ``lane_scan`` (PLL
-   [640, 128], AGC [4230, 6], FastAGC and Costas order 4 / "meteor"
-   [2048, 64]), ``single_scan`` (AGC [6544], PLL [65440], FastAGC and
-   Costas order 4 [8192]), ``mm_symbols`` (the meteor block's
+   same seeded inputs, with times from CUDA events: ``lane_scan`` and
+   ``single_scan`` in the layouts the paths call them with (the chunk
+   drivers' overlapping lane views of [hist | block] with the payload
+   written in place past the warm-up: PLL [640, 128], AGC [4230, 6],
+   FastAGC and Costas order 4 with its seam steps / "meteor" [2048, 64];
+   the AM AGC's one [6544] stream from gain 1e7; the SSB bank's exact AGC
+   over 64 transposed [64, 2048] channel rows; the AGCs' inputs clip; off
+   the paths PLL [65440], FastAGC and Costas order 4 [8192], and inputs
+   that leave the kernel's short forms for its reference forms: AGC steps
+   at the clip threshold, an AGC with max_out below 2^-60, PLL and Costas
+   seed phases up to 3e5), each bit-exact, with its time a call back
+   to back, its device time alone, its host time a call and the walker's
+   clock64 cycles per step; the strided layouts must equal the kernel on
+   contiguous copies, and wrong arguments must raise ValueError and
+   launch nothing; ``mm_symbols`` (the meteor block's
    [1, 65543] row; its symbols held, as a prefix, against the plain
    version on the first 16391 samples, where the kernel's final state is
    held as well; the walker's clock64() cycles per symbol; off the
@@ -88,9 +99,11 @@ any phase fails:
     against the committed golden, below -40 dB after the settle;
 15. when the parent commit is unpacked at _scratch/parent (``git archive
     <parent> | tar -x -C _scratch/parent``): an A/B of the meteor block
-    time and decimating_fir at every FIR_CASES shape, each tree in its own
-    process, parent, change, change, parent, printed as one "ab" line;
-    without it the phase says so and is skipped.
+    time, decimating_fir at every FIR_CASES shape and the loop scans at
+    the kernel phase's path cases (the same bodies and inputs, contiguous
+    and time-major), each tree in its own process, parent, change,
+    change, parent, printed as one "ab" line; without it the phase says
+    so and is skipped.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
@@ -98,11 +111,13 @@ record and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --profile
 
 builds the kernels and, instead of the phases above, profiles (with
-torch.profiler) PROFILE_BLOCKS steady blocks of the wideband chain and
-PROFILE_CALLS calls of decimating_fir at each FIR_CASES shape: device time
-by kernel, the device's busy and idle share of the host-clock window, and
-each kernel launch's own device time beside the wrapper's host time per
-call. It prints one JSON line and no result line.
+torch.profiler) PROFILE_RX_BLOCKS steady blocks of the receive slice
+(``Receiver.process_block``, three VFOs), PROFILE_BLOCKS of the wideband
+chain and PROFILE_CALLS calls of decimating_fir at each FIR_CASES shape:
+device time by kernel, the device's busy and idle share of the host-clock
+window, the loop-scan kernels' share, and each decimating_fir launch's own
+device time beside the wrapper's host time per call. It prints one JSON
+line and no result line.
 """
 
 from __future__ import annotations
@@ -187,18 +202,15 @@ WIDE_CPU_BLOCKS = 4        # blocks compared card vs CPU
 WIDE_CPU_SETTLE = 1000     # audio samples of the chain's start left out
 BANK_BLOCK = 1 << 18       # bench.py's bank block at 6.144 Msps
 PROFILE_BLOCKS = 5
+PROFILE_RX_BLOCKS = 4      # steady receive blocks profiled (after 3 warm)
 FIR_ROUNDS = 5             # alternating kernel / conv1d timing rounds
 PROFILE_CALLS = 20
 # kernel vs plain version: the same float32 operations in the same order,
-# no FMA contraction (--fmad=false), IEEE division -> expected 0. The
-# tolerance is 1e-6 on PLL phasors, 1e-6 of the largest gain for the AGCs
-# and of the largest symbol for the MM; the Viterbi entries are held
-# bit-exact. The Costas orders 2/4/8 rotate by cosf/sinf in the kernel and
-# torch.cos/torch.sin in the plain version, which may differ by an ulp; a
-# locked loop contracts such a difference, so Costas phasors are held to
-# COSTAS_TOL.
+# no FMA contraction (--fmad=false), IEEE division -> expected 0. The loop
+# scans (every rewrite of an operation proven equal, the Costas rotation
+# equal to torch.cos / torch.sin on the card) and the Viterbi entries are
+# held bit-exact; the M&M and the FIR within 1e-6 of their largest output.
 KERNEL_TOL = 1e-6
-COSTAS_TOL = 1e-4
 # mm_symbols on the meteor path: [1, tail + 65536 IF samples]
 MM_TAIL = 7
 MM_BLOCK = 65536
@@ -363,134 +375,387 @@ def read_counts(path: str) -> dict:
     return counts
 
 
-def phase_kernels(dev):
-    """Each entry point at the slice's shapes against its plain version."""
-    import torch
-    from sdrpp_tpu_torch.ops import scans_kernels as K
+def loop_body_args():
+    """The loop bodies at the paths' settings (and two off them), by name:
+    (constructor in ops/scans_kernels, its arguments as JSON values), so
+    the A/B builds the same bodies in each tree."""
     from sdrpp_tpu_torch.ops.mix import hz_to_rads
     from sdrpp_tpu_torch.ops.scans import _critically_damped
 
+    alpha, beta = (float(v) for v in _critically_damped(25000.0 / 240000.0))
+    ca, cb = (float(v) for v in _critically_damped(0.005))
+    return {
+        "pll": ("pll_body", [alpha, beta, float(hz_to_rads(18750.0, 240000.0)),
+                             float(hz_to_rads(19250.0, 240000.0))]),
+        "agc48": ("agc_body", [1.0, 50.0 / 48000.0, 5.0 / 48000.0, 10e6,
+                               10.0]),
+        "agc24": ("agc_body", [1.0, 50.0 / 24000.0, 5.0 / 24000.0, 10e6,
+                               10.0]),
+        # max_out below 2^-60: outside the kernel's short clip decision, so
+        # every step runs the reference form, and every step clips
+        "agc_tiny_out": ("agc_body", [1.0, 50.0 / 48000.0, 5.0 / 48000.0,
+                                      10e6, 1e-19]),
+        "fast_agc": ("fast_agc_body", [1.0, 10e6, 0.001]),
+        "costas4": ("costas_body", [4, ca, cb, -np.pi, np.pi]),
+        "costas_meteor": ("costas_body", ["meteor", ca, cb, -np.pi, np.pi])}
+
+
+def loop_bodies():
+    """The loop bodies of ``loop_body_args``, built."""
+    from sdrpp_tpu_torch.ops import scans_kernels as K
+
+    return {key: getattr(K, ctor)(*args)
+            for key, (ctor, args) in loop_body_args().items()}
+
+
+def loop_streams(rng, body, m: int, c: int, kind: str = "path"):
+    """Seeded [m, c] float32 streams for `body` (numpy, time-major): pilot
+    phases; AGC amplitudes with their suffix max, with three 64-sample
+    bursts a lane 40x above the level, which clip (kind "am": the AM
+    AGC's 0.2 level, no bursts); FastAGC amplitudes; or a locked
+    QPSK-like signal with a slow carrier as Costas streams."""
+    from sdrpp_tpu_torch.ops.scans_kernels import METEOR_PHASES
+
+    if body.name == "pll":
+        w = 2 * np.pi * 19000.0 / 240000.0
+        ph = (w * np.arange(m)[:, None] + rng.uniform(-np.pi, np.pi, c)
+              + 0.2 * rng.standard_normal((m, c)))
+        return [np.angle(np.exp(1j * ph)).astype(np.float32)]
+    if body.name == "agc":
+        level = 0.2 if kind == "am" else 0.05
+        a = level * np.abs(rng.standard_normal((m, c)))
+        if kind != "am":
+            for j in range(c):
+                for p in rng.integers(0, max(m - 64, 1), 3):
+                    a[p:p + 64, j] *= 40.0
+        a = a.astype(np.float32)
+        return [a, np.flip(np.maximum.accumulate(np.flip(a, 0), 0), 0).copy()]
+    pts = (np.asarray([float(p) for p in METEOR_PHASES])
+           if body.name == "costas_meteor"
+           else np.pi / 4 + np.pi / 2 * np.arange(4))
+    ph = (pts[rng.integers(0, 4, (m, c))] + 1e-4 * np.arange(m)[:, None]
+          + rng.uniform(-0.05, 0.05, c))
+    v = (np.exp(1j * ph) + 0.05 * (rng.standard_normal((m, c))
+                                   + 1j * rng.standard_normal((m, c))))
+    if body.name == "fast_agc":
+        return [(0.3 * np.abs(v)).astype(np.float32)]
+    if body.name == "costas_meteor":
+        return [np.angle(v).astype(np.float32), np.abs(v).astype(np.float32)]
+    return [v.real.astype(np.float32), v.imag.astype(np.float32)]
+
+
+def loop_seed(body, c: int, kind: str = "path") -> np.ndarray:
+    """A [k, c] seed carry for `body`. Kind "am": the AM AGC's start (amp
+    0, gain 1e7); "wild": PLL / Costas phases far outside [-pi, pi] (up to
+    3e5, past the short sincos's 105615), whose first update leaves the
+    kernel's short remainder and rotation."""
+    if body.name == "pll" or body.name.startswith("costas"):
+        freq = 2 * np.pi * 19000.0 / 240000.0 if body.name == "pll" else 1e-4
+        phase = np.zeros(c)
+        if kind == "wild":
+            phase = np.resize([100.0, -50.0, 2e5, -3e5, 7.0, 13.0, -9.5,
+                               0.5], c)
+        return np.stack([phase, np.full(c, freq)]).astype(np.float32)
+    if body.name == "agc":
+        if kind == "am":
+            return np.array([[0.0], [1e7]], np.float32).repeat(c, 1)
+        return np.stack([np.full(c, 0.05), np.full(c, 20.0)]).astype(np.float32)
+    return np.ones((1, c), np.float32)
+
+
+def agc_edge_streams(rng, body, n: int, c: int):
+    """[n, c] AGC streams and a seed whose steps put a * gain within 2^-18
+    of max_out every fourth step (each lane's carry followed step by step
+    in float32, as the body rounds it), so the kernel's short clip
+    decision cannot decide them; zeros, one amplitude of 1e20 (past the
+    short form's range) and a second stream that is not a suffix max (any
+    values are the body's inputs). Returns (streams, seed)."""
+    f32 = np.float32
+    sp, att, iatt, dec, idec, mg, mo = (f32(v) for v in body.params)
+    a = (0.05 * np.abs(rng.standard_normal((n, c)))).astype(f32)
+    a[rng.random((n, c)) < 0.02] = 0.0
+    s = rng.uniform(0.05, 0.5, (n, c)).astype(f32)
+    seed = np.stack([np.full(c, 0.05), np.full(c, 20.0)]).astype(f32)
+    amp = seed[0].copy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for t in range(n):
+            if t % 4 == 1:  # a * sp = max_out * (amp * iatt + a * att)
+                want = (float(mo) * amp.astype(np.float64) * float(iatt)
+                        / (float(sp) - float(mo) * float(att)))
+                a[t] = want * (1.0 + rng.uniform(-2.0 ** -18, 2.0 ** -18, c))
+            if t == n // 2:
+                a[t, 0] = 1e20
+            x = a[t]
+            upd = np.where(x > amp, amp * iatt + x * att, amp * idec + x * dec)
+            amp1 = np.where(x != 0, upd, amp)
+            gain1 = np.where(x != 0, np.minimum(sp / amp1, mg), f32(1.0))
+            amp = np.where(x * gain1 > mo, s[t], amp1).astype(f32)
+    return [a, s], seed
+
+
+class LoopCase:
+    """One lane_scan / single_scan call as a path makes it. Layouts:
+    "chunk" (a chunk driver's K overlapping lanes: time-major [W + L, 1, K]
+    views of one extended stream [hist | block], the payload written in
+    sample order into an [1, K*L] output with the W warm-up steps skipped,
+    and Costas's 32 seam steps before them into a side output), "bank"
+    (an exact bank loop: [C, n] streams read transposed, written into a
+    [C, n] output) and "single" (one [n] stream). `kind` picks the data
+    (``loop_streams``, ``loop_seed``; "edge": ``agc_edge_streams``).
+    `run(fn, cycles)` calls fn (the kernel or its plain version) on the
+    same tensors and returns every output; `time_major()` gives the
+    streams and seed as contiguous time-major numpy arrays (the A/B's
+    inputs)."""
+
+    def __init__(self, dev, rng, body, layout, n, c=1, K_=1, W=0, side=0,
+                 kind="path"):
+        import torch
+
+        self.body, self.layout, self.side = body, layout, side
+        self.K, self.W = K_, W
+        if layout == "chunk":
+            L = -(-n // K_)
+            self.L, m = L, W + K_ * L
+            self.steps, self.lanes = W + L, K_
+            self.ext = [torch.from_numpy(s[:, 0].copy()).to(dev)[None]
+                        for s in loop_streams(rng, body, m, 1)]
+            if body.name == "agc":  # the suffix max over [hist | block]
+                self.ext[1] = torch.flip(torch.cummax(torch.flip(
+                    self.ext[0], [-1]), -1).values, [-1])
+            self.streams = [e.as_strided((W + L, 1, K_), (1, m, L))
+                            for e in self.ext]
+            self.state = torch.from_numpy(np.repeat(
+                loop_seed(body, 1), K_, 1)[:, None]).to(dev)
+            self.shape = [W + L, K_]
+        elif layout == "bank":
+            self.steps, self.lanes = n, c
+            if kind == "edge":
+                streams, seed = agc_edge_streams(rng, body, n, c)
+            else:
+                streams = loop_streams(rng, body, n, c, kind)
+                seed = loop_seed(body, c, kind)
+            self.rows = [torch.from_numpy(s.T.copy()).to(dev)
+                         for s in streams]
+            self.streams = [r.T for r in self.rows]
+            self.state = torch.from_numpy(seed).to(dev)
+            self.shape = [n, c]
+        else:
+            self.steps, self.lanes = n, 1
+            self.streams = [torch.from_numpy(s[:, 0].copy()).to(dev)
+                            for s in loop_streams(rng, body, n, 1, kind)]
+            self.state = torch.from_numpy(loop_seed(body, 1, kind)[:, 0]
+                                          .copy()).to(dev)
+            self.shape = [n]
+
+    def run(self, fn, cycles=None):
+        import torch
+
+        kw = {} if cycles is None else {"cycles": cycles}
+        if self.layout == "chunk":
+            L, K_ = self.L, self.K
+            res = self.state.new_empty((1, K_ * L))
+            kw.update(out=res.as_strided((L, 1, K_), (1, K_ * L, L)),
+                      skip=self.W)
+            outs = [res]
+            if self.side:
+                side = self.state.new_empty((1, K_, self.side))
+                kw["side"] = side.permute(2, 0, 1)
+                outs.append(side)
+            _, fin = fn(self.body, self.state, self.streams, **kw)
+            return outs + [fin]
+        if self.layout == "bank":
+            res = self.state.new_empty((self.lanes, self.steps))
+            _, fin = fn(self.body, self.state, self.streams, out=res.T, **kw)
+            return [res, fin]
+        return list(fn(self.body, self.state, self.streams, **kw))
+
+    def run_copies(self, fn):
+        """The same call on contiguous time-major copies, its outputs laid
+        out as run()'s."""
+        k = self.body.k
+        if self.layout == "chunk":
+            C = self.K
+            streams = [s.reshape(self.steps, C).contiguous()
+                       for s in self.streams]
+            out, fin = fn(self.body, self.state.reshape(k, C).contiguous(),
+                          streams)
+            res = out[self.W:].T.reshape(1, -1)
+            outs = [res]
+            if self.side:
+                outs.append(out[self.W - self.side:self.W].T[None])
+            return outs + [fin.reshape(k, 1, C)]
+        out, fin = fn(self.body, self.state,
+                      [s.contiguous() for s in self.streams])
+        return [out.T.contiguous(), fin]
+
+    def time_major(self):
+        """(streams, seed): contiguous time-major numpy copies of the
+        call's inputs, [n] / [k] for one stream, else [steps, lanes] /
+        [k, lanes]."""
+        n = self.steps
+        flat = [] if self.layout == "single" else [self.lanes]
+        return ([s.reshape(n, *flat).contiguous().cpu().numpy()
+                 for s in self.streams],
+                self.state.reshape(self.body.k, *flat).contiguous().cpu()
+                .numpy())
+
+    def nbytes(self) -> int:
+        """Bytes the call must move: each input element read once (the
+        overlapping lanes' extended stream once), each output written
+        once, the carry read and written."""
+        ins = (sum(e.numel() for e in self.ext) if self.layout == "chunk"
+               else sum(s.numel() for s in self.streams))
+        outs = self.lanes * (self.steps - self.W) + self.lanes * self.side
+        return 4 * (ins + outs + 2 * self.state.numel())
+
+
+def phase_kernels(dev):
+    """lane_scan and single_scan at the paths' shapes and layouts (and off
+    them) against their plain versions: bit-exact required. Each case
+    reports the time a call back to back, the device time alone, the host
+    time a call and the walker's clock64 cycles per step; the strided
+    layouts must equal the kernel on contiguous copies; wrong arguments on
+    the card must raise ValueError and launch nothing. Returns (results,
+    the path cases' inputs for the A/B: label -> (body, streams, seed))."""
+    import torch
+    from sdrpp_tpu_torch.ops import scans_kernels as K
+
     rng = np.random.default_rng(1)
-    alpha, beta = _critically_damped(25000.0 / 240000.0)
-    pll = K.pll_body(alpha, beta, hz_to_rads(18750.0, 240000.0),
-                     hz_to_rads(19250.0, 240000.0))
-    w19 = hz_to_rads(19000.0, 240000.0)
-
-    def agc(fs):
-        return K.agc_body(1.0, 50.0 / fs, 5.0 / fs, 10e6, 10.0)
-
-    def phases(n, c):
-        ph = (w19 * np.arange(n)[:, None] + rng.uniform(-np.pi, np.pi, c)
-              + 0.2 * rng.standard_normal((n, c)))
-        return np.angle(np.exp(1j * ph)).astype(np.float32)
-
-    def amps(n, c, level):
-        return (level * np.abs(rng.standard_normal((n, c)))).astype(np.float32)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def suffix(a):
-        return np.flip(np.maximum.accumulate(np.flip(a, 0), 0), 0)
-
-    a6 = amps(4230, 6, 0.05)
-    a1 = amps(6544, 1, 0.2)[:, 0]
-    fagc = K.fast_agc_body(1.0, 10e6, 0.001)
-    ca, cb = _critically_damped(0.005)
-    costas4 = K.costas_body(4, ca, cb, -np.pi, np.pi)
-    meteor = K.costas_body("meteor", ca, cb, -np.pi, np.pi)
-
-    def qpsk(n, c, phases=None):
-        """Locked QPSK-like streams with a slow carrier and noise."""
-        pts = (np.pi / 4 + np.pi / 2 * np.arange(4)) if phases is None \
-            else np.asarray(phases)
-        ph = (pts[rng.integers(0, 4, (n, c))] + 1e-4 * np.arange(n)[:, None]
-              + rng.uniform(-0.05, 0.05, c))
-        v = np.exp(1j * ph) + 0.05 * (rng.standard_normal((n, c))
-                                      + 1j * rng.standard_normal((n, c)))
-        return v.astype(np.complex64)
-
-    def streams(v, order):
-        re, im = t(v.real.copy()), t(v.imag.copy())
-        return K.costas_streams(re, im, order)
-
-    # the meteor demod's chunked FastAGC and Costas launch [W + L, K] =
-    # [1024 + 1024, 64] per 65,536-sample IF block
-    ml, mk = 2048, 64
-    seed2 = np.stack([np.zeros(mk), np.full(mk, 1e-4)]).astype(np.float32)
-    vq, vm = qpsk(ml, mk), qpsk(ml, mk, K.METEOR_PHASES)
-    v1 = qpsk(8192, 1)[:, 0]
-    # (entry, body, shape, path launching that shape or None, kernel,
-    #  plain, body, carry, streams); "costas_meteor" is the broken-
-    # modulation option and the [8192] cases are the exact branch, which
-    # the smoke's paths do not take
+    B = loop_bodies()
+    # (entry, body, path launching that call or None, LoopCase args,
+    # kind): the receive block's WFM pilot PLL (65,440 samples, K = 128,
+    # W = 128), USB AGC (13,088 samples, K = 6, W = 2048; bursts that clip)
+    # and AM audio AGC (exact, 6,544 samples, from its start at gain 1e7,
+    # which clips); the meteor block's FastAGC and Costas (65,536 IF
+    # samples, K = 64, W = 1024, Costas with its 32 seam steps); the SSB
+    # bank's exact AGC over 64 channels of 2,048 samples (bursts). Off the
+    # paths: the broken-modulation Costas; the exact single-stream branch;
+    # and inputs outside the short forms' proven ranges, where the kernel
+    # reruns steps in the reference form: AGC steps within 2^-18 of the
+    # clip threshold, an amplitude of 1e20 and zeros; an AGC whose max_out
+    # is below 2^-60 (every step); PLL and Costas seed phases up to 3e5.
     cases = [
-        ("lane_scan", "pll", [640, 128], "receive", K.lane_scan,
-         K.lane_scan_plain, pll,
-         t(np.stack([np.zeros(128), np.full(128, w19)]).astype(np.float32)),
-         [t(phases(640, 128))]),
-        ("lane_scan", "agc", [4230, 6], "receive", K.lane_scan,
-         K.lane_scan_plain, agc(48000.0),
-         t(np.stack([np.full(6, 0.05), np.full(6, 20.0)]).astype(np.float32)),
-         [t(a6), t(suffix(a6))]),
-        ("single_scan", "agc", [6544], "receive", K.single_scan,
-         K.single_scan_plain, agc(24000.0), t(np.array([0.0, 1e7], np.float32)),
-         [t(a1), t(suffix(a1))]),
-        ("single_scan", "pll", [65440], None, K.single_scan,
-         K.single_scan_plain, pll, t(np.array([0.0, w19], np.float32)),
-         [t(phases(65440, 1)[:, 0])]),
-        ("lane_scan", "fast_agc", [ml, mk], "meteor", K.lane_scan,
-         K.lane_scan_plain, fagc, t(np.ones((1, mk), np.float32)),
-         [t(np.abs(qpsk(ml, mk)) * 0.3)]),
-        ("lane_scan", "costas4", [ml, mk], "meteor", K.lane_scan,
-         K.lane_scan_plain, costas4, t(seed2), streams(vq, 4)),
-        ("lane_scan", "costas_meteor", [ml, mk], None, K.lane_scan,
-         K.lane_scan_plain, meteor, t(seed2), streams(vm, "meteor")),
-        ("single_scan", "fast_agc", [8192], None, K.single_scan,
-         K.single_scan_plain, fagc, t(np.ones(1, np.float32)),
-         [t(np.abs(v1) * 0.3)]),
-        ("single_scan", "costas4", [8192], None, K.single_scan,
-         K.single_scan_plain, costas4, t(np.array([0.0, 1e-4], np.float32)),
-         streams(v1, 4)),
+        ("lane_scan", "pll", "receive", ("chunk", 65440, 1, 128, 128), "path"),
+        ("lane_scan", "agc48", "receive", ("chunk", 13088, 1, 6, 2048),
+         "path"),
+        ("single_scan", "agc24", "receive", ("single", 6544), "am"),
+        ("lane_scan", "fast_agc", "meteor", ("chunk", 65536, 1, 64, 1024),
+         "path"),
+        ("lane_scan", "costas4", "meteor", ("chunk", 65536, 1, 64, 1024, 32),
+         "path"),
+        ("lane_scan", "agc48", "ssb_bank", ("bank", 2048, 64), "path"),
+        ("lane_scan", "costas_meteor", None, ("chunk", 65536, 1, 64, 1024),
+         "path"),
+        ("single_scan", "pll", None, ("single", 65440), "path"),
+        ("single_scan", "fast_agc", None, ("single", 8192), "path"),
+        ("single_scan", "costas4", None, ("single", 8192), "path"),
+        ("lane_scan", "agc48", None, ("bank", 2048, 64), "edge"),
+        ("single_scan", "agc_tiny_out", None, ("single", 4096), "path"),
+        ("lane_scan", "pll", None, ("bank", 640, 128), "wild"),
+        ("lane_scan", "costas4", None, ("bank", 2048, 64), "wild"),
     ]
-    results = []
-    for (entry, body_name, shape, path, fn, plain, body, state,
-         streams) in cases:
-        out, fin = fn(body, state, streams)
+    results, ab_inputs = [], {}
+    for entry, name, path, args, kind in cases:
+        body = B[name]
+        case = LoopCase(dev, rng, body, *args, kind=kind)
+        fn = getattr(K, entry)
+        plain = getattr(K, entry + "_plain")
+        got = case.run(fn)
         torch.cuda.synchronize()
-        ms = cuda_ms(lambda: fn(body, state, streams), reps=20)
+        ms = cuda_ms(lambda: case.run(fn), reps=20)
+        dev_ms = device_ms(lambda: case.run(fn))
+        t0 = time.perf_counter()
+        for _ in range(20):
+            case.run(fn)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        cycles = torch.zeros(-(-case.lanes // K.KERNEL_LANES),
+                             dtype=torch.int64, device=dev)
+        case.run(fn, cycles)
+        torch.cuda.synchronize()
+        cps = float(cycles.double().mean()) / case.steps
         ref = {}
+        plain_ms = cuda_ms(lambda: ref.setdefault("r", case.run(plain)),
+                           reps=1)
+        exact = all(torch.equal(a, b) for a, b in zip(got, ref["r"]))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref["r"]))
+        nbytes = case.nbytes()
+        bms, bby = bound(nbytes, LOOP_OPS[body.name] * case.steps * case.lanes)
+        label = f"{entry}[{name}] {case.layout} {case.shape}" + (
+            "" if kind == "path" else f" {kind}")
+        log(f"kernel {label}: {'bit-exact' if exact else 'DIFFERS'} (max abs "
+            f"err {err:.3g}), kernel {ms:.4f} ms a call ({dev_ms:.4f} ms on "
+            f"the device, {host_us:.1f} us of host time), {cps:.1f} cycles "
+            f"per step (clock64), plain {plain_ms:.1f} ms, bound {bms:.5f} ms "
+            f"({bby})")
+        if not exact:
+            raise AssertionError(f"{label} is not bit-exact against its "
+                                 f"plain version: {err}")
+        if case.layout in ("chunk", "bank"):
+            copies = case.run_copies(fn)
+            if not all(torch.equal(a, b) for a, b in zip(got, copies)):
+                raise AssertionError(f"{label}: the strided views differ "
+                                     f"from contiguous copies")
+        if path:
+            ab_inputs[f"{name} {case.shape}"] = (name, *case.time_major())
+        results.append(dict(entry=entry, body=name, shape=case.shape,
+                            plain_shape=case.shape, layout=case.layout,
+                            kind=kind, path=path, max_abs_err=err, tol=0.0,
+                            ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                            host_us=host_us, cycles_per_step=cps,
+                            bound_ms=bms, bound_by=bby, library_ms=None))
+    log("loop scans on CUDA: the overlapping chunk lanes and a transposed "
+        "bank equal their contiguous copies")
+    loop_scan_refusals(dev, B)
+    return results, ab_inputs
 
-        def run_plain():
-            ref["out"], ref["fin"] = plain(body, state, streams)
 
-        plain_ms = cuda_ms(run_plain, reps=1)
-        if body_name == "pll" or body_name.startswith("costas"):
-            # wrapped phases: compare phasors (phases and final carry)
-            pairs = ((out, ref["out"]), (fin[:1], ref["fin"][:1]))
-            err = max(float((torch.polar(torch.ones_like(a), a)
-                             - torch.polar(torch.ones_like(b), b)).abs().max())
-                      for a, b in pairs)
-            err = max(err, float((fin[1:] - ref["fin"][1:]).abs().max()))
-            tol = KERNEL_TOL if body_name == "pll" else COSTAS_TOL
-        else:  # gains: absolute error, tolerance relative to the largest
-            err = max(float((a - b).abs().max())
-                      for a, b in ((out, ref["out"]), (fin, ref["fin"])))
-            tol = KERNEL_TOL * float(ref["out"].abs().max())
-        nbytes = 4 * (sum(x.numel() for x in streams) + out.numel()
-                      + 2 * state.numel())
-        bms, bby = bound(nbytes, LOOP_OPS[body_name] * out.numel())
-        log(f"kernel {entry}[{body_name}] {shape}: max abs err {err:.3g} "
-            f"(tol {tol:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bms:.5f} ms ({bby})")
-        if not err <= tol:
-            raise AssertionError(f"{entry}[{body_name}] disagrees with its "
-                                 f"plain version: {err} > {tol}")
-        results.append(dict(entry=entry, body=body_name, shape=shape,
-                            plain_shape=shape, path=path, max_abs_err=err,
-                            tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                            bound_by=bby, library_ms=None))
-    return results
+def loop_scan_refusals(dev, B):
+    """Wrong arguments to lane_scan / single_scan on the card raise
+    ValueError with the plain path's message and launch nothing."""
+    import torch
+    from sdrpp_tpu_torch.ops import scans_kernels as K
+
+    agc = B["agc48"]
+    x = torch.rand((300, 4), device=dev)
+    streams = [x, x + 1.0]
+    state = torch.ones((2, 4), device=dev)
+    before = (K.lane_scan.launches, K.single_scan.launches)
+    bad = [("overlapping elements", K.lane_scan, (agc, state, streams),
+            dict(out=torch.zeros((1, 4), device=dev).expand(300, 4))),
+           ("overlapping elements", K.lane_scan, (agc, state, streams),
+            dict(skip=290, side=torch.zeros((1, 4), device=dev).expand(5, 4))),
+           ("out shape", K.lane_scan, (agc, state, streams),
+            dict(out=torch.zeros((300, 4), device=dev), skip=3)),
+           ("side shape", K.lane_scan, (agc, state, streams),
+            dict(skip=2, side=torch.zeros((3, 4), device=dev))),
+           ("skip 301 outside", K.lane_scan, (agc, state, streams),
+            dict(skip=301)),
+           ("valid 400 outside", K.lane_scan, (agc, state, streams),
+            dict(valid=400)),
+           ("float32", K.lane_scan, (agc, state.double(), streams), {}),
+           ("2- or 3-D", K.lane_scan,
+            (agc, state[..., None, None], [s[..., None, None]
+                                           for s in streams]), {}),
+           ("state shape", K.lane_scan, (agc, state[:, :3], streams), {}),
+           ("takes 2 streams", K.lane_scan, (agc, state, streams[:1]), {}),
+           ("one device", K.lane_scan, (agc, state, [x, x.cpu()]), {}),
+           ("1-D", K.single_scan, (agc, state, streams), {}),
+           ("cycles", K.lane_scan, (agc, state, streams),
+            dict(cycles=torch.zeros(2, dtype=torch.int64, device=dev)))]
+    for what, fn, args, kw in bad:
+        try:
+            fn(*args, **kw)
+        except ValueError as e:
+            if what not in str(e):
+                raise AssertionError(f"{fn.__name__} on CUDA raised {e!r}, "
+                                     f"expected {what!r}") from e
+        else:
+            raise AssertionError(f"{fn.__name__} on CUDA took bad arguments "
+                                 f"({what})")
+    if (K.lane_scan.launches, K.single_scan.launches) != before:
+        raise AssertionError("a loop scan counted a launch it refused")
+    log(f"loop scans on CUDA: {len(bad)} wrong arguments raise ValueError "
+        f"and launch nothing")
 
 
 def mm_signal(rng, n: int, cplx: bool) -> np.ndarray:
@@ -1462,6 +1727,22 @@ for b in range(blocks):
         dec.process(y)
 
     ms.append(events_ms(step, 1))
+# the loop scans: the kernel phase's bodies and inputs (contiguous,
+# time-major: [n] streams go to single_scan)
+from sdrpp_tpu_torch.ops import scans_kernels as K
+bodies = {key: getattr(K, ctor)(*args)
+          for key, (ctor, args) in a["bodies"].items()}
+data = np.load(a["loop_inputs"])
+loops = {}
+for i, (label, key) in enumerate(a["loops"]):
+    body = bodies[key]
+    ins = [torch.from_numpy(data[f"s{i}_{j}"]).cuda()
+           for j in range(body.nstreams)]
+    st = torch.from_numpy(data[f"seed{i}"]).cuda()
+    fn = K.single_scan if ins[0].dim() == 1 else K.lane_scan
+    fn(body, st, ins)
+    torch.cuda.synchronize()
+    loops[label] = events_ms(lambda: fn(body, st, ins), 20)
 g = torch.Generator(device="cuda").manual_seed(3)
 fir = {}
 for rows, n, ratio in a["cases"]:
@@ -1476,50 +1757,67 @@ for rows, n, ratio in a["cases"]:
     fir[f"[{rows}, {n}] /{r}"] = events_ms(
         lambda: DK.decimating_fir(tail, x, w, r), 20)
 print("AB " + json.dumps({"meteor_block_ms": float(np.median(ms[1:])),
-                          "decimating_fir_ms": fir}))
+                          "decimating_fir_ms": fir, "loop_scan_ms": loops}))
 """
 
 
-def phase_ab(block: int):
+def phase_ab(block: int, loop_inputs: dict):
     """The A/B against the parent tree, when one is unpacked at AB_PARENT
     (``git archive <parent> | tar -x -C _scratch/parent``): the meteor
     block time (RxVFO + MeteorLRPTDecoder.process on seeded QPSK, median
     of blocks 2..AB_BLOCKS of the meteor path's ``block`` samples, CUDA
-    events) and decimating_fir at every complex FIR_CASES shape (CUDA
-    events, 20 calls), each tree in its own process through the package's
-    public entry points, in the order parent, change, change, parent.
-    Returns None without a parent tree."""
+    events), decimating_fir at every complex FIR_CASES shape and the loop
+    scans on ``loop_inputs`` (phase_kernels' path cases: label -> (body,
+    contiguous time-major streams, seed), handed over in an .npz with the
+    bodies' constructor arguments; CUDA events, 20 calls), each tree in
+    its own process through the package's public entry points, in the
+    order parent, change, change, parent. Returns None without a parent
+    tree."""
     root = Path(__file__).resolve().parent
     parent = root / AB_PARENT
     if not (parent / "sdrpp_tpu_torch").is_dir():
         log(f"ab: no parent tree at {AB_PARENT}; skipped")
         return None
-    settings = json.dumps({
-        "cases": [[rows, n, ratio] for _, rows, n, ratio, dt in FIR_CASES
-                  if dt == "c64"],
-        "fs": METEOR_FS, "if": METEOR_IF, "offset": METEOR_OFFSET,
-        "block": block, "blocks": AB_BLOCKS, "seed": 5})
-    runs = []
-    for name, tree in (("parent", parent), ("change", root),
-                       ("change", root), ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", AB_SCRIPT, settings],
-                              cwd=tree, capture_output=True, text=True,
-                              timeout=600)
-        line = [l for l in proc.stdout.splitlines() if l.startswith("AB ")]
-        if proc.returncode or not line:
-            raise AssertionError(f"ab: the {name} run failed:\n"
-                                 f"{proc.stderr[-3000:]}")
-        runs.append({"tree": name, **json.loads(line[-1][3:])})
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays = {}
+        for i, (streams, seed) in enumerate(v[1:] for v in
+                                            loop_inputs.values()):
+            arrays.update({f"s{i}_{j}": x for j, x in enumerate(streams)})
+            arrays[f"seed{i}"] = seed
+        npz = str(Path(tmp) / "loop_inputs.npz")
+        np.savez(npz, **arrays)
+        settings = json.dumps({
+            "cases": [[rows, n, ratio] for _, rows, n, ratio, dt in FIR_CASES
+                      if dt == "c64"],
+            "fs": METEOR_FS, "if": METEOR_IF, "offset": METEOR_OFFSET,
+            "block": block, "blocks": AB_BLOCKS, "seed": 5,
+            "bodies": loop_body_args(), "loop_inputs": npz,
+            "loops": [[label, v[0]] for label, v in loop_inputs.items()]})
+        runs = [ab_run(name, tree, settings)
+                for name, tree in (("parent", parent), ("change", root),
+                                   ("change", root), ("parent", parent))]
     res = {"order": [r["tree"] for r in runs], "runs": runs}
     for tree in ("parent", "change"):
         mine = [r for r in runs if r["tree"] == tree]
-        res[tree] = {"meteor_block_ms": [r["meteor_block_ms"] for r in mine],
-                     "decimating_fir_ms": {
-                         k: [r["decimating_fir_ms"][k] for r in mine]
-                         for k in mine[0]["decimating_fir_ms"]}}
+        res[tree] = {"meteor_block_ms": [r["meteor_block_ms"] for r in mine]}
+        for part in ("decimating_fir_ms", "loop_scan_ms"):
+            res[tree][part] = {k: [r[part][k] for r in mine]
+                               for k in mine[0][part]}
     log("ab " + json.dumps({k: res[k] for k in ("order", "parent",
                                                   "change")}))
     return res
+
+
+def ab_run(name: str, tree: Path, settings: str) -> dict:
+    """One A/B run: AB_SCRIPT from the root of ``tree``."""
+    proc = subprocess.run([sys.executable, "-c", AB_SCRIPT, settings],
+                          cwd=tree, capture_output=True, text=True,
+                          timeout=600)
+    line = [l for l in proc.stdout.splitlines() if l.startswith("AB ")]
+    if proc.returncode or not line:
+        raise AssertionError(f"ab: the {name} run failed:\n"
+                             f"{proc.stderr[-3000:]}")
+    return {"tree": name, **json.loads(line[-1][3:])}
 
 
 def device_intervals(prof):
@@ -1554,6 +1852,51 @@ def profile_paths():
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {}
+
+    def summary(name, spans, wall_us, blocks):
+        by_name = {}
+        for kname, a, b in spans:
+            t, c = by_name.get(kname, (0.0, 0))
+            by_name[kname] = (t + b - a, c + 1)
+        busy = busy_us(spans)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        loops = sum(t for kname, (t, c) in by_name.items()
+                    if "loop_scan_kernel" in kname)
+        res = {"blocks": blocks, "wall_ms_per_block": wall_us / blocks / 1e3,
+               "device_busy_ms_per_block": busy / blocks / 1e3,
+               "idle_share": 1.0 - busy / wall_us,
+               "device_ops_per_block": len(spans) / blocks,
+               "loop_scan_ms_per_block": loops / blocks / 1e3,
+               "loop_scan_share_of_busy": loops / busy if busy else 0.0,
+               "by_kernel_ms_per_block": {n: t / blocks / 1e3
+                                          for n, (t, c) in top[:12]}}
+        log(f"profile {name}: {res['wall_ms_per_block']:.3f} ms per block "
+            f"(host clock), device busy {res['device_busy_ms_per_block']:.3f}"
+            f" ms, idle {100 * res['idle_share']:.1f} %, "
+            f"{res['device_ops_per_block']:.0f} device operations per block; "
+            f"loop-scan kernels {res['loop_scan_ms_per_block']:.4f} ms "
+            f"({100 * res['loop_scan_share_of_busy']:.1f} % of busy)")
+        for n, (t, c) in top[:12]:
+            log(f"  {t / blocks / 1e3:8.4f} ms/block  x{c // blocks:<3d} "
+                f"{n[:100]}")
+        return res
+
+    # the receive slice: three VFOs, steady blocks after three warm ones
+    iq = composite((3 + PROFILE_RX_BLOCKS) * BLOCK)
+    rx = make_receiver("cuda")
+    for k in range(3):
+        rx.process_block(iq[k * BLOCK:(k + 1) * BLOCK])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for k in range(3, 3 + PROFILE_RX_BLOCKS):
+            rx.process_block(iq[k * BLOCK:(k + 1) * BLOCK])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out["receive"] = summary("receive", device_intervals(prof), wall_us,
+                             PROFILE_RX_BLOCKS)
+    del rx, iq
+
     x, _, _ = wideband_block("cuda")
     chain = W.make_chain("wideband", device="cuda")
     state = chain.init_state()
@@ -1566,29 +1909,8 @@ def profile_paths():
             state, y = chain(state, x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = device_intervals(prof)
-    by_name = {}
-    for name, a, b in spans:
-        t, c = by_name.get(name, (0.0, 0))
-        by_name[name] = (t + b - a, c + 1)
-    busy = busy_us(spans)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    out["wideband"] = {
-        "blocks": PROFILE_BLOCKS, "wall_ms_per_block": wall_us / PROFILE_BLOCKS
-        / 1e3, "device_busy_ms_per_block": busy / PROFILE_BLOCKS / 1e3,
-        "idle_share": 1.0 - busy / wall_us,
-        "device_ops_per_block": len(spans) / PROFILE_BLOCKS,
-        "by_kernel_ms_per_block": {n: t / PROFILE_BLOCKS / 1e3
-                                   for n, (t, c) in top[:12]}}
-    log(f"profile wideband: {out['wideband']['wall_ms_per_block']:.3f} ms "
-        f"per block (host clock), device busy "
-        f"{out['wideband']['device_busy_ms_per_block']:.3f} ms, idle "
-        f"{100 * out['wideband']['idle_share']:.1f} %, "
-        f"{out['wideband']['device_ops_per_block']:.0f} device operations "
-        f"per block")
-    for n, (t, c) in top[:12]:
-        log(f"  {t / PROFILE_BLOCKS / 1e3:8.4f} ms/block  x{c // PROFILE_BLOCKS:<3d} "
-            f"{n[:100]}")
+    out["wideband"] = summary("wideband", device_intervals(prof), wall_us,
+                              PROFILE_BLOCKS)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out["decimating_fir"] = []
@@ -1638,9 +1960,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = ("loop_scan", "mm_clock", "viterbi", "decim_fir")
-    with ThreadPoolExecutor(len(names) + 1) as pool:
-        host = pool.submit(cuda_lib.build_host, "decim_fir_host")
-        libs = list(pool.map(cuda_lib.build, names)) + [host.result()]
+    hosts = ("kernels_host",)
+    with ThreadPoolExecutor(len(names) + len(hosts)) as pool:
+        built = [pool.submit(cuda_lib.build_host, h) for h in hosts]
+        libs = list(pool.map(cuda_lib.build, names)) + [
+            b.result() for b in built]
     build_s = time.perf_counter() - t0
     log(f"build: {', '.join(l.name for l in libs)} in {build_s:.2f} s")
     for lib in libs:
@@ -1651,8 +1975,8 @@ def main() -> int:
         print(json.dumps({"profile": profile_paths()}))
         return 0
     dev = torch.device("cuda")
-    kernels = (phase_kernels(dev) + phase_kernels_digital(dev)
-               + phase_kernels_fir(dev))
+    loops, ab_inputs = phase_kernels(dev)
+    kernels = loops + phase_kernels_digital(dev) + phase_kernels_fir(dev)
 
     iq = composite(NBLOCKS * BLOCK)
     audio, block_ms, wall_s, launches = phase_slice(iq)
@@ -1674,7 +1998,7 @@ def main() -> int:
     banks = phase_banks()
     bank_cli = phase_bank_cli()
     golden_bank = phase_golden_bank()
-    ab = phase_ab(meteor["block"])
+    ab = phase_ab(meteor["block"], ab_inputs)
 
     paths = {"receive": launches, "meteor": meteor["launches"],
              "wideband": wide["launches"],

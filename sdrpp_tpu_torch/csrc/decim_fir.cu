@@ -59,9 +59,10 @@
 // (device, kernel, OPB, bytes), so a launch makes no driver call but the
 // launch itself.
 //
-// C ABI (called through its address by decim_fir_host.cpp, the compiled
-// host path): each entry returns cudaGetLastError() after the launch. Row counts and lengths are 64-bit; offsets are computed in
-// 64 bits inside the kernel.
+// C ABI (called through its address by decim_fir of kernels_host.cpp, the
+// compiled host path): each entry returns cudaGetLastError() after the
+// launch. Row counts and lengths are 64-bit; offsets are computed in 64
+// bits inside the kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

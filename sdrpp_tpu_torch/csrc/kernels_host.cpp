@@ -1,0 +1,492 @@
+// The compiled host paths of the port's kernel wrappers, one Python
+// extension module: each entry makes its wrapper's argument checks, its
+// allocations and its kernel's launch on the current stream of its tensors'
+// device in one CPython call. At the paths' shapes a kernel takes about as
+// long on the device as a Python wrapper's checks, allocations and ctypes
+// call took on the host.
+//
+//   decim_fir(tail, x, taps, r) -> (new_tail, y)
+//       ops/fir_kernels.decimating_fir: tail [..., m-1], x [..., n]
+//       complex64 or float32 on one CUDA device, taps [m] float32, r >= 1
+//       dividing n.
+//   loop_scan(body, params, state, streams, valid, out, skip, side, cycles,
+//             single) -> (out, fin)
+//       ops/scans_kernels.lane_scan / single_scan: body, an index into
+//       loop_scan.h's kLoopBodies; params, its float parameters; state
+//       [k, *lanes] and streams (a sequence of [n, *lanes]; lanes: none
+//       when `single`, else one or two axes), float32 on one CUDA device,
+//       any strides; valid: None or an int in [0, n]; out: None or a
+//       [n - skip, *lanes] float32 view with no overlapping elements,
+//       written in place; skip in [0, n]; side: None or a [m <= skip,
+//       *lanes] float32 view receiving steps [skip - m, skip); cycles: None
+//       or a contiguous int64 [ceil(C / 32)] tensor receiving the walkers'
+//       clock64 cycles. Allocates `out` when None and the final carry
+//       `fin` [k, *lanes].
+//   bind_decim_fir(c64_entry, f32_entry), bind_loop_scan(entry)
+//       the addresses of the kernel libraries' C entries (decim_fir.cu's
+//       decim_fir_c64 / decim_fir_f32, loop_scan.cu's loop_scan).
+//
+// Each entry raises ValueError on a wrong argument, with the checks, the
+// order and the messages of its wrapper's Python `_check`, and
+// RuntimeError when the launch fails. Built by utils/cuda_lib.build_host
+// with the host C++ compiler against torch's headers and libraries; the
+// kernels stay in their .cu libraries. KERNELS_HOST_CUDA is defined for
+// the build that launches; without it (against a CPU-only torch) the
+// checks are the same and any call that passes them raises, as no tensor
+// can be on a CUDA device: tests/test_torch_host_checks.py holds those
+// checks against the Python ones.
+
+#include <torch/csrc/Exceptions.h>
+#include <torch/csrc/autograd/python_variable.h>
+#include <torch/csrc/utils/object_ptr.h>
+
+#include <ATen/ops/empty.h>
+#ifdef KERNELS_HOST_CUDA
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#endif
+
+#include <algorithm>
+#include <climits>
+#include <string>
+#include <utility>
+#include <vector>
+
+#include "loop_scan.h"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// shared helpers
+// ---------------------------------------------------------------------------
+
+PyObject* value_error(const std::string& msg) {
+  PyErr_SetString(PyExc_ValueError, msg.c_str());
+  return nullptr;
+}
+
+PyObject* type_error(const char* msg) {
+  PyErr_SetString(PyExc_TypeError, msg);
+  return nullptr;
+}
+
+std::string shape_str(c10::IntArrayRef s) {
+  std::string out = "[";
+  for (size_t i = 0; i < s.size(); ++i)
+    out += (i ? ", " : "") + std::to_string(s[i]);
+  return out + "]";
+}
+
+// str(dtype) as Python prints it
+std::string dtype_name(c10::ScalarType t) {
+  switch (t) {
+    case c10::kComplexFloat: return "torch.complex64";
+    case c10::kComplexDouble: return "torch.complex128";
+    case c10::kFloat: return "torch.float32";
+    case c10::kDouble: return "torch.float64";
+    case c10::kHalf: return "torch.float16";
+    case c10::kBFloat16: return "torch.bfloat16";
+    case c10::kByte: return "torch.uint8";
+    case c10::kChar: return "torch.int8";
+    case c10::kShort: return "torch.int16";
+    case c10::kInt: return "torch.int32";
+    case c10::kLong: return "torch.int64";
+    case c10::kBool: return "torch.bool";
+    default: return c10::toString(t);
+  }
+}
+
+// a C entry's address from bind_*; false (ValueError set) for a null one
+template <class Entry>
+bool entry_arg(PyObject* o, Entry* out) {
+  void* p = PyLong_AsVoidPtr(o);
+  if (PyErr_Occurred()) return false;
+  if (p == nullptr) {
+    value_error("bind: a null entry");
+    return false;
+  }
+  *out = reinterpret_cast<Entry>(p);
+  return true;
+}
+
+// the current stream of `device`, which is the current device while this
+// lives
+struct OnStream {
+#ifdef KERNELS_HOST_CUDA
+  explicit OnStream(c10::Device device)
+      : guard(device),
+        stream(c10::cuda::getCurrentCUDAStream(device.index()).stream()) {}
+  c10::cuda::CUDAGuard guard;
+  void* stream;
+#else
+  explicit OnStream(c10::Device) {}
+  void* stream = nullptr;
+#endif
+};
+
+// (a, b) as a new tuple, taking both references; nullptr if either is
+PyObject* pair(PyObject* a, PyObject* b) {
+  PyObject* t = a && b ? PyTuple_New(2) : nullptr;
+  if (t == nullptr) {
+    Py_XDECREF(a);
+    Py_XDECREF(b);
+    return nullptr;
+  }
+  PyTuple_SET_ITEM(t, 0, a);
+  PyTuple_SET_ITEM(t, 1, b);
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// decimating_fir (csrc/decim_fir.cu)
+// ---------------------------------------------------------------------------
+
+using DecimFirEntry = int (*)(const void* tail, const void* x,
+                              const float* taps, void* new_tail, void* y,
+                              long long rows, long long n, int m, int r,
+                              void* stream);
+
+DecimFirEntry g_fir_c64 = nullptr;
+DecimFirEntry g_fir_f32 = nullptr;
+
+PyObject* decim_fir(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  if (nargs != 4 || !THPVariable_Check(args[0]) ||
+      !THPVariable_Check(args[1]) || !THPVariable_Check(args[2]))
+    return type_error(
+        "decim_fir(tail, x, taps, r) takes three tensors and an int");
+  const at::Tensor& tail = THPVariable_Unpack(args[0]);
+  const at::Tensor& x = THPVariable_Unpack(args[1]);
+  const at::Tensor& taps = THPVariable_Unpack(args[2]);
+  const long long r = PyLong_AsLongLong(args[3]);
+  if (r == -1 && PyErr_Occurred()) return nullptr;
+
+  // the checks of fir_kernels._check, in its order and with its messages
+  const c10::ScalarType dtype = x.scalar_type();
+  const bool c64 = dtype == c10::kComplexFloat;
+  if (!c64 && dtype != c10::kFloat)
+    return value_error("x must be complex64 or float32");
+  if (taps.scalar_type() != c10::kFloat || taps.dim() != 1 ||
+      taps.size(0) < 1)
+    return value_error("taps must be a float32 vector");
+  const int64_t m = taps.size(0);
+  const c10::IntArrayRef ts = tail.sizes(), xs = x.sizes();
+  const size_t nd = xs.size();
+  bool tail_ok = nd >= 1 && tail.scalar_type() == dtype &&
+                 ts.size() == nd && ts[nd - 1] == m - 1;
+  for (size_t i = 0; tail_ok && i + 1 < nd; ++i) tail_ok = ts[i] == xs[i];
+  if (!tail_ok) {
+    std::vector<int64_t> want(xs.begin(), xs.end());
+    if (want.empty()) want.push_back(0);
+    want.back() = m - 1;
+    return value_error("tail must be " + dtype_name(dtype) + " " +
+                       shape_str(want) + ", got " +
+                       dtype_name(tail.scalar_type()) + " " + shape_str(ts));
+  }
+  if (tail.device() != x.device() || taps.device() != x.device())
+    return value_error("decimating_fir takes tensors on one device");
+  const int64_t n = xs[nd - 1];
+  if (r < 1 || n % r)
+    return value_error("block length " + std::to_string(n) +
+                       " must be a multiple of decimation " +
+                       std::to_string(r));
+  // the kernel's own conditions
+  if (!x.is_cuda())
+    return value_error("the compiled decimating_fir takes CUDA tensors");
+  if (n < 1) return value_error("decimating_fir takes a non-empty block");
+  if (m > INT_MAX || r > INT_MAX)
+    return value_error("taps and decimation must fit an int");
+  const DecimFirEntry fn = c64 ? g_fir_c64 : g_fir_f32;
+  if (fn == nullptr) {
+    PyErr_SetString(PyExc_RuntimeError,
+                    "decim_fir: the kernel entries are not bound");
+    return nullptr;
+  }
+
+  const at::Tensor tc = tail.is_contiguous() ? tail : tail.contiguous();
+  const at::Tensor xc = x.is_contiguous() ? x : x.contiguous();
+  const at::Tensor wc = taps.is_contiguous() ? taps : taps.contiguous();
+  std::vector<int64_t> ysize(xs.begin(), xs.end());
+  ysize.back() = n / r;
+  at::Tensor y = at::empty(ysize, x.options());
+  at::Tensor new_tail = at::empty(ts, tail.options());
+  const long long rows = x.numel() / n;
+
+  const OnStream on(x.device());
+  const int rc = fn(tc.data_ptr(), xc.data_ptr(), wc.data_ptr<float>(),
+                    new_tail.data_ptr(), y.data_ptr(), rows, n,
+                    static_cast<int>(m), static_cast<int>(r), on.stream);
+  if (rc != 0) {
+    PyErr_Format(PyExc_RuntimeError,
+                 "decimating_fir launch failed: CUDA error %d at rows=%lld, "
+                 "n=%lld, m=%lld, r=%lld", rc, rows,
+                 static_cast<long long>(n), static_cast<long long>(m), r);
+    return nullptr;
+  }
+  return pair(THPVariable_Wrap(std::move(new_tail)),
+              THPVariable_Wrap(std::move(y)));
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* bind_decim_fir(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 2) return type_error("bind_decim_fir(c64_entry, f32_entry)");
+  DecimFirEntry c64, f32;
+  if (!entry_arg(args[0], &c64) || !entry_arg(args[1], &f32)) return nullptr;
+  g_fir_c64 = c64;
+  g_fir_f32 = f32;
+  Py_RETURN_NONE;
+}
+
+// ---------------------------------------------------------------------------
+// lane_scan / single_scan (csrc/loop_scan.cu)
+// ---------------------------------------------------------------------------
+
+LoopScanEntry g_loop_scan = nullptr;
+
+// true unless the elements are at distinct addresses: the dims of size > 1,
+// by stride, must each step past the span of the smaller ones
+bool overlaps(const at::Tensor& t) {
+  std::vector<std::pair<int64_t, int64_t>> dims;
+  for (int64_t i = 0; i < t.dim(); ++i)
+    if (t.size(i) > 1) dims.emplace_back(t.stride(i), t.size(i));
+  std::sort(dims.begin(), dims.end());
+  int64_t span = 0;
+  for (const auto& [stride, size] : dims) {
+    if (stride <= span) return true;
+    span += stride * (size - 1);
+  }
+  return false;
+}
+
+// a tensor argument, or nullptr for None; sets TypeError otherwise
+bool optional_tensor(PyObject* o, const at::Tensor** t) {
+  *t = nullptr;
+  if (o == Py_None) return true;
+  if (!THPVariable_Check(o)) {
+    type_error("loop_scan: out, side and cycles are tensors or None");
+    return false;
+  }
+  *t = &THPVariable_Unpack(o);
+  return true;
+}
+
+// the lane strides (l0, l1) of a tensor whose lane axes start at `first`
+void lane_strides(const at::Tensor& t, int64_t first, int64_t nlanes,
+                  long long* l0, long long* l1) {
+  *l0 = nlanes == 2 ? t.stride(first) : 0;
+  *l1 = nlanes >= 1 ? t.stride(first + nlanes - 1) : 0;
+}
+
+PyObject* loop_scan(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  if (nargs != 10 || !THPVariable_Check(args[2]))
+    return type_error(
+        "loop_scan(body, params, state, streams, valid, out, skip, side, "
+        "cycles, single)");
+  const long body = PyLong_AsLong(args[0]);
+  if (body == -1 && PyErr_Occurred()) return nullptr;
+  if (body < 0 || body >= LOOP_BODIES)
+    return value_error("loop_scan: unknown body " + std::to_string(body));
+  const LoopBodyInfo& info = kLoopBodies[body];
+  const int single = PyObject_IsTrue(args[9]);
+  if (single < 0) return nullptr;
+
+  float params[8];
+  {
+    THPObjectPtr seq(
+        PySequence_Fast(args[1], "loop_scan: params is a sequence"));
+    if (!seq) return nullptr;
+    const Py_ssize_t np = PySequence_Fast_GET_SIZE(seq.get());
+    if (np != info.nparams)
+      return value_error(std::string(info.name) + " takes " +
+                         std::to_string(info.nparams) + " parameters, got " +
+                         std::to_string(np));
+    for (Py_ssize_t i = 0; i < np; ++i) {
+      const double v = PyFloat_AsDouble(PySequence_Fast_GET_ITEM(seq.get(), i));
+      if (v == -1.0 && PyErr_Occurred()) return nullptr;
+      params[i] = static_cast<float>(v);
+    }
+  }
+  const at::Tensor& state = THPVariable_Unpack(args[2]);
+  std::vector<at::Tensor> streams;
+  {
+    THPObjectPtr seq(
+        PySequence_Fast(args[3], "loop_scan: streams is a sequence"));
+    if (!seq) return nullptr;
+    const Py_ssize_t ns = PySequence_Fast_GET_SIZE(seq.get());
+    if (ns != info.nstreams)
+      return value_error(std::string(info.name) + " takes " +
+                         std::to_string(info.nstreams) + " streams, got " +
+                         std::to_string(ns));
+    for (Py_ssize_t i = 0; i < ns; ++i) {
+      PyObject* o = PySequence_Fast_GET_ITEM(seq.get(), i);
+      if (!THPVariable_Check(o))
+        return type_error("loop_scan: streams are tensors");
+      streams.push_back(THPVariable_Unpack(o));
+    }
+  }
+  const at::Tensor *out_arg, *side_arg, *cycles_arg;
+  if (!optional_tensor(args[5], &out_arg) ||
+      !optional_tensor(args[7], &side_arg) ||
+      !optional_tensor(args[8], &cycles_arg))
+    return nullptr;
+
+  // the checks of scans_kernels._check, in its order and with its messages
+  if (state.scalar_type() != c10::kFloat)
+    return value_error("loop scans take float32 tensors on one device");
+  for (const at::Tensor& s : streams)
+    if (s.scalar_type() != c10::kFloat || s.device() != state.device())
+      return value_error("loop scans take float32 tensors on one device");
+  const c10::IntArrayRef shape = streams[0].sizes();
+  const int64_t nd = static_cast<int64_t>(shape.size());
+  bool shape_ok = single ? nd == 1 : (nd == 2 || nd == 3);
+  for (const at::Tensor& s : streams) shape_ok = shape_ok && s.sizes() == shape;
+  if (!shape_ok)
+    return value_error(single ? "streams must share one 1-D shape"
+                              : "streams must share one 2- or 3-D shape");
+  const int64_t n = shape[0];
+  const c10::IntArrayRef lanes = shape.slice(1);
+  std::vector<int64_t> want{info.k};
+  want.insert(want.end(), lanes.begin(), lanes.end());
+  if (state.sizes() != c10::IntArrayRef(want))
+    return value_error("state shape " + shape_str(state.sizes()) + " != " +
+                       shape_str(want));
+  long long valid = n;
+  if (args[4] != Py_None) {
+    valid = PyLong_AsLongLong(args[4]);
+    if (valid == -1 && PyErr_Occurred()) return nullptr;
+  }
+  if (valid < 0 || valid > n)
+    return value_error("valid " + std::to_string(valid) + " outside [0, " +
+                       std::to_string(n) + "]");
+  const long long skip = PyLong_AsLongLong(args[6]);
+  if (skip == -1 && PyErr_Occurred()) return nullptr;
+  if (skip < 0 || skip > n)
+    return value_error("skip " + std::to_string(skip) + " outside [0, " +
+                       std::to_string(n) + "]");
+  std::vector<int64_t> out_size{n - skip};
+  out_size.insert(out_size.end(), lanes.begin(), lanes.end());
+  for (int which = 0; which < 2; ++which) {
+    const at::Tensor* t = which == 0 ? out_arg : side_arg;
+    const char* name = which == 0 ? "out" : "side";
+    if (t == nullptr) continue;
+    if (t->scalar_type() != c10::kFloat || t->device() != state.device())
+      return value_error(std::string(name) +
+                         " must be float32 on the streams' device");
+    bool ok = t->dim() == nd && t->sizes().slice(1) == lanes &&
+              (which == 0 ? t->size(0) == n - skip : t->size(0) <= skip);
+    if (!ok)
+      return value_error(
+          std::string(name) + " shape " + shape_str(t->sizes()) +
+          (which == 0 ? " != " + shape_str(out_size)
+                      : " must have m <= " + std::to_string(skip) +
+                            " rows of " + shape_str(lanes)));
+    if (overlaps(*t))
+      return value_error(std::string(name) +
+                         " has overlapping elements: the kernel cannot "
+                         "write it");
+  }
+  // the kernel's own conditions
+  if (!state.is_cuda())
+    return value_error("the compiled loop scan takes CUDA tensors");
+  int64_t C = 1;
+  for (int64_t v : lanes) C *= v;
+  const int64_t groups = (C + LOOP_LANES - 1) / LOOP_LANES;
+  if (cycles_arg != nullptr &&
+      (cycles_arg->scalar_type() != c10::kLong || cycles_arg->dim() != 1 ||
+       cycles_arg->size(0) != groups || !cycles_arg->is_contiguous() ||
+       cycles_arg->device() != state.device()))
+    return value_error("cycles must be a contiguous int64 [" +
+                       std::to_string(groups) +
+                       "] tensor on the streams' device");
+  if (n > INT_MAX || C > INT_MAX)
+    return value_error("loop scans take fewer than 2^31 steps and lanes");
+  if (g_loop_scan == nullptr) {
+    PyErr_SetString(PyExc_RuntimeError,
+                    "loop_scan: the kernel entry is not bound");
+    return nullptr;
+  }
+
+  const at::Tensor out =
+      out_arg != nullptr ? *out_arg : at::empty(out_size, state.options());
+  const at::Tensor fin = at::empty(want, state.options());
+  const int64_t nl = nd - 1;
+  LoopScanArgs a{};
+  for (int j = 0; j < 2; ++j) {
+    const at::Tensor& s = streams[std::min<int>(j, info.nstreams - 1)];
+    a.in[j] = s.data_ptr<float>();
+    a.in_t[j] = s.stride(0);
+    lane_strides(s, 1, nl, &a.in_l0[j], &a.in_l1[j]);
+  }
+  a.out = out.data_ptr<float>();
+  a.out_t = out.stride(0);
+  lane_strides(out, 1, nl, &a.out_l0, &a.out_l1);
+  if (side_arg != nullptr) {
+    a.side = side_arg->data_ptr<float>();
+    a.side_t = side_arg->stride(0);
+    lane_strides(*side_arg, 1, nl, &a.side_l0, &a.side_l1);
+    a.nside = static_cast<int>(side_arg->size(0));
+  }
+  a.seed = state.data_ptr<float>();
+  a.seed_k = state.stride(0);
+  lane_strides(state, 1, nl, &a.seed_l0, &a.seed_l1);
+  a.fin = fin.data_ptr<float>();
+  a.cycles = cycles_arg != nullptr
+                 ? reinterpret_cast<long long*>(cycles_arg->data_ptr<int64_t>())
+                 : nullptr;
+  a.n = static_cast<int>(n);
+  a.C = static_cast<int>(C);
+  a.C1 = nl == 0 ? 1 : std::max(static_cast<int>(lanes[nl - 1]), 1);
+  a.valid = static_cast<int>(valid);
+  a.skip = static_cast<int>(skip);
+
+  const OnStream on(state.device());
+  const int rc = g_loop_scan(static_cast<int>(body), &a, params, info.nparams,
+                             on.stream);
+  if (rc != 0) {
+    PyErr_Format(PyExc_RuntimeError,
+                 "loop_scan_%s launch failed: CUDA error %d at n=%lld, C=%lld",
+                 info.name, rc, static_cast<long long>(n),
+                 static_cast<long long>(C));
+    return nullptr;
+  }
+  PyObject* o = out_arg != nullptr ? args[5] : THPVariable_Wrap(out);
+  if (out_arg != nullptr) Py_INCREF(o);
+  return pair(o, THPVariable_Wrap(fin));
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* bind_loop_scan(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 1) return type_error("bind_loop_scan(entry)");
+  LoopScanEntry entry;
+  if (!entry_arg(args[0], &entry)) return nullptr;
+  g_loop_scan = entry;
+  Py_RETURN_NONE;
+}
+
+template <PyObject* (*F)(PyObject*, PyObject* const*, Py_ssize_t)>
+PyCFunction fastcall() {
+  return reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(F));
+}
+
+PyMethodDef kMethods[] = {
+    {"decim_fir", fastcall<decim_fir>(), METH_FASTCALL,
+     "decim_fir(tail, x, taps, r) -> (new_tail, y): check, allocate and "
+     "launch decimating_fir's kernel on x's current stream."},
+    {"loop_scan", fastcall<loop_scan>(), METH_FASTCALL,
+     "loop_scan(body, params, state, streams, valid, out, skip, side, "
+     "cycles, single) -> (out, fin): check, allocate and launch the "
+     "loop-scan kernel on the state's current stream."},
+    {"bind_decim_fir", fastcall<bind_decim_fir>(), METH_FASTCALL,
+     "bind_decim_fir(c64_entry, f32_entry): decim_fir.cu's C entries."},
+    {"bind_loop_scan", fastcall<bind_loop_scan>(), METH_FASTCALL,
+     "bind_loop_scan(entry): loop_scan.cu's C entry."},
+    {nullptr, nullptr, 0, nullptr}};
+
+PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "kernels_host",
+                       "The compiled host paths of the kernel wrappers.", -1,
+                       kMethods};
+
+}  // namespace
+
+PyMODINIT_FUNC PyInit_kernels_host() { return PyModule_Create(&kModule); }

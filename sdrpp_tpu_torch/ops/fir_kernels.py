@@ -9,12 +9,12 @@ replaces the Pallas kernel ``_run`` (fir_pallas.py:74, called through
     y[o] = sum_{j<m} taps[j] * buf[r*o + j],   buf = [tail | x].
 
 On a CUDA tensor it launches ``csrc/decim_fir.cu`` through a compiled
-host path, ``csrc/decim_fir_host.cpp``, which checks the arguments,
-allocates the outputs and launches in one C++ call (both built on first
-use; a failed build raises), and adds one to its ``launches`` count; on a CPU
-tensor it runs ``decimating_fir_plain``, the same sum in the same order
-(j = 0..m-1 from 0.0, one rounding per product and per sum) on real
-float32 planes. Any other device raises.
+host path, ``decim_fir`` of ``csrc/kernels_host.cpp``, which checks the
+arguments, allocates the outputs and launches in one C++ call (both built
+on first use; a failed build raises), and adds one to its ``launches``
+count; on a CPU tensor it runs ``decimating_fir_plain``, the same sum in
+the same order (j = 0..m-1 from 0.0, one rounding per product and per
+sum) on real float32 planes. Any other device raises.
 
 What bounds it on an H100 is bytes: it reads its input once and writes an
 r-fold smaller output, at ~9 float operations per input byte where the
@@ -44,7 +44,7 @@ _C64, _F32 = torch.complex64, torch.float32
 
 def _check(tail, x, taps, r):
     """Validates the arguments; returns (m, r). On CUDA tensors the
-    compiled host path (csrc/decim_fir_host.cpp) makes the same checks."""
+    compiled host path (csrc/kernels_host.cpp) makes the same checks."""
     dtype = x.dtype
     if dtype != _C64 and dtype != _F32:
         raise ValueError("x must be complex64 or float32")
@@ -93,13 +93,13 @@ _host = None
 
 
 def _bind_host():
-    """decim_fir_host.decim_fir (csrc/decim_fir_host.cpp), bound to the
-    kernel library's two C entries; both built and loaded on first use."""
+    """kernels_host.decim_fir (csrc/kernels_host.cpp), bound to the kernel
+    library's two C entries; both built and loaded on first use."""
     global _host
     lib = cuda_lib.load("decim_fir")
-    mod = cuda_lib.load_host("decim_fir_host")
-    mod.bind(*(ctypes.cast(getattr(lib, e), ctypes.c_void_p).value
-               for e in ("decim_fir_c64", "decim_fir_f32")))
+    mod = cuda_lib.load_host("kernels_host")
+    mod.bind_decim_fir(*(ctypes.cast(getattr(lib, e), ctypes.c_void_p).value
+                         for e in ("decim_fir_c64", "decim_fir_f32")))
     _host = mod.decim_fir
     return _host
 

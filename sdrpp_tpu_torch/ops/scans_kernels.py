@@ -4,24 +4,36 @@ loops.
 The counterpart of ``sdrpp_tpu.ops.scans_pallas``. Two entry points run a
 per-sample recurrence ("body") sequentially in time:
 
-- ``lane_scan``   C lanes of time-major [n, C] streams (replaces the
-                  Pallas kernel ``_lane_scan_call``, scans_pallas.py:147);
+- ``lane_scan``   C lanes of time-major [n, *lanes] streams (one or two
+                  lane axes; replaces the Pallas kernel
+                  ``_lane_scan_call``, scans_pallas.py:147);
 - ``single_scan`` one [n] stream (replaces ``_smem_scan_call``,
                   scans_pallas.py:68); the same CUDA kernel with C = 1.
 
+Both read their streams where they lie (any strides, overlapping lanes
+included); ``lane_scan`` writes into a caller-given output view when one
+is passed, with an optional count of leading steps not stored there
+(``skip``) and a side output for the last steps before them (``side``).
 On a CUDA tensor each launches the hand-written kernel in
-``csrc/loop_scan.cu`` (built on first use; a failed build raises) and adds
-one to its ``launches`` count. On a CPU tensor each runs its plain PyTorch
-version (``lane_scan_plain`` / ``single_scan_plain``): a Python loop over
-time on [C] vectors, operation for operation the kernel's body. Any other
+``csrc/loop_scan.cu`` through a compiled host path, ``loop_scan`` of
+``csrc/kernels_host.cpp``, which checks the arguments, allocates and
+launches in one C++ call (both built on first use; a failed build
+raises), and adds one to its ``launches`` count. On a CPU tensor each
+runs its plain PyTorch version (``lane_scan_plain`` /
+``single_scan_plain``, same arguments): a Python loop over time on
+[*lanes] vectors, operation for operation the kernel's body. Any other
 device raises.
 
 The chunk-parallel loops (``pll_phases_chunked``, ``agc_gains_chunked``,
-``fast_agc_gains_chunked``, ``costas_phases_chunked``) cut a long block into K overlapping lanes that each re-acquire over a
-W-sample warm-up window and run them through ``lane_scan``; see the JAX
-module for the approximation contract. Whether a loop runs chunked or
-exact is decided by ``_chunk_lanes_for`` alone, on every device, so the
-CPU tests exercise the same glue the card runs.
+``fast_agc_gains_chunked``, ``costas_phases_chunked``) cut a long block
+into K overlapping lanes that each re-acquire over a W-sample warm-up
+window and run them through ``lane_scan``; see the JAX module for the
+approximation contract. The lanes are strided views of one extended
+stream [hist | block] and each lane's payload lands in sample order in
+the output, so the only copy around the kernel is that extension.
+Whether a loop runs chunked or exact is decided by ``_chunk_lanes_for``
+alone, on every device, so the CPU tests exercise the same glue the card
+runs.
 """
 
 from __future__ import annotations
@@ -50,9 +62,9 @@ METEOR_PHASES = (0.47439988279190737, 2.1777839908413044,
 
 
 class LoopBody(NamedTuple):
-    """One recurrence: ``name`` picks the CUDA entry ``loop_scan_<name>``;
+    """One recurrence: ``name`` picks the kernel's body (csrc/loop_scan.h);
     ``k`` carries, ``nstreams`` input streams; ``params`` are the float32
-    scalars the entry takes; ``step(carry, inputs) -> (carry, out)`` is the
+    scalars the body takes; ``step(carry, inputs) -> (carry, out)`` is the
     plain PyTorch step on [C] vectors."""
     name: str
     k: int
@@ -191,127 +203,183 @@ def costas_body(order, alpha, beta, min_freq, max_freq) -> LoopBody:
 # Entry points: kernel on CUDA tensors, plain loop on CPU tensors
 # ---------------------------------------------------------------------------
 
-def _check(body: LoopBody, state, streams, ndim: int):
+# csrc/loop_scan.h's body indices, and the lanes of one CTA
+_BODY_IDS = {"pll": 0, "agc": 1, "fast_agc": 2, "costas2": 3, "costas4": 4,
+             "costas8": 5, "costas_meteor": 6}
+KERNEL_LANES = 32
+
+
+def _overlaps(t) -> bool:
+    """True unless t's elements lie at distinct addresses: the dims of size
+    > 1, by stride, must each step past the span of the smaller ones (as
+    csrc/kernels_host.cpp tests it)."""
+    span = 0
+    for stride, size in sorted((st, sz) for st, sz in zip(t.stride(), t.shape)
+                               if sz > 1):
+        if stride <= span:
+            return True
+        span += stride * (size - 1)
+    return False
+
+
+def _check(body: LoopBody, state, streams, single: bool, valid=None,
+           out=None, skip=0, side=None):
+    """Validates a scan's arguments; returns (n, valid, skip). On CUDA
+    tensors the compiled host path (csrc/kernels_host.cpp) makes the
+    same checks, in this order and with these messages."""
     if len(streams) != body.nstreams:
         raise ValueError(f"{body.name} takes {body.nstreams} streams, "
                          f"got {len(streams)}")
-    shape = streams[0].shape
     for s in (state, *streams):
         if s.dtype != torch.float32 or s.device != state.device:
             raise ValueError("loop scans take float32 tensors on one device")
-    if len(shape) != ndim or any(s.shape != shape for s in streams):
-        raise ValueError(f"streams must share one {ndim}-D shape")
-    lanes = shape[1:]
-    if tuple(state.shape) != (body.k, *lanes):
-        raise ValueError(f"state shape {tuple(state.shape)} != "
-                         f"{(body.k, *lanes)}")
-    return shape[0]
-
-
-def _valid(valid, n):
+    shape = streams[0].shape
+    ok = len(shape) == 1 if single else len(shape) in (2, 3)
+    if not ok or any(s.shape != shape for s in streams):
+        raise ValueError("streams must share one 1-D shape" if single else
+                         "streams must share one 2- or 3-D shape")
+    n, lanes = shape[0], list(shape[1:])
+    if list(state.shape) != [body.k, *lanes]:
+        raise ValueError(f"state shape {list(state.shape)} != "
+                         f"{[body.k, *lanes]}")
     valid = n if valid is None else int(valid)
     if not 0 <= valid <= n:
         raise ValueError(f"valid {valid} outside [0, {n}]")
-    return valid
+    skip = int(skip)
+    if not 0 <= skip <= n:
+        raise ValueError(f"skip {skip} outside [0, {n}]")
+    for name, t in (("out", out), ("side", side)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.device != state.device:
+            raise ValueError(f"{name} must be float32 on the streams' device")
+        if (t.dim() != len(shape) or list(t.shape[1:]) != lanes
+                or (t.shape[0] != n - skip if name == "out"
+                    else t.shape[0] > skip)):
+            raise ValueError(
+                f"{name} shape {list(t.shape)} != {[n - skip, *lanes]}"
+                if name == "out" else f"side shape {list(t.shape)} must "
+                f"have m <= {skip} rows of {lanes}")
+        if _overlaps(t):
+            raise ValueError(f"{name} has overlapping elements: the kernel "
+                             f"cannot write it")
+    return n, valid, skip
 
 
-def lane_scan_plain(body: LoopBody, state, streams, valid=None):
-    """Plain PyTorch version of ``lane_scan``: (out [n, C], fin [k, C])."""
-    n = _check(body, state, streams, 2)
-    valid = _valid(valid, n)
+def _scan_plain(body: LoopBody, state, streams, n, valid, out, skip, side):
+    """The plain loop over time on [*lanes] vectors; writes steps >= skip
+    into ``out`` (allocated when None) and the ``side`` rows before them."""
+    lanes = streams[0].shape[1:]
+    if out is None:
+        out = torch.empty((n - skip, *lanes), dtype=torch.float32,
+                          device=state.device)
     carry = tuple(state[j] for j in range(body.k))
     rows = [s.unbind(0) for s in streams]
-    outs = []
+    full = torch.zeros((n, *lanes), dtype=torch.float32, device=state.device)
     for t in range(valid):
-        carry, o = body.step(carry, tuple(r[t] for r in rows))
-        outs.append(o)
-    out = torch.zeros_like(streams[0])
-    if outs:
-        out[:valid] = torch.stack(outs)
+        carry, full[t] = body.step(carry, tuple(r[t] for r in rows))
+    out.copy_(full[skip:])
+    if side is not None:
+        side.copy_(full[skip - side.shape[0]:skip])
     return out, torch.stack(carry)
+
+
+def lane_scan_plain(body: LoopBody, state, streams, valid=None, out=None,
+                    skip=0, side=None):
+    """Plain PyTorch version of ``lane_scan``: (out, fin [k, *lanes])."""
+    n, valid, skip = _check(body, state, streams, False, valid, out, skip,
+                            side)
+    return _scan_plain(body, state, streams, n, valid, out, skip, side)
 
 
 def single_scan_plain(body: LoopBody, state, streams, valid=None):
     """Plain PyTorch version of ``single_scan``: (out [n], fin [k])."""
-    n = _check(body, state, streams, 1)
-    out, fin = lane_scan_plain(body, state[:, None],
-                               [s[:, None] for s in streams], valid)
+    n, valid, _ = _check(body, state, streams, True, valid)
+    out, fin = _scan_plain(body, state[:, None], [s[:, None] for s in streams],
+                           n, valid, None, 0, None)
     return out[:, 0], fin[:, 0]
 
 
-def _launch(body: LoopBody, state, streams, valid):
-    """Run csrc/loop_scan.cu's entry for ``body`` over time-major [n, C]
-    streams on the current CUDA stream."""
-    n, C = streams[0].shape
-    streams = [s.contiguous() for s in streams]
-    fin = state.contiguous().clone()
-    out = torch.empty((n, C), dtype=torch.float32, device=state.device)
-    fn = cuda_lib.bind("loop_scan", f"loop_scan_{body.name}",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * len(body.params)
-                       + [ctypes.c_void_p])
-    s1 = streams[1].data_ptr() if len(streams) > 1 else None
-    rc = cuda_lib.launch(fn, state.device, streams[0].data_ptr(), s1,
-                         out.data_ptr(), fin.data_ptr(), n, C, valid,
-                         *body.params)
-    if rc != 0:
-        raise RuntimeError(f"loop_scan_{body.name} launch failed: CUDA error "
-                           f"{rc} at n={n}, C={C}")
-    return out, fin
+_host = None
 
 
-def _kernel_device(state):
-    if state.device.type == "cpu":
-        return False
-    if state.device.type != "cuda":
-        raise RuntimeError(f"loop scans run on CUDA or CPU tensors, not "
-                           f"{state.device}")
-    return True
+def _bind_host():
+    """kernels_host.loop_scan (csrc/kernels_host.cpp), bound to the kernel
+    library's C entry; both built and loaded on first use."""
+    global _host
+    lib = cuda_lib.load("loop_scan")
+    mod = cuda_lib.load_host("kernels_host")
+    mod.bind_loop_scan(ctypes.cast(lib.loop_scan, ctypes.c_void_p).value)
+    _host = mod.loop_scan
+    return _host
 
 
-def lane_scan(body: LoopBody, state, streams, valid=None):
-    """Run ``body`` over ``streams`` (list of time-major [n, C] float32)
-    from the seed carry ``state`` [k, C]. Only rows t < ``valid`` (default
-    n) advance the carry; later output rows are 0. Returns (out [n, C],
-    fin [k, C])."""
-    n = _check(body, state, streams, 2)
-    valid = _valid(valid, n)
-    if not _kernel_device(state):
-        return lane_scan_plain(body, state, streams, valid)
-    result = _launch(body, state, streams, valid)
-    lane_scan.launches += 1
-    return result
+def _launch(body: LoopBody, state, streams, valid, out, skip, side, cycles,
+            single):
+    """The compiled host path: the checks of ``_check`` (ValueError), the
+    outputs allocated, and csrc/loop_scan.cu launched on the state's
+    current stream over the streams as they lie."""
+    return (_host or _bind_host())(_BODY_IDS[body.name], body.params, state,
+                                   streams, valid, out, skip, side, cycles,
+                                   single)
+
+
+def _scan(fn, body, state, streams, single, valid, out, skip, side, cycles):
+    if state.is_cuda:
+        result = _launch(body, state, streams, valid, out, skip, side,
+                         cycles, single)
+        fn.launches += 1
+        return result
+    _check(body, state, streams, single, valid, out, skip, side)
+    if state.is_cpu:
+        if single:
+            return single_scan_plain(body, state, streams, valid)
+        return lane_scan_plain(body, state, streams, valid, out, skip, side)
+    raise RuntimeError(f"loop scans run on CUDA or CPU tensors, not "
+                       f"{state.device}")
+
+
+def lane_scan(body: LoopBody, state, streams, valid=None, out=None, skip=0,
+              side=None, cycles=None):
+    """Run ``body`` over ``streams`` (time-major [n, *lanes] float32, one
+    or two lane axes, read where they lie: any strides, overlapping lanes
+    included) from the seed carry ``state`` [k, *lanes]. Only steps t <
+    ``valid`` (default n) advance the carry; stored steps past it are 0.
+    Step t >= ``skip`` is written to row t - skip of ``out`` ([n - skip,
+    *lanes], allocated when None, else written in place: any strides
+    whose elements do not overlap), and the m steps before ``skip`` to
+    ``side`` ([m, *lanes], when given). On CUDA, ``cycles`` (an int64
+    [ceil(C / 32)] tensor, or None) receives each CTA's walker clock64
+    cycles. Returns (out, fin [k, *lanes])."""
+    return _scan(lane_scan, body, state, streams, False, valid, out, skip,
+                 side, cycles)
 
 
 lane_scan.launches = 0
 
 
-def single_scan(body: LoopBody, state, streams, valid=None):
-    """``lane_scan`` for one [n] stream: state [k] -> (out [n], fin [k])."""
-    n = _check(body, state, streams, 1)
-    valid = _valid(valid, n)
-    if not _kernel_device(state):
-        return single_scan_plain(body, state, streams, valid)
-    out, fin = _launch(body, state[:, None], [s[:, None] for s in streams],
-                       valid)
-    single_scan.launches += 1
-    return out[:, 0], fin[:, 0]
+def single_scan(body: LoopBody, state, streams, valid=None, cycles=None):
+    """``lane_scan`` for one [n] stream, the output allocated: state [k]
+    -> (out [n], fin [k]); ``cycles`` an int64 [1] tensor or None."""
+    return _scan(single_scan, body, state, streams, True, valid, None, 0,
+                 None, cycles)
 
 
 single_scan.launches = 0
 
 
 def _dispatch_scan(body: LoopBody, state, streams):
-    """[n] streams -> single_scan; [..., n] streams -> lane_scan with the
-    leading axes flattened into lanes (time-major). Returns streams-shaped
-    output and a [k, ...] final carry."""
+    """[n] streams -> single_scan; [..., n] streams -> lane_scan over their
+    time-major views, the leading axes flattened into lanes, writing a
+    streams-shaped output. Returns (output, a [k, ...] final carry)."""
     lead = streams[0].shape[:-1]
     n = streams[0].shape[-1]
     if not lead:
         return single_scan(body, state, streams)
-    tm = [s.reshape(-1, n).T.contiguous() for s in streams]
-    out, fin = lane_scan(body, state.reshape(body.k, -1).contiguous(), tm)
-    return out.T.reshape(*lead, n), fin.reshape(body.k, *lead)
+    tm = [s.reshape(-1, n).T for s in streams]
+    res = streams[0].new_empty((tm[0].shape[1], n), dtype=torch.float32)
+    _, fin = lane_scan(body, state.reshape(body.k, -1), tm, out=res.T)
+    return res.reshape(*lead, n), fin.reshape(body.k, *lead)
 
 
 def pll_phases(in_phases, phase0, freq0, alpha, beta, min_freq, max_freq):
@@ -376,47 +444,45 @@ def rotate_back(x, phases):
 # Chunk-parallel approximate loops (scans_pallas.py:590-833)
 # ---------------------------------------------------------------------------
 
-def _lane_slice(ext, K, L, W):
-    """[..., W + K*L] extended stream -> [..., K, W+L] overlapping lanes
-    (lane j = ext[..., j*L : j*L + W + L]). Needs W <= L."""
-    lead = ext.shape[:-1]
-    warm = ext[..., :K * L].reshape(*lead, K, L)[..., :W]
-    return torch.cat([warm, ext[..., W:].reshape(*lead, K, L)], dim=-1)
-
-
-def _pad_last(s, pad):
-    """Pad the last axis by replicating the last sample (a constant tail
-    keeps a locked loop locked)."""
-    if not pad:
-        return s
-    return torch.cat([s, s[..., -1:].expand(*s.shape[:-1], pad)], dim=-1)
-
-
-def _build_lanes(streams, hists, K):
-    """Cut [..., n] streams into K overlapping lanes [..., K, W+L], lane 0's
-    warm-up drawn from ``hists`` (the previous block's tail). Returns
-    (lanes, L, pad)."""
-    W = hists[0].shape[-1]
-    n = streams[0].shape[-1]
+def _lane_len(n, K, W):
+    """The lane payload L = ceil(n / K); the warm-up must fit in it."""
     L = -(-n // K)
-    pad = K * L - n
     if W > L:
         raise ValueError(f"warm-up {W} longer than the lane payload {L}")
-    lanes = []
-    for s, h in zip(streams, hists):
-        ext = torch.cat([h.float(), _pad_last(s.float(), pad)], dim=-1)
-        lanes.append(_lane_slice(ext, K, L, W))
-    return lanes, L, pad
+    return L
 
 
-def _run_lanes(body: LoopBody, state, lanes):
-    """Run ``body`` over [..., K, W+L] lanes, leading dims and K flattened
-    into the lane axis (time-major). ``state``: [k, ..., K] seeds."""
-    shp = lanes[0].shape
-    m = int(np.prod(shp[:-1]))
-    tm = [l.reshape(m, shp[-1]).T.contiguous() for l in lanes]
-    out, fin = lane_scan(body, state.reshape(body.k, m).contiguous(), tm)
-    return out.T.reshape(shp), fin.reshape(body.k, *shp[:-1])
+def _extend(s, h, K, L):
+    """[hist | block | the block's last sample repeated to K*L samples] as
+    one [M, W + K*L] float32 tensor, the leading axes flattened into M (a
+    constant tail keeps a locked loop locked); the drivers' one copy."""
+    n = s.shape[-1]
+    parts = [h.reshape(-1, h.shape[-1]).float(), s.reshape(-1, n).float()]
+    if K * L > n:
+        parts.append(parts[1][:, -1:].expand(-1, K * L - n))
+    return torch.cat(parts, dim=-1)
+
+
+def _lanes(ext, K, L, W):
+    """The K overlapping lanes of ``ext`` [M, W + K*L] (lane j =
+    ext[:, j*L : j*L + W + L]) as views, no copy: ([M, K, W + L], and the
+    same lanes time-major, [W + L, M, K], for ``lane_scan``)."""
+    lanes = ext.as_strided((ext.shape[0], K, W + L), (ext.stride(0), L, 1))
+    return lanes, lanes.permute(2, 0, 1)
+
+
+def _run_lanes(body: LoopBody, state, lanes_tm, W, side=None):
+    """Run ``body`` over time-major [W + L, M, K] lane views from the
+    [k, M, K] seeds, each lane's payload (steps W..W+L-1) written in sample
+    order into an [M, K*L] output and its last ``side.shape[0]`` warm-up
+    steps into ``side``. Returns (output [M, K*L], fin [k, M, K])."""
+    n, M, K = lanes_tm[0].shape
+    res = lanes_tm[0].new_empty((M, K * (n - W)))
+    _, fin = lane_scan(body, state, lanes_tm,
+                       out=res.as_strided((n - W, M, K), (1, K * (n - W),
+                                                          n - W)),
+                       skip=W, side=side)
+    return res, fin
 
 
 def pll_phases_chunked(in_phases, hist, alpha, beta, min_freq, max_freq,
@@ -429,8 +495,9 @@ def pll_phases_chunked(in_phases, hist, alpha, beta, min_freq, max_freq,
     n = in_phases.shape[-1]
     lead = in_phases.shape[:-1]
     W = hist.shape[-1]
-    lanes, L, _ = _build_lanes([in_phases], [hist], lanes_k)
-    lane = lanes[0]  # [..., K, W+L]
+    L = _lane_len(n, lanes_k, W)
+    lane, lane_tm = _lanes(_extend(in_phases, hist, lanes_k, L), lanes_k, L,
+                           W)
     pi, two_pi = float(FL_PI), float(_TWO_PI)
     d = lane[..., 1:W + 1] - lane[..., :W]
     d = torch.where(d > pi, d - two_pi, d)
@@ -439,10 +506,10 @@ def pll_phases_chunked(in_phases, hist, alpha, beta, min_freq, max_freq,
                             float(np.float32(max_freq)))
     state = torch.stack([lane[..., 0], seed_freq])
     out, fin = _run_lanes(pll_body(alpha, beta, min_freq, max_freq), state,
-                          lanes)
-    out = out[..., W:].reshape(*lead, lanes_k * L)[..., :n]
+                          [lane_tm], W)
     new_hist = in_phases[..., n - W:].float().clone()
-    return out, new_hist, fin[0, ..., -1], fin[1, ..., -1]
+    return (out.reshape(*lead, -1)[..., :n], new_hist,
+            fin[0, :, -1].reshape(lead), fin[1, :, -1].reshape(lead))
 
 
 def agc_gains_chunked(amps, hist, set_point, attack, decay, max_gain,
@@ -455,23 +522,20 @@ def agc_gains_chunked(amps, hist, set_point, attack, decay, max_gain,
     lead = amps.shape[:-1]
     W = hist.shape[-1]
     K = lanes_k
-    L = -(-n // K)
-    if W > L:
-        raise ValueError(f"warm-up {W} longer than the lane payload {L}")
-    ext = torch.cat([hist.float(), _pad_last(amps.float(), K * L - n)], dim=-1)
-    lane_a = _lane_slice(ext, K, L, W)
-    lane_s = _lane_slice(suffix_max(ext), K, L, W)
+    L = _lane_len(n, K, W)
+    ext = _extend(amps, hist, K, L)
+    lane_a, tm_a = _lanes(ext, K, L, W)
+    _, tm_s = _lanes(suffix_max(ext), K, L, W)
     mean_amp = torch.mean(lane_a[..., :W], dim=-1)
     seed_amp = torch.where(mean_amp > 0, mean_amp, 1.0)
     sp = torch.full_like(seed_amp, float(np.float32(set_point)))
     seed_gain = torch.clamp(sp / seed_amp, max=float(np.float32(max_gain)))
-    state = torch.stack([seed_amp, seed_gain])
     out, fin = _run_lanes(
-        agc_body(set_point, attack, decay, max_gain, max_output_amp), state,
-        [lane_a, lane_s])
-    out = out[..., W:].reshape(*lead, K * L)[..., :n]
+        agc_body(set_point, attack, decay, max_gain, max_output_amp),
+        torch.stack([seed_amp, seed_gain]), [tm_a, tm_s], W)
     new_hist = amps[..., n - W:].float().clone()
-    return out, new_hist, fin[0, ..., -1], fin[1, ..., -1]
+    return (out.reshape(*lead, -1)[..., :n], new_hist,
+            fin[0, :, -1].reshape(lead), fin[1, :, -1].reshape(lead))
 
 
 def fast_agc_gains_chunked(amps, hist, set_point, max_gain, rate,
@@ -482,16 +546,17 @@ def fast_agc_gains_chunked(amps, hist, set_point, max_gain, rate,
     n = amps.shape[-1]
     lead = amps.shape[:-1]
     W = hist.shape[-1]
-    lanes, L, _ = _build_lanes([amps], [hist], lanes_k)
-    mean_amp = torch.mean(lanes[0][..., :W], dim=-1)
+    L = _lane_len(n, lanes_k, W)
+    lane, lane_tm = _lanes(_extend(amps, hist, lanes_k, L), lanes_k, L, W)
+    mean_amp = torch.mean(lane[..., :W], dim=-1)
     sp = torch.full_like(mean_amp, float(np.float32(set_point)))
     seed_gain = torch.where(
         mean_amp > 0, torch.clamp(sp / mean_amp, max=float(np.float32(max_gain))),
         1.0)
     out, fin = _run_lanes(fast_agc_body(set_point, max_gain, rate),
-                          seed_gain[None], lanes)
-    out = out[..., W:].reshape(*lead, lanes_k * L)[..., :n]
-    return out, amps[..., n - W:].float().clone(), fin[0, ..., -1]
+                          seed_gain[None], [lane_tm], W)
+    return (out.reshape(*lead, -1)[..., :n], amps[..., n - W:].float().clone(),
+            fin[0, :, -1].reshape(lead))
 
 
 def costas_phases_chunked(s1, s2, hist1, hist2, phase0, freq0, order, alpha,
@@ -511,50 +576,54 @@ def costas_phases_chunked(s1, s2, hist1, hist2, phase0, freq0, order, alpha,
     K = lanes_k
     pi, two_pi = float(FL_PI), float(_TWO_PI)
     lo, hi = float(np.float32(min_freq)), float(np.float32(max_freq))
-    (a, b), L, _ = _build_lanes([s1, s2], [hist1, hist2], K)
-    phase0, freq0 = phase0.float(), freq0.float()
-    carried = freq0[..., None].expand(*lead, K)
+    L = _lane_len(n, K, W)
+    a, a_tm = _lanes(_extend(s1, hist1, K, L), K, L, W)
+    b, b_tm = _lanes(_extend(s2, hist2, K, L), K, L, W)
+    M = a.shape[0]
+    phase0 = phase0.float().reshape(M, 1)
+    carried = freq0.float().reshape(M, 1).expand(M, K)
     meteor = order == "meteor"
     if meteor:
         seed_freq = carried
     else:
-        M = float(int(order))
+        P = float(int(order))
         ang = torch.atan2(b[..., :W], a[..., :W])
-        d = M * (ang[..., 1:] - ang[..., :-1])
+        d = P * (ang[..., 1:] - ang[..., :-1])
         zr, zi = torch.mean(torch.cos(d), -1), torch.mean(torch.sin(d), -1)
-        est = torch.atan2(zi, zr) / M
+        est = torch.atan2(zi, zr) / P
         coh = torch.sqrt(zr * zr + zi * zi)
         energy = torch.mean(a[..., :W] ** 2 + b[..., :W] ** 2, dim=-1)
         ok = (coh > 0.5) & (energy > 1e-12)
         seed_freq = torch.clamp(torch.where(ok, est, carried), lo, hi)
     t0 = (torch.arange(K, dtype=torch.float32, device=a.device) * float(L)
           - float(W))
-    seed_phase = torch.remainder(phase0[..., None] + seed_freq * t0 + pi,
-                                 two_pi) - pi
+    seed_phase = torch.remainder(phase0 + seed_freq * t0 + pi, two_pi) - pi
+    tail = 0 if meteor else min(W, 32)
+    # lane j's last `tail` warm-up steps and lane j-1's last `tail` payload
+    # steps hold the phase for the SAME input samples: the warm-up ones go
+    # to a side output, as the payload output holds lane j-1's
+    seam = a.new_empty((M, K, tail))
     out, fin = _run_lanes(
         costas_body(order, alpha, beta, min_freq, max_freq),
-        torch.stack([seed_phase, seed_freq]), [a, b])
+        torch.stack([seed_phase, seed_freq]), [a_tm, b_tm], W,
+        side=None if meteor else seam.permute(2, 0, 1))
+    out = out.view(M, K, L)
     if meteor:
-        rot = torch.zeros((*lead, K), dtype=torch.float32, device=a.device)
+        rot = torch.zeros((M, K), dtype=torch.float32, device=a.device)
     else:
-        step_rot = float(_TWO_PI / np.float32(M))
-        tail = min(W, 32)
-        # lane j's warm-up index t and lane j-1's payload index L+t hold
-        # the phase for the SAME input sample
-        d_seam = (out[..., 1:, W - tail:W]
-                  - out[..., :-1, L + W - tail:L + W])
+        step_rot = float(_TWO_PI / np.float32(P))
+        d_seam = seam[:, 1:] - out[:, :-1, L - tail:]
         d_hat = torch.atan2(torch.mean(torch.sin(d_seam), -1),
                             torch.mean(torch.cos(d_seam), -1))
-        d0 = torch.remainder(out[..., 0, W] - phase0 + pi, two_pi) - pi
-        k_rot = torch.round(torch.cat([d0[..., None], d_hat], dim=-1)
+        d0 = torch.remainder(out[:, 0, 0] - phase0[:, 0] + pi, two_pi) - pi
+        k_rot = torch.round(torch.cat([d0[:, None], d_hat], dim=-1)
                             / step_rot)
         rot = torch.cumsum(k_rot, dim=-1) * step_rot
-    out = torch.remainder(out[..., W:] - rot[..., None] + pi, two_pi) - pi
-    out = out.reshape(*lead, K * L)[..., :n]
-    phase_f = torch.remainder(fin[0, ..., -1] - rot[..., -1] + pi,
-                              two_pi) - pi
-    return (out, s1[..., n - W:].float().clone(),
-            s2[..., n - W:].float().clone(), phase_f, fin[1, ..., -1])
+    out = torch.remainder(out - rot[..., None] + pi, two_pi) - pi
+    phase_f = torch.remainder(fin[0, :, -1] - rot[:, -1] + pi, two_pi) - pi
+    return (out.reshape(*lead, K * L)[..., :n], s1[..., n - W:].float().clone(),
+            s2[..., n - W:].float().clone(), phase_f.reshape(lead),
+            fin[1, :, -1].reshape(lead))
 
 
 def _chunk_lanes_for(n: int, warmup: int, max_lanes: int,

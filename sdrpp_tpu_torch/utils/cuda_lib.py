@@ -14,8 +14,10 @@ entering that device's context only when it is not the current one: the
 host path of a kernel wrapper is a few attribute reads and the ctypes
 call. ``load_host`` builds csrc/<name>.cpp with the host C++ compiler
 against this torch's headers and libraries (its log kept beside it too)
-and imports it: a wrapper whose host path costs more than its kernel
-(decimating_fir) checks, allocates and launches in one C++ call.
+and imports it: csrc/kernels_host.cpp, one module for every wrapper whose
+host path costs more than its kernel (decimating_fir, the loop scans),
+checks, allocates and launches in one C++ call. A build's hash covers its
+source and the csrc/ headers.
 """
 
 from __future__ import annotations
@@ -75,11 +77,18 @@ def _compile(src: Path, lib: Path, command, tool: str) -> Path:
     return lib
 
 
+def _source_bytes(src: Path) -> bytes:
+    """A source and the csrc/ headers it may include, for a build's hash."""
+    return src.read_bytes() + b"".join(h.read_bytes()
+                                       for h in sorted(CSRC.glob("*.h")))
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu to _build/lib<name>-<hash>.so unless it is
     already built; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(_source_bytes(src)
+                            + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     return _compile(src, lib, lambda out: [_nvcc(), *NVCC_FLAGS, "-o",
                                            str(out), str(src)], "nvcc")
@@ -93,16 +102,23 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_host(name: str) -> Path:
-    """Compile csrc/<name>.cpp, a kernel's compiled host path, into a
+def build_host(name: str, cuda: bool = True) -> Path:
+    """Compile csrc/<name>.cpp, the kernels' compiled host paths, into a
     Python extension module _build/<name>-<hash>.so against this torch's
-    headers and libraries (the hash covers the source, the command line,
-    the torch and the Python version) unless it is already built."""
+    headers and libraries (the hash covers the sources, the command line,
+    the torch and the Python version) unless it is already built. With
+    ``cuda`` it is built to launch (KERNELS_HOST_CUDA, the CUDA headers
+    next to nvcc, c10_cuda); without, against any torch, it makes the same
+    argument checks and launches nothing (the CPU tests hold its checks
+    against the Python ones)."""
     src = CSRC / f"{name}.cpp"
     torch_dir = Path(torch.__file__).resolve().parent
-    cuda_inc = Path(_nvcc()).resolve().parent.parent / "include"
     cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
     abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    with_cuda = []
+    if cuda:
+        cuda_inc = Path(_nvcc()).resolve().parent.parent / "include"
+        with_cuda = ["-DKERNELS_HOST_CUDA", "-isystem", str(cuda_inc)]
 
     def command(out):
         return [cxx, "-O2", "-std=c++20", "-shared", "-fPIC",
@@ -110,25 +126,29 @@ def build_host(name: str) -> Path:
                 "-isystem", str(torch_dir / "include"),
                 "-isystem", str(torch_dir / "include" / "torch" / "csrc"
                                 / "api" / "include"),
-                "-isystem", sysconfig.get_paths()["include"],
-                "-isystem", str(cuda_inc), str(src), "-o", str(out),
+                "-isystem", sysconfig.get_paths()["include"], *with_cuda,
+                str(src), "-o", str(out),
                 f"-L{torch_dir / 'lib'}", f"-Wl,-rpath,{torch_dir / 'lib'}",
-                "-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch_python"]
+                "-lc10", *(["-lc10_cuda"] if cuda else []), "-ltorch_cpu",
+                "-ltorch_python"]
 
     key = command("") + [torch.__version__, sys.version]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(key).encode())
+    digest = hashlib.sha256(_source_bytes(src) + " ".join(key).encode())
     lib = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     return _compile(src, lib, command, "the host compiler")
 
 
-def load_host(name: str):
-    """The Python module built from csrc/<name>.cpp, built on first use."""
-    mod = _loaded.get(name)
+def load_host(name: str, cuda: bool = True):
+    """The Python module built from csrc/<name>.cpp (``build_host``), built
+    on first use."""
+    key = f"{name}.cpp" if cuda else f"{name}.cpp:cpu"
+    mod = _loaded.get(key)
     if mod is None:
-        spec = importlib.util.spec_from_file_location(name, build_host(name))
+        spec = importlib.util.spec_from_file_location(name,
+                                                      build_host(name, cuda))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        _loaded[name] = mod
+        _loaded[key] = mod
     return mod
 
 

@@ -1,0 +1,178 @@
+"""The compiled host path's argument checks against the Python ones.
+
+``csrc/kernels_host.cpp`` repeats, in C++, the checks of
+``scans_kernels._check`` (lane_scan / single_scan) and
+``fir_kernels._check`` (decimating_fir), in their order and with their
+messages: on the card it is the only check a call gets. Here it is built
+without CUDA (``cuda_lib.load_host(..., cuda=False)``: the same checks,
+no launch) and both validators get the same wrong arguments on CPU
+tensors: each case must raise ValueError with the same message from both.
+Arguments both accept must pass the Python check and stop in C++ at the
+kernel's own condition, a CUDA tensor. Needs the host C++ compiler (g++,
+as the card's build does); the build takes about 20 s.
+"""
+
+import pytest
+import torch
+
+from sdrpp_tpu_torch.ops import fir_kernels as F
+from sdrpp_tpu_torch.ops import scans_kernels as K
+from sdrpp_tpu_torch.utils import cuda_lib
+
+
+@pytest.fixture(scope="module")
+def host():
+    return cuda_lib.load_host("kernels_host", cuda=False)
+
+
+def _message(fn, *args):
+    """The ValueError message of fn(*args), or None when it returns."""
+    try:
+        fn(*args)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+AGC = K.agc_body(1.0, 50.0 / 48000.0, 5.0 / 48000.0, 10e6, 10.0)
+PLL = K.pll_body(0.14, 0.0055, 0.49, 0.51)
+
+
+def _lanes(n=100, c=4):
+    x = torch.rand((n, c), generator=torch.Generator().manual_seed(3))
+    return [x, K.suffix_max(x.T).T.contiguous()], torch.ones((2, c))
+
+
+def _loop_cases():
+    """(id, body, state, streams, single, valid, out, skip, side)."""
+    s, st = _lanes()
+    s1, st1 = [x[:, 0] for x in s], st[:, 0]
+    s3 = [x.reshape(100, 2, 2) for x in s]
+    z = torch.zeros
+    return [
+        ("stream count", AGC, st, s[:1], False, None, None, 0, None),
+        ("stream count pll", PLL, st, s, False, None, None, 0, None),
+        ("state dtype", AGC, st.double(), s, False, None, None, 0, None),
+        ("stream dtype", AGC, st, [s[0], s[1].double()], False, None, None,
+         0, None),
+        ("stream device", AGC, st, [s[0], s[1].to("meta")], False, None,
+         None, 0, None),
+        ("4-D streams", AGC, st[..., None, None],
+         [x[..., None, None] for x in s], False, None, None, 0, None),
+        ("1-D lanes", AGC, st1, s1, False, None, None, 0, None),
+        ("2-D single", AGC, st, s, True, None, None, 0, None),
+        ("shapes differ", AGC, st, [s[0], s[1][:50]], False, None, None, 0,
+         None),
+        ("state shape", AGC, st[:, :3], s, False, None, None, 0, None),
+        ("state shape 3-D", AGC, st, s3, False, None, None, 0, None),
+        ("valid high", AGC, st, s, False, 101, None, 0, None),
+        ("valid low", AGC, st, s, False, -1, None, 0, None),
+        ("skip high", AGC, st, s, False, None, None, 101, None),
+        ("skip low", AGC, st, s, False, None, None, -2, None),
+        ("out dtype", AGC, st, s, False, None, z((100, 4)).double(), 0, None),
+        ("out device", AGC, st, s, False, None, z((100, 4), device="meta"),
+         0, None),
+        ("out rows", AGC, st, s, False, None, z((100, 4)), 10, None),
+        ("out lanes", AGC, st, s, False, None, z((100, 3)), 0, None),
+        ("out dims", AGC, st, s, False, None, z((100, 2, 2)), 0, None),
+        ("out broadcast", AGC, st, s, False, None, z((1, 4)).expand(100, 4),
+         0, None),
+        ("out zero stride", AGC, st, s, False, None,
+         z(8).as_strided((100, 4), (0, 2)), 0, None),
+        ("out strides overlap", AGC, st, s, False, None,
+         z(400).as_strided((100, 4), (2, 1)), 0, None),
+        ("side rows", AGC, st, s, False, None, None, 3, z((5, 4))),
+        ("side lanes", AGC, st, s, False, None, None, 10, z((5, 2))),
+        ("side dtype", AGC, st, s, False, None, None, 10,
+         z((5, 4), dtype=torch.int32)),
+        ("side broadcast", AGC, st, s, False, None, None, 90,
+         z((1, 4)).expand(5, 4)),
+        ("out before side", AGC, st, s, False, None,
+         z((1, 4)).expand(90, 4), 10, z((5, 1))),
+        # accepted by both: the C++ check stops at the CUDA condition
+        ("accepted lanes", AGC, st, s, False, 60, None, 0, None),
+        ("accepted 3-D", AGC, st.reshape(2, 2, 2), s3, False, None,
+         z((90, 2, 2)), 10, z((4, 2, 2))),
+        ("accepted strided", AGC, st.T.contiguous().T,
+         [x.T.contiguous().T for x in s], False, None,
+         z((4, 100)).T, 0, None),
+        ("accepted single", AGC, st1, s1, True, 99, None, 0, None),
+    ]
+
+
+@pytest.mark.parametrize("case", _loop_cases(), ids=lambda c: c[0])
+def test_loop_scan_checks_match_python(host, case):
+    _, body, state, streams, single, valid, out, skip, side = case
+    want = _message(K._check, body, state, streams, single, valid, out, skip,
+                    side)
+    got = _message(host.loop_scan, K._BODY_IDS[body.name], body.params,
+                   state, streams, valid, out, skip, side, None, single)
+    if want is None:
+        assert case[0].startswith("accepted")
+        assert got == "the compiled loop scan takes CUDA tensors"
+    else:
+        assert got == want
+
+
+def test_loop_scan_host_checks_its_own_arguments(host):
+    s, st = _lanes()
+    with pytest.raises(ValueError, match="agc takes 7 parameters, got 4"):
+        host.loop_scan(K._BODY_IDS["agc"], PLL.params, st, s, None, None, 0,
+                       None, None, False)
+    with pytest.raises(ValueError, match="unknown body 7"):
+        host.loop_scan(7, AGC.params, st, s, None, None, 0, None, None, False)
+    with pytest.raises(TypeError):
+        host.loop_scan(1, AGC.params, st, s, None, None, 0, None, None)
+    with pytest.raises(TypeError):
+        host.loop_scan(1, AGC.params, st, [s[0], 1.0], None, None, 0, None,
+                       None, False)
+    with pytest.raises(ValueError, match="null entry"):
+        host.bind_loop_scan(0)
+    with pytest.raises(ValueError, match="null entry"):
+        host.bind_decim_fir(1, 0)
+
+
+def _fir_cases():
+    """(id, tail, x, taps, r)."""
+    g = torch.Generator().manual_seed(4)
+    c64 = torch.complex64
+    x = torch.randn((2, 64), dtype=c64, generator=g)
+    taps = torch.rand(9, generator=g)
+    tail = torch.zeros((2, 8), dtype=c64)
+    return [
+        ("x dtype", tail, x.to(torch.complex128), taps, 8),
+        ("x int", tail, torch.zeros((2, 64), dtype=torch.int32), taps, 8),
+        ("taps dtype", tail, x, taps.double(), 8),
+        ("taps 2-D", tail, x, taps[None], 8),
+        ("taps empty", tail, x, taps[:0], 8),
+        ("tail dtype", tail.to(torch.complex128), x, taps, 8),
+        ("tail float32", tail.real.contiguous(), x, taps, 8),
+        ("tail length", tail[:, :7], x, taps, 8),
+        ("tail rows", tail[:1], x, taps, 8),
+        ("tail dims", tail[0], x, taps, 8),
+        ("tail 3-D rows", torch.zeros((2, 3, 8), dtype=c64),
+         x.reshape(2, 2, 32), taps, 8),
+        ("f32 tail c64", tail, x.real.contiguous(), taps, 8),
+        ("tail device", tail.to("meta"), x, taps, 8),
+        ("taps device", tail, x, taps.to("meta"), 8),
+        ("r not a divisor", tail, x, taps, 5),
+        ("r zero", tail, x, taps, 0),
+        ("r negative", tail, x, taps, -8),
+        ("accepted c64", tail, x, taps, 8),
+        ("accepted f32", tail.real.contiguous(), x.real.contiguous(), taps,
+         16),
+        ("accepted 1-D", tail[0], x[0], taps, 4),
+    ]
+
+
+@pytest.mark.parametrize("case", _fir_cases(), ids=lambda c: c[0])
+def test_decim_fir_checks_match_python(host, case):
+    _, tail, x, taps, r = case
+    want = _message(F._check, tail, x, taps, r)
+    got = _message(host.decim_fir, tail, x, taps, r)
+    if want is None:
+        assert case[0].startswith("accepted")
+        assert got == "the compiled decimating_fir takes CUDA tensors"
+    else:
+        assert got == want
+
