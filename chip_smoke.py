@@ -36,9 +36,13 @@ any phase fails:
    own states, the float variant and two consecutive blocks with the
    state carried, [*, 8199] rows that cross four ring stages; a [64, 8]
    bank must raise),
-   ``viterbi_acs_batched`` and
-   ``viterbi_traceback_batched`` ([528, 4288, 2] as the 30-s pass
-   launches them, held on their first 8 windows, and [1, 4288, 2]), and
+   ``viterbi_acs_batched`` and ``viterbi_traceback_batched`` (the 30-s
+   pass's [528, 4288, 2] as the path launches them, a uint8 soft-bit
+   stream plus window starts, and the exact decode's [1, 4288, 2]; off
+   the paths a 1024-window launch, the float32 stream, one window across
+   two renormalisations and all-128 ties; each held bit-exact on its
+   first 8 windows, with both walkers' clock64 cycles a step; wrong
+   arguments must raise ValueError and launch nothing), and
    ``decimating_fir`` (each case's time a call back to back, its device
    time alone behind a sleep kernel, and its host time a call) at the
    first r >= 8 stage of each path (wideband
@@ -99,11 +103,12 @@ any phase fails:
     against the committed golden, below -40 dB after the settle;
 15. when the parent commit is unpacked at _scratch/parent (``git archive
     <parent> | tar -x -C _scratch/parent``): an A/B of the meteor block
-    time, decimating_fir at every FIR_CASES shape and the loop scans at
+    time, decimating_fir at every FIR_CASES shape, the loop scans at
     the kernel phase's path cases (the same bodies and inputs, contiguous
-    and time-major), each tree in its own process, parent, change,
-    change, parent, printed as one "ab" line; without it the phase says
-    so and is skipped.
+    and time-major), both Viterbi entries on the pass case's stream and
+    finalize's Viterbi on the 30-s pass's soft bits, each tree in its own
+    process, parent, change, change, parent, printed as one "ab" line;
+    without it the phase says so and is skipped.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
@@ -113,7 +118,9 @@ record and {"ok": true, "device": {...}}.
 builds the kernels and, instead of the phases above, profiles (with
 torch.profiler) PROFILE_RX_BLOCKS steady blocks of the receive slice
 (``Receiver.process_block``, three VFOs), PROFILE_BLOCKS of the wideband
-chain and PROFILE_CALLS calls of decimating_fir at each FIR_CASES shape:
+chain, PROFILE_METEOR_BLOCKS steady blocks of the 30-s meteor pass and its
+``finalize``, and PROFILE_CALLS calls of decimating_fir at each FIR_CASES
+shape:
 device time by kernel, the device's busy and idle share of the host-clock
 window, the loop-scan kernels' share, and each decimating_fir launch's own
 device time beside the wrapper's host time per call. It prints one JSON
@@ -174,6 +181,15 @@ LOOP_OPS = {"pll": 18, "agc": 16, "fast_agc": 5, "costas4": 26,
             "costas_meteor": 44}
 MM_OPS_PER_SYMBOL = 57     # 8 taps x 2 planes x (mul + add) + the loop
 ACS_OPS_PER_STATE = 6      # two path sums, a compare, a select, 2 metrics
+TB_OPS_PER_STEP = 4        # a word's half, a shift, a test, the next state
+# the Viterbi stream decode's windows (ConvCode.decode_soft_stream's
+# defaults: L-step chunks with W steps of warm-up and warm-down)
+VIT_L, VIT_W = 4096, 96
+VIT_T = VIT_L + 2 * VIT_W
+VIT_PASS_WINDOWS = 528     # the 30-s pass's windows
+VIT_FULL_WINDOWS = 1024    # one full launch (ConvCode._STREAM_BATCH)
+VIT_HELD = 8               # windows of each case held against the plain one
+VIT_RENORM = 4096          # csrc/viterbi.cu: steps between renormalisations
 # decimating_fir cases: (path, rows, n, plan ratio); the kernel runs the
 # plan's first stage (r >= 8)
 FIR_CASES = [("wideband", 1, 1 << 24, 256, "c64"),
@@ -203,6 +219,7 @@ WIDE_CPU_SETTLE = 1000     # audio samples of the chain's start left out
 BANK_BLOCK = 1 << 18       # bench.py's bank block at 6.144 Msps
 PROFILE_BLOCKS = 5
 PROFILE_RX_BLOCKS = 4      # steady receive blocks profiled (after 3 warm)
+PROFILE_METEOR_BLOCKS = 4  # steady meteor blocks profiled (after 3 warm)
 FIR_ROUNDS = 5             # alternating kernel / conv1d timing rounds
 PROFILE_CALLS = 20
 # kernel vs plain version: the same float32 operations in the same order,
@@ -317,6 +334,18 @@ def cuda_ms(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def warm(fn, secs: float = 0.1):
+    """fn() back to back for ``secs`` of host time, then a synchronize: the
+    card's clock leaves its idle level before a timing (the plain versions
+    before a case leave it idle for seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < secs:
+        fn()
+    torch.cuda.synchronize()
 
 
 def device_ms(fn, reps: int = 5):
@@ -883,18 +912,13 @@ def mm_extra_cases(dev, mm, rng):
 
 
 def phase_kernels_digital(dev):
-    """mm_symbols and the two Viterbi entries at the meteor path's shapes
-    against their plain versions. The plain side runs on a prefix (it is a
-    Python loop of a few torch operations per symbol or trellis step):
-    both recurrences are causal and the Viterbi windows independent, so
-    the kernel's output at the path's shape must start with the plain
-    version's."""
+    """mm_symbols at the meteor path's shape against its plain version. The
+    plain side runs on a prefix (it is a Python loop of a few torch
+    operations per symbol): the recurrence is causal, so the kernel's
+    output at the path's shape must start with the plain version's."""
     import torch
     from sdrpp_tpu_torch.models.digital import MeteorDemod
-    from sdrpp_tpu_torch.models.lrpt import CCSDS_CONV_POLYS
     from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
-    from sdrpp_tpu_torch.ops import fec_kernels as FK
-    from sdrpp_tpu_torch.ops.fec import ConvCode
 
     rng = np.random.default_rng(2)
     results = []
@@ -976,63 +1000,194 @@ def phase_kernels_digital(dev):
     if MK.mm_symbols.launches != before:
         raise AssertionError("mm_symbols counted a launch it refused")
     log("mm_symbols on CUDA: a [64, 8] bank raises ValueError")
-    # Viterbi: noisy coded windows; 528 is the 30-s pass's window count
+    return results
+
+
+def viterbi_stream(rng, code, total: int, kind: str = "coded") -> np.ndarray:
+    """[total, R] uint8 soft bits: the code bits of random message bits (0
+    -> 0, 1 -> 255) plus N(0, 60) noise, rounded and clipped to 0..255 as
+    the meteor path's soft bits are; or all 128 ("ties": every comparison
+    of the trellis a tie)."""
+    if kind == "ties":
+        return np.full((total, code.rate), 128, np.uint8)
+    k = code.order
+    bits = rng.integers(0, 2, total + k - 1).astype(np.int64)
+    # the shift register at each step, the newest bit in bit 0 (encode)
+    reg = sum(bits[k - 1 - j:k - 1 - j + total] << j for j in range(k))
+    soft = 255.0 * code.reg_outputs[reg] + rng.normal(0, 60, (total, code.rate))
+    return np.clip(np.round(soft), 0, 255).astype(np.uint8)
+
+
+def viterbi_starts(total: int) -> np.ndarray:
+    """decode_soft_stream's window starts over ``total`` steps: chunk c
+    starts W steps before c * L, clamped to [0, total - T]."""
+    n = -(-total // VIT_L)
+    return np.clip(np.arange(n) * VIT_L - VIT_W, 0, total - VIT_T
+                   ).astype(np.int32)
+
+
+def phase_kernels_viterbi(dev):
+    """The two Viterbi entries against their plain versions, bit-exact on
+    each case's first VIT_HELD windows. Path cases: the 30-s pass's
+    [528, 4288, 2] in the path's layout (a uint8 soft-bit stream plus
+    decode_soft_stream's window starts) and the exact decode's [1, 4288,
+    2] (B5); off the paths: one full-pass launch of 1024 windows, the
+    float32 stream (the kernel's reference form), one window over a stream
+    that crosses two renormalisations, and all-128 soft bits (ties). Each
+    case: its time a call (CUDA events), both walkers' clock64 cycles a
+    trellis step, its bound. Wrong arguments must raise ValueError and
+    launch nothing. Returns (results, the pass case's stream and starts
+    for the A/B)."""
+    import torch
+    from sdrpp_tpu_torch.models.lrpt import CCSDS_CONV_POLYS
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+    from sdrpp_tpu_torch.ops.fec import ConvCode
+
+    rng = np.random.default_rng(6)
     code = ConvCode(2, 7, CCSDS_CONV_POLYS, device=dev)
-    T = 4096 + 2 * 96
-    for B, path in ((528, "meteor"), (1, None)):
-        # integral soft bits (u8 convention) around random coded bits
-        soft = np.clip(np.round(255.0 * rng.integers(0, 2, (B, T, 2))
-                                + rng.normal(0, 60, (B, T, 2))), 0, 255)
-        soft = torch.from_numpy(soft.astype(np.float32)).to(dev)
-        bp = min(B, 8)
-        dec = FK.viterbi_acs_batched(soft, code._expected)
+    pass_total = VIT_PASS_WINDOWS * VIT_L - 1000
+    pass_soft = viterbi_stream(rng, code, pass_total)
+    full_total = VIT_FULL_WINDOWS * VIT_L - 1000
+    long_total = 2 * VIT_RENORM + 1000
+    # (label, path, soft [total, 2], starts, T[, expected])
+    cases = [
+        ("pass", "meteor", pass_soft, viterbi_starts(pass_total), VIT_T),
+        ("B5 exact", None, viterbi_stream(rng, code, VIT_T),
+         np.zeros(1, np.int32), VIT_T),
+        ("full batch", None, viterbi_stream(rng, code, full_total),
+         viterbi_starts(full_total), VIT_T),
+        ("float32", None, pass_soft.astype(np.float32),
+         viterbi_starts(pass_total), VIT_T),
+        ("two renormalisations", None,
+         viterbi_stream(rng, code, long_total), np.zeros(1, np.int32),
+         long_total),
+        ("ties", None, viterbi_stream(rng, code, pass_total, "ties"),
+         viterbi_starts(pass_total), VIT_T),
+        # expected outputs off the integers: the kernel's reference form
+        ("expected + 0.25", None, pass_soft[:VIT_HELD * VIT_L],
+         viterbi_starts(VIT_HELD * VIT_L), VIT_T, code._expected + 0.25),
+    ]
+    results = []
+    for label, path, soft_np, starts_np, T, *exp in cases:
+        expected = exp[0] if exp else code._expected
+        soft = torch.from_numpy(soft_np).to(dev)
+        starts = torch.from_numpy(starts_np).to(dev)
+        B, total = starts.shape[0], soft.shape[0]
+        held = min(B, VIT_HELD)
+        acs_cyc = torch.zeros(B, dtype=torch.int64, device=dev)
+        tb_cyc = torch.zeros(B, dtype=torch.int64, device=dev)
+        words = FK.viterbi_acs_batched(soft, starts, T, expected, acs_cyc)
+        bits = FK.viterbi_traceback_batched(words, tb_cyc)
         torch.cuda.synchronize()
+        # clock64 cycles a trellis step: the windows' mean and maximum
+        acs_cps = float(acs_cyc.double().mean()) / T
+        tb_cps = float(tb_cyc.double().mean()) / T
+        acs_max, tb_max = int(acs_cyc.max()) / T, int(tb_cyc.max()) / T
+        warm(lambda: FK.viterbi_acs_batched(soft, starts, T, expected))
         acs_ms = cuda_ms(
-            lambda: FK.viterbi_acs_batched(soft, code._expected), reps=5)
-        acs_part = cuda_ms(
-            lambda: FK.viterbi_acs_batched(soft[:bp], code._expected), reps=5)
+            lambda: FK.viterbi_acs_batched(soft, starts, T, expected), reps=10)
+        warm(lambda: FK.viterbi_traceback_batched(words))
+        tb_ms = cuda_ms(lambda: FK.viterbi_traceback_batched(words), reps=10)
         ref = {}
         acs_plain_ms = cuda_ms(lambda: ref.setdefault(
-            "d", FK.viterbi_acs_batched_plain(soft[:bp], code._expected)),
-            reps=1)
-        acs_diff = int((dec[:bp] != ref["d"]).sum())
-        out = FK.viterbi_traceback_batched(dec)
-        torch.cuda.synchronize()
-        tb_ms = cuda_ms(lambda: FK.viterbi_traceback_batched(dec), reps=5)
-        tb_part = cuda_ms(lambda: FK.viterbi_traceback_batched(dec[:bp]),
-                          reps=5)
+            "w", FK.viterbi_acs_batched_plain(soft, starts[:held], T,
+                                              expected)), reps=1)
         tb_plain_ms = cuda_ms(lambda: ref.setdefault(
-            "b", FK.viterbi_traceback_batched_plain(dec[:bp])), reps=1)
-        tb_diff = int((out[:bp] != ref["b"]).sum())
-        log(f"kernel viterbi_acs_batched [{B}, {T}, 2]: {acs_diff} decisions "
-            f"of the first {bp} windows differ, kernel {acs_ms:.4f} ms, "
-            f"{acs_part:.4f} ms at [{bp}, {T}, 2], plain {acs_plain_ms:.1f} "
-            f"ms at [{bp}, {T}, 2]")
-        log(f"kernel viterbi_traceback_batched [{B}, {T}, 64]: {tb_diff} bits "
-            f"of the first {bp} windows differ, kernel {tb_ms:.4f} ms, "
-            f"{tb_part:.4f} ms at [{bp}, {T}, 64], plain {tb_plain_ms:.1f} "
-            f"ms at [{bp}, {T}, 64]")
+            "b", FK.viterbi_traceback_batched_plain(words[:held])), reps=1)
+        acs_diff = int(FK.unpack_decisions(words[:held] ^ ref["w"]).sum())
+        tb_diff = int((bits[:held] != ref["b"]).sum())
+        # the bytes each function must move: the soft bits its windows
+        # cover, read once, the starts and the expected outputs; its words
+        # written once / the words read once and the bits written once
+        cover = np.zeros(total + 1, np.int64)
+        st = np.clip(starts_np.astype(np.int64), 0, total - T)
+        np.add.at(cover, st, 1)
+        np.add.at(cover, st + T, -1)
+        covered = int((np.cumsum(cover)[:total] > 0).sum())
+        acs_bound = bound(covered * soft.shape[1] * soft.element_size()
+                          + starts.numel() * 4 + expected.numel() * 4
+                          + words.numel() * 8,
+                          ACS_OPS_PER_STATE * FK.KERNEL_STATES * B * T)
+        tb_bound = bound(words.numel() * 8 + bits.numel(),
+                         TB_OPS_PER_STEP * B * T)
+        dtype = "u8" if soft.dtype == torch.uint8 else "f32"
+        shape = [B, T, soft.shape[1]]
+        log(f"kernel viterbi_acs_batched {shape} {dtype} ({label}): "
+            f"{acs_diff} decisions of the first {held} windows differ, "
+            f"kernel {acs_ms:.4f} ms, {acs_cps:.1f} cycles a step (clock64; "
+            f"{acs_max:.1f} in the slowest window), "
+            f"plain {acs_plain_ms:.1f} ms on [{held}, {T}], bound "
+            f"{acs_bound[0]:.5f} ms ({acs_bound[1]})")
+        log(f"kernel viterbi_traceback_batched [{B}, {T}] ({label}): "
+            f"{tb_diff} bits of the first {held} windows differ, kernel "
+            f"{tb_ms:.4f} ms, {tb_cps:.1f} cycles a step (clock64; "
+            f"{tb_max:.1f} in the slowest window), plain "
+            f"{tb_plain_ms:.1f} ms on [{held}, {T}], bound "
+            f"{tb_bound[0]:.5f} ms ({tb_bound[1]})")
         if acs_diff or tb_diff:
-            raise AssertionError("a Viterbi kernel is not bit-exact against "
-                                 "its plain version")
-        acs_bound = bound(soft.numel() * 4 + dec.numel(),
-                          ACS_OPS_PER_STATE * dec.numel())
-        tb_bound = bound(dec.numel() + out.numel(), 4 * out.numel())
-        results.append(dict(entry="viterbi_acs_batched", body="k7",
-                            shape=[B, T, 2], plain_shape=[bp, T, 2],
-                            path=path, max_abs_err=float(acs_diff), tol=0.0,
+            raise AssertionError(f"a Viterbi kernel is not bit-exact against "
+                                 f"its plain version ({label})")
+        common = dict(body="k7", path=path, kind=label, tol=0.0,
+                      library_ms=None)
+        results.append(dict(entry="viterbi_acs_batched", shape=shape,
+                            plain_shape=[held, T, soft.shape[1]],
+                            dtype=dtype, max_abs_err=float(acs_diff),
                             ms=acs_ms, plain_ms=acs_plain_ms,
-                            ms_at_plain_shape=acs_part,
-                            bound_ms=acs_bound[0], bound_by=acs_bound[1],
-                            library_ms=None))
-        results.append(dict(entry="viterbi_traceback_batched", body="k7",
-                            shape=[B, T, 64], plain_shape=[bp, T, 64],
-                            path=path, max_abs_err=float(tb_diff), tol=0.0,
+                            cycles_per_step=acs_cps,
+                            cycles_per_step_max=acs_max,
+                            bound_ms=acs_bound[0],
+                            bound_by=acs_bound[1], **common))
+        results.append(dict(entry="viterbi_traceback_batched", shape=[B, T],
+                            plain_shape=[held, T], max_abs_err=float(tb_diff),
                             ms=tb_ms, plain_ms=tb_plain_ms,
-                            ms_at_plain_shape=tb_part,
-                            bound_ms=tb_bound[0], bound_by=tb_bound[1],
-                            library_ms=None))
-    return results
+                            cycles_per_step=tb_cps,
+                            cycles_per_step_max=tb_max, bound_ms=tb_bound[0],
+                            bound_by=tb_bound[1], **common))
+        del soft, starts, words, bits
+    viterbi_refusals(dev, code._expected)
+    return results, {"soft": pass_soft, "starts": viterbi_starts(pass_total),
+                     "T": VIT_T}
+
+
+def viterbi_refusals(dev, expected):
+    """Wrong arguments to the Viterbi entries on the card raise ValueError
+    with the plain path's message and launch nothing."""
+    import torch
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+
+    soft = torch.zeros((100, 2), dtype=torch.uint8, device=dev)
+    starts = torch.zeros(3, dtype=torch.int32, device=dev)
+    words = torch.zeros((3, 100), dtype=torch.int64, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    acs, tb = FK.viterbi_acs_batched, FK.viterbi_traceback_batched
+    before = (acs.launches, tb.launches)
+    bad = [("uint8 or float32", acs, (soft.double(), starts, 10, expected)),
+           ("1 to 4 soft bits", acs,
+            (torch.zeros((100, 5), dtype=torch.uint8, device=dev), starts,
+             10, torch.zeros((128, 5), device=dev))),
+           ("expected must be", acs, (soft, starts, 10, expected[:64])),
+           ("int32 vector", acs, (soft, starts.long(), 10, expected)),
+           ("one device", acs, (soft, starts.cpu(), 10, expected)),
+           ("window length 101", acs, (soft, starts, 101, expected)),
+           ("cycles", acs, (soft, starts, 10, expected,
+                            torch.zeros(2, **i64))),
+           ("decision words", tb,
+            (torch.zeros((3, 100, 64), dtype=torch.int8, device=dev),)),
+           ("cycles", tb, (words, torch.zeros(4, **i64)))]
+    for what, fn, args in bad:
+        try:
+            fn(*args)
+        except ValueError as e:
+            if what not in str(e):
+                raise AssertionError(f"{fn.__name__} on CUDA raised {e!r}, "
+                                     f"expected {what!r}") from e
+        else:
+            raise AssertionError(f"{fn.__name__} on CUDA took bad arguments "
+                                 f"({what})")
+    if (acs.launches, tb.launches) != before:
+        raise AssertionError("a Viterbi entry counted a launch it refused")
+    log(f"viterbi on CUDA: {len(bad)} wrong arguments raise ValueError and "
+        f"launch nothing")
 
 
 def phase_kernels_fir(dev):
@@ -1290,11 +1445,14 @@ def meteor_pass(seed: int = 5):
 
 def phase_meteor():
     """The meteor main path on the card: RxVFO -> MeteorLRPTDecoder ->
-    finalize. Returns (results, the first two blocks' IF input)."""
+    finalize. Returns (results, the first two blocks' IF input, the pass's
+    uint8 soft bits at the rotation that decoded: what finalize's Viterbi
+    decodes)."""
     import torch
     from sdrpp_tpu_torch import cli
     from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
     from sdrpp_tpu_torch.models.channel import RxVFO
+    from sdrpp_tpu_torch.models.lrpt import soft_s8_to_u8, symbols_to_soft_bits
 
     t_gen = time.perf_counter()
     payloads, gen = meteor_pass()
@@ -1345,13 +1503,15 @@ def phase_meteor():
         got = sum(any(np.array_equal(v, p) for v in vcdus) for p in payloads)
         raise AssertionError(f"meteor: {len(vcdus)} VCDUs, {got} of "
                              f"{len(payloads)} payloads recovered")
+    syms = dec.symbols * np.exp(-0.5j * np.pi * info["rotation"])
+    pass_u8 = soft_s8_to_u8(symbols_to_soft_bits(syms * np.sqrt(2)))
     return {"blocks": nblocks, "block": block, "if_block": if_block,
             "symbols": nsyms, "block_ms": block_ms,
             "median_s_per_block": med_ms / 1e3, "symbols_per_s": sym_rate,
             "realtime_x": sym_rate / 72000.0, "finalize_s": fin_s,
             "peak_mib": peak_mib,
             **dec.timings, "vcdus": int(len(vcdus)), **info,
-            "launches": launches}, first_if
+            "launches": launches}, first_if, pass_u8[:len(pass_u8) // 2 * 2]
 
 
 def phase_meteor_cpu(first_if):
@@ -1683,13 +1843,16 @@ def phase_golden_bank():
 # through the package's public entry points only: argv[1] is a JSON object
 # of the settings; prints one "AB {...}" line
 AB_SCRIPT = r"""
-import json, sys
+import inspect, json, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ".")
 from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
 from sdrpp_tpu_torch.models.channel import RxVFO
+from sdrpp_tpu_torch.models.lrpt import CCSDS_CONV_POLYS
+from sdrpp_tpu_torch.ops import fec_kernels as FK
 from sdrpp_tpu_torch.ops import fir_kernels as DK
+from sdrpp_tpu_torch.ops.fec import ConvCode
 from sdrpp_tpu_torch.ops.resample import decim_plan
 
 a = json.loads(sys.argv[1])
@@ -1756,23 +1919,57 @@ for rows, n, ratio in a["cases"]:
     torch.cuda.synchronize()
     fir[f"[{rows}, {n}] /{r}"] = events_ms(
         lambda: DK.decimating_fir(tail, x, w, r), 20)
+# the Viterbi entries on the pass case's uint8 stream and window starts:
+# a tree whose ACS takes the windows gathered ([B, T, R] float32, as its
+# decode_soft_stream gathers them) gets them so, outside the timing
+vit = np.load(a["viterbi_inputs"])
+code = ConvCode(2, 7, CCSDS_CONV_POLYS, device="cuda")
+expected = torch.from_numpy(code.reg_outputs.astype(np.float32) * 255).cuda()
+soft = torch.from_numpy(vit["soft"]).cuda()
+starts = torch.from_numpy(vit["starts"]).cuda()
+T = int(vit["T"])
+if "starts" in inspect.signature(FK.viterbi_acs_batched).parameters:
+    acs = lambda: FK.viterbi_acs_batched(soft, starts, T, expected)
+else:
+    win = soft[starts.long()[:, None] + torch.arange(T, device="cuda")].float()
+    acs = lambda: FK.viterbi_acs_batched(win, expected)
+dec = acs()
+torch.cuda.synchronize()
+viterbi = {"acs_ms": events_ms(acs, 10),
+           "traceback_ms": events_ms(
+               lambda: FK.viterbi_traceback_batched(dec), 10)}
+# finalize's viterbi_s at the decoding rotation: decode_soft_stream on the
+# pass's soft bits, host clock (it ends in the copy of the bits to the
+# host), median of 5 after a warm call
+u8 = vit["pass_u8"]
+code.decode_soft_stream(u8)
+secs = []
+for _ in range(5):
+    t0 = time.perf_counter()
+    code.decode_soft_stream(u8)
+    secs.append(time.perf_counter() - t0)
+viterbi["viterbi_s"] = float(np.median(secs))
 print("AB " + json.dumps({"meteor_block_ms": float(np.median(ms[1:])),
-                          "decimating_fir_ms": fir, "loop_scan_ms": loops}))
+                          "decimating_fir_ms": fir, "loop_scan_ms": loops,
+                          "viterbi": viterbi}))
 """
 
 
-def phase_ab(block: int, loop_inputs: dict):
+def phase_ab(block: int, loop_inputs: dict, viterbi_inputs: dict):
     """The A/B against the parent tree, when one is unpacked at AB_PARENT
     (``git archive <parent> | tar -x -C _scratch/parent``): the meteor
     block time (RxVFO + MeteorLRPTDecoder.process on seeded QPSK, median
     of blocks 2..AB_BLOCKS of the meteor path's ``block`` samples, CUDA
-    events), decimating_fir at every complex FIR_CASES shape and the loop
+    events), decimating_fir at every complex FIR_CASES shape, the loop
     scans on ``loop_inputs`` (phase_kernels' path cases: label -> (body,
     contiguous time-major streams, seed), handed over in an .npz with the
-    bodies' constructor arguments; CUDA events, 20 calls), each tree in
-    its own process through the package's public entry points, in the
-    order parent, change, change, parent. Returns None without a parent
-    tree."""
+    bodies' constructor arguments; CUDA events, 20 calls), both Viterbi
+    entries on the pass case's stream and starts (``viterbi_inputs``;
+    CUDA events, 10 calls) and finalize's Viterbi (decode_soft_stream on
+    the 30-s pass's soft bits, ``viterbi_inputs["pass_u8"]``; host clock),
+    each tree in its own process through the package's public entry
+    points, in the order parent, change, change, parent. Returns None
+    without a parent tree."""
     root = Path(__file__).resolve().parent
     parent = root / AB_PARENT
     if not (parent / "sdrpp_tpu_torch").is_dir():
@@ -1786,12 +1983,15 @@ def phase_ab(block: int, loop_inputs: dict):
             arrays[f"seed{i}"] = seed
         npz = str(Path(tmp) / "loop_inputs.npz")
         np.savez(npz, **arrays)
+        vit_npz = str(Path(tmp) / "viterbi_inputs.npz")
+        np.savez(vit_npz, **viterbi_inputs)
         settings = json.dumps({
             "cases": [[rows, n, ratio] for _, rows, n, ratio, dt in FIR_CASES
                       if dt == "c64"],
             "fs": METEOR_FS, "if": METEOR_IF, "offset": METEOR_OFFSET,
             "block": block, "blocks": AB_BLOCKS, "seed": 5,
             "bodies": loop_body_args(), "loop_inputs": npz,
+            "viterbi_inputs": vit_npz,
             "loops": [[label, v[0]] for label, v in loop_inputs.items()]})
         runs = [ab_run(name, tree, settings)
                 for name, tree in (("parent", parent), ("change", root),
@@ -1800,7 +2000,7 @@ def phase_ab(block: int, loop_inputs: dict):
     for tree in ("parent", "change"):
         mine = [r for r in runs if r["tree"] == tree]
         res[tree] = {"meteor_block_ms": [r["meteor_block_ms"] for r in mine]}
-        for part in ("decimating_fir_ms", "loop_scan_ms"):
+        for part in ("decimating_fir_ms", "loop_scan_ms", "viterbi"):
             res[tree][part] = {k: [r[part][k] for r in mine]
                                for k in mine[0][part]}
     log("ab " + json.dumps({k: res[k] for k in ("order", "parent",
@@ -1911,6 +2111,8 @@ def profile_paths():
         wall_us = (time.perf_counter() - t0) * 1e6
     out["wideband"] = summary("wideband", device_intervals(prof), wall_us,
                               PROFILE_BLOCKS)
+    del chain, state, x, y
+    out.update(profile_meteor(summary, acts))
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out["decimating_fir"] = []
@@ -1938,6 +2140,65 @@ def profile_paths():
         log(f"profile decimating_fir [{rows}, {n}] {dt} /{r} ({path}): kernel "
             f"{dev_us:.1f} us on the device (median of {len(kern)}), "
             f"{host_us:.1f} us of host time per call")
+    return out
+
+
+def profile_meteor(summary, acts):
+    """The --profile mode's meteor part: the 30-s pass through RxVFO and
+    MeteorLRPTDecoder, PROFILE_METEOR_BLOCKS steady blocks profiled (after
+    three; their IQ made before the window, the upload inside it), then
+    one ``finalize`` (which must recover every payload)."""
+    import torch
+    from torch.profiler import profile
+    from sdrpp_tpu_torch import cli
+    from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
+    from sdrpp_tpu_torch.models.channel import RxVFO
+
+    payloads, gen = meteor_pass()
+    vfo = RxVFO(METEOR_FS, METEOR_IF, bandwidth=METEOR_IF,
+                offset=METEOR_OFFSET, device="cuda")
+    dec = MeteorLRPTDecoder(METEOR_IF, device="cuda")
+    block = cli._auto_block(METEOR_FS, METEOR_IF, vfo.block_multiple)
+    nblocks = int(METEOR_SECONDS * METEOR_FS) // block
+    first = 3
+    vstate, out = vfo.init_state(), {}
+
+    def step(iq):
+        nonlocal vstate
+        vstate, y = vfo(vstate, torch.from_numpy(iq).to("cuda"))
+        dec.process(y)
+
+    k = 0
+    while k < nblocks:
+        if k != first:
+            step(gen(k * block, block))
+            k += 1
+            continue
+        iqs = [gen(j * block, block)
+               for j in range(k, k + PROFILE_METEOR_BLOCKS)]
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for iq in iqs:
+                step(iq)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        out["meteor"] = summary("meteor", device_intervals(prof), wall_us,
+                                PROFILE_METEOR_BLOCKS)
+        k += PROFILE_METEOR_BLOCKS
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _, vcdus, info = dec.finalize()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out["meteor_finalize"] = summary("meteor finalize",
+                                     device_intervals(prof), wall_us, 1)
+    out["meteor_finalize"].update(dec.timings, vcdus=int(len(vcdus)), **info)
+    log(f"profile meteor finalize: {dec.timings}, {len(vcdus)} VCDUs")
+    if len(vcdus) != len(payloads):
+        raise AssertionError(f"meteor (profiled): {len(vcdus)} of "
+                             f"{len(payloads)} VCDUs")
     return out
 
 
@@ -1976,7 +2237,9 @@ def main() -> int:
         return 0
     dev = torch.device("cuda")
     loops, ab_inputs = phase_kernels(dev)
-    kernels = loops + phase_kernels_digital(dev) + phase_kernels_fir(dev)
+    viterbi, ab_viterbi = phase_kernels_viterbi(dev)
+    kernels = (loops + phase_kernels_digital(dev) + viterbi
+               + phase_kernels_fir(dev))
 
     iq = composite(NBLOCKS * BLOCK)
     audio, block_ms, wall_s, launches = phase_slice(iq)
@@ -1989,7 +2252,7 @@ def main() -> int:
     checks = check_audio(audio)
     cpu = phase_cpu(iq, audio)
     cli_res = phase_cli()
-    meteor, first_if = phase_meteor()
+    meteor, first_if, pass_u8 = phase_meteor()
     meteor_cpu = phase_meteor_cpu(first_if)
     decode_cli = phase_decode_cli()
     wide, wide_x, wide_audio = phase_wideband()
@@ -1998,7 +2261,8 @@ def main() -> int:
     banks = phase_banks()
     bank_cli = phase_bank_cli()
     golden_bank = phase_golden_bank()
-    ab = phase_ab(meteor["block"], ab_inputs)
+    ab = phase_ab(meteor["block"], ab_inputs,
+                  dict(ab_viterbi, pass_u8=pass_u8))
 
     paths = {"receive": launches, "meteor": meteor["launches"],
              "wideband": wide["launches"],

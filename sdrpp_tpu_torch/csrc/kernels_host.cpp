@@ -3,7 +3,8 @@
 // allocations and its kernel's launch on the current stream of its tensors'
 // device in one CPython call. At the paths' shapes a kernel takes about as
 // long on the device as a Python wrapper's checks, allocations and ctypes
-// call took on the host.
+// call took on the host. (mm_symbols, csrc/mm_clock.cu, still goes through
+// ctypes.)
 //
 //   decim_fir(tail, x, taps, r) -> (new_tail, y)
 //       ops/fir_kernels.decimating_fir: tail [..., m-1], x [..., n]
@@ -22,9 +23,20 @@
 //       or a contiguous int64 [ceil(C / 32)] tensor receiving the walkers'
 //       clock64 cycles. Allocates `out` when None and the final carry
 //       `fin` [k, *lanes].
-//   bind_decim_fir(c64_entry, f32_entry), bind_loop_scan(entry)
+//   viterbi_acs(soft, starts, T, expected, cycles) -> dec
+//       ops/fec_kernels.viterbi_acs_batched: soft [total, R] uint8 or
+//       float32 (R <= 4), starts int32 [B], 1 <= T <= total, expected
+//       [128, R] float32, all on one CUDA device; cycles None or a
+//       contiguous int64 [B] tensor receiving each window's clock64
+//       cycles. Allocates dec [B, T] int64.
+//   viterbi_traceback(dec, cycles) -> bits
+//       ops/fec_kernels.viterbi_traceback_batched: dec [B, T] int64 on a
+//       CUDA device; cycles as above. Allocates bits [B, T] uint8.
+//   bind_decim_fir(c64_entry, f32_entry), bind_loop_scan(entry),
+//   bind_viterbi(acs_entry, traceback_entry)
 //       the addresses of the kernel libraries' C entries (decim_fir.cu's
-//       decim_fir_c64 / decim_fir_f32, loop_scan.cu's loop_scan).
+//       decim_fir_c64 / decim_fir_f32, loop_scan.cu's loop_scan,
+//       viterbi.cu's viterbi_acs / viterbi_traceback).
 //
 // Each entry raises ValueError on a wrong argument, with the checks, the
 // order and the messages of its wrapper's Python `_check`, and
@@ -464,6 +476,176 @@ PyObject* bind_loop_scan(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   Py_RETURN_NONE;
 }
 
+// ---------------------------------------------------------------------------
+// viterbi_acs_batched / viterbi_traceback_batched (csrc/viterbi.cu)
+// ---------------------------------------------------------------------------
+
+using ViterbiAcsEntry = int (*)(const void* soft, int soft_u8,
+                                const int* starts, const float* expected,
+                                long long* dec, int B, int T, long long total,
+                                int R, long long* cycles, void* stream);
+using ViterbiTracebackEntry = int (*)(const long long* dec,
+                                      unsigned char* bits, int B, int T,
+                                      long long* cycles, void* stream);
+
+ViterbiAcsEntry g_viterbi_acs = nullptr;
+ViterbiTracebackEntry g_viterbi_traceback = nullptr;
+
+constexpr int64_t kViterbiStates = 64;
+constexpr int64_t kViterbiMaxRate = 4;
+
+// the optional cycles argument: None, or a contiguous int64 [B] tensor on
+// `device`; false with the error set otherwise
+bool viterbi_cycles(PyObject* o, int64_t B, c10::Device device,
+                    const char* what, long long** out) {
+  *out = nullptr;
+  if (o == Py_None) return true;
+  if (!THPVariable_Check(o)) {
+    type_error("viterbi: cycles is a tensor or None");
+    return false;
+  }
+  const at::Tensor& c = THPVariable_Unpack(o);
+  if (c.scalar_type() != c10::kLong || c.dim() != 1 || c.size(0) != B ||
+      !c.is_contiguous() || c.device() != device) {
+    value_error("cycles must be a contiguous int64 [" + std::to_string(B) +
+                "] tensor on " + what + "'s device");
+    return false;
+  }
+  *out = reinterpret_cast<long long*>(c.data_ptr<int64_t>());
+  return true;
+}
+
+PyObject* viterbi_acs(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  if (nargs != 5 || !THPVariable_Check(args[0]) ||
+      !THPVariable_Check(args[1]) || !THPVariable_Check(args[3]))
+    return type_error(
+        "viterbi_acs(soft, starts, T, expected, cycles) takes three tensors, "
+        "an int and a tensor or None");
+  const at::Tensor& soft = THPVariable_Unpack(args[0]);
+  const at::Tensor& starts = THPVariable_Unpack(args[1]);
+  const at::Tensor& expected = THPVariable_Unpack(args[3]);
+  const long long T = PyLong_AsLongLong(args[2]);
+  if (T == -1 && PyErr_Occurred()) return nullptr;
+
+  // the checks of fec_kernels._check_acs, in its order and with its messages
+  const bool u8 = soft.scalar_type() == c10::kByte;
+  if ((!u8 && soft.scalar_type() != c10::kFloat) || soft.dim() != 2)
+    return value_error("soft must be uint8 or float32 [total, R]");
+  const int64_t total = soft.size(0), R = soft.size(1);
+  if (R < 1 || R > kViterbiMaxRate)
+    return value_error("soft takes 1 to " + std::to_string(kViterbiMaxRate) +
+                       " soft bits a step, got " + std::to_string(R));
+  if (expected.scalar_type() != c10::kFloat || expected.dim() != 2 ||
+      expected.size(0) != 2 * kViterbiStates || expected.size(1) != R)
+    return value_error("expected must be float32 [" +
+                       std::to_string(2 * kViterbiStates) + ", " +
+                       std::to_string(R) + "]");
+  if (starts.scalar_type() != c10::kInt || starts.dim() != 1 ||
+      starts.size(0) < 1)
+    return value_error("starts must be a non-empty int32 vector");
+  if (expected.device() != soft.device() || starts.device() != soft.device())
+    return value_error("the Viterbi ACS takes tensors on one device");
+  if (T < 1 || T > total)
+    return value_error("window length " + std::to_string(T) +
+                       " outside [1, " + std::to_string(total) + "]");
+  // the kernel's own conditions
+  if (!soft.is_cuda())
+    return value_error("the compiled Viterbi ACS takes CUDA tensors");
+  const int64_t B = starts.size(0);
+  if (total > INT_MAX || B > INT_MAX)
+    return value_error("the Viterbi ACS takes fewer than 2^31 steps and "
+                       "windows");
+  long long* cycles = nullptr;
+  if (!viterbi_cycles(args[4], B, soft.device(), "soft", &cycles))
+    return nullptr;
+  if (g_viterbi_acs == nullptr) {
+    PyErr_SetString(PyExc_RuntimeError,
+                    "viterbi_acs: the kernel entry is not bound");
+    return nullptr;
+  }
+
+  const at::Tensor sc = soft.is_contiguous() ? soft : soft.contiguous();
+  const at::Tensor stc = starts.is_contiguous() ? starts : starts.contiguous();
+  const at::Tensor ec =
+      expected.is_contiguous() ? expected : expected.contiguous();
+  at::Tensor dec = at::empty({B, T}, soft.options().dtype(c10::kLong));
+
+  const OnStream on(soft.device());
+  const int rc = g_viterbi_acs(
+      sc.data_ptr(), u8 ? 1 : 0, stc.data_ptr<int32_t>(), ec.data_ptr<float>(),
+      reinterpret_cast<long long*>(dec.data_ptr<int64_t>()),
+      static_cast<int>(B), static_cast<int>(T), static_cast<long long>(total),
+      static_cast<int>(R), cycles, on.stream);
+  if (rc != 0) {
+    PyErr_Format(PyExc_RuntimeError,
+                 "viterbi_acs_batched launch failed: CUDA error %d at B=%lld, "
+                 "T=%lld, R=%lld", rc, static_cast<long long>(B), T,
+                 static_cast<long long>(R));
+    return nullptr;
+  }
+  return THPVariable_Wrap(std::move(dec));
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
+                            Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  if (nargs != 2 || !THPVariable_Check(args[0]))
+    return type_error("viterbi_traceback(dec, cycles) takes a tensor and a "
+                      "tensor or None");
+  const at::Tensor& dec = THPVariable_Unpack(args[0]);
+
+  // the check of fec_kernels._check_traceback, with its message
+  if (dec.scalar_type() != c10::kLong || dec.dim() != 2 || dec.size(0) < 1 ||
+      dec.size(1) < 1)
+    return value_error("dec must be int64 [B, T] decision words, B and T "
+                       ">= 1");
+  // the kernel's own conditions
+  if (!dec.is_cuda())
+    return value_error("the compiled Viterbi traceback takes CUDA tensors");
+  const int64_t B = dec.size(0), T = dec.size(1);
+  if (B > INT_MAX || T > INT_MAX)
+    return value_error("the Viterbi traceback takes fewer than 2^31 steps "
+                       "and windows");
+  long long* cycles = nullptr;
+  if (!viterbi_cycles(args[1], B, dec.device(), "dec", &cycles))
+    return nullptr;
+  if (g_viterbi_traceback == nullptr) {
+    PyErr_SetString(PyExc_RuntimeError,
+                    "viterbi_traceback: the kernel entry is not bound");
+    return nullptr;
+  }
+
+  const at::Tensor dc = dec.is_contiguous() ? dec : dec.contiguous();
+  at::Tensor bits = at::empty({B, T}, dec.options().dtype(c10::kByte));
+
+  const OnStream on(dec.device());
+  const int rc = g_viterbi_traceback(
+      reinterpret_cast<const long long*>(dc.data_ptr<int64_t>()),
+      bits.data_ptr<uint8_t>(), static_cast<int>(B), static_cast<int>(T),
+      cycles, on.stream);
+  if (rc != 0) {
+    PyErr_Format(PyExc_RuntimeError,
+                 "viterbi_traceback_batched launch failed: CUDA error %d at "
+                 "B=%lld, T=%lld", rc, static_cast<long long>(B),
+                 static_cast<long long>(T));
+    return nullptr;
+  }
+  return THPVariable_Wrap(std::move(bits));
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* bind_viterbi(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 2) return type_error("bind_viterbi(acs_entry, traceback_entry)");
+  ViterbiAcsEntry acs;
+  ViterbiTracebackEntry tb;
+  if (!entry_arg(args[0], &acs) || !entry_arg(args[1], &tb)) return nullptr;
+  g_viterbi_acs = acs;
+  g_viterbi_traceback = tb;
+  Py_RETURN_NONE;
+}
+
 template <PyObject* (*F)(PyObject*, PyObject* const*, Py_ssize_t)>
 PyCFunction fastcall() {
   return reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(F));
@@ -481,6 +663,14 @@ PyMethodDef kMethods[] = {
      "bind_decim_fir(c64_entry, f32_entry): decim_fir.cu's C entries."},
     {"bind_loop_scan", fastcall<bind_loop_scan>(), METH_FASTCALL,
      "bind_loop_scan(entry): loop_scan.cu's C entry."},
+    {"viterbi_acs", fastcall<viterbi_acs>(), METH_FASTCALL,
+     "viterbi_acs(soft, starts, T, expected, cycles) -> dec: check, "
+     "allocate and launch the Viterbi ACS kernel on soft's current stream."},
+    {"viterbi_traceback", fastcall<viterbi_traceback>(), METH_FASTCALL,
+     "viterbi_traceback(dec, cycles) -> bits: check, allocate and launch "
+     "the Viterbi traceback kernel on dec's current stream."},
+    {"bind_viterbi", fastcall<bind_viterbi>(), METH_FASTCALL,
+     "bind_viterbi(acs_entry, traceback_entry): viterbi.cu's C entries."},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "kernels_host",

@@ -4,147 +4,441 @@
 // Replaces three Pallas kernels of the JAX package:
 //   - sdrpp_tpu/ops/fec_pallas.py:51 viterbi_acs_pallas_batched
 //     (pallas_call :112): B windows in lock-step, [B, T, R] soft bits ->
-//     [B, T, 64] int8 decisions. Entry viterbi_acs_batched.
+//     [B, T, 64] int8 decisions. Entry viterbi_acs.
 //   - sdrpp_tpu/ops/fec_pallas.py:221 viterbi_acs_pallas (pallas_call
-//     :296), the single-stream ACS: the same entry with B = 1.
+//     :296), the single-stream ACS: the same entry with B = 1, start 0 and
+//     T the whole stream.
 //   - sdrpp_tpu/ops/fec_pallas.py:132 viterbi_traceback_pallas_batched
-//     (pallas_call :197): [B, T, 64] decisions -> [B, T] bits, walking back
-//     from state 0. Entry viterbi_traceback_batched.
+//     (pallas_call :197): decisions -> [B, T] bits, walking back from state
+//     0. Entry viterbi_traceback.
 //
-// ACS design: one warp per window. Lane l keeps the path metrics of states
-// l and l + 32 in registers. The predecessors of next state n are n >> 1
-// and (n >> 1) + 32, read from the owning lanes with four warp shuffles;
-// the 0/1 expansion matmuls of the TPU kernel (fec_pallas.py:40-48) were a
-// layout device of the TPU and are gone. The branch metrics
-// sum_j |soft[t, j] - expected[r, j]| of the four registers a lane needs
-// (n and n + 64 for its two states) are computed in the kernel; the
-// per-step minimum is a warp shuffle reduction, with no shared memory and
-// no block barrier. Each step writes one byte per state (two per lane,
-// 32 neighbouring bytes per store across the warp).
+// Decisions are packed: one 64-bit word a trellis step, bit n the decision
+// of state n (1 = it took the predecessor (n >> 1) + 32);
+// ops/fec_kernels.unpack_decisions gives the JAX kernels' int8 form. A
+// window's 4288 words are 34 KB, 8x fewer bytes than int8 decisions: the
+// 30-s pass's 528 windows write 18 MB, a 1024-window launch 35 MB, which
+// stays in the 50 MB L2 for the traceback that reads it next.
 //
-// Traceback design: one thread per window walks t = T-1 .. 0 from state 0:
-// bit = state & 1, then state = (state >> 1) + 32 * decision[t][state].
+// What bounds them on an H100: each is a dependent chain of T steps per
+// window, so the time is T times the latency of one step's chain (tens of
+// cycles), not bytes or operations; a launch has a few windows per SM, too
+// few for other warps to hide a latency on the chain. The designs take
+// everything they can off that chain.
 //
-// What bounds them on an H100: the ACS is a dependent chain of T steps per
-// window (about 30 instructions and 5 shuffle rounds each), so one window
-// is latency-bound; throughput comes from running many windows (warps) at
-// once, several per SM. The traceback is a pointer chase of T dependent
-// byte loads per window, bound by load latency.
+// ACS design (viterbi_acs): one warp per window, four windows a CTA. Lane
+// l keeps the path metrics of states l and l + 32 in registers; the
+// predecessors of state n are n >> 1 and (n >> 1) + 32, read from the
+// owning lanes with four independent warp shuffles. The window is read
+// where it lies in the [total, R] soft-bit stream (uint8 or float32), from
+// its start (clamped to [0, total - T]): lane l loads step g*32 + l of the
+// next 32-step group while the current group runs. uint8 bits then pass
+// through shared memory once a group, after which every lane holds all 32
+// steps' bits in registers (a byte becomes a float by a byte permute and
+// an exact subtraction); float32 bits reach every lane by one shuffle a
+// step. So no load and no branch metric sits on the chain. The step's
+// value is fminf of the two candidates, its decision (cand1 < cand0) goes
+// to two ballots off the chain, and lane 0 stores the word to shared
+// memory; after each group the warp writes its 32 words with one
+// coalesced 256-byte store. The chain of a step is then one shuffle, one
+// add and one min.
+//
+// Normalisation off the chain, exactly. The reference subtracts the
+// minimum metric every step. For uint8 soft bits every branch metric
+// sum_j |s_j - e_j| is an integer; the first K - 1 = 6 steps run the
+// reference form (the 1e9 metrics of states not yet reachable round, so
+// they must be computed as the reference computes them); from then on
+// every state is reachable from every state in 6 steps, so all metrics are
+// integers within 6 * R * 255 of the minimum, and leaving out a common
+// offset changes no comparison and no tie. The kernel subtracts the
+// minimum only after every 4096th step: between two such steps no metric
+// exceeds (4096 + 6) * R * 255 < 2^24 (R <= 4), so every float32 add is
+// exact and the decisions equal the reference's bit for bit. That needs
+// the expected outputs to be integers in [0, 255] as well, which each
+// window checks once; float32 soft bits, which need not be integral, and
+// other expected outputs run the reference form every step.
+// The warp minimum is one redux.sync on the metrics' bit patterns, which
+// order non-negative floats as their values.
+//
+// Traceback design (viterbi_traceback): one CTA of one warp per window,
+// which stages the window's words into a shared-memory ring of two
+// 1024-word stages with 8-byte cp.async, walking backwards: the copy of
+// the stage before overlaps the walk of this one. Lane 0 walks: per step
+// a select of the word's half by the state's bit 5, a shift by its low
+// five bits and a test; the words come from shared memory into registers
+// eight at a time, a batch ahead (their addresses do not depend on the
+// state), and the bits go back eight at a time; the warp writes each
+// stage's bits out coalesced. 17 KB a CTA, so a 1024-window launch runs in
+// one wave.
 //
 // Numerics: decisions and bits are bit-exact against the JAX kernels and
 // the plain PyTorch versions: metrics start at 0 / 1e9, every candidate is
 // one float32 add, the comparison is cand1 < cand0 (ties take the p0
-// branch), and the minimum is subtracted each step; with integral soft
-// bits every branch metric is exact. Built with --fmad=false.
+// branch), branch metrics are summed over j in order. Built with
+// --fmad=false.
 //
-// C ABI (bound with ctypes): each entry returns cudaGetLastError() after
-// the launch.
+// C ABI: the two entries below, called by the compiled host paths
+// (viterbi_acs / viterbi_traceback of csrc/kernels_host.cpp) through their
+// addresses; each returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int S = 64;        // states (K = 7)
-constexpr int MAX_RATE = 4;  // soft bits per trellis step handled
+constexpr int S = 64;               // states (K = 7)
+constexpr int MAX_RATE = 4;         // soft bits per trellis step handled
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int kWarps = 4;           // windows per ACS CTA
+constexpr int kRef = 6;             // K - 1: a window's reference-form steps
+constexpr int kRenormGroups = 128;  // 32-step groups between renormalisations
+constexpr int kChunk = 1024;        // words per traceback ring stage
 
-__global__ void acs_kernel(const float* __restrict__ soft,
-                           const float* __restrict__ expected,
-                           signed char* __restrict__ dec, int B, int T,
-                           int R) {
-  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (w >= B) return;  // whole warps leave together
-  const unsigned full = 0xffffffffu;
+// The soft bits of one 32-step group as loaded: lane l holds step base + l.
+template <typename In, int R>
+struct Tile;
 
-  // expected outputs of the four registers this lane needs:
-  // [0] state lane via p0 (register lane), [1] state lane via p1
-  // (register lane + 64), [2]/[3] the same for state lane + 32
-  float e[4][MAX_RATE];
-  const int regs[4] = {lane, lane + S, lane + 32, lane + 32 + S};
+template <int R>
+struct Tile<uint8_t, R> {
+  uint32_t v;  // byte j: soft bit j
+  __device__ __forceinline__ void load(const uint8_t* p, bool ok) {
+    uint32_t x = 0;
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int j = 0; j < MAX_RATE; ++j)
-      e[q][j] = j < R ? expected[regs[q] * R + j] : 0.0f;
+    for (int j = 0; j < R; ++j)
+      x |= (ok ? static_cast<uint32_t>(p[j]) : 0u) << (8 * j);
+    v = x;
+  }
+};
 
-  float ma = lane == 0 ? 0.0f : 1e9f;  // metric of state lane
-  float mb = 1e9f;                     // metric of state lane + 32
-  const int src_a = lane >> 1, src_b = 16 + (lane >> 1);
-  const float* sw = soft + static_cast<size_t>(w) * T * R;
-  signed char* dw = dec + static_cast<size_t>(w) * T * S;
-
-  for (int t = 0; t < T; ++t) {
-    float s[MAX_RATE];
+template <int R>
+struct Tile<float, R> {
+  float v[R];
+  __device__ __forceinline__ void load(const float* p, bool ok) {
 #pragma unroll
-    for (int j = 0; j < MAX_RATE; ++j) s[j] = j < R ? sw[t * R + j] : 0.0f;
+    for (int j = 0; j < R; ++j) v[j] = ok ? p[j] : 0.0f;
+  }
+};
+
+// The soft bits of one 32-step group as every lane reads them: get(i, s)
+// gives step i's.
+template <typename In, int R>
+struct Steps;
+
+// uint8: the warp's 32 words pass through shared memory once a group and
+// every lane keeps all of them (eight broadcast 16-byte loads), so a step
+// reads its bits from registers; byte j becomes a float by one byte
+// permute (2^23 + byte as a bit pattern) and one exact subtraction.
+template <int R>
+struct Steps<uint8_t, R> {
+  uint4 w[8];  // word i: step i
+  __device__ __forceinline__ Steps(const Tile<uint8_t, R>& t, uint32_t* buf,
+                                   int lane) {
+    buf[lane] = t.v;
+    __syncwarp();
+    const uint4* b = reinterpret_cast<const uint4*>(buf);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = b[k];
+  }
+  __device__ __forceinline__ void get(int i, float (&s)[R]) const {
+    const uint4& q = w[i >> 2];
+    const uint32_t x = (i & 3) == 0   ? q.x
+                       : (i & 3) == 1 ? q.y
+                       : (i & 3) == 2 ? q.z
+                                      : q.w;
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      s[j] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7650u | j)) -
+             8388608.0f;
+  }
+};
+
+// float32: step i's bits by one shuffle each from lane i
+template <int R>
+struct Steps<float, R> {
+  float v[R];
+  __device__ __forceinline__ Steps(const Tile<float, R>& t, uint32_t*, int) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) v[j] = t.v[j];
+  }
+  __device__ __forceinline__ void get(int i, float (&s)[R]) const {
+#pragma unroll
+    for (int j = 0; j < R; ++j) s[j] = __shfl_sync(FULL, v[j], i);
+  }
+};
+
+// the warp's minimum of non-negative metrics (never -0 or NaN for finite
+// soft bits), taken on their bit patterns
+__device__ __forceinline__ float warp_min(float v) {
+  return __uint_as_float(__reduce_min_sync(FULL, __float_as_uint(v)));
+}
+
+// Steps of one group; kMode 0: the fast form, 1: a window's first group
+// (steps < kRef in the reference form, the rest fast), 2: every step in
+// the reference form. Lane 0 writes step i's word to buf[i].
+template <int kMode, typename In, int R>
+__device__ __forceinline__ void acs_group(const Steps<In, R>& steps,
+                                          const float (&e)[4][R], int src_a,
+                                          int src_b, bool lane0, float& ma,
+                                          float& mb,
+                                          unsigned long long* buf) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float s[R];
+    steps.get(i, s);
+    // the four registers' branch metrics, summed over j in order
     float bm[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      float acc = 0.0f;
+      float acc = fabsf(s[0] - e[q][0]);
 #pragma unroll
-      for (int j = 0; j < MAX_RATE; ++j)
-        if (j < R) acc = acc + fabsf(s[j] - e[q][j]);
+      for (int j = 1; j < R; ++j) acc = acc + fabsf(s[j] - e[q][j]);
       bm[q] = acc;
     }
     // predecessors: state lane <- (lane >> 1, lane >> 1 + 32);
     // state lane + 32 <- (16 + lane >> 1, 48 + lane >> 1)
-    const float pa0 = __shfl_sync(full, ma, src_a);
-    const float pa1 = __shfl_sync(full, mb, src_a);
-    const float pb0 = __shfl_sync(full, ma, src_b);
-    const float pb1 = __shfl_sync(full, mb, src_b);
+    const float pa0 = __shfl_sync(FULL, ma, src_a);
+    const float pa1 = __shfl_sync(FULL, mb, src_a);
+    const float pb0 = __shfl_sync(FULL, ma, src_b);
+    const float pb1 = __shfl_sync(FULL, mb, src_b);
     const float ca0 = pa0 + bm[0], ca1 = pa1 + bm[1];
     const float cb0 = pb0 + bm[2], cb1 = pb1 + bm[3];
-    const bool ta = ca1 < ca0, tb = cb1 < cb0;
-    float na = ta ? ca1 : ca0, nb = tb ? cb1 : cb0;
-    float mn = fminf(na, nb);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mn = fminf(mn, __shfl_xor_sync(full, mn, o));
-    ma = na - mn;
-    mb = nb - mn;
-    dw[t * S + lane] = ta ? 1 : 0;
-    dw[t * S + lane + 32] = tb ? 1 : 0;
+    const unsigned lo = __ballot_sync(FULL, ca1 < ca0);
+    const unsigned hi = __ballot_sync(FULL, cb1 < cb0);
+    // fminf equals the reference's select (cand1 < cand0 ? cand1 : cand0)
+    float na = fminf(ca0, ca1), nb = fminf(cb0, cb1);
+    if (kMode == 2 || (kMode == 1 && i < kRef)) {
+      const float mn = warp_min(fminf(na, nb));
+      na = na - mn;
+      nb = nb - mn;
+    }
+    ma = na;
+    mb = nb;
+    if (lane0) buf[i] = (static_cast<unsigned long long>(hi) << 32) | lo;
   }
 }
 
-__global__ void traceback_kernel(const signed char* __restrict__ dec,
-                                 unsigned char* __restrict__ bits, int B,
-                                 int T) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const signed char* d = dec + static_cast<size_t>(b) * T * S;
-  unsigned char* out = bits + static_cast<size_t>(b) * T;
-  int s = 0;
-  for (int t = T - 1; t >= 0; --t) {
-    out[t] = static_cast<unsigned char>(s & 1);
-    s = (s >> 1) + (d[static_cast<size_t>(t) * S + s] != 0 ? S / 2 : 0);
+template <typename In, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+    acs_kernel(const In* __restrict__ soft, const int* __restrict__ starts,
+               const float* __restrict__ expected,
+               unsigned long long* __restrict__ dec, int B, int T,
+               long long total, long long* __restrict__ cycles) {
+  constexpr bool kU8 = sizeof(In) == 1;  // integral soft bits
+  __shared__ unsigned long long sbuf[kWarps][2][32];
+  __shared__ __align__(16) uint32_t sbits[kWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarps + warp;
+  if (w >= B) return;  // whole warps leave together
+  const long long t_start = clock64();
+
+  // expected outputs of the four registers this lane needs: [0] state lane
+  // via p0 (register lane), [1] via p1 (lane + 64), [2] / [3] the same for
+  // state lane + 32
+  float e[4][R];
+  const int regs[4] = {lane, lane + S, lane + 32, lane + 32 + S};
+  bool e_ok = true;  // integers in [0, 255]
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float x = expected[regs[q] * R + j];
+      e_ok = e_ok && x == rintf(x) && x >= 0.0f && x <= 255.0f;
+      e[q][j] = x;
+    }
+  // the fast form needs integral metrics: uint8 soft bits and expected
+  // outputs that are integers in [0, 255] in every lane
+  const bool fast = __all_sync(FULL, kU8 && e_ok);
+
+  const long long start =
+      min(max(static_cast<long long>(starts[w]), 0LL), total - T);
+  const In* sw = soft + start * R;
+  unsigned long long* dw = dec + static_cast<long long>(w) * T;
+  const int src_a = lane >> 1, src_b = 16 + (lane >> 1);
+  const bool lane0 = lane == 0;
+  float ma = lane0 ? 0.0f : 1e9f;  // metric of state lane
+  float mb = 1e9f;                 // metric of state lane + 32
+  const int groups = (T + 31) / 32;
+
+  Tile<In, R> cur, nxt;
+  cur.load(sw + static_cast<long long>(lane) * R, lane < T);
+  for (int g = 0; g < groups; ++g) {
+    const int tn = (g + 1) * 32 + lane;
+    nxt.load(sw + static_cast<long long>(tn) * R, tn < T);
+    const Steps<In, R> steps(cur, sbits[warp], lane);
+    unsigned long long* buf = sbuf[warp][g & 1];
+    if (!fast) {
+      acs_group<2>(steps, e, src_a, src_b, lane0, ma, mb, buf);
+    } else if constexpr (kU8) {
+      if (g == 0)
+        acs_group<1>(steps, e, src_a, src_b, lane0, ma, mb, buf);
+      else
+        acs_group<0>(steps, e, src_a, src_b, lane0, ma, mb, buf);
+      if ((g + 1) % kRenormGroups == 0) {
+        const float mn = warp_min(fminf(ma, mb));
+        ma = ma - mn;
+        mb = mb - mn;
+      }
+    }
+    __syncwarp();
+    const int t = g * 32 + lane;
+    if (t < T) dw[t] = buf[lane];
+    cur = nxt;
   }
+  if (cycles != nullptr && lane0) cycles[w] = clock64() - t_start;
+}
+
+template <typename In, int R>
+int launch_acs(const void* soft, const int* starts, const float* expected,
+               unsigned long long* dec, int B, int T, long long total,
+               long long* cycles, cudaStream_t stream) {
+  const int blocks = (B + kWarps - 1) / kWarps;
+  acs_kernel<In, R><<<blocks, kWarps * 32, 0, stream>>>(
+      static_cast<const In*>(soft), starts, expected, dec, B, T, total,
+      cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In>
+int dispatch_acs(int R, const void* soft, const int* starts,
+                 const float* expected, unsigned long long* dec, int B, int T,
+                 long long total, long long* cycles, cudaStream_t stream) {
+  switch (R) {
+    case 1:
+      return launch_acs<In, 1>(soft, starts, expected, dec, B, T, total,
+                               cycles, stream);
+    case 2:
+      return launch_acs<In, 2>(soft, starts, expected, dec, B, T, total,
+                               cycles, stream);
+    case 3:
+      return launch_acs<In, 3>(soft, starts, expected, dec, B, T, total,
+                               cycles, stream);
+    default:
+      return launch_acs<In, 4>(soft, starts, expected, dec, B, T, total,
+                               cycles, stream);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// words [k * kChunk, min((k + 1) * kChunk, T)) of a window into `dst`, as
+// one cp.async group of this thread
+__device__ __forceinline__ void stage(unsigned long long* dst,
+                                      const unsigned long long* src, int k,
+                                      int T, int lane) {
+  const int lo = k * kChunk, n = min(kChunk, T - lo);
+  for (int i = lane; i < n; i += 32)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                     smem_addr(dst + i)),
+                 "l"(src + lo + i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// One step back from the state 32 * top + sh through its word: returns
+// the step's bit (the state's low bit) and moves to the predecessor.
+__device__ __forceinline__ uint32_t step_back(unsigned long long word,
+                                              uint32_t& sh, bool& top) {
+  const uint32_t bit = sh & 1u;
+  const uint32_t half = top ? static_cast<uint32_t>(word >> 32)
+                            : static_cast<uint32_t>(word);
+  const bool took = (half >> sh) & 1u;  // the decision of the state
+  // state (s >> 1) + 32 * took: bits 0-4 are s >> 1, bit 5 is took
+  sh = (sh >> 1) | (top ? 16u : 0u);
+  top = took;
+  return bit;
+}
+
+// n steps of one stage, backwards; writes each step's bit to out (8-byte
+// aligned). Past the n % 8 ragged top steps, the words come into
+// registers 8 at a time, a batch ahead of the steps that read them, and
+// the bits leave 8 at a time: no load or store sits on the walk's chain.
+__device__ __forceinline__ void walk(const unsigned long long* __restrict__ w,
+                                     uint8_t* __restrict__ out, int n,
+                                     uint32_t& sh, bool& top) {
+  int i = n;
+  while (i & 7) {
+    --i;
+    out[i] = static_cast<uint8_t>(step_back(w[i], sh, top));
+  }
+  if (i == 0) return;
+  unsigned long long cur[8], nxt[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cur[k] = w[i - 8 + k];
+  for (; i > 0; i -= 8) {
+    const int lo = max(i - 16, 0);  // the batch below (a stale one at i = 8)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) nxt[k] = w[lo + k];
+    unsigned long long b = 0;
+#pragma unroll
+    for (int k = 7; k >= 0; --k)
+      b |= static_cast<unsigned long long>(step_back(cur[k], sh, top))
+           << (8 * k);
+    *reinterpret_cast<unsigned long long*>(out + i - 8) = b;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cur[k] = nxt[k];
+  }
+}
+
+__global__ void __launch_bounds__(32)
+    traceback_kernel(const unsigned long long* __restrict__ dec,
+                     uint8_t* __restrict__ bits, int T,
+                     long long* __restrict__ cycles) {
+  __shared__ __align__(16) unsigned long long ring[2][kChunk];
+  __shared__ __align__(8) uint8_t sbits[kChunk];
+  const int lane = threadIdx.x;
+  const long long t_start = clock64();
+  const unsigned long long* dw = dec + static_cast<long long>(blockIdx.x) * T;
+  uint8_t* bw = bits + static_cast<long long>(blockIdx.x) * T;
+  const int nch = (T + kChunk - 1) / kChunk;
+  stage(ring[(nch - 1) & 1], dw, nch - 1, T, lane);
+  uint32_t sh = 0;   // the walk starts at state 0
+  bool top = false;
+  for (int k = nch - 1; k >= 0; --k) {
+    if (k > 0) {
+      stage(ring[(k - 1) & 1], dw, k - 1, T, lane);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncwarp();  // every lane's copies of stage k have landed
+    const int lo = k * kChunk, n = min(kChunk, T - lo);
+    if (lane == 0) walk(ring[k & 1], sbits, n, sh, top);
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) bw[lo + i] = sbits[i];
+  }
+  if (cycles != nullptr && lane == 0) cycles[blockIdx.x] = clock64() - t_start;
 }
 
 }  // namespace
 
 extern "C" {
 
-// soft [B, T, R] float32, expected [2 * 64, R] float32 (register outputs
-// times 255), dec [B, T, 64] int8; R <= 4.
-int viterbi_acs_batched(const float* soft, const float* expected,
-                        signed char* dec, int B, int T, int R, void* stream) {
-  if (R < 1 || R > MAX_RATE) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kWarps = 4;
-  const int blocks = (B + kWarps - 1) / kWarps;
-  acs_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      soft, expected, dec, B, T, R);
-  return static_cast<int>(cudaGetLastError());
+// soft [total, R] uint8 (soft_u8) or float32, starts [B] int32 (each
+// clamped to [0, total - T]), expected [128, R] float32 (register outputs
+// times 255) -> dec [B, T] 64-bit decision words; cycles: null or [B]
+// int64, each window's clock64 cycles. 1 <= T <= total, R <= 4.
+int viterbi_acs(const void* soft, int soft_u8, const int* starts,
+                const float* expected, long long* dec, int B, int T,
+                long long total, int R, long long* cycles, void* stream) {
+  if (B < 1 || T < 1 || total < T || R < 1 || R > MAX_RATE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* d = reinterpret_cast<unsigned long long*>(dec);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return soft_u8 ? dispatch_acs<uint8_t>(R, soft, starts, expected, d, B, T,
+                                         total, cycles, s)
+                 : dispatch_acs<float>(R, soft, starts, expected, d, B, T,
+                                       total, cycles, s);
 }
 
-// dec [B, T, 64] int8 -> bits [B, T] uint8 (the state's low bit per step).
-int viterbi_traceback_batched(const signed char* dec, unsigned char* bits,
-                              int B, int T, void* stream) {
-  constexpr int kThreads = 128;
-  const int blocks = (B + kThreads - 1) / kThreads;
-  traceback_kernel<<<blocks, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(dec, bits, B, T);
+// dec [B, T] 64-bit decision words -> bits [B, T] uint8 (the state's low
+// bit per step, walking back from state 0); cycles: null or [B] int64.
+int viterbi_traceback(const long long* dec, unsigned char* bits, int B,
+                      int T, long long* cycles, void* stream) {
+  if (B < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  traceback_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const unsigned long long*>(dec), bits, T, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,7 +54,7 @@ class ConvCode:
     """Convolutional encoder + Viterbi decoder (rate 1/R, order K)."""
 
     # windows per batched-ACS launch in decode_soft_stream: bounds the
-    # decision buffer (B x (L + 2W) x 64 bytes, 281 MB at the defaults)
+    # decision words (B x (L + 2W) x 8 bytes, 35 MB at the defaults)
     _STREAM_BATCH = 1024
 
     def __init__(self, rate: int, order: int, polys, *, device):
@@ -95,11 +95,29 @@ class ConvCode:
     # ---------- decode (device) ----------
 
     def _soft_steps(self, soft_bits) -> torch.Tensor:
-        """Soft bits (numpy or tensor) -> float32 [T, R] on the device."""
-        soft = torch.as_tensor(np.asarray(soft_bits)) \
-            if not isinstance(soft_bits, torch.Tensor) else soft_bits
+        """Soft bits (numpy or tensor) -> [T, R] on the device: uint8 where
+        they are known to be integers in 0..255 (a uint8 tensor, or a host
+        array whose values are, as the JAX package ships them,
+        sdrpp_tpu/ops/fec.py:267-276), else float32. uint8 takes the
+        kernel's fast form and a 4x smaller upload; both decode alike."""
+        if self.num_states != 64:
+            raise ValueError("the Viterbi kernels decode the 64-state "
+                             "(order 7) codes")
+        if isinstance(soft_bits, torch.Tensor):
+            soft = soft_bits
+        else:
+            arr = np.asarray(soft_bits)
+            if (arr.dtype != np.uint8 and arr.size
+                    and (np.issubdtype(arr.dtype, np.integer)
+                         or np.issubdtype(arr.dtype, np.floating))
+                    and np.all(arr == np.round(arr))
+                    and arr.min() >= 0 and arr.max() <= 255):
+                arr = arr.astype(np.uint8)
+            soft = torch.from_numpy(np.ascontiguousarray(arr))
+        if soft.dtype != torch.uint8:
+            soft = soft.float()
         total = soft.shape[0] // self.rate
-        return soft[:total * self.rate].to(self.device).float() \
+        return soft[:total * self.rate].to(self.device) \
             .reshape(total, self.rate)
 
     def decode_soft(self, soft_bits, flush_bits: int | None = None):
@@ -111,8 +129,9 @@ class ConvCode:
             flush_bits = self.order + 1
         soft = self._soft_steps(soft_bits)
         total = soft.shape[0]
-        dec = viterbi_acs_batched(soft[None], self._expected)
-        return viterbi_traceback_batched(dec)[0, :total - flush_bits]
+        start = torch.zeros(1, dtype=torch.int32, device=self.device)
+        words = viterbi_acs_batched(soft, start, total, self._expected)
+        return viterbi_traceback_batched(words)[0, :total - flush_bits]
 
     def decode_soft_stream(self, soft_bits, chunk_bits: int = 4096,
                            overlap_bits: int = 96) -> np.ndarray:
@@ -133,18 +152,19 @@ class ConvCode:
         starts = torch.clamp(torch.arange(n_chunks, device=dev) * L - W, 0,
                              total - t_w)
         offs = torch.arange(n_chunks, device=dev) * L - starts
-        steps = torch.arange(t_w, device=dev)
+        starts = starts.to(torch.int32)
+        steps = torch.arange(L, device=dev)
         interior = []
         for g in range(0, n_chunks, self._STREAM_BATCH):
-            st = starts[g:g + self._STREAM_BATCH]
-            windows = soft[st[:, None] + steps]  # [B, t_w, R]
-            bits = viterbi_traceback_batched(
-                viterbi_acs_batched(windows, self._expected))
+            # the kernels read each window where it lies in the stream
+            words = viterbi_acs_batched(soft, starts[g:g + self._STREAM_BATCH],
+                                        t_w, self._expected)
+            bits = viterbi_traceback_batched(words)
             # interior of chunk c is [offs[c], offs[c] + L) of its window;
             # the last chunk's tail runs past t_w (clamped: those positions
             # lie beyond ``total`` and are dropped)
-            gidx = torch.clamp(offs[g:g + self._STREAM_BATCH, None]
-                               + steps[:L], max=t_w - 1)
+            gidx = torch.clamp(offs[g:g + self._STREAM_BATCH, None] + steps,
+                               max=t_w - 1)
             interior.append(torch.gather(bits, 1, gidx))
         flat = torch.cat(interior).reshape(-1)[:total]
         n_pack = -(-total // 8)

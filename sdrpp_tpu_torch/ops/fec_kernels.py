@@ -1,22 +1,33 @@
 """The batched Viterbi kernels: add-compare-select and traceback.
 
-The counterpart of ``sdrpp_tpu.ops.fec_pallas``. Two entry points:
+The counterpart of ``sdrpp_tpu.ops.fec_pallas``, for the 64-state (K = 7)
+codes. Decisions are packed: one int64 word a trellis step, bit n the
+decision of state n (1 = it took the predecessor (n >> 1) + 32);
+``unpack_decisions`` gives the JAX kernels' [..., 64] int8 form and
+``pack_decisions`` the reverse. Two entry points:
 
-- ``viterbi_acs_batched``       [B, T, R] soft bits -> [B, T, 64] int8
-                                decisions (replaces
-                                ``viterbi_acs_pallas_batched``,
-                                fec_pallas.py:51, and with B = 1
-                                ``viterbi_acs_pallas``, fec_pallas.py:221);
-- ``viterbi_traceback_batched`` [B, T, 64] decisions -> [B, T] uint8 bits,
-                                walking back from state 0 (replaces
+- ``viterbi_acs_batched``       a [total, R] soft-bit stream (uint8 or
+                                float32), int32 window starts [B] and a
+                                window length T -> [B, T] int64 words
+                                (replaces ``viterbi_acs_pallas_batched``,
+                                fec_pallas.py:51, which takes the gathered
+                                [B, T, R] windows, and with B = 1, start 0
+                                and T = total ``viterbi_acs_pallas``,
+                                fec_pallas.py:221);
+- ``viterbi_traceback_batched`` [B, T] words -> [B, T] uint8 bits, walking
+                                back from state 0 (replaces
                                 ``viterbi_traceback_pallas_batched``,
                                 fec_pallas.py:132).
 
-On a CUDA tensor each launches ``csrc/viterbi.cu`` (built on first use; a
-failed build raises) and adds one to its ``launches`` count; on a CPU
-tensor each runs its plain PyTorch version, a Python loop over trellis
-steps on [B, S] tensors. Any other device raises. The kernels take the
-64-state (K = 7) codes; the plain versions any power-of-two state count.
+On a CUDA tensor each launches ``csrc/viterbi.cu`` through a compiled host
+path, ``viterbi_acs`` / ``viterbi_traceback`` of ``csrc/kernels_host.cpp``,
+which checks the arguments, allocates the output and launches in one C++
+call (both built on first use; a failed build raises), and adds one to its
+``launches`` count; on a CPU tensor each runs its plain PyTorch version, a
+Python loop over trellis steps on [B, 64] tensors that takes the same
+arguments and returns the same words and bits. Any other device raises.
+On CUDA, ``cycles`` (an int64 [B] tensor, or None) receives each window's
+clock64 cycles.
 """
 
 from __future__ import annotations
@@ -28,71 +39,125 @@ import torch
 from ..utils import cuda_lib
 
 __all__ = ["viterbi_acs_batched", "viterbi_traceback_batched",
-           "viterbi_acs_batched_plain", "viterbi_traceback_batched_plain"]
+           "viterbi_acs_batched_plain", "viterbi_traceback_batched_plain",
+           "pack_decisions", "unpack_decisions"]
 
 KERNEL_STATES = 64
 KERNEL_MAX_RATE = 4
 
 
-def _kernel_device(t: torch.Tensor, what: str) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise RuntimeError(f"{what} runs on CUDA or CPU tensors, not "
-                           f"{t.device}")
-    return True
+def _bit_weights(device) -> torch.Tensor:
+    """[64] int64: 1 << n (bit 63 as int64's sign bit)."""
+    n = torch.arange(KERNEL_STATES, device=device)
+    return torch.ones(KERNEL_STATES, dtype=torch.int64, device=device) << n
 
 
-def viterbi_acs_batched_plain(soft, expected):
-    """Plain PyTorch version of ``viterbi_acs_batched``."""
-    B, T, R = soft.shape
-    S = expected.shape[0] // 2
+def pack_decisions(dec: torch.Tensor) -> torch.Tensor:
+    """[..., 64] decisions (nonzero = took (n >> 1) + 32) -> [...] int64
+    words, bit n the decision of state n."""
+    if dec.shape[-1] != KERNEL_STATES:
+        raise ValueError(f"decisions must be [..., {KERNEL_STATES}]")
+    return ((dec != 0).long() * _bit_weights(dec.device)).sum(-1)
+
+
+def unpack_decisions(words: torch.Tensor) -> torch.Tensor:
+    """[...] int64 words -> [..., 64] int8 decisions."""
+    n = torch.arange(KERNEL_STATES, device=words.device)
+    return ((words[..., None] >> n) & 1).to(torch.int8)
+
+
+def _check_acs(soft, starts, T, expected):
+    """Validates the ACS arguments; returns (total, R, T). On CUDA tensors
+    the compiled host path (csrc/kernels_host.cpp) makes the same checks."""
+    if soft.dtype not in (torch.uint8, torch.float32) or soft.dim() != 2:
+        raise ValueError("soft must be uint8 or float32 [total, R]")
+    total, R = soft.shape
+    if not 1 <= R <= KERNEL_MAX_RATE:
+        raise ValueError(f"soft takes 1 to {KERNEL_MAX_RATE} soft bits a "
+                         f"step, got {R}")
+    if (expected.dtype != torch.float32
+            or list(expected.shape) != [2 * KERNEL_STATES, R]):
+        raise ValueError(f"expected must be float32 [{2 * KERNEL_STATES}, "
+                         f"{R}]")
+    if starts.dtype != torch.int32 or starts.dim() != 1 or starts.shape[0] < 1:
+        raise ValueError("starts must be a non-empty int32 vector")
+    if expected.device != soft.device or starts.device != soft.device:
+        raise ValueError("the Viterbi ACS takes tensors on one device")
+    T = int(T)
+    if not 1 <= T <= total:
+        raise ValueError(f"window length {T} outside [1, {total}]")
+    return total, R, T
+
+
+def _check_traceback(dec):
+    if (dec.dtype != torch.int64 or dec.dim() != 2 or dec.shape[0] < 1
+            or dec.shape[1] < 1):
+        raise ValueError("dec must be int64 [B, T] decision words, B and T "
+                         ">= 1")
+
+
+def viterbi_acs_batched_plain(soft, starts, T, expected):
+    """Plain PyTorch version of ``viterbi_acs_batched``: the reference form
+    (the minimum metric subtracted every step)."""
+    total, R, T = _check_acs(soft, starts, T, expected)
     dev = soft.device
+    st = starts.long().clamp(0, total - T)
+    windows = soft[st[:, None] + torch.arange(T, device=dev)].float()
+    B, S = windows.shape[0], KERNEL_STATES
     n = torch.arange(S, device=dev)
     p0, p1 = n >> 1, (n >> 1) + S // 2
+    weights = _bit_weights(dev)
     m = torch.full((B, S), 1e9, dtype=torch.float32, device=dev)
     m[:, 0] = 0.0
-    dec = torch.empty((B, T, S), dtype=torch.int8, device=dev)
+    words = torch.empty((B, T), dtype=torch.int64, device=dev)
     for t in range(T):
-        bm = torch.abs(soft[:, t, None, :] - expected).sum(-1)  # [B, 2S]
+        s = windows[:, t, None, :]  # [B, 1, R]
+        bm = (s[..., 0] - expected[:, 0]).abs()  # [B, 2S], summed in j order
+        for j in range(1, R):
+            bm = bm + (s[..., j] - expected[:, j]).abs()
         cand0 = m[:, p0] + bm[:, :S]
         cand1 = m[:, p1] + bm[:, S:]
         take1 = cand1 < cand0
         new = torch.where(take1, cand1, cand0)
         m = new - new.min(dim=1, keepdim=True).values
-        dec[:, t] = take1.to(torch.int8)
-    return dec
+        words[:, t] = (take1.long() * weights).sum(-1)
+    return words
 
 
-def viterbi_acs_batched(soft, expected):
-    """Add-compare-select over B windows: ``soft`` [B, T, R] float32,
-    ``expected`` [2S, R] float32 (each shift register's output bits times
-    255) -> [B, T, S] int8 decisions (1 = took predecessor (n>>1)+S/2).
-    Metrics start at 0 for state 0 and 1e9 elsewhere."""
-    if soft.ndim != 3 or soft.dtype != torch.float32:
-        raise ValueError("soft must be float32 [B, T, R]")
-    if expected.dtype != torch.float32 or expected.device != soft.device \
-            or expected.ndim != 2 or expected.shape[1] != soft.shape[2]:
-        raise ValueError("expected must be float32 [2S, R] on soft's device")
-    if not _kernel_device(soft, "viterbi_acs_batched"):
-        return viterbi_acs_batched_plain(soft, expected)
-    B, T, R = soft.shape
-    if expected.shape[0] != 2 * KERNEL_STATES or R > KERNEL_MAX_RATE:
-        raise ValueError(f"the kernel takes {KERNEL_STATES} states and at "
-                         f"most {KERNEL_MAX_RATE} soft bits per step")
-    soft, expected = soft.contiguous(), expected.contiguous()
-    dec = torch.empty((B, T, KERNEL_STATES), dtype=torch.int8,
-                      device=soft.device)
-    fn = cuda_lib.bind("viterbi", "viterbi_acs_batched",
-                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-    rc = cuda_lib.launch(fn, soft.device, soft.data_ptr(), expected.data_ptr(),
-                         dec.data_ptr(), B, T, R)
-    if rc != 0:
-        raise RuntimeError(f"viterbi_acs_batched launch failed: CUDA error "
-                           f"{rc} at B={B}, T={T}, R={R}")
-    viterbi_acs_batched.launches += 1
-    return dec
+_host = None
+
+
+def _bind_host():
+    """(kernels_host.viterbi_acs, kernels_host.viterbi_traceback)
+    (csrc/kernels_host.cpp), bound to the kernel library's two C entries;
+    both built and loaded on first use."""
+    global _host
+    lib = cuda_lib.load("viterbi")
+    mod = cuda_lib.load_host("kernels_host")
+    mod.bind_viterbi(*(ctypes.cast(getattr(lib, e), ctypes.c_void_p).value
+                       for e in ("viterbi_acs", "viterbi_traceback")))
+    _host = (mod.viterbi_acs, mod.viterbi_traceback)
+    return _host
+
+
+def viterbi_acs_batched(soft, starts, T, expected, cycles=None):
+    """Add-compare-select over B windows of ``T`` steps of the soft-bit
+    stream ``soft`` [total, R] (uint8 or float32; 0 = strong 0, 255 =
+    strong 1), window b starting at step ``starts[b]`` (int32, clamped to
+    [0, total - T]). ``expected`` [128, R] float32 holds each shift
+    register's output bits times 255. Returns [B, T] int64 decision words.
+    Metrics start at 0 for state 0 and 1e9 elsewhere. On uint8 soft bits
+    with ``expected`` integral in [0, 255] the kernel drops the per-step
+    minimum after a window's first 6 steps (exactly: csrc/viterbi.cu)."""
+    if soft.is_cuda:
+        words = (_host or _bind_host())[0](soft, starts, T, expected, cycles)
+        viterbi_acs_batched.launches += 1
+        return words
+    _check_acs(soft, starts, T, expected)
+    if soft.is_cpu:
+        return viterbi_acs_batched_plain(soft, starts, T, expected)
+    raise RuntimeError(f"viterbi_acs_batched runs on CUDA or CPU tensors, "
+                       f"not {soft.device}")
 
 
 viterbi_acs_batched.launches = 0
@@ -100,37 +165,29 @@ viterbi_acs_batched.launches = 0
 
 def viterbi_traceback_batched_plain(dec):
     """Plain PyTorch version of ``viterbi_traceback_batched``."""
-    B, T, S = dec.shape
-    s = torch.zeros((B, 1), dtype=torch.int64, device=dec.device)
+    _check_traceback(dec)
+    B, T = dec.shape
+    s = torch.zeros(B, dtype=torch.int64, device=dec.device)
     bits = torch.empty((B, T), dtype=torch.uint8, device=dec.device)
     for t in range(T - 1, -1, -1):
-        bits[:, t] = (s[:, 0] & 1).to(torch.uint8)
-        took = torch.gather(dec[:, t], 1, s) != 0
-        s = (s >> 1) + took.long() * (S // 2)
+        bits[:, t] = (s & 1).to(torch.uint8)
+        s = (s >> 1) + ((dec[:, t] >> s) & 1) * (KERNEL_STATES // 2)
     return bits
 
 
-def viterbi_traceback_batched(dec):
+def viterbi_traceback_batched(dec, cycles=None):
     """Survivor walk of B windows from state 0 at the last step: ``dec``
-    [B, T, S] int8 -> [B, T] uint8, the low bit of each step's state."""
-    if dec.ndim != 3 or dec.dtype != torch.int8:
-        raise ValueError("dec must be int8 [B, T, S]")
-    if not _kernel_device(dec, "viterbi_traceback_batched"):
+    [B, T] int64 decision words -> [B, T] uint8, the low bit of each
+    step's state."""
+    if dec.is_cuda:
+        bits = (_host or _bind_host())[1](dec, cycles)
+        viterbi_traceback_batched.launches += 1
+        return bits
+    _check_traceback(dec)
+    if dec.is_cpu:
         return viterbi_traceback_batched_plain(dec)
-    B, T, S = dec.shape
-    if S != KERNEL_STATES:
-        raise ValueError(f"the kernel takes {KERNEL_STATES} states")
-    dec = dec.contiguous()
-    bits = torch.empty((B, T), dtype=torch.uint8, device=dec.device)
-    fn = cuda_lib.bind("viterbi", "viterbi_traceback_batched",
-                       [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
-    rc = cuda_lib.launch(fn, dec.device, dec.data_ptr(), bits.data_ptr(), B, T)
-    if rc != 0:
-        raise RuntimeError(f"viterbi_traceback_batched launch failed: CUDA "
-                           f"error {rc} at B={B}, T={T}")
-    viterbi_traceback_batched.launches += 1
-    return bits
+    raise RuntimeError(f"viterbi_traceback_batched runs on CUDA or CPU "
+                       f"tensors, not {dec.device}")
 
 
 viterbi_traceback_batched.launches = 0

@@ -82,9 +82,10 @@ def test_decode_soft_matches_jax(flush):
 
 
 def test_acs_and_traceback_plain_match_pallas_batched():
-    """B windows of noisy soft bits: decisions and bits bit-exact against
-    the interpret-mode batched Pallas kernels (B6, B7) and, window by
-    window, the single-stream ACS (B5)."""
+    """B windows of noisy soft bits laid end to end in one stream: the
+    packed decisions, unpacked, and the bits bit-exact against the
+    interpret-mode batched Pallas kernels (B6, B7) on the gathered windows
+    and, window by window, the single-stream ACS (B5)."""
     code = jfec.ConvCode(2, 7, LRPT)
     rng = np.random.default_rng(1)
     soft = np.clip(np.round(255.0 * rng.integers(0, 2, (3, 200, 2))
@@ -93,12 +94,13 @@ def test_acs_and_traceback_plain_match_pallas_batched():
     expected = code.reg_outputs.astype(np.float32) * 255.0
     want = np.asarray(fec_pallas.viterbi_acs_pallas_batched(
         jnp.asarray(soft), jnp.asarray(expected), 64, interpret=True))
-    got = FK.viterbi_acs_batched(torch.from_numpy(soft),
-                                 torch.from_numpy(expected))
-    np.testing.assert_array_equal(got.numpy(), want)
+    starts = torch.tensor([0, 200, 400], dtype=torch.int32)
+    got = FK.viterbi_acs_batched(torch.from_numpy(soft.reshape(600, 2)),
+                                 starts, 200, torch.from_numpy(expected))
+    np.testing.assert_array_equal(FK.unpack_decisions(got).numpy(), want)
     one = np.asarray(fec_pallas.viterbi_acs_pallas(
         jnp.asarray(soft[1]), jnp.asarray(expected), 64, interpret=True))
-    np.testing.assert_array_equal(got[1].numpy(), one)
+    np.testing.assert_array_equal(FK.unpack_decisions(got[1]).numpy(), one)
     bits = np.asarray(fec_pallas.viterbi_traceback_pallas_batched(
         jnp.asarray(want), 64, interpret=True))
     np.testing.assert_array_equal(FK.viterbi_traceback_batched(got).numpy(),
@@ -143,9 +145,9 @@ def test_decode_soft_stream_in_groups_matches_jax_stream(monkeypatch,
     monkeypatch.setattr(tfec.ConvCode, "_STREAM_BATCH", batch)
     seen = []
 
-    def acs(windows, expected):
-        seen.append(windows.shape[0])
-        return FK.viterbi_acs_batched(windows, expected)
+    def acs(soft_steps, starts, T, expected):
+        seen.append(starts.shape[0])
+        return FK.viterbi_acs_batched(soft_steps, starts, T, expected)
 
     monkeypatch.setattr(tfec, "viterbi_acs_batched", acs)
     t = tfec.ConvCode(2, 7, LRPT, device="cpu")
@@ -165,11 +167,13 @@ def test_decode_soft_stream_short_takes_exact_decode():
 
 def test_viterbi_wrappers_reject_other_devices():
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
-        FK.viterbi_acs_batched(torch.zeros((1, 4, 2), device="meta"),
+        FK.viterbi_acs_batched(torch.zeros((4, 2), device="meta"),
+                               torch.zeros(1, dtype=torch.int32,
+                                           device="meta"), 4,
                                torch.zeros((128, 2), device="meta"))
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         FK.viterbi_traceback_batched(
-            torch.zeros((1, 4, 64), dtype=torch.int8, device="meta"))
+            torch.zeros((1, 4), dtype=torch.int64, device="meta"))
 
 
 def test_bits_bytes_helpers():

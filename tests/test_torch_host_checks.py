@@ -2,7 +2,8 @@
 
 ``csrc/kernels_host.cpp`` repeats, in C++, the checks of
 ``scans_kernels._check`` (lane_scan / single_scan) and
-``fir_kernels._check`` (decimating_fir), in their order and with their
+``fir_kernels._check`` (decimating_fir) and ``fec_kernels._check_acs`` /
+``_check_traceback`` (the Viterbi entries), in their order and with their
 messages: on the card it is the only check a call gets. Here it is built
 without CUDA (``cuda_lib.load_host(..., cuda=False)``: the same checks,
 no launch) and both validators get the same wrong arguments on CPU
@@ -15,6 +16,7 @@ as the card's build does); the build takes about 20 s.
 import pytest
 import torch
 
+from sdrpp_tpu_torch.ops import fec_kernels as FK
 from sdrpp_tpu_torch.ops import fir_kernels as F
 from sdrpp_tpu_torch.ops import scans_kernels as K
 from sdrpp_tpu_torch.utils import cuda_lib
@@ -130,6 +132,8 @@ def test_loop_scan_host_checks_its_own_arguments(host):
         host.bind_loop_scan(0)
     with pytest.raises(ValueError, match="null entry"):
         host.bind_decim_fir(1, 0)
+    with pytest.raises(ValueError, match="null entry"):
+        host.bind_viterbi(1, 0)
 
 
 def _fir_cases():
@@ -176,3 +180,71 @@ def test_decim_fir_checks_match_python(host, case):
     else:
         assert got == want
 
+
+
+def _viterbi_acs_cases():
+    """(id, soft, starts, T, expected)."""
+    s = torch.zeros((50, 2), dtype=torch.uint8)
+    st = torch.zeros(2, dtype=torch.int32)
+    e = torch.zeros((128, 2))
+    return [
+        ("soft dtype", s.double(), st, 10, e),
+        ("soft dims", s[None], st, 10, e),
+        ("rate", torch.zeros((50, 5), dtype=torch.uint8), st, 10,
+         torch.zeros((128, 5))),
+        ("rate zero", torch.zeros((50, 0), dtype=torch.uint8), st, 10,
+         torch.zeros((128, 0))),
+        ("expected rows", s, st, 10, e[:64]),
+        ("expected rate", s, st, 10, torch.zeros((128, 4))),
+        ("expected dtype", s, st, 10, e.double()),
+        ("starts dtype", s, st.long(), 10, e),
+        ("starts 2-D", s, st[None], 10, e),
+        ("starts empty", s, st[:0], 10, e),
+        ("starts device", s, st.to("meta"), 10, e),
+        ("expected device", s, st, 10, e.to("meta")),
+        ("T zero", s, st, 0, e),
+        ("T long", s, st, 51, e),
+        ("accepted u8", s, st, 10, e),
+        ("accepted f32 rate 4", torch.zeros((50, 4)), st, 50,
+         torch.zeros((128, 4))),
+        ("accepted strided", s.T.contiguous().T, st[::1], 1, e.T.contiguous().T),
+    ]
+
+
+@pytest.mark.parametrize("case", _viterbi_acs_cases(), ids=lambda c: c[0])
+def test_viterbi_acs_checks_match_python(host, case):
+    _, soft, starts, T, expected = case
+    want = _message(FK._check_acs, soft, starts, T, expected)
+    got = _message(host.viterbi_acs, soft, starts, T, expected, None)
+    if want is None:
+        assert case[0].startswith("accepted")
+        assert got == "the compiled Viterbi ACS takes CUDA tensors"
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("dec", [
+    torch.zeros((2, 3), dtype=torch.int32), torch.zeros(3, dtype=torch.int64),
+    torch.zeros((0, 3), dtype=torch.int64),
+    torch.zeros((2, 0), dtype=torch.int64),
+    torch.zeros((2, 3), dtype=torch.int64)],
+    ids=["dtype", "1-D", "no windows", "no steps", "accepted"])
+def test_viterbi_traceback_checks_match_python(host, dec):
+    want = _message(FK._check_traceback, dec)
+    got = _message(host.viterbi_traceback, dec, None)
+    if want is None:
+        assert got == "the compiled Viterbi traceback takes CUDA tensors"
+    else:
+        assert got == want
+
+
+def test_viterbi_host_checks_its_own_arguments(host):
+    s = torch.zeros((50, 2), dtype=torch.uint8)
+    st = torch.zeros(2, dtype=torch.int32)
+    e = torch.zeros((128, 2))
+    with pytest.raises(TypeError):
+        host.viterbi_acs(s, st, 10, e)
+    with pytest.raises(TypeError):
+        host.viterbi_acs(s, st, 10.0, e, None)
+    with pytest.raises(TypeError):
+        host.viterbi_traceback(torch.zeros((2, 3), dtype=torch.int64))
