@@ -101,7 +101,30 @@ any phase fails:
     launches on 64 rows;
 14. tests/test_golden.py's NFM bank through ``ScannerBank`` on the card
     against the committed golden, below -40 dB after the settle;
-15. when the parent commit is unpacked at _scratch/parent (``git archive
+15. the radio-options path: a 2.4 Msps composite (WFM stereo with a
+    57 kHz RDS subcarrier carrying a PI code and PS name, a CW carrier,
+    AM, NFM with impulse bursts, a second NFM station) through
+    ``Receiver(2.4e6, block_size=652800, device="cuda")`` with seven VFOs
+    (WFM with RDS, CW, raw, AM, NFM with noise blanker and FM IF noise
+    reduction, the same NFM without them, NFM with dynamic offset and
+    bandwidth) for RADIO_NBLOCKS blocks, the WFM VFO's RDS baseband
+    decoded by ``RDSReceiver(device="cuda")``; the dynamic VFO is retuned
+    through ``retune_state`` before block RADIO_RETUNE_BLOCK and narrowed
+    through ``set_bandwidth_state`` before block RADIO_BW_BLOCK. PI and
+    PS must come back exact with >= 10 groups, the CW, raw and AM tones
+    and the retuned station's tone SNR > 30 dB, the old station gone, the
+    blanker must lower the impulse energy; lane_scan, single_scan,
+    mm_symbols and decimating_fir launches must rise; per-block CUDA-event
+    ms and host s; then the first two blocks on device="cpu", every VFO's
+    audio and the RDS baseband below -40 dB after the settle;
+16. the entry points of that slice: ``cli.main(["run", "--mode", "cw",
+    ...])``, ``run --mode raw --sample-format i24``, ``run --audio-rate
+    44100``, ``spectrum --framebuffer`` and ``scan`` over a WAV of the
+    composite (it must park on the CW, AM and both NFM carriers);
+17. the pipeline: ``cli run`` and ``cli bank`` (through ``Prefetcher`` and
+    ``DeferredWriter``) write WAV files byte-identical to the same loops
+    run unpipelined on the card;
+18. when the parent commit is unpacked at _scratch/parent (``git archive
     <parent> | tar -x -C _scratch/parent``): an A/B of the meteor block
     time, decimating_fir at every FIR_CASES shape, the loop scans at
     the kernel phase's path cases (the same bodies and inputs, contiguous
@@ -117,7 +140,8 @@ record and {"ok": true, "device": {...}}.
 
 builds the kernels and, instead of the phases above, profiles (with
 torch.profiler) PROFILE_RX_BLOCKS steady blocks of the receive slice
-(``Receiver.process_block``, three VFOs), PROFILE_BLOCKS of the wideband
+(``Receiver.process_block``, three VFOs) and of the radio-options path
+(seven VFOs and the RDS chain), PROFILE_BLOCKS of the wideband
 chain, PROFILE_METEOR_BLOCKS steady blocks of the 30-s meteor pass and its
 ``finalize``, and PROFILE_CALLS calls of decimating_fir at each FIR_CASES
 shape:
@@ -148,6 +172,35 @@ VFOS = {"wfm": dict(mode="wfm", offset=300e3, deemphasis="50us"),
 # shifted up by 1350 Hz, so a 1.5 kHz audio tone sits 150 Hz above it
 TONES = {"am": 1000.0, "usb": 1500.0}
 SETTLE = 1000  # audio samples of the zero-state start-up transient
+# the radio-options path: every RadioChannel option of the JAX receive
+# path at 2.4 Msps, in blocks of 34 x 19,200 samples (19,200: the lcm of
+# these VFOs' block multiples; 654,400 is not a multiple of the RDS or CW
+# VFO's)
+RADIO_BLOCK = 652800
+RADIO_NBLOCKS = 10         # 2.7 s: the RDS chain decodes ~30 groups
+RADIO_RETUNE_BLOCK = 4     # nfm_dyn retuned to RADIO_NFM2 before this block
+RADIO_BW_BLOCK = 6         # and narrowed to RADIO_BW before this one
+RADIO_BW = 10000.0
+RADIO_WFM = 300e3          # stereo (L 1 kHz, R 3 kHz) + 57 kHz RDS
+RADIO_CW = -199900.0       # a CW carrier, 100 Hz above the CW VFO
+RADIO_AM = -500e3          # AM, 1 kHz at 50 %
+RADIO_NFM = 600e3          # NFM, 1 kHz, with impulse bursts
+RADIO_NFM2 = 800e3         # NFM, 1.5 kHz: the retune's target
+RADIO_PI = 0x54A8
+RADIO_PS = "H100 RDS"
+RADIO_VFOS = {
+    "wfm_rds": dict(mode="wfm", offset=RADIO_WFM, deemphasis="50us",
+                    rds=True),
+    "cw": dict(mode="cw", offset=-200e3),
+    "raw": dict(mode="raw", offset=-201e3),  # the CW carrier at +1.1 kHz
+    "am": dict(mode="am", offset=RADIO_AM),
+    "nfm_nb": dict(mode="nfm", offset=RADIO_NFM, noise_blanker=True,
+                   fm_if_nr=True),
+    "nfm_plain": dict(mode="nfm", offset=RADIO_NFM),
+    "nfm_dyn": dict(mode="nfm", offset=RADIO_NFM, dynamic_offset=True,
+                    dynamic_bandwidth=True),
+}
+RADIO_TONES = {"cw": 900.0, "raw": 1100.0, "am": 1000.0}
 SOURCES = {"lane_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "single_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "mm_symbols": "sdrpp_tpu_torch/csrc/mm_clock.cu",
@@ -162,6 +215,8 @@ REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
             "decimating_fir": "sdrpp_tpu/ops/fir_pallas.py:74"}
 # the paths each kernel must be launched on
 REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
+            "radio": ("lane_scan", "single_scan", "mm_symbols",
+                      "decimating_fir"),
             "meteor": ("lane_scan", "mm_symbols", "viterbi_acs_batched",
                        "viterbi_traceback_batched", "decimating_fir"),
             "wideband": ("decimating_fir",),
@@ -177,8 +232,8 @@ FP32_OPS_PER_S = 67e12
 # float32 operations per lane step of each loop body, counted from the
 # bodies in ops/scans_kernels.py (a comparison, a select or a
 # transcendental counts as one)
-LOOP_OPS = {"pll": 18, "agc": 16, "fast_agc": 5, "costas4": 26,
-            "costas_meteor": 44}
+LOOP_OPS = {"pll": 18, "agc": 16, "fast_agc": 5, "costas2": 20,
+            "costas4": 26, "costas_meteor": 44}
 MM_OPS_PER_SYMBOL = 57     # 8 taps x 2 planes x (mul + add) + the loop
 ACS_OPS_PER_STATE = 6      # two path sums, a compare, a select, 2 metrics
 TB_OPS_PER_STEP = 4        # a word's half, a shift, a test, the next state
@@ -197,6 +252,10 @@ FIR_CASES = [("wideband", 1, 1 << 24, 256, "c64"),
              ("meteor", 1, 1048576, 16, "c64"),
              ("receive", 1, 654400, 32, "c64"),
              ("receive", 1, 654400, 64, "c64"),
+             # the radio-options block: NFM and raw (/32), AM (/64), CW
+             # (/256) VFOs, and the RDS tap's 240 kHz -> 5 kHz (/32)
+             ("radio", 1, 652800, 32, "c64"), ("radio", 1, 652800, 64, "c64"),
+             ("radio", 1, 652800, 256, "c64"), ("radio", 1, 65280, 32, "c64"),
              # off the paths: the /128 stage (r = 128, 726 taps); a block
              # shorter than the tail (n < m - 1); 300 outputs a row, not a
              # multiple of the kernel's 128-output tile; float32 rows
@@ -217,6 +276,11 @@ WIDE_SETTLE = 1000         # audio samples left out of the tone SNR
 WIDE_CPU_BLOCKS = 4        # blocks compared card vs CPU
 WIDE_CPU_SETTLE = 1000     # audio samples of the chain's start left out
 BANK_BLOCK = 1 << 18       # bench.py's bank block at 6.144 Msps
+PIPE_CMDS = {"run": ("test:2400000", BLOCK),      # cli source, block
+             "bank": ("test:6144000", BANK_BLOCK)}
+PIPE_BLOCKS = 100          # blocks of each timed cli loop
+PIPE_PAIRS = 10            # pipelined / plain pairs a command
+PIPE_READS = 20            # blocks of the source's read timed alone
 PROFILE_BLOCKS = 5
 PROFILE_RX_BLOCKS = 4      # steady receive blocks profiled (after 3 warm)
 PROFILE_METEOR_BLOCKS = 4  # steady meteor blocks profiled (after 3 warm)
@@ -413,6 +477,8 @@ def loop_body_args():
 
     alpha, beta = (float(v) for v in _critically_damped(25000.0 / 240000.0))
     ca, cb = (float(v) for v in _critically_damped(0.005))
+    ra, rb = (float(v) for v in _critically_damped(0.01))
+    baud = float(hz_to_rads(1187.5, 5000.0))
     return {
         "pll": ("pll_body", [alpha, beta, float(hz_to_rads(18750.0, 240000.0)),
                              float(hz_to_rads(19250.0, 240000.0))]),
@@ -425,6 +491,13 @@ def loop_body_args():
         "agc_tiny_out": ("agc_body", [1.0, 50.0 / 48000.0, 5.0 / 48000.0,
                                       10e6, 1e-19]),
         "fast_agc": ("fast_agc_body", [1.0, 10e6, 0.001]),
+        # the radio-options path: the CW AGC, the RDS chain's FastAGC and
+        # its two Costas loops (the second held around baud/2)
+        "agc_cw": ("agc_body", [1.0, 100.0 / 3000.0, 5.0 / 3000.0, 10e6,
+                                1.0]),
+        "fast_agc_rds": ("fast_agc_body", [1.0, 1e6, 0.1]),
+        "costas2": ("costas_body", [2, ca, cb, -np.pi, np.pi]),
+        "costas2_baud": ("costas_body", [2, ra, rb, baud * 0.9, baud * 1.1]),
         "costas4": ("costas_body", [4, ca, cb, -np.pi, np.pi]),
         "costas_meteor": ("costas_body", ["meteor", ca, cb, -np.pi, np.pi])}
 
@@ -673,6 +746,16 @@ def phase_kernels(dev):
         ("lane_scan", "costas4", "meteor", ("chunk", 65536, 1, 64, 1024, 32),
          "path"),
         ("lane_scan", "agc48", "ssb_bank", ("bank", 2048, 64), "path"),
+        # the radio-options block (652,800 samples): the WFM pilot PLL
+        # (65,280, K = 128), the AM AGC (exact, 6,528 from gain 1e7), the
+        # CW AGC (exact, 816), the RDS FastAGC and two Costas (1,360 at
+        # 5 kHz)
+        ("lane_scan", "pll", "radio", ("chunk", 65280, 1, 128, 128), "path"),
+        ("single_scan", "agc24", "radio", ("single", 6528), "am"),
+        ("single_scan", "agc_cw", "radio", ("single", 816), "path"),
+        ("single_scan", "fast_agc_rds", "radio", ("single", 1360), "path"),
+        ("single_scan", "costas2", "radio", ("single", 1360), "path"),
+        ("single_scan", "costas2_baud", "radio", ("single", 1360), "path"),
         ("lane_scan", "costas_meteor", None, ("chunk", 65536, 1, 64, 1024),
          "path"),
         ("single_scan", "pll", None, ("single", 65440), "path"),
@@ -911,6 +994,54 @@ def mm_extra_cases(dev, mm, rng):
     return results
 
 
+def mm_radio_case(dev, rng):
+    """mm_symbols as the radio-options path's RDS chain launches it: the
+    float variant on one [1, 7 + 1360] row a block (5 kHz, 1187.5 baud
+    biphase symbols in noise), against its plain version on the whole row:
+    masks and offsets equal, symbols and state within KERNEL_TOL."""
+    import torch
+    from sdrpp_tpu_torch.models.rds_chain import RDSChain
+    from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
+
+    mm = RDSChain(device=dev).recov
+    n = RADIO_BLOCK * 5000 // int(FS)  # 1360 samples at 5 kHz
+    sps = 5000.0 / 1187.5
+    sym = rng.choice([-1.0, 1.0], int(n / sps) + 2)
+    x = (sym[(np.arange(n) / sps).astype(np.int64)]
+         + 0.2 * rng.standard_normal(n)).astype(np.float32)
+    st = mm.init_state()
+    buf = torch.cat([st["tail"], torch.from_numpy(x).to(dev)])[None]
+    fst = torch.tensor([[0.0, float(np.float32(mm.omega)), 0.0]],
+                       dtype=torch.float32, device=dev)
+    a = (buf, st["offset"].reshape(1), fst, mm._bank, mm.max_symbols(n),
+         mm.mu_gain, mm.omega_gain, mm.min_freq, mm.max_freq)
+    got = MK.mm_symbols(*a)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: MK.mm_symbols(*a), reps=20)
+    ref = {}
+    plain_ms = cuda_ms(lambda: ref.setdefault("r", MK.mm_symbols_plain(*a)),
+                       reps=1)
+    want = ref["r"]
+    exact = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[3] - want[3]).abs().max()))
+    tol = KERNEL_TOL * float(want[0].abs().max())
+    shape = list(buf.shape)
+    bms, bby = mm_bound(buf, mm._bank, got[0])
+    log(f"kernel mm_symbols[float] {shape} (radio, RDS): "
+        f"{int(want[1].sum())} symbols, masks and offsets "
+        f"{'equal' if exact else 'DIFFER'}, max abs err {err:.3g} (tol "
+        f"{tol:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bms:.5f} ms ({bby})")
+    if not (exact and err <= tol):
+        raise AssertionError("mm_symbols[float] at the RDS row disagrees with "
+                             "its plain version")
+    return dict(entry="mm_symbols", body="float", shape=shape,
+                plain_shape=shape, path="radio", max_abs_err=err, tol=tol,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=None)
+
+
 def phase_kernels_digital(dev):
     """mm_symbols at the meteor path's shape against its plain version. The
     plain side runs on a prefix (it is a Python loop of a few torch
@@ -986,6 +1117,7 @@ def phase_kernels_digital(dev):
                         bound_by=bby, library_ms=None,
                         cycles_per_symbol=cps))
     results += mm_extra_cases(dev, mm, rng)
+    results.append(mm_radio_case(dev, rng))
     # the kernel takes the 128 x 8 bank only: another raises on the card,
     # with no launch and no fallback to the plain version
     before = MK.mm_symbols.launches
@@ -1839,6 +1971,433 @@ def phase_golden_bank():
     return {"settled_db": settled, "whole_db": whole}
 
 
+def radio_composite(n: int, seed: int = 4) -> np.ndarray:
+    """The radio-options path's 2.4 Msps signal: WFM stereo carrying a
+    57 kHz RDS subcarrier (PI RADIO_PI, PS name RADIO_PS in group-0A
+    segments; tests/test_rds.py:116-151 at this rate), a CW carrier, an AM
+    station, an NFM station with impulse bursts (a Hann-shaped 17 us burst
+    up to 30x its level every 10 ms), a second NFM station, and seeded
+    noise."""
+    from sdrpp_tpu_torch.decoders.rds import encode_group
+
+    t = np.arange(n) / FS
+    bits = []
+    name = RADIO_PS.encode()
+    while len(bits) < n / FS * 1187.5 + 208:
+        for seg in range(4):
+            bits += encode_group([RADIO_PI, (9 << 5) | seg, 0xE0E0,
+                                  (name[2 * seg] << 8) | name[2 * seg + 1]])
+    diff = np.cumsum(np.asarray(bits, np.int64)) % 2
+    half = np.where(diff[:, None] == 1, [1.0, -1.0], [-1.0, 1.0]).reshape(-1)
+    k = np.floor(t * 2 * 1187.5).astype(np.int64)
+    # biphase, smoothed over 0.27 ms (the test's 64 samples at 240 kHz)
+    c = np.concatenate([[0.0], np.cumsum(half[k])])
+    w = 640
+    lo, hi = np.clip(np.arange(n) - w // 2, 0, n), np.clip(
+        np.arange(n) + w // 2, 0, n)
+    rds_bb = (c[hi] - c[lo]) / w
+    l = 0.4 * np.sin(2 * np.pi * 1000.0 * t)
+    r = 0.4 * np.sin(2 * np.pi * 3000.0 * t)
+    mpx = (0.41 * (l + r) + 0.1 * np.sin(2 * np.pi * 19000.0 * t)
+           + 0.41 * (l - r) * np.sin(2 * np.pi * 38000.0 * t)
+           + 0.06 * rds_bb * np.cos(2 * np.pi * 57000.0 * t))
+    x = 0.5 * np.exp(1j * (2 * np.pi * RADIO_WFM * t
+                           + np.cumsum(2 * np.pi * 75000.0 * mpx / FS)))
+    x += 0.05 * np.exp(2j * np.pi * RADIO_CW * t)
+    x += 0.2 * (1 + 0.5 * np.sin(2 * np.pi * 1000.0 * t)) \
+        * np.exp(2j * np.pi * RADIO_AM * t)
+    nfm = 0.1 * np.exp(1j * (2 * np.pi * RADIO_NFM * t
+                             + 3.0 * np.sin(2 * np.pi * 1000.0 * t)))
+    # Hann-shaped bursts: an impulse at the NFM station's 48 kHz IF that
+    # leaves the stations 200 kHz and more away clean
+    pos = np.arange(n) % 24000
+    x += nfm * (1.0 + 29.0 * np.where(
+        pos < 40, np.sin(np.pi * (pos + 0.5) / 40) ** 2, 0.0))
+    x += 0.1 * np.exp(1j * (2 * np.pi * RADIO_NFM2 * t
+                            + 2.0 * np.sin(2 * np.pi * 1500.0 * t)))
+    rng = np.random.default_rng(seed)
+    x += 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64)
+
+
+def make_radio_receiver(device):
+    from sdrpp_tpu_torch.receiver import Receiver
+
+    rx = Receiver(FS, block_size=RADIO_BLOCK, device=device)
+    for name, cfg in RADIO_VFOS.items():
+        rx.create_vfo(name, **cfg)
+    return rx
+
+
+def radio_step(rx, iq, k):
+    """Block k of the radio-options path: nfm_dyn's writes between blocks
+    (retune_state before RADIO_RETUNE_BLOCK, set_bandwidth_state before
+    RADIO_BW_BLOCK), then ``Receiver.process_block``."""
+    chans = rx._state["channels"]
+    dyn = rx._channels["nfm_dyn"]
+    if k == RADIO_RETUNE_BLOCK:
+        chans["nfm_dyn"] = dyn.retune_state(chans["nfm_dyn"], RADIO_NFM2)
+    if k == RADIO_BW_BLOCK:
+        chans["nfm_dyn"] = dyn.set_bandwidth_state(chans["nfm_dyn"], RADIO_BW)
+    return rx.process_block(iq[k * RADIO_BLOCK:(k + 1) * RADIO_BLOCK])
+
+
+def phase_radio(iq, device="cuda"):
+    """The radio-options path through ``Receiver(..., device)`` for
+    RADIO_NBLOCKS blocks, the RDS baseband decoded by
+    ``RDSReceiver(device)``. Returns (audio by VFO, the RDS blocks, the
+    decoder, CUDA-event ms a block, host s a block, launches)."""
+    import torch
+    from sdrpp_tpu_torch.models.rds_chain import RDSReceiver
+
+    rx = make_radio_receiver(device)
+    rds_rx = RDSReceiver(device=device)
+    audio = {name: [] for name in RADIO_VFOS}
+    rds, block_ms, wall_s = [], [], []
+    cuda = torch.device(device).type == "cuda"
+    reset_counts()
+    for k in range(RADIO_NBLOCKS):
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        out, _ = radio_step(rx, iq, k)
+        rds_rx.process(out["wfm_rds"][1])
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+            block_ms.append(start.elapsed_time(end))
+        wall_s.append(time.perf_counter() - t0)
+        for name, a in out.items():
+            a = a[0] if isinstance(a, tuple) else a
+            audio[name].append(a.cpu().numpy())
+        rds.append(out["wfm_rds"][1].cpu().numpy())
+    launches = read_counts("radio") if cuda else None
+    for name, blocks in audio.items():
+        if not all(np.isfinite(a).all() for a in blocks):
+            raise AssertionError(f"radio {name}: non-finite audio")
+    return audio, rds, rds_rx.decoder, block_ms, wall_s, launches
+
+
+def check_radio(audio, decoder):
+    """RDS PI and PS exact with >= 10 groups; the CW, raw and AM tones'
+    SNR > 30 dB; the blanker lowers the NFM station's impulse energy
+    against the same VFO without it; after the retune the new station's
+    tone > 30 dB and the old one's gone (> 40 dB down); the narrowed
+    bandwidth raises the NFM audio by 6250 / 5000."""
+    fs = 48000.0
+    checks = {"rds_pi": decoder.pi_code, "rds_ps": decoder.ps_name,
+              "rds_groups": decoder.groups_decoded}
+    log(f"RDS on the card: PI {decoder.pi_code:#06x}, PS {decoder.ps_name!r},"
+        f" {decoder.groups_decoded} groups")
+    if decoder.pi_code != RADIO_PI or decoder.ps_name != RADIO_PS \
+            or decoder.groups_decoded < 10:
+        raise AssertionError("RDS: PI / PS name not recovered")
+    for name, f0 in RADIO_TONES.items():
+        a = np.concatenate(audio[name][1:])
+        if a.ndim == 2:  # raw: the I channel
+            a = a[:, 0]
+        checks[f"{name}_snr_db"] = snr_db(a, fs, f0)
+    # the impulse energy: the NFM station's audio outside its tone
+    nb, plain = (np.concatenate(audio[k][1:]) for k in ("nfm_nb",
+                                                         "nfm_plain"))
+    checks["nb_impulse_db"] = 10 * np.log10(band_power(nb, fs, 1000.0)[1]
+                                            / band_power(plain, fs, 1000.0)[1])
+    dyn = audio["nfm_dyn"]
+    after = np.concatenate(dyn[RADIO_RETUNE_BLOCK + 1:])
+    checks["retune_snr_db"] = snr_db(
+        np.concatenate(dyn[RADIO_RETUNE_BLOCK + 1:RADIO_BW_BLOCK]), fs, 1500.0)
+    # narrowed to 10 kHz, the channel cuts the station's 4th Bessel
+    # sidebands (6 kHz): harmonics are left out of this SNR
+    checks["narrowed_snr_db"] = tone_snr_sinad(
+        np.concatenate(dyn[RADIO_BW_BLOCK + 1:]), fs, 1500.0)[0]
+    checks["retune_old_tone_db"] = 10 * np.log10(
+        band_power(after, fs, 1000.0)[0] / band_power(after, fs, 1500.0)[0])
+    rms = [np.sqrt(np.mean(np.square(audio["nfm_dyn"][k][SETTLE:])))
+           for k in (RADIO_BW_BLOCK - 1, RADIO_BW_BLOCK + 1)]
+    checks["bandwidth_gain"] = float(rms[1] / rms[0])
+    for key, value in checks.items():
+        log(f"radio {key}: {value}")
+    for key in ("cw_snr_db", "raw_snr_db", "am_snr_db", "retune_snr_db",
+                "narrowed_snr_db"):
+        if not checks[key] > 30.0:
+            raise AssertionError(f"radio {key}: {checks[key]:.2f} dB")
+    if not checks["nb_impulse_db"] < -3.0:
+        raise AssertionError("the noise blanker did not lower the impulses")
+    if not checks["retune_old_tone_db"] < -40.0:
+        raise AssertionError("after the retune the old station remains")
+    if not abs(checks["bandwidth_gain"] - 1.25) < 0.05:
+        raise AssertionError("set_bandwidth_state did not take effect")
+    return checks
+
+
+def phase_radio_cpu(iq, audio, rds):
+    """The radio-options path's first two blocks on the CPU against the
+    card: audio (and the RDS baseband) below -40 dB after the settle."""
+    rx = make_radio_receiver("cpu")
+    cpu = {name: [] for name in RADIO_VFOS}
+    cpu_rds = []
+    for k in range(2):
+        out, _ = radio_step(rx, iq, k)
+        for name, a in out.items():
+            cpu[name].append((a[0] if isinstance(a, tuple) else a).numpy())
+        cpu_rds.append(out["wfm_rds"][1].numpy())
+    diffs = {}
+    for name in RADIO_VFOS:
+        got = np.concatenate(audio[name][:2])
+        want = np.concatenate(cpu[name])
+        diffs[name] = rms_db(got[SETTLE:], want[SETTLE:])
+    got, want = np.concatenate(rds[:2]), np.concatenate(cpu_rds)
+    diffs["rds_baseband"] = rms_db(got[100:].view(np.float32),
+                                   want[100:].view(np.float32))
+    for name, d in diffs.items():
+        log(f"radio card vs cpu {name}: {d:.1f} dB after the settle")
+        if not d < -40.0:
+            raise AssertionError(f"radio {name}: card and CPU disagree")
+    return diffs
+
+
+def _cli_out(argv, device):
+    """cli.main(argv + ["--device", device]) with its standard output
+    captured; fails on a non-zero return."""
+    import contextlib
+    import io
+
+    from sdrpp_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--device", device])
+    if rc:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return buf.getvalue()
+
+
+def phase_radio_cli(iq, device="cuda"):
+    """The entry points of the radio-options slice on the card: ``run
+    --mode cw`` (the test source's tone through the BFO, SNR > 30 dB),
+    ``run --mode raw --sample-format i24``, ``run --audio-rate 44100``,
+    ``spectrum --framebuffer``, and ``scan`` over a WAV of the composite,
+    which must park on its CW, AM and two NFM carriers."""
+    from sdrpp_tpu_torch.io import wav
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _cli_out(["run", "--source", "test:2400000", "--mode", "cw",
+                  "--offset", "99900", "--blocks", "4", "--block-size",
+                  str(RADIO_BLOCK), "--out", str(tmp / "cw.wav")], device)
+        info, data = wav.read_wav(tmp / "cw.wav")
+        res["cw_snr_db"] = snr_db(data[len(data) // 4:, 0], 48000.0, 900.0)
+        if (info.samplerate, info.channels) != (48000, 1) \
+                or not res["cw_snr_db"] > 30.0:
+            raise AssertionError(f"cli run --mode cw: {info}, "
+                                 f"{res['cw_snr_db']:.1f} dB")
+        _cli_out(["run", "--source", "test:2400000", "--mode", "raw",
+                  "--sample-format", "i24", "--blocks", "2", "--block-size",
+                  "65280", "--out", str(tmp / "raw.wav")], device)
+        info, data = wav.read_wav(tmp / "raw.wav")
+        if (info.samplerate, info.channels, info.bits) != (2400000, 2, 24) \
+                or data.shape != (2 * 65280, 2):
+            raise AssertionError(f"cli run --mode raw: {info} {data.shape}")
+        _cli_out(["run", "--source", "test:2400000", "--mode", "wfm",
+                  "--audio-rate", "44100", "--blocks", "4", "--out",
+                  str(tmp / "wfm441.wav")], device)
+        info, data = wav.read_wav(tmp / "wfm441.wav")
+        if (info.samplerate, info.channels) != (44100, 2) or not len(data):
+            raise AssertionError(f"cli run --audio-rate 44100: {info}")
+        res["audio_rate_frames"] = int(len(data))
+        _cli_out(["spectrum", "--source", "test:2400000", "--blocks", "4",
+                  "--out", str(tmp / "wf.npy"), "--framebuffer",
+                  str(tmp / "fb.npy")], device)
+        wf, fb = np.load(tmp / "wf.npy"), np.load(tmp / "fb.npy")
+        peak = float(np.fft.fftshift(np.fft.fftfreq(wf.shape[1], 1 / FS))[
+            int(np.argmax(wf.mean(0)))])
+        if wf.shape[1] != 65536 or fb.dtype != np.uint32 \
+                or abs(peak - 100000.0) > 100.0:
+            raise AssertionError(f"cli spectrum: {wf.shape} {fb.dtype} "
+                                 f"peak {peak}")
+        res["spectrum"] = {"lines": int(wf.shape[0]), "fb": list(fb.shape)}
+        n = 2 * RADIO_BLOCK
+        wav.write_wav(tmp / "band.wav", int(FS),
+                      np.stack([iq[:n].real, iq[:n].imag], -1), "f32")
+        hits = {}
+        for lo, hi, want in ((-300e3, -100e3, RADIO_CW),
+                             (-700e3, -400e3, RADIO_AM),
+                             (500e3, 700e3, RADIO_NFM),
+                             (700e3, 900e3, RADIO_NFM2)):
+            out = _cli_out(["scan", "--source", str(tmp / "band.wav"),
+                            f"--start={lo}", f"--stop={hi}", "--blocks", "9"], device)
+            found = [float(line.split()[0]) for line in out.splitlines()
+                     if line.strip().endswith("dB")]
+            hits[f"{want:+.0f}"] = found
+            if not found or any(abs(f - want) > 12500.0 for f in found):
+                raise AssertionError(f"cli scan {lo}..{hi}: {found}, "
+                                     f"expected {want}")
+        res["scan_hits"] = hits
+    log(f"radio entry points: {res}")
+    return res
+
+
+def phase_pipeline_identity(device="cuda"):
+    """``cli run`` (WFM, 4 blocks) and ``cli bank`` (64 NFM channels, 4
+    blocks) through the pipeline, against the same loops run unpipelined
+    on the card (``_pipe_loop``): the WAV files byte for byte."""
+    from sdrpp_tpu_torch.parallel import wideband as W
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _cli_out(["run", "--source", PIPE_CMDS["run"][0], "--mode", "wfm",
+                  "--blocks", "4", "--block-size", str(BLOCK), "--out",
+                  str(tmp / "run.wav")], device)
+        _pipe_loop("run", tmp / "run", False, device, 4)
+        res["run_equal"] = ((tmp / "run.wav").read_bytes()
+                            == (tmp / "run" / "ch0.wav").read_bytes())
+        offs = [float(f"{o:.1f}") for o in W.bank_offsets()]
+        _cli_out(["bank", "--source", PIPE_CMDS["bank"][0],
+                  "--offsets=" + ",".join(f"{o:.1f}" for o in offs),
+                  "--mode", "nfm", "--blocks", "4", "--block-size",
+                  str(PIPE_CMDS["bank"][1]), "--out-dir", str(tmp / "bank")],
+                 device)
+        _pipe_loop("bank", tmp / "plain", False, device, 4)
+        res["bank_equal"] = all(
+            (tmp / "bank" / f"ch{i}_{int(o):+d}Hz.wav").read_bytes()
+            == (tmp / "plain" / f"ch{i}.wav").read_bytes()
+            for i, o in enumerate(offs))
+    log(f"pipeline identity on the card: {res}")
+    if not (res["run_equal"] and res["bank_equal"]):
+        raise AssertionError("the pipelined cli loops wrote other bytes than "
+                             "the unpipelined loops")
+    return res
+
+
+def _pipe_setup(cmd, path, device):
+    """A fresh source, chain, state and sink(s) for one timed loop of
+    ``cmd``, as ``cli run`` (WFM) or ``cli bank`` (64 NFM channels)
+    builds them: (src, block, step, state, write, close)."""
+    from sdrpp_tpu_torch import cli
+    from sdrpp_tpu_torch.io.sinks import RecorderSink
+    from sdrpp_tpu_torch.models.radio import RadioChannel
+    from sdrpp_tpu_torch.parallel import wideband as W
+    from sdrpp_tpu_torch.parallel.vfo_bank import ScannerBank
+
+    spec, block = PIPE_CMDS[cmd]
+    src = cli._make_source(spec)
+    if cmd == "run":
+        chan = RadioChannel("wfm", FS, device=device)
+        sink = RecorderSink(path / "ch0.wav", 48000, channels=2)
+        return src, block, chan, chan.init_state(), sink.write, sink.close
+    offs = np.array([float(f"{o:.1f}") for o in W.bank_offsets()])
+    bank = ScannerBank(offs, src.samplerate, mode="nfm", if_rate=48000.0,
+                       bandwidth=12500.0, device=device)
+    sinks = [RecorderSink(path / f"ch{i}.wav", 48000)
+             for i in range(len(offs))]
+
+    def close():
+        for s in sinks:
+            s.close()
+
+    return (src, block, bank, bank.init_state(),
+            lambda a: [s.write(a[i]) for i, s in enumerate(sinks)], close)
+
+
+def _pipe_loop(cmd, path, piped, device, nblocks=PIPE_BLOCKS):
+    """Host seconds of one ``cmd`` block loop over ``nblocks`` blocks,
+    from the first read to the last sink's close, its objects built
+    before the clock starts: ``cli._stream`` (the pipeline, which builds
+    its pinned ring and reader thread as the cli does), or the loop
+    without it (a read, ``.to(device)``, the step, ``.cpu()``, the
+    write)."""
+    import torch
+    from sdrpp_tpu_torch import cli
+
+    path.mkdir()
+    src, block, step, state, write, close = _pipe_setup(cmd, path, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if piped:
+        cli._stream(step, state, src, block, nblocks, device, write)
+    else:
+        for _ in range(nblocks):
+            state, y = step(state, torch.from_numpy(src.read(block)).to(device))
+            write(y.cpu().numpy())
+    close()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def pipe_verdict(piped, plain, bound=0.05):
+    """faster (slower) when the pipelined side wins (loses) at least nine
+    tenths of the pairs, ties counting for neither, and the medians differ
+    by more than the plain runs' own spread (their interquartile
+    distance); unchanged when the medians differ by at most ``bound`` of
+    the plain median and the spread is within it too; else unresolved."""
+    n = len(plain)
+    wins = sum(a < b for a, b in zip(piped, plain))
+    losses = sum(a > b for a, b in zip(piped, plain))
+    q1, q3 = np.percentile(plain, [25, 75])
+    spread, med = q3 - q1, float(np.median(plain))
+    diff = med - float(np.median(piped))
+    if wins >= 0.9 * n and diff > spread:
+        return "faster"
+    if losses >= 0.9 * n and -diff > spread:
+        return "slower"
+    if abs(diff) <= bound * med and spread <= bound * med:
+        return "unchanged"
+    return "unresolved"
+
+
+def phase_pipeline_timing(device="cuda"):
+    """``cli run`` and ``cli bank``'s block loops timed pipelined against
+    unpipelined over the same span (the loop only, objects built first)
+    and the same PIPE_BLOCKS blocks: PIPE_PAIRS pairs a command, the side
+    that runs first alternating; ``pipe_verdict`` reads the pairs. Every
+    pair's files must be byte-equal. The source's read alone (PIPE_READS
+    blocks) is timed too: the plain loop waits for it, the pipeline
+    overlaps it."""
+    from sdrpp_tpu_torch import cli
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for cmd in ("run", "bank"):
+            spec, block = PIPE_CMDS[cmd]
+            src = cli._make_source(spec)
+            t0 = time.perf_counter()
+            for _ in range(PIPE_READS):
+                src.read(block)
+            r = {"block": block, "blocks": PIPE_BLOCKS,
+                 "read_s_per_block": (time.perf_counter() - t0) / PIPE_READS,
+                 "piped_s": [], "plain_s": [], "equal": True}
+            for k in range(PIPE_PAIRS):
+                order = (True, False) if k % 2 == 0 else (False, True)
+                for piped in order:
+                    side = "piped" if piped else "plain"
+                    dt = _pipe_loop(cmd, tmp / f"{cmd}{k}_{side}", piped,
+                                    device)
+                    r[f"{side}_s"].append(dt)
+                r["equal"] &= all(
+                    f.read_bytes() == (tmp / f"{cmd}{k}_plain" / f.name)
+                    .read_bytes()
+                    for f in sorted((tmp / f"{cmd}{k}_piped").glob("*.wav")))
+            ratio = [a / b for a, b in zip(r["piped_s"], r["plain_s"])]
+            r["ratio"] = ratio
+            r["piped_s_per_block"] = float(np.median(r["piped_s"])) / PIPE_BLOCKS
+            r["plain_s_per_block"] = float(np.median(r["plain_s"])) / PIPE_BLOCKS
+            r["verdict"] = pipe_verdict(r["piped_s"], r["plain_s"])
+            res[cmd] = r
+            log(f"pipeline timing, cli {cmd} ({PIPE_BLOCKS} blocks of "
+                f"{block}, {PIPE_PAIRS} pairs): pipelined {r['piped_s']} s, "
+                f"plain {r['plain_s']} s, ratio {ratio}, source read "
+                f"{r['read_s_per_block']:.4f} s/block: {r['verdict']}")
+    if not all(r["equal"] for r in res.values()):
+        raise AssertionError("pipelined and plain timed loops wrote other "
+                             "bytes")
+    return res
+
+
 # run from the root of a tree (the parent's or this one) in a subprocess,
 # through the package's public entry points only: argv[1] is a JSON object
 # of the settings; prints one "AB {...}" line
@@ -2097,6 +2656,25 @@ def profile_paths():
                              PROFILE_RX_BLOCKS)
     del rx, iq
 
+    # the radio-options path: seven VFOs and the RDS chain, blocks 3..6
+    # (the retune's and the bandwidth write's blocks among them)
+    from sdrpp_tpu_torch.models.rds_chain import RDSReceiver
+
+    iq = radio_composite((3 + PROFILE_RX_BLOCKS) * RADIO_BLOCK)
+    rx, rds_rx = make_radio_receiver("cuda"), RDSReceiver(device="cuda")
+    for k in range(3):
+        rds_rx.process(radio_step(rx, iq, k)[0]["wfm_rds"][1])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for k in range(3, 3 + PROFILE_RX_BLOCKS):
+            rds_rx.process(radio_step(rx, iq, k)[0]["wfm_rds"][1])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out["radio"] = summary("radio", device_intervals(prof), wall_us,
+                           PROFILE_RX_BLOCKS)
+    del rx, rds_rx, iq
+
     x, _, _ = wideband_block("cuda")
     chain = W.make_chain("wideband", device="cuda")
     state = chain.init_state()
@@ -2261,10 +2839,26 @@ def main() -> int:
     banks = phase_banks()
     bank_cli = phase_bank_cli()
     golden_bank = phase_golden_bank()
+    radio_iq = radio_composite(RADIO_NBLOCKS * RADIO_BLOCK)
+    r_audio, r_rds, r_dec, r_ms, r_wall, r_launches = phase_radio(radio_iq)
+    radio = {"block_ms": r_ms, "wall_s": r_wall, "launches": r_launches,
+             "median_ms": float(np.median(r_ms[1:])),
+             "median_wall_s": float(np.median(r_wall[1:]))}
+    log(f"radio-options slice: median {radio['median_ms']:.3f} ms/block "
+        f"(CUDA events) and {radio['median_wall_s']:.4f} s/block of host "
+        f"time over blocks 2..{RADIO_NBLOCKS}, {len(RADIO_VFOS)} VFOs, "
+        f"{RADIO_BLOCK} samples a block")
+    radio.update(check_radio(r_audio, r_dec))
+    radio["card_vs_cpu"] = phase_radio_cpu(radio_iq, r_audio, r_rds)
+    radio["cli"] = phase_radio_cli(radio_iq)
+    del radio_iq, r_audio, r_rds
+    pipeline = phase_pipeline_identity()
+    pipeline["timing"] = phase_pipeline_timing()
     ab = phase_ab(meteor["block"], ab_inputs,
                   dict(ab_viterbi, pass_u8=pass_u8))
 
-    paths = {"receive": launches, "meteor": meteor["launches"],
+    paths = {"receive": launches, "radio": r_launches,
+             "meteor": meteor["launches"],
              "wideband": wide["launches"],
              "ssb_bank": banks["ssb_bank"]["launches"],
              "muted_bank": banks["muted_bank"]["launches"],
@@ -2294,7 +2888,8 @@ def main() -> int:
                     "decode_cli": decode_cli, "wideband": wide,
                     "wideband_card_vs_cpu": wide_cpu, "banks": banks,
                     "bank_cli": bank_cli, "golden_bank": golden_bank,
-                    "ab": ab}))
+                    "radio": radio, "pipeline": pipeline, "ab": ab},
+                   default=float))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,36 @@
-"""Command-line entry points of the port: ``run``, ``bank`` and ``decode``.
+"""Command-line entry points of the port: ``run``, ``bank``, ``spectrum``,
+``scan`` and ``decode``.
 
-``run`` reads IQ from a test source or a WAV file, demodulates one channel
-and writes the audio to a WAV file — the counterpart of ``sdrpp_tpu``'s
-``run`` (sdrpp_tpu/cli.py:110-254) without its checkpoint, trace, watchdog
-and container options. ``bank`` demodulates many channels at once through
-the batched ``ScannerBank`` and writes one WAV per channel
-(sdrpp_tpu/cli.py:257-331). ``decode meteor`` runs the Meteor M2 LRPT
-decoder (sdrpp_tpu/cli.py:677-823) and writes the s8 x84 soft-symbol file
-and ``<out>_vcdu.bin``; the other decode modes are not ported yet.
+The counterparts of ``sdrpp_tpu``'s commands (sdrpp_tpu/cli.py):
 
-Every command runs on the CUDA card unless ``--device`` names another
-torch device (``--device cpu``); without a card it fails.
+- ``run``: IQ from a test source or a WAV file -> one ``RadioChannel`` in
+  any of its eight modes -> a WAV file at ``--audio-rate`` in
+  ``--sample-format`` (cli.py:110-254, without its checkpoint, trace and
+  watchdog options and the flac/mp3 containers); ``--mode raw`` records
+  the baseband IQ as stereo WAV on the host, as the JAX command does;
+- ``bank``: many channels at once through the batched ``ScannerBank``, one
+  WAV per channel (cli.py:257-331);
+- ``spectrum``: the ``IQFrontEnd``'s waterfall dB lines to .npy, and the
+  palette-mapped framebuffer with ``--framebuffer`` (cli.py:334-387);
+- ``scan``: the scanner's sweep over the front end's FFT lines, reporting
+  the carriers it parked on (cli.py:612-660);
+- ``decode meteor``: the Meteor M2 LRPT decoder (cli.py:677-823): the s8
+  x84 soft-symbol file and ``<out>_vcdu.bin``; the other decode modes are
+  not ported yet.
 
-Usage: python -m sdrpp_tpu_torch run --source test:2400000
+The device loops run as the JAX loops do, through ``utils.pipeline``: a
+reader thread and pinned, side-stream uploads ahead of the device
+(``Prefetcher``), and each block's output read back one block late
+(``DeferredWriter``). Every command runs on the CUDA card unless
+``--device`` names another torch device (``--device cpu``); without a
+card it fails.
+
+Usage: python -m sdrpp_tpu_torch run --source test:2400000 --mode cw
        python -m sdrpp_tpu_torch bank --source test:6144000 \
            --offsets=-100e3,0,100e3 --mode nfm
+       python -m sdrpp_tpu_torch spectrum --source test:2400000
+       python -m sdrpp_tpu_torch scan --source capture.wav --start=-1e6 \
+           --stop=1e6
        python -m sdrpp_tpu_torch decode meteor --source capture.wav
 """
 
@@ -57,19 +73,41 @@ def _auto_block(fs: float, if_rate: float, block_multiple: int,
 
 def _blocks(src, block: int, max_blocks: int, device):
     """Yield ``block``-sample complex64 tensors on ``device`` from
-    ``src``: ``max_blocks`` of them (0 = until a capture's end, or 100
-    blocks of an endless source)."""
+    ``src`` through a ``Prefetcher``: ``max_blocks`` of them (0 = until a
+    capture's end, or 100 blocks of an endless source)."""
+    from .utils.pipeline import Prefetcher
+
     cap = getattr(src, "num_frames", None)
-    total = nblocks = 0
-    while max_blocks == 0 or nblocks < max_blocks:
-        if cap is not None and total + block > cap:
-            return
-        yield torch.from_numpy(np.ascontiguousarray(
-            src.read(block), np.complex64)).to(device)
+    pre = Prefetcher(src, block, device=device)
+    try:
+        total = nblocks = 0
+        while max_blocks == 0 or nblocks < max_blocks:
+            if cap is not None and total + block > cap:
+                return
+            yield pre.read(block)
+            total += block
+            nblocks += 1
+            if max_blocks == 0 and cap is None and nblocks >= 100:
+                return
+    finally:
+        pre.close()
+
+
+def _stream(step, state, src, block: int, max_blocks: int, device, write):
+    """The device loop of ``run`` and ``bank``: each block of ``src``
+    (``_blocks``) through ``step`` (state, x) -> (state, y), each y handed
+    to ``write`` on the host one block late (``DeferredWriter``). Returns
+    the input samples processed."""
+    from .utils.pipeline import DeferredWriter
+
+    writer = DeferredWriter(write)
+    total = 0
+    for x in _blocks(src, block, max_blocks, device):
+        state, y = step(state, x)
+        writer.push(y)
         total += block
-        nblocks += 1
-        if max_blocks == 0 and cap is None and nblocks >= 100:
-            return
+    writer.flush()
+    return total
 
 
 def _add_device_arg(p):
@@ -84,10 +122,15 @@ def cmd_run(argv):
                    help="'test:<samplerate>' or an IQ WAV path")
     _add_device_arg(p)
     p.add_argument("--mode", default="wfm",
-                   choices=["wfm", "nfm", "am", "usb", "lsb", "dsb"])
+                   choices=["wfm", "nfm", "am", "usb", "lsb", "dsb", "cw",
+                            "raw"])
     p.add_argument("--offset", type=float, default=0.0, help="VFO offset Hz")
     p.add_argument("--bandwidth", type=float, default=None)
+    p.add_argument("--audio-rate", type=float, default=48000.0)
     p.add_argument("--out", default="audio.wav")
+    p.add_argument("--sample-format", default="i16",
+                   choices=["u8", "i16", "i24", "i32", "f32"],
+                   help="sample depth (recorder main.cpp:48-60)")
     p.add_argument("--blocks", type=int, default=0, help="0 = until EOF")
     p.add_argument("--block-size", type=int, default=None,
                    help="input samples per device step (default: auto, so "
@@ -103,8 +146,11 @@ def cmd_run(argv):
     device = torch.device(args.device)
     src = _make_source(args.source)
     fs = src.samplerate
+    if args.mode == "raw":
+        return _record_baseband(src, args)
     chan = RadioChannel(args.mode, fs, offset=args.offset,
-                        bandwidth=args.bandwidth, squelch_level=args.squelch,
+                        bandwidth=args.bandwidth, audio_rate=args.audio_rate,
+                        squelch_level=args.squelch,
                         deemphasis=args.deemphasis, device=device)
     bm = chan.block_multiple
     block = _auto_block(fs, chan.if_rate, bm) if args.block_size is None \
@@ -117,17 +163,29 @@ def cmd_run(argv):
 
     state = chan.init_state()
     sink = RecorderSink(args.out, int(chan.audio_rate),
-                        channels=2 if chan.stereo_out else 1)
-    total = 0
+                        channels=2 if chan.stereo_out else 1,
+                        sample_format=args.sample_format)
     t0 = time.perf_counter()
-    for x in _blocks(src, block, args.blocks, device):
-        state, audio = chan(state, x)
-        sink.write(audio.cpu().numpy())
-        total += block
+    total = _stream(chan, state, src, block, args.blocks, device, sink.write)
     sink.close()
     dt = time.perf_counter() - t0
     log.info("processed %d samples in %.3f s (%.3f Msamp/s) -> %s", total, dt,
              total / max(dt, 1e-9) / 1e6, args.out)
+    return 0
+
+
+def _record_baseband(src, args):
+    """``run --mode raw``: the recorder's baseband mode
+    (misc_modules/recorder): the source's IQ as stereo WAV (L = I, R = Q)
+    at its own rate, on the host (sdrpp_tpu/cli.py:152-175)."""
+    from .io import wav
+
+    block = args.block_size or 262144
+    chunks = [x.numpy() for x in _blocks(src, block, args.blocks, "cpu")]
+    iq = np.concatenate(chunks) if chunks else np.zeros(0, np.complex64)
+    wav.write_wav(args.out, int(src.samplerate),
+                  np.stack([iq.real, iq.imag], -1), args.sample_format)
+    log.info("recorded %d IQ samples -> %s", len(iq), args.out)
     return 0
 
 
@@ -206,9 +264,10 @@ def cmd_bank(argv):
                    help="'fft' = shared-FFT channelizer (one wideband FFT "
                         "for all channels; needs integer fs/if ratio)")
     p.add_argument("--out-dir", default="bank_audio")
-    p.add_argument("--container", default="wav", choices=["wav"],
-                   help="recording container (flac and mp3 are not "
-                        "ported yet)")
+    p.add_argument("--container", default="wav",
+                   choices=["wav", "flac", "mp3"],
+                   help="recording container; flac and mp3 raise until "
+                        "io/flac.py and io/mp3.py are ported")
     p.add_argument("--blocks", type=int, default=4)
     p.add_argument("--block-size", type=int, default=262144)
     _add_device_arg(p)
@@ -241,14 +300,10 @@ def cmd_bank(argv):
                           channels=2 if args.mode == "wfm" else 1)
              for i, o in enumerate(offsets)]
     state = bank.init_state()
-    total = 0
     t0 = time.perf_counter()
-    for x in _blocks(src, block, args.blocks, device):
-        state, audio = bank(state, x)
-        audio = audio.cpu().numpy()
-        for i, sink in enumerate(sinks):
-            sink.write(audio[i])
-        total += block
+    total = _stream(
+        bank, state, src, block, args.blocks, device,
+        lambda a: [sink.write(a[i]) for i, sink in enumerate(sinks)])
     for sink in sinks:
         sink.close()
     dt = time.perf_counter() - t0
@@ -258,7 +313,119 @@ def cmd_bank(argv):
     return 0
 
 
-COMMANDS = {"run": cmd_run, "bank": cmd_bank, "decode": cmd_decode}
+def cmd_spectrum(argv):
+    """IQ -> the front end's waterfall dB lines -> .npy, and with
+    ``--framebuffer`` the palette-mapped ABGR framebuffer -> .npy."""
+    p = argparse.ArgumentParser(prog="sdrpp_tpu_torch spectrum")
+    p.add_argument("--source", required=True,
+                   help="'test:<samplerate>' or an IQ WAV path")
+    _add_device_arg(p)
+    p.add_argument("--fft-size", type=int, default=65536)
+    p.add_argument("--fft-rate", type=float, default=20.0)
+    p.add_argument("--window", default="nuttall",
+                   choices=["rectangular", "hamming", "hann", "blackman",
+                            "nuttall", "blackman_harris4", "blackman_harris7"])
+    p.add_argument("--blocks", type=int, default=4)
+    p.add_argument("--block-size", type=int, default=262144)
+    p.add_argument("--out", default="waterfall.npy")
+    p.add_argument("--framebuffer", default=None,
+                   help="also render the palette-mapped waterfall "
+                        "framebuffer (uint32 ABGR) to this .npy")
+    p.add_argument("--fb-width", type=int, default=1024)
+    args = p.parse_args(argv)
+
+    from .ops.windows import Window
+    from .signal_path import IQFrontEnd
+    from .utils.pipeline import DeferredWriter
+
+    device = torch.device(args.device)
+    src = _make_source(args.source)
+    fe = IQFrontEnd(src.samplerate, fft_size=args.fft_size,
+                    fft_rate=args.fft_rate, fft_window=Window(args.window),
+                    block_size=args.block_size, device=device)
+    st = fe.init_state()
+    lines = []
+    writer = DeferredWriter(lines.append)
+    for x in _blocks(src, args.block_size, args.blocks, device):
+        st, (_iq, fft) = fe(st, x)
+        writer.push(fft)
+    writer.flush()
+    wf = np.concatenate(lines, axis=0)
+    np.save(args.out, wf)
+    log.info("waterfall %s dB -> %s", wf.shape, args.out)
+
+    if args.framebuffer:
+        from .misc.waterfall import WaterfallDisplay
+
+        disp = WaterfallDisplay(raw_fft_size=wf.shape[-1],
+                                data_width=args.fb_width,
+                                waterfall_height=max(len(wf), 2),
+                                whole_bandwidth=src.samplerate)
+        for line in wf:
+            disp.push_fft(line)
+        disp.auto_range()
+        # render again at the auto range, so the image spans the palette
+        for line in wf:
+            disp.push_fft(line)
+        np.save(args.framebuffer, disp.framebuffer)
+        log.info("framebuffer %s ABGR -> %s", disp.framebuffer.shape,
+                 args.framebuffer)
+    return 0
+
+
+def cmd_scan(argv):
+    """Sweep --start..--stop over the front end's FFT lines (the scanner
+    module's loop, one step a block) and print each frequency it parked on
+    with its strongest level."""
+    p = argparse.ArgumentParser(prog="sdrpp_tpu_torch scan")
+    p.add_argument("--source", required=True,
+                   help="'test:<samplerate>' or an IQ WAV path")
+    _add_device_arg(p)
+    p.add_argument("--start", type=float, required=True, help="start offset Hz")
+    p.add_argument("--stop", type=float, required=True, help="stop offset Hz")
+    p.add_argument("--interval", type=float, default=25000.0)
+    p.add_argument("--level", type=float, default=-50.0)
+    p.add_argument("--mode", default="nfm",
+                   choices=["nfm", "am", "usb", "lsb", "cw"])
+    p.add_argument("--bandwidth", type=float, default=12500.0)
+    p.add_argument("--blocks", type=int, default=20)
+    p.add_argument("--block-size", type=int, default=131072)
+    p.add_argument("--fft-size", type=int, default=4096)
+    args = p.parse_args(argv)
+
+    from .misc.meters import vfo_signal_info
+    from .misc.scanner import Scanner
+    from .signal_path import IQFrontEnd
+
+    device = torch.device(args.device)
+    src = _make_source(args.source)
+    fs = src.samplerate
+    fe = IQFrontEnd(fs, fft_size=args.fft_size,
+                    fft_rate=fs / args.block_size * 2,
+                    block_size=args.block_size, device=device)
+    st = fe.init_state()
+    sc = Scanner(args.start, args.stop, args.interval, level_db=args.level)
+    now = 0.0
+    hits = {}
+    for x in _blocks(src, args.block_size, args.blocks, device):
+        st, (_iq, fft) = fe(st, x)
+        line = fft[-1].cpu().numpy()
+        freq = sc.step(line, args.bandwidth, 0.0, fs, now)
+        now += args.block_size / fs
+        if sc.receiving:
+            strength, snr = vfo_signal_info(line, freq, args.bandwidth, fs)
+            hits[freq] = max(hits.get(freq, -999.0), strength)
+            log.info("RECEIVING %+.1f kHz  %.1f dB (SNR %.1f dB)", freq / 1e3,
+                     strength, snr)
+        else:
+            log.info("scanning... at %+.1f kHz", freq / 1e3)
+    for f, s in sorted(hits.items()):
+        print(f"{f:+12.0f} Hz  {s:6.1f} dB")
+    return 0
+
+
+COMMANDS = {"run": cmd_run, "bank": cmd_bank, "spectrum": cmd_spectrum,
+            "scan": cmd_scan, "decode": cmd_decode}
 
 
 def main(argv=None):

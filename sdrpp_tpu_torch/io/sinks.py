@@ -45,8 +45,8 @@ class RecorderSink:
         self.container = container
         if container in ("flac", "mp3"):
             raise NotImplementedError(
-                f"the {container} container is not ported to sdrpp_tpu_torch "
-                f"yet (ROADMAP A9); use wav")
+                f"the {container} container (io/{container}.py) is not "
+                f"ported to sdrpp_tpu_torch yet (ROADMAP A9); use wav")
         if container != "wav":
             raise ValueError(f"unknown container {container}")
         self._sink = WavSink(path, samplerate, sample_format)

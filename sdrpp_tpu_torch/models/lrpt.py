@@ -56,10 +56,10 @@ class LRPTDecoder:
 
 
 class MeteorChannel:
-    """Digital receive channel: RxVFO (input rate -> 150 kHz IF, static
-    offset) -> MeteorDemod (72 ksym QPSK). Output = (symbols, valid) with
-    the valid symbols a prefix. The JAX channel's dynamic offset (retuning
-    through state) is not ported: the port's RxVFO has a static offset."""
+    """Digital receive channel: RxVFO (input rate -> 150 kHz IF) ->
+    MeteorDemod (72 ksym QPSK). Output = (symbols, valid) with the valid
+    symbols a prefix. With ``dynamic_offset`` the VFO's offset is state,
+    moved by ``retune_state``."""
 
     IF_RATE = 150000.0
     SYMBOL_RATE = 72000.0
@@ -71,11 +71,10 @@ class MeteorChannel:
         from .channel import RxVFO
         from .digital import MeteorDemod
 
-        if dynamic_offset:
-            raise NotImplementedError("dynamic_offset is not ported")
         bw = float(bandwidth) if bandwidth else 140000.0
         self.vfo = RxVFO(float(in_samplerate), self.IF_RATE,
-                         min(bw, self.IF_RATE), offset, device=device)
+                         min(bw, self.IF_RATE), offset,
+                         dynamic_offset=dynamic_offset, device=device)
         self.demod = MeteorDemod(symbolrate=self.SYMBOL_RATE,
                                  samplerate=self.IF_RATE, oqpsk=oqpsk,
                                  broken_modulation=broken_modulation,
@@ -84,6 +83,10 @@ class MeteorChannel:
 
     def max_symbols(self, n: int) -> int:
         return self.demod.max_symbols(self.vfo.out_count(n))
+
+    def retune_state(self, state, offset_hz: float):
+        return dict(state, vfo=self.vfo.retune_state(state["vfo"],
+                                                     offset_hz))
 
     def init_state(self):
         return {"vfo": self.vfo.init_state(),

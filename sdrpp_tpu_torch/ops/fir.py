@@ -24,8 +24,9 @@ import torch.nn.functional as F
 
 from ..utils.blocks import Block
 
-__all__ = ["fir_correlate", "FIR", "fir_init_tail",
-           "decimating_fir_correlate", "strided_correlate", "taps_spectrum"]
+__all__ = ["fir_correlate", "FIR", "fir_init_tail", "pad_taps_front",
+           "RuntimeFIR", "decimating_fir_correlate", "strided_correlate",
+           "taps_spectrum"]
 
 
 def _next_pow2(n: int) -> int:
@@ -51,15 +52,20 @@ def fir_init_tail(ntaps: int, dtype=torch.complex64, lead_shape=(), *,
     return torch.zeros((*lead_shape, ntaps - 1), dtype=dtype, device=device)
 
 
-def fir_correlate(tail: torch.Tensor, x: torch.Tensor, taps: np.ndarray,
+def fir_correlate(tail: torch.Tensor, x: torch.Tensor, taps,
                   spec: torch.Tensor | None = None):
     """Filter one block; returns (new_tail, y) with y.shape == x.shape.
 
     y[i] = sum_j taps[j] * buf[i + j] with buf = concat([tail, x]) (the
     reference's sliding correlation, fir.h:67-76), over any leading axes.
-    ``spec`` is ``taps_spectrum(taps, fft_len)``, built here when not given.
+    ``taps`` is a host array, or a real tensor on x's device (a
+    ``RuntimeFIR``'s state leaf). ``spec`` is the spectrum of the reversed
+    taps at the block's FFT length (``taps_spectrum``), built here when
+    not given: on the host from an array, on the device from a tensor.
     """
-    taps = np.asarray(taps)
+    on_device = isinstance(taps, torch.Tensor)
+    if not on_device:
+        taps = np.asarray(taps)
     m = taps.shape[0]
     n = x.shape[-1]
     if m == 1:
@@ -67,13 +73,17 @@ def fir_correlate(tail: torch.Tensor, x: torch.Tensor, taps: np.ndarray,
         return tail, x * taps[0].item()
     buf = torch.cat([tail, x], dim=-1)  # [..., n + m - 1]
     fft_len = _fft_len(n, m)
-    if spec is None:
+    if spec is None and on_device:
+        spec = torch.fft.fft(torch.flip(taps, [0]).to(torch.complex64),
+                             n=fft_len)
+    elif spec is None:
         spec = taps_spectrum(taps, fft_len, x.device)
     xf = torch.fft.fft(buf.to(torch.complex64), n=fft_len, dim=-1)
     y_full = torch.fft.ifft(xf * spec, dim=-1)
     # full linear convolution index (m-1) is correlation output 0
     y = y_full[..., m - 1: m - 1 + n]
-    if not x.is_complex() and not np.iscomplexobj(taps):
+    complex_taps = taps.is_complex() if on_device else np.iscomplexobj(taps)
+    if not x.is_complex() and not complex_taps:
         y = y.real.to(x.dtype)
     return buf[..., n:].clone(), y
 
@@ -100,6 +110,52 @@ class FIR(Block):
             spec = self._specs[fft_len] = taps_spectrum(self.taps, fft_len,
                                                         self.device)
         return fir_correlate(state, x, self.taps, spec)
+
+
+def pad_taps_front(taps: np.ndarray, max_taps: int) -> np.ndarray:
+    """Zero-pad real taps at the FRONT to ``max_taps`` (float32).
+
+    Front padding keeps the unpadded filter's output alignment: with a
+    tail of max_taps - 1 samples, y[i] = sum_j t[j] * buf[i + j + max_taps
+    - m], the m-tap correlation of fir.h:67-76, so a ``RuntimeFIR`` at
+    bandwidth B is sample for sample the static ``FIR`` at B."""
+    taps = np.asarray(taps, np.float32)
+    m = taps.shape[0]
+    if m > max_taps:
+        raise ValueError(f"{m} taps exceed the static budget {max_taps}")
+    out = np.zeros(max_taps, np.float32)
+    out[max_taps - m:] = taps
+    return out
+
+
+class RuntimeFIR(Block):
+    """1:1 FIR whose real taps are STATE: a [max_taps] float32 leaf,
+    front-padded (``pad_taps_front``), beside the delay-line tail. A
+    bandwidth change is a host tap design and a state write
+    (``taps_state``) that keeps the delay line, as the reference's
+    setTaps (fir.h:31-52). Each block is ``fir_correlate`` with the
+    state's taps, their spectrum taken on the device."""
+
+    def __init__(self, max_taps: int, init_taps: np.ndarray,
+                 dtype=torch.complex64, lead_shape=(), *, device):
+        self.max_taps = int(max_taps)
+        self.init_taps = np.asarray(init_taps, np.float32)
+        self.dtype = dtype
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+
+    def taps_state(self, taps: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(pad_taps_front(taps, self.max_taps)).to(
+            self.device)
+
+    def init_state(self):
+        return {"tail": fir_init_tail(self.max_taps, self.dtype,
+                                      self.lead_shape, device=self.device),
+                "taps": self.taps_state(self.init_taps)}
+
+    def __call__(self, state, x):
+        tail, y = fir_correlate(state["tail"], x, state["taps"])
+        return {"tail": tail, "taps": state["taps"]}, y
 
 
 def strided_correlate(buf: torch.Tensor, weight: torch.Tensor, stride: int,

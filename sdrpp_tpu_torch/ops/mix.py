@@ -20,7 +20,8 @@ import torch
 from ..utils.blocks import Block
 
 __all__ = ["mix", "mix_ramp", "mix_bank", "mix_bank_tables",
-           "FrequencyXlator", "FrequencyXlatorBank", "hz_to_rads"]
+           "FrequencyXlator", "DynamicFrequencyXlator", "FrequencyXlatorBank",
+           "hz_to_rads"]
 
 TWO_PI = 2.0 * np.pi
 _TWO_PI32 = float(np.float32(TWO_PI))
@@ -78,6 +79,54 @@ class FrequencyXlator(Block):
         if ramp is None:
             ramp = self._ramps[n] = mix_ramp(n, self.omega, self.device)
         return mix(state, x, self.omega, ramp)
+
+
+class DynamicFrequencyXlator(Block):
+    """Frequency translation with the offset in STATE: retuning is a write
+    of two scalar leaves between blocks, as the reference retunes by
+    changing the rotator's phase step (frequency_xlator.h:51-58).
+
+    State: ``phase`` and the offset in rad/sample as the JAX block's
+    float32 pair ``omega_hi`` + ``omega_lo`` (``offset_state``). The ramp
+    is the static mixer's: ``(i*omega) mod 2pi`` in float64 from the sum
+    of the pair, here on the device (no host read of the state), then
+    float32; so at a given offset this mixer is ``FrequencyXlator``."""
+
+    def __init__(self, offset_hz: float, samplerate: float, lead_shape=(),
+                 *, device):
+        self.samplerate = float(samplerate)
+        self.init_offset = float(offset_hz)
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+
+    def offset_state(self, offset_hz: float) -> tuple[np.float32, np.float32]:
+        """The (hi, lo) float32 pair of ``offset_hz`` in rad/sample."""
+        w = float(hz_to_rads(float(offset_hz), self.samplerate))
+        hi = np.float32(w)
+        return hi, np.float32(w - float(hi))
+
+    def omega_leaves(self, offset_hz: float) -> dict:
+        """``omega_hi`` and ``omega_lo`` leaves of ``offset_hz``."""
+        return {k: torch.full(self.lead_shape, float(v), dtype=torch.float32,
+                              device=self.device)
+                for k, v in zip(("omega_hi", "omega_lo"),
+                                self.offset_state(offset_hz))}
+
+    def init_state(self):
+        return {"phase": torch.zeros(self.lead_shape, dtype=torch.float32,
+                                     device=self.device),
+                **self.omega_leaves(self.init_offset)}
+
+    def __call__(self, state, x):
+        n = x.shape[-1]
+        w = state["omega_hi"].double() + state["omega_lo"].double()
+        i = torch.arange(n, dtype=torch.float64, device=x.device)
+        ramp = torch.remainder(i * w[..., None], TWO_PI).float()
+        phase = state["phase"]
+        ph = torch.remainder(phase[..., None] + ramp, _TWO_PI32)
+        y = x * torch.complex(torch.cos(ph), torch.sin(ph))
+        step = torch.remainder(n * w, TWO_PI).float()
+        return dict(state, phase=torch.remainder(phase + step, _TWO_PI32)), y
 
 
 def mix_bank_tables(n: int, omegas: np.ndarray, device):

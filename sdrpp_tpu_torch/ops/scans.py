@@ -1,10 +1,13 @@
 """Recurrent DSP blocks: affine scans and the per-sample loops.
 
 The counterpart of ``sdrpp_tpu.ops.scans``. Linear first-order
-recurrences (DC blocker, de-emphasis) run as a blocked two-level scan in
-plain torch ops: within a block of ``_SCAN_BLOCK`` samples, one matrix
-product with the lower-triangular power matrix a^(i-j); across blocks, the
-same scan again over the block ends (a^B per step), recursively. The
+recurrences (DC blocker, de-emphasis, the noise blanker's running mean)
+run as a blocked two-level scan in plain torch ops: within a block of
+``_SCAN_BLOCK`` samples, one matrix product with the lower-triangular
+power matrix a^(i-j); across blocks, the same scan again over the block
+ends (a^B per step), recursively. The noise blanker's mean, whose
+coefficient is 1 - rate on nonzero samples and 1 on zeros, is the same
+scan over its nonzero samples, gathered back to every position. The
 nonlinear loops (PLL, AGC, FastAGC, Costas) run through the loop-scan
 kernel wrappers of
 ``scans_kernels`` (CUDA kernel on CUDA tensors, plain loop on CPU tensors).
@@ -29,6 +32,7 @@ __all__ = [
     "FastAGC",
     "PLL",
     "Costas",
+    "NoiseBlanker",
     "Squelch",
 ]
 
@@ -136,19 +140,20 @@ class AGC(Block):
     """Asymmetric attack/decay AGC with look-ahead clip correction
     (reference: core/src/dsp/loop/agc.h:88-147). The look-ahead suffix max
     is a reversed cummax; the amp/gain recurrence runs in the loop-scan
-    kernel (``scans_kernels.agc_gains``). The manual-gain mode
-    (``enabled=False`` in the JAX block), which no caller selects, is not
-    ported."""
+    kernel (``scans_kernels.agc_gains``). ``enabled=False`` is the manual
+    gain: the carried gain, clipped to max_output_amp (agc.h:128-143), the
+    state passed through."""
 
     def __init__(self, set_point: float, attack: float, decay: float,
                  max_gain: float, max_output_amp: float, init_gain: float = 1.0,
-                 lead_shape=(), *, device):
+                 enabled: bool = True, lead_shape=(), *, device):
         self.set_point = np.float32(set_point)
         self.attack = np.float32(attack)
         self.decay = np.float32(decay)
         self.max_gain = np.float32(max_gain)
         self.max_output_amp = np.float32(max_output_amp)
         self.init_gain = np.float32(init_gain)
+        self.enabled = bool(enabled)
         self.lead_shape = tuple(lead_shape)
         self.device = torch.device(device)
 
@@ -164,6 +169,13 @@ class AGC(Block):
         from .scans_kernels import agc_gains, suffix_max
 
         in_amp = torch.abs(x)
+        if not self.enabled:
+            g = state["gain"][..., None]
+            safe_amp = torch.where(in_amp == 0.0, 1.0, in_amp)
+            # a tensor numerator keeps max_out / amp an IEEE division
+            limit = torch.full_like(safe_amp, float(self.max_output_amp))
+            return state, torch.where(in_amp * g > float(self.max_output_amp),
+                                      x * (limit / safe_amp), x * g)
         gains, amp_f, gain_f = agc_gains(
             in_amp, suffix_max(in_amp), state["amp"], state["gain"],
             self.set_point, self.attack, self.decay, self.max_gain,
@@ -280,6 +292,49 @@ class Costas(Block):
         return {"phase": phase_f, "freq": freq_f}, rotate_back(x, out_phases)
 
 
+class NoiseBlanker(Block):
+    """Running-mean amplitude limiter (reference:
+    core/src/dsp/noise_reduction/noise_blanker.h:41-62): amp tracks |x|
+    with a 1-pole average, held over zero samples; the gain is 1/excess
+    where excess = |x|/amp exceeds ``level``. The average is ``affine_scan``
+    over the nonzero samples (a = 1 - rate), scattered to the front of the
+    block by their running count, then read back at each sample's count:
+    a zero holds the mean of the nonzero sample before it (the state
+    before the first). State: the tracked amplitude."""
+
+    def __init__(self, rate: float, level: float, lead_shape=(), *, device):
+        self.rate = np.float32(rate)
+        self.level = np.float32(level)
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+
+    def init_state(self):
+        return torch.ones(self.lead_shape, dtype=torch.float32,
+                          device=self.device)
+
+    def amps(self, state, in_amp):
+        """The tracked amplitude after each sample of ``in_amp`` (|x|)."""
+        n = in_amp.shape[-1]
+        nonzero = in_amp != 0.0
+        k = torch.cumsum(nonzero, dim=-1) - 1  # nonzero samples up to i, - 1
+        b = torch.zeros((*in_amp.shape[:-1], n + 1), dtype=torch.float32,
+                        device=in_amp.device)
+        # the nonzero samples' terms packed in order; zeros write slot n
+        b.scatter_(-1, torch.where(nonzero, k, n), in_amp * float(self.rate))
+        ys = affine_scan(np.float32(1.0) - self.rate, b[..., :n], state)
+        held = torch.gather(ys, -1, k.clamp(min=0))
+        return torch.where(k >= 0, held, state[..., None])
+
+    def __call__(self, state, x):
+        in_amp = torch.abs(x)
+        nonzero = in_amp != 0.0
+        amps = self.amps(state, in_amp)
+        excess = in_amp / amps
+        gain = torch.where(nonzero & (excess > float(self.level)),
+                           torch.reciprocal(excess), 1.0)
+        return amps[..., -1].clone(), x * gain
+
+
 class Squelch(Block):
     """Block-mean-power squelch with hysteresis + unmute confirmation
     (reference: core/src/dsp/noise_reduction/squelch.h:32-61): block level =
@@ -303,6 +358,13 @@ class Squelch(Block):
             "level": torch.full((), float(self.level), dtype=torch.float32,
                                 device=self.device),
         }
+
+    def set_level_state(self, state, level_db: float):
+        """New state with the threshold changed: a write, not a rebuild
+        (the reference's runtime setLevel, squelch.h:63-66)."""
+        return dict(state, level=torch.full((), float(np.float32(level_db)),
+                                            dtype=torch.float32,
+                                            device=state["level"].device))
 
     def __call__(self, state, x):
         n = x.shape[-1]

@@ -697,7 +697,8 @@ class PLLChunked(PLL):
 
 class AGCChunked(AGC):
     """Full AGC, chunk-parallel for long blocks and exact otherwise (state
-    grows a ``hist`` buffer of the last ``warmup`` input amplitudes)."""
+    grows a ``hist`` buffer of the last ``warmup`` input amplitudes). With
+    ``enabled=False`` the manual gain of ``AGC`` runs, at any length."""
 
     def __init__(self, *args, warmup: int = 2048, max_lanes: int = 512,
                  **kwargs):
@@ -718,7 +719,7 @@ class AGCChunked(AGC):
         amps = torch.abs(x)
         k = _chunk_lanes_for(x.shape[-1], self.warmup, self.max_lanes,
                              _lanes_of(x))
-        if k < 1:
+        if k < 1 or not self.enabled:
             sub = {"amp": state["amp"], "gain": state["gain"]}
             sub, y = AGC.__call__(self, sub, x)
             hist = torch.cat([state["hist"], amps], dim=-1)[..., -self.warmup:]

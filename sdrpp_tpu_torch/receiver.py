@@ -108,7 +108,8 @@ class Receiver:
 
     def process_block(self, iq: np.ndarray):
         """Run one block through the graph and route its outputs. Returns
-        (audio dict of device tensors, fft lines as numpy)."""
+        (audio dict of device tensors, fft lines as numpy); a channel with
+        RDS gives (audio, rds baseband), and its audio goes to the sink."""
         if self._state is None:
             self._rebuild()
         if len(iq) != self.block_size:
@@ -118,6 +119,7 @@ class Receiver:
             self.device)
         self._state, (audio, fft) = self.step(self._state, x)
         for name, out in audio.items():
+            out = out[0] if isinstance(out, tuple) else out
             self.sinks.write(name, out.cpu().numpy())
         fft_np = fft.cpu().numpy()
         self.fft_lines.extend(list(fft_np))

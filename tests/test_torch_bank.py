@@ -319,10 +319,12 @@ def test_nfm_bank_golden():
 
 
 def test_unported_bank_settings_raise():
+    """The CW manual gain is ported now (tests/test_torch_radio.py holds it
+    to JAX): CWDemod builds with it; a bank setting the JAX package refuses
+    still raises, and a CUDA default without a card does not fall back."""
     from sdrpp_tpu_torch.models.analog import CWDemod
 
-    with pytest.raises(NotImplementedError):
-        CWDemod(agc_enabled=False, device="cpu")
+    assert not CWDemod(agc_enabled=False, device="cpu").agc.enabled
     with pytest.raises(ValueError, match="channelizer"):
         tvb.ScannerBank(OFFS, 768e3, channelizer="polyphase", device="cpu")
     if not torch.cuda.is_available():  # no fallback hides the device

@@ -111,10 +111,17 @@ def test_unported_containers_raise(tmp_path, container):
     with pytest.raises(NotImplementedError, match="A9"):
         tsinks.RecorderSink(tmp_path / f"a.{container}", 48000,
                             container=container)
+    from sdrpp_tpu_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match=f"io/{container}.py"):
+        main(["bank", "--source", "test:768000", "--offsets", "0",
+              "--blocks", "1", "--device", "cpu", "--container", container,
+              "--out-dir", str(tmp_path / "bank")])
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
-    """``cli run``, ``cli decode meteor`` and ``cli bank`` on the CPU, then
+    """``cli run`` (nfm, cw, raw), ``cli decode meteor``, ``cli bank``,
+    ``cli spectrum`` and ``cli scan`` on the CPU, then
     an import of every module of the port (but ``__main__``, which runs
     the CLI), in a fresh interpreter: no module named jax, jax.*,
     sdrpp_tpu or sdrpp_tpu.* is loaded."""
@@ -136,6 +143,16 @@ assert main(['bank', '--source', 'test:768000', '--offsets=-100e3,100e3',
              '--mode', 'usb', '--channelizer', 'fft', '--blocks', '1',
              '--block-size', '16384', '--device', 'cpu', '--out-dir',
              tmp + '/bank']) == 0
+for mode in ('cw', 'raw'):
+    assert main(['run', '--source', 'test:480000', '--mode', mode,
+                 '--blocks', '1', '--block-size', '96000', '--device', 'cpu',
+                 '--out', tmp + '/' + mode + '.wav']) == 0
+assert main(['spectrum', '--source', 'test:480000', '--fft-size', '1024',
+             '--blocks', '1', '--block-size', '48000', '--device', 'cpu',
+             '--out', tmp + '/wf.npy', '--framebuffer', tmp + '/fb.npy']) == 0
+assert main(['scan', '--source', 'test:480000', '--start=50e3',
+             '--stop=150e3', '--blocks', '2', '--block-size', '48000',
+             '--device', 'cpu']) == 0
 for name in {modules!r}:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -175,6 +192,10 @@ def test_entry_points_default_to_the_card(tmp_path):
                  ["bank", "--source", "test:768000", "--offsets", "0",
                   "--blocks", "1", "--out-dir", str(tmp_path / "bank")],
                  ["decode", "meteor", "--source", "test:150000", "--blocks",
-                  "1", "--out", str(tmp_path / "m.s")]):
+                  "1", "--out", str(tmp_path / "m.s")],
+                 ["spectrum", "--source", "test:240000", "--blocks", "1",
+                  "--block-size", "48000", "--out", str(tmp_path / "w.npy")],
+                 ["scan", "--source", "test:240000", "--start=-1e4",
+                  "--stop=1e4", "--blocks", "1"]):
         with pytest.raises((RuntimeError, AssertionError)):
             main(argv)

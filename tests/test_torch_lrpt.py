@@ -131,8 +131,13 @@ def test_meteor_channel():
     assert 0 < int(valid.sum()) <= len(valid)
     assert valid[:int(valid.sum())].all()
     assert set(st) == {"vfo", "demod"}
-    with pytest.raises(NotImplementedError):
-        tlrpt.MeteorChannel(300000.0, dynamic_offset=True, device="cpu")
+    # a dynamic channel retuned to the same offset gives the same symbols
+    dyn = tlrpt.MeteorChannel(300000.0, dynamic_offset=True, device="cpu")
+    dst = dyn.retune_state(dyn.init_state(), 20000.0)
+    _, (dsyms, dvalid) = dyn(dst, x)
+    assert torch.equal(dvalid, valid)
+    np.testing.assert_allclose(dsyms.numpy(), syms.numpy(), rtol=0,
+                               atol=1e-5)
 
 
 def test_decode_meteor_on_cuda_without_a_card_raises(tmp_path):
