@@ -5,8 +5,8 @@
 
 Drives the port's main paths on the card (the analog receive path, the
 Meteor LRPT decode path, the /256 wideband front end with its 64-channel
-bank, and the scanner bank) and fails (non-zero exit, no result line) if
-any phase fails:
+bank, the scanner bank, and the HRPT, Falcon 9, M17 and KG-STV decode
+paths) and fails (non-zero exit, no result line) if any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu and
@@ -19,6 +19,7 @@ any phase fails:
    drivers' overlapping lane views of [hist | block] with the payload
    written in place past the warm-up: PLL [640, 128], AGC [4230, 6],
    FastAGC and Costas order 4 with its seam steps / "meteor" [2048, 64];
+   HRPT's FastAGC [2048 + 1024, 128] and order-2 Costas [2048 + 512, 128];
    the AM AGC's one [6544] stream from gain 1e7; the SSB bank's exact AGC
    over 64 transposed [64, 2048] channel rows; the AGCs' inputs clip; off
    the paths PLL [65440], FastAGC and Costas order 4 [8192], and inputs
@@ -35,14 +36,21 @@ any phase fails:
    path, C = 3 streams with their
    own states, the float variant and two consecutive blocks with the
    state carried, [*, 8199] rows that cross four ring stages; a [64, 8]
-   bank must raise),
+   bank must raise; the decode paths' rows [1, 7 + 262144]: the float
+   variant at Falcon 9's 1.68, M17's and KG-STV's 10 samples a symbol, the
+   complex one at HRPT's 2.2542, each held on its whole row, with clock64
+   cycles a symbol),
    ``viterbi_acs_batched`` and ``viterbi_traceback_batched`` (the 30-s
    pass's [528, 4288, 2] as the path launches them, a uint8 soft-bit
    stream plus window starts, and the exact decode's [1, 4288, 2]; off
    the paths a 1024-window launch, the float32 stream, one window across
-   two renormalisations and all-128 ties; each held bit-exact on its
-   first 8 windows, with both walkers' clock64 cycles a step; wrong
-   arguments must raise ValueError and launch nothing), and
+   two renormalisations and all-128 ties; the 16-state (K = 5) code at
+   M17's frames, the LSF's [1, 244, 2] and the payload's [1, 148, 2] uint8
+   with erasures, and all-128 ties; the 64-state KG-STV frame [1, 62, 2]
+   float32; each held bit-exact on its first 8 windows, with both
+   walkers' clock64 cycles a step; wrong arguments, and a 32-state code
+   through ConvCode, the ACS and the traceback, must raise ValueError and
+   launch nothing), and
    ``decimating_fir`` (each case's time a call back to back, its device
    time alone behind a sleep kernel, and its host time a call) at the
    first r >= 8 stage of each path (wideband
@@ -124,7 +132,34 @@ any phase fails:
 17. the pipeline: ``cli run`` and ``cli bank`` (through ``Prefetcher`` and
     ``DeferredWriter``) write WAV files byte-identical to the same loops
     run unpipelined on the card;
-18. when the parent commit is unpacked at _scratch/parent (``git archive
+18. the decode paths at ``cli decode``'s rates and 262,144-sample blocks
+    (each ends in its checks; per-block CUDA-event ms, host s, the M&M's
+    share where a tap times it, real-time factor, launches):
+    hrpt-3M, HRPT_FRAMES seeded minor frames as Manchester BPSK at 3 Msps
+    (a carrier phase, HRPT_CARRIER_HZ off) through
+    ``HRPTDecoder(device="cuda")``, its loops chunked: every frame with 0
+    sync errors, its spacecraft id, frame number and words exact;
+    lane_scan and mm_symbols launched; then the loops' chunked and exact
+    routes on that signal and on the same frames in noise (HRPT_NOISE a
+    component), each route's frames, sync errors and wrong words printed,
+    the exact route held exact on both (the chunked route's losses in
+    noise are the JAX package's warm-ups, ROADMAP C); falcon9-6M, F9_FRAMES frames
+    of video and GPS packets as FM at 6 Msps through ``Falcon9Decoder``:
+    every packet exact; m17-48k, an LSF and M17_FRAMES stream frames
+    shaped by the port's ``RRCInterpolator`` with light noise, through
+    ``GFSKDemod``, ``slice_4fsk``, ``FrameDemux`` and the frame decodes
+    on the card: the LSF's callsigns and every payload exact, and with
+    libcodec2 ``M17Decoder``'s voice sample count (else "m17 voice:
+    libcodec2 absent"); kgsstv-12k, KG_FRAMES frames through
+    ``KGSSTVDecoder``: every frame exact but its last two bits, which the
+    reference decodes out of erasures; then each path's first two blocks
+    again on device="cpu" (equal symbol counts, symbols within
+    METEOR_CPU_TOL and METEOR_CPU_RMS_TOL from symbol METEOR_CPU_SKIP,
+    equal outputs), and ``cli.main(["decode", mode, ...])`` on the card
+    over WAVs of the signals (m17, with libcodec2, from a 2.4 Msps WAV at
+    M17_CLI_OFFSET through RxVFO and decimating_fir), each output equal to
+    the phase's content;
+19. when the parent commit is unpacked at _scratch/parent (``git archive
     <parent> | tar -x -C _scratch/parent``): an A/B of the meteor block
     time, decimating_fir at every FIR_CASES shape, the loop scans at
     the kernel phase's path cases (the same bodies and inputs, contiguous
@@ -143,7 +178,8 @@ torch.profiler) PROFILE_RX_BLOCKS steady blocks of the receive slice
 (``Receiver.process_block``, three VFOs) and of the radio-options path
 (seven VFOs and the RDS chain), PROFILE_BLOCKS of the wideband
 chain, PROFILE_METEOR_BLOCKS steady blocks of the 30-s meteor pass and its
-``finalize``, and PROFILE_CALLS calls of decimating_fir at each FIR_CASES
+``finalize``, PROFILE_BLOCKS steady blocks of the HRPT and Falcon 9
+paths, and PROFILE_CALLS calls of decimating_fir at each FIR_CASES
 shape:
 device time by kernel, the device's busy and idle share of the host-clock
 window, the loop-scan kernels' share, and each decimating_fir launch's own
@@ -223,7 +259,13 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "ssb_bank": ("lane_scan",),
             "muted_bank": (),
             "bank": ("decimating_fir",),
-            "bank_fft": ()}
+            "bank_fft": (),
+            "hrpt": ("lane_scan", "mm_symbols"),
+            "falcon9": ("mm_symbols",),
+            "m17": ("mm_symbols", "viterbi_acs_batched",
+                    "viterbi_traceback_batched"),
+            "kgsstv": ("mm_symbols", "viterbi_acs_batched",
+                       "viterbi_traceback_batched")}
 # H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and float32
 # operations/s outside the tensor cores; a case's bound is the larger of
 # its bytes and its operations over these
@@ -326,6 +368,25 @@ GOLDEN_WAV = "tests/data/meteor_lrpt_150000Hz.wav"
 GOLDEN_PAYLOAD = "tests/data/meteor_lrpt_payload.bin"
 GOLDEN_CHAINS = "tests/data/golden_chains.npz"
 GOLDEN_SETTLE = 400        # IF samples of the NFM bank's zero-state start
+# the digital decode paths at cli decode's rates, in cli._auto_block's
+# 262,144-sample blocks
+DECODE_BLOCK = 262144
+HRPT_FS = 3e6
+HRPT_FRAMES = 6            # minor frames: 1 s of a pass, 12 blocks
+HRPT_SC = 13               # spacecraft id in word 6
+HRPT_LEAD_SYMS = 6000      # random symbols before the first frame
+HRPT_CARRIER_HZ = 100.0    # carrier offset (the phase starts at 0.3 rad)
+HRPT_NOISE = 0.05          # a component, on the routes' noisy signal
+F9_FS = 6e6
+F9_FRAMES = 100            # 0.29 s of telemetry, 7 blocks
+M17_FS = 48000.0
+M17_FRAMES = 250           # stream frames: 10 s of a call, 2 blocks
+M17_DST, M17_SRC = "SP5WWP", "N0CALL"
+M17_CLI_FS = 2.4e6         # cli decode m17's source: an RxVFO to 48 kHz
+M17_CLI_OFFSET = 250e3
+M17_CLI_FRAMES = 24        # one 3,276,800-sample cli block
+KG_FS = 12000.0
+KG_FRAMES = 200            # 28.5 s of frames, 2 blocks
 
 
 def log(*args):
@@ -478,6 +539,7 @@ def loop_body_args():
     alpha, beta = (float(v) for v in _critically_damped(25000.0 / 240000.0))
     ca, cb = (float(v) for v in _critically_damped(0.005))
     ra, rb = (float(v) for v in _critically_damped(0.01))
+    ha, hb = (float(v) for v in _critically_damped(0.06 ** 2 / 2.0))
     baud = float(hz_to_rads(1187.5, 5000.0))
     return {
         "pll": ("pll_body", [alpha, beta, float(hz_to_rads(18750.0, 240000.0)),
@@ -499,7 +561,11 @@ def loop_body_args():
         "costas2": ("costas_body", [2, ca, cb, -np.pi, np.pi]),
         "costas2_baud": ("costas_body", [2, ra, rb, baud * 0.9, baud * 1.1]),
         "costas4": ("costas_body", [4, ca, cb, -np.pi, np.pi]),
-        "costas_meteor": ("costas_body", ["meteor", ca, cb, -np.pi, np.pi])}
+        "costas_meteor": ("costas_body", ["meteor", ca, cb, -np.pi, np.pi]),
+        # HRPTDecoder's FastAGC (rate 2e-5) and order-2 Costas (bandwidth
+        # 0.06^2 / 2)
+        "fast_agc_hrpt": ("fast_agc_body", [1.0, 10e6, 0.02e-3]),
+        "costas2_hrpt": ("costas_body", [2, ha, hb, -np.pi, np.pi])}
 
 
 def loop_bodies():
@@ -756,6 +822,13 @@ def phase_kernels(dev):
         ("single_scan", "fast_agc_rds", "radio", ("single", 1360), "path"),
         ("single_scan", "costas2", "radio", ("single", 1360), "path"),
         ("single_scan", "costas2_baud", "radio", ("single", 1360), "path"),
+        # the HRPT block (262,144 samples at 3 Msps): FastAGC (K = 128,
+        # W = 1024) and the order-2 Costas with its seam steps (K = 128,
+        # W = 512)
+        ("lane_scan", "fast_agc_hrpt", "hrpt",
+         ("chunk", DECODE_BLOCK, 1, 128, 1024), "path"),
+        ("lane_scan", "costas2_hrpt", "hrpt",
+         ("chunk", DECODE_BLOCK, 1, 128, 512, 32), "path"),
         ("lane_scan", "costas_meteor", None, ("chunk", 65536, 1, 64, 1024),
          "path"),
         ("single_scan", "pll", None, ("single", 65440), "path"),
@@ -1198,10 +1271,11 @@ def phase_kernels_viterbi(dev):
         # expected outputs off the integers: the kernel's reference form
         ("expected + 0.25", None, pass_soft[:VIT_HELD * VIT_L],
          viterbi_starts(VIT_HELD * VIT_L), VIT_T, code._expected + 0.25),
-    ]
+    ] + decode_viterbi_cases(dev, rng)
     results = []
     for label, path, soft_np, starts_np, T, *exp in cases:
         expected = exp[0] if exp else code._expected
+        S = expected.shape[0] // 2
         soft = torch.from_numpy(soft_np).to(dev)
         starts = torch.from_numpy(starts_np).to(dev)
         B, total = starts.shape[0], soft.shape[0]
@@ -1209,7 +1283,7 @@ def phase_kernels_viterbi(dev):
         acs_cyc = torch.zeros(B, dtype=torch.int64, device=dev)
         tb_cyc = torch.zeros(B, dtype=torch.int64, device=dev)
         words = FK.viterbi_acs_batched(soft, starts, T, expected, acs_cyc)
-        bits = FK.viterbi_traceback_batched(words, tb_cyc)
+        bits = FK.viterbi_traceback_batched(words, tb_cyc, num_states=S)
         torch.cuda.synchronize()
         # clock64 cycles a trellis step: the windows' mean and maximum
         acs_cps = float(acs_cyc.double().mean()) / T
@@ -1218,15 +1292,18 @@ def phase_kernels_viterbi(dev):
         warm(lambda: FK.viterbi_acs_batched(soft, starts, T, expected))
         acs_ms = cuda_ms(
             lambda: FK.viterbi_acs_batched(soft, starts, T, expected), reps=10)
-        warm(lambda: FK.viterbi_traceback_batched(words))
-        tb_ms = cuda_ms(lambda: FK.viterbi_traceback_batched(words), reps=10)
+        warm(lambda: FK.viterbi_traceback_batched(words, num_states=S))
+        tb_ms = cuda_ms(lambda: FK.viterbi_traceback_batched(
+            words, num_states=S), reps=10)
         ref = {}
         acs_plain_ms = cuda_ms(lambda: ref.setdefault(
             "w", FK.viterbi_acs_batched_plain(soft, starts[:held], T,
                                               expected)), reps=1)
         tb_plain_ms = cuda_ms(lambda: ref.setdefault(
-            "b", FK.viterbi_traceback_batched_plain(words[:held])), reps=1)
-        acs_diff = int(FK.unpack_decisions(words[:held] ^ ref["w"]).sum())
+            "b", FK.viterbi_traceback_batched_plain(words[:held], S)),
+            reps=1)
+        acs_diff = int(FK.unpack_decisions(words[:held] ^ ref["w"],
+                                           S).sum())
         tb_diff = int((bits[:held] != ref["b"]).sum())
         # the bytes each function must move: the soft bits its windows
         # cover, read once, the starts and the expected outputs; its words
@@ -1239,7 +1316,7 @@ def phase_kernels_viterbi(dev):
         acs_bound = bound(covered * soft.shape[1] * soft.element_size()
                           + starts.numel() * 4 + expected.numel() * 4
                           + words.numel() * 8,
-                          ACS_OPS_PER_STATE * FK.KERNEL_STATES * B * T)
+                          ACS_OPS_PER_STATE * S * B * T)
         tb_bound = bound(words.numel() * 8 + bits.numel(),
                          TB_OPS_PER_STEP * B * T)
         dtype = "u8" if soft.dtype == torch.uint8 else "f32"
@@ -1259,7 +1336,7 @@ def phase_kernels_viterbi(dev):
         if acs_diff or tb_diff:
             raise AssertionError(f"a Viterbi kernel is not bit-exact against "
                                  f"its plain version ({label})")
-        common = dict(body="k7", path=path, kind=label, tol=0.0,
+        common = dict(body=f"s{S}", path=path, kind=label, tol=0.0,
                       library_ms=None)
         results.append(dict(entry="viterbi_acs_batched", shape=shape,
                             plain_shape=[held, T, soft.shape[1]],
@@ -1277,6 +1354,7 @@ def phase_kernels_viterbi(dev):
                             bound_by=tb_bound[1], **common))
         del soft, starts, words, bits
     viterbi_refusals(dev, code._expected)
+    viterbi_state_refusals(dev)
     return results, {"soft": pass_soft, "starts": viterbi_starts(pass_total),
                      "T": VIT_T}
 
@@ -2579,6 +2657,833 @@ def ab_run(name: str, tree: Path, settings: str) -> dict:
     return {"tree": name, **json.loads(line[-1][3:])}
 
 
+def m17_code(dev):
+    from sdrpp_tpu_torch.decoders import m17_frame as mf
+    from sdrpp_tpu_torch.ops.fec import ConvCode
+
+    return ConvCode(2, 5, mf.CONV_POLYS, device=dev)
+
+
+def m17_frame_soft(rng, kind: str, flips: int = 0) -> np.ndarray:
+    """[T, 2] uint8 soft bits of one M17 frame as the frame layer hands
+    them to the K = 5 decode: "lsf" (240 bits, P1-punctured, 244 steps) or
+    "payload" (144 bits, P2, 148 steps), ``flips`` hard bit errors before
+    the depuncture, 128 at every punctured position."""
+    from sdrpp_tpu_torch.decoders import m17_frame as mf
+
+    nbits, pattern, size = ((240, mf.PUNCT_P1, mf.ENCODED_LSF_SIZE)
+                            if kind == "lsf" else
+                            (144, mf.PUNCT_P2, mf.ENCODED_PAYLOAD_SIZE))
+    sent = mf._puncture(mf._conv_encode_terminated(
+        rng.integers(0, 2, nbits)), pattern).copy()
+    if flips:
+        sent[rng.choice(len(sent), flips, replace=False)] ^= 1
+    soft = mf._depuncture_soft(sent, pattern, size)
+    return soft.astype(np.uint8).reshape(-1, 2)
+
+
+def kgsstv_frame_soft(rng) -> np.ndarray:
+    """[62, 2] float32 soft bits as the KG-STV deframer makes them: 108
+    noisy +-1 symbols to clip((v + 1) * 128, 0, 255) (not integers), then
+    16 erasures of 128."""
+    from sdrpp_tpu_torch.decoders import kg_sstv as kg
+
+    sym = kg.KGSSTVDeframer.encode_frame(
+        bytes(rng.integers(0, 256, 7).astype(np.uint8)))[len(kg.SYNC_WORD):]
+    v = sym + rng.normal(0, 0.3, sym.size)
+    soft = np.clip((v + 1.0) * 128.0, 0.0, 255.0)
+    soft = np.concatenate([soft, np.full(16, 128.0)]).astype(np.float32)
+    return soft.reshape(-1, 2)
+
+
+def decode_viterbi_cases(dev, rng):
+    """The Viterbi cases of the decode paths (label, path, soft, starts, T,
+    expected): M17's K = 5 LSF (244 steps) and stream payload (148) frames
+    as uint8 soft bits with erasures, all-128 ties on the LSF's length, and
+    KG-STV's K = 7 frame (62 steps) as float32 soft bits."""
+    from sdrpp_tpu_torch.decoders import kg_sstv as kg
+    from sdrpp_tpu_torch.ops.fec import ConvCode
+
+    m17, kgc = m17_code(dev), ConvCode(2, 7, kg.CONV_POLYS, device=dev)
+    one = np.zeros(1, np.int32)
+    return [
+        ("m17 lsf", "m17", m17_frame_soft(rng, "lsf", 8), one, 244,
+         m17._expected),
+        ("m17 payload", "m17", m17_frame_soft(rng, "payload", 4), one, 148,
+         m17._expected),
+        ("m17 ties", None, np.full((244, 2), 128, np.uint8), one, 244,
+         m17._expected),
+        ("kgsstv", "kgsstv", kgsstv_frame_soft(rng), one, 62, kgc._expected),
+    ]
+
+
+def viterbi_state_refusals(dev):
+    """A 32-state code on the card raises ValueError and launches nothing:
+    through ConvCode (order 6), the ACS (expected [64, 2]) and the
+    traceback (num_states=32)."""
+    import torch
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+    from sdrpp_tpu_torch.ops.fec import ConvCode
+
+    code = ConvCode(2, 6, (0o73, 0o61), device=dev)
+    acs, tb = FK.viterbi_acs_batched, FK.viterbi_traceback_batched
+    before = (acs.launches, tb.launches)
+    soft = torch.zeros((100, 2), dtype=torch.uint8, device=dev)
+    bad = [(code.decode_soft_np, (np.zeros(200, np.float32),)),
+           (acs, (soft, torch.zeros(1, dtype=torch.int32, device=dev), 10,
+                  code._expected)),
+           (lambda d: tb(d, num_states=32),
+            (torch.zeros((1, 10), dtype=torch.int64, device=dev),))]
+    for fn, args in bad:
+        try:
+            fn(*args)
+        except ValueError as e:
+            if "16" not in str(e) or "64" not in str(e):
+                raise AssertionError(f"a 32-state call raised {e!r}") from e
+        else:
+            raise AssertionError("a 32-state Viterbi call ran on the card")
+    if (acs.launches, tb.launches) != before:
+        raise AssertionError("a 32-state Viterbi call counted a launch")
+    log("viterbi on CUDA: a 32-state code raises ValueError through "
+        "ConvCode, the ACS and the traceback, and launches nothing")
+
+
+def phase_kernels_decode_mm(dev):
+    """mm_symbols at the decode paths' rows (one [1, 7 + 262144] row a
+    262,144-sample block, cli._auto_block at each rate), against its plain
+    version on the whole row: the float variant at Falcon 9's 1.68 samples
+    a symbol (the FM discriminator's output of 3.5714 MBaud NRZ at 6 Msps),
+    at M17's and KG-STV's 10 (4FSK / binary FSK after the RRC), and the
+    complex variant at HRPT's 2.2542 (BPSK NRZ after the RRC, a carrier
+    phase). Masks and offsets equal, symbols and state within KERNEL_TOL of
+    the largest symbol; the walker's clock64 cycles a symbol."""
+    import torch
+    from sdrpp_tpu_torch.decoders import falcon9 as f9
+    from sdrpp_tpu_torch.decoders import hrpt
+    from sdrpp_tpu_torch.decoders import kg_sstv as kg
+    from sdrpp_tpu_torch.decoders import m17_frame as mf
+    from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
+    from sdrpp_tpu_torch.ops import taps as taps_mod
+    from sdrpp_tpu_torch.ops.clock_recovery import MMClockRecovery
+
+    rng = np.random.default_rng(8)
+    n = DECODE_BLOCK
+    results = []
+
+    def held(symbols, sps, fs, rrc=None):
+        y = symbols[(np.arange(n) / sps).astype(np.int64)]
+        if rrc is not None:
+            taps = taps_mod.root_raised_cosine_rate(31, rrc, fs / sps, fs)
+            y = np.convolve(y, taps, mode="same")
+        return y
+
+    cases = []
+    # Falcon 9: FM discriminator output of NRZ bits (rad / deviation)
+    sps = F9_FS / f9.Falcon9Decoder.BAUDRATE
+    bits = rng.choice([-1.0, 1.0], int(n / sps) + 2)
+    ph = np.cumsum(2 * np.pi * f9.Falcon9Decoder.DEVIATION
+                   * held(bits, sps, F9_FS) / F9_FS)
+    iq = np.exp(1j * ph) + 0.05 * (rng.standard_normal(n)
+                                   + 1j * rng.standard_normal(n))
+    d = np.angle(iq[1:] * np.conj(iq[:-1]))
+    x = np.concatenate([[0.0], d]) * F9_FS / (2 * np.pi
+                                              * f9.Falcon9Decoder.DEVIATION)
+    cases.append(("falcon9", "float", x.astype(np.float32),
+                  MMClockRecovery(sps, 0.01 ** 2 / 4.0, 0.01, 100e-6,
+                                  complex_input=False, device=dev)))
+    # HRPT: BPSK NRZ through the RRC (beta 0.6), a carrier phase
+    sps = HRPT_FS / hrpt.SYMBOL_RATE
+    y = held(rng.choice([-1.0, 1.0], int(n / sps) + 2), sps, HRPT_FS, 0.6)
+    y = y * np.exp(0.3j) + 0.05 * (rng.standard_normal(n)
+                                   + 1j * rng.standard_normal(n))
+    cases.append(("hrpt", "complex", y.astype(np.complex64),
+                  MMClockRecovery(sps, (0.01 ** 2) / 4.0, 0.01, 0.005,
+                                  complex_input=True, device=dev)))
+    # M17 (4FSK levels) and KG-STV (binary), 10 samples a symbol after the
+    # RRC, in noise
+    for path, fs, baud, beta, levels, og in (
+            ("m17", M17_FS, mf.M17_BAUDRATE, mf.M17_RRC_ALPHA,
+             [-1.0, -1 / 3, 1 / 3, 1.0], 1e-6),
+            ("kgsstv", KG_FS, kg.BAUDRATE, kg.RRC_ALPHA, [-1.0, 1.0], 1e-6)):
+        sps = fs / baud
+        y = held(rng.choice(levels, int(n / sps) + 2), sps, fs, beta)
+        y = y / np.abs(y).max() + 0.02 * rng.standard_normal(n)
+        cases.append((path, "float", y.astype(np.float32),
+                      MMClockRecovery(sps, og, 0.01, 0.01,
+                                      complex_input=False, device=dev)))
+    for path, body, x, mm in cases:
+        st = mm.init_state()
+        buf = torch.cat([st["tail"], torch.from_numpy(x).to(dev)])[None]
+        kf = 10 if mm.complex_input else 3
+        fst = torch.zeros((1, kf), dtype=torch.float32, device=dev)
+        fst[0, 1] = st["freq"]
+        a = (buf, st["offset"].reshape(1), fst, mm._bank, mm.max_symbols(n),
+             mm.mu_gain, mm.omega_gain, mm.min_freq, mm.max_freq)
+        cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = MK.mm_symbols(*a, cycles=cycles)
+        torch.cuda.synchronize()
+        warm(lambda: MK.mm_symbols(*a))
+        ms = cuda_ms(lambda: MK.mm_symbols(*a), reps=5)
+        ref = {}
+        plain_ms = cuda_ms(lambda: ref.setdefault(
+            "r", MK.mm_symbols_plain(*a)), reps=1)
+        want = ref["r"]
+        exact = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[3] - want[3]).abs().max()))
+        tol = KERNEL_TOL * float(want[0].abs().max())
+        nsym = int(got[1].sum())
+        cps = int(cycles[0]) / nsym
+        shape = list(buf.shape)
+        bms, bby = mm_bound(buf, mm._bank, got[0])
+        log(f"kernel mm_symbols[{body}] {shape} ({path}, {mm.omega:.4f} "
+            f"samples a symbol): {nsym} symbols, masks and offsets "
+            f"{'equal' if exact else 'DIFFER'}, max abs err {err:.3g} (tol "
+            f"{tol:.3g}), kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bms:.5f} ms ({bby}); walker {cps:.1f} cycles per symbol "
+            f"(clock64)")
+        if not (exact and err <= tol):
+            raise AssertionError(f"mm_symbols[{body}] at the {path} row "
+                                 f"disagrees with its plain version")
+        results.append(dict(entry="mm_symbols", body=body, shape=shape,
+                            plain_shape=shape, path=path, max_abs_err=err,
+                            tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                            bound_by=bby, library_ms=None, symbols=nsym,
+                            cycles_per_symbol=cps))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# the digital decode paths (cli decode m17|hrpt|falcon9|kgsstv)
+# ---------------------------------------------------------------------------
+
+def _bpsk_hold(bits, sps, n, start=0):
+    """NRZ +-1 of ``bits`` held ``sps`` samples, samples [start, start+n)."""
+    idx = ((start + np.arange(n)) / sps).astype(np.int64)
+    return 2.0 * bits[np.minimum(idx, len(bits) - 1)] - 1.0
+
+
+def hrpt_pass(seed: int = 11, noise: float = 0.0):
+    """HRPT_FRAMES seeded minor frames (spacecraft HRPT_SC, frame numbers
+    counting, random words) as Manchester BPSK at 3 Msps after
+    HRPT_LEAD_SYMS random symbols: a carrier phase of 0.3 rad,
+    HRPT_CARRIER_HZ off, and complex noise of ``noise`` a component;
+    padded to whole DECODE_BLOCKs. Returns (words [F, 11090], iq
+    complex64)."""
+    from sdrpp_tpu_torch.decoders import hrpt
+
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1024, (HRPT_FRAMES, hrpt.WORDS_PER_FRAME)
+                         ).astype(np.int32)
+    words[:, :6] = hrpt.SYNC_WORDS
+    words[:, 6] = (HRPT_SC << 2) | (np.arange(HRPT_FRAMES) % 4)
+    bits = np.unpackbits(words.astype(">u2").view(np.uint8).reshape(-1, 2),
+                         axis=1)[:, 6:].reshape(-1)
+    raw = np.concatenate([rng.integers(0, 2, HRPT_LEAD_SYMS),
+                          hrpt.manchester_encode(bits),
+                          rng.integers(0, 2, 2000)]).astype(np.uint8)
+    sps = HRPT_FS / hrpt.SYMBOL_RATE
+    n = -(-int(len(raw) * sps) // DECODE_BLOCK) * DECODE_BLOCK
+    t = np.arange(n)
+    x = _bpsk_hold(raw, sps, n) * np.exp(
+        1j * (0.3 + 2 * np.pi * HRPT_CARRIER_HZ / HRPT_FS * t))
+    if noise:
+        x += noise * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return words, x.astype(np.complex64)
+
+
+def _f9_packet(pkt_id: int, body: bytes) -> bytes:
+    """A Falcon 9 packet as main.cpp:187-199 lays it out: length (total -
+    2) in 12 bits, the 8-byte id, 15 bytes, the body, 2 trailer bytes."""
+    total = 2 + 8 + 15 + len(body) + 2
+    return (bytes([(total - 2) >> 8 & 0b1111, (total - 2) & 0xFF])
+            + pkt_id.to_bytes(8, "big") + bytes(15) + body + bytes(2))
+
+
+def falcon9_flight(seed: int = 12):
+    """F9_FRAMES frames carrying a stream of video packets (940 random TS
+    bytes each) and GPS text packets, as 3.5714 MBaud FM (2 MHz deviation)
+    at 6 Msps after 4000 random bits, light noise; padded to whole
+    DECODE_BLOCKs. Returns (the (kind, payload) list of every packet that
+    ends inside the frames, iq complex64)."""
+    from sdrpp_tpu_torch.decoders import falcon9 as f9
+
+    rng = np.random.default_rng(seed)
+    total = F9_FRAMES * f9.DATA_LEN
+    stream, starts, want = b"", [], []
+    k = 0
+    while len(stream) < total:
+        if k % 3 == 2:
+            body = f"GPS: T+{k:05d} lat=28.{k:04d} lon=-80.{k:04d}\n".encode()
+            pkt, item = _f9_packet(f9.PKT_GPS_A, body), ("gps", body)
+        else:
+            body = bytes(rng.integers(0, 256, 940).astype(np.uint8))
+            pkt, item = _f9_packet(f9.PKT_VIDEO, body), ("video", body)
+        starts.append(len(stream))
+        stream += pkt
+        if len(stream) <= total:
+            want.append(item)
+        k += 1
+    rs = f9.FalconRS(device="cpu")
+    bits = [rng.integers(0, 2, 4000).astype(np.uint8)]
+    starts = np.asarray(starts)
+    for fr in range(F9_FRAMES):
+        lo = fr * f9.DATA_LEN
+        inside = starts[(starts >= lo) & (starts < lo + f9.DATA_LEN)]
+        ptr = int(inside[0] - lo) if len(inside) else 2047
+        counter = fr + 1
+        hdr = bytes([(counter >> 13) & 0b111111, (counter >> 5) & 0xFF,
+                     ((counter & 0b11111) << 3) | ((ptr >> 8) & 0b111),
+                     ptr & 0xFF])
+        frame = np.frombuffer(hdr + stream[lo:lo + f9.DATA_LEN], np.uint8)
+        bits += [f9.SYNC_BITS, np.unpackbits(rs.encode(frame))]
+    bits.append(rng.integers(0, 2, 500).astype(np.uint8))
+    bits = np.concatenate(bits)
+    sps = F9_FS / f9.Falcon9Decoder.BAUDRATE
+    n = -(-int(len(bits) * sps) // DECODE_BLOCK) * DECODE_BLOCK
+    ph = np.cumsum(2 * np.pi * f9.Falcon9Decoder.DEVIATION / F9_FS
+                   * _bpsk_hold(bits, sps, n))
+    x = np.exp(1j * ph) + 0.05 * (rng.standard_normal(n)
+                                  + 1j * rng.standard_normal(n))
+    return want, x.astype(np.complex64)
+
+
+def shaped_fm(dev, sym, symbolrate, fs, beta, deviation, rng, noise,
+              up: int = 1):
+    """Symbols as RRC-shaped frequency pulses through the port's
+    ``RRCInterpolator`` on ``dev`` at ``fs`` (as tests/test_m17_chain.py:
+    78-120 shapes them), the shaper x receive-RRC cascade calibrated to
+    unit symbols; with ``up`` > 1 the pulses interpolated linearly to
+    ``up`` x ``fs``; then FM at ``deviation`` and complex noise."""
+    import torch
+    from sdrpp_tpu_torch.ops.resample import RRCInterpolator
+    from sdrpp_tpu_torch.ops.taps import root_raised_cosine_rate
+
+    shaper = RRCInterpolator(symbolrate, fs, beta, 31, dtype=torch.float32,
+                             device=dev)
+    sym = np.concatenate([sym, np.zeros((-len(sym)) % shaper.block_multiple,
+                                        np.float32)]).astype(np.float32)
+    _, wave = shaper(shaper.init_state(), torch.from_numpy(sym).to(dev))
+    nimp = 64 + (-64) % shaper.block_multiple
+    imp = np.zeros(nimp, np.float32)
+    imp[32] = 1.0
+    _, imp_shaped = shaper(shaper.init_state(), torch.from_numpy(imp).to(dev))
+    rx = root_raised_cosine_rate(31, beta, symbolrate, fs)
+    gain = np.max(np.abs(np.convolve(imp_shaped.cpu().numpy()
+                                     .astype(np.float64), rx)))
+    wave = wave.cpu().numpy().astype(np.float64) / gain
+    if up > 1:
+        wave = np.interp(np.arange(len(wave) * up) / up,
+                         np.arange(len(wave)), wave)
+    iq = np.exp(1j * np.cumsum(2 * np.pi * deviation / (fs * up) * wave))
+    n = len(iq)
+    iq += noise * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return iq.astype(np.complex64)
+
+
+def m17_call(dev, nframes: int = M17_FRAMES, up: int = 1, seed: int = 13):
+    """An M17 voice call: the LSF (M17_DST to M17_SRC), then ``nframes``
+    stream frames (frame numbers from 0, 16 seeded payload bytes each),
+    after a 1200-symbol random run-in (tests/test_m17_chain.py:_modulate),
+    4FSK at 4800 baud shaped by the port's RRCInterpolator (alpha 0.5) at
+    48 kHz, 2400 Hz deviation at ``up`` x 48 kHz, light noise; at 48 kHz
+    padded to whole DECODE_BLOCKs. Returns (lsf bytes, voice [nframes]
+    bytes, iq)."""
+    from sdrpp_tpu_torch.decoders import m17
+    from sdrpp_tpu_torch.decoders import m17_frame as mf
+
+    rng = np.random.default_rng(seed)
+    lsf = m17.encode_lsf(M17_DST, M17_SRC, (1 << 0) | (2 << 1) | (5 << 7),
+                         b"H100")
+    voice = [bytes(rng.integers(0, 256, 16).astype(np.uint8))
+             for _ in range(M17_FRAMES)][:nframes]
+    blocks = [mf.encode_lsf_frame(lsf)] + [
+        mf.encode_stream_frame(lsf, fn, voice[fn]) for fn in range(nframes)]
+    sym = np.concatenate(
+        [(np.random.default_rng(99).integers(0, 2, 1200) * 2.0 - 1.0)]
+        + [mf.symbols_from_bits(b) for b in blocks] + [np.zeros(100)])
+    iq = shaped_fm(dev, sym, mf.M17_BAUDRATE, M17_FS, mf.M17_RRC_ALPHA,
+                   mf.M17_DEVIATION, rng, 0.02, up)
+    if up == 1:
+        iq = np.concatenate([iq, np.zeros((-len(iq)) % DECODE_BLOCK,
+                                          np.complex64)])
+    return lsf, voice, iq
+
+
+def kgsstv_signal(dev, seed: int = 14):
+    """KG_FRAMES seeded 7-byte frames (kg_sstv encode_frame: sync + 108
+    scrambled K = 7 symbols), after 400 random symbols, at 1200 baud shaped
+    by the port's RRCInterpolator (alpha 0.7), FM at 300 Hz deviation at
+    12 kHz, light noise. Returns (frames, iq)."""
+    from sdrpp_tpu_torch.decoders import kg_sstv as kg
+
+    rng = np.random.default_rng(seed)
+    frames = [bytes(rng.integers(0, 256, 7).astype(np.uint8))
+              for _ in range(KG_FRAMES)]
+    sym = np.concatenate([rng.integers(0, 2, 400) * 2.0 - 1.0]
+                         + [kg.KGSSTVDeframer.encode_frame(f) for f in frames]
+                         + [np.zeros(50)])
+    iq = shaped_fm(dev, sym, kg.BAUDRATE, KG_FS, kg.RRC_ALPHA, kg.DEVIATION,
+                   rng, 0.01)
+    iq = np.concatenate([iq, np.zeros((-len(iq)) % DECODE_BLOCK,
+                                      np.complex64)])
+    return frames, iq
+
+
+def kg_mask(frames):
+    """The frames with their last two bits cleared: the reference decodes
+    16 bits past the 108 symbols a frame carries (kg_sstv_dsp.h:196 vs
+    :177), so those two come out of erasures (tests/test_kg_sstv.py)."""
+    return [f[:6] + bytes([f[6] & 0b11111100]) for f in frames]
+
+
+class SymbolTap:
+    """Wraps a decoder's block (its demod or M&M): calls it, keeps each
+    block's valid symbols on the host, and, with ``events``, brackets the
+    call with CUDA events (its device time in the block's stream)."""
+
+    def __init__(self, block, events: bool = False):
+        self.block, self.events = block, events
+        self.symbols, self.ms = [], []
+
+    def __getattr__(self, name):
+        return getattr(self.block, name)
+
+    def __call__(self, state, x):
+        import torch
+
+        if self.events:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        state, (syms, valid) = self.block(state, x)
+        if self.events:
+            ev[1].record()
+            self.ms.append(ev)
+        self.symbols.append(syms[valid].cpu().numpy())
+        return state, (syms, valid)
+
+    def all(self):
+        return np.concatenate(self.symbols) if self.symbols else np.zeros(0)
+
+
+def run_decoder(dec, iq, nblocks=None, attr=None, dev="cuda"):
+    """Blocks of DECODE_BLOCK samples of ``iq`` through ``dec.process``:
+    (each block's outputs, per-block CUDA-event ms, host s, the tap on
+    ``attr``)."""
+    import torch
+
+    tap = None
+    if attr is not None:
+        tap = SymbolTap(getattr(dec, attr), events=dev != "cpu")
+        setattr(dec, attr, tap)
+    nb = len(iq) // DECODE_BLOCK if nblocks is None else nblocks
+    outs, ms, wall = [], [], []
+    for k in range(nb):
+        x = torch.from_numpy(iq[k * DECODE_BLOCK:(k + 1) * DECODE_BLOCK]
+                             ).to(dev)
+        t0 = time.perf_counter()
+        if dev != "cpu":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        outs.append(dec.process(x))
+        if dev != "cpu":
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        wall.append(time.perf_counter() - t0)
+    return outs, ms, wall, tap
+
+
+def block_report(path, fs, ms, wall, tap, rate_name):
+    """Median block ms (CUDA events, blocks 2..), the M&M's share of it,
+    the host time a block and the real-time factor against ``fs``."""
+    mm_ms = [a.elapsed_time(b) for a, b in tap.ms] if tap and tap.ms else []
+    ms = ms or [1e3 * w for w in wall]  # a CPU rehearsal has no events
+    med = float(np.median(ms[1:] if len(ms) > 1 else ms))
+    med_wall = float(np.median(wall[1:] if len(wall) > 1 else wall))
+    block_s = DECODE_BLOCK / fs
+    share = (sum(mm_ms[1:]) / sum(ms[1:]) if len(ms) > 1 and mm_ms
+             else None)
+    res = {"block": DECODE_BLOCK, "blocks": len(ms), "block_ms": ms,
+           "median_block_ms": med, "median_host_s": med_wall,
+           "realtime_x": block_s / (med / 1e3),
+           "realtime_x_host": block_s / med_wall}
+    if mm_ms:
+        res.update(mm_ms=mm_ms, mm_share=share,
+                   median_mm_ms=float(np.median(mm_ms[1:] or mm_ms)))
+    log(f"{path}: median {med:.3f} ms a {DECODE_BLOCK}-sample block (CUDA "
+        f"events, blocks 2..{len(ms)}) = {res['realtime_x']:.2f}x {rate_name}"
+        f" real time; host {med_wall:.4f} s a block = "
+        f"{res['realtime_x_host']:.2f}x" + (
+            f"; the M&M {res['median_mm_ms']:.3f} ms a block, "
+            f"{100 * share:.1f} % of the block" if mm_ms else ""))
+    return res
+
+
+def phase_hrpt(dev="cuda"):
+    """hrpt-3M: HRPT_FRAMES minor frames through HRPTDecoder on the card,
+    its loops chunked as the JAX package runs them (K = 128): every frame
+    with sync_errors 0, its spacecraft id, frame number and words exact;
+    lane_scan and mm_symbols launched. Then the loops' two routes (the
+    exact one by lane counts forced to 0) on that signal and on the same
+    frames in noise (HRPT_NOISE a component): each route's frames, sync
+    errors and wrong words printed; the exact route must be exact on
+    both, the chunked one on the clean signal (the JAX package's
+    warm-ups are short of HRPT's loop time constants, ROADMAP C)."""
+    from sdrpp_tpu_torch.decoders.hrpt import HRPTDecoder
+
+    words, iq = hrpt_pass()
+    reset_counts()
+    dec = HRPTDecoder(HRPT_FS, device=dev)
+    per_block, ms, wall, tap = run_decoder(dec, iq, attr="demod", dev=dev)
+    launches = read_counts("hrpt")
+    res = block_report("hrpt-3M", HRPT_FS, ms, wall, None, "3 Msps")
+    frames = sum(per_block, [])
+    routes = {}
+    for sig, x in (("clean", iq), ("noisy", hrpt_pass(noise=HRPT_NOISE)[1])):
+        for route in ("chunked", "exact"):
+            if (sig, route) == ("clean", "chunked"):
+                got = frames
+            else:
+                d = HRPTDecoder(HRPT_FS, device=dev)
+                if route == "exact":
+                    d.demod.agc.max_lanes = d.demod.costas.max_lanes = 1
+                got = sum(run_decoder(d, x, dev=dev)[0], [])
+            wrong = [int((f.words != w).sum()) for f, w in zip(got, words)]
+            routes[f"{sig} {route}"] = {
+                "frames": len(got), "sync_errors": [f.sync_errors
+                                                    for f in got],
+                "wrong_words": wrong}
+            log(f"hrpt-3M {sig} signal, {route} loops: {len(got)} of "
+                f"{len(words)} frames, sync errors "
+                f"{[f.sync_errors for f in got]}, wrong words {wrong}")
+            if route == "exact" or sig == "clean":
+                check_hrpt_frames(got, words, f"hrpt-3M ({sig}, {route})")
+    res.update(frames=len(frames), symbols=int(len(tap.all())),
+               launches=launches, routes=routes)
+    return res, (iq[:2 * DECODE_BLOCK], tap.symbols[:2],
+                 sum(per_block[:2], []))
+
+
+def check_hrpt_frames(frames, words, what):
+    if len(frames) != len(words):
+        raise AssertionError(f"{what}: {len(frames)} of {len(words)} frames")
+    for k, (f, w) in enumerate(zip(frames, words)):
+        if not (f.sync_errors == 0 and f.spacecraft_id == HRPT_SC
+                and f.frame_number == int(w[6]) & 3
+                and np.array_equal(f.words, w)
+                and np.array_equal(f.avhrr, w[750:750 + 10240]
+                                   .reshape(2048, 5).T)):
+            raise AssertionError(f"{what}: frame {k} came back wrong "
+                                 f"({int((f.words != w).sum())} words)")
+
+
+def phase_falcon9(dev="cuda"):
+    """falcon9-6M: F9_FRAMES frames through Falcon9Decoder on the card:
+    every packet's bytes exact, in order; mm_symbols launched; per-block
+    CUDA-event ms, the M&M's share, the real-time factor at 6 Msps."""
+    from sdrpp_tpu_torch.decoders.falcon9 import Falcon9Decoder
+
+    want, iq = falcon9_flight()
+    reset_counts()
+    dec = Falcon9Decoder(F9_FS, device=dev)
+    per_block, ms, wall, tap = run_decoder(dec, iq, attr="recov", dev=dev)
+    launches = read_counts("falcon9")
+    got = sum(per_block, [])
+    res = block_report("falcon9-6M", F9_FS, ms, wall, tap, "6 Msps")
+    kinds = {k: sum(1 for kk, _ in want if kk == k) for k in ("gps", "video")}
+    log(f"falcon9-6M: {len(got)} of {len(want)} packets ({kinds})")
+    if got != want:
+        raise AssertionError(f"falcon9-6M: {len(got)} packets, "
+                             f"{sum(a == b for a, b in zip(got, want))} of "
+                             f"{len(want)} exact")
+    res.update(packets=len(got), symbols=int(len(tap.all())),
+               launches=launches)
+    return res, (iq[:2 * DECODE_BLOCK], tap.symbols[:2],
+                 sum(per_block[:2], []))
+
+
+class M17Path:
+    """The M17 frame path on ``dev``: GFSKDemod (m17dsp.h:657's settings)
+    -> slice_4fsk -> FrameDemux -> decode_lsf_frame / LICHAssembler /
+    decode_stream_payload. process(x) returns the block's stream payloads;
+    ``lsfs`` and ``liches`` collect the LSFs of LSF frames and of LICH."""
+
+    def __init__(self, dev):
+        from sdrpp_tpu_torch.decoders import m17_frame as mf
+        from sdrpp_tpu_torch.models.digital import GFSKDemod
+
+        self.mf, self.dev = mf, dev
+        self.demod = GFSKDemod(mf.M17_BAUDRATE, M17_FS, mf.M17_DEVIATION,
+                               rrc_tap_count=31, rrc_beta=mf.M17_RRC_ALPHA,
+                               omega_gain=1e-6, mu_gain=0.01,
+                               omega_rel_limit=0.01, device=dev)
+        self.state = self.demod.init_state()
+        self.demux, self.lich = mf.FrameDemux(), mf.LICHAssembler()
+        self.lsfs, self.liches = [], []
+
+    def process(self, x):
+        mf = self.mf
+        self.state, (syms, valid) = self.demod(self.state, x)
+        payloads = []
+        for ftype, f in self.demux.process(
+                mf.slice_4fsk(syms[valid].cpu().numpy())):
+            if ftype == mf.FRAME_LSF:
+                self.lsfs.append(mf.decode_lsf_frame(f["lsf"],
+                                                     device=self.dev))
+            elif ftype == mf.FRAME_STREAM:
+                got = self.lich.process(f["lich"])
+                if got is not None:
+                    self.liches.append(got)
+                payloads.append(mf.decode_stream_payload(f["payload"],
+                                                         device=self.dev))
+        return payloads
+
+
+def phase_m17(dev="cuda"):
+    """m17-48k: an M17 call (LSF, M17_FRAMES stream frames) through the
+    port's GFSK demod and frame layer on the card: the LSF callsigns exact,
+    every stream frame's 18 payload bytes exact, LICH LSFs valid;
+    mm_symbols and both Viterbi kernels launched. With libcodec2, also
+    ``M17Decoder``: its voice sample count."""
+    from sdrpp_tpu_torch.decoders import codec2
+
+    lsf, voice, iq = m17_call(dev)
+    reset_counts()
+    m17p = M17Path(dev)
+    per_block, ms, wall, tap = run_decoder(m17p, iq, attr="demod", dev=dev)
+    launches = read_counts("m17")
+    lsfs, liches, payloads = m17p.lsfs, m17p.liches, sum(per_block, [])
+    res = block_report("m17-48k", M17_FS, ms, wall, tap, "48 kHz")
+    want = [bytes([fn >> 8, fn & 0xFF]) + v for fn, v in enumerate(voice)]
+    found = [p for p in payloads if p in want]
+    log(f"m17-48k: {len(lsfs)} LSF frames ({[(l.dst, l.src, l.valid) for l in lsfs]}), "
+        f"{len(liches)} LSFs from LICH, {len(payloads)} stream frames, "
+        f"{len(found)} of {len(want)} payloads exact")
+    if not (len(lsfs) == 1 and lsfs[0].valid and lsfs[0].dst == M17_DST
+            and lsfs[0].src == M17_SRC):
+        raise AssertionError("m17-48k: the LSF did not come back")
+    # (the sync search may also lock on a stream syncword in the random
+    # run-in: such a frame decodes to no payload that was sent)
+    if found != want:
+        raise AssertionError(f"m17-48k: {len(found)} of {len(want)} "
+                             f"payloads, {len(payloads)} stream frames")
+    if not liches or not all(l.dst == M17_DST and l.src == M17_SRC
+                             for l in liches):
+        raise AssertionError("m17-48k: the LICH LSFs did not come back")
+    res.update(payloads=len(payloads), lich_lsfs=len(liches),
+               symbols=int(len(tap.all())), launches=launches)
+    if codec2.available():
+        from sdrpp_tpu_torch.models.m17_chain import M17Decoder
+
+        dec = M17Decoder(M17_FS, device=dev)
+        out, _, _, _ = run_decoder(_M17Audio(dec), iq, dev=dev)
+        samples = sum(len(a) for a in sum(out, []))
+        log(f"m17 voice: M17Decoder on the card gave {samples} samples of "
+            f"8 kHz voice ({samples / 320:.1f} frames of 320)")
+        if samples < (len(voice) - 1) * 320:
+            raise AssertionError(f"m17 voice: {samples} samples for "
+                                 f"{len(voice)} frames")
+        res["voice_samples"] = samples
+    else:
+        log("m17 voice: libcodec2 absent")
+        res["voice_samples"] = None
+    return res, (iq[:2 * DECODE_BLOCK], tap.symbols[:2],
+                 sum(per_block[:2], []))
+
+
+class _M17Audio:
+    """M17Decoder.process as a run_decoder target: its audio blocks."""
+
+    def __init__(self, dec):
+        self.dec = dec
+
+    def process(self, x):
+        return [self.dec.process(x)[0]]
+
+
+def phase_kgsstv(dev="cuda"):
+    """kgsstv-12k: KG_FRAMES frames through KGSSTVDecoder on the card:
+    every frame exact (its last two bits masked, see kg_mask); mm_symbols
+    and both Viterbi kernels launched."""
+    from sdrpp_tpu_torch.decoders.kg_sstv import KGSSTVDecoder
+
+    frames, iq = kgsstv_signal(dev)
+    reset_counts()
+    dec = KGSSTVDecoder(KG_FS, device=dev)
+    per_block, ms, wall, tap = run_decoder(dec, iq, attr="recov", dev=dev)
+    launches = read_counts("kgsstv")
+    got = sum(per_block, [])
+    res = block_report("kgsstv-12k", KG_FS, ms, wall, tap, "12 kHz")
+    ok = sum(a == b for a, b in zip(kg_mask(got), kg_mask(frames)))
+    log(f"kgsstv-12k: {len(got)} frames, {ok} of {len(frames)} exact (last "
+        f"two bits masked)")
+    if kg_mask(got) != kg_mask(frames):
+        raise AssertionError(f"kgsstv-12k: {ok} of {len(frames)} frames")
+    res.update(frames=len(got), symbols=int(len(tap.all())),
+               launches=launches)
+    return res, (iq[:2 * DECODE_BLOCK], tap.symbols[:2],
+                 sum(per_block[:2], [])), got
+
+
+def phase_decode_cpu(first):
+    """The first two blocks of each decode path again on device="cpu":
+    equal symbol counts, symbols within METEOR_CPU_TOL (max) and
+    METEOR_CPU_RMS_TOL (RMS) from symbol METEOR_CPU_SKIP on, and equal
+    frames, packets and payloads."""
+    from sdrpp_tpu_torch.decoders.falcon9 import Falcon9Decoder
+    from sdrpp_tpu_torch.decoders.hrpt import HRPTDecoder
+    from sdrpp_tpu_torch.decoders.kg_sstv import KGSSTVDecoder
+
+    out = {}
+    for path, (iq, card_syms, card_out) in first.items():
+        t0 = time.perf_counter()
+        dec, attr = {"hrpt": (HRPTDecoder(HRPT_FS, device="cpu"), "demod"),
+                     "falcon9": (Falcon9Decoder(F9_FS, device="cpu"),
+                                 "recov"),
+                     "m17": (M17Path("cpu"), "demod"),
+                     "kgsstv": (KGSSTVDecoder(KG_FS, device="cpu"),
+                                "recov")}[path]
+        got, _, _, tap = run_decoder(dec, iq, 2, attr, dev="cpu")
+        got, want = sum(got, []), card_out
+        cpu_s = time.perf_counter() - t0
+        card, cpu = np.concatenate(card_syms), tap.all()
+        if len(card) != len(cpu):
+            raise AssertionError(f"{path} card vs cpu: {len(card)} vs "
+                                 f"{len(cpu)} symbols")
+        d = np.abs(card[METEOR_CPU_SKIP:] - cpu[METEOR_CPU_SKIP:])
+        err, rms = float(d.max()), float(np.sqrt(np.mean(d ** 2)))
+        if path == "hrpt":
+            same = len(got) == len(want) and all(
+                np.array_equal(a.words, b.words) for a, b in zip(got, want))
+        else:
+            same = got == want
+        log(f"{path} card vs cpu (2 blocks, CPU {cpu_s:.1f} s): "
+            f"{len(card)} symbols each; from symbol {METEOR_CPU_SKIP} max "
+            f"|diff| {err:.3g} (tol {METEOR_CPU_TOL}), RMS {rms:.3g} (tol "
+            f"{METEOR_CPU_RMS_TOL}); outputs {len(got)} on the CPU, "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if not (err <= METEOR_CPU_TOL and rms <= METEOR_CPU_RMS_TOL
+                and same):
+            raise AssertionError(f"{path}: card and CPU disagree")
+        out[path] = {"symbols": int(len(card)), "max_diff": err,
+                     "rms_diff": rms, "outputs": len(got), "cpu_s": cpu_s}
+    return out
+
+
+def phase_decode_paths_cli(results, dev="cuda"):
+    """The entry points: ``cli.main(["decode", mode, ...])`` on the card
+    over WAVs of the phases' signals: hrpt (3 Msps), falcon9 (6 Msps) and
+    kgsstv (12 kHz) at the decoders' own rates, their outputs equal to the
+    phases' decoded content; m17 (with libcodec2) from a 2.4 Msps WAV at
+    M17_CLI_OFFSET carrying the call's LSF and first M17_CLI_FRAMES
+    frames, so RxVFO and decimating_fir run: the LSF log line and the
+    voice samples. Each signal is made again from its seed."""
+    import logging
+
+    from sdrpp_tpu_torch import cli
+    from sdrpp_tpu_torch.decoders import codec2
+    from sdrpp_tpu_torch.io import wav
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def run(mode, iq, fs, suffix, offset=0.0):
+            src, dst = tmp / f"{mode}.wav", tmp / f"{mode}{suffix}"
+            wav.write_wav(src, int(fs), np.stack([iq.real, iq.imag], -1),
+                          "f32")
+            argv = ["decode", mode, "--source", str(src), "--out", str(dst),
+                    "--device", dev]
+            if offset:
+                argv += ["--offset", str(offset)]
+            logs = []
+            handler = logging.Handler()
+            handler.emit = lambda r: logs.append(r.getMessage())
+            logging.getLogger("sdrpp_tpu_torch").addHandler(handler)
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(argv)
+            finally:
+                logging.getLogger("sdrpp_tpu_torch").removeHandler(handler)
+            secs = time.perf_counter() - t0
+            counts = {k: f.launches for k, f in kernel_fns().items()}
+            if rc:
+                raise AssertionError(f"cli decode {mode} returned {rc}")
+            return dst, logs, secs, counts
+
+        words, iq = hrpt_pass()
+        dst, _, secs, counts = run("hrpt", iq, HRPT_FS, ".npy")
+        lines = np.load(dst)
+        want = np.stack([w[750:750 + 10240].reshape(2048, 5).T
+                         for w in words])
+        ok = lines.shape == want.shape and np.array_equal(lines, want)
+        out["hrpt"] = {"lines": int(len(lines)), "equal": ok,
+                       "seconds": secs, "launches": counts}
+        log(f"cli decode hrpt: {len(lines)} AVHRR lines, "
+            f"{'equal to' if ok else 'DIFFERENT from'} the frames' in "
+            f"{secs:.2f} s")
+        del iq
+
+        packets, iq = falcon9_flight()
+        dst, _, secs, counts = run("falcon9", iq, F9_FS, ".ts")
+        video = b"".join(p for k, p in packets if k == "video")
+        ok = dst.read_bytes() == video
+        out["falcon9"] = {"bytes": len(video), "equal": ok, "seconds": secs,
+                          "launches": counts}
+        log(f"cli decode falcon9: {len(video)} video TS bytes "
+            f"{'equal' if ok else 'DIFFERENT'} in {secs:.2f} s")
+        del iq
+
+        frames, iq = kgsstv_signal(dev)
+        dst, _, secs, counts = run("kgsstv", iq, KG_FS, ".bin")
+        data = dst.read_bytes()
+        got = [data[i:i + 7] for i in range(0, len(data), 7)]
+        ok = data == b"".join(results["kgsstv"]) and \
+            kg_mask(got) == kg_mask(frames)
+        out["kgsstv"] = {"frames": len(got), "equal": ok, "seconds": secs,
+                         "launches": counts}
+        log(f"cli decode kgsstv: {len(got)} frames, "
+            f"{'equal to' if ok else 'DIFFERENT from'} the phase's in "
+            f"{secs:.2f} s")
+
+        if codec2.available():
+            from sdrpp_tpu_torch.models.channel import RxVFO
+
+            _, _, iq = m17_call(dev, M17_CLI_FRAMES,
+                                int(M17_CLI_FS // M17_FS))
+            block = cli._auto_block(M17_CLI_FS, M17_FS, RxVFO(
+                M17_CLI_FS, M17_FS, M17_FS, M17_CLI_OFFSET,
+                device="cpu").block_multiple)
+            iq = np.concatenate([iq, np.zeros((-len(iq)) % block,
+                                              np.complex64)])
+            iq = iq * np.exp(2j * np.pi * M17_CLI_OFFSET / M17_CLI_FS
+                             * np.arange(len(iq)))
+            dst, logs, secs, counts = run("m17", iq.astype(np.complex64),
+                                          M17_CLI_FS, ".wav",
+                                          M17_CLI_OFFSET)
+            info, audio = wav.read_wav(dst)
+            line = f"M17 LSF: dst={M17_DST} src={M17_SRC}"
+            ok = (line in logs and info.samplerate == 8000
+                  and len(audio) >= (M17_CLI_FRAMES - 1) * 320
+                  and (counts["decimating_fir"] >= 1 or dev == "cpu"))
+            out["m17"] = {"samples": int(len(audio)), "lsf_line": line in logs,
+                          "equal": ok, "seconds": secs, "launches": counts}
+            log(f"cli decode m17 (2.4 Msps at {M17_CLI_OFFSET:+g} Hz): "
+                f"{len(audio)} voice samples for {M17_CLI_FRAMES} frames, "
+                f"LSF line {'logged' if line in logs else 'MISSING'}, "
+                f"decimating_fir launches {counts['decimating_fir']}, in "
+                f"{secs:.2f} s")
+        else:
+            log("cli decode m17: libcodec2 absent, not run")
+            out["m17"] = None
+    bad = [m for m, r in out.items() if r is not None and not r["equal"]]
+    if bad:
+        raise AssertionError(f"cli decode: {bad} differ from the phases")
+    return out
+
+
 def device_intervals(prof):
     """(name, start us, end us) of every device activity in a profile."""
     from torch.autograd import DeviceType
@@ -2691,6 +3596,7 @@ def profile_paths():
                               PROFILE_BLOCKS)
     del chain, state, x, y
     out.update(profile_meteor(summary, acts))
+    out.update(profile_decode(summary, acts))
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out["decimating_fir"] = []
@@ -2718,6 +3624,43 @@ def profile_paths():
         log(f"profile decimating_fir [{rows}, {n}] {dt} /{r} ({path}): kernel "
             f"{dev_us:.1f} us on the device (median of {len(kern)}), "
             f"{host_us:.1f} us of host time per call")
+    return out
+
+
+def profile_decode(summary, acts, dev="cuda"):
+    """The --profile mode's decode part: PROFILE_BLOCKS steady blocks (after
+    two) of the HRPT and Falcon 9 paths, each block uploaded inside the
+    window and decoded through ``process`` as ``cli decode`` does."""
+    import torch
+    from torch.profiler import profile
+    from sdrpp_tpu_torch.decoders.falcon9 import Falcon9Decoder
+    from sdrpp_tpu_torch.decoders.hrpt import HRPTDecoder
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    out = {}
+    for path, (make, sig) in {
+            "hrpt": (lambda: HRPTDecoder(HRPT_FS, device=dev),
+                     lambda: hrpt_pass()[1]),
+            "falcon9": (lambda: Falcon9Decoder(F9_FS, device=dev),
+                        lambda: falcon9_flight()[1])}.items():
+        iq, dec = sig(), make()
+        blocks = [iq[k * DECODE_BLOCK:(k + 1) * DECODE_BLOCK]
+                  for k in range(2 + PROFILE_BLOCKS)]
+        for x in blocks[:2]:
+            dec.process(torch.from_numpy(x).to(dev))
+        sync()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for x in blocks[2:]:
+                dec.process(torch.from_numpy(x).to(dev))
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        out[path] = summary(path, device_intervals(prof), wall_us,
+                            PROFILE_BLOCKS)
+        del iq, dec, blocks
     return out
 
 
@@ -2816,7 +3759,8 @@ def main() -> int:
     dev = torch.device("cuda")
     loops, ab_inputs = phase_kernels(dev)
     viterbi, ab_viterbi = phase_kernels_viterbi(dev)
-    kernels = (loops + phase_kernels_digital(dev) + viterbi
+    kernels = (loops + phase_kernels_digital(dev)
+               + phase_kernels_decode_mm(dev) + viterbi
                + phase_kernels_fir(dev))
 
     iq = composite(NBLOCKS * BLOCK)
@@ -2854,6 +3798,14 @@ def main() -> int:
     del radio_iq, r_audio, r_rds
     pipeline = phase_pipeline_identity()
     pipeline["timing"] = phase_pipeline_timing()
+    decode, first = {}, {}
+    decode["hrpt"], first["hrpt"] = phase_hrpt()
+    decode["falcon9"], first["falcon9"] = phase_falcon9()
+    decode["m17"], first["m17"] = phase_m17()
+    decode["kgsstv"], first["kgsstv"], kg_frames = phase_kgsstv()
+    decode["card_vs_cpu"] = phase_decode_cpu(first)
+    del first
+    decode["cli"] = phase_decode_paths_cli({"kgsstv": kg_frames})
     ab = phase_ab(meteor["block"], ab_inputs,
                   dict(ab_viterbi, pass_u8=pass_u8))
 
@@ -2863,7 +3815,9 @@ def main() -> int:
              "ssb_bank": banks["ssb_bank"]["launches"],
              "muted_bank": banks["muted_bank"]["launches"],
              "bank": bank_cli["time"]["launches"],
-             "bank_fft": bank_cli["fft"]["launches"]}
+             "bank_fft": bank_cli["fft"]["launches"],
+             **{p: decode[p]["launches"]
+                for p in ("hrpt", "falcon9", "m17", "kgsstv")}}
     rows = []
     for entry in SOURCES:
         mine = [k for k in kernels if k["entry"] == entry]
@@ -2888,7 +3842,8 @@ def main() -> int:
                     "decode_cli": decode_cli, "wideband": wide,
                     "wideband_card_vs_cpu": wide_cpu, "banks": banks,
                     "bank_cli": bank_cli, "golden_bank": golden_bank,
-                    "radio": radio, "pipeline": pipeline, "ab": ab},
+                    "radio": radio, "pipeline": pipeline,
+                    "decode": decode, "ab": ab},
                    default=float))
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -11,8 +11,8 @@ demodulators, RadioChannel, the Meteor chain), ``decoders``,
 tree of tensors with the JAX state tree's keys and shapes.
 
 The inner blocks take an explicit ``device``; the entry points
-(``Receiver``, ``MeteorLRPTDecoder``, ``ScannerBank``, the CLI) default
-to ``cuda`` and fail without a card. Every Pallas kernel of the JAX
+(``Receiver``, the decoders, ``ScannerBank``, the CLI) default to
+``cuda`` and fail without a card. Every Pallas kernel of the JAX
 package is a hand-written CUDA kernel here (``csrc/*.cu``: the loop scans,
 the M&M, the Viterbi, the decimating FIR), launched on CUDA tensors;
 on CPU tensors each wrapper runs its plain PyTorch version.

@@ -14,9 +14,14 @@ The counterparts of ``sdrpp_tpu``'s commands (sdrpp_tpu/cli.py):
   palette-mapped framebuffer with ``--framebuffer`` (cli.py:334-387);
 - ``scan``: the scanner's sweep over the front end's FFT lines, reporting
   the carriers it parked on (cli.py:612-660);
-- ``decode meteor``: the Meteor M2 LRPT decoder (cli.py:677-823): the s8
-  x84 soft-symbol file and ``<out>_vcdu.bin``; the other decode modes are
-  not ported yet.
+- ``decode``: the digital decoders (cli.py:677-846) at their own rates,
+  behind an ``RxVFO`` when the source's rate or ``--offset`` differs:
+  ``m17`` (48 kHz; voice to an 8 kHz stereo WAV, LSF callsigns logged;
+  needs the system libcodec2), ``hrpt`` (3 Msps; the AVHRR lines of every
+  minor frame to .npy), ``falcon9`` (6 Msps; video TS packets to a file,
+  GPS lines logged), ``kgsstv`` (12 kHz; the raw 7-byte frames) and
+  ``meteor`` (150 kHz; the s8 x84 soft-symbol file and
+  ``<out>_vcdu.bin``).
 
 The device loops run as the JAX loops do, through ``utils.pipeline``: a
 reader thread and pinned, side-stream uploads ahead of the device
@@ -32,6 +37,8 @@ Usage: python -m sdrpp_tpu_torch run --source test:2400000 --mode cw
        python -m sdrpp_tpu_torch scan --source capture.wav --start=-1e6 \
            --stop=1e6
        python -m sdrpp_tpu_torch decode meteor --source capture.wav
+       python -m sdrpp_tpu_torch decode hrpt --source capture.wav \
+           --offset 250e3
 """
 
 from __future__ import annotations
@@ -189,15 +196,46 @@ def _record_baseband(src, args):
     return 0
 
 
+DECODE_RATES = {"m17": 48000.0, "hrpt": 3000000.0, "falcon9": 6000000.0,
+                "kgsstv": 12000.0, "meteor": 150000.0}
+DECODE_OUTS = {"m17": "m17.wav", "hrpt": "avhrr.npy",
+               "falcon9": "falcon9_video.ts", "kgsstv": "kgsstv_out.bin",
+               "meteor": "meteor.s"}
+
+
+def _decoder(mode: str, rate: float, device):
+    if mode == "m17":
+        from .models.m17_chain import M17Decoder
+        return M17Decoder(rate, device=device, on_lsf=lambda l: log.info(
+            "M17 LSF: dst=%s src=%s", l.dst, l.src))
+    if mode == "hrpt":
+        from .decoders.hrpt import HRPTDecoder
+        return HRPTDecoder(rate, device=device)
+    if mode == "falcon9":
+        from .decoders.falcon9 import Falcon9Decoder
+        return Falcon9Decoder(rate, device=device)
+    if mode == "kgsstv":
+        from .decoders.kg_sstv import KGSSTVDecoder
+        return KGSSTVDecoder(rate, device=device)
+    from .decoders.meteor_lrpt import MeteorLRPTDecoder
+    return MeteorLRPTDecoder(rate, device=device)
+
+
 def cmd_decode(argv):
+    """Digital decoder pipelines (the reference's decoder modules): m17
+    voice, NOAA HRPT imagery, Falcon 9 telemetry, KG-STV frames, Meteor M2
+    LRPT (soft symbols + Viterbi/RS VCDU payloads)."""
     p = argparse.ArgumentParser(prog="sdrpp_tpu_torch decode")
-    p.add_argument("mode", choices=["meteor"])
+    p.add_argument("mode", choices=list(DECODE_RATES))
     p.add_argument("--source", required=True,
                    help="'test:<samplerate>' or an IQ WAV path")
     _add_device_arg(p)
     p.add_argument("--offset", type=float, default=0.0, help="VFO offset Hz")
-    p.add_argument("--out", default="meteor.s",
-                   help="soft-symbol file; VCDUs go to <out>_vcdu.bin")
+    p.add_argument("--out", default=None,
+                   help="output path (default per mode: m17 -> m17.wav, "
+                        "hrpt -> avhrr.npy, falcon9 -> falcon9_video.ts, "
+                        "kgsstv -> kgsstv_out.bin, meteor -> meteor.s with "
+                        "the VCDUs in <out>_vcdu.bin)")
     p.add_argument("--blocks", type=int, default=0, help="0 = until EOF")
     p.add_argument("--block-size", type=int, default=None,
                    help="input samples per step (default: auto, so the "
@@ -206,11 +244,10 @@ def cmd_decode(argv):
 
     from pathlib import Path
 
-    from .decoders.meteor_lrpt import MeteorLRPTDecoder
     from .models.channel import RxVFO
 
     device = torch.device(args.device)
-    target = 150000.0
+    target = DECODE_RATES[args.mode]
     src = _make_source(args.source)
     fs = src.samplerate
     vfo = None
@@ -218,7 +255,8 @@ def cmd_decode(argv):
         vfo = RxVFO(fs, target, bandwidth=target, offset=args.offset,
                     device=device)
         vstate = vfo.init_state()
-    dec = MeteorLRPTDecoder(target, device=device)
+    dec = _decoder(args.mode, target, device)
+    out_path = args.out or DECODE_OUTS[args.mode]
 
     bm = vfo.block_multiple if vfo else 1
     block = _auto_block(fs, target, bm) if args.block_size is None \
@@ -226,22 +264,74 @@ def cmd_decode(argv):
     cap = getattr(src, "num_frames", None)
     if cap is not None and cap >= bm:
         block = min(block, (cap // bm) * bm)  # short captures: one block
-    log.info("decode meteor fs=%g block=%d device=%s", fs, block, device)
+    log.info("decode %s fs=%g block=%d device=%s", args.mode, fs, block,
+             device)
 
     t0 = time.perf_counter()
-    for x in _blocks(src, block, args.blocks, device):
-        if vfo is not None:
-            vstate, x = vfo(vstate, x)
-        dec.process(x)
-    soft, vcdus, info = dec.finalize()
-    soft.tofile(args.out)
-    vpath = str(Path(args.out).with_suffix("")) + "_vcdu.bin"
-    with open(vpath, "wb") as f:
-        f.write(vcdus.tobytes())
-    log.info("%d soft bytes -> %s; %d/%d CADUs (rotation %d) -> %s in "
-             "%.3f s", len(soft), args.out, info["vcdus_ok"],
-             info["cadus_seen"], info["rotation"], vpath,
-             time.perf_counter() - t0)
+    audio_chunks, avhrr_lines, frames_bin = [], [], b""
+    video = open(out_path, "wb") if args.mode == "falcon9" else None
+    try:
+        for x in _blocks(src, block, args.blocks, device):
+            if vfo is not None:
+                vstate, x = vfo(vstate, x)
+            if args.mode == "m17":
+                audio, _ = dec.process(x)
+                audio_chunks.append(audio)
+            elif args.mode == "hrpt":
+                for f in dec.process(x):
+                    log.info("HRPT frame: sc=%d fn=%d syncErr=%d",
+                             f.spacecraft_id, f.frame_number, f.sync_errors)
+                    avhrr_lines.append(f.avhrr)
+            elif args.mode == "falcon9":
+                for kind, body in dec.process(x):
+                    if kind == "gps":
+                        log.info("GPS: %s",
+                                 body.decode(errors="replace").strip())
+                    elif kind == "video":
+                        video.write(body)
+            elif args.mode == "kgsstv":
+                for fr in dec.process(x):
+                    frames_bin += fr
+            else:
+                dec.process(x)
+    finally:
+        if video is not None:
+            video.close()
+
+    dt = time.perf_counter() - t0
+    if args.mode == "m17":
+        from .io import wav
+
+        audio = (np.concatenate(audio_chunks, axis=0) if audio_chunks
+                 else np.zeros((0, 2), np.float32))
+        wav.write_wav(out_path, 8000, audio, "i16")
+        log.info("%d voice samples -> %s in %.3f s", audio.shape[0],
+                 out_path, dt)
+    elif args.mode == "hrpt":
+        lines = (np.stack(avhrr_lines) if avhrr_lines
+                 else np.zeros((0, 5, 2048), np.int32))
+        np.save(out_path, lines)
+        log.info("%d AVHRR lines -> %s in %.3f s", lines.shape[0], out_path,
+                 dt)
+    elif args.mode == "falcon9":
+        log.info("video TS -> %s in %.3f s", out_path, dt)
+    elif args.mode == "kgsstv":
+        with open(out_path, "wb") as f:
+            f.write(frames_bin)
+        log.info("%d frame bytes -> %s in %.3f s", len(frames_bin), out_path,
+                 dt)
+    else:
+        # the reference module's surface: the s8 x84 soft-symbol file
+        # (meteor main.cpp:268-276), and the LRPT tail the framework adds
+        soft, vcdus, info = dec.finalize()
+        soft.tofile(out_path)
+        vpath = str(Path(out_path).with_suffix("")) + "_vcdu.bin"
+        with open(vpath, "wb") as f:
+            f.write(vcdus.tobytes())
+        log.info("%d soft bytes -> %s; %d/%d CADUs (rotation %d) -> %s in "
+                 "%.3f s", len(soft), out_path, info["vcdus_ok"],
+                 info["cadus_seen"], info["rotation"], vpath,
+                 time.perf_counter() - t0)
     return 0
 
 

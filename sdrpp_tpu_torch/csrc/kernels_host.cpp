@@ -26,12 +26,13 @@
 //   viterbi_acs(soft, starts, T, expected, cycles) -> dec
 //       ops/fec_kernels.viterbi_acs_batched: soft [total, R] uint8 or
 //       float32 (R <= 4), starts int32 [B], 1 <= T <= total, expected
-//       [128, R] float32, all on one CUDA device; cycles None or a
-//       contiguous int64 [B] tensor receiving each window's clock64
-//       cycles. Allocates dec [B, T] int64.
-//   viterbi_traceback(dec, cycles) -> bits
+//       [2S, R] float32 for S = 64 or 16 states, all on one CUDA device;
+//       cycles None or a contiguous int64 [B] tensor receiving each
+//       window's clock64 cycles. Allocates dec [B, T] int64.
+//   viterbi_traceback(dec, cycles[, num_states]) -> bits
 //       ops/fec_kernels.viterbi_traceback_batched: dec [B, T] int64 on a
-//       CUDA device; cycles as above. Allocates bits [B, T] uint8.
+//       CUDA device, the words of num_states = 64 (the default) or 16
+//       states; cycles as above. Allocates bits [B, T] uint8.
 //   bind_decim_fir(c64_entry, f32_entry), bind_loop_scan(entry),
 //   bind_viterbi(acs_entry, traceback_entry)
 //       the addresses of the kernel libraries' C entries (decim_fir.cu's
@@ -483,15 +484,14 @@ PyObject* bind_loop_scan(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 using ViterbiAcsEntry = int (*)(const void* soft, int soft_u8,
                                 const int* starts, const float* expected,
                                 long long* dec, int B, int T, long long total,
-                                int R, long long* cycles, void* stream);
+                                int R, int S, long long* cycles, void* stream);
 using ViterbiTracebackEntry = int (*)(const long long* dec,
-                                      unsigned char* bits, int B, int T,
+                                      unsigned char* bits, int B, int T, int S,
                                       long long* cycles, void* stream);
 
 ViterbiAcsEntry g_viterbi_acs = nullptr;
 ViterbiTracebackEntry g_viterbi_traceback = nullptr;
 
-constexpr int64_t kViterbiStates = 64;
 constexpr int64_t kViterbiMaxRate = 4;
 
 // the optional cycles argument: None, or a contiguous int64 [B] tensor on
@@ -537,10 +537,12 @@ PyObject* viterbi_acs(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
     return value_error("soft takes 1 to " + std::to_string(kViterbiMaxRate) +
                        " soft bits a step, got " + std::to_string(R));
   if (expected.scalar_type() != c10::kFloat || expected.dim() != 2 ||
-      expected.size(0) != 2 * kViterbiStates || expected.size(1) != R)
-    return value_error("expected must be float32 [" +
-                       std::to_string(2 * kViterbiStates) + ", " +
-                       std::to_string(R) + "]");
+      !(expected.size(0) == 128 || expected.size(0) == 32) ||
+      expected.size(1) != R)
+    return value_error("expected must be float32 [128, " + std::to_string(R) +
+                       "] (64 states) or [32, " + std::to_string(R) +
+                       "] (16 states)");
+  const int64_t S = expected.size(0) / 2;
   if (starts.scalar_type() != c10::kInt || starts.dim() != 1 ||
       starts.size(0) < 1)
     return value_error("starts must be a non-empty int32 vector");
@@ -576,7 +578,7 @@ PyObject* viterbi_acs(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
       sc.data_ptr(), u8 ? 1 : 0, stc.data_ptr<int32_t>(), ec.data_ptr<float>(),
       reinterpret_cast<long long*>(dec.data_ptr<int64_t>()),
       static_cast<int>(B), static_cast<int>(T), static_cast<long long>(total),
-      static_cast<int>(R), cycles, on.stream);
+      static_cast<int>(R), static_cast<int>(S), cycles, on.stream);
   if (rc != 0) {
     PyErr_Format(PyExc_RuntimeError,
                  "viterbi_acs_batched launch failed: CUDA error %d at B=%lld, "
@@ -591,16 +593,24 @@ PyObject* viterbi_acs(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
                             Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
-  if (nargs != 2 || !THPVariable_Check(args[0]))
-    return type_error("viterbi_traceback(dec, cycles) takes a tensor and a "
-                      "tensor or None");
+  if ((nargs != 2 && nargs != 3) || !THPVariable_Check(args[0]))
+    return type_error("viterbi_traceback(dec, cycles[, num_states]) takes a "
+                      "tensor, a tensor or None and an int");
   const at::Tensor& dec = THPVariable_Unpack(args[0]);
+  long long S = 64;
+  if (nargs == 3) {
+    S = PyLong_AsLongLong(args[2]);
+    if (S == -1 && PyErr_Occurred()) return nullptr;
+  }
 
-  // the check of fec_kernels._check_traceback, with its message
+  // the checks of fec_kernels._check_traceback, with its messages
   if (dec.scalar_type() != c10::kLong || dec.dim() != 2 || dec.size(0) < 1 ||
       dec.size(1) < 1)
     return value_error("dec must be int64 [B, T] decision words, B and T "
                        ">= 1");
+  if (S != 16 && S != 64)  // fec_kernels.KERNEL_STATES
+    return value_error("the Viterbi kernels take 16 or 64 states, got " +
+                       std::to_string(S));
   // the kernel's own conditions
   if (!dec.is_cuda())
     return value_error("the compiled Viterbi traceback takes CUDA tensors");
@@ -624,7 +634,7 @@ PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
   const int rc = g_viterbi_traceback(
       reinterpret_cast<const long long*>(dc.data_ptr<int64_t>()),
       bits.data_ptr<uint8_t>(), static_cast<int>(B), static_cast<int>(T),
-      cycles, on.stream);
+      static_cast<int>(S), cycles, on.stream);
   if (rc != 0) {
     PyErr_Format(PyExc_RuntimeError,
                  "viterbi_traceback_batched launch failed: CUDA error %d at "
@@ -667,8 +677,9 @@ PyMethodDef kMethods[] = {
      "viterbi_acs(soft, starts, T, expected, cycles) -> dec: check, "
      "allocate and launch the Viterbi ACS kernel on soft's current stream."},
     {"viterbi_traceback", fastcall<viterbi_traceback>(), METH_FASTCALL,
-     "viterbi_traceback(dec, cycles) -> bits: check, allocate and launch "
-     "the Viterbi traceback kernel on dec's current stream."},
+     "viterbi_traceback(dec, cycles[, num_states]) -> bits: check, "
+     "allocate and launch the Viterbi traceback kernel on dec's current "
+     "stream."},
     {"bind_viterbi", fastcall<bind_viterbi>(), METH_FASTCALL,
      "bind_viterbi(acs_entry, traceback_entry): viterbi.cu's C entries."},
     {nullptr, nullptr, 0, nullptr}};

@@ -21,6 +21,7 @@ import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
 from ..models.lrpt import LRPTDecoder, soft_s8_to_u8, symbols_to_soft_bits
+from .falcon9 import _ccsds_randomizer
 
 __all__ = ["MeteorLRPTDecoder", "encode_cadus", "ASM", "CADU_BYTES"]
 
@@ -30,21 +31,6 @@ ASM_BITS = np.unpackbits(ASM_BYTES)
 CADU_BYTES = 1024                # ASM (4) + randomized codeblock (1020)
 FRAME_DATA = 1020                # 4 interleaved RS(255,223) codewords
 VCDU_BYTES = 4 * 223             # payload per CADU
-
-
-def _ccsds_randomizer(n: int = 255) -> np.ndarray:
-    """CCSDS pseudo-randomizer: x^8+x^7+x^5+x^3+1 LFSR seeded all-ones
-    (sdrpp_tpu/decoders/falcon9.py:70)."""
-    reg = [1] * 8
-    out = np.zeros(n, np.uint8)
-    for i in range(n):
-        byte = 0
-        for _ in range(8):
-            byte = (byte << 1) | reg[0]
-            fb = reg[0] ^ reg[3] ^ reg[5] ^ reg[7]
-            reg = reg[1:] + [fb]
-        out[i] = byte
-    return out
 
 
 _RAND_1020 = np.resize(_ccsds_randomizer(255), FRAME_DATA)

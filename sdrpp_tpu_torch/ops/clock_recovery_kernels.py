@@ -6,8 +6,9 @@ recurrence for C independent streams in one launch (replaces the Pallas
 kernel ``_mm_chunk_call``, clock_recovery_pallas.py:35). On a CUDA tensor
 it launches ``csrc/mm_clock.cu`` (built on first use; a failed build
 raises) and adds one to its ``launches`` count; on a CPU tensor it runs
-``mm_symbols_plain``, a Python loop over symbols on [C] vectors, operation
-for operation the kernel's. Any other device raises. The kernel takes the
+``mm_symbols_plain``, a Python loop over each stream's symbols in numpy
+float32 scalars, operation for operation the kernel's. Any other device
+raises. The kernel takes the
 128 x 8 bank every caller builds (a CUDA call with another bank shape
 raises), reads the complex64 row as it is and writes each stream's symbol
 count, from which the wrapper builds the valid prefix mask with one
@@ -59,66 +60,77 @@ def _check(buf, offset, fstate, bank):
 
 def mm_symbols_plain(buf, offset, fstate, bank, max_syms, mu, omega_gain,
                      min_freq, max_freq):
-    """Plain PyTorch version of ``mm_symbols``."""
+    """Plain version of ``mm_symbols``: each stream's symbols in a Python
+    loop over numpy float32 scalars, one rounding a product or sum as in
+    the kernel (--fmad=false), the taps summed in order; tensors in and
+    out on ``buf``'s device. (A torch op on a one-element tensor costs
+    about five times a numpy scalar op, and the decode paths run this
+    loop over hundreds of thousands of symbols on the CPU.)"""
     n = _check(buf, offset, fstate, bank)
     C = buf.shape[0]
     P, T = bank.shape
     cplx = buf.is_complex()
     dev = buf.device
-    # [planes, C, n + T - 1] real planes: real arithmetic only, so each
-    # product and sum rounds once, as in the kernel
-    planes = (torch.stack([buf.real, buf.imag]) if cplx else buf[None]).float()
-    npl = planes.shape[0]
-    mu, og = float(np.float32(mu)), float(np.float32(omega_gain))
-    lo, hi = float(np.float32(min_freq)), float(np.float32(max_freq))
-    taps_idx = torch.arange(T, device=dev)
-    offset = offset.clone()
-    s = list(fstate.unbind(1))
-    outs = torch.zeros((npl, C, max_syms), dtype=torch.float32, device=dev)
-    valid = torch.zeros((C, max_syms), dtype=torch.bool, device=dev)
+    f32 = np.float32
+    b = buf.detach().cpu().numpy()
+    # [C, planes, n + T - 1] real planes: real arithmetic only
+    planes = np.ascontiguousarray(
+        np.stack([b.real, b.imag], 1) if cplx else b[:, None], np.float32)
+    npl = planes.shape[1]
+    bk = bank.detach().cpu().numpy().astype(np.float32)
+    mu, og, lo, hi = (f32(v) for v in (mu, omega_gain, min_freq, max_freq))
+    one, zero, fP = f32(1.0), f32(0.0), f32(P)
+    offs = offset.cpu().numpy().astype(np.int64)
+    st = fstate.detach().cpu().numpy().astype(np.float32)
+    outs = np.zeros((C, npl, max_syms), np.float32)
+    count = np.zeros(C, np.int64)
+    new_off = np.zeros(C, np.int32)
 
     def sign(v):
-        return torch.where(v > 0, 1.0, -1.0)
+        return one if v > 0 else -one
 
-    for k in range(max_syms):
-        active = offset < n
-        if not bool(active.any()):
-            break
-        phase, freq = s[0], s[1]
-        ph = torch.clamp(torch.floor(phase * float(P)).long(), 0, P - 1)
-        base = torch.clamp(offset, 0, n - 1).long()
-        idx = (base[:, None] + taps_idx).expand(npl, C, T)
-        prod = torch.gather(planes, 2, idx) * bank[ph]  # [planes, C, T]
-        acc = torch.zeros((npl, C), dtype=torch.float32, device=dev)
-        for j in range(T):
-            acc = acc + prod[..., j]
-        if cplx:
-            accr, acci = acc[0], acc[1]
-            c0r, c0i = sign(accr), sign(acci)
-            err = ((accr - s[4]) * s[6] + (acci - s[5]) * s[7]) \
-                - ((c0r - s[8]) * s[2] + (c0i - s[9]) * s[3])
-            new_err = [accr, acci, s[2], s[3], c0r, c0i, s[6], s[7]]
-        else:
-            last = s[2]
-            err = sign(last) * acc[0] - last * sign(acc[0])
-            new_err = [acc[0]]
-        err = torch.clamp(err, -1.0, 1.0)
-        new_freq = torch.clamp(freq + og * err, lo, hi)
-        new_phase = phase + new_freq + mu * err
-        delta = torch.floor(new_phase)
-        new_offset = (offset + delta.to(torch.int32)).to(torch.int32)
-        new_phase = new_phase - delta
-
-        def sel(a, b):
-            return torch.where(active, a, b)
-
-        offset = sel(new_offset, offset)
-        s = [sel(new_phase, phase), sel(new_freq, freq)] + \
-            [sel(a, b) for a, b in zip(new_err, s[2:])]
-        outs[:, :, k] = torch.where(active, acc, 0.0)
-        valid[:, k] = active
-    syms = torch.complex(outs[0], outs[1]) if cplx else outs[0]
-    return syms, valid, (offset - n).to(torch.int32), torch.stack(s, dim=1)
+    for c in range(C):
+        off = int(offs[c])
+        s = list(st[c])
+        k = 0
+        while k < max_syms and off < n:
+            phase, freq = s[0], s[1]
+            ph = min(max(int(np.floor(phase * fP)), 0), P - 1)
+            base = min(max(off, 0), n - 1)
+            prod = planes[c, :, base:base + T] * bk[ph]  # [planes, T]
+            acc = []
+            for row in prod:
+                a = zero + row[0]
+                for j in range(1, T):
+                    a = a + row[j]
+                acc.append(a)
+            if cplx:
+                accr, acci = acc
+                c0r, c0i = sign(accr), sign(acci)
+                err = ((accr - s[4]) * s[6] + (acci - s[5]) * s[7]) \
+                    - ((c0r - s[8]) * s[2] + (c0i - s[9]) * s[3])
+                s_err = [accr, acci, s[2], s[3], c0r, c0i, s[6], s[7]]
+            else:
+                last = s[2]
+                err = sign(last) * acc[0] - last * sign(acc[0])
+                s_err = acc
+            err = min(max(err, -one), one)
+            new_freq = min(max(freq + og * err, lo), hi)
+            new_phase = phase + new_freq + mu * err
+            delta = np.floor(new_phase)
+            off += int(delta)
+            s = [new_phase - delta, new_freq] + s_err
+            outs[c, :, k] = acc
+            k += 1
+        count[c] = k
+        new_off[c] = off - n
+        st[c] = s
+    o = torch.from_numpy(outs).to(dev)
+    syms = torch.complex(o[:, 0], o[:, 1]) if cplx else o[:, 0]
+    valid = (torch.arange(max_syms, device=dev)[None]
+             < torch.from_numpy(count).to(dev)[:, None])
+    return (syms, valid, torch.from_numpy(new_off).to(dev),
+            torch.from_numpy(st).to(dev))
 
 
 KERNEL_PHASES, KERNEL_TAPS = 128, 8   # the bank shape the kernel takes

@@ -4,9 +4,13 @@ The counterpart of ``sdrpp_tpu.ops.fec`` (libcorrect conventions:
 core/libcorrect/src/convolutional/*.c, reed-solomon/*.c):
 
 - ``ConvCode``: rate 1/R, order K codes. ``encode`` runs on the host
-  (numpy, bit-exact against libcorrect). ``decode_soft`` is the exact
-  full-trellis decode: the batched ACS and traceback kernels of
-  ``fec_kernels`` with one window. ``decode_soft_stream`` is the
+  (numpy, bit-exact against libcorrect). The decoders take the codes
+  whose state count the kernels take: order 7 (64 states: Meteor LRPT,
+  KG-STV) and order 5 (16 states: M17); others raise ValueError.
+  ``decode_soft`` is the exact full-trellis decode: the batched ACS and
+  traceback kernels of ``fec_kernels`` with one window, and
+  ``decode_soft_np`` the same with host arrays in and out (the JAX
+  package's host-facing decode). ``decode_soft_stream`` is the
   chunk-parallel truncated decode of long streams (L-step windows with W
   steps of warm-up and warm-down on each side, batched through the same
   kernels); it stays on the device and only packed bytes come back.
@@ -100,9 +104,10 @@ class ConvCode:
         array whose values are, as the JAX package ships them,
         sdrpp_tpu/ops/fec.py:267-276), else float32. uint8 takes the
         kernel's fast form and a 4x smaller upload; both decode alike."""
-        if self.num_states != 64:
-            raise ValueError("the Viterbi kernels decode the 64-state "
-                             "(order 7) codes")
+        if self.num_states not in (16, 64):
+            raise ValueError(f"the Viterbi kernels decode the 16-state "
+                             f"(order 5) and 64-state (order 7) codes, not "
+                             f"{self.num_states} states")
         if isinstance(soft_bits, torch.Tensor):
             soft = soft_bits
         else:
@@ -131,7 +136,14 @@ class ConvCode:
         total = soft.shape[0]
         start = torch.zeros(1, dtype=torch.int32, device=self.device)
         words = viterbi_acs_batched(soft, start, total, self._expected)
-        return viterbi_traceback_batched(words)[0, :total - flush_bits]
+        return viterbi_traceback_batched(
+            words, num_states=self.num_states)[0, :total - flush_bits]
+
+    def decode_soft_np(self, soft_bits, flush_bits: int | None = None
+                       ) -> np.ndarray:
+        """``decode_soft`` with the bits back on the host: uint8
+        [T - flush_bits] (sdrpp_tpu/ops/fec.py:186)."""
+        return self.decode_soft(soft_bits, flush_bits).cpu().numpy()
 
     def decode_soft_stream(self, soft_bits, chunk_bits: int = 4096,
                            overlap_bits: int = 96) -> np.ndarray:
@@ -159,7 +171,8 @@ class ConvCode:
             # the kernels read each window where it lies in the stream
             words = viterbi_acs_batched(soft, starts[g:g + self._STREAM_BATCH],
                                         t_w, self._expected)
-            bits = viterbi_traceback_batched(words)
+            bits = viterbi_traceback_batched(words,
+                                             num_states=self.num_states)
             # interior of chunk c is [offs[c], offs[c] + L) of its window;
             # the last chunk's tail runs past t_w (clamped: those positions
             # lie beyond ``total`` and are dropped)

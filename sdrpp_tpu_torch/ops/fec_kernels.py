@@ -1,21 +1,25 @@
 """The batched Viterbi kernels: add-compare-select and traceback.
 
 The counterpart of ``sdrpp_tpu.ops.fec_pallas``, for the 64-state (K = 7)
-codes. Decisions are packed: one int64 word a trellis step, bit n the
-decision of state n (1 = it took the predecessor (n >> 1) + 32);
-``unpack_decisions`` gives the JAX kernels' [..., 64] int8 form and
-``pack_decisions`` the reverse. Two entry points:
+and 16-state (K = 5) codes: S, the state count, is ``expected``'s rows / 2
+for the ACS and ``num_states`` for the traceback, and any other count
+raises ValueError before a launch. Decisions are packed: one int64 word a
+trellis step, bit n the decision of state n (1 = it took the predecessor
+(n >> 1) + S / 2), bits >= S zero; ``unpack_decisions`` gives the JAX
+kernels' [..., S] int8 form and ``pack_decisions`` the reverse. Two entry
+points:
 
 - ``viterbi_acs_batched``       a [total, R] soft-bit stream (uint8 or
-                                float32), int32 window starts [B] and a
-                                window length T -> [B, T] int64 words
+                                float32), int32 window starts [B], a
+                                window length T and the [2S, R] expected
+                                outputs -> [B, T] int64 words
                                 (replaces ``viterbi_acs_pallas_batched``,
                                 fec_pallas.py:51, which takes the gathered
                                 [B, T, R] windows, and with B = 1, start 0
                                 and T = total ``viterbi_acs_pallas``,
                                 fec_pallas.py:221);
-- ``viterbi_traceback_batched`` [B, T] words -> [B, T] uint8 bits, walking
-                                back from state 0 (replaces
+- ``viterbi_traceback_batched`` [B, T] words of S states -> [B, T] uint8
+                                bits, walking back from state 0 (replaces
                                 ``viterbi_traceback_pallas_batched``,
                                 fec_pallas.py:132).
 
@@ -24,10 +28,20 @@ path, ``viterbi_acs`` / ``viterbi_traceback`` of ``csrc/kernels_host.cpp``,
 which checks the arguments, allocates the output and launches in one C++
 call (both built on first use; a failed build raises), and adds one to its
 ``launches`` count; on a CPU tensor each runs its plain PyTorch version, a
-Python loop over trellis steps on [B, 64] tensors that takes the same
+Python loop over trellis steps on [B, S] tensors that takes the same
 arguments and returns the same words and bits. Any other device raises.
 On CUDA, ``cycles`` (an int64 [B] tensor, or None) receives each window's
 clock64 cycles.
+
+The kernel (csrc/viterbi.cu) keeps two states a lane for S = 64 and one
+state a lane, on lanes 0-15 with a copy on lanes 16-31, for S = 16. On
+uint8 soft bits it runs the reference form (the minimum subtracted every
+step) for a window's first K - 1 steps (6 for S = 64, 4 for S = 16), while
+states at the initial 1e9 remain; from then on every metric is an integer
+within (K - 1) * R * 255 of the minimum and the kernel subtracts the
+minimum only every 4096 steps, which keeps every metric below
+(4096 + K - 1) * R * 255 < 2^24, where float32 adds of integers are
+exact: the decisions equal the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -42,27 +56,36 @@ __all__ = ["viterbi_acs_batched", "viterbi_traceback_batched",
            "viterbi_acs_batched_plain", "viterbi_traceback_batched_plain",
            "pack_decisions", "unpack_decisions"]
 
-KERNEL_STATES = 64
+KERNEL_STATES = (16, 64)
 KERNEL_MAX_RATE = 4
 
 
-def _bit_weights(device) -> torch.Tensor:
-    """[64] int64: 1 << n (bit 63 as int64's sign bit)."""
-    n = torch.arange(KERNEL_STATES, device=device)
-    return torch.ones(KERNEL_STATES, dtype=torch.int64, device=device) << n
+def _check_states(num_states):
+    if num_states not in KERNEL_STATES:
+        raise ValueError(f"the Viterbi kernels take 16 or 64 states, got "
+                         f"{num_states}")
+
+
+def _bit_weights(num_states, device) -> torch.Tensor:
+    """[S] int64: 1 << n (bit 63 as int64's sign bit)."""
+    n = torch.arange(num_states, device=device)
+    return torch.ones(num_states, dtype=torch.int64, device=device) << n
 
 
 def pack_decisions(dec: torch.Tensor) -> torch.Tensor:
-    """[..., 64] decisions (nonzero = took (n >> 1) + 32) -> [...] int64
-    words, bit n the decision of state n."""
-    if dec.shape[-1] != KERNEL_STATES:
-        raise ValueError(f"decisions must be [..., {KERNEL_STATES}]")
-    return ((dec != 0).long() * _bit_weights(dec.device)).sum(-1)
+    """[..., S] decisions (nonzero = took (n >> 1) + S / 2), S = 16 or 64
+    -> [...] int64 words, bit n the decision of state n."""
+    if dec.shape[-1] not in KERNEL_STATES:
+        raise ValueError("decisions must be [..., 16] or [..., 64]")
+    return ((dec != 0).long() * _bit_weights(dec.shape[-1], dec.device)
+            ).sum(-1)
 
 
-def unpack_decisions(words: torch.Tensor) -> torch.Tensor:
-    """[...] int64 words -> [..., 64] int8 decisions."""
-    n = torch.arange(KERNEL_STATES, device=words.device)
+def unpack_decisions(words: torch.Tensor, num_states: int = 64
+                     ) -> torch.Tensor:
+    """[...] int64 words -> [..., num_states] int8 decisions."""
+    _check_states(num_states)
+    n = torch.arange(num_states, device=words.device)
     return ((words[..., None] >> n) & 1).to(torch.int8)
 
 
@@ -75,10 +98,10 @@ def _check_acs(soft, starts, T, expected):
     if not 1 <= R <= KERNEL_MAX_RATE:
         raise ValueError(f"soft takes 1 to {KERNEL_MAX_RATE} soft bits a "
                          f"step, got {R}")
-    if (expected.dtype != torch.float32
-            or list(expected.shape) != [2 * KERNEL_STATES, R]):
-        raise ValueError(f"expected must be float32 [{2 * KERNEL_STATES}, "
-                         f"{R}]")
+    if (expected.dtype != torch.float32 or expected.dim() != 2
+            or expected.shape[0] not in (128, 32) or expected.shape[1] != R):
+        raise ValueError(f"expected must be float32 [128, {R}] (64 states) "
+                         f"or [32, {R}] (16 states)")
     if starts.dtype != torch.int32 or starts.dim() != 1 or starts.shape[0] < 1:
         raise ValueError("starts must be a non-empty int32 vector")
     if expected.device != soft.device or starts.device != soft.device:
@@ -89,11 +112,12 @@ def _check_acs(soft, starts, T, expected):
     return total, R, T
 
 
-def _check_traceback(dec):
+def _check_traceback(dec, num_states=64):
     if (dec.dtype != torch.int64 or dec.dim() != 2 or dec.shape[0] < 1
             or dec.shape[1] < 1):
         raise ValueError("dec must be int64 [B, T] decision words, B and T "
                          ">= 1")
+    _check_states(num_states)
 
 
 def viterbi_acs_batched_plain(soft, starts, T, expected):
@@ -103,10 +127,10 @@ def viterbi_acs_batched_plain(soft, starts, T, expected):
     dev = soft.device
     st = starts.long().clamp(0, total - T)
     windows = soft[st[:, None] + torch.arange(T, device=dev)].float()
-    B, S = windows.shape[0], KERNEL_STATES
+    B, S = windows.shape[0], expected.shape[0] // 2
     n = torch.arange(S, device=dev)
     p0, p1 = n >> 1, (n >> 1) + S // 2
-    weights = _bit_weights(dev)
+    weights = _bit_weights(S, dev)
     m = torch.full((B, S), 1e9, dtype=torch.float32, device=dev)
     m[:, 0] = 0.0
     words = torch.empty((B, T), dtype=torch.int64, device=dev)
@@ -144,11 +168,12 @@ def viterbi_acs_batched(soft, starts, T, expected, cycles=None):
     """Add-compare-select over B windows of ``T`` steps of the soft-bit
     stream ``soft`` [total, R] (uint8 or float32; 0 = strong 0, 255 =
     strong 1), window b starting at step ``starts[b]`` (int32, clamped to
-    [0, total - T]). ``expected`` [128, R] float32 holds each shift
-    register's output bits times 255. Returns [B, T] int64 decision words.
-    Metrics start at 0 for state 0 and 1e9 elsewhere. On uint8 soft bits
-    with ``expected`` integral in [0, 255] the kernel drops the per-step
-    minimum after a window's first 6 steps (exactly: csrc/viterbi.cu)."""
+    [0, total - T]). ``expected`` [2S, R] float32 holds each shift
+    register's output bits times 255, S = 64 or 16 states. Returns [B, T]
+    int64 decision words. Metrics start at 0 for state 0 and 1e9
+    elsewhere. On uint8 soft bits with ``expected`` integral in [0, 255]
+    the kernel drops the per-step minimum after a window's first K - 1
+    steps (exactly: csrc/viterbi.cu)."""
     if soft.is_cuda:
         words = (_host or _bind_host())[0](soft, starts, T, expected, cycles)
         viterbi_acs_batched.launches += 1
@@ -163,29 +188,29 @@ def viterbi_acs_batched(soft, starts, T, expected, cycles=None):
 viterbi_acs_batched.launches = 0
 
 
-def viterbi_traceback_batched_plain(dec):
+def viterbi_traceback_batched_plain(dec, num_states=64):
     """Plain PyTorch version of ``viterbi_traceback_batched``."""
-    _check_traceback(dec)
+    _check_traceback(dec, num_states)
     B, T = dec.shape
     s = torch.zeros(B, dtype=torch.int64, device=dec.device)
     bits = torch.empty((B, T), dtype=torch.uint8, device=dec.device)
     for t in range(T - 1, -1, -1):
         bits[:, t] = (s & 1).to(torch.uint8)
-        s = (s >> 1) + ((dec[:, t] >> s) & 1) * (KERNEL_STATES // 2)
+        s = (s >> 1) + ((dec[:, t] >> s) & 1) * (num_states // 2)
     return bits
 
 
-def viterbi_traceback_batched(dec, cycles=None):
+def viterbi_traceback_batched(dec, cycles=None, num_states=64):
     """Survivor walk of B windows from state 0 at the last step: ``dec``
-    [B, T] int64 decision words -> [B, T] uint8, the low bit of each
-    step's state."""
+    [B, T] int64 decision words of ``num_states`` (64 or 16) states ->
+    [B, T] uint8, the low bit of each step's state."""
     if dec.is_cuda:
-        bits = (_host or _bind_host())[1](dec, cycles)
+        bits = (_host or _bind_host())[1](dec, cycles, num_states)
         viterbi_traceback_batched.launches += 1
         return bits
-    _check_traceback(dec)
+    _check_traceback(dec, num_states)
     if dec.is_cpu:
-        return viterbi_traceback_batched_plain(dec)
+        return viterbi_traceback_batched_plain(dec, num_states)
     raise RuntimeError(f"viterbi_traceback_batched runs on CUDA or CPU "
                        f"tensors, not {dec.device}")
 

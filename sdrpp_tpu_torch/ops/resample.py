@@ -33,7 +33,7 @@ from ..utils.blocks import Block
 from .fir import _real_weight, decimating_fir_correlate, fir_init_tail, \
     strided_correlate
 from .fir_kernels import decimating_fir
-from .taps import low_pass
+from .taps import low_pass, root_raised_cosine_rate
 
 __all__ = [
     "decim_plan",
@@ -41,6 +41,7 @@ __all__ = [
     "PowerDecimator",
     "PolyphaseResampler",
     "RationalResampler",
+    "RRCInterpolator",
     "plan_rational_resampler",
 ]
 
@@ -260,3 +261,39 @@ class RationalResampler(Block):
         else:
             resamp_state = ()
         return {"pre": pre_state, "resamp": resamp_state}, x
+
+
+class RRCInterpolator(Block):
+    """RRC-filtered symbol interpolator (transmit pulse shaping; M17 uses
+    it), the counterpart of the JAX package's (resample.py:465).
+
+    Reference: core/src/dsp/multirate/rrc_interpolator.h:15-90, a
+    polyphase resampler whose bank is the root-raised-cosine response
+    sampled at interp x the symbol rate (gcd-derived interp/decim). Input:
+    a symbol-rate stream; output: the sample-rate RRC-shaped waveform.
+    Block length must be a multiple of ``decim``.
+    """
+
+    def __init__(self, symbolrate: float, samplerate: float, rrc_beta: float,
+                 rrc_tap_count: int, dtype=torch.complex64, lead_shape=(), *,
+                 device):
+        in_sr = int(round(symbolrate))
+        out_sr = int(round(samplerate))
+        g = np.gcd(in_sr, out_sr)
+        interp = out_sr // g
+        decim = in_sr // g
+        taps = root_raised_cosine_rate(rrc_tap_count * interp, rrc_beta,
+                                       symbolrate, symbolrate * interp)
+        self.interp, self.decim = interp, decim
+        self.resamp = PolyphaseResampler(interp, decim, taps, dtype=dtype,
+                                         lead_shape=lead_shape, device=device)
+        self.block_multiple = decim
+
+    def out_count(self, n: int) -> int:
+        return self.resamp.out_count(n)
+
+    def init_state(self):
+        return self.resamp.init_state()
+
+    def __call__(self, state, x):
+        return self.resamp(state, x)

@@ -258,14 +258,16 @@ class FastAGC(Block):
 
 class Costas(Block):
     """Costas loop of order 2/4/8 (reference: core/src/dsp/loop/costas.h:6-46):
-    out[i] = in[i]*phasor(-phase); advance(error(out[i])). The recurrence
-    runs in the loop-scan kernel (``scans_kernels.costas_phases``), which
-    emits the phases; the rotation is applied here, vectorized."""
+    out[i] = in[i]*phasor(-phase); advance(error(out[i])), or "meteor",
+    the QPSK loop with Meteor M2-x's broken-modulation error
+    (meteor_costas.h:36-56). The recurrence runs in the loop-scan kernel
+    (``scans_kernels.costas_phases``), which emits the phases; the
+    rotation is applied here, vectorized."""
 
     def __init__(self, order: int, bandwidth: float, init_phase: float = 0.0,
                  init_freq: float = 0.0, min_freq: float = -float(FL_PI),
                  max_freq: float = float(FL_PI), lead_shape=(), *, device):
-        if order not in (2, 4, 8):
+        if order not in (2, 4, 8, "meteor"):
             raise ValueError(f"invalid costas order {order}")
         self.order = order
         self.alpha, self.beta = _critically_damped(bandwidth)

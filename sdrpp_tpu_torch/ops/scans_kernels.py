@@ -763,9 +763,18 @@ class FastAGCChunked(FastAGC):
 
 
 class CostasChunked(Costas):
-    """Costas loop (order 2/4/8), chunk-parallel for long blocks with seam
-    rotation alignment, exact otherwise. State grows ``hist_re`` /
-    ``hist_im``, the last ``warmup`` input samples."""
+    """Costas loop of order 2/4/8 or "meteor" (the QPSK loop with Meteor
+    M2-x's "broken modulation" error: the distance to the nearest of the
+    four ``METEOR_PHASES``, scaled by amplitude; reference
+    meteor_costas.h:36-56), chunk-parallel for long blocks and exact
+    otherwise; both run the loop-scan kernel's Costas body. The counterpart
+    of the JAX package's ``CostasChunked`` (scans_pallas.py:980) and
+    ``MeteorCostas`` (models/digital.py:113) in one block. Orders 2/4/8
+    align the lanes' seams by rotation; "meteor" has a unique lock point
+    and needs none. State grows ``hist_re`` / ``hist_im``, the last
+    ``warmup`` input samples, seeded with a locked constellation point
+    (offset 0 for order 2, pi/order for 4 and 8, METEOR_PHASES[0] for
+    "meteor") riding the configured (init_phase, init_freq) carrier."""
 
     def __init__(self, *args, warmup: int = 512, max_lanes: int = 512,
                  **kwargs):
@@ -780,7 +789,9 @@ class CostasChunked(Costas):
         pi, two_pi = float(FL_PI), float(_TWO_PI)
         t = torch.arange(self.warmup, dtype=torch.float32,
                          device=self.device) - float(self.warmup)
-        off = 0.0 if self.order == 2 else float(FL_PI / self.order)
+        off = (float(np.float32(METEOR_PHASES[0])) if self.order == "meteor"
+               else 0.0 if self.order == 2
+               else float(np.float32(FL_PI / self.order)))
         ramp = float(self.init_phase) + float(self.init_freq) * t + off
         ramp = torch.remainder(ramp + pi, two_pi) - pi
         shape = (*self.lead_shape, self.warmup)
@@ -791,18 +802,24 @@ class CostasChunked(Costas):
     def __call__(self, state, x):
         k = _chunk_lanes_for(x.shape[-1], self.warmup, self.max_lanes,
                              _lanes_of(x))
+
         if k < 1:
-            sub = {"phase": state["phase"], "freq": state["freq"]}
-            sub, y = Costas.__call__(self, sub, x)
+            out_phases, phase_f, freq_f = costas_phases(
+                x.real, x.imag, state["phase"], state["freq"], self.order,
+                self.alpha, self.beta, self.min_freq, self.max_freq)
+        else:
+            s1, s2 = costas_streams(x.real, x.imag, self.order)
+            h1, h2 = costas_streams(state["hist_re"], state["hist_im"],
+                                    self.order)
+            out_phases, _, _, phase_f, freq_f = costas_phases_chunked(
+                s1, s2, h1, h2, state["phase"], state["freq"], self.order,
+                self.alpha, self.beta, self.min_freq, self.max_freq,
+                lanes_k=k)
 
-            def keep(h, s):
-                return torch.cat([h, s.float()], dim=-1)[..., -self.warmup:]
+        def keep(h, s):
+            return torch.cat([h, s.float()], dim=-1)[..., -self.warmup:]
 
-            return {**sub, "hist_re": keep(state["hist_re"], x.real),
-                    "hist_im": keep(state["hist_im"], x.imag)}, y
-        out_phases, hre, him, phase_f, freq_f = costas_phases_chunked(
-            x.real, x.imag, state["hist_re"], state["hist_im"],
-            state["phase"], state["freq"], self.order, self.alpha,
-            self.beta, self.min_freq, self.max_freq, lanes_k=k)
-        return {"phase": phase_f, "freq": freq_f, "hist_re": hre,
-                "hist_im": him}, rotate_back(x, out_phases)
+        return {"phase": phase_f, "freq": freq_f,
+                "hist_re": keep(state["hist_re"], x.real),
+                "hist_im": keep(state["hist_im"], x.imag)}, \
+            rotate_back(x, out_phases)

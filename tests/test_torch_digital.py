@@ -1,5 +1,6 @@
 """Port parity for the Meteor demodulator's loops: FastAGC, Costas, the M&M
-clock recovery, MeteorCostas and MeteorDemod.
+clock recovery, the JAX MeteorCostas (the port's CostasChunked with order
+"meteor" or 4 and a 1024-sample warm-up) and MeteorDemod.
 
 The JAX side runs as the JAX package's own tests run it on the CPU: the
 Pallas loop kernels in interpret mode (``interpret=True``), the exact
@@ -49,7 +50,7 @@ from sdrpp_tpu.ops import scans as jscans
 from sdrpp_tpu.ops import scans_pallas as SP
 from sdrpp_tpu.ops.clock_recovery import MMClockRecovery as JaxMM
 from sdrpp_tpu.ops.clock_recovery_pallas import MMClockRecoveryPallas
-from sdrpp_tpu_torch.models.digital import MeteorCostas, MeteorDemod
+from sdrpp_tpu_torch.models.digital import MeteorDemod
 from sdrpp_tpu_torch.ops import scans_kernels as K
 from sdrpp_tpu_torch.ops.clock_recovery import MMClockRecovery
 from sdrpp_tpu_torch.ops.clock_recovery_kernels import (MMClockRecoveryChunked,
@@ -340,7 +341,8 @@ def test_meteor_costas_matches_jax_over_blocks(broken):
     pts = K.METEOR_PHASES if broken else None
     x = _psk(4000, 4, 40, phases=pts)
     j = jdigital.MeteorCostas(0.01, broken_modulation=broken)
-    t = MeteorCostas(0.01, broken_modulation=broken, device="cpu")
+    t = K.CostasChunked("meteor" if broken else 4, 0.01, warmup=1024,
+                        device="cpu")
     js, ts = j.init_state(), t.init_state()
     step = jax.jit(j)
     for blk in (x[:2000], x[2000:]):
@@ -355,11 +357,12 @@ def test_meteor_costas_matches_jax_over_blocks(broken):
 
 
 def test_meteor_costas_chunked_matches_pallas_chunked():
-    """The port's MeteorCostas takes its chunked branch at 66000 samples
-    (K = 64) on every device; the JAX package takes it on the TPU only, so
-    it is held to ``costas_phases_chunked(..., interpret=True)``."""
+    """The port's Costas (MeteorCostas's settings: order 4, warm-up 1024)
+    takes its chunked branch at 66000 samples (K = 64) on every device; the
+    JAX package takes it on the TPU only, so it is held to
+    ``costas_phases_chunked(..., interpret=True)``."""
     x = _psk(66000, 4, 41)
-    t = MeteorCostas(0.005, device="cpu")
+    t = K.CostasChunked(4, 0.005, warmup=1024, device="cpu")
     j = jdigital.MeteorCostas(0.005)
     st0 = t.init_state()
     _, ty = t(st0, _t(x))
