@@ -5,8 +5,10 @@
 
 Drives the port's main paths on the card (the analog receive path, the
 Meteor LRPT decode path, the /256 wideband front end with its 64-channel
-bank, the scanner bank, and the HRPT, Falcon 9, M17 and KG-STV decode
-paths) and fails (non-zero exit, no result line) if any phase fails:
+bank, the scanner bank, the HRPT, Falcon 9, M17 and KG-STV decode paths,
+the FEC library's K = 9 and K = 6 decodes, RS erasures and the rest of
+the DSP library) and fails (non-zero exit, no result line) if any phase
+fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu and
@@ -48,9 +50,18 @@ paths) and fails (non-zero exit, no result line) if any phase fails:
    M17's frames, the LSF's [1, 244, 2] and the payload's [1, 148, 2] uint8
    with erasures, and all-128 ties; the 64-state KG-STV frame [1, 62, 2]
    float32; each held bit-exact on its first 8 windows, with both
-   walkers' clock64 cycles a step; wrong arguments, and a 32-state code
-   through ConvCode, the ACS and the traceback, must raise ValueError and
-   launch nothing), and
+   walkers' clock64 cycles a step; wrong arguments and malformed state
+   counts must raise ValueError and launch nothing, and a 32-state code
+   decodes through ConvCode); every order 2 to 15, S = 2 ... 16384, at R
+   = 2 on uint8 and float32 soft bits over FEC_T steps, R = 3 and 6 at S =
+   256 and R = 5 at S = 16, uint8 windows of FEC_RENORM_T steps (two
+   renormalisations of the fast form) at S = 128 ... 16384 and at R = 6,
+   a [64, 4288] windowed launch at S = 32, and
+   the fec paths' launches: k9's [1, 2097162, 2], held on its first and
+   last FEC_HELD steps, and k6's [513, 4288, 2] windows (the general
+   kernels, S > 64 or R > 4, as the rows ``viterbi_acs_general`` /
+   ``viterbi_traceback_general``), each bit-exact with both walkers'
+   cycles a step, and
    ``decimating_fir`` (each case's time a call back to back, its device
    time alone behind a sleep kernel, and its host time a call) at the
    first r >= 8 stage of each path (wideband
@@ -159,7 +170,22 @@ paths) and fails (non-zero exit, no result line) if any phase fails:
     over WAVs of the signals (m17, with libcodec2, from a 2.4 Msps WAV at
     M17_CLI_OFFSET through RxVFO and decimating_fir), each output equal to
     the phase's content;
-19. when the parent commit is unpacked at _scratch/parent (``git archive
+19. the fec paths: fec_k9, ``ConvCode(2, 9, CONV_R12_9, device="cuda")``
+    (256 states) on FEC_MSG_BYTES of seeded message, 2,097,162 trellis
+    steps of uint8 soft bits (Es/N0 6.5 dB), through ``decode_soft_np``
+    and ``decode_soft_stream`` (the exact decode above 64 states); fec_k6,
+    ``ConvCode(2, 6, CONV_R12_6)`` (32 states) through
+    ``decode_soft_stream``'s windows; each decode must return the message
+    exactly (fec_k9 through both entries' general kernels); RS
+    erasures: RS_BLOCKS CCSDS blocks with every (f, e) at 2e + f = 32 and
+    one beyond it, card equal to CPU; the rest of the DSP library at 2.4
+    Msps in two DSP_BLOCK-sample blocks, card against CPU:
+    ``DecimatingFIR`` /8 (real taps: the decimating-FIR kernel; complex
+    taps), the complex-tap ``PolyphaseResampler``, ``CarrierTrackingPLL``
+    on a pilot DSP_PILOT_HZ off (single_scan), and
+    ``FFTPowerDecimator(256, fft_len=2^20)`` against ``PowerDecimator`` on
+    the wideband stream, both timed;
+20. when the parent commit is unpacked at _scratch/parent (``git archive
     <parent> | tar -x -C _scratch/parent``): an A/B of the meteor block
     time, decimating_fir at every FIR_CASES shape, the loop scans at
     the kernel phase's path cases (the same bodies and inputs, contiguous
@@ -242,13 +268,21 @@ SOURCES = {"lane_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "mm_symbols": "sdrpp_tpu_torch/csrc/mm_clock.cu",
            "viterbi_acs_batched": "sdrpp_tpu_torch/csrc/viterbi.cu",
            "viterbi_traceback_batched": "sdrpp_tpu_torch/csrc/viterbi.cu",
+           "viterbi_acs_general": "sdrpp_tpu_torch/csrc/viterbi.cu",
+           "viterbi_traceback_general": "sdrpp_tpu_torch/csrc/viterbi.cu",
            "decimating_fir": "sdrpp_tpu_torch/csrc/decim_fir.cu"}
 REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
             "single_scan": "sdrpp_tpu/ops/scans_pallas.py:68",
             "mm_symbols": "sdrpp_tpu/ops/clock_recovery_pallas.py:35",
             "viterbi_acs_batched": "sdrpp_tpu/ops/fec_pallas.py:51",
             "viterbi_traceback_batched": "sdrpp_tpu/ops/fec_pallas.py:132",
+            "viterbi_acs_general": "sdrpp_tpu/ops/fec_pallas.py:221",
+            "viterbi_traceback_general": "sdrpp_tpu/ops/fec_pallas.py:132",
             "decimating_fir": "sdrpp_tpu/ops/fir_pallas.py:74"}
+# rows counted by a wrapper's second count: the general kernels' launches
+# (S > 64, or R > 4 for the ACS), as the host path reports them
+GENERAL = {"viterbi_acs_general": "viterbi_acs_batched",
+           "viterbi_traceback_general": "viterbi_traceback_batched"}
 # the paths each kernel must be launched on
 REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "radio": ("lane_scan", "single_scan", "mm_symbols",
@@ -265,7 +299,11 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "m17": ("mm_symbols", "viterbi_acs_batched",
                     "viterbi_traceback_batched"),
             "kgsstv": ("mm_symbols", "viterbi_acs_batched",
-                       "viterbi_traceback_batched")}
+                       "viterbi_traceback_batched"),
+            "fec_k9": ("viterbi_acs_batched", "viterbi_traceback_batched",
+                       "viterbi_acs_general", "viterbi_traceback_general"),
+            "fec_k6": ("viterbi_acs_batched", "viterbi_traceback_batched"),
+            "dsp_lib": ("lane_scan", "single_scan", "decimating_fir")}
 # H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and float32
 # operations/s outside the tensor cores; a case's bound is the larger of
 # its bytes and its operations over these
@@ -387,6 +425,27 @@ M17_CLI_OFFSET = 250e3
 M17_CLI_FRAMES = 24        # one 3,276,800-sample cli block
 KG_FS = 12000.0
 KG_FRAMES = 200            # 28.5 s of frames, 2 blocks
+# the fec paths: 262,144 message bytes are 2,097,162 trellis steps of a
+# rate-1/2 code, 4.2 M soft bits, 29 s of a 72 ksym/s QPSK downlink's
+# coded bits; soft bits at 0 / 255 plus N(0, 60) noise: Es/N0 =
+# 20 log10(127.5 / 60) = 6.5 dB, where K = 9 and K = 6 correct every error
+FEC_MSG_BYTES = 262144
+FEC_SIGMA = 60.0
+FEC_T = 2048               # steps of each off-path general-kernel case
+# steps of the off-path fast-form cases and of the k9 path case held (its
+# first / last): past two of the general ACS's renormalisations (csrc/
+# viterbi.cu, every VIT_RENORM steps)
+FEC_RENORM_T = 2 * VIT_RENORM + 256
+FEC_HELD = FEC_RENORM_T
+FEC_WINDOWS = 64           # the off-path 32-state windowed launch
+RS_BLOCKS = 1024
+DSP_BLOCK = 654400         # the receive path's block at 2.4 Msps
+DSP_PILOT_HZ = 5.0         # CarrierTrackingPLL's pilot offset
+DSP_PLL_BW = 0.01
+DSP_PLL_HELD = 32600       # samples of each block the CPU PLL runs
+DSP_PLL_LANES = 4          # CarrierTrackingPLL's lead shape (lane_scan)
+DSP_TOL = 5e-5             # card vs CPU, of the output's peak (or 1)
+FFT_DECIM_TOL = 5e-5       # FFTPowerDecimator vs the cascade, likewise
 
 
 def log(*args):
@@ -461,15 +520,19 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps
 
 
-def warm(fn, secs: float = 0.1):
-    """fn() back to back for ``secs`` of host time, then a synchronize: the
-    card's clock leaves its idle level before a timing (the plain versions
-    before a case leave it idle for seconds)."""
+def warm(fn, secs: float = 0.1, calls: int | None = None):
+    """fn() back to back for ``secs`` of host time (at most ``calls``
+    calls: the host enqueues a long kernel far faster than the card runs
+    it), then a synchronize: the card's clock leaves its idle level before
+    a timing (the plain versions before a case leave it idle for
+    seconds)."""
     import torch
 
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < secs:
+    n = 0
+    while time.perf_counter() - t0 < secs and (calls is None or n < calls):
         fn()
+        n += 1
     torch.cuda.synchronize()
 
 
@@ -516,12 +579,24 @@ def kernel_fns():
 def reset_counts():
     for fn in kernel_fns().values():
         fn.launches = 0
+        if hasattr(fn, "launches_general"):
+            fn.launches_general = 0
+
+
+def kernel_counts() -> dict:
+    """Every row's launch count: each wrapper's, and the general Viterbi
+    kernels' share of their wrapper's."""
+    fns = kernel_fns()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    counts.update({row: fns[entry].launches_general
+                   for row, entry in GENERAL.items()})
+    return counts
 
 
 def read_counts(path: str) -> dict:
     """The launch counts since ``reset_counts``; fails unless every kernel
     ``path`` requires was launched."""
-    counts = {name: fn.launches for name, fn in kernel_fns().items()}
+    counts = kernel_counts()
     log(f"{path} launches: {counts}")
     for name in REQUIRED[path]:
         if counts[name] < 1:
@@ -1231,6 +1306,108 @@ def viterbi_starts(total: int) -> np.ndarray:
                    ).astype(np.int32)
 
 
+def viterbi_case(dev, label, path, soft_np, starts_np, T, expected,
+                 held_steps=None, reps=10):
+    """Both Viterbi entries on one case: [B] windows of T steps of the
+    soft-bit stream ``soft_np`` from ``starts_np``, ``expected`` [2S, R].
+    Held bit-exact against their plain versions on the first VIT_HELD
+    windows, or, with ``held_steps``, the ACS on each window's first
+    ``held_steps`` steps (a step's decisions depend on the steps before it
+    only) and the walk on its last ``held_steps`` (it starts at state 0 at
+    the end, so their bits depend on their words only). Each entry's time
+    a call (CUDA events), the walkers' clock64 cycles a trellis step and
+    its bound. The entries are the general kernels' rows where the launch
+    took them (each wrapper's ``launches_general``). Returns the two
+    results."""
+    import torch
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+
+    S = expected.shape[0] // 2
+    soft = torch.from_numpy(soft_np).to(dev)
+    starts = torch.from_numpy(starts_np).to(dev)
+    B, total, R = starts.shape[0], soft.shape[0], soft.shape[1]
+    held = min(B, VIT_HELD)
+    hs = T if held_steps is None else min(int(held_steps), T)
+    acs_cyc = torch.zeros(B, dtype=torch.int64, device=dev)
+    tb_cyc = torch.zeros(B, dtype=torch.int64, device=dev)
+    acs_g = FK.viterbi_acs_batched.launches_general
+    tb_g = FK.viterbi_traceback_batched.launches_general
+    words = FK.viterbi_acs_batched(soft, starts, T, expected, acs_cyc)
+    bits = FK.viterbi_traceback_batched(words, tb_cyc, num_states=S)
+    acs_general = FK.viterbi_acs_batched.launches_general > acs_g
+    tb_general = FK.viterbi_traceback_batched.launches_general > tb_g
+    torch.cuda.synchronize()
+    # clock64 cycles a trellis step: the windows' mean and maximum
+    acs_cps = float(acs_cyc.double().mean()) / T
+    tb_cps = float(tb_cyc.double().mean()) / T
+    acs_max, tb_max = int(acs_cyc.max()) / T, int(tb_cyc.max()) / T
+    def acs():
+        return FK.viterbi_acs_batched(soft, starts, T, expected)
+
+    def tb():
+        return FK.viterbi_traceback_batched(words, num_states=S)
+
+    # about 0.1 s of calls to warm each, from one call's time
+    warm(acs, calls=max(2, int(100 / max(cuda_ms(acs, reps=1), 0.01))))
+    acs_ms = cuda_ms(acs, reps=reps)
+    warm(tb, calls=max(2, int(100 / max(cuda_ms(tb, reps=1), 0.01))))
+    tb_ms = cuda_ms(tb, reps=reps)
+    ref = {}
+    acs_plain_ms = cuda_ms(lambda: ref.setdefault(
+        "w", FK.viterbi_acs_batched_plain(soft, starts[:held], hs,
+                                          expected)), reps=1)
+    tb_plain_ms = cuda_ms(lambda: ref.setdefault(
+        "b", FK.viterbi_traceback_batched_plain(
+            words[:held, T - hs:].contiguous(), S)), reps=1)
+    acs_diff = int(FK.unpack_decisions(words[:held, :hs] ^ ref["w"],
+                                       S).sum())
+    tb_diff = int((bits[:held, T - hs:] != ref["b"]).sum())
+    # the bytes each function must move: the soft bits its windows cover,
+    # read once, the starts and the expected outputs; its words written
+    # once / the words read once and the bits written once
+    cover = np.zeros(total + 1, np.int64)
+    st = np.clip(starts_np.astype(np.int64), 0, total - T)
+    np.add.at(cover, st, 1)
+    np.add.at(cover, st + T, -1)
+    covered = int((np.cumsum(cover)[:total] > 0).sum())
+    acs_bound = bound(covered * R * soft.element_size()
+                      + starts.numel() * 4 + expected.numel() * 4
+                      + words.numel() * 8,
+                      ACS_OPS_PER_STATE * S * B * T)
+    tb_bound = bound(words.numel() * 8 + bits.numel(),
+                     TB_OPS_PER_STEP * B * T)
+    dtype = "u8" if soft.dtype == torch.uint8 else "f32"
+    shape = [B, T, R]
+    acs_entry = ("viterbi_acs_general" if acs_general
+                 else "viterbi_acs_batched")
+    tb_entry = ("viterbi_traceback_general" if tb_general
+                else "viterbi_traceback_batched")
+    log(f"kernel {acs_entry} S={S} {shape} {dtype} ({label}): {acs_diff} "
+        f"decisions of the first {held} windows' {hs} steps differ, kernel "
+        f"{acs_ms:.4f} ms, {acs_cps:.1f} cycles a step (clock64; "
+        f"{acs_max:.1f} in the slowest window), plain {acs_plain_ms:.1f} ms "
+        f"on [{held}, {hs}], bound {acs_bound[0]:.5f} ms ({acs_bound[1]})")
+    log(f"kernel {tb_entry} S={S} [{B}, {T}] ({label}): {tb_diff} bits of "
+        f"the first {held} windows' last {hs} steps differ, kernel "
+        f"{tb_ms:.4f} ms, {tb_cps:.1f} cycles a step (clock64; "
+        f"{tb_max:.1f} in the slowest window), plain {tb_plain_ms:.1f} ms "
+        f"on [{held}, {hs}], bound {tb_bound[0]:.5f} ms ({tb_bound[1]})")
+    if acs_diff or tb_diff:
+        raise AssertionError(f"a Viterbi kernel is not bit-exact against "
+                             f"its plain version ({label}, S = {S})")
+    common = dict(body=f"s{S}", path=path, kind=label, tol=0.0,
+                  library_ms=None, states=S)
+    return [dict(entry=acs_entry, shape=shape, plain_shape=[held, hs, R],
+                 dtype=dtype, max_abs_err=float(acs_diff), ms=acs_ms,
+                 plain_ms=acs_plain_ms, cycles_per_step=acs_cps,
+                 cycles_per_step_max=acs_max, bound_ms=acs_bound[0],
+                 bound_by=acs_bound[1], **common),
+            dict(entry=tb_entry, shape=[B, T], plain_shape=[held, hs],
+                 max_abs_err=float(tb_diff), ms=tb_ms, plain_ms=tb_plain_ms,
+                 cycles_per_step=tb_cps, cycles_per_step_max=tb_max,
+                 bound_ms=tb_bound[0], bound_by=tb_bound[1], **common)]
+
+
 def phase_kernels_viterbi(dev):
     """The two Viterbi entries against their plain versions, bit-exact on
     each case's first VIT_HELD windows. Path cases: the 30-s pass's
@@ -1274,85 +1451,8 @@ def phase_kernels_viterbi(dev):
     ] + decode_viterbi_cases(dev, rng)
     results = []
     for label, path, soft_np, starts_np, T, *exp in cases:
-        expected = exp[0] if exp else code._expected
-        S = expected.shape[0] // 2
-        soft = torch.from_numpy(soft_np).to(dev)
-        starts = torch.from_numpy(starts_np).to(dev)
-        B, total = starts.shape[0], soft.shape[0]
-        held = min(B, VIT_HELD)
-        acs_cyc = torch.zeros(B, dtype=torch.int64, device=dev)
-        tb_cyc = torch.zeros(B, dtype=torch.int64, device=dev)
-        words = FK.viterbi_acs_batched(soft, starts, T, expected, acs_cyc)
-        bits = FK.viterbi_traceback_batched(words, tb_cyc, num_states=S)
-        torch.cuda.synchronize()
-        # clock64 cycles a trellis step: the windows' mean and maximum
-        acs_cps = float(acs_cyc.double().mean()) / T
-        tb_cps = float(tb_cyc.double().mean()) / T
-        acs_max, tb_max = int(acs_cyc.max()) / T, int(tb_cyc.max()) / T
-        warm(lambda: FK.viterbi_acs_batched(soft, starts, T, expected))
-        acs_ms = cuda_ms(
-            lambda: FK.viterbi_acs_batched(soft, starts, T, expected), reps=10)
-        warm(lambda: FK.viterbi_traceback_batched(words, num_states=S))
-        tb_ms = cuda_ms(lambda: FK.viterbi_traceback_batched(
-            words, num_states=S), reps=10)
-        ref = {}
-        acs_plain_ms = cuda_ms(lambda: ref.setdefault(
-            "w", FK.viterbi_acs_batched_plain(soft, starts[:held], T,
-                                              expected)), reps=1)
-        tb_plain_ms = cuda_ms(lambda: ref.setdefault(
-            "b", FK.viterbi_traceback_batched_plain(words[:held], S)),
-            reps=1)
-        acs_diff = int(FK.unpack_decisions(words[:held] ^ ref["w"],
-                                           S).sum())
-        tb_diff = int((bits[:held] != ref["b"]).sum())
-        # the bytes each function must move: the soft bits its windows
-        # cover, read once, the starts and the expected outputs; its words
-        # written once / the words read once and the bits written once
-        cover = np.zeros(total + 1, np.int64)
-        st = np.clip(starts_np.astype(np.int64), 0, total - T)
-        np.add.at(cover, st, 1)
-        np.add.at(cover, st + T, -1)
-        covered = int((np.cumsum(cover)[:total] > 0).sum())
-        acs_bound = bound(covered * soft.shape[1] * soft.element_size()
-                          + starts.numel() * 4 + expected.numel() * 4
-                          + words.numel() * 8,
-                          ACS_OPS_PER_STATE * S * B * T)
-        tb_bound = bound(words.numel() * 8 + bits.numel(),
-                         TB_OPS_PER_STEP * B * T)
-        dtype = "u8" if soft.dtype == torch.uint8 else "f32"
-        shape = [B, T, soft.shape[1]]
-        log(f"kernel viterbi_acs_batched {shape} {dtype} ({label}): "
-            f"{acs_diff} decisions of the first {held} windows differ, "
-            f"kernel {acs_ms:.4f} ms, {acs_cps:.1f} cycles a step (clock64; "
-            f"{acs_max:.1f} in the slowest window), "
-            f"plain {acs_plain_ms:.1f} ms on [{held}, {T}], bound "
-            f"{acs_bound[0]:.5f} ms ({acs_bound[1]})")
-        log(f"kernel viterbi_traceback_batched [{B}, {T}] ({label}): "
-            f"{tb_diff} bits of the first {held} windows differ, kernel "
-            f"{tb_ms:.4f} ms, {tb_cps:.1f} cycles a step (clock64; "
-            f"{tb_max:.1f} in the slowest window), plain "
-            f"{tb_plain_ms:.1f} ms on [{held}, {T}], bound "
-            f"{tb_bound[0]:.5f} ms ({tb_bound[1]})")
-        if acs_diff or tb_diff:
-            raise AssertionError(f"a Viterbi kernel is not bit-exact against "
-                                 f"its plain version ({label})")
-        common = dict(body=f"s{S}", path=path, kind=label, tol=0.0,
-                      library_ms=None)
-        results.append(dict(entry="viterbi_acs_batched", shape=shape,
-                            plain_shape=[held, T, soft.shape[1]],
-                            dtype=dtype, max_abs_err=float(acs_diff),
-                            ms=acs_ms, plain_ms=acs_plain_ms,
-                            cycles_per_step=acs_cps,
-                            cycles_per_step_max=acs_max,
-                            bound_ms=acs_bound[0],
-                            bound_by=acs_bound[1], **common))
-        results.append(dict(entry="viterbi_traceback_batched", shape=[B, T],
-                            plain_shape=[held, T], max_abs_err=float(tb_diff),
-                            ms=tb_ms, plain_ms=tb_plain_ms,
-                            cycles_per_step=tb_cps,
-                            cycles_per_step_max=tb_max, bound_ms=tb_bound[0],
-                            bound_by=tb_bound[1], **common))
-        del soft, starts, words, bits
+        results += viterbi_case(dev, label, path, soft_np, starts_np, T,
+                                exp[0] if exp else code._expected)
     viterbi_refusals(dev, code._expected)
     viterbi_state_refusals(dev)
     return results, {"soft": pass_soft, "starts": viterbi_starts(pass_total),
@@ -1372,10 +1472,10 @@ def viterbi_refusals(dev, expected):
     acs, tb = FK.viterbi_acs_batched, FK.viterbi_traceback_batched
     before = (acs.launches, tb.launches)
     bad = [("uint8 or float32", acs, (soft.double(), starts, 10, expected)),
-           ("1 to 4 soft bits", acs,
-            (torch.zeros((100, 5), dtype=torch.uint8, device=dev), starts,
-             10, torch.zeros((128, 5), device=dev))),
-           ("expected must be", acs, (soft, starts, 10, expected[:64])),
+           ("2 to 32 soft bits", acs,
+            (torch.zeros((100, 33), dtype=torch.uint8, device=dev), starts,
+             10, torch.zeros((128, 33), device=dev))),
+           ("expected must be", acs, (soft, starts, 10, expected[:96])),
            ("int32 vector", acs, (soft, starts.long(), 10, expected)),
            ("one device", acs, (soft, starts.cpu(), 10, expected)),
            ("window length 101", acs, (soft, starts, 101, expected)),
@@ -2718,34 +2818,331 @@ def decode_viterbi_cases(dev, rng):
 
 
 def viterbi_state_refusals(dev):
-    """A 32-state code on the card raises ValueError and launches nothing:
-    through ConvCode (order 6), the ACS (expected [64, 2]) and the
-    traceback (num_states=32)."""
+    """A 32-state code decodes on the card (ConvCode at order 6, one launch
+    of each entry), and malformed state counts raise ValueError and launch
+    nothing: expected rows that are not 2S for a power of two S, a
+    traceback of 48 states, words of the wrong shape for 256 states."""
     import torch
+    from sdrpp_tpu_torch.ops import fec as F
     from sdrpp_tpu_torch.ops import fec_kernels as FK
-    from sdrpp_tpu_torch.ops.fec import ConvCode
 
-    code = ConvCode(2, 6, (0o73, 0o61), device=dev)
+    code = F.ConvCode(2, 6, F.CONV_R12_6, device=dev)
     acs, tb = FK.viterbi_acs_batched, FK.viterbi_traceback_batched
-    before = (acs.launches, tb.launches)
-    soft = torch.zeros((100, 2), dtype=torch.uint8, device=dev)
-    bad = [(code.decode_soft_np, (np.zeros(200, np.float32),)),
-           (acs, (soft, torch.zeros(1, dtype=torch.int32, device=dev), 10,
-                  code._expected)),
-           (lambda d: tb(d, num_states=32),
+    msg = np.random.default_rng(16).integers(0, 256, 64).astype(np.uint8)
+    soft = np.unpackbits(code.encode(msg))[:code.encode_len_bits(64)] * 255
+    before = (acs.launches, tb.launches, acs.launches_general,
+              tb.launches_general)
+    got = np.packbits(code.decode_soft_np(soft.astype(np.float32)))
+    after = (acs.launches, tb.launches, acs.launches_general,
+             tb.launches_general)
+    if not np.array_equal(got, msg) or after != (before[0] + 1,
+                                                 before[1] + 1, *before[2:]):
+        raise AssertionError("the 32-state code did not decode with one "
+                             "launch of each Viterbi entry")
+    before = after
+    st = torch.zeros((100, 2), dtype=torch.uint8, device=dev)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    bad = [(acs, (st, one, 10, code._expected[:48])),
+           (acs, (st, one, 10, torch.zeros((130, 2), device=dev))),
+           (lambda d: tb(d, num_states=48),
+            (torch.zeros((1, 10), dtype=torch.int64, device=dev),)),
+           (lambda d: tb(d, num_states=256),
             (torch.zeros((1, 10), dtype=torch.int64, device=dev),))]
     for fn, args in bad:
         try:
             fn(*args)
         except ValueError as e:
-            if "16" not in str(e) or "64" not in str(e):
-                raise AssertionError(f"a 32-state call raised {e!r}") from e
+            if "16384" not in str(e) and "[B, T, 4]" not in str(e):
+                raise AssertionError(f"a malformed Viterbi call raised "
+                                     f"{e!r}") from e
         else:
-            raise AssertionError("a 32-state Viterbi call ran on the card")
-    if (acs.launches, tb.launches) != before:
-        raise AssertionError("a 32-state Viterbi call counted a launch")
-    log("viterbi on CUDA: a 32-state code raises ValueError through "
-        "ConvCode, the ACS and the traceback, and launches nothing")
+            raise AssertionError("a malformed Viterbi call ran on the card")
+    if (acs.launches, tb.launches, acs.launches_general,
+            tb.launches_general) != before:
+        raise AssertionError("a refused Viterbi call counted a launch")
+    log(f"viterbi on CUDA: a 32-state code decodes its {len(msg)} bytes; "
+        f"{len(bad)} malformed state counts "
+        f"raise ValueError and launch nothing")
+
+
+def fec_path_soft(order: int) -> tuple:
+    """The fec paths' seeded message (FEC_MSG_BYTES) and its soft bits for
+    ``ConvCode(2, order)`` (CONV_R12_9 / CONV_R12_6): the port's encode,
+    0 -> 0 and 1 -> 255, N(0, FEC_SIGMA) noise, rounded and clipped to
+    uint8 -> (message, [T, 2] uint8 soft bits, code polynomials)."""
+    from sdrpp_tpu_torch.ops import fec as F
+
+    polys = {9: F.CONV_R12_9, 6: F.CONV_R12_6}[order]
+    code = F.ConvCode(2, order, polys, device="cpu")
+    rng = np.random.default_rng(90 + order)
+    msg = rng.integers(0, 256, FEC_MSG_BYTES).astype(np.uint8)
+    bits = np.unpackbits(code.encode(msg))[:code.encode_len_bits(len(msg))]
+    soft = np.clip(np.round(bits * 255.0 + rng.normal(0, FEC_SIGMA,
+                                                      bits.size)), 0, 255)
+    return msg, soft.astype(np.uint8).reshape(-1, 2), polys
+
+
+def phase_kernels_fec(dev, k9_soft, k6_soft):
+    """The general Viterbi kernels (every S but the tuned 16 and 64 at R <=
+    4) against their plain versions, bit-exact: every order 2 to 15 (S = 2
+    ... 16384) at R = 2 on uint8 and on float32 soft bits, FEC_T steps
+    from step 0 (B5's single stream); R = 3 and R = 6 at S = 256 and R = 5
+    at S = 16 (the warp kernel of R > 4); uint8 over FEC_RENORM_T steps,
+    two of the CTA kernel's renormalisations, at S = 128, 256 (a thread a
+    state), 2048, 4096, 8192, 16384 (2 to 16 states a thread) and R = 6
+    at S = 256 (expected rows read through the cache); a
+    [FEC_WINDOWS, 4288] windowed launch at S = 32 (B6); the fec paths'
+    launches at their shapes, k9's [1, 2097162, 2] (held on its first and
+    last FEC_HELD steps) and k6's [513, 4288, 2] windows."""
+    from sdrpp_tpu_torch.ops import fec as F
+
+    rng = np.random.default_rng(15)
+    one = np.zeros(1, np.int32)
+    cases = []
+    for order in range(2, 16):
+        code = F.ConvCode(2, order, fec_polys(2, order), device=dev)
+        u8 = viterbi_stream(rng, code, FEC_T)
+        cases.append((f"k{order} u8", None, u8, one, FEC_T, code._expected))
+        f32 = (u8 + rng.uniform(-0.5, 0.5, u8.shape)).astype(np.float32)
+        cases.append((f"k{order} f32", None, f32, one, FEC_T,
+                      code._expected))
+    for rate, order in ((3, 9), (6, 9), (5, 5)):
+        code = F.ConvCode(rate, order, fec_polys(rate, order), device=dev)
+        cases.append((f"k{order} rate {rate}", None,
+                      viterbi_stream(rng, code, FEC_T), one, FEC_T,
+                      code._expected))
+    for rate, order in ((2, 8), (2, 9), (2, 12), (2, 13), (2, 14), (2, 15),
+                        (6, 9)):
+        code = F.ConvCode(rate, order, fec_polys(rate, order), device=dev)
+        cases.append((f"k{order} rate {rate} renormalised", None,
+                      viterbi_stream(rng, code, FEC_RENORM_T), one,
+                      FEC_RENORM_T, code._expected))
+    k6 = F.ConvCode(2, 6, F.CONV_R12_6, device=dev)
+    win_total = FEC_WINDOWS * VIT_L - 1000
+    cases.append(("k6 windows", None, viterbi_stream(rng, k6, win_total),
+                  viterbi_starts(win_total), VIT_T, k6._expected))
+    cases.append(("k6 path windows", "fec_k6", k6_soft,
+                  viterbi_starts(k6_soft.shape[0]), VIT_T, k6._expected))
+    results = []
+    for label, path, soft_np, starts_np, T, expected in cases:
+        results += viterbi_case(dev, label, path, soft_np, starts_np, T,
+                                expected)
+    k9 = F.ConvCode(2, 9, F.CONV_R12_9, device=dev)
+    return results + viterbi_case(dev, "k9 path", "fec_k9", k9_soft, one,
+                                  k9_soft.shape[0], k9._expected,
+                                  held_steps=FEC_HELD, reps=3)
+
+
+def fec_polys(rate: int, order: int) -> tuple:
+    """libcorrect's rate-1/2 polynomials where it names some (orders 6 to
+    9), else seeded ones of the order (top and bottom bits set)."""
+    from sdrpp_tpu_torch.ops import fec as F
+
+    named = {6: F.CONV_R12_6, 7: F.CONV_R12_7, 8: F.CONV_R12_8,
+             9: F.CONV_R12_9}
+    if rate == 2 and order in named:
+        return named[order]
+    rng = np.random.default_rng(100 * rate + order)
+    return tuple(int(rng.integers(0, 1 << order)) | (1 << (order - 1)) | 1
+                 for _ in range(rate))
+
+
+def phase_fec(dev, k9, k6):
+    """The fec paths through ConvCode on the card, the counts reset before
+    and read after each: fec_k9, ``ConvCode(2, 9, CONV_R12_9)`` (256
+    states) over FEC_MSG_BYTES of seeded message, 2,097,162 trellis steps
+    of uint8 soft bits, through ``decode_soft_np`` (B5 then B7) and
+    ``decode_soft_stream`` (the exact decode at S = 256, as the JAX package
+    takes it on a TPU); fec_k6, ``ConvCode(2, 6, CONV_R12_6)`` (32 states)
+    through ``decode_soft_stream``'s windows (B6 then B7). Every decode
+    must return the message exactly. Host seconds of each decode."""
+    import torch
+    from sdrpp_tpu_torch.ops import fec as F
+
+    out = {}
+    for name, order, (msg, soft, polys), decodes in (
+            ("fec_k9", 9, k9, ("decode_soft_np", "decode_soft_stream")),
+            ("fec_k6", 6, k6, ("decode_soft_stream",))):
+        code = F.ConvCode(2, order, polys, device=dev)
+        flat = soft.reshape(-1)
+        code.decode_soft_stream(flat[:2 * 20000])  # first use: the builds
+        torch.cuda.synchronize()
+        reset_counts()
+        res = {"steps": int(soft.shape[0]), "message_bytes": len(msg)}
+        for fn in decodes:
+            t0 = time.perf_counter()
+            bits = getattr(code, fn)(flat)
+            secs = time.perf_counter() - t0
+            got = np.packbits(bits)[:len(msg)]
+            wrong = int((got != msg).sum())
+            res[fn] = {"seconds": secs, "wrong_bytes": wrong}
+            log(f"{name} {fn}: {soft.shape[0]} steps of {code.num_states} "
+                f"states in {secs:.3f} s (host clock), {wrong} of "
+                f"{len(msg)} message bytes wrong")
+            if wrong or len(bits) != 8 * len(msg):
+                raise AssertionError(f"{name} {fn} did not return the "
+                                     f"message")
+        res["launches"] = read_counts(name)
+        res["decision_bytes"] = int(soft.shape[0] * max(code.num_states, 64)
+                                    // 8)
+        log(f"{name}: decision words {res['decision_bytes'] / 1e6:.1f} MB "
+            f"a decode")
+        out[name] = res
+    return out
+
+
+def phase_rs_erasures(dev):
+    """ReedSolomon.decode_with_erasures on RS_BLOCKS CCSDS blocks (RS(255,
+    223), fcr 112, gap 11) with every (f, e) at the limit 2e + f = 32 in
+    turn, plus one block beyond it (f = 31, e = 1), on the card and on
+    the CPU: equal bytes and ok flags; every block at the limit decoded to
+    its message, the one beyond it not ok."""
+    import torch
+    from sdrpp_tpu_torch.ops import fec as F
+
+    rng = np.random.default_rng(23)
+    rs = F.ReedSolomon(F.RS_CCSDS, 112, 11, 32, device=dev)
+    grid = [(32 - 2 * e, e) for e in range(17)]
+    cases = [grid[b % len(grid)] for b in range(RS_BLOCKS - 1)] + [(31, 1)]
+    msgs = rng.integers(0, 256, (RS_BLOCKS, rs.msg_len)).astype(np.uint8)
+    blocks = np.stack([rs.encode(m) for m in msgs])
+    pos = np.zeros((RS_BLOCKS, 32), np.int32)
+    for b, (f, e) in enumerate(cases):
+        hit = rng.choice(255, f + e, replace=False)
+        blocks[b, hit] ^= rng.integers(1, 256, f + e).astype(np.uint8)
+        pos[b, :f] = hit[:f]
+    counts = np.array([f for f, _ in cases], np.int32)
+    args = [torch.from_numpy(a) for a in (blocks, pos, counts)]
+    card = rs.decode_with_erasures(*(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: rs.decode_with_erasures(*(a.to(dev) for a in args)),
+                 reps=3)
+    cpu_rs = F.ReedSolomon(F.RS_CCSDS, 112, 11, 32, device="cpu")
+    cpu = cpu_rs.decode_with_erasures(*args)
+    equal = (torch.equal(card[0].cpu(), cpu[0])
+             and torch.equal(card[1].cpu(), cpu[1]))
+    ok = card[1].cpu().numpy()
+    right = int((card[0].cpu().numpy()[:-1] == msgs[:-1]).all(1).sum())
+    log(f"rs erasures: {RS_BLOCKS} blocks, {len(grid)} (f, e) at 2e + f = "
+        f"32, card {ms:.2f} ms a batch; {right} of {RS_BLOCKS - 1} decoded "
+        f"to their messages, beyond the limit ok={bool(ok[-1])}, card "
+        f"{'equal to' if equal else 'DIFFERS from'} the CPU")
+    if not (equal and ok[:-1].all() and right == RS_BLOCKS - 1
+            and not ok[-1]):
+        raise AssertionError("RS erasure decoding failed on the card")
+    return {"blocks": RS_BLOCKS, "ms": ms, "card_vs_cpu_equal": equal}
+
+
+def phase_dsp_lib(dev, wide_x):
+    """The rest of the DSP library at the receive widths, two
+    DSP_BLOCK-sample blocks at 2.4 Msps with the state carried, the card
+    against the CPU: DecimatingFIR /8 with the plan's real taps (the
+    decimating-FIR kernel) and with complex band-pass taps (the strided
+    conv1d), the complex-tap PolyphaseResampler 3/25, and
+    CarrierTrackingPLL on a pilot DSP_PILOT_HZ off (one stream,
+    single_scan) and on DSP_PLL_LANES pilots at once (a lead shape,
+    lane_scan), each held on each block's first DSP_PLL_HELD samples, the
+    CPU's second block from the card's carried state; then
+    FFTPowerDecimator(256, fft_len=2^20) against PowerDecimator (the
+    cascade) on two blocks of the wideband stream, both timed.
+    decimating_fir, single_scan and lane_scan launches must rise."""
+    import torch
+    from sdrpp_tpu_torch.ops import fir as FR
+    from sdrpp_tpu_torch.ops import resample as RS
+    from sdrpp_tpu_torch.ops import scans as SC
+    from sdrpp_tpu_torch.ops import taps as TP
+    from sdrpp_tpu_torch.utils.blocks import state_from_numpy, state_to_numpy
+
+    rng = np.random.default_rng(31)
+    n = DSP_BLOCK
+    x = (rng.standard_normal(2 * n) + 1j * rng.standard_normal(2 * n)) \
+        .astype(np.complex64)
+    cplx = TP.band_pass(50e3, 150e3, 20e3, FS, complex_taps=True) \
+        .astype(np.complex64)
+    t = np.arange(2 * n)
+    pilot = (np.exp(1j * (2 * np.pi * DSP_PILOT_HZ * t / FS + 0.4))
+             * (1.0 + 0.1 * rng.standard_normal(2 * n))).astype(np.complex64)
+    lane = np.arange(DSP_PLL_LANES)[:, None]
+    pilots = (np.exp(1j * (2 * np.pi * DSP_PILOT_HZ * (lane + 1) * t / FS
+                           + 0.4 + lane))
+              * (1.0 + 0.1 * rng.standard_normal((DSP_PLL_LANES, 2 * n)))
+              ).astype(np.complex64)
+    blocks = {
+        "decimating_fir /8 real": (lambda d: FR.DecimatingFIR(
+            RS.decim_plan(8)[0][1], 8, device=d), x, n),
+        "decimating_fir /8 complex taps": (lambda d: FR.DecimatingFIR(
+            cplx, 8, device=d), x, n),
+        "polyphase 3/25 complex taps": (lambda d: RS.PolyphaseResampler(
+            3, 25, cplx * np.float32(3), device=d), x, n),
+        "carrier_tracking_pll": (lambda d: SC.CarrierTrackingPLL(
+            DSP_PLL_BW, device=d), pilot, DSP_PLL_HELD),
+        f"carrier_tracking_pll [{DSP_PLL_LANES}, n]": (
+            lambda d: SC.CarrierTrackingPLL(
+                DSP_PLL_BW, lead_shape=(DSP_PLL_LANES,), device=d), pilots,
+            DSP_PLL_HELD),
+    }
+    out = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for name, (make, sig, held) in blocks.items():
+        blk, cpu = make(dev), make("cpu")
+        st = blk.init_state()
+        ys, secs = [], []
+        for k in range(2):
+            xb = torch.from_numpy(np.ascontiguousarray(
+                sig[..., k * n:(k + 1) * n])).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st_in = st
+            st, y = blk(st, xb)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            # the CPU from the card's state before this block, on its
+            # first `held` samples (causal blocks: the prefix's outputs
+            # depend on it alone)
+            m = held - held % 600  # a multiple of every decimation here
+            cs = state_from_numpy(state_to_numpy(st_in), "cpu")
+            _, yc = cpu(cs, torch.from_numpy(
+                np.ascontiguousarray(sig[..., k * n:k * n + m])))
+            ys.append((y.cpu().numpy()[..., :yc.shape[-1]], yc.numpy()))
+        err = max(float(np.abs(a - b).max()) for a, b in ys)
+        scale = max(float(np.abs(b).max()) for _, b in ys)
+        tol = DSP_TOL * max(scale, 1.0)
+        log(f"dsp {name}: 2 x {n} samples, {secs[1] * 1e3:.2f} ms a block "
+            f"(host clock), card vs CPU max abs err {err:.3g} (tol "
+            f"{tol:.3g})")
+        if not err <= tol:
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+        out[name] = {"max_abs_err": err, "tol": tol, "block_s": secs}
+    # FFTPowerDecimator against the cascade on the wideband stream
+    fd = RS.FFTPowerDecimator(256, fft_len=1 << 20, device=dev)
+    pd = RS.PowerDecimator(256, device=dev)
+    P = 16 * fd.block_multiple
+    wn = wide_x.shape[-1]
+    wb = [wide_x[:P], torch.cat([wide_x[P:], wide_x[:2 * P - wn]])]
+    sf, sp = fd.init_state(), pd.init_state()
+    yf, yp = [], []
+    for b in wb:
+        sf, a = fd(sf, b)
+        sp, c = pd(sp, b)
+        yf.append(a)
+        yp.append(c)
+    yf, yp = torch.cat(yf), torch.cat(yp)
+    err = float((yf - yp).abs().max())
+    scale = float(yp.abs().max())
+    fft_ms = cuda_ms(lambda: fd(sf, wb[1]), reps=5)
+    cas_ms = cuda_ms(lambda: pd(sp, wb[1]), reps=5)
+    tol = FFT_DECIM_TOL * max(scale, 1.0)
+    log(f"dsp FFTPowerDecimator(256, 2^20) on 2 x {P} wideband samples: "
+        f"{fft_ms:.3f} ms a block, PowerDecimator {cas_ms:.3f} ms "
+        f"(CUDA events), max abs err {err:.3g} (tol {tol:.3g})")
+    if not err <= tol:
+        raise AssertionError("FFTPowerDecimator disagrees with the cascade")
+    out["fft_power_decimator"] = {"ms": fft_ms, "cascade_ms": cas_ms,
+                                  "max_abs_err": err, "tol": tol,
+                                  "samples": P}
+    out["launches"] = read_counts("dsp_lib")
+    return out
 
 
 def phase_kernels_decode_mm(dev):
@@ -3759,8 +4156,10 @@ def main() -> int:
     dev = torch.device("cuda")
     loops, ab_inputs = phase_kernels(dev)
     viterbi, ab_viterbi = phase_kernels_viterbi(dev)
+    k9, k6 = fec_path_soft(9), fec_path_soft(6)
     kernels = (loops + phase_kernels_digital(dev)
                + phase_kernels_decode_mm(dev) + viterbi
+               + phase_kernels_fec(dev, k9[1], k6[1])
                + phase_kernels_fir(dev))
 
     iq = composite(NBLOCKS * BLOCK)
@@ -3779,6 +4178,7 @@ def main() -> int:
     decode_cli = phase_decode_cli()
     wide, wide_x, wide_audio = phase_wideband()
     wide_cpu = phase_wideband_cpu(wide_x, wide_audio)
+    dsp = phase_dsp_lib(dev, wide_x)
     del wide_x
     banks = phase_banks()
     bank_cli = phase_bank_cli()
@@ -3806,6 +4206,9 @@ def main() -> int:
     decode["card_vs_cpu"] = phase_decode_cpu(first)
     del first
     decode["cli"] = phase_decode_paths_cli({"kgsstv": kg_frames})
+    fec = phase_fec(dev, k9, k6)
+    del k9, k6
+    rs = phase_rs_erasures(dev)
     ab = phase_ab(meteor["block"], ab_inputs,
                   dict(ab_viterbi, pass_u8=pass_u8))
 
@@ -3817,7 +4220,10 @@ def main() -> int:
              "bank": bank_cli["time"]["launches"],
              "bank_fft": bank_cli["fft"]["launches"],
              **{p: decode[p]["launches"]
-                for p in ("hrpt", "falcon9", "m17", "kgsstv")}}
+                for p in ("hrpt", "falcon9", "m17", "kgsstv")},
+             "fec_k9": fec["fec_k9"]["launches"],
+             "fec_k6": fec["fec_k6"]["launches"],
+             "dsp_lib": dsp["launches"]}
     rows = []
     for entry in SOURCES:
         mine = [k for k in kernels if k["entry"] == entry]
@@ -3843,7 +4249,8 @@ def main() -> int:
                     "wideband_card_vs_cpu": wide_cpu, "banks": banks,
                     "bank_cli": bank_cli, "golden_bank": golden_bank,
                     "radio": radio, "pipeline": pipeline,
-                    "decode": decode, "ab": ab},
+                    "decode": decode, "fec": fec, "rs_erasures": rs,
+                    "dsp_lib": dsp, "ab": ab},
                    default=float))
     print(gpu)
     print(json.dumps({"kernels": rows}))

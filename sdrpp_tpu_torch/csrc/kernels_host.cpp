@@ -23,16 +23,19 @@
 //       or a contiguous int64 [ceil(C / 32)] tensor receiving the walkers'
 //       clock64 cycles. Allocates `out` when None and the final carry
 //       `fin` [k, *lanes].
-//   viterbi_acs(soft, starts, T, expected, cycles) -> dec
+//   viterbi_acs(soft, starts, T, expected, cycles) -> (dec, general)
 //       ops/fec_kernels.viterbi_acs_batched: soft [total, R] uint8 or
-//       float32 (R <= 4), starts int32 [B], 1 <= T <= total, expected
-//       [2S, R] float32 for S = 64 or 16 states, all on one CUDA device;
-//       cycles None or a contiguous int64 [B] tensor receiving each
-//       window's clock64 cycles. Allocates dec [B, T] int64.
-//   viterbi_traceback(dec, cycles[, num_states]) -> bits
-//       ops/fec_kernels.viterbi_traceback_batched: dec [B, T] int64 on a
-//       CUDA device, the words of num_states = 64 (the default) or 16
-//       states; cycles as above. Allocates bits [B, T] uint8.
+//       float32 (2 <= R <= 32), starts int32 [B], 1 <= T <= total,
+//       expected [2S, R] float32 for S a power of two in [2, 16384], all
+//       on one CUDA device; cycles None or a contiguous int64 [B] tensor
+//       receiving each window's clock64 cycles. Allocates dec [B, T]
+//       int64 (S <= 64) or [B, T, S / 64] (S > 64); general: whether the
+//       launch took a general kernel (viterbi.cu's dispatch says).
+//   viterbi_traceback(dec, cycles[, num_states]) -> (bits, general)
+//       ops/fec_kernels.viterbi_traceback_batched: dec, the words of
+//       num_states (64 by default; a power of two in [2, 16384]) states,
+//       int64 [B, T] (S <= 64) or [B, T, S / 64], on a CUDA device;
+//       cycles as above. Allocates bits [B, T] uint8; general as above.
 //   bind_decim_fir(c64_entry, f32_entry), bind_loop_scan(entry),
 //   bind_viterbi(acs_entry, traceback_entry)
 //       the addresses of the kernel libraries' C entries (decim_fir.cu's
@@ -484,15 +487,24 @@ PyObject* bind_loop_scan(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 using ViterbiAcsEntry = int (*)(const void* soft, int soft_u8,
                                 const int* starts, const float* expected,
                                 long long* dec, int B, int T, long long total,
-                                int R, int S, long long* cycles, void* stream);
+                                int R, int S, long long* cycles, void* stream,
+                                int* general);
 using ViterbiTracebackEntry = int (*)(const long long* dec,
                                       unsigned char* bits, int B, int T, int S,
-                                      long long* cycles, void* stream);
+                                      long long* cycles, void* stream,
+                                      int* general);
 
 ViterbiAcsEntry g_viterbi_acs = nullptr;
 ViterbiTracebackEntry g_viterbi_traceback = nullptr;
 
-constexpr int64_t kViterbiMaxRate = 4;
+constexpr int64_t kViterbiMinRate = 2;   // fec_kernels.KERNEL_MIN_RATE
+constexpr int64_t kViterbiMaxRate = 32;  // fec_kernels.KERNEL_MAX_RATE
+constexpr int64_t kViterbiMaxStates = 16384;
+
+// fec_kernels._states_ok: a power of two in [2, 16384]
+bool viterbi_states_ok(int64_t S) {
+  return S >= 2 && S <= kViterbiMaxStates && (S & (S - 1)) == 0;
+}
 
 // the optional cycles argument: None, or a contiguous int64 [B] tensor on
 // `device`; false with the error set otherwise
@@ -533,15 +545,15 @@ PyObject* viterbi_acs(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   if ((!u8 && soft.scalar_type() != c10::kFloat) || soft.dim() != 2)
     return value_error("soft must be uint8 or float32 [total, R]");
   const int64_t total = soft.size(0), R = soft.size(1);
-  if (R < 1 || R > kViterbiMaxRate)
-    return value_error("soft takes 1 to " + std::to_string(kViterbiMaxRate) +
+  if (R < kViterbiMinRate || R > kViterbiMaxRate)
+    return value_error("soft takes " + std::to_string(kViterbiMinRate) +
+                       " to " + std::to_string(kViterbiMaxRate) +
                        " soft bits a step, got " + std::to_string(R));
   if (expected.scalar_type() != c10::kFloat || expected.dim() != 2 ||
-      !(expected.size(0) == 128 || expected.size(0) == 32) ||
-      expected.size(1) != R)
-    return value_error("expected must be float32 [128, " + std::to_string(R) +
-                       "] (64 states) or [32, " + std::to_string(R) +
-                       "] (16 states)");
+      expected.size(0) % 2 != 0 ||
+      !viterbi_states_ok(expected.size(0) / 2) || expected.size(1) != R)
+    return value_error("expected must be float32 [2S, " + std::to_string(R) +
+                       "] for S = 2, 4, ..., 16384 states");
   const int64_t S = expected.size(0) / 2;
   if (starts.scalar_type() != c10::kInt || starts.dim() != 1 ||
       starts.size(0) < 1)
@@ -571,14 +583,17 @@ PyObject* viterbi_acs(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   const at::Tensor stc = starts.is_contiguous() ? starts : starts.contiguous();
   const at::Tensor ec =
       expected.is_contiguous() ? expected : expected.contiguous();
-  at::Tensor dec = at::empty({B, T}, soft.options().dtype(c10::kLong));
+  at::Tensor dec =
+      S <= 64 ? at::empty({B, T}, soft.options().dtype(c10::kLong))
+              : at::empty({B, T, S / 64}, soft.options().dtype(c10::kLong));
 
   const OnStream on(soft.device());
+  int general = 0;
   const int rc = g_viterbi_acs(
       sc.data_ptr(), u8 ? 1 : 0, stc.data_ptr<int32_t>(), ec.data_ptr<float>(),
       reinterpret_cast<long long*>(dec.data_ptr<int64_t>()),
       static_cast<int>(B), static_cast<int>(T), static_cast<long long>(total),
-      static_cast<int>(R), static_cast<int>(S), cycles, on.stream);
+      static_cast<int>(R), static_cast<int>(S), cycles, on.stream, &general);
   if (rc != 0) {
     PyErr_Format(PyExc_RuntimeError,
                  "viterbi_acs_batched launch failed: CUDA error %d at B=%lld, "
@@ -586,7 +601,8 @@ PyObject* viterbi_acs(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
                  static_cast<long long>(R));
     return nullptr;
   }
-  return THPVariable_Wrap(std::move(dec));
+  return Py_BuildValue("(NN)", THPVariable_Wrap(std::move(dec)),
+                       PyBool_FromLong(general));
   END_HANDLE_TH_ERRORS
 }
 
@@ -603,14 +619,19 @@ PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
     if (S == -1 && PyErr_Occurred()) return nullptr;
   }
 
-  // the checks of fec_kernels._check_traceback, with its messages
-  if (dec.scalar_type() != c10::kLong || dec.dim() != 2 || dec.size(0) < 1 ||
-      dec.size(1) < 1)
-    return value_error("dec must be int64 [B, T] decision words, B and T "
-                       ">= 1");
-  if (S != 16 && S != 64)  // fec_kernels.KERNEL_STATES
-    return value_error("the Viterbi kernels take 16 or 64 states, got " +
-                       std::to_string(S));
+  // the checks of fec_kernels._check_traceback, in its order and with its
+  // messages
+  if (!viterbi_states_ok(S))
+    return value_error("the Viterbi kernels take S = 2, 4, ..., 16384 "
+                       "states, got " + std::to_string(S));
+  const bool wide = S > 64;
+  if (dec.scalar_type() != c10::kLong || dec.dim() != (wide ? 3 : 2) ||
+      dec.size(0) < 1 || dec.size(1) < 1 ||
+      (wide && dec.size(2) != S / 64))
+    return value_error(std::string("dec must be int64 ") +
+                       (wide ? "[B, T, " + std::to_string(S / 64) + "]"
+                             : std::string("[B, T]")) +
+                       " decision words, B and T >= 1");
   // the kernel's own conditions
   if (!dec.is_cuda())
     return value_error("the compiled Viterbi traceback takes CUDA tensors");
@@ -631,10 +652,11 @@ PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
   at::Tensor bits = at::empty({B, T}, dec.options().dtype(c10::kByte));
 
   const OnStream on(dec.device());
+  int general = 0;
   const int rc = g_viterbi_traceback(
       reinterpret_cast<const long long*>(dc.data_ptr<int64_t>()),
       bits.data_ptr<uint8_t>(), static_cast<int>(B), static_cast<int>(T),
-      static_cast<int>(S), cycles, on.stream);
+      static_cast<int>(S), cycles, on.stream, &general);
   if (rc != 0) {
     PyErr_Format(PyExc_RuntimeError,
                  "viterbi_traceback_batched launch failed: CUDA error %d at "
@@ -642,7 +664,8 @@ PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
                  static_cast<long long>(T));
     return nullptr;
   }
-  return THPVariable_Wrap(std::move(bits));
+  return Py_BuildValue("(NN)", THPVariable_Wrap(std::move(bits)),
+                       PyBool_FromLong(general));
   END_HANDLE_TH_ERRORS
 }
 
@@ -674,12 +697,13 @@ PyMethodDef kMethods[] = {
     {"bind_loop_scan", fastcall<bind_loop_scan>(), METH_FASTCALL,
      "bind_loop_scan(entry): loop_scan.cu's C entry."},
     {"viterbi_acs", fastcall<viterbi_acs>(), METH_FASTCALL,
-     "viterbi_acs(soft, starts, T, expected, cycles) -> dec: check, "
-     "allocate and launch the Viterbi ACS kernel on soft's current stream."},
-    {"viterbi_traceback", fastcall<viterbi_traceback>(), METH_FASTCALL,
-     "viterbi_traceback(dec, cycles[, num_states]) -> bits: check, "
-     "allocate and launch the Viterbi traceback kernel on dec's current "
+     "viterbi_acs(soft, starts, T, expected, cycles) -> (dec, general): "
+     "check, allocate and launch the Viterbi ACS kernel on soft's current "
      "stream."},
+    {"viterbi_traceback", fastcall<viterbi_traceback>(), METH_FASTCALL,
+     "viterbi_traceback(dec, cycles[, num_states]) -> (bits, general): "
+     "check, allocate and launch the Viterbi traceback kernel on dec's "
+     "current stream."},
     {"bind_viterbi", fastcall<bind_viterbi>(), METH_FASTCALL,
      "bind_viterbi(acs_entry, traceback_entry): viterbi.cu's C entries."},
     {nullptr, nullptr, 0, nullptr}};

@@ -1,22 +1,25 @@
-// Batched Viterbi add-compare-select and survivor traceback for the
-// K = 7 (64-state) and K = 5 (16-state) convolutional codes, for Hopper.
+// Batched Viterbi add-compare-select and survivor traceback, for Hopper:
+// warp-per-window kernels for S <= 64 states (orders 2 to 7: the K = 7
+// codes of Meteor LRPT and KG-STV, M17's K = 5) at rates R <= 4, and
+// general kernels for every other state count S = 2 ... 16384 (orders 2
+// to 15) and rate R = 2 ... 32.
 //
 // Replaces three Pallas kernels of the JAX package:
 //   - sdrpp_tpu/ops/fec_pallas.py:51 viterbi_acs_pallas_batched
 //     (pallas_call :112): B windows in lock-step, [B, T, R] soft bits ->
 //     [B, T, S] int8 decisions. Entry viterbi_acs.
 //   - sdrpp_tpu/ops/fec_pallas.py:221 viterbi_acs_pallas (pallas_call
-//     :296), the single-stream ACS: the same entry with B = 1, start 0 and
-//     T the whole stream. The JAX kernel takes any state count; this one
-//     takes the two the decoders use: S = 64 (Meteor LRPT and KG-STV,
-//     K = 7) and S = 16 (M17's LSF and stream payload, K = 5).
+//     :296), the single-stream ACS of any state count: the same entry with
+//     B = 1, start 0 and T the whole stream.
 //   - sdrpp_tpu/ops/fec_pallas.py:132 viterbi_traceback_pallas_batched
 //     (pallas_call :197): decisions -> [B, T] bits, walking back from state
 //     0. Entry viterbi_traceback.
 //
-// Decisions are packed: one 64-bit word a trellis step, bit n the decision
-// of state n (1 = it took the predecessor (n >> 1) + S / 2), bits >= S
-// zero; ops/fec_kernels.unpack_decisions gives the JAX kernels' int8 form.
+// Decisions are packed: bit n & 63 of 64-bit word n >> 6 of a trellis step
+// is the decision of state n (1 = it took the predecessor (n >> 1) + S /
+// 2); S <= 64 is one word a step with bits >= S zero, S > 64 is S / 64
+// words a step; ops/fec_kernels.unpack_decisions gives the JAX kernels'
+// int8 form.
 // A window's 4288 words are 34 KB, 8x fewer bytes than int8 decisions: the
 // 30-s pass's 528 windows write 18 MB, a 1024-window launch 35 MB, which
 // stays in the 50 MB L2 for the traceback that reads it next.
@@ -44,18 +47,17 @@
 // coalesced 256-byte store. The chain of a step is then one shuffle, one
 // add and one min.
 //
-// ACS design, S = 16: the same warp per window, the same loads and the
-// same group schedule; lane l keeps the metric of state l & 15 (lanes
-// 16-31 compute a copy of lanes 0-15, so every shuffle and ballot stays a
-// full-warp one), reads its predecessors (l & 15) >> 1 and ((l & 15) >> 1)
-// + 8 with two shuffles, and one ballot's low 16 bits make the word. It is
-// the simple layout: M17 decodes 148- and 244-step frames, one or two
-// windows a launch, where the launch and not the chain sets the time.
+// ACS design, S <= 32 (S = 16 for M17): the same warp per window, the
+// same loads and the same group schedule; lane l keeps the metric of
+// state l % S (the lanes above S compute copies, so every shuffle and
+// ballot stays a full-warp one), reads its predecessors (l % S) >> 1 and
+// ((l % S) >> 1) + S / 2 with two shuffles, and one ballot's low S bits
+// make the word.
 //
 // Normalisation off the chain, exactly. The reference subtracts the
 // minimum metric every step. For uint8 soft bits every branch metric
-// sum_j |s_j - e_j| is an integer. The first K - 1 steps of a window (6
-// for S = 64, 4 for S = 16) run the reference form: the 1e9 metrics of
+// sum_j |s_j - e_j| is an integer. The first K - 1 = log2(S) steps of a
+// window run the reference form: the 1e9 metrics of
 // states not yet reachable round, so they must be computed as the
 // reference computes them. After K - 1 steps every state is reachable
 // from state 0 (a state's K - 1 bits are the last K - 1 input bits), and
@@ -64,7 +66,7 @@
 // and leaving out a common offset changes no comparison and no tie. The
 // kernel subtracts the minimum only after every 4096th step: between two
 // such steps no metric exceeds (4096 + K - 1) * R * 255 < 2^24 (R <= 4,
-// K - 1 = 6 or 4), so every float32 add is exact and the decisions equal
+// K <= 7), so every float32 add is exact and the decisions equal
 // the reference's bit for bit. That needs the expected outputs to be
 // integers in [0, 255] as well, which each window checks once; float32
 // soft bits, which need not be integral, and other expected outputs run
@@ -81,7 +83,43 @@
 // state), and the bits go back eight at a time; the warp writes each
 // stage's bits out coalesced. 17 KB a CTA, so a 1024-window launch runs in
 // one wave. For S = 16 the walk keeps the state whole: the decision is
-// bit s of the word's low half and the predecessor (s >> 1) + 8 * took.
+// bit s of the word's low half and the predecessor (s >> 1) + 8 * took;
+// for S = 2, 4, 8 and 32 likewise, with the predecessor (s >> 1) + S / 2
+// * took.
+//
+// General ACS (S >= 128, and every S at R > 4):
+//   - S >= 128, and S = 64 at R > 4 (acs_cta_kernel): one CTA a window
+//     with min(S, 1024) threads, thread i keeping states i, i + threads,
+//     ...; the metrics
+//     are double-buffered in shared memory (2 x S floats: 128 KB at S =
+//     16384, as dynamic shared memory), one __syncthreads a step.
+//     Decisions leave as one 32-bit ballot a warp a step, at word n >> 5
+//     of the step's S / 32. A step's minimum is not a second barrier:
+//     where a step records it, each warp writes its minimum beside the
+//     new metrics, and the next step reduces those (at most 32) and
+//     subtracts the minimum as it reads a predecessor, (m_old[p] - min)
+//     + bm, which is the reference's m[p] + bm to the bit. Float32 soft
+//     bits record it every step (the reference form); uint8 soft bits
+//     with integral expected outputs at R <= 16 record it only on a
+//     window's first K - 1 steps and every 4096th, as the tuned kernels
+//     do: (4096 + K - 1) * R * 255 < 2^24 at K <= 15. Soft bits are read
+//     where they lie in the stream, a group of G steps (G * R <= the
+//     threads, G <= 32) per load: a thread loads its value of the next
+//     group at a group's first step and stores it to shared memory at
+//     its last, so the load's latency is off the chain; a step's branch
+//     metrics are read beside its predecessors' metrics, after the
+//     barrier (computing the next step's before the barrier was measured
+//     slower: their shared-memory reads then add to the chain). A thread
+//     keeps its states' expected rows in registers for R <= 4 (at most
+//     two states a thread); otherwise it reads them through the
+//     read-only cache.
+//   - S <= 32 at R > 4 (acs_warp_kernel): one warp a window, four windows
+//     a CTA, lane l keeping state l % S, the reference form every step.
+//
+// General traceback (S > 64, traceback_wide_kernel): the window's S / 64
+// words a step pass through the same two-stage shared-memory ring, 2048
+// words a stage, and lane 0 walks: the word s >> 6 of the step, bit s &
+// 63, the predecessor (s >> 1) + took * S / 2.
 //
 // Numerics: decisions and bits are bit-exact against the JAX kernels and
 // the plain PyTorch versions: metrics start at 0 / 1e9, every candidate is
@@ -99,7 +137,17 @@
 
 namespace {
 
-constexpr int MAX_RATE = 4;         // soft bits per trellis step handled
+constexpr int MAX_RATE = 4;         // soft bits a step of the tuned kernels
+constexpr int MIN_RATE = 2;         // the general kernels' rates
+constexpr int MAX_ANY_RATE = 32;
+constexpr int MAX_STATES = 16384;   // order 15
+constexpr int kRegRate = 4;         // expected rows kept in registers up to
+constexpr int kCtaThreads = 1024;   // the general ACS's largest CTA
+constexpr int kWideStage = 2048;    // words a ring stage of the wide walk
+constexpr int kRenormSteps = 4096;  // the general ACS's fast-form interval
+// the general ACS's fast form: (4096 + K - 1) * R * 255 < 2^24 for every
+// K <= 15 at R <= 16
+constexpr int kFastRate = 16;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int kWarps = 4;           // windows per ACS CTA
 constexpr int kRenormGroups = 128;  // 32-step groups between renormalisations
@@ -184,11 +232,38 @@ __device__ __forceinline__ float warp_min(float v) {
 }
 
 // The state layout of one warp for S states. Trellis<64>: lane l holds
-// states l (`ma`) and l + 32 (`mb`); Trellis<16>: lane l holds state l & 15
-// in `ma` (lanes 16-31 a copy of lanes 0-15), `mb` unused. kRef = K - 1,
-// a window's reference-form steps.
+// states l (`ma`) and l + 32 (`mb`); Trellis<S> for S <= 32: lane l holds
+// state l % S in `ma` (the lanes above S a copy of lanes 0 to S - 1), `mb`
+// unused. kRef = K - 1 = log2(S), a window's reference-form steps.
 template <int S>
-struct Trellis;
+struct Trellis {
+  static_assert(S >= 2 && S <= 32 && (S & (S - 1)) == 0,
+                "one state a lane: S = 2, 4, 8, 16 or 32");
+  static constexpr int kRef = S == 2 ? 1 : S == 4 ? 2 : S == 8 ? 3
+                              : S == 16 ? 4 : 5;
+  static constexpr int kRegs = 2;
+  // [0] state n = lane % S via p0 (register n), [1] via p1 (n + S)
+  __device__ static void regs(int lane, int (&r)[kRegs]) {
+    r[0] = lane & (S - 1); r[1] = (lane & (S - 1)) + S;
+  }
+  __device__ static void init(int lane, float& ma, float& mb) {
+    ma = (lane & (S - 1)) == 0 ? 0.0f : 1e9f;
+    mb = 0.0f;
+  }
+  __device__ static unsigned long long step(const float (&bm)[kRegs],
+                                            int lane, float& ma, float&) {
+    // predecessors of state n: n >> 1 and (n >> 1) + S / 2
+    const int n = lane & (S - 1);
+    const float p0 = __shfl_sync(FULL, ma, n >> 1);
+    const float p1 = __shfl_sync(FULL, ma, (n >> 1) + S / 2);
+    const float c0 = p0 + bm[0], c1 = p1 + bm[1];
+    const unsigned d = __ballot_sync(FULL, c1 < c0);
+    ma = fminf(c0, c1);
+    // the lanes above S repeat lanes 0 to S - 1's decisions
+    return d & static_cast<unsigned>((1ull << S) - 1);
+  }
+  __device__ static float lane_min(float ma, float) { return ma; }
+};
 
 template <>
 struct Trellis<64> {
@@ -226,32 +301,6 @@ struct Trellis<64> {
   __device__ static float lane_min(float ma, float mb) {
     return fminf(ma, mb);
   }
-};
-
-template <>
-struct Trellis<16> {
-  static constexpr int kRef = 4;
-  static constexpr int kRegs = 2;
-  // [0] state n = lane & 15 via p0 (register n), [1] via p1 (n + 16)
-  __device__ static void regs(int lane, int (&r)[kRegs]) {
-    r[0] = lane & 15; r[1] = (lane & 15) + 16;
-  }
-  __device__ static void init(int lane, float& ma, float& mb) {
-    ma = (lane & 15) == 0 ? 0.0f : 1e9f;
-    mb = 0.0f;
-  }
-  __device__ static unsigned long long step(const float (&bm)[kRegs],
-                                            int lane, float& ma, float&) {
-    // predecessors of state n: n >> 1 and (n >> 1) + 8
-    const int n = lane & 15;
-    const float p0 = __shfl_sync(FULL, ma, n >> 1);
-    const float p1 = __shfl_sync(FULL, ma, (n >> 1) + 8);
-    const float c0 = p0 + bm[0], c1 = p1 + bm[1];
-    const unsigned d = __ballot_sync(FULL, c1 < c0);
-    ma = fminf(c0, c1);
-    return d & 0xffffu;  // lanes 16-31 repeat lanes 0-15's decisions
-  }
-  __device__ static float lane_min(float ma, float) { return ma; }
 };
 
 // Steps of one group; kMode 0: the fast form, 1: a window's first group
@@ -369,9 +418,6 @@ int dispatch_acs(int R, const void* soft, const int* starts,
                  const float* expected, unsigned long long* dec, int B, int T,
                  long long total, long long* cycles, cudaStream_t stream) {
   switch (R) {
-    case 1:
-      return launch_acs<S, In, 1>(soft, starts, expected, dec, B, T, total,
-                                  cycles, stream);
     case 2:
       return launch_acs<S, In, 2>(soft, starts, expected, dec, B, T, total,
                                   cycles, stream);
@@ -423,6 +469,7 @@ template <>
 struct Walker<64> {
   uint32_t sh = 0;
   bool top = false;
+  __device__ explicit Walker(int) {}
   __device__ __forceinline__ uint32_t step(unsigned long long word) {
     const uint32_t bit = sh & 1u;
     const uint32_t half = top ? static_cast<uint32_t>(word >> 32)
@@ -439,10 +486,25 @@ struct Walker<64> {
 template <>
 struct Walker<16> {
   uint32_t s = 0;
+  __device__ explicit Walker(int) {}
   __device__ __forceinline__ uint32_t step(unsigned long long word) {
     const uint32_t bit = s & 1u;
     const uint32_t took = (static_cast<uint32_t>(word) >> s) & 1u;
     s = (s >> 1) | (took << 3);  // (s >> 1) + 8 * took
+    return bit;
+  }
+};
+
+// Walker<0>: any S <= 64; the decision is bit s of the word
+template <>
+struct Walker<0> {
+  uint32_t s = 0;
+  uint32_t half;
+  __device__ explicit Walker(int S) : half(static_cast<uint32_t>(S) >> 1) {}
+  __device__ __forceinline__ uint32_t step(unsigned long long word) {
+    const uint32_t bit = s & 1u;
+    const bool took = (word >> s) & 1ull;
+    s = (s >> 1) | (took ? half : 0u);  // (s >> 1) + S / 2 * took
     return bit;
   }
 };
@@ -481,7 +543,7 @@ __device__ __forceinline__ void walk(const unsigned long long* __restrict__ w,
 template <int S>
 __global__ void __launch_bounds__(32)
     traceback_kernel(const unsigned long long* __restrict__ dec,
-                     uint8_t* __restrict__ bits, int T,
+                     uint8_t* __restrict__ bits, int T, int num_states,
                      long long* __restrict__ cycles) {
   __shared__ __align__(16) unsigned long long ring[2][kChunk];
   __shared__ __align__(8) uint8_t sbits[kChunk];
@@ -491,7 +553,7 @@ __global__ void __launch_bounds__(32)
   uint8_t* bw = bits + static_cast<long long>(blockIdx.x) * T;
   const int nch = (T + kChunk - 1) / kChunk;
   stage(ring[(nch - 1) & 1], dw, nch - 1, T, lane);
-  Walker<S> walker;  // the walk starts at state 0
+  Walker<S> walker(num_states);  // the walk starts at state 0
   for (int k = nch - 1; k >= 0; --k) {
     if (k > 0) {
       stage(ring[(k - 1) & 1], dw, k - 1, T, lane);
@@ -508,43 +570,386 @@ __global__ void __launch_bounds__(32)
   if (cycles != nullptr && lane == 0) cycles[blockIdx.x] = clock64() - t_start;
 }
 
+
+// ---------------------------------------------------------------------------
+// General ACS and traceback: every S = 2 ... 16384, every R = 2 ... 32
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float soft_value(uint8_t v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float soft_value(float v) { return v; }
+
+// The branch metric of register row `row` at soft bits s[0, R): sum_j
+// |s_j - e[row, j]| in j order, the row's expected outputs from `cached`
+// (kReg: R <= kRegRate, in registers) or from `expected` [2S, R].
+template <bool kReg>
+__device__ __forceinline__ float branch_metric(
+    const float* s, const float* __restrict__ expected,
+    const float (&cached)[kRegRate], int row, int R) {
+  if constexpr (kReg) {
+    float acc = fabsf(s[0] - cached[0]);
+#pragma unroll
+    for (int j = 1; j < kRegRate; ++j)
+      if (j < R) acc = acc + fabsf(s[j] - cached[j]);
+    return acc;
+  } else {
+    const float* e = expected + static_cast<long long>(row) * R;
+    float acc = fabsf(s[0] - __ldg(e));
+    for (int j = 1; j < R; ++j) acc = acc + fabsf(s[j] - __ldg(e + j));
+    return acc;
+  }
+}
+
+// register row `row`'s expected outputs into registers (kReg only)
+template <bool kReg>
+__device__ __forceinline__ void cache_row(const float* __restrict__ expected,
+                                          int row, int R,
+                                          float (&out)[kRegRate]) {
+#pragma unroll
+  for (int j = 0; j < kRegRate; ++j)
+    out[j] = kReg && j < R ? expected[row * R + j] : 0.0f;
+}
+
+// S <= 32: one warp a window (lane l: state l % S), kWarps windows a CTA;
+// G = 32 / R steps of soft bits a group, staged through shared memory.
+template <typename In, bool kReg>
+__global__ void __launch_bounds__(kWarps * 32)
+    acs_warp_kernel(const In* __restrict__ soft,
+                    const int* __restrict__ starts,
+                    const float* __restrict__ expected,
+                    unsigned long long* __restrict__ dec, int B, int T,
+                    long long total, int R, int S,
+                    long long* __restrict__ cycles) {
+  __shared__ float sst[kWarps][2][32];
+  __shared__ unsigned long long sbuf[kWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarps + warp;
+  if (w >= B) return;  // whole warps leave together
+  const long long t_start = clock64();
+  const int n = lane & (S - 1);
+  const int p0 = n >> 1, p1 = (n >> 1) + (S >> 1);
+  const unsigned long long keep = (1ull << S) - 1;
+  float e0[kRegRate], e1[kRegRate];
+  cache_row<kReg>(expected, n, R, e0);
+  cache_row<kReg>(expected, n + S, R, e1);
+  const long long start =
+      min(max(static_cast<long long>(starts[w]), 0LL), total - T);
+  const In* sw = soft + start * R;
+  const long long nvals = static_cast<long long>(T) * R;
+  const int G = 32 / R, GR = G * R;
+  sst[warp][0][lane] = lane < GR && lane < nvals ? soft_value(sw[lane]) : 0.0f;
+  __syncwarp();
+  unsigned long long* dw = dec + static_cast<long long>(w) * T;
+  float m = n == 0 ? 0.0f : 1e9f;
+  for (int t0 = 0, g = 0; t0 < T; t0 += G, ++g) {
+    // the next group's value of this lane, loaded off the chain
+    const long long nx = static_cast<long long>(t0 + G) * R + lane;
+    const float pre = lane < GR && nx < nvals ? soft_value(sw[nx]) : 0.0f;
+    const float* sg = sst[warp][g & 1];
+    const int steps = min(G, T - t0);
+    for (int i = 0; i < steps; ++i) {
+      const float* sv = sg + i * R;
+      const float bm0 = branch_metric<kReg>(sv, expected, e0, n, R);
+      const float bm1 = branch_metric<kReg>(sv, expected, e1, n + S, R);
+      const float c0 = __shfl_sync(FULL, m, p0) + bm0;
+      const float c1 = __shfl_sync(FULL, m, p1) + bm1;
+      const bool take = c1 < c0;
+      const float v = take ? c1 : c0;
+      const unsigned word = __ballot_sync(FULL, take);
+      m = v - warp_min(v);
+      if (lane == 0) sbuf[warp][i] = word & keep;
+    }
+    sst[warp][(g + 1) & 1][lane] = pre;
+    __syncwarp();
+    if (lane < steps) dw[t0 + lane] = sbuf[warp][lane];
+    __syncwarp();
+  }
+  if (cycles != nullptr && lane == 0) cycles[w] = clock64() - t_start;
+}
+
+// S >= 64: one CTA of S / K threads a window, K states a thread. Dynamic
+// shared memory: metrics [2][S], soft bits [2][G * R], warp minima [2][32].
+template <typename In, int K, bool kReg>
+__global__ void __launch_bounds__(kCtaThreads)
+    acs_cta_kernel(const In* __restrict__ soft,
+                   const int* __restrict__ starts,
+                   const float* __restrict__ expected,
+                   uint32_t* __restrict__ dec, int T, long long total, int R,
+                   int S, int G, long long* __restrict__ cycles) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kU8 = sizeof(In) == 1;  // integral soft bits
+  const int nthr = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int half = S >> 1, GR = G * R, wps = S >> 5;  // 32-bit words a step
+  float* const mbuf = smem;
+  float* const sst = smem + 2 * S;
+  float* const wmin = sst + 2 * GR;
+  const int w = blockIdx.x;
+  const long long t_start = clock64();
+  const long long start =
+      min(max(static_cast<long long>(starts[w]), 0LL), total - T);
+  const In* sw = soft + start * R;
+  const long long nvals = static_cast<long long>(T) * R;
+  float e0[K][kRegRate], e1[K][kRegRate];
+  bool e_ok = true;  // this thread's expected rows: integers in [0, 255]
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int n = k * nthr + tid;
+    mbuf[n] = n == 0 ? 0.0f : 1e9f;
+    cache_row<kReg>(expected, n, R, e0[k]);
+    cache_row<kReg>(expected, n + S, R, e1[k]);
+    for (int j = 0; kU8 && j < R; ++j) {
+      const float x0 = expected[n * R + j], x1 = expected[(n + S) * R + j];
+      e_ok = e_ok && x0 == rintf(x0) && x0 >= 0.0f && x0 <= 255.0f &&
+             x1 == rintf(x1) && x1 >= 0.0f && x1 <= 255.0f;
+    }
+  }
+  if (tid < GR) sst[tid] = tid < nvals ? soft_value(sw[tid]) : 0.0f;
+  // the fast form (integral metrics, the minimum off the chain) for uint8
+  // soft bits and integral expected outputs at R <= kFastRate
+  const bool fast =
+      __syncthreads_and(kU8 && e_ok && R <= kFastRate) != 0;
+  const int ref_steps = 31 - __clz(S);  // K - 1
+  uint32_t* dw = dec + static_cast<long long>(w) * T * wps;
+  float pre = 0.0f;
+  int g = 0, i = 0;
+  bool use_mn = false;  // the previous step recorded its minimum
+  for (int t = 0; t < T; ++t) {
+    const float* mo = mbuf + (t & 1) * S;
+    float* mw = mbuf + ((t + 1) & 1) * S;
+    if (i == 0) {  // the next group's value of this thread, off the chain
+      const long long nx = static_cast<long long>(g + 1) * GR + tid;
+      pre = tid < GR && nx < nvals ? soft_value(sw[nx]) : 0.0f;
+    }
+    // the previous step's minimum, from its warps' minima
+    const float mn =
+        use_mn ? warp_min(lane < nwarps ? wmin[((t + 1) & 1) * 32 + lane]
+                                        : INFINITY)
+               : 0.0f;
+    // this step records its minimum: every step in the reference form;
+    // in the fast form a window's first K - 1 steps and every 4096th
+    const bool rec =
+        !fast || t < ref_steps || (t + 1) % kRenormSteps == 0;
+    const float* sv = sst + (g & 1) * GR + i * R;
+    uint32_t* ds = dw + static_cast<long long>(t) * wps;
+    float lmin = INFINITY;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int n = k * nthr + tid, p = n >> 1;
+      const float bm0 = branch_metric<kReg>(sv, expected, e0[k], n, R);
+      const float bm1 = branch_metric<kReg>(sv, expected, e1[k], n + S, R);
+      float a = mo[p], b = mo[p + half];
+      if (use_mn) {  // (m_old[p] - min) is the reference's metric m[p]
+        a = a - mn;
+        b = b - mn;
+      }
+      const float c0 = a + bm0, c1 = b + bm1;
+      const bool take = c1 < c0;
+      const float v = take ? c1 : c0;
+      mw[n] = v;
+      lmin = fminf(lmin, v);
+      const unsigned word = __ballot_sync(FULL, take);
+      if (lane == 0) ds[n >> 5] = word;
+    }
+    if (rec) {
+      const float wm = warp_min(lmin);
+      if (lane == 0) wmin[(t & 1) * 32 + warp] = wm;
+    }
+    if (i == G - 1 && tid < GR) sst[((g + 1) & 1) * GR + tid] = pre;
+    __syncthreads();
+    use_mn = rec;
+    if (++i == G) {
+      i = 0;
+      ++g;
+    }
+  }
+  if (cycles != nullptr && tid == 0) cycles[w] = clock64() - t_start;
+}
+
+template <typename In, bool kReg>
+int launch_warp(const void* soft, const int* starts, const float* expected,
+                unsigned long long* dec, int B, int T, long long total, int R,
+                int S, long long* cycles, cudaStream_t stream) {
+  const int blocks = (B + kWarps - 1) / kWarps;
+  acs_warp_kernel<In, kReg><<<blocks, kWarps * 32, 0, stream>>>(
+      static_cast<const In*>(soft), starts, expected, dec, B, T, total, R, S,
+      cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In, int K, bool kReg>
+int launch_cta(const void* soft, const int* starts, const float* expected,
+               unsigned long long* dec, int B, int T, long long total, int R,
+               int S, long long* cycles, cudaStream_t stream) {
+  const int nthr = S / K;
+  const int G = min(32, nthr / R);
+  const size_t smem = (2 * static_cast<size_t>(S) +
+                       2 * static_cast<size_t>(G) * R + 64) * sizeof(float);
+  auto* kernel = acs_cta_kernel<In, K, kReg>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<B, nthr, smem, stream>>>(static_cast<const In*>(soft), starts,
+                                    expected, reinterpret_cast<uint32_t*>(dec),
+                                    T, total, R, S, G, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In>
+int acs_general(int R, int S, const void* soft, const int* starts,
+                const float* expected, unsigned long long* dec, int B, int T,
+                long long total, long long* cycles, cudaStream_t stream) {
+  const bool reg = R <= kRegRate;
+#define VITERBI_GENERAL_ARGS \
+  soft, starts, expected, dec, B, T, total, R, S, cycles, stream
+  if (S <= 32)
+    return reg ? launch_warp<In, true>(VITERBI_GENERAL_ARGS)
+               : launch_warp<In, false>(VITERBI_GENERAL_ARGS);
+  switch (S) {
+    case 2048:
+      return reg ? launch_cta<In, 2, true>(VITERBI_GENERAL_ARGS)
+                 : launch_cta<In, 2, false>(VITERBI_GENERAL_ARGS);
+    case 4096:
+      return launch_cta<In, 4, false>(VITERBI_GENERAL_ARGS);
+    case 8192:
+      return launch_cta<In, 8, false>(VITERBI_GENERAL_ARGS);
+    case 16384:
+      return launch_cta<In, 16, false>(VITERBI_GENERAL_ARGS);
+    default:  // 64 ... 1024: a thread a state
+      return reg ? launch_cta<In, 1, true>(VITERBI_GENERAL_ARGS)
+                 : launch_cta<In, 1, false>(VITERBI_GENERAL_ARGS);
+  }
+#undef VITERBI_GENERAL_ARGS
+}
+
+// words [k * ch * W, min((k + 1) * ch, T) * W) of a window (W words a
+// step, ch steps a stage) into `dst`, as one cp.async group of this thread
+__device__ __forceinline__ void stage_wide(unsigned long long* dst,
+                                           const unsigned long long* src,
+                                           int k, int T, int ch, int W,
+                                           int lane) {
+  const long long lo = static_cast<long long>(k) * ch * W;
+  const int n = (min((k + 1) * ch, T) - k * ch) * W;
+  for (int i = lane; i < n; i += 32)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                     smem_addr(dst + i)),
+                 "l"(src + lo + i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// S > 64: W = S / 64 words a step, staged kWideStage words at a time
+__global__ void __launch_bounds__(32)
+    traceback_wide_kernel(const unsigned long long* __restrict__ dec,
+                          uint8_t* __restrict__ bits, int T, int S,
+                          long long* __restrict__ cycles) {
+  __shared__ __align__(16) unsigned long long ring[2][kWideStage];
+  __shared__ uint8_t sbits[kWideStage / 2];
+  const int lane = threadIdx.x;
+  const long long t_start = clock64();
+  const int W = S >> 6, ch = kWideStage / W;
+  const uint32_t half = static_cast<uint32_t>(S) >> 1;
+  const unsigned long long* dw =
+      dec + static_cast<long long>(blockIdx.x) * T * W;
+  uint8_t* bw = bits + static_cast<long long>(blockIdx.x) * T;
+  const int nch = (T + ch - 1) / ch;
+  stage_wide(ring[(nch - 1) & 1], dw, nch - 1, T, ch, W, lane);
+  uint32_t s = 0;  // the walk starts at state 0
+  for (int k = nch - 1; k >= 0; --k) {
+    if (k > 0) {
+      stage_wide(ring[(k - 1) & 1], dw, k - 1, T, ch, W, lane);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncwarp();  // every lane's copies of stage k have landed
+    const int lo = k * ch, n = min(ch, T - lo);
+    if (lane == 0) {
+      const unsigned long long* r = ring[k & 1];
+      for (int i = n - 1; i >= 0; --i) {
+        const unsigned long long word = r[i * W + (s >> 6)];
+        sbits[i] = static_cast<uint8_t>(s & 1u);
+        const bool took = (word >> (s & 63u)) & 1ull;
+        s = (s >> 1) | (took ? half : 0u);  // (s >> 1) + S / 2 * took
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) bw[lo + i] = sbits[i];
+  }
+  if (cycles != nullptr && lane == 0) cycles[blockIdx.x] = clock64() - t_start;
+}
+
+bool states_ok(int S) {
+  return S >= 2 && S <= MAX_STATES && (S & (S - 1)) == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // soft [total, R] uint8 (soft_u8) or float32, starts [B] int32 (each
 // clamped to [0, total - T]), expected [2S, R] float32 (register outputs
-// times 255) -> dec [B, T] 64-bit decision words; cycles: null or [B]
-// int64, each window's clock64 cycles. 1 <= T <= total, R <= 4, S = 16
-// or 64.
+// times 255) -> dec [B, T, max(S / 64, 1)] 64-bit decision words; cycles:
+// null or [B] int64, each window's clock64 cycles. 1 <= T <= total,
+// 2 <= R <= 32, S a power of two in [2, 16384]. S <= 64 at R <= 4 takes
+// the tuned kernels, everything else the general ones; *general (if not
+// null) receives which: 0 tuned, 1 general.
 int viterbi_acs(const void* soft, int soft_u8, const int* starts,
                 const float* expected, long long* dec, int B, int T,
                 long long total, int R, int S, long long* cycles,
-                void* stream) {
-  if (B < 1 || T < 1 || total < T || R < 1 || R > MAX_RATE ||
-      (S != 16 && S != 64))
+                void* stream, int* general) {
+  if (B < 1 || T < 1 || total < T || R < MIN_RATE || R > MAX_ANY_RATE ||
+      !states_ok(S))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* d = reinterpret_cast<unsigned long long*>(dec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return S == 64 ? dispatch_soft<64>(soft_u8, R, soft, starts, expected, d, B,
-                                     T, total, cycles, s)
-                 : dispatch_soft<16>(soft_u8, R, soft, starts, expected, d, B,
-                                     T, total, cycles, s);
+  const bool tuned = S <= 64 && R <= MAX_RATE;
+  if (general != nullptr) *general = tuned ? 0 : 1;
+  if (tuned) {
+#define VITERBI_TUNED(N)                                                    \
+  case N:                                                                   \
+    return dispatch_soft<N>(soft_u8, R, soft, starts, expected, d, B, T,    \
+                            total, cycles, s)
+    switch (S) {
+      VITERBI_TUNED(64);
+      VITERBI_TUNED(32);
+      VITERBI_TUNED(16);
+      VITERBI_TUNED(8);
+      VITERBI_TUNED(4);
+      VITERBI_TUNED(2);
+    }
+#undef VITERBI_TUNED
+  }
+  return soft_u8 ? acs_general<uint8_t>(R, S, soft, starts, expected, d, B, T,
+                                        total, cycles, s)
+                 : acs_general<float>(R, S, soft, starts, expected, d, B, T,
+                                      total, cycles, s);
 }
 
-// dec [B, T] 64-bit decision words of S = 16 or 64 states -> bits [B, T]
-// uint8 (the state's low bit per step, walking back from state 0);
-// cycles: null or [B] int64.
+// dec [B, T, max(S / 64, 1)] 64-bit decision words of S states (a power
+// of two in [2, 16384]) -> bits [B, T] uint8 (the state's low bit per
+// step, walking back from state 0); cycles: null or [B] int64; *general
+// (if not null) receives 1 where the general walker (S > 64) runs, else 0.
 int viterbi_traceback(const long long* dec, unsigned char* bits, int B,
-                      int T, int S, long long* cycles, void* stream) {
-  if (B < 1 || T < 1 || (S != 16 && S != 64))
+                      int T, int S, long long* cycles, void* stream,
+                      int* general) {
+  if (B < 1 || T < 1 || !states_ok(S))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* d = reinterpret_cast<const unsigned long long*>(dec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (general != nullptr) *general = S > 64 ? 1 : 0;
   if (S == 64)
-    traceback_kernel<64><<<B, 32, 0, s>>>(d, bits, T, cycles);
+    traceback_kernel<64><<<B, 32, 0, s>>>(d, bits, T, S, cycles);
+  else if (S == 16)
+    traceback_kernel<16><<<B, 32, 0, s>>>(d, bits, T, S, cycles);
+  else if (S < 64)
+    traceback_kernel<0><<<B, 32, 0, s>>>(d, bits, T, S, cycles);
   else
-    traceback_kernel<16><<<B, 32, 0, s>>>(d, bits, T, cycles);
+    traceback_wide_kernel<<<B, 32, 0, s>>>(d, bits, T, S, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,23 +3,26 @@
 The counterpart of ``sdrpp_tpu.ops.fec`` (libcorrect conventions:
 core/libcorrect/src/convolutional/*.c, reed-solomon/*.c):
 
-- ``ConvCode``: rate 1/R, order K codes. ``encode`` runs on the host
-  (numpy, bit-exact against libcorrect). The decoders take the codes
-  whose state count the kernels take: order 7 (64 states: Meteor LRPT,
-  KG-STV) and order 5 (16 states: M17); others raise ValueError.
-  ``decode_soft`` is the exact full-trellis decode: the batched ACS and
-  traceback kernels of ``fec_kernels`` with one window, and
+- ``ConvCode``: rate 1/R, order K codes, every order 2 to 15 (S = 2 ...
+  16384 states) and rate 2 to 32. ``encode`` runs on the host (numpy,
+  bit-exact against libcorrect). ``decode_soft`` is the exact
+  full-trellis decode: the batched ACS and traceback kernels of
+  ``fec_kernels`` with one window (B5 and B7 of the JAX package), and
   ``decode_soft_np`` the same with host arrays in and out (the JAX
   package's host-facing decode). ``decode_soft_stream`` is the
   chunk-parallel truncated decode of long streams (L-step windows with W
   steps of warm-up and warm-down on each side, batched through the same
-  kernels); it stays on the device and only packed bytes come back.
-  Soft-decision convention: 0 = strong 0, 255 = strong 1.
+  kernels); it stays on the device and only packed bytes come back. It
+  takes the windows where the JAX package's windowed kernel does (S <=
+  64, fec_pallas.py:72) and the exact decode above, as the JAX package
+  does on a TPU (sdrpp_tpu/ops/fec.py:298-303). Soft-decision
+  convention: 0 = strong 0, 255 = strong 1.
 - ``ReedSolomon``: RS(255, 255 - nroots) with libcorrect's
-  parameterization. ``encode`` on the host; ``decode`` in plain torch
-  integer ops over a batch axis (syndromes, Berlekamp-Massey, Chien
-  search, Forney), bit-exact against the JAX package. The erasure decoder
-  is not ported.
+  parameterization. ``encode`` on the host; ``decode`` and
+  ``decode_with_erasures`` (f known erasures plus e errors while 2e + f
+  <= nroots) in plain torch integer ops over a batch axis (syndromes, the
+  erasure locator, Berlekamp-Massey, Chien search, Forney), bit-exact
+  against the JAX package.
 """
 
 from __future__ import annotations
@@ -103,11 +106,8 @@ class ConvCode:
         they are known to be integers in 0..255 (a uint8 tensor, or a host
         array whose values are, as the JAX package ships them,
         sdrpp_tpu/ops/fec.py:267-276), else float32. uint8 takes the
-        kernel's fast form and a 4x smaller upload; both decode alike."""
-        if self.num_states not in (16, 64):
-            raise ValueError(f"the Viterbi kernels decode the 16-state "
-                             f"(order 5) and 64-state (order 7) codes, not "
-                             f"{self.num_states} states")
+        tuned kernels' fast form and a 4x smaller upload; both decode
+        alike."""
         if isinstance(soft_bits, torch.Tensor):
             soft = soft_bits
         else:
@@ -151,13 +151,15 @@ class ConvCode:
         (sdrpp_tpu/ops/fec.py:233): windows of ``chunk_bits`` trellis steps
         extended by ``overlap_bits`` on each side run batched through the
         ACS and traceback kernels, and only each window's interior bits are
-        kept. Streams of at most chunk + 2 * overlap steps take the exact
-        decode. Returns host uint8 bits [T - (order + 1)]."""
+        kept. Streams of at most chunk + 2 * overlap steps, and codes of
+        more than 64 states (the JAX package's windowed kernel takes S <=
+        64, fec_pallas.py:72), take the exact decode. Returns host uint8
+        bits [T - (order + 1)]."""
         soft = self._soft_steps(soft_bits)
         total = soft.shape[0]
         L, W = int(chunk_bits), int(overlap_bits)
         t_w = L + 2 * W
-        if total <= t_w:
+        if total <= t_w or self.num_states > 64:
             return self.decode_soft(soft.reshape(-1)).cpu().numpy()
         dev = self.device
         n_chunks = -(-total // L)
@@ -296,13 +298,18 @@ class ReedSolomon:
         pows = torch.from_numpy(self.root_pows).to(dev)
         return self._eval_at_pows(torch.flip(r, [-1]), pows)
 
-    def decode(self, blocks: torch.Tensor):
-        """Decode [B, 255] uint8 codewords -> (corrected [B, 223] uint8, ok
-        [B] bool). ``blocks[:, 0]`` is the highest-order coefficient (the
-        first transmitted byte)."""
+    def _check_blocks(self, blocks):
         if blocks.ndim != 2 or blocks.shape[1] != self.block_len:
             raise ValueError(f"blocks must be [B, {self.block_len}]")
-        r = blocks.to(self.device).long()
+        return blocks.to(self.device).long()
+
+    def _correct(self, r, gamma=None, f=None):
+        """The decode from the erasure locator ``gamma`` [B, nroots + 1]
+        and the erasure counts ``f`` [B] (both None without erasures):
+        syndromes, Berlekamp-Massey seeded with gamma, whose steps start at
+        i = f with the growth test 2 (L - f) <= i - f, Chien search and
+        Forney -> (corrected [B, 255], no_errors, is_err [B, 255], the
+        locator's length [B], the corrected block's syndromes)."""
         Bn, N, nroots = r.shape[0], self.block_len, self.nroots
         L = nroots + 1
         dev = r.device
@@ -312,13 +319,15 @@ class ReedSolomon:
         # Berlekamp-Massey -> error locator Lambda (low->high, length L);
         # Bs = x^m * B carried pre-shifted, so each step shifts by one x
         ar = torch.arange(L, device=dev)
-        Lam = torch.zeros((Bn, L), dtype=torch.int64, device=dev)
-        Lam[:, 0] = 1
-        Bs = torch.zeros_like(Lam)
-        Bs[:, 1] = 1
-        Llen = torch.zeros(Bn, dtype=torch.int64, device=dev)
-        b = torch.ones(Bn, dtype=torch.int64, device=dev)
         zero_col = torch.zeros((Bn, 1), dtype=torch.int64, device=dev)
+        if gamma is None:
+            Lam = torch.zeros((Bn, L), dtype=torch.int64, device=dev)
+            Lam[:, 0] = 1
+            Llen = torch.zeros(Bn, dtype=torch.int64, device=dev)
+        else:
+            Lam, Llen = gamma, f.clone()
+        Bs = torch.cat([zero_col, Lam[:, :-1]], dim=1)
+        b = torch.ones(Bn, dtype=torch.int64, device=dev)
         for i in range(nroots):
             idx = i - ar
             ok_idx = (idx >= 0) & (idx < nroots)
@@ -327,12 +336,21 @@ class ReedSolomon:
             d = _xor_reduce(self._mul(Lam, s_at))
             db = self._mul(d, self._inv(b))
             d_nz = d != 0
+            if f is None:
+                grow = d_nz & (2 * Llen <= i)
+                lnew = i + 1 - Llen
+            else:  # the steps before i = f leave every carry as it is
+                active = i >= f
+                d_nz = d_nz & active
+                grow = d_nz & (2 * (Llen - f) <= i - f)
+                lnew = i + 1 - (Llen - f)
             new_lam = torch.where(d_nz[:, None],
                                   Lam ^ self._mul(Bs, db[:, None]), Lam)
-            grow = d_nz & (2 * Llen <= i)
             base = torch.where(grow[:, None], Lam, Bs)
-            Bs = torch.cat([zero_col, base[:, :-1]], dim=1)
-            Llen = torch.where(grow, i + 1 - Llen, Llen)
+            shifted = torch.cat([zero_col, base[:, :-1]], dim=1)
+            Bs = shifted if f is None else torch.where(active[:, None],
+                                                       shifted, Bs)
+            Llen = torch.where(grow, lnew, Llen)
             b = torch.where(grow, d, b)
             Lam = new_lam
 
@@ -363,10 +381,50 @@ class ReedSolomon:
                          self._mul(num, self._inv(dl_at)), 0)
         corrections = torch.flip(ej, [-1])  # power j -> byte N-1-j
         corrected = torch.where(no_errors[:, None], r, r ^ corrections)
+        return (corrected, no_errors, is_err, Llen,
+                self._syndromes(corrected))
 
+    def decode(self, blocks: torch.Tensor):
+        """Decode [B, 255] uint8 codewords -> (corrected [B, 223] uint8, ok
+        [B] bool). ``blocks[:, 0]`` is the highest-order coefficient (the
+        first transmitted byte)."""
+        r = self._check_blocks(blocks)
+        corrected, no_errors, is_err, Llen, synd2 = self._correct(r)
         # verify: the corrected block's syndromes vanish and the number of
         # roots found matches the locator degree
-        synd2 = self._syndromes(corrected)
         nerr = is_err.long().sum(dim=1)
         ok = torch.all(synd2 == 0, dim=1) & (no_errors | (nerr == Llen))
+        return corrected[:, :self.msg_len].to(torch.uint8), ok
+
+    def decode_with_erasures(self, blocks: torch.Tensor,
+                             erasure_pos: torch.Tensor,
+                             num_erasures: torch.Tensor):
+        """Decode with known erasure positions (libcorrect
+        correct_reed_solomon_decode_with_erasures; the JAX package's
+        ``decode_with_erasures``, sdrpp_tpu/ops/fec.py:563): corrects f
+        erasures plus e errors while 2e + f <= nroots. ``blocks`` [B, 255]
+        uint8, ``erasure_pos`` [B, max_e] integer byte indices into each
+        block of which the first ``num_erasures[b]`` ([B]) are valid ->
+        (corrected [B, msg_len] uint8, ok [B] bool: the corrected block's
+        syndromes vanish)."""
+        r = self._check_blocks(blocks)
+        Bn, N = r.shape[0], self.block_len
+        pos = erasure_pos.to(self.device).long()
+        f = num_erasures.to(self.device).long().reshape(-1)
+        if pos.ndim != 2 or pos.shape[0] != Bn or f.shape[0] != Bn:
+            raise ValueError(f"erasure_pos must be [{Bn}, max_e] and "
+                             f"num_erasures [{Bn}]")
+        # erasure locator Gamma(x) = prod_j (1 + X_j x), X_j = alpha^{gap *
+        # (N - 1 - position)} (the coefficient power of the byte)
+        xj = self._exp[(self.gap * ((N - 1 - pos) % N)) % 255]  # [B, max_e]
+        gamma = torch.zeros((Bn, self.nroots + 1), dtype=torch.int64,
+                            device=r.device)
+        gamma[:, 0] = 1
+        zero_col = torch.zeros((Bn, 1), dtype=torch.int64, device=r.device)
+        for k in range(pos.shape[1]):
+            shifted = torch.cat([zero_col, gamma[:, :-1]], dim=1)
+            cand = gamma ^ self._mul(shifted, xj[:, k:k + 1])
+            gamma = torch.where((k < f)[:, None], cand, gamma)
+        corrected, _, _, _, synd2 = self._correct(r, gamma, f)
+        ok = torch.all(synd2 == 0, dim=1)
         return corrected[:, :self.msg_len].to(torch.uint8), ok

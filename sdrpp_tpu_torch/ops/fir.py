@@ -13,7 +13,11 @@ Decimation keeps the reference's phase semantics (first output at the
 carried offset, then every R-th input sample); block lengths must be a
 multiple of R. The JAX package picks a strided convolution or an unrolled
 polyphase sum by backend; the port runs the strided ``conv1d`` (a
-correlation: conv1d does not flip its kernel) on every device.
+correlation: conv1d does not flip its kernel) on every device, complex
+taps as two real channels (their real and imaginary parts) whose outputs
+combine as re + j im, and ``DecimatingFIR`` sends real taps at R >= 8 to
+the decimating-FIR kernel (``fir_kernels.decimating_fir``), as the
+power-of-2 decimator's stages do.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.blocks import Block
+from .fir_kernels import decimating_fir
 
 __all__ = ["fir_correlate", "FIR", "fir_init_tail", "pad_taps_front",
-           "RuntimeFIR", "decimating_fir_correlate", "strided_correlate",
+           "RuntimeFIR", "decimating_fir_correlate", "DecimatingFIR",
+           "strided_correlate", "tap_weight", "combine_planes",
            "taps_spectrum"]
 
 
@@ -178,11 +184,25 @@ def strided_correlate(buf: torch.Tensor, weight: torch.Tensor, stride: int,
     return torch.view_as_complex(out.contiguous())
 
 
-def _real_weight(taps: np.ndarray, device) -> torch.Tensor:
+def tap_weight(taps: np.ndarray, device) -> torch.Tensor:
+    """Taps as a float32 ``conv1d`` weight: real taps [1, 1, m], complex
+    taps [2, 1, m] (the real part, then the imaginary part)."""
+    taps = np.asarray(taps)
     if np.iscomplexobj(taps):
-        raise ValueError("decimating FIR with complex taps is not ported")
-    return torch.from_numpy(np.asarray(taps, np.float32).reshape(1, 1, -1)
-                            .copy()).to(device)
+        w = np.stack([taps.real, taps.imag])[:, None, :]
+    else:
+        w = taps.reshape(1, 1, -1)
+    return torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(device)
+
+
+def combine_planes(re_part: torch.Tensor, im_part: torch.Tensor
+                   ) -> torch.Tensor:
+    """re + j im of a complex-tap correlation's two channels: the taps'
+    real and imaginary parts against real or complex input."""
+    if not re_part.is_complex():
+        return torch.complex(re_part, im_part)
+    return torch.complex(re_part.real - im_part.imag,
+                         re_part.imag + im_part.real)
 
 
 def decimating_fir_correlate(tail: torch.Tensor, x: torch.Tensor,
@@ -190,16 +210,49 @@ def decimating_fir_correlate(tail: torch.Tensor, x: torch.Tensor,
                              weight: torch.Tensor | None = None):
     """FIR + keep-every-R-th-output (reference decimating_fir.h:49-69):
     y[k] = sum_j taps[j] * buf[R*k + j]. The block length must be a
-    multiple of ``decimation``. ``weight`` is the taps as a [1, 1, m]
-    float32 tensor on x's device, built here when not given."""
+    multiple of ``decimation``. ``taps`` real or complex; the output is
+    complex when x or the taps are. ``weight`` is ``tap_weight(taps)`` on
+    x's device, built here when not given."""
     taps = np.asarray(taps)
-    m = taps.shape[0]
     n = x.shape[-1]
     r = int(decimation)
     if n % r:
         raise ValueError(f"block length {n} must be a multiple of decimation {r}")
     if weight is None:
-        weight = _real_weight(taps, x.device)
+        weight = tap_weight(taps, x.device)
     buf = torch.cat([tail, x], dim=-1)  # [..., n + m - 1]
-    y = strided_correlate(buf, weight, r, n // r)[..., 0, :]
+    out = strided_correlate(buf, weight, r, n // r)
+    y = out[..., 0, :] if out.shape[-2] == 1 else \
+        combine_planes(out[..., 0, :], out[..., 1, :])
     return buf[..., n:].clone(), y
+
+
+class DecimatingFIR(Block):
+    """FIR evaluated every R-th sample (reference decimating_fir.h:6-100),
+    the counterpart of the JAX package's (fir.py:319). Real taps at R >= 8
+    on complex64 or float32 input run the decimating-FIR kernel
+    (``fir_kernels.decimating_fir``: csrc/decim_fir.cu on a CUDA tensor,
+    its plain version on a CPU tensor); other real taps and complex taps
+    are ``decimating_fir_correlate``'s strided ``conv1d``."""
+
+    def __init__(self, taps: np.ndarray, decimation: int,
+                 dtype=torch.complex64, lead_shape=(), *, device):
+        self.taps = np.asarray(taps)
+        self.decimation = int(decimation)
+        self.dtype = dtype
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+        self._weight = tap_weight(self.taps, self.device)
+        self._kernel = (self.decimation >= 8
+                        and not np.iscomplexobj(self.taps))
+
+    def init_state(self):
+        return fir_init_tail(self.taps.shape[0], self.dtype, self.lead_shape,
+                             device=self.device)
+
+    def __call__(self, state, x):
+        if self._kernel and x.dtype in (torch.complex64, torch.float32):
+            return decimating_fir(state, x, self._weight.reshape(-1),
+                                  self.decimation)
+        return decimating_fir_correlate(state, x, self.taps,
+                                        self.decimation, self._weight)

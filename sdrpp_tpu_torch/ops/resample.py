@@ -19,6 +19,14 @@ form by backend; the port runs one form on every device: the grouped form
 as ONE strided ``conv1d`` whose ``interp`` output channels are the phase
 groups (outputs k = m*interp + r share phase bank[(r*decim) % interp] and
 advance by exactly ``decim`` input samples), interleaved afterwards.
+Complex taps double the channels (the banks' real parts, then their
+imaginary parts), combined as re + j im.
+
+``FFTPowerDecimator`` is the cascade's equivalent wideband filter
+(``equivalent_decim_taps``) applied in the frequency domain on
+``torch.fft`` (cuFFT on the card): overlap-save segments, one batched FFT,
+the alias fold to the output rate and the stride-phase ramp baked into
+the tap spectrum, as the JAX package's (resample.py:135).
 """
 
 from __future__ import annotations
@@ -30,14 +38,16 @@ import numpy as np
 import torch
 
 from ..utils.blocks import Block
-from .fir import _real_weight, decimating_fir_correlate, fir_init_tail, \
-    strided_correlate
+from .fir import combine_planes, decimating_fir_correlate, fir_init_tail, \
+    strided_correlate, tap_weight
 from .fir_kernels import decimating_fir
 from .taps import low_pass, root_raised_cosine_rate
 
 __all__ = [
     "decim_plan",
     "build_polyphase_bank",
+    "equivalent_decim_taps",
+    "FFTPowerDecimator",
     "PowerDecimator",
     "PolyphaseResampler",
     "RationalResampler",
@@ -89,8 +99,8 @@ class PowerDecimator(Block):
         self.stages = decim_plan(ratio) if ratio > 1 else []
         # r >= 8: the taps as an [m] vector for the kernel; else a
         # [1, 1, m] conv1d weight
-        self._weights = [_real_weight(t, self.device).reshape(-1) if r >= 8
-                         else _real_weight(t, self.device)
+        self._weights = [tap_weight(t, self.device).reshape(-1) if r >= 8
+                         else tap_weight(t, self.device)
                          for r, t in self.stages]
 
     def init_state(self):
@@ -109,6 +119,95 @@ class PowerDecimator(Block):
                 tail, x = decimating_fir_correlate(tail, x, taps, r, w)
             new_states.append(tail)
         return tuple(new_states), x
+
+
+def equivalent_decim_taps(ratio: int) -> np.ndarray:
+    """The cascade of ``decim_plan(ratio)`` as ONE wideband filter: each
+    stage is a strided correlation, and composing two convolves their tap
+    sequences, the inner stage's taps zero-stuffed by the decimation
+    before it, h = t1 (*) t2^(D1) (*) t3^(D1*D2) ... (the /256 plan
+    collapses to 9679 taps). Host float64, returned as float32."""
+    h = np.ones(1, np.float64)
+    cum = 1
+    for r, t in decim_plan(ratio):
+        up = np.zeros((t.shape[0] - 1) * cum + 1, np.float64)
+        up[::cum] = t.astype(np.float64)
+        h = np.convolve(h, up)
+        cum *= r
+    return h.astype(np.float32)
+
+
+class FFTPowerDecimator(Block):
+    """Power-of-2 decimation as one batched FFT (the JAX package's
+    FFTPowerDecimator, resample.py:135): the cascade's exact equivalent
+    filter (``equivalent_decim_taps``) in the frequency domain. A block is
+    cut into overlap-save frames of ``fft_len`` samples (a payload of
+    ``fft_len - pad`` new samples, pad the smallest multiple of ratio x
+    out_multiple covering the taps' tail), one batched FFT covers them
+    all, the spectrum times the taps' spectrum with the stride-phase ramp
+    e^{2 pi i f (m - 1) / F} folds onto F / ratio bins, and an inverse FFT
+    at the output rate gives y[k] = sum_j h[j] buf[ratio k + j]
+    (decimating_fir.h:55-66). Block lengths must be a multiple of
+    ``block_multiple`` (the payload). State and output match
+    ``PowerDecimator`` to float32 rounding.
+
+    The constructor refuses an ``fft_len`` that is not a multiple of
+    ratio x out_multiple, with which the fold's reshape fails (or the
+    output alignment is silently lost); the JAX class accepts it and
+    fails later with a reshape error."""
+
+    def __init__(self, ratio: int, dtype=torch.complex64, lead_shape=(),
+                 fft_len: int = 1 << 20, out_multiple: int = 1, *, device):
+        if not (2 <= ratio <= max_power_decim_ratio()
+                and (ratio & (ratio - 1)) == 0):
+            raise ValueError(f"decimation ratio {ratio} is not a power of 2 "
+                             f"in [2, {max_power_decim_ratio()}]")
+        self.ratio = int(ratio)
+        self.dtype = dtype
+        self.lead_shape = tuple(lead_shape)
+        self.device = torch.device(device)
+        self.taps = equivalent_decim_taps(ratio)
+        m = self.taps.shape[0]
+        q = self.ratio * int(out_multiple)
+        self.fft_len = F = int(fft_len)
+        if F % q:
+            raise ValueError(f"fft_len {F} must be a multiple of ratio x "
+                             f"out_multiple = {q}")
+        pad = -(-(m - 1) // q) * q
+        if F < pad + q:
+            raise ValueError(f"fft_len {F} too small for {m} taps")
+        self.payload = F - pad
+        self.block_multiple = self.payload
+        rev = np.zeros(F, np.complex128)
+        rev[:m] = self.taps[::-1].astype(np.float64)
+        ramp = np.exp(2j * np.pi * np.arange(F) * (m - 1) / F)
+        self._spec = torch.from_numpy(
+            (np.fft.fft(rev) * ramp).astype(np.complex64)).to(self.device)
+
+    def init_state(self):
+        return fir_init_tail(self.taps.shape[0], self.dtype, self.lead_shape,
+                             device=self.device)
+
+    def __call__(self, state, x):
+        n = x.shape[-1]
+        if n % self.payload:
+            raise ValueError(f"block length {n} must be a multiple of "
+                             f"{self.payload}")
+        segs = n // self.payload
+        m = self.taps.shape[0]
+        r, F = self.ratio, self.fft_len
+        M = F // r
+        buf = torch.cat([state, x], dim=-1)  # [..., n + m - 1]
+        frames = buf.unfold(-1, self.payload + m - 1, self.payload)
+        Z = torch.fft.fft(frames.to(torch.complex64), n=F, dim=-1) \
+            * self._spec
+        fold = Z.reshape(*Z.shape[:-1], r, M).sum(dim=-2)
+        z = torch.fft.ifft(fold, dim=-1) * np.float32(M / F)
+        y = z[..., :self.payload // r].reshape(
+            *x.shape[:-1], segs * (self.payload // r))
+        if not x.is_complex():
+            y = y.real
+        return buf[..., n:].clone(), y.to(x.dtype)
 
 
 def build_polyphase_bank(taps: np.ndarray, interp: int) -> np.ndarray:
@@ -137,8 +236,6 @@ class PolyphaseResampler(Block):
         self.interp = int(interp)
         self.decim = int(decim)
         self._taps = np.asarray(taps)
-        if np.iscomplexobj(self._taps):
-            raise ValueError("polyphase resampler with complex taps is not ported")
         self.bank = build_polyphase_bank(self._taps, self.interp)
         self.tpp = self.bank.shape[1]
         self.dtype = dtype
@@ -146,13 +243,17 @@ class PolyphaseResampler(Block):
         self.device = torch.device(device)
         # group r (outputs k = m*interp + r) starts at input offset
         # (r*decim)//interp < decim with phase (r*decim) % interp: its taps
-        # sit at that offset inside one [interp, 1, tpp + max offset] kernel
+        # sit at that offset inside one [interp, 1, tpp + max offset]
+        # kernel; complex taps stack the imaginary parts' kernel after it
         i, d, tpp = self.interp, self.decim, self.tpp
         offs = [(r * d) // i for r in range(i)]
-        w = np.zeros((i, 1, tpp + max(offs)), np.float32)
+        w = np.zeros((i, 1, tpp + max(offs)), self.bank.dtype)
         for r, off in enumerate(offs):
             w[r, 0, off:off + tpp] = self.bank[(r * d) % i]
-        self.weight = torch.from_numpy(w).to(self.device)
+        if np.iscomplexobj(w):
+            w = np.concatenate([w.real, w.imag])
+        self.weight = torch.from_numpy(np.ascontiguousarray(
+            w, np.float32)).to(self.device)
 
     def out_count(self, n: int) -> int:
         if n % self.decim:
@@ -170,6 +271,9 @@ class PolyphaseResampler(Block):
         buf = torch.cat([state, x], dim=-1)
         groups = strided_correlate(buf, self.weight, self.decim,
                                    out_n // self.interp)  # [..., i, m]
+        if groups.shape[-2] != self.interp:  # complex taps: [..., 2i, m]
+            groups = combine_planes(groups[..., :self.interp, :],
+                                    groups[..., self.interp:, :])
         y = groups.transpose(-1, -2).reshape(*buf.shape[:-1], out_n)
         return buf[..., n:].clone(), y
 

@@ -8,8 +8,8 @@ power matrix a^(i-j); across blocks, the same scan again over the block
 ends (a^B per step), recursively. The noise blanker's mean, whose
 coefficient is 1 - rate on nonzero samples and 1 on zeros, is the same
 scan over its nonzero samples, gathered back to every position. The
-nonlinear loops (PLL, AGC, FastAGC, Costas) run through the loop-scan
-kernel wrappers of
+nonlinear loops (PLL, CarrierTrackingPLL, AGC, FastAGC, Costas) run
+through the loop-scan kernel wrappers of
 ``scans_kernels`` (CUDA kernel on CUDA tensors, plain loop on CPU tensors).
 All blocks filter along the LAST axis and broadcast over leading axes.
 """
@@ -31,6 +31,7 @@ __all__ = [
     "AGC",
     "FastAGC",
     "PLL",
+    "CarrierTrackingPLL",
     "Costas",
     "NoiseBlanker",
     "Squelch",
@@ -226,6 +227,26 @@ class PLL(Block):
             self.min_freq, self.max_freq)
         y = torch.complex(torch.cos(out_phases), torch.sin(out_phases))
         return {"phase": phase_f, "freq": freq_f}, y
+
+
+class CarrierTrackingPLL(PLL):
+    """PLL that outputs the mixed-down signal instead of the VCO
+    (reference: core/src/dsp/loop/carrier_tracking_pll.h:14-19), the
+    counterpart of the JAX package's (scans.py:447): out[i] = in[i] *
+    phasor(-phase); advance(normalize(angle(in[i]) - phase)). The exact
+    recurrence runs in the loop-scan kernel's PLL body (single_scan on one
+    stream, lane_scan over a lead shape's lanes), which emits the phases
+    before each update; the mix is applied here, vectorized."""
+
+    def __call__(self, state, x):
+        from .scans_kernels import pll_phases
+
+        in_phase = torch.atan2(x.imag, x.real)
+        phases, phase_f, freq_f = pll_phases(
+            in_phase, state["phase"], state["freq"], self.alpha, self.beta,
+            self.min_freq, self.max_freq)
+        out = x * torch.complex(torch.cos(-phases), torch.sin(-phases))
+        return {"phase": phase_f, "freq": freq_f}, out
 
 
 class FastAGC(Block):

@@ -42,7 +42,7 @@ class Prefetcher:
     error is sticky: every later ``read`` raises it.
     """
 
-    def __init__(self, source, block: int, device="cpu"):
+    def __init__(self, source, block: int, device="cuda"):
         self.source = source
         self.samplerate = source.samplerate
         self.block = int(block)

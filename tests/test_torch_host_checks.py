@@ -190,11 +190,13 @@ def _viterbi_acs_cases():
     return [
         ("soft dtype", s.double(), st, 10, e),
         ("soft dims", s[None], st, 10, e),
-        ("rate", torch.zeros((50, 5), dtype=torch.uint8), st, 10,
-         torch.zeros((128, 5))),
+        ("rate", torch.zeros((50, 33), dtype=torch.uint8), st, 10,
+         torch.zeros((128, 33))),
+        ("rate one", torch.zeros((50, 1), dtype=torch.uint8), st, 10,
+         torch.zeros((128, 1))),
         ("rate zero", torch.zeros((50, 0), dtype=torch.uint8), st, 10,
          torch.zeros((128, 0))),
-        ("expected rows", s, st, 10, e[:64]),
+        ("expected rows", s, st, 10, e[:96]),
         ("expected rate", s, st, 10, torch.zeros((128, 4))),
         ("expected dtype", s, st, 10, e.double()),
         ("starts dtype", s, st.long(), 10, e),
@@ -208,6 +210,10 @@ def _viterbi_acs_cases():
         ("accepted f32 rate 4", torch.zeros((50, 4)), st, 50,
          torch.zeros((128, 4))),
         ("accepted strided", s.T.contiguous().T, st[::1], 1, e.T.contiguous().T),
+        ("accepted rate 5", torch.zeros((50, 5), dtype=torch.uint8), st, 10,
+         torch.zeros((128, 5))),
+        ("accepted 256 states", s, st, 10, torch.zeros((512, 2))),
+        ("expected rows 2S + 2", s, st, 10, torch.zeros((130, 2))),
     ]
 
 

@@ -179,12 +179,14 @@ def test_entry_points_default_to_the_card(tmp_path):
     from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
     from sdrpp_tpu_torch.parallel.vfo_bank import ScannerBank
     from sdrpp_tpu_torch.receiver import Receiver
+    from sdrpp_tpu_torch.utils.pipeline import Prefetcher
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for make in (lambda: Receiver(240000.0, block_size=48000, fft_size=1024),
                  lambda: MeteorLRPTDecoder(),
-                 lambda: ScannerBank([0.0], 768000.0, mode="nfm")):
+                 lambda: ScannerBank([0.0], 768000.0, mode="nfm"),
+                 lambda: Prefetcher(tsources.TestSource(48000.0), 1000)):
         with pytest.raises((RuntimeError, AssertionError)):
             make()
     for argv in (["run", "--source", "test:240000", "--blocks", "1",

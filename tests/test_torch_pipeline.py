@@ -32,7 +32,7 @@ def test_prefetcher_preserves_stream():
     a = TestSource(1000000.0, tones=[(100000.0, -20.0)], noise_dbfs=-60.0)
     b = TestSource(1000000.0, tones=[(100000.0, -20.0)], noise_dbfs=-60.0)
     c = JaxTestSource(1000000.0, tones=[(100000.0, -20.0)], noise_dbfs=-60.0)
-    pre = Prefetcher(b, 4096)
+    pre = Prefetcher(b, 4096, device="cpu")
     jpre = JaxPrefetcher(c, 4096, depth=DEPTH)
     try:
         for _ in range(16):
@@ -50,7 +50,7 @@ def test_prefetcher_eof_turns_to_zeros(tmp_path):
     iq = rng.standard_normal((10000, 2)).astype(np.float32) * 0.1
     p = tmp_path / "short.wav"
     wav.write_wav(p, 48000, iq, "f32")
-    pre = Prefetcher(FileSource(p, loop=False), 4096)
+    pre = Prefetcher(FileSource(p, loop=False), 4096, device="cpu")
     try:
         blocks = [pre.read(4096).numpy() for _ in range(5)]
     finally:
@@ -75,7 +75,7 @@ class _Failing:
 
 
 def test_prefetcher_error_is_sticky():
-    pre = Prefetcher(_Failing(), 16)
+    pre = Prefetcher(_Failing(), 16, device="cpu")
     try:
         assert pre.read(16).numpy()[0] == 1
         assert pre.read(16).numpy()[0] == 2
@@ -114,7 +114,7 @@ def test_prefetchers_under_thread_stress():
     seen, readers = {}, []
 
     def consume(i):
-        pre = Prefetcher(_Counting(), 8)
+        pre = Prefetcher(_Counting(), 8, device="cpu")
         readers.append(pre._thread)
         try:
             seen[i] = [int(pre.read(8)[0].real) for _ in range(nblocks)]

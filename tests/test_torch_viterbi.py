@@ -137,7 +137,7 @@ def test_pack_unpack_round_trip():
     torch.testing.assert_close(FK.pack_decisions(FK.unpack_decisions(raw)),
                                raw, rtol=0, atol=0)
     with pytest.raises(ValueError, match="decisions must be"):
-        FK.pack_decisions(dec[..., :32])
+        FK.pack_decisions(dec[..., :48])
 
 
 def kernel_schedule(soft, starts, T, expected, renorm):
@@ -245,8 +245,11 @@ def test_soft_steps_keep_integral_bits_as_uint8():
         code.decode_soft(soft),
         code.decode_soft(torch.from_numpy(soft.astype(np.float32))),
         rtol=0, atol=0)
-    with pytest.raises(ValueError, match="64-state"):
-        tfec.ConvCode(2, 9, (0o767, 0o545), device="cpu").decode_soft(soft)
+    k9 = tfec.ConvCode(2, 9, (0o767, 0o545), device="cpu")
+    torch.testing.assert_close(
+        k9.decode_soft(soft),
+        k9.decode_soft(torch.from_numpy(soft.astype(np.float32))),
+        rtol=0, atol=0)
 
 
 def _acs_cases():
@@ -257,10 +260,10 @@ def _acs_cases():
     return [
         ("soft dtype", s.double(), st, 10, e, "uint8 or float32"),
         ("soft dims", s[None], st, 10, e, "uint8 or float32"),
-        ("rate", torch.zeros((50, 5), dtype=torch.uint8), st, 10,
-         torch.zeros((128, 5)), "1 to 4 soft bits a step, got 5"),
-        ("expected rows", s, st, 10, e[:64], "float32 [128, 2]"),
-        ("expected dtype", s, st, 10, e.double(), "float32 [128, 2]"),
+        ("rate", torch.zeros((50, 33), dtype=torch.uint8), st, 10,
+         torch.zeros((128, 33)), "2 to 32 soft bits a step, got 33"),
+        ("expected rows", s, st, 10, e[:96], "float32 [2S, 2]"),
+        ("expected dtype", s, st, 10, e.double(), "float32 [2S, 2]"),
         ("starts dtype", s, st.long(), 10, e, "int32 vector"),
         ("starts empty", s, st[:0], 10, e, "int32 vector"),
         ("starts device", s, st.to("meta"), 10, e, "one device"),

@@ -16,9 +16,10 @@ package on the same numpy-seeded soft bits.
   reference form for the first K - 1 = 4 steps, then the minimum
   subtracted only after every N-th step, fminf as the select) equals the
   reference form bit for bit, and its S = 16 walker equals the plain walk.
-- Any other state count raises ValueError: the codec, the wrappers, the
-  pack/unpack helpers, and the compiled host path's checks, which repeat
-  the Python ones with the same messages.
+- Codes of other orders decode equal to the JAX package; a state count
+  that is not a power of two in [2, 16384] raises ValueError: the
+  wrappers, the pack/unpack helpers, and the compiled host path's checks,
+  which repeat the Python ones with the same messages.
 """
 
 import re
@@ -225,27 +226,40 @@ def test_pack_unpack16_round_trip():
 
 @pytest.mark.parametrize("order", [4, 6, 9])
 def test_other_state_counts_raise(order):
-    code = tfec.ConvCode(2, order, (0b1011, 0b1101) if order == 4
-                         else (0o73, 0o61) if order == 6 else (0o767, 0o545),
-                         device="cpu")
-    with pytest.raises(ValueError, match="16-state .* and 64-state"):
-        code.decode_soft_np(np.zeros(40, np.float32), flush_bits=4)
+    """Orders 4, 6 and 9 decode, equal to the JAX package; their expected
+    outputs cut to a row count that is not 2S for a power of two S
+    raise."""
+    polys = ((0b1011, 0b1101) if order == 4 else (0o73, 0o61) if order == 6
+             else (0o767, 0o545))
+    jc = jfec.ConvCode(2, order, polys)
+    code = tfec.ConvCode(2, order, polys, device="cpu")
+    soft = np.random.default_rng(order).integers(0, 256, 80) \
+        .astype(np.float32)
+    np.testing.assert_array_equal(
+        code.decode_soft_np(soft, flush_bits=4),
+        np.asarray(jc.decode_soft(jnp.asarray(soft), flush_bits=4)))
+    steps = torch.from_numpy(soft.astype(np.uint8).reshape(-1, 2))
+    with pytest.raises(ValueError, match=re.escape(
+            "float32 [2S, 2] for S = 2, 4, ..., 16384 states")):
+        FK.viterbi_acs_batched(steps, torch.zeros(1, dtype=torch.int32), 10,
+                               code._expected[:3 * code.num_states // 2])
 
 
 def test_wrappers_refuse_other_state_counts():
     soft = torch.zeros((50, 2), dtype=torch.uint8)
     starts = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match=re.escape(
-            "float32 [128, 2] (64 states) or [32, 2] (16 states)")):
-        FK.viterbi_acs_batched(soft, starts, 10, torch.zeros((64, 2)))
+    for rows in (2, 48, 65536, 33):
+        with pytest.raises(ValueError, match=re.escape(
+                "float32 [2S, 2] for S = 2, 4, ..., 16384 states")):
+            FK.viterbi_acs_batched(soft, starts, 10, torch.zeros((rows, 2)))
     words = torch.zeros((1, 10), dtype=torch.int64)
-    for S in (8, 32, 256):
-        with pytest.raises(ValueError, match=f"16 or 64 states, got {S}"):
+    for S in (1, 12, 48, 32768):
+        with pytest.raises(ValueError, match=f"16384 states, got {S}"):
             FK.viterbi_traceback_batched(words, num_states=S)
-        with pytest.raises(ValueError, match=f"16 or 64 states, got {S}"):
+        with pytest.raises(ValueError, match=f"16384 states, got {S}"):
             FK.unpack_decisions(words, S)
     with pytest.raises(ValueError, match="decisions must be"):
-        FK.pack_decisions(torch.zeros((2, 32), dtype=torch.int8))
+        FK.pack_decisions(torch.zeros((2, 48), dtype=torch.int8))
 
 
 @pytest.fixture(scope="module")
@@ -262,28 +276,41 @@ def _message(fn, *args):
 
 
 @pytest.mark.parametrize("rows,rate", [(32, 2), (32, 4), (64, 2), (256, 2),
-                                       (16, 2)])
+                                       (16, 2), (512, 6), (32768, 3), (4, 32),
+                                       (48, 2), (2, 2), (65536, 2), (33, 2),
+                                       (32, 33)])
 def test_host_acs_state_checks_match_python(host, rows, rate):
     soft = torch.zeros((50, rate), dtype=torch.uint8)
     starts = torch.zeros(2, dtype=torch.int32)
     expected = torch.zeros((rows, rate))
     want = _message(FK._check_acs, soft, starts, 10, expected)
     got = _message(host.viterbi_acs, soft, starts, 10, expected, None)
-    if rows == 32:
+    S = rows // 2
+    if rows % 2 == 0 and 2 <= S <= 16384 and S & (S - 1) == 0 \
+            and rate <= 32:
         assert want is None
         assert got == "the compiled Viterbi ACS takes CUDA tensors"
     else:
-        assert got == want and "(16 states)" in want
+        assert got == want and ("16384 states" in want
+                                or "soft bits a step" in want)
 
 
-@pytest.mark.parametrize("S", [16, 64, 32, 0])
-def test_host_traceback_state_checks_match_python(host, S):
-    dec = torch.zeros((2, 3), dtype=torch.int64)
+@pytest.mark.parametrize("S,shape", [(16, (2, 3)), (64, (2, 3)),
+                                     (32, (2, 3)), (2, (2, 3)),
+                                     (256, (2, 3, 4)), (16384, (1, 3, 256)),
+                                     (0, (2, 3)), (24, (2, 3)),
+                                     (256, (2, 3)), (128, (2, 3, 4))])
+def test_host_traceback_state_checks_match_python(host, S, shape):
+    dec = torch.zeros(shape, dtype=torch.int64)
     want = _message(FK._check_traceback, dec, S)
     got = _message(host.viterbi_traceback, dec, None, S)
-    if S in (16, 64):
+    if S in (16, 64, 32, 2) or (S, shape) in ((256, (2, 3, 4)),
+                                              (16384, (1, 3, 256))):
         assert want is None
         assert got == "the compiled Viterbi traceback takes CUDA tensors"
+    elif S in (0, 24):
+        assert got == want == f"the Viterbi kernels take S = 2, 4, ..., " \
+                              f"16384 states, got {S}"
     else:
-        assert got == want == f"the Viterbi kernels take 16 or 64 states, " \
-                              f"got {S}"
+        assert got == want == f"dec must be int64 [B, T, {S // 64}] " \
+                              f"decision words, B and T >= 1"
