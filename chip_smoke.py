@@ -6,9 +6,10 @@
 Drives the port's main paths on the card (the analog receive path, the
 Meteor LRPT decode path, the /256 wideband front end with its 64-channel
 bank, the scanner bank, the HRPT, Falcon 9, M17 and KG-STV decode paths,
-the FEC library's K = 9 and K = 6 decodes, RS erasures and the rest of
-the DSP library) and fails (non-zero exit, no result line) if any phase
-fails:
+the FEC library's K = 9 and K = 6 decodes, RS erasures, the rest of the
+DSP library, the live receiver behind ``cli ui``, the baseband server
+behind ``cli serve`` and the supervised recovery of a poisoned device)
+and fails (non-zero exit, no result line) if any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu and
@@ -142,7 +143,8 @@ fails:
     composite (it must park on the CW, AM and both NFM carriers);
 17. the pipeline: ``cli run`` and ``cli bank`` (through ``Prefetcher`` and
     ``DeferredWriter``) write WAV files byte-identical to the same loops
-    run unpipelined on the card;
+    run unpipelined on the card, and the two loops timed over PIPE_BLOCKS
+    blocks, PIPE_PAIRS pipelined/plain pairs;
 18. the decode paths at ``cli decode``'s rates and 262,144-sample blocks
     (each ends in its checks; per-block CUDA-event ms, host s, the M&M's
     share where a tap times it, real-time factor, launches):
@@ -185,7 +187,34 @@ fails:
     on a pilot DSP_PILOT_HZ off (single_scan), and
     ``FFTPowerDecimator(256, fft_len=2^20)`` against ``PowerDecimator`` on
     the wideband stream, both timed;
-20. when the parent commit is unpacked at _scratch/parent (``git archive
+20. ui-2p4, the live receiver: ``ReceiverEngine`` (``cli ui``'s defaults:
+    2.4 Msps, 262,144-sample base blocks, a 16384-point FFT at 20 Hz,
+    48 kHz audio) with four VFOs over the radio-options composite plus a
+    QPSK carrier (WFM with RDS, NFM with squelch, USB 150 Hz under the CW
+    carrier, meteor at 140 kHz) and its ``WebUIServer``: UI_BLOCKS blocks
+    unpaced (the step's CUDA-event ms, host ms a block, the real-time
+    factor, which must exceed 1, B1-B4 launches a block); each analog
+    VFO's int16 ring within 1 LSB of the same ``RadioChannel`` run
+    directly on the card, RDS PI and PS exact, the USB tone's SNR > 30 dB,
+    the constellation on four points, the page served; UI_CPU_BLOCKS
+    blocks on the card and on a CPU engine (rings below -40 dB after the
+    settle, equal symbol counts, symbols within METEOR_CPU_TOL and
+    METEOR_CPU_RMS_TOL); then UI_REALTIME_S seconds paced in real time
+    (blocks within 2 of the seconds' worth), every GET route timed
+    (p50, p99 of UI_ROUTE_REPS), set_offset (a state write: the step
+    kept, blocks rising), set_mode and add_vfo (control to the first block
+    on the new chain) timed;
+21. serve-2p4: ``python -m sdrpp_tpu_torch serve --source test:2400000
+    --blocks SERVE_BLOCKS`` as a subprocess on the card; the port's
+    ``BasebandClient`` receives SERVE_BLOCKS i16 frames bit-equal to the
+    source's blocks quantized on the CPU; blocks a second;
+22. ui-fault: a child engine on the card under SDRPP_TPU_SUPERVISED with
+    a session file applies controls, then its step launches a device-side
+    assert (``UI_FAULT_SCRIPT``, not package code): the child must exit
+    86 with the session saved, controls included; a second child restores
+    that session, streams clean blocks and takes a streak of plain
+    exceptions through the whole ladder without exiting;
+23. when the parent commit is unpacked at _scratch/parent (``git archive
     <parent> | tar -x -C _scratch/parent``): an A/B of the meteor block
     time, decimating_fir at every FIR_CASES shape, the loop scans at
     the kernel phase's path cases (the same bodies and inputs, contiguous
@@ -205,7 +234,9 @@ torch.profiler) PROFILE_RX_BLOCKS steady blocks of the receive slice
 (seven VFOs and the RDS chain), PROFILE_BLOCKS of the wideband
 chain, PROFILE_METEOR_BLOCKS steady blocks of the 30-s meteor pass and its
 ``finalize``, PROFILE_BLOCKS steady blocks of the HRPT and Falcon 9
-paths, and PROFILE_CALLS calls of decimating_fir at each FIR_CASES
+paths, PROFILE_RX_BLOCKS steady blocks of the ui-2p4 engine (its own
+thread, everything a block takes) with the waterfall's ``push_fft`` timed
+alone, and PROFILE_CALLS calls of decimating_fir at each FIR_CASES
 shape:
 device time by kernel, the device's busy and idle share of the host-clock
 window, the loop-scan kernels' share, and each decimating_fir launch's own
@@ -263,6 +294,30 @@ RADIO_VFOS = {
                     dynamic_bandwidth=True),
 }
 RADIO_TONES = {"cw": 900.0, "raw": 1100.0, "am": 1000.0}
+# the live receiver (cli ui's defaults: 2.4 Msps, 262,144-sample base
+# blocks, a 16384-point FFT at 20 Hz, 48 kHz audio) with four VFOs over
+# the radio-options composite plus a QPSK carrier
+UI_BASE_BLOCK = 262144
+UI_FFT = 16384
+UI_BLOCKS = 24             # 2.5 s: RDS decodes PI and PS
+UI_CPU_BLOCKS = 2          # blocks of the CPU engine held against the card
+UI_REALTIME_S = 4.0        # seconds streamed with realtime pacing
+UI_ROUTE_REPS = 20         # GETs of each route timed while streaming
+UI_METEOR = -950e3         # 72 ksym/s QPSK for the meteor VFO
+UI_VFOS = {"fm": dict(mode="wfm", offset=RADIO_WFM, bandwidth=None,
+                      squelch=None, deemphasis="50us", rds=True),
+           "nfm": dict(mode="nfm", offset=RADIO_NFM2, bandwidth=None,
+                       squelch=-60.0, deemphasis=None, rds=False),
+           # the CW carrier 150 Hz above the VFO: a 1.5 kHz tone (TONES)
+           "usb": dict(mode="usb", offset=RADIO_CW - 150.0, bandwidth=None,
+                       squelch=None, deemphasis=None, rds=False),
+           "sat": dict(mode="meteor", offset=UI_METEOR, bandwidth=140000.0,
+                       squelch=None, deemphasis=None, rds=False)}
+UI_ROUTES = ("/", "/api/state", "/api/bookmarks", "/api/fft",
+             "/api/waterfall?since=0", "/api/constellation?vfo=sat",
+             "/audio.wav?vfo=fm")
+SERVE_BLOCKS = 32          # cli serve's blocks at 2.4 Msps
+SERVE_BLOCK = 262144
 SOURCES = {"lane_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "single_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "mm_symbols": "sdrpp_tpu_torch/csrc/mm_clock.cu",
@@ -303,7 +358,9 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "fec_k9": ("viterbi_acs_batched", "viterbi_traceback_batched",
                        "viterbi_acs_general", "viterbi_traceback_general"),
             "fec_k6": ("viterbi_acs_batched", "viterbi_traceback_batched"),
-            "dsp_lib": ("lane_scan", "single_scan", "decimating_fir")}
+            "dsp_lib": ("lane_scan", "single_scan", "decimating_fir"),
+            "ui": ("lane_scan", "single_scan", "mm_symbols",
+                   "decimating_fir")}
 # H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and float32
 # operations/s outside the tensor cores; a case's bound is the larger of
 # its bytes and its operations over these
@@ -358,7 +415,7 @@ WIDE_CPU_SETTLE = 1000     # audio samples of the chain's start left out
 BANK_BLOCK = 1 << 18       # bench.py's bank block at 6.144 Msps
 PIPE_CMDS = {"run": ("test:2400000", BLOCK),      # cli source, block
              "bank": ("test:6144000", BANK_BLOCK)}
-PIPE_BLOCKS = 100          # blocks of each timed cli loop
+PIPE_BLOCKS = 50           # blocks of each timed cli loop
 PIPE_PAIRS = 10            # pipelined / plain pairs a command
 PIPE_READS = 20            # blocks of the source's read timed alone
 PROFILE_BLOCKS = 5
@@ -2418,6 +2475,506 @@ def phase_radio_cli(iq, device="cuda"):
     return res
 
 
+def ui_composite(n: int) -> np.ndarray:
+    """The live receiver's 2.4 Msps signal: the radio-options composite
+    (WFM with RDS, CW, AM, two NFM stations) plus 72 ksym/s QPSK at
+    UI_METEOR for the meteor VFO."""
+    x = radio_composite(n).astype(np.complex128)
+    rng = np.random.default_rng(21)
+    sps = FS / 72000.0
+    nsym = int(n / sps) + 2
+    q = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, nsym)))
+    t = np.arange(n) / FS
+    x += 0.1 * q[np.floor(np.arange(n) / sps).astype(np.int64)] \
+        * np.exp(2j * np.pi * UI_METEOR * t)
+    return x.astype(np.complex64)
+
+
+class ArraySource:
+    """A source over an IQ array: reads it block by block, and at its end
+    wraps (``loop``) or returns a short block, which stops the engine."""
+
+    def __init__(self, iq, loop=False):
+        self.iq, self.loop, self.pos = iq, loop, 0
+        self.samplerate, self.center_freq = FS, 0.0
+
+    def read(self, n):
+        if self.loop and self.pos + n > len(self.iq):
+            self.pos = 0
+        out = self.iq[self.pos:self.pos + n]
+        self.pos += len(out)
+        return out
+
+
+class StepTimer:
+    """Wraps an engine's step: CUDA events around each call on the card
+    (the step's device span, as the default stream sees it) and the host
+    clock at each call's start (a block's host time is the gap between
+    starts)."""
+
+    def __init__(self, step, cuda=True):
+        self.step, self.cuda, self.events, self.starts = step, cuda, [], []
+
+    def __call__(self, state, x):
+        import torch
+
+        self.starts.append(time.perf_counter())
+        if not self.cuda:
+            return self.step(state, x)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self.step(state, x)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self):
+        """The steps' CUDA-event milliseconds (NaN off the card)."""
+        import torch
+
+        if not self.cuda:
+            return [float("nan")] * len(self.starts)
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def ui_engine(iq, device, realtime=False, loop=False):
+    """``ReceiverEngine`` at cli ui's defaults on ``device`` with the four
+    UI_VFOS (selected: nfm), built, not started."""
+    from sdrpp_tpu_torch.misc.webui import ReceiverEngine
+
+    eng = ReceiverEngine(ArraySource(iq, loop), mode="nfm",
+                         fft_size=UI_FFT, fft_rate=20.0,
+                         base_block=UI_BASE_BLOCK, realtime=realtime,
+                         device=device)
+    with eng.lock:
+        eng.vfos = {k: dict(v) for k, v in UI_VFOS.items()}
+        eng.selected = "nfm"
+        for name in UI_VFOS:
+            eng._ensure_audio_ring(name)
+    eng._build()
+    return eng
+
+
+def _wait_for(pred, timeout=120.0, what="condition"):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _ring(eng, name):
+    st = eng._audio[name]
+    return st["ring"][:st["written"]].copy()
+
+
+def ui_direct(iq, nblocks, block, device):
+    """Each analog UI VFO's chain run directly (``IQFrontEnd`` +
+    ``RadioChannel`` as the engine plans them) on the same blocks: the
+    int16 stereo PCM the engine's ring should hold at volume 1."""
+    from sdrpp_tpu_torch.models.radio import RadioChannel
+    from sdrpp_tpu_torch.signal_path import IQFrontEnd
+    import torch
+
+    fe = IQFrontEnd(FS, fft_size=UI_FFT, fft_rate=20.0, block_size=block,
+                    device=device)
+    chans = {n: RadioChannel(c["mode"], FS, offset=c["offset"],
+                             bandwidth=c["bandwidth"], audio_rate=48000.0,
+                             squelch_level=c["squelch"],
+                             deemphasis=c["deemphasis"], rds=c["rds"],
+                             dynamic_offset=True, dynamic_bandwidth=True,
+                             device=device)
+             for n, c in UI_VFOS.items() if c["mode"] != "meteor"}
+    fst = fe.init_state()
+    states = {n: c.init_state() for n, c in chans.items()}
+    pcm = {n: [] for n in chans}
+    for k in range(nblocks):
+        x = torch.from_numpy(iq[k * block:(k + 1) * block]).to(device)
+        fst, (y, _) = fe(fst, x)
+        for n, c in chans.items():
+            states[n], a = c(states[n], y)
+            a = (a[0] if isinstance(a, tuple) else a).float().cpu().numpy()
+            if a.ndim == 1:
+                a = np.stack([a, a], -1)
+            pcm[n].append(np.clip(a * 32767.0, -32768, 32767)
+                          .astype(np.int16))
+    return {n: np.concatenate(v) for n, v in pcm.items()}
+
+
+def _get_ms(url, nbytes=None):
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=30) as r:
+        body = r.read(nbytes) if nbytes else r.read()
+    return (time.perf_counter() - t0) * 1e3, body
+
+
+def phase_ui(device="cuda"):
+    """ui-2p4: the port's ``ReceiverEngine`` and ``WebUIServer`` at cli
+    ui's defaults with four VFOs (WFM with RDS, NFM with squelch, USB on
+    the CW carrier, meteor at 140 kHz). UI_BLOCKS blocks with realtime off
+    (block ms from CUDA events on the step, host s a block, real-time
+    factor, B1-B4 launches), checked: each analog ring within 1 LSB of the
+    same RadioChannel run directly on the card, RDS PI and PS exact, the
+    constellation's symbols on four points; then UI_CPU_BLOCKS blocks on a
+    CPU engine against the card's rings (below -40 dB after the settle)
+    and symbols (the M&M's bounds); then UI_REALTIME_S seconds paced in
+    real time, during which every GET route is timed (p50, p99) and
+    set_offset (a state write: the step kept, blocks rising), set_mode and
+    add_vfo (control to the first block on the new chain) are timed."""
+    import threading
+
+    import torch
+    from sdrpp_tpu_torch.misc.webui import WebUIServer
+
+    probe = ui_engine(np.zeros(1, np.complex64), "cpu")
+    block = probe._block
+    iq = ui_composite(UI_BLOCKS * block)
+    cuda = torch.device(device).type == "cuda"
+    eng = ui_engine(iq, device)
+    timer = StepTimer(eng._step, cuda)
+    eng._step = timer
+    srv = WebUIServer(eng, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    if cuda:
+        torch.cuda.synchronize()
+    reset_counts()
+    eng.start()
+    eng._thread.join(600)
+    launches = read_counts("ui") if cuda else {}
+    res = {"block": block, "blocks": eng.blocks, "vfos": list(UI_VFOS)}
+    if eng.blocks != UI_BLOCKS or eng.error or eng.failures:
+        raise AssertionError(f"ui engine: {eng.blocks} blocks, "
+                             f"error {eng.error}, {eng.failures} failures")
+    ms = timer.ms()
+    host = np.diff(timer.starts).tolist()
+    res["block_ms"], res["host_s"] = ms, host
+    res["median_ms"] = float(np.median(ms[1:]))
+    res["median_host_s"] = float(np.median(host[1:]))
+    res["realtime_factor"] = block / FS / res["median_host_s"]
+    res["launches"] = launches
+    res["launches_per_block"] = {k: v / UI_BLOCKS for k, v in launches.items()}
+    log(f"ui-2p4: {UI_BLOCKS} blocks of {block} ({block / FS * 1e3:.1f} ms "
+        f"of signal), step median {res['median_ms']:.3f} ms (CUDA events), "
+        f"host {res['median_host_s'] * 1e3:.3f} ms a block over blocks "
+        f"2..{UI_BLOCKS}, {res['realtime_factor']:.2f}x real time; "
+        f"launches a block {res['launches_per_block']}")
+    if cuda and not res["realtime_factor"] > 1.0:
+        raise AssertionError("ui engine slower than real time")
+    _, page = _get_ms(base + "/")
+    if b"<canvas" not in page:
+        raise AssertionError("ui: the page was not served")
+    direct = ui_direct(iq, UI_BLOCKS, block, device)
+    rings = {n: _ring(eng, n) for n in direct}
+    res["ring_vs_direct_lsb"] = {}
+    for n, want in direct.items():
+        got = rings[n]
+        if got.shape != want.shape:
+            raise AssertionError(f"ui {n}: ring {got.shape} vs {want.shape}")
+        d = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+        res["ring_vs_direct_lsb"][n] = d
+        if d > 1:
+            raise AssertionError(f"ui {n}: ring {d} LSB from the direct chain")
+    dec = eng._rds["fm"].decoder
+    res["rds"] = {"pi": dec.pi_code, "ps": dec.ps_name,
+                  "groups": dec.groups_decoded}
+    if dec.pi_code != RADIO_PI or dec.ps_name != RADIO_PS:
+        raise AssertionError(f"ui RDS: {res['rds']}")
+    syms = eng.read_constellation("sat", 4096)
+    z = syms[np.abs(syms) > 0.3]
+    res["constellation_coherence"] = float(np.abs(np.mean(
+        np.exp(4j * np.mod(np.angle(z), np.pi / 2))))) if len(z) else 0.0
+    res["symbols"] = int(eng._const["sat"]["written"])
+    if not res["constellation_coherence"] > 0.5:
+        raise AssertionError(f"ui constellation: {res}")
+    # the USB audio reaches full scale, so int16 clips it: its odd
+    # harmonics are left out of this SNR
+    snr = tone_snr_sinad(rings["usb"][48000:, 0].astype(np.float64),
+                         48000.0, TONES["usb"])[0]
+    res["usb_snr_db"] = snr
+    if not snr > 30.0:
+        raise AssertionError(f"ui usb: {snr:.1f} dB")
+    srv.shutdown()
+    srv.server_close()
+
+    # the first UI_CPU_BLOCKS blocks on the card and on the CPU, each an
+    # engine run to the end of those blocks
+    short = {}
+    for dev in (device, "cpu"):
+        e = ui_engine(iq[:UI_CPU_BLOCKS * block], dev)
+        e.start()
+        e._thread.join(600)
+        if e.blocks != UI_CPU_BLOCKS or e.error:
+            raise AssertionError(f"ui {dev} engine: {e.blocks} {e.error}")
+        short[dev] = e
+    card, cpu = short[device], short["cpu"]
+    res["card_vs_cpu_db"] = {
+        n: rms_db(_ring(card, n)[SETTLE:], _ring(cpu, n)[SETTLE:])
+        for n in direct}
+    counts = (card._const["sat"]["written"], cpu._const["sat"]["written"])
+    d = np.abs(card.read_constellation("sat", 4096)
+               - cpu.read_constellation("sat", 4096))
+    res["symbols_card_vs_cpu"] = {"count": counts, "max": float(d.max()),
+                                  "rms": float(np.sqrt(np.mean(d ** 2)))}
+    log(f"ui card vs cpu: {res['card_vs_cpu_db']} dB, symbols "
+        f"{res['symbols_card_vs_cpu']} (the last 4096 of each)")
+    for n, d in res["card_vs_cpu_db"].items():
+        if not d < -40.0:
+            raise AssertionError(f"ui {n}: card and CPU disagree ({d:.1f} dB)")
+    sc = res["symbols_card_vs_cpu"]
+    if counts[0] != counts[1] or not (sc["max"] <= METEOR_CPU_TOL
+                                      and sc["rms"] <= METEOR_CPU_RMS_TOL):
+        raise AssertionError(f"ui symbols: card and CPU disagree ({sc})")
+
+    res["realtime"] = phase_ui_realtime(iq, device,
+                                        res["realtime_factor"] > 1.0)
+    log(f"ui-2p4 result: {json.dumps(res, default=float)}")
+    return res
+
+
+def phase_ui_realtime(iq, device, keeps_up=True):
+    """UI_REALTIME_S seconds of the engine paced in real time over the
+    composite (looped), with the routes and controls timed meanwhile. The
+    pacing is held (blocks within 2 of the seconds' worth) when the engine
+    ran faster than real time unpaced (``keeps_up``)."""
+    import threading
+
+    from sdrpp_tpu_torch.misc.webui import WebUIServer
+
+    eng = ui_engine(iq, device, realtime=True, loop=True)
+    eng.attach_bookmarks()
+    srv = WebUIServer(eng, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    res = {}
+    eng.start()
+    try:
+        _wait_for(lambda: eng.blocks >= 2, what="the first blocks")
+        b0, t0 = eng.blocks, time.monotonic()
+        routes = {}
+        for route in UI_ROUTES:
+            times = [_get_ms(base + route,
+                             44 + 4 * 4800 if route.startswith("/audio")
+                             else None)[0] for _ in range(UI_ROUTE_REPS)]
+            routes[route] = {"p50_ms": float(np.percentile(times, 50)),
+                             "p99_ms": float(np.percentile(times, 99))}
+        res["routes"] = routes
+        remaining = UI_REALTIME_S - (time.monotonic() - t0)
+        if remaining > 0:
+            time.sleep(remaining)
+        dt, nb = time.monotonic() - t0, eng.blocks - b0
+        res["paced"] = {"seconds": dt, "blocks": nb,
+                        "expected": dt * FS / eng._block}
+        if keeps_up and abs(nb - res["paced"]["expected"]) > 2.0:
+            raise AssertionError(f"ui pacing: {res['paced']}")
+
+        step, b0 = eng._step, eng.blocks
+        t0 = time.monotonic()
+        eng.control("set_offset", RADIO_NFM)
+        _wait_for(lambda: eng._built_cfgs["nfm"]["offset"] == RADIO_NFM
+                  and eng.blocks > b0, what="set_offset")
+        res["set_offset_ms"] = (time.monotonic() - t0) * 1e3
+        b1 = eng.blocks
+        _wait_for(lambda: eng.blocks >= b1 + 2, what="blocks after retune")
+        if eng._step is not step:
+            raise AssertionError("ui: set_offset rebuilt the chain")
+        for action, value, done in (
+                ("set_mode", "am",
+                 lambda: eng._built_cfgs["nfm"]["mode"] == "am"),
+                ("add_vfo", {"name": "extra", "mode": "nfm",
+                             "offset": RADIO_NFM2},
+                 lambda: "extra" in eng._built_cfgs)):
+            t0 = time.monotonic()
+            eng.control(action, value)
+            _wait_for(done, what=action)
+            b1 = eng.blocks
+            _wait_for(lambda: eng.blocks > b1, what=f"a block after {action}")
+            res[f"{action}_ms"] = (time.monotonic() - t0) * 1e3
+        if eng.error or eng.failures:
+            raise AssertionError(f"ui realtime: {eng.error} "
+                                 f"({eng.failures} failures)")
+    finally:
+        eng.stop()
+        srv.shutdown()
+        srv.server_close()
+    log(f"ui-2p4 realtime: {json.dumps(res, default=float)}")
+    return res
+
+
+def phase_serve(device="cuda"):
+    """serve-2p4: ``python -m sdrpp_tpu_torch serve --source test:2400000
+    --blocks SERVE_BLOCKS`` (on the card, its default) as a subprocess; the
+    port's ``BasebandClient`` must receive SERVE_BLOCKS i16 frames equal,
+    bit for bit, to the test source's blocks quantized on the CPU. Blocks
+    a second from the server's log and from the client's clock."""
+    import re
+    import socket
+
+    from sdrpp_tpu_torch.io.sources import TestSource
+    from sdrpp_tpu_torch.io.wire import BasebandClient
+    from sdrpp_tpu_torch.ops.compression import (PCM_TYPE_I16, pack_frame,
+                                                 unpack_frame)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sdrpp_tpu_torch", "serve", "--source",
+         "test:2400000", "--blocks", str(SERVE_BLOCKS), "--block-size",
+         str(SERVE_BLOCK), "--port", str(port), "--device", device],
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                client = BasebandClient("127.0.0.1", port)
+                break
+            except OSError:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("cli serve did not listen")
+                time.sleep(0.1)
+        client.start()
+        t0 = time.perf_counter()
+        frames = [client.read_packet() for _ in range(SERVE_BLOCKS)]
+        client_s = time.perf_counter() - t0
+        client.close()
+        rc = proc.wait(120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = proc.stderr.read()
+    if rc:
+        raise AssertionError(f"cli serve exited {rc}: {err[-2000:]}")
+    src = TestSource(FS, tones=[(100000.0, -20.0)], noise_dbfs=-90.0)
+    for k, (kind, got) in enumerate(frames):
+        want = unpack_frame(pack_frame(src.read(SERVE_BLOCK), PCM_TYPE_I16))
+        if kind != "baseband" or not np.array_equal(got, want):
+            raise AssertionError(f"cli serve frame {k} differs from the "
+                                 "CPU's quantization")
+    m = re.search(r"served (\d+) blocks .* \(([\d.]+) blocks/s\)", err)
+    res = {"blocks": SERVE_BLOCKS, "block": SERVE_BLOCK,
+           "server_blocks_per_s": float(m.group(2)) if m else None,
+           "client_blocks_per_s": SERVE_BLOCKS / client_s,
+           "bit_equal": True}
+    log(f"serve-2p4: {json.dumps(res)}")
+    return res
+
+
+# the ui-fault phase's child (run with SDRPP_TPU_SUPERVISED=1): argv[1] is
+# "fault" (stream on the card with a session file, apply controls, then a
+# device-side assert in the step: the engine must save the session and
+# exit BACKEND_FATAL_EXIT) or "restore" (the saved session restored and
+# streamed clean, then a streak of plain exceptions that must not exit);
+# argv[2] is the session file, argv[3] the device
+UI_FAULT_SCRIPT = r"""
+import sys, time
+import torch
+from sdrpp_tpu_torch.io.sources import TestSource
+from sdrpp_tpu_torch.misc.webui import ReceiverEngine, serve_ui
+
+def wait(pred, what, timeout=180):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.01)
+
+def boom(*a, **kw):
+    raise RuntimeError("synthetic step failure")
+
+mode, cfg, device = sys.argv[1:4]
+src = TestSource(2400000.0, tones=[(100000.0, -20.0)], noise_dbfs=-90.0)
+eng = ReceiverEngine(src, mode="nfm", offset=100000.0, realtime=False,
+                     base_block=262144, fft_size=16384, device=device)
+srv = serve_ui(eng, port=0, forever=False, config_path=cfg)
+wait(lambda: eng.blocks >= 2, "blocks")
+if mode == "fault":
+    eng.control("add_vfo", {"name": "keep", "mode": "am",
+                            "offset": -300000.0})
+    eng.control("set_volume", 0.3)
+    # promoted to last-good (a clean block on the new chain), so the
+    # ladder's revert keeps it
+    wait(lambda: "keep" in (eng._last_good_vfos or {}), "add_vfo")
+    real = eng._step
+
+    def assert_step(state, x):
+        eng._step = real
+        # an index past the end: the index kernel's device-side assert,
+        # which poisons the context until the process exits
+        torch.zeros(4, device=x.device)[
+            torch.full((1,), 1 << 20, dtype=torch.long, device=x.device)]
+        return real(state, x)
+
+    print("ASSERTING", flush=True)
+    eng._step = assert_step
+    eng._thread.join(300)
+    print("ENGINE THREAD RETURNED WITHOUT EXIT", eng.error, flush=True)
+    sys.exit(3)
+assert "keep" in eng._built_cfgs and eng.volume == 0.3, eng.vfos
+assert eng.error is None and eng.failures == 0, eng.error
+a = eng.audio_written("keep")
+wait(lambda: eng.audio_written("keep") > a, "audio on the restored vfo")
+print("RESTORED", eng.blocks, sorted(eng.vfos), flush=True)
+eng._step = boom
+type(eng)._plan = boom
+wait(lambda: eng.failures >= 6, "the ladder")
+assert not eng.fatal and eng._thread.is_alive(), eng.error
+print("ALIVE", eng.failures, flush=True)
+eng.stop()
+srv.server_close()  # serve_ui(forever=False) serves no requests
+"""
+
+
+def phase_ui_fault(device="cuda"):
+    """ui-fault: a child engine on the card under SDRPP_TPU_SUPERVISED with
+    a session file applies controls, then its step launches a device-side
+    assert: the child must exit BACKEND_FATAL_EXIT (86) with the session
+    saved, controls included. A second child restores that session and
+    streams clean blocks, then takes a streak of plain Python exceptions
+    through the whole ladder without exiting."""
+    import os
+
+    from sdrpp_tpu_torch.cli import BACKEND_FATAL_EXIT
+
+    env = dict(os.environ, SDRPP_TPU_SUPERVISED="1")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = str(Path(tmp) / "ui.json")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", UI_FAULT_SCRIPT, "fault",
+                            cfg, device], env=env, capture_output=True, text=True,
+                           timeout=600)
+        res["fault_rc"], res["fault_s"] = r.returncode, time.perf_counter() - t0
+        if r.returncode != BACKEND_FATAL_EXIT or "ASSERTING" not in r.stdout:
+            raise AssertionError(f"ui-fault child exited {r.returncode}: "
+                                 f"{r.stdout[-1000:]} {r.stderr[-3000:]}")
+        saved = json.loads(Path(cfg).read_text())
+        res["saved"] = {"vfos": sorted(saved["vfos"]),
+                        "volume": saved["volume"]}
+        if saved["vfos"].get("keep", {}).get("mode") != "am" \
+                or saved["volume"] != 0.3:
+            raise AssertionError(f"ui-fault: session not saved: {saved}")
+        fatal = [l for l in r.stderr.splitlines() if "FATAL" in l]
+        res["fatal_line"] = fatal[-1][-300:] if fatal else None
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", UI_FAULT_SCRIPT, "restore",
+                            cfg, device], env=env, capture_output=True, text=True,
+                           timeout=600)
+        res["restore_rc"] = r.returncode
+        res["restore_s"] = time.perf_counter() - t0
+        if r.returncode or "RESTORED" not in r.stdout \
+                or "ALIVE" not in r.stdout:
+            raise AssertionError(f"ui-fault restore child exited "
+                                 f"{r.returncode}: {r.stdout[-1000:]} "
+                                 f"{r.stderr[-3000:]}")
+        res["restore_out"] = r.stdout.strip().splitlines()
+    log(f"ui-fault: {json.dumps(res)}")
+    return res
+
+
 def phase_pipeline_identity(device="cuda"):
     """``cli run`` (WFM, 4 blocks) and ``cli bank`` (64 NFM channels, 4
     blocks) through the pipeline, against the same loops run unpipelined
@@ -3994,6 +4551,7 @@ def profile_paths():
     del chain, state, x, y
     out.update(profile_meteor(summary, acts))
     out.update(profile_decode(summary, acts))
+    out["ui"] = profile_ui(summary, acts)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out["decimating_fir"] = []
@@ -4022,6 +4580,71 @@ def profile_paths():
             f"{dev_us:.1f} us on the device (median of {len(kern)}), "
             f"{host_us:.1f} us of host time per call")
     return out
+
+
+class GatedSource(ArraySource):
+    """An ``ArraySource`` whose read of block ``after`` waits for ``gate``:
+    the engine's warm blocks run before a profile window opens."""
+
+    def __init__(self, iq, block, after):
+        super().__init__(iq)
+        import threading
+
+        self.gate, self.at = threading.Event(), block * after
+
+    def read(self, n):
+        if self.pos == self.at:
+            self.gate.wait()
+        return super().read(n)
+
+
+def profile_ui(summary, acts, dev="cuda"):
+    """The --profile mode's live receiver: the ui-2p4 engine (four VFOs,
+    cli ui's defaults) streaming unpaced, PROFILE_RX_BLOCKS steady blocks
+    after three warm ones, its own thread doing everything a block takes
+    (read, upload, step, readbacks, RDS, waterfall); and the waterfall's
+    ``push_fft`` of one 16384-point line timed alone on the host."""
+    import torch
+    from torch.profiler import profile
+    from sdrpp_tpu_torch.misc.waterfall import WaterfallDisplay
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    probe = ui_engine(np.zeros(1, np.complex64), "cpu")
+    block = probe._block
+    iq = ui_composite((3 + PROFILE_RX_BLOCKS) * block)
+    eng = ui_engine(iq, dev)
+    src = GatedSource(iq, block, 3)
+    eng.source = src
+    eng.start()
+    _wait_for(lambda: eng.blocks >= 3, 300, "the warm blocks")
+    sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        src.gate.set()
+        eng._thread.join(300)
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    if eng.blocks != 3 + PROFILE_RX_BLOCKS or eng.error:
+        raise AssertionError(f"profile ui: {eng.blocks} {eng.error}")
+    res = summary("ui", device_intervals(prof), wall_us, PROFILE_RX_BLOCKS)
+    wf = WaterfallDisplay(UI_FFT, data_width=1024, waterfall_height=512,
+                          whole_bandwidth=FS)
+    line = np.random.default_rng(0).standard_normal(UI_FFT).astype(
+        np.float32) - 60.0
+    for _ in range(3):
+        wf.push_fft(line)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        wf.push_fft(line)
+    res["push_fft_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    res["fft_lines_per_block"] = eng._wf_total / eng.blocks
+    log(f"profile ui: push_fft {res['push_fft_ms']:.3f} ms a "
+        f"{UI_FFT}-point line on the host, "
+        f"{res['fft_lines_per_block']:.2f} lines a block")
+    return res
 
 
 def profile_decode(summary, acts, dev="cuda"):
@@ -4196,6 +4819,9 @@ def main() -> int:
     radio["card_vs_cpu"] = phase_radio_cpu(radio_iq, r_audio, r_rds)
     radio["cli"] = phase_radio_cli(radio_iq)
     del radio_iq, r_audio, r_rds
+    ui = phase_ui()
+    serve = phase_serve()
+    ui_fault = phase_ui_fault()
     pipeline = phase_pipeline_identity()
     pipeline["timing"] = phase_pipeline_timing()
     decode, first = {}, {}
@@ -4223,16 +4849,20 @@ def main() -> int:
                 for p in ("hrpt", "falcon9", "m17", "kgsstv")},
              "fec_k9": fec["fec_k9"]["launches"],
              "fec_k6": fec["fec_k6"]["launches"],
-             "dsp_lib": dsp["launches"]}
+             "dsp_lib": dsp["launches"],
+             "ui": ui["launches"]}
     rows = []
     for entry in SOURCES:
         mine = [k for k in kernels if k["entry"] == entry]
         on_path = [k for k in mine if k["path"]]
         by_path = {p: c.get(entry, 0) for p, c in paths.items()}
+        total = sum(by_path.values())
+        # the live receiver's entry is its launches a block
+        by_path["ui"] = ui["launches_per_block"].get(entry, 0)
         lib = [k["library_ms"] for k in on_path]
         rows.append({
             "name": entry, "route": "cuda", "source": SOURCES[entry],
-            "replaces": REPLACES[entry], "launches": sum(by_path.values()),
+            "replaces": REPLACES[entry], "launches": total,
             "launches_by_path": by_path,
             "max_abs_err": max(k["max_abs_err"] for k in mine),
             "ms": sum(k["ms"] for k in on_path),
@@ -4250,7 +4880,8 @@ def main() -> int:
                     "bank_cli": bank_cli, "golden_bank": golden_bank,
                     "radio": radio, "pipeline": pipeline,
                     "decode": decode, "fec": fec, "rs_erasures": rs,
-                    "dsp_lib": dsp, "ab": ab},
+                    "dsp_lib": dsp, "ui": ui, "serve": serve,
+                    "ui_fault": ui_fault, "ab": ab},
                    default=float))
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,5 @@
 """Command-line entry points of the port: ``run``, ``bank``, ``spectrum``,
-``scan`` and ``decode``.
+``scan``, ``decode``, ``serve``, ``ui`` and ``preheat``.
 
 The counterparts of ``sdrpp_tpu``'s commands (sdrpp_tpu/cli.py):
 
@@ -21,7 +21,22 @@ The counterparts of ``sdrpp_tpu``'s commands (sdrpp_tpu/cli.py):
   minor frame to .npy), ``falcon9`` (6 Msps; video TS packets to a file,
   GPS lines logged), ``kgsstv`` (12 kHz; the raw 7-byte frames) and
   ``meteor`` (150 kHz; the s8 x84 soft-symbol file and
-  ``<out>_vcdu.bin``).
+  ``<out>_vcdu.bin``);
+- ``serve``: the baseband server (``io.wire``, the reference's ``sdrpp
+  --server``): the source's blocks quantized to i16 on the device and
+  streamed to one TCP client, with the source's remote controls
+  (cli.py:390-440);
+- ``ui``: the web panadapter (``misc.webui``: ``ReceiverEngine`` and the
+  page), with ``--supervise`` to restart a session whose device context
+  is poisoned, and ``--config`` to persist it (cli.py:479-542);
+- ``preheat``: a warm step of each UI mode's chain, which builds the
+  kernels those chains launch into ``sdrpp_tpu_torch/_build/`` ahead of
+  the first session (cli.py:545-609).
+
+Every command takes the JAX CLI's ``--source`` forms (cli.py:47-107): a
+WAV path, ``test:<samplerate>`` (a tone at ``--tone`` Hz), and the network
+sources ``rtltcp:``, ``spyserver:``, ``kiwisdr:``, ``hpsdr:``,
+``hermes:``, ``rfspace:`` and ``spectran:``.
 
 The device loops run as the JAX loops do, through ``utils.pipeline``: a
 reader thread and pinned, side-stream uploads ahead of the device
@@ -39,31 +54,96 @@ Usage: python -m sdrpp_tpu_torch run --source test:2400000 --mode cw
        python -m sdrpp_tpu_torch decode meteor --source capture.wav
        python -m sdrpp_tpu_torch decode hrpt --source capture.wav \
            --offset 250e3
+       python -m sdrpp_tpu_torch serve --source rtltcp:127.0.0.1:1234
+       python -m sdrpp_tpu_torch ui --source test:2400000 --port 8073
+       python -m sdrpp_tpu_torch preheat --samplerate 2400000
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 import sys
 import time
 
 import numpy as np
 import torch
 
-log = logging.getLogger("sdrpp_tpu_torch")
+from .utils.log import get_logger
+
+log = get_logger()
+
+# child exit code meaning "restart me" — the engine side lives in
+# misc/webui.py; re-exported here for the supervisor and tests
+from .misc.webui import BACKEND_FATAL_EXIT  # noqa: E402
 
 
-def _make_source(spec: str):
-    """'test:<samplerate>' -> the synthetic test source (a -20 dBFS tone at
-    +100 kHz over -90 dBFS noise, as the JAX cli's default); anything else
-    is an IQ WAV path, read block by block to its end."""
+def _add_source_args(p):
+    p.add_argument("--source", required=True,
+                   help="IQ WAV path, 'test:<samplerate>', "
+                        "'rtltcp:<host>:<port>[:<samplerate>]', "
+                        "'spyserver:<host>:<port>', "
+                        "'kiwisdr:<host>:<port>[:<freq_hz>]', "
+                        "'hpsdr:<host>[:<port>[:<samplerate>]]', "
+                        "'hermes:<host>[:<port>[:<samplerate>]]', "
+                        "'rfspace:<host>:<port>[:<samplerate>]', or "
+                        "'spectran:<host>[:<port>]'")
+    p.add_argument("--tone", type=float, default=100000.0,
+                   help="test source tone offset Hz")
+
+
+def _make_source(spec: str, tone: float = 100000.0):
+    """The source a ``--source`` spec names (sdrpp_tpu/cli.py:61-107):
+    'test:<samplerate>', the synthetic test source (a -20 dBFS tone at
+    ``tone`` Hz over -90 dBFS noise); a network source (rtltcp:,
+    spyserver:, kiwisdr:, hpsdr:, hermes:, rfspace:, spectran:),
+    connected and started; anything else an IQ WAV path, read block by
+    block to its end."""
     from .io.sources import FileSource, TestSource
 
-    if spec.startswith("test:"):
-        fs = float(spec.split(":", 1)[1])
-        return TestSource(fs, tones=[(100000.0, -20.0)], noise_dbfs=-90.0)
-    return FileSource(spec, loop=False)
+    src = spec
+    if src.startswith("test:"):
+        fs = float(src.split(":", 1)[1])
+        return TestSource(fs, tones=[(tone, -20.0)], noise_dbfs=-90.0)
+    if src.startswith("rtltcp:"):
+        from .io.rtl_tcp import RtlTcpSource
+        parts = src.split(":")
+        sr = float(parts[3]) if len(parts) > 3 else 2400000.0
+        return RtlTcpSource(parts[1], int(parts[2]), samplerate=sr)
+    if src.startswith("spyserver:"):
+        from .io.spyserver import SpyServerSource
+        parts = src.split(":")
+        s = SpyServerSource(parts[1], int(parts[2]))
+        s.start()
+        return s
+    if src.startswith("kiwisdr:"):
+        from .io.kiwisdr import KiwiSDRSource
+        parts = src.split(":")
+        freq = float(parts[3]) if len(parts) > 3 else 10000000.0
+        return KiwiSDRSource(parts[1], int(parts[2]), freq_hz=freq)
+    if src.startswith(("hpsdr:", "hermes:")):
+        from .io.hpsdr import HermesLite2Source, HpsdrSource
+        parts = src.split(":")
+        port = int(parts[2]) if len(parts) > 2 else 1024
+        cls = HermesLite2Source if src.startswith("hermes:") else HpsdrSource
+        sr = float(parts[3]) if len(parts) > 3 else \
+            (384000.0 if cls is HermesLite2Source else 192000.0)
+        s = cls(parts[1], port, samplerate=sr)
+        s.start()
+        return s
+    if src.startswith("rfspace:"):
+        from .io.rfspace import RFspaceSource
+        parts = src.split(":")
+        s = RFspaceSource(parts[1], int(parts[2]))
+        if len(parts) > 3:
+            s.set_samplerate(float(parts[3]))
+        s.start()
+        return s
+    if src.startswith("spectran:"):
+        from .io.spectran import SpectranHTTPSource
+        parts = src.split(":")
+        port = int(parts[2]) if len(parts) > 2 else 54664
+        return SpectranHTTPSource(parts[1], port)
+    return FileSource(src, loop=False)
 
 
 def _auto_block(fs: float, if_rate: float, block_multiple: int,
@@ -125,8 +205,7 @@ def _add_device_arg(p):
 
 def cmd_run(argv):
     p = argparse.ArgumentParser(prog="sdrpp_tpu_torch run")
-    p.add_argument("--source", required=True,
-                   help="'test:<samplerate>' or an IQ WAV path")
+    _add_source_args(p)
     _add_device_arg(p)
     p.add_argument("--mode", default="wfm",
                    choices=["wfm", "nfm", "am", "usb", "lsb", "dsb", "cw",
@@ -151,7 +230,7 @@ def cmd_run(argv):
     from .models.radio import RadioChannel
 
     device = torch.device(args.device)
-    src = _make_source(args.source)
+    src = _make_source(args.source, args.tone)
     fs = src.samplerate
     if args.mode == "raw":
         return _record_baseband(src, args)
@@ -227,8 +306,7 @@ def cmd_decode(argv):
     LRPT (soft symbols + Viterbi/RS VCDU payloads)."""
     p = argparse.ArgumentParser(prog="sdrpp_tpu_torch decode")
     p.add_argument("mode", choices=list(DECODE_RATES))
-    p.add_argument("--source", required=True,
-                   help="'test:<samplerate>' or an IQ WAV path")
+    _add_source_args(p)
     _add_device_arg(p)
     p.add_argument("--offset", type=float, default=0.0, help="VFO offset Hz")
     p.add_argument("--out", default=None,
@@ -248,7 +326,7 @@ def cmd_decode(argv):
 
     device = torch.device(args.device)
     target = DECODE_RATES[args.mode]
-    src = _make_source(args.source)
+    src = _make_source(args.source, args.tone)
     fs = src.samplerate
     vfo = None
     if fs != target or args.offset:
@@ -339,8 +417,7 @@ def cmd_bank(argv):
     """Demodulate many channels at once: one batched ScannerBank
     computation, one WAV recording per channel."""
     p = argparse.ArgumentParser(prog="sdrpp_tpu_torch bank")
-    p.add_argument("--source", required=True,
-                   help="'test:<samplerate>' or an IQ WAV path")
+    _add_source_args(p)
     p.add_argument("--offsets", required=True,
                    help="comma-separated VFO offsets in Hz; use the "
                         "--offsets=-200e3,0,150e3 form when the first "
@@ -369,7 +446,7 @@ def cmd_bank(argv):
     from .parallel.vfo_bank import ScannerBank
 
     device = torch.device(args.device)
-    src = _make_source(args.source)
+    src = _make_source(args.source, args.tone)
     fs = src.samplerate
     offsets = np.array([float(o) for o in args.offsets.split(",")])
     bank = ScannerBank(offsets, fs, mode=args.mode, if_rate=args.if_rate,
@@ -407,8 +484,7 @@ def cmd_spectrum(argv):
     """IQ -> the front end's waterfall dB lines -> .npy, and with
     ``--framebuffer`` the palette-mapped ABGR framebuffer -> .npy."""
     p = argparse.ArgumentParser(prog="sdrpp_tpu_torch spectrum")
-    p.add_argument("--source", required=True,
-                   help="'test:<samplerate>' or an IQ WAV path")
+    _add_source_args(p)
     _add_device_arg(p)
     p.add_argument("--fft-size", type=int, default=65536)
     p.add_argument("--fft-rate", type=float, default=20.0)
@@ -429,7 +505,7 @@ def cmd_spectrum(argv):
     from .utils.pipeline import DeferredWriter
 
     device = torch.device(args.device)
-    src = _make_source(args.source)
+    src = _make_source(args.source, args.tone)
     fe = IQFrontEnd(src.samplerate, fft_size=args.fft_size,
                     fft_rate=args.fft_rate, fft_window=Window(args.window),
                     block_size=args.block_size, device=device)
@@ -468,8 +544,7 @@ def cmd_scan(argv):
     module's loop, one step a block) and print each frequency it parked on
     with its strongest level."""
     p = argparse.ArgumentParser(prog="sdrpp_tpu_torch scan")
-    p.add_argument("--source", required=True,
-                   help="'test:<samplerate>' or an IQ WAV path")
+    _add_source_args(p)
     _add_device_arg(p)
     p.add_argument("--start", type=float, required=True, help="start offset Hz")
     p.add_argument("--stop", type=float, required=True, help="stop offset Hz")
@@ -488,7 +563,7 @@ def cmd_scan(argv):
     from .signal_path import IQFrontEnd
 
     device = torch.device(args.device)
-    src = _make_source(args.source)
+    src = _make_source(args.source, args.tone)
     fs = src.samplerate
     fe = IQFrontEnd(fs, fft_size=args.fft_size,
                     fft_rate=fs / args.block_size * 2,
@@ -514,8 +589,237 @@ def cmd_scan(argv):
     return 0
 
 
+def cmd_serve(argv):
+    """Stream the source's baseband over TCP (the reference's ``sdrpp
+    --server``): each block goes to ``--device``, is quantized to i16
+    there and sent to the one client while it has started the stream."""
+    p = argparse.ArgumentParser(prog="sdrpp_tpu_torch serve")
+    _add_source_args(p)
+    _add_device_arg(p)
+    p.add_argument("--addr", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=5259)
+    p.add_argument("--block-size", type=int, default=65536)
+    p.add_argument("--blocks", type=int, default=0, help="0 = run forever")
+    args = p.parse_args(argv)
+
+    from .io.wire import BasebandServer
+    from .ops.compression import PCM_TYPE_I16
+
+    device = torch.device(args.device)
+    torch.zeros(1, device=device)  # no card: fail before serving anything
+    src = _make_source(args.source, args.tone)
+    srv = BasebandServer(args.addr, args.port, samplerate=src.samplerate,
+                         pcm_type=PCM_TYPE_I16)
+    srv.on_tune = lambda f: src.tune(f)
+    # remote-UI controls (the headless SmGui): expose what the selected
+    # source supports, like the reference server mirrors the source menu
+    srv.register_control("samplerate", "float", src.samplerate,
+                         label="Sample rate (Hz)", min=0.0)
+    if hasattr(src, "set_gain"):
+        srv.register_control("gain", "float", 0.0, label="Gain (dB)",
+                             min=0.0, max=50.0)
+    if hasattr(src, "tones"):
+        srv.register_control("tone_offset", "float", args.tone,
+                             label="Test tone offset (Hz)")
+
+    def _on_control(name, value):
+        if name == "gain" and hasattr(src, "set_gain"):
+            src.set_gain(value)
+        elif name == "tone_offset" and hasattr(src, "tones"):
+            src.tones = [(value, -20.0)]
+
+    srv.on_control = _on_control
+    log.info("baseband server on %s:%d fs=%g device=%s", args.addr, srv.port,
+             src.samplerate, device)
+    sent = 0
+    t0 = None
+    try:
+        while args.blocks == 0 or sent < args.blocks:
+            if srv.running:
+                if t0 is None:
+                    t0 = time.perf_counter()
+                x = torch.from_numpy(src.read(args.block_size)).to(device)
+                srv.send_baseband(x)
+                sent += 1
+            else:
+                time.sleep(0.05)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.close()
+    if t0 is not None:
+        dt = time.perf_counter() - t0
+        log.info("served %d blocks of %d samples in %.3f s (%.1f blocks/s)",
+                 sent, args.block_size, dt, sent / max(dt, 1e-9))
+    return 0
+
+
+def _supervise(cmd, max_restarts: int = 20, _spawn=None):
+    """Process-level recovery loop (the recovery ladder's rung 4): run
+    ``cmd`` as a child with SDRPP_TPU_SUPERVISED set; when it exits with
+    BACKEND_FATAL_EXIT (the engine found its device context poisoned: on
+    CUDA a device-side fault lasts until the process exits), restart it.
+    Any other exit code propagates. The reference's equivalent resilience
+    is per-thread trap-and-continue (core/src/utils/threading.h:55-61); a
+    CUDA context's fault domain is the PROCESS, so that is where the trap
+    goes."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, SDRPP_TPU_SUPERVISED="1")
+    spawn = _spawn or (lambda: subprocess.run(cmd, env=env).returncode)
+    restarts = 0
+    while True:
+        rc = spawn()
+        if rc != BACKEND_FATAL_EXIT:
+            return rc
+        restarts += 1
+        if restarts > max_restarts:
+            log.error(f"supervisor: giving up after {restarts - 1} "
+                      "backend-fatal restarts")
+            return 1
+        log.warning(f"supervisor: backend unrecoverable (exit {rc}); "
+                    f"restarting session (attempt {restarts})")
+        time.sleep(min(5.0 * restarts, 60.0))
+
+
+def cmd_ui(argv):
+    """Web panadapter: spectrum/waterfall + tuning + audio in a browser
+    (the reference GUI's role on a headless GPU host, misc/webui.py)."""
+    from .misc.webui import ALL_MODES
+
+    p = argparse.ArgumentParser(prog="sdrpp_tpu_torch ui")
+    _add_source_args(p)
+    _add_device_arg(p)
+    p.add_argument("--addr", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8073)
+    p.add_argument("--mode", default="wfm", choices=ALL_MODES,
+                   help="demod mode; digital modes (e.g. meteor) start a "
+                        "constellation VFO instead of audio")
+    p.add_argument("--offset", type=float, default=0.0, help="VFO offset Hz")
+    p.add_argument("--bandwidth", type=float, default=None)
+    p.add_argument("--squelch", type=float, default=None)
+    p.add_argument("--audio-rate", type=float, default=48000.0)
+    p.add_argument("--fft-size", type=int, default=16384)
+    p.add_argument("--fft-rate", type=float, default=20.0)
+    p.add_argument("--block-size", type=int, default=262144)
+    p.add_argument("--no-realtime", action="store_true",
+                   help="process as fast as possible (file benchmarking)")
+    p.add_argument("--no-bg-preheat", action="store_true",
+                   help="don't warm the other modes' chains in the "
+                        "background once streaming starts")
+    p.add_argument("--config", default=None, metavar="JSON",
+                   help="persist the UI session (VFOs/volume/range) to this "
+                        "file and restore it on start (ConfigManager role)")
+    p.add_argument("--supervise", action="store_true",
+                   help="run the session in a supervised child process "
+                        "and restart it if its device context is poisoned "
+                        "(a device-side fault on CUDA lasts until the "
+                        "process exits, so the recovery ladder's last rung "
+                        "is a process restart; pair with --config so the "
+                        "session's VFOs survive the respawn)")
+    args = p.parse_args(argv)
+
+    if args.supervise:
+        import os
+        if os.environ.get("SDRPP_TPU_SUPERVISED"):
+            # already a supervised child (e.g. --supervise leaked into
+            # the child argv via an argparse abbreviation): never nest
+            p.error("--supervise inside a supervised child")
+        # strip the flag INCLUDING argparse prefix abbreviations
+        # (--sup, --super, ...) or the child re-supervises forever
+        child_argv = ["ui"] + [
+            a for a in argv
+            if not (a.startswith("--s") and "--supervise".startswith(a))]
+        return _supervise([sys.executable, "-m", "sdrpp_tpu_torch"]
+                          + child_argv)
+
+    from .misc.webui import ReceiverEngine, serve_ui
+
+    src = _make_source(args.source, args.tone)
+    if hasattr(src, "loop"):
+        src.loop = True  # a UI session should not stop at file EOF
+    engine = ReceiverEngine(src, mode=args.mode, offset=args.offset,
+                            bandwidth=args.bandwidth, squelch=args.squelch,
+                            audio_rate=args.audio_rate, fft_size=args.fft_size,
+                            fft_rate=args.fft_rate, base_block=args.block_size,
+                            realtime=not args.no_realtime,
+                            background_preheat=not args.no_bg_preheat,
+                            device=args.device)
+    serve_ui(engine, args.addr, args.port, config_path=args.config)
+    return 0
+
+
+def cmd_preheat(argv):
+    """Warm the interactive mode corpus: one block of each UI mode's chain
+    (and the structural variants mode cycling visits) on throwaway state,
+    which builds every kernel those chains launch (csrc/*.cu with nvcc,
+    the host module with the host compiler, into sdrpp_tpu_torch/_build/)
+    ahead of the first `ui` session on this machine."""
+    from .misc.webui import ALL_MODES, ReceiverEngine
+
+    p = argparse.ArgumentParser(prog="sdrpp_tpu_torch preheat")
+    _add_device_arg(p)
+    p.add_argument("--samplerate", type=float, default=1000000.0,
+                   help="source sample rate the UI will run at")
+    p.add_argument("--audio-rate", type=float, default=48000.0)
+    p.add_argument("--fft-size", type=int, default=16384)
+    p.add_argument("--fft-rate", type=float, default=20.0)
+    p.add_argument("--block-size", type=int, default=262144)
+    p.add_argument("--modes", default=None,
+                   help="comma list (default: every UI mode)")
+    p.add_argument("--no-variants", action="store_true",
+                   help="skip the squelch/RDS/multi-VFO variants")
+    args = p.parse_args(argv)
+
+    from .io.sources import TestSource
+
+    modes = (args.modes.split(",") if args.modes else ALL_MODES)
+    for m in modes:
+        if m not in ALL_MODES:
+            p.error(f"unknown mode {m!r} (choose from {ALL_MODES})")
+
+    def _vfo(mode, **kw):
+        d = dict(mode=mode, offset=100000.0, bandwidth=None, squelch=None,
+                 deemphasis=None, rds=False)
+        d.update(kw)
+        return d
+
+    corpus = [(f"mode:{m}", {"vfo0": _vfo(m)}) for m in modes]
+    if not args.no_variants:
+        # the structural variants mode cycling actually visits: squelch
+        # presence is a chain change (webui._graph_cfg), RDS adds the
+        # pilot/decoder tap, and analog+digital multi-VFO is the mixed
+        # topology
+        if "nfm" in modes:
+            corpus.append(("nfm+squelch",
+                           {"vfo0": _vfo("nfm", squelch=-50.0)}))
+        if "wfm" in modes:
+            corpus.append(("wfm+rds", {"vfo0": _vfo("wfm", rds=True)}))
+        if "nfm" in modes and "meteor" in modes:
+            corpus.append(("nfm+meteor",
+                           {"vfo0": _vfo("nfm"),
+                            "vfo1": _vfo("meteor", bandwidth=140000.0)}))
+
+    src = TestSource(args.samplerate, tones=[(100000.0, -20.0)],
+                     noise_dbfs=-90.0)
+    engine = ReceiverEngine(src, mode=modes[0], audio_rate=args.audio_rate,
+                            fft_size=args.fft_size, fft_rate=args.fft_rate,
+                            base_block=args.block_size, realtime=False,
+                            device=args.device)
+    total = 0.0
+    for name, cfgs in corpus:
+        block, secs = engine.warm_plan(cfgs)
+        total += secs
+        print(f"preheat {name:<16} block={block:<8} {secs:6.2f} s",
+              flush=True)
+    print(f"preheat done: {len(corpus)} configs in {total:.1f} s")
+    return 0
+
+
 COMMANDS = {"run": cmd_run, "bank": cmd_bank, "spectrum": cmd_spectrum,
-            "scan": cmd_scan, "decode": cmd_decode}
+            "scan": cmd_scan, "decode": cmd_decode, "serve": cmd_serve,
+            "ui": cmd_ui, "preheat": cmd_preheat}
 
 
 def main(argv=None):
@@ -524,7 +828,6 @@ def main(argv=None):
         print(__doc__)
         print("commands:", ", ".join(COMMANDS))
         return 0 if argv and argv[0] in ("-h", "--help") else 1
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
     return COMMANDS[argv[0]](argv[1:])
 
 

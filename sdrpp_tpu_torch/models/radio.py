@@ -24,7 +24,8 @@ from ..utils.blocks import Block
 from .analog import AMDemod, CWDemod, NFMDemod, SSBDemod, WFMDemod
 from .channel import RxVFO
 
-__all__ = ["RadioChannel", "DEMOD_DEFAULTS", "BANDWIDTH_RANGES"]
+__all__ = ["RadioChannel", "DEMOD_DEFAULTS", "BANDWIDTH_RANGES",
+           "clamp_bandwidth"]
 
 # Per-demod IF sample rate and default bandwidth (radio/src/demodulators/*.h)
 DEMOD_DEFAULTS = {
@@ -50,6 +51,13 @@ BANDWIDTH_RANGES = {
     "usb": (500.0, 0.5), "lsb": (500.0, 0.5), "dsb": (1000.0, 0.5),
     "cw": (10.0, 0.5),
 }
+
+
+def clamp_bandwidth(mode: str, bandwidth: float, if_rate: float) -> float:
+    """``bandwidth`` clamped to the reference's range for ``mode`` at IF
+    rate ``if_rate`` (get{Min,Max}Bandwidth, demodulators/*.h)."""
+    lo, hi_frac = BANDWIDTH_RANGES.get(mode, (10.0, 1.0))
+    return float(min(max(float(bandwidth), lo), hi_frac * if_rate))
 
 
 def _make_demod(mode: str, bandwidth: float, if_rate: float, lead_shape,
@@ -158,8 +166,7 @@ class RadioChannel(Block):
     def clamp_bandwidth(self, bandwidth: float) -> float:
         """Clamp to the reference's per-mode range (get{Min,Max}Bandwidth,
         demodulators/*.h)."""
-        lo, hi_frac = BANDWIDTH_RANGES.get(self.mode, (10.0, 1.0))
-        return float(min(max(float(bandwidth), lo), hi_frac * self.if_rate))
+        return clamp_bandwidth(self.mode, bandwidth, self.if_rate)
 
     def set_bandwidth_state(self, state, bandwidth: float):
         """New state with the channel retargeted to ``bandwidth`` (clamped):

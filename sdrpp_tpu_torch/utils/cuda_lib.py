@@ -18,6 +18,12 @@ and imports it: csrc/kernels_host.cpp, one module for every wrapper whose
 host path costs more than its kernel (decimating_fir, the loop scans),
 checks, allocates and launches in one C++ call. A build's hash covers its
 source and the csrc/ headers.
+
+The engine, builder and preheater threads of ``misc.webui`` may reach a
+kernel's first use together: one module lock serialises ``build``,
+``build_host``, ``load`` and ``load_host``, so each library is compiled
+once and loaded once a process, and a temporary build file is named by
+process and thread.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import shutil
 import subprocess
 import sys
 import sysconfig
+import threading
 from pathlib import Path
 
 import torch
@@ -47,6 +54,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: dict = {}   # name -> ctypes.CDLL or extension module
 _bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_lock = threading.RLock()  # builds and loads, across threads
 
 
 def _nvcc() -> str:
@@ -65,7 +73,8 @@ def _compile(src: Path, lib: Path, command, tool: str) -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    tmp = lib.with_name(
+        f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(command(tmp), capture_output=True, text=True,
                           timeout=900)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -90,16 +99,18 @@ def build(name: str) -> Path:
     digest = hashlib.sha256(_source_bytes(src)
                             + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    return _compile(src, lib, lambda out: [_nvcc(), *NVCC_FLAGS, "-o",
-                                           str(out), str(src)], "nvcc")
+    with _lock:
+        return _compile(src, lib, lambda out: [_nvcc(), *NVCC_FLAGS, "-o",
+                                               str(out), str(src)], "nvcc")
 
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for csrc/<name>.cu, built on first use."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build(name)))
-    return lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        return lib
 
 
 def build_host(name: str, cuda: bool = True) -> Path:
@@ -135,21 +146,23 @@ def build_host(name: str, cuda: bool = True) -> Path:
     key = command("") + [torch.__version__, sys.version]
     digest = hashlib.sha256(_source_bytes(src) + " ".join(key).encode())
     lib = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    return _compile(src, lib, command, "the host compiler")
+    with _lock:
+        return _compile(src, lib, command, "the host compiler")
 
 
 def load_host(name: str, cuda: bool = True):
     """The Python module built from csrc/<name>.cpp (``build_host``), built
     on first use."""
     key = f"{name}.cpp" if cuda else f"{name}.cpp:cpu"
-    mod = _loaded.get(key)
-    if mod is None:
-        spec = importlib.util.spec_from_file_location(name,
-                                                      build_host(name, cuda))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _loaded[key] = mod
-    return mod
+    with _lock:
+        mod = _loaded.get(key)
+        if mod is None:
+            spec = importlib.util.spec_from_file_location(
+                name, build_host(name, cuda))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            _loaded[key] = mod
+        return mod
 
 
 def bind(name: str, entry: str, argtypes, restype=ctypes.c_int):
@@ -157,10 +170,13 @@ def bind(name: str, entry: str, argtypes, restype=ctypes.c_int):
     first use) with its result and argument types set, once."""
     fn = _bound.get((name, entry))
     if fn is None:
-        fn = getattr(load(name), entry)
-        fn.restype = restype
-        fn.argtypes = list(argtypes)
-        _bound[(name, entry)] = fn
+        with _lock:
+            fn = _bound.get((name, entry))
+            if fn is None:
+                fn = getattr(load(name), entry)
+                fn.restype = restype
+                fn.argtypes = list(argtypes)
+                _bound[(name, entry)] = fn
     return fn
 
 

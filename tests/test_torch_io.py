@@ -6,6 +6,7 @@ bytes of every WAV the writers produce, the samples every reader returns
 and the blocks of the seeded test source.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -121,16 +122,20 @@ def test_unported_containers_raise(tmp_path, container):
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     """``cli run`` (nfm, cw, raw), ``cli decode meteor``, ``cli bank``,
-    ``cli spectrum`` and ``cli scan`` on the CPU, then
-    an import of every module of the port (but ``__main__``, which runs
-    the CLI), in a fresh interpreter: no module named jax, jax.*,
-    sdrpp_tpu or sdrpp_tpu.* is loaded."""
+    ``cli spectrum``, ``cli scan``, ``cli serve --blocks 2`` to a client,
+    a two-block ``ReceiverEngine`` and ``cli preheat --modes nfm,meteor
+    --no-variants`` on the CPU, then an import of every module of the port
+    (but ``__main__``, which runs the CLI), in a fresh interpreter where
+    websockets and zstandard cannot be imported: every step works, and no
+    module named jax, jax.*, sdrpp_tpu or sdrpp_tpu.* is loaded."""
     modules = sorted(
         ".".join(("sdrpp_tpu_torch",) + p.relative_to(PACKAGE).with_suffix("")
                  .parts).removesuffix(".__init__")
         for p in PACKAGE.rglob("*.py") if p.name != "__main__.py")
     code = f"""
-import importlib, sys
+import importlib, socket, sys, threading, time
+for blocked in ('websockets', 'zstandard'):
+    sys.modules[blocked] = None  # an import of either raises ImportError
 from sdrpp_tpu_torch.cli import main
 tmp = {str(tmp_path)!r}
 assert main(['run', '--source', 'test:480000', '--mode', 'nfm', '--blocks',
@@ -153,6 +158,50 @@ assert main(['spectrum', '--source', 'test:480000', '--fft-size', '1024',
 assert main(['scan', '--source', 'test:480000', '--start=50e3',
              '--stop=150e3', '--blocks', '2', '--block-size', '48000',
              '--device', 'cpu']) == 0
+s = socket.socket(); s.bind(('127.0.0.1', 0)); port = s.getsockname()[1]
+s.close()
+served = []
+t = threading.Thread(target=lambda: served.append(main(
+    ['serve', '--source', 'test:240000', '--blocks', '2', '--block-size',
+     '4096', '--port', str(port), '--device', 'cpu'])))
+t.start()
+from sdrpp_tpu_torch.io.wire import BasebandClient
+deadline = time.monotonic() + 60
+while True:
+    try:
+        client = BasebandClient('127.0.0.1', port)
+        break
+    except OSError:
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+client.start()
+frames = [client.read_packet() for _ in range(2)]
+assert [f[0] for f in frames] == ['baseband'] * 2
+assert all(f[1].shape == (4096,) for f in frames)
+client.close()
+t.join(60)
+assert served == [0]
+from sdrpp_tpu_torch.io.sources import TestSource
+from sdrpp_tpu_torch.misc.webui import ReceiverEngine
+
+class Two:
+    samplerate = 1000000.0
+    def __init__(self):
+        self.src, self.left = TestSource(1000000.0), 2 * 64000
+    def read(self, n):
+        n = min(n, self.left)
+        self.left -= n
+        return self.src.read(n)
+
+eng = ReceiverEngine(Two(), mode='nfm', offset=100000.0, fft_size=4096,
+                     base_block=65536, realtime=False, device='cpu')
+eng.start()
+eng._thread.join(120)
+assert eng.blocks == 2 and eng.error is None, (eng.blocks, eng.error)
+assert eng.audio_written('vfo0') > 0
+assert main(['preheat', '--modes', 'nfm,meteor', '--no-variants',
+             '--samplerate', '250000', '--block-size', '65536',
+             '--fft-size', '4096', '--device', 'cpu']) == 0
 for name in {modules!r}:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -161,7 +210,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 print('IMPORTED', len({modules!r}))
 """
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert f"IMPORTED {len(modules)}" in proc.stdout
@@ -198,6 +248,11 @@ def test_entry_points_default_to_the_card(tmp_path):
                  ["spectrum", "--source", "test:240000", "--blocks", "1",
                   "--block-size", "48000", "--out", str(tmp_path / "w.npy")],
                  ["scan", "--source", "test:240000", "--start=-1e4",
-                  "--stop=1e4", "--blocks", "1"]):
+                  "--stop=1e4", "--blocks", "1"],
+                 ["serve", "--source", "test:240000", "--blocks", "1",
+                  "--port", "0"],
+                 ["ui", "--source", "test:1000000", "--no-realtime",
+                  "--port", "0"],
+                 ["preheat", "--modes", "nfm", "--no-variants"]):
         with pytest.raises((RuntimeError, AssertionError)):
             main(argv)
