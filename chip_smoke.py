@@ -8,12 +8,15 @@ Meteor LRPT decode path, the /256 wideband front end with its 64-channel
 bank, the scanner bank, the HRPT, Falcon 9, M17 and KG-STV decode paths,
 the FEC library's K = 9 and K = 6 decodes, RS erasures, the rest of the
 DSP library, the live receiver behind ``cli ui``, the baseband server
-behind ``cli serve`` and the supervised recovery of a poisoned device)
-and fails (non-zero exit, no result line) if any phase fails:
+behind ``cli serve``, the supervised recovery of a poisoned device, ``cli
+run``'s FLAC / MP3 containers, checkpoint / resume, trace and watchdog,
+and the ATV and DAB OFDM decoders with their walks) and fails (non-zero
+exit, no result line) if any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
-2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu and
-   decim_fir.cu for sm_90a from this checkout, one nvcc each, and the
+2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu,
+   decim_fir.cu and sync_walk.cu for sm_90a from this checkout, one nvcc
+   each, and the
    kernels' compiled host paths, csrc/kernels_host.cpp, with the host
    compiler, all at once;
 3. kernels: every entry against its plain PyTorch version on the card,
@@ -73,7 +76,14 @@ and fails (non-zero exit, no result line) if any phase fails:
    the strided ``conv1d`` it replaced (``library_ms``; the two timed in
    turns, FIR_ROUNDS rounds, medians), and float32 rows [3, 262144] /16;
    then wrong arguments on the card must raise ValueError and launch
-   nothing, and a strided view must give what its copy gives. A
+   nothing, and a strided view must give what its copy gives; the three
+   walks of csrc/sync_walk.cu (``phase_kernels_walks``): ``line_sync_walk``
+   on the first ATV block's discriminator output [450007] and
+   ``cyclic_sync_walk`` on the first DAB block [204800], each bit-exact,
+   and ``chroma_burst_walk`` on [625, 28] bursts of a locked tone at
+   ATV_LOCKING_BW, phases within WALK_TOL and outputs within WALK_OUT_TOL
+   (at the decoder's bandwidth the PLL does not lock, ROADMAP C), with
+   four wrong arguments that must raise and launch nothing. A
    case's ``ms`` is the kernel at ``shape``, its ``plain_ms`` the plain
    version on ``plain_shape`` (the same, or the prefix held); ``path``
    names the path that launches ``shape``; ``bound_ms`` is the least time
@@ -214,7 +224,33 @@ and fails (non-zero exit, no result line) if any phase fails:
     86 with the session saved, controls included; a second child restores
     that session, streams clean blocks and takes a streak of plain
     exceptions through the whole ladder without exiting;
-23. when the parent commit is unpacked at _scratch/parent (``git archive
+23. run-resume (``phase_run_resume``): a WAV of the slice composite
+    (RUN_BLOCKS blocks of RUN_BLOCK) through ``cli run --container flac``
+    on the card at each RUN_MODES station: straight through, and half with
+    ``--checkpoint --checkpoint-every 1 --trace`` then half with
+    ``--resume``; the halves' FLAC samples must equal the straight run's
+    exactly, the checkpoint's offset the stream's, and the trace must name
+    RUN_KERNELS (wfm: lane_scan's ``loop_scan_kernel``; am: single_scan's
+    and the /8 ``decim_fir_kernel``); the cost of a checkpoint a block
+    (``save_state`` of the WFM chain's state); and ``StepWatchdog`` on the
+    card: a step that queues WATCHDOG_SLEEP cycles of device sleep must
+    raise StepTimeout under a 0.1-s deadline though its call returns at
+    once; mp3: one ``run --container mp3`` decoded back, or a line saying
+    libmp3lame is absent;
+24. atv-11p25 (``phase_atv``): ATV_BLOCKS PAL frames of ``atv_composite``
+    (11.25 Msps, 450,000 samples a block) through ``ATVDecoder(device=
+    "cuda")``: frames at the rollovers, per-block CUDA-event and host ms
+    and the real-time factor, line_sync_walk and chroma_burst_walk once a
+    block; a CPU decoder on the same blocks must take the same vertical
+    scan; dab-2p048 (``phase_dab``): one second of DAB mode I
+    (``dab_signal``: 2048-point symbols, 504-sample prefixes, null symbols,
+    the phase reference, a 0.25-bin carrier offset) in DAB_BLOCKS blocks
+    through ``CyclicSync(device="cuda")``: every phase-reference symbol
+    found (``phase_reference_sync``), its ``dab_prs_cfo`` within
+    DAB_CFO_TOL of the offset and its ``dab_prs_constellation`` on four
+    points; cyclic_sync_walk once a block, and every block's walk equal to
+    the plain walk's on the same inputs;
+25. when the parent commit is unpacked at _scratch/parent (``git archive
     <parent> | tar -x -C _scratch/parent``): an A/B of the meteor block
     time, decimating_fir at every FIR_CASES shape, the loop scans at
     the kernel phase's path cases (the same bodies and inputs, contiguous
@@ -325,7 +361,10 @@ SOURCES = {"lane_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "viterbi_traceback_batched": "sdrpp_tpu_torch/csrc/viterbi.cu",
            "viterbi_acs_general": "sdrpp_tpu_torch/csrc/viterbi.cu",
            "viterbi_traceback_general": "sdrpp_tpu_torch/csrc/viterbi.cu",
-           "decimating_fir": "sdrpp_tpu_torch/csrc/decim_fir.cu"}
+           "decimating_fir": "sdrpp_tpu_torch/csrc/decim_fir.cu",
+           "line_sync_walk": "sdrpp_tpu_torch/csrc/sync_walk.cu",
+           "chroma_burst_walk": "sdrpp_tpu_torch/csrc/sync_walk.cu",
+           "cyclic_sync_walk": "sdrpp_tpu_torch/csrc/sync_walk.cu"}
 REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
             "single_scan": "sdrpp_tpu/ops/scans_pallas.py:68",
             "mm_symbols": "sdrpp_tpu/ops/clock_recovery_pallas.py:35",
@@ -333,7 +372,11 @@ REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
             "viterbi_traceback_batched": "sdrpp_tpu/ops/fec_pallas.py:132",
             "viterbi_acs_general": "sdrpp_tpu/ops/fec_pallas.py:221",
             "viterbi_traceback_general": "sdrpp_tpu/ops/fec_pallas.py:132",
-            "decimating_fir": "sdrpp_tpu/ops/fir_pallas.py:74"}
+            "decimating_fir": "sdrpp_tpu/ops/fir_pallas.py:74",
+            # XLA-lowered lax.scans, not Pallas kernels
+            "line_sync_walk": "sdrpp_tpu/decoders/atv.py:97",
+            "chroma_burst_walk": "sdrpp_tpu/decoders/atv.py:178",
+            "cyclic_sync_walk": "sdrpp_tpu/ops/ofdm.py:109"}
 # rows counted by a wrapper's second count: the general kernels' launches
 # (S > 64, or R > 4 for the ACS), as the host path reports them
 GENERAL = {"viterbi_acs_general": "viterbi_acs_batched",
@@ -360,7 +403,11 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "fec_k6": ("viterbi_acs_batched", "viterbi_traceback_batched"),
             "dsp_lib": ("lane_scan", "single_scan", "decimating_fir"),
             "ui": ("lane_scan", "single_scan", "mm_symbols",
-                   "decimating_fir")}
+                   "decimating_fir"),
+            "run_wfm": ("lane_scan",),
+            "run_am": ("single_scan", "decimating_fir"),
+            "atv": ("line_sync_walk", "chroma_burst_walk"),
+            "dab": ("cyclic_sync_walk",)}
 # H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and float32
 # operations/s outside the tensor cores; a case's bound is the larger of
 # its bytes and its operations over these
@@ -504,6 +551,36 @@ DSP_PLL_LANES = 4          # CarrierTrackingPLL's lead shape (lane_scan)
 DSP_TOL = 5e-5             # card vs CPU, of the output's peak (or 1)
 FFT_DECIM_TOL = 5e-5       # FFTPowerDecimator vs the cascade, likewise
 
+RUN_BLOCK = 654400         # run-resume: the slice's block (x 200 and x 1600)
+RUN_BLOCKS = 4             # straight through, or half then half resumed
+RUN_MODES = {"wfm": 300e3, "am": -500e3}   # the slice composite's stations
+# kernel names the --trace of each mode's run must hold: wfm's pilot PLL
+# (lane_scan), am's AGC (single_scan) and /8 decimating FIR
+RUN_KERNELS = {"wfm": ("loop_scan_kernel",),
+               "am": ("loop_scan_kernel", "decim_fir_kernel")}
+CKPT_REPS = 10             # save_state calls timed
+WATCHDOG_SLEEP = 1_000_000_000   # device clock cycles of the slow step
+ATV_FS = 625.0 * 720.0 * 25.0    # 11.25 Msps
+ATV_BLOCK = 450000         # one PAL frame: 625 lines of 720 samples, 40 ms
+ATV_BLOCKS = 3
+ATV_LOCKING_BW = 0.003     # chroma_burst_walk's case: a PLL bandwidth that
+                           # locks at 720-sample lines
+WALK_TOL = 3.6e-6          # chroma_burst_walk card vs plain: phases (rad)
+WALK_OUT_TOL = 1e-5        # and the burst's unit-amplitude outputs
+CHROMA_OPS_PER_STEP = 40   # float operations a burst step: the complex mix
+                           # (6), the loop (8), cosf, sinf and atan2f (~8 each)
+CYCLIC_OPS_PER_SAMPLE = 7  # 2 compares, 2 products, a sum, the count, a test
+DAB_FS = 2.048e6
+DAB_FFT = 2048             # transmission mode I
+DAB_CP = 504
+DAB_NULL = 2656
+DAB_SYMS = 76              # the phase reference and 75 data symbols a frame
+DAB_BLOCK = 204800         # 0.1 s
+DAB_BLOCKS = 10            # one second
+DAB_CFO_BINS = 0.25        # the residual carrier offset, in bins
+DAB_CFO_TOL = 1.5e-4       # rad/sample, 0.05 of a bin
+DAB_PRS_RATIO = 5.0        # a PRS correlates this far above a block's median
+
 
 def log(*args):
     print(*args, flush=True)
@@ -625,12 +702,16 @@ def kernel_fns():
     from sdrpp_tpu_torch.ops import fec_kernels as FK
     from sdrpp_tpu_torch.ops import fir_kernels as DK
     from sdrpp_tpu_torch.ops import scans_kernels as K
+    from sdrpp_tpu_torch.ops import sync_walks as W
 
     return {"lane_scan": K.lane_scan, "single_scan": K.single_scan,
             "mm_symbols": MK.mm_symbols,
             "viterbi_acs_batched": FK.viterbi_acs_batched,
             "viterbi_traceback_batched": FK.viterbi_traceback_batched,
-            "decimating_fir": DK.decimating_fir}
+            "decimating_fir": DK.decimating_fir,
+            "line_sync_walk": W.line_sync_walk,
+            "chroma_burst_walk": W.chroma_burst_walk,
+            "cyclic_sync_walk": W.cyclic_sync_walk}
 
 
 def reset_counts():
@@ -2975,6 +3056,563 @@ def phase_ui_fault(device="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# cli run's options (run-resume, mp3), the ATV decoder (atv-11p25) and the
+# DAB OFDM front end (dab-2p048), and the three walk kernels
+# ---------------------------------------------------------------------------
+
+def _flac(path):
+    from sdrpp_tpu_torch.io.flac import read_flac
+
+    return read_flac(path)[1]
+
+
+def _trace_names(logdir: Path) -> str:
+    """The text of the one Chrome trace ``--trace`` wrote into logdir."""
+    files = list(logdir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--trace wrote {len(files)} traces in {logdir}")
+    return files[0].read_text()
+
+
+def watchdog_on_card(dev):
+    """StepWatchdog on the card times the step's device work, not its
+    enqueue: a step that queues WATCHDOG_SLEEP cycles of device sleep
+    returns to the host at once, yet under a 0.1-s deadline the watchdog
+    raises StepTimeout; a short step passes; a healthy context is not
+    poisoned."""
+    import torch
+    from sdrpp_tpu_torch.utils.watchdog import (StepTimeout, StepWatchdog,
+                                                device_poisoned)
+
+    x = torch.zeros(4, device=dev)
+
+    def slow(s, v):
+        torch.cuda._sleep(WATCHDOG_SLEEP)
+        return s, v + 1
+
+    t0 = time.perf_counter()
+    slow(0, x)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wd = StepWatchdog(lambda: slow, timeout_s=0.1, max_retries=0)
+    t0 = time.perf_counter()
+    try:
+        wd(0, x)
+        timed_out = False
+    except StepTimeout:
+        timed_out = True
+    raised_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    quick = StepWatchdog(lambda: (lambda s, v: (s, v + 1)), timeout_s=5.0,
+                         max_retries=0)
+    quick(0, x)
+    res = {"enqueue_s": enqueue_s, "timed_out": timed_out,
+           "raised_after_s": raised_s,
+           "poisoned": device_poisoned(dev)}
+    log(f"watchdog on the card: a {WATCHDOG_SLEEP}-cycle sleep step enqueues "
+        f"in {enqueue_s * 1e3:.2f} ms, StepTimeout after {raised_s:.3f} s "
+        f"under a 0.1-s deadline: {timed_out}; healthy context poisoned: "
+        f"{res['poisoned']}")
+    if not timed_out or enqueue_s >= 0.1 or res["poisoned"]:
+        raise AssertionError(f"the watchdog did not time the device work: "
+                             f"{res}")
+    return res
+
+
+def phase_run_resume(dev):
+    """run-resume: ``cli run --container flac`` on the card over a WAV of
+    the slice composite, for each RUN_MODES station (wfm: the pilot PLL,
+    lane_scan; am: the AGC, single_scan, and the /8 decimating FIR):
+    RUN_BLOCKS blocks straight through, then RUN_BLOCKS / 2 with
+    ``--checkpoint --checkpoint-every 1 --trace`` and RUN_BLOCKS / 2 with
+    ``--resume``; the FLAC samples of the two halves must equal the
+    straight run's exactly, the trace must name the mode's kernels, the
+    checkpoint's offset must be the stream's. Then the cost of a
+    checkpoint (``save_state`` of the chain's state, a D2H and the .npz)
+    and the watchdog's device deadline."""
+    import torch
+    from sdrpp_tpu_torch.io import wav
+    from sdrpp_tpu_torch.models.radio import RadioChannel
+    from sdrpp_tpu_torch.utils.checkpoint import save_state
+
+    res = {"launches": {}}
+    n = RUN_BLOCKS * RUN_BLOCK
+    half = RUN_BLOCKS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        iq = composite(n, seed=7)
+        src = tmp / "slice.wav"
+        wav.write_wav(src, int(FS), np.stack([iq.real, iq.imag], -1), "f32")
+        del iq
+        for mode, offset in RUN_MODES.items():
+            common = ["run", "--source", str(src), "--mode", mode,
+                      "--offset", str(offset), "--container", "flac",
+                      "--block-size", str(RUN_BLOCK)]
+            reset_counts()
+            t0 = time.perf_counter()
+            _cli_out([*common, "--blocks", str(RUN_BLOCKS), "--out",
+                      str(tmp / "all.flac")], dev.type)
+            straight_s = time.perf_counter() - t0
+            launches = read_counts(f"run_{mode}")
+            ck = tmp / f"{mode}.npz"
+            t0 = time.perf_counter()
+            _cli_out([*common, "--blocks", str(half), "--checkpoint",
+                      str(ck), "--checkpoint-every", "1", "--trace",
+                      str(tmp / f"trace_{mode}"), "--out",
+                      str(tmp / "a.flac")], dev.type)
+            first_s = time.perf_counter() - t0
+            if int(np.load(ck)["__stream_offset__"]) != half * RUN_BLOCK:
+                raise AssertionError(f"run --checkpoint ({mode}): offset")
+            _cli_out([*common, "--blocks", str(RUN_BLOCKS - half),
+                      "--checkpoint", str(ck), "--resume", "--out",
+                      str(tmp / "b.flac")], dev.type)
+            if int(np.load(ck)["__stream_offset__"]) != n:
+                raise AssertionError(f"run --resume ({mode}): offset")
+            whole, a, b = (_flac(tmp / f) for f in ("all.flac", "a.flac",
+                                                    "b.flac"))
+            joined = np.concatenate([a, b])
+            exact = joined.shape == whole.shape and np.array_equal(joined,
+                                                                   whole)
+            text = _trace_names(tmp / f"trace_{mode}")
+            named = {k: k in text for k in RUN_KERNELS[mode]}
+            r = {"frames": int(whole.shape[0]), "channels": int(whole.shape[1]),
+                 "resumed_equal": bool(exact), "trace_names": named,
+                 "straight_s": straight_s, "first_half_s": first_s,
+                 "launches": launches}
+            log(f"run-resume {mode}: {whole.shape[0]} frames x "
+                f"{whole.shape[1]}, split and resumed equal: {exact}, trace "
+                f"names {named}, launches {launches}")
+            if not exact or not all(named.values()) or not len(whole):
+                raise AssertionError(f"run-resume {mode}: {r}")
+            res[mode] = r
+            res["launches"][mode] = launches
+        # a checkpoint's cost a block: save_state of the chain's state
+        chan = RadioChannel("wfm", FS, offset=RUN_MODES["wfm"], device=dev)
+        st = chan.init_state()
+        st, _ = chan(st, torch.zeros(RUN_BLOCK, dtype=torch.complex64,
+                                     device=dev))
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in _tensors(st))
+        save_state(tmp / "c.npz", st, stream_offset=RUN_BLOCK)
+        t0 = time.perf_counter()
+        for _ in range(CKPT_REPS):
+            save_state(tmp / "c.npz", st, stream_offset=RUN_BLOCK)
+        res["checkpoint_ms"] = (time.perf_counter() - t0) / CKPT_REPS * 1e3
+        res["state_bytes"] = nbytes
+        log(f"run --checkpoint-every 1: save_state of the wfm chain's state "
+            f"({nbytes} bytes on the card) {res['checkpoint_ms']:.2f} ms a "
+            f"block (D2H + .npz, host clock, {CKPT_REPS} calls)")
+    res["watchdog"] = watchdog_on_card(dev)
+    return res
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def phase_mp3(dev):
+    """mp3: one ``cli run --container mp3`` on the card where libmp3lame is
+    present (the decoded recording at 48 kHz); a line saying so where it
+    is absent."""
+    from sdrpp_tpu_torch.io import mp3
+
+    if not mp3.available():
+        log("mp3: libmp3lame absent, the MP3 container not run")
+        return {"available": False}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "a.mp3"
+        _cli_out(["run", "--source", "test:2400000", "--mode", "wfm",
+                  "--container", "mp3", "--blocks", "2", "--block-size",
+                  str(RUN_BLOCK), "--out", str(out)], dev.type)
+        rate, data = mp3.decode_mp3(out)
+    log(f"mp3: cli run --container mp3 decoded {data.shape[0]} frames at "
+        f"{rate} Hz")
+    if rate != 48000 or not data.shape[0]:
+        raise AssertionError(f"cli run --container mp3: {rate} {data.shape}")
+    return {"available": True, "frames": int(data.shape[0]), "rate": rate}
+
+
+def atv_composite(n_lines: int, seed: int = 8) -> np.ndarray:
+    """PAL-like composite video at 11.25 Msps (720 samples a line), FM
+    modulated with a deviation of fs / 2 (the decoder's): each line a sync
+    tip (samples [0, 71) and [703, 720) at -0.3), a grey ramp, a colour
+    burst at the subcarrier over the samples the chroma PLL's window
+    reads, its phase alternating +-135 degrees by line (the PAL phases),
+    a chroma carrier over the active region, and seeded noise."""
+    from sdrpp_tpu_torch.decoders import atv
+
+    L = atv.LINE_LEN
+    k = np.arange(L)
+    line = np.where((k < 71) | (k >= L - 17), -0.3,
+                    0.1 + 0.3 * (k - 71) / (L - 88))
+    t = np.arange(n_lines * L)
+    kk, ll = t % L, t // L
+    w0 = 2 * np.pi * atv.CHROMA_SUBCARRIER / ATV_FS
+    theta = np.where(ll % 2 == 1, atv.A_PHASE, atv.B_PHASE)
+    delay = atv.CHROMA_FIR_DELAY
+    burst = (kk >= atv.BURST_START - delay) & (kk < atv.BURST_END - delay)
+    active = (kk >= atv.BURST_START) & (kk < L - 17)
+    video = (line[kk] + 0.15 * np.cos(w0 * t + theta) * burst
+             + 0.1 * np.cos(w0 * t) * active)
+    video += 0.005 * np.random.default_rng(seed).standard_normal(len(t))
+    return np.exp(1j * np.cumsum(np.pi * video)).astype(np.complex64)
+
+
+def phase_atv(dev):
+    """atv-11p25: ATV_BLOCKS blocks of ATV_BLOCK samples (a PAL frame, 40
+    ms each) of ``atv_composite`` through ``ATVDecoder(device="cuda")``:
+    per-block CUDA-event ms and host ms, the real-time factor, the
+    launches (line_sync_walk and chroma_burst_walk once a block), frames
+    of [625, 720, 2] uint8 at the rollovers; then a CPU decoder (the plain
+    walks) on the same blocks: the same vertical scan block by block
+    (ypos, field, frames). The chroma frames themselves are not compared:
+    the decoder's ChromaPLL (bandwidth 0.01) does not lock at 720-sample
+    lines (ROADMAP C), so card and CPU part from their first ulp."""
+    import torch
+    from sdrpp_tpu_torch.decoders.atv import ATVDecoder
+
+    iq = atv_composite(ATV_BLOCKS * ATV_BLOCK // 720)
+    blocks = [iq[k * ATV_BLOCK:(k + 1) * ATV_BLOCK] for k in range(ATV_BLOCKS)]
+    x_dev = [torch.from_numpy(b).to(dev) for b in blocks]
+    dec = ATVDecoder(device=dev)
+    reset_counts()
+    frames, ms, wall, scan = [], [], [], []
+    for x in x_dev:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        frames += dec.process(x)
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        ms.append(e0.elapsed_time(e1))
+        scan.append((dec.assembler.ypos, dec.assembler.even_frame))
+    launches = read_counts("atv")
+    cpu = ATVDecoder(device="cpu")
+    cpu_frames, cpu_scan = [], []
+    for b in blocks:
+        cpu_frames += cpu.process(b)
+        cpu_scan.append((cpu.assembler.ypos, cpu.assembler.even_frame))
+    block_s = ATV_BLOCK / ATV_FS
+    med_wall = float(np.median(wall[1:]))
+    res = {"block_ms": ms, "wall_s": wall, "launches": launches,
+           "frames": len(frames), "cpu_frames": len(cpu_frames),
+           "scan": scan, "cpu_scan": cpu_scan,
+           "realtime_factor": block_s / med_wall,
+           "median_ms": float(np.median(ms[1:])), "median_wall_s": med_wall}
+    log(f"atv-11p25: {len(frames)} frames in {ATV_BLOCKS} blocks, median "
+        f"{res['median_ms']:.3f} ms a block (CUDA events) and "
+        f"{med_wall * 1e3:.3f} ms of host time against {block_s * 1e3:.1f} "
+        f"ms of signal ({res['realtime_factor']:.2f}x real time); vertical "
+        f"scan {scan}, CPU {cpu_scan}; launches {launches}")
+    bad = [f.shape for f in frames if f.shape != (625, 720, 2)
+           or f.dtype != np.uint8]
+    if len(frames) < ATV_BLOCKS - 1 or bad or scan != cpu_scan \
+            or len(cpu_frames) != len(frames):
+        raise AssertionError(f"atv-11p25: {res} {bad}")
+    if launches["line_sync_walk"] != ATV_BLOCKS \
+            or launches["chroma_burst_walk"] != ATV_BLOCKS:
+        raise AssertionError(f"atv-11p25: not one launch a block: "
+                             f"{launches}")
+    return res
+
+
+def dab_signal(n: int, seed: int = 9) -> np.ndarray:
+    """DAB transmission mode I at 2.048 Msps: frames of a null symbol
+    (2,656 samples), the phase-reference symbol (the port's table) and
+    DAB_SYMS - 1 data symbols of random pi/4-DQPSK-like carriers on the
+    1,536 used bins, each a 2,048-point symbol behind its 504-sample
+    cyclic prefix, unit RMS; a carrier offset of DAB_CFO_BINS and seeded
+    noise at -30 dB."""
+    from sdrpp_tpu_torch.ops.ofdm import load_dab_prs_conj
+
+    rng = np.random.default_rng(seed)
+    N, cp = DAB_FFT, DAB_CP
+    prs = np.conj(load_dab_prs_conj()).astype(np.complex128)
+    prs /= np.sqrt(np.mean(np.abs(prs) ** 2))
+    used = np.r_[1:769, N - 768:N]
+
+    def with_cp(s):
+        return np.concatenate([s[-cp:], s])
+
+    frames = []
+    while sum(map(len, frames)) < n:
+        parts = [np.zeros(DAB_NULL), with_cp(prs)]
+        for _ in range(DAB_SYMS - 1):
+            spec = np.zeros(N, np.complex128)
+            spec[used] = np.exp(1j * (np.pi / 4 + np.pi / 2
+                                      * rng.integers(0, 4, len(used))))
+            s = np.fft.ifft(spec)
+            parts.append(with_cp(s / np.sqrt(np.mean(np.abs(s) ** 2))))
+        frames.append(np.concatenate(parts))
+    x = np.concatenate(frames)[:n]
+    x = x * np.exp(2j * np.pi * DAB_CFO_BINS / N * np.arange(n))
+    x += 0.0316 * (rng.standard_normal(n) + 1j * rng.standard_normal(n)) \
+        / np.sqrt(2)
+    return x.astype(np.complex64)
+
+
+def phase_dab(dev):
+    """dab-2p048: DAB_BLOCKS blocks of DAB_BLOCK samples (one second) of
+    ``dab_signal`` through ``CyclicSync(2048 / fs, 504 / fs, fs,
+    device="cuda")``; every emitted symbol through ``phase_reference_sync``
+    to find the phase-reference symbols (one a 96-ms frame), each through
+    ``dab_prs_cfo`` (aligned to its timing) and, with the estimate
+    removed, ``dab_prs_constellation``: the estimate within DAB_CFO_TOL of
+    the injected offset, the constellation on its four points. Per-block
+    CUDA-event and host ms, launches (cyclic_sync_walk once a block). Then
+    every block's walk again from the card's inputs and carried state,
+    against the plain walk: the emits exactly equal."""
+    import torch
+    from sdrpp_tpu_torch.ops import sync_walks as W
+    from sdrpp_tpu_torch.ops.ofdm import (CyclicSync,
+                                          cyclic_prefix_correlation,
+                                          dab_prs_cfo, dab_prs_constellation,
+                                          load_dab_prs_conj,
+                                          phase_reference_sync)
+
+    x = dab_signal(DAB_BLOCKS * DAB_BLOCK)
+    xs = [torch.from_numpy(x[k * DAB_BLOCK:(k + 1) * DAB_BLOCK]).to(dev)
+          for k in range(DAB_BLOCKS)]
+    cs = CyclicSync(DAB_FFT / DAB_FS, DAB_CP / DAB_FS, DAB_FS, device=dev)
+    st = cs.init_state()
+    states = [st]
+    reset_counts()
+    ms, wall, out = [], [], []
+    for xb in xs:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        st, (syms, valid) = cs(st, xb)
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        ms.append(e0.elapsed_time(e1))
+        states.append(st)
+        out.append((syms, valid))
+    launches = read_counts("dab")
+    prs_conj = load_dab_prs_conj()
+    prs = np.conj(prs_conj)
+    emitted, found, cfo, clusters = 0, 0, [], []
+    want = 2 * np.pi * DAB_CFO_BINS / DAB_FFT
+    for syms, valid in out:
+        nv = int(valid.sum())
+        emitted += nv
+        if not nv:
+            continue
+        k, peak, _ = phase_reference_sync(syms[:nv], prs)
+        k, peak = k.cpu().numpy(), peak.cpu().numpy()
+        for i in np.nonzero(peak > DAB_PRS_RATIO * np.median(peak))[0]:
+            found += 1
+            sym = syms[i]
+            est = float(dab_prs_cfo(sym, np.roll(prs_conj, int(k[i]))))
+            cfo.append(est)
+            nn = torch.arange(DAB_FFT, device=dev, dtype=torch.float32)
+            clean = torch.roll(sym * torch.exp(-1j * est * nn), -int(k[i]))
+            c = dab_prs_constellation(clean).cpu().numpy()
+            h, _ = np.histogram(np.mod(np.angle(c), np.pi / 2), bins=9,
+                                range=(0, np.pi / 2))
+            clusters.append(float(h.max() / h.sum()))
+    # the walk again, card against the plain version, from each block's
+    # inputs and the card's carried state (outside the counted run)
+    emits_equal, plain_s = True, 0.0
+    for b, xb in enumerate(xs):
+        s0 = states[b]
+        _, rcorr, vals = cyclic_prefix_correlation(
+            s0["tail"], xb, cs.symbol_samps, cs.prefix_samps)
+        args = (torch.stack([s0["avg_corr"], s0["peak_corr"],
+                             s0["last_corr"]]), s0["since_peak"].reshape(1),
+                s0["sym_buf"], cs.max_symbols(DAB_BLOCK), cs.agc_rate)
+        got = W.cyclic_sync_walk(rcorr, vals, *args)
+        t0 = time.perf_counter()
+        ref = W.cyclic_sync_walk(rcorr.cpu(), vals.cpu(),
+                                 *[a.cpu() if isinstance(a, torch.Tensor)
+                                   else a for a in args])
+        plain_s += time.perf_counter() - t0
+        emits_equal &= all(torch.equal(g.cpu(), r)
+                           for g, r in zip(got, ref))
+    block_s = DAB_BLOCK / DAB_FS
+    med_wall = float(np.median(wall[1:]))
+    res = {"block_ms": ms, "wall_s": wall, "launches": launches,
+           "emitted": emitted, "prs_found": found, "cfo_est": cfo,
+           "cfo_true": want, "cluster_share": clusters,
+           "emits_equal_plain": bool(emits_equal), "plain_s": plain_s,
+           "median_ms": float(np.median(ms[1:])), "median_wall_s": med_wall,
+           "realtime_factor": block_s / med_wall}
+    log(f"dab-2p048: {emitted} symbols emitted in {DAB_BLOCKS} blocks, "
+        f"{found} phase-reference symbols, CFO estimates "
+        f"{[round(c, 6) for c in cfo]} against {want:.6f} rad/sample, "
+        f"constellation shares {[round(c, 3) for c in clusters]}; median "
+        f"{res['median_ms']:.3f} ms a block (CUDA events), "
+        f"{med_wall * 1e3:.3f} ms host, {res['realtime_factor']:.2f}x real "
+        f"time; walk emits, state and buffer equal the plain walk's on "
+        f"every block: {emits_equal} (plain {plain_s:.2f} s); launches "
+        f"{launches}")
+    frames = DAB_BLOCKS * DAB_BLOCK // (DAB_NULL + DAB_SYMS * (DAB_FFT + DAB_CP))
+    if not emits_equal or found < frames or launches["cyclic_sync_walk"] \
+            != DAB_BLOCKS or any(abs(c - want) > DAB_CFO_TOL for c in cfo) \
+            or any(c < 0.9 for c in clusters):
+        raise AssertionError(f"dab-2p048: {res}")
+    return res
+
+
+def _walk_case(entry, path, shape, plain_shape, err, tol, ms, plain_ms,
+               nbytes, ops, **extra):
+    bms, bby = bound(nbytes, ops)
+    log(f"kernel {entry} {shape} ({path}): max abs err {err:.3g} (tol "
+        f"{tol:.3g}), kernel {ms:.4f} ms a call, plain {plain_ms:.2f} ms on "
+        f"{plain_shape}, bound {bms:.5f} ms ({bby}); {extra}")
+    if not err <= tol:
+        raise AssertionError(f"{entry} disagrees with its plain version at "
+                             f"{shape}: {err} > {tol}")
+    return dict(entry=entry, path=path, shape=list(shape),
+                plain_shape=list(plain_shape), max_abs_err=err, tol=tol,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                library_ms=None, bytes=nbytes, ops=ops, **extra)
+
+
+def phase_kernels_walks(dev):
+    """The three walks against their plain versions at the paths' shapes,
+    on the same inputs: line_sync_walk on the first ATV block's
+    discriminator output ([450007] with the tail; exact), chroma_burst_walk
+    on [625, 28] bursts of a locked tone (ATV_LOCKING_BW: at the decoder's
+    0.01 the PLL does not lock, ROADMAP C, and its cos / sin / atan2 ulps
+    would grow without bound; phases within WALK_TOL, outputs within
+    WALK_OUT_TOL), cyclic_sync_walk on the first DAB block ([204800],
+    2048-sample symbols; exact), each timed with CUDA events, with its
+    time a line, a burst step or a sample beside it; then wrong arguments
+    must raise ValueError and launch nothing."""
+    import torch
+    from sdrpp_tpu_torch.decoders import atv
+    from sdrpp_tpu_torch.ops import sync_walks as W
+    from sdrpp_tpu_torch.ops.fm import Quadrature
+    from sdrpp_tpu_torch.ops.ofdm import CyclicSync, cyclic_prefix_correlation
+
+    cases = []
+    # line_sync_walk
+    iq = torch.from_numpy(atv_composite(ATV_BLOCK // 720)).to(dev)
+    quad = Quadrature(ATV_FS / 2, ATV_FS, device=dev)
+    _, y = quad(quad.init_state(), iq)
+    ls = atv.LineSync(1.0, omega_gain=1e-6, mu_gain=1.0,
+                      omega_rel_limit=0.05, device=dev)
+    st = ls.init_state()
+    buf = torch.cat([st["tail"], y])
+    carry = torch.stack([st["pos"], st["freq"]])
+    args = (buf, ls.bank, carry, st["locked"].reshape(1),
+            ls.max_lines(ATV_BLOCK), ls.omega_gain, ls.mu_gain, ls.min_freq,
+            ls.max_freq, ls.sync_level, ls.sync_bias)
+    got = W.line_sync_walk(*args)
+    ms = cuda_ms(lambda: W.line_sync_walk(*args), reps=5)
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+    t0 = time.perf_counter()
+    ref = W.line_sync_walk(*cpu_args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(float((g.cpu().float() - r.float()).abs().max())
+              for g, r in zip(got, ref))
+    lines = int(ref[1])
+    cases.append(_walk_case(
+        "line_sync_walk", "atv", [ATV_BLOCK + 7], [ATV_BLOCK + 7], err, 0.0,
+        ms, plain_ms, (ATV_BLOCK + 7) * 4 + 128 * 8 * 4
+        + args[4] * 720 * 4 + 32, lines * (720 * 21 + 40), lines=lines,
+        us_per_line=ms * 1e3 / max(lines, 1)))
+    # chroma_burst_walk
+    L, nb = ATV_BLOCK // 720, atv.BURST_END - atv.BURST_START
+    w0 = 2 * np.pi * atv.CHROMA_SUBCARRIER / ATV_FS
+    t = (np.arange(L)[:, None] * 720 + atv.BURST_START + np.arange(nb))
+    burst = torch.from_numpy(np.exp(1j * (w0 * t + 0.3)).astype(
+        np.complex64)).to(dev)
+    pll = atv.ChromaPLL(ATV_LOCKING_BW, 720, atv.BURST_START, atv.BURST_END,
+                        init_freq=w0, min_freq=w0 * 0.9, max_freq=w0 * 1.1,
+                        device=dev)
+    carry = torch.tensor([0.0, np.float32(w0)], dtype=torch.float32,
+                         device=dev)
+    refs = torch.zeros(L, dtype=torch.float32, device=dev)
+    args = (burst, refs, carry, atv.BURST_START, 720 - atv.BURST_END,
+            pll.alpha, pll.beta, pll.min_freq, pll.max_freq)
+    got = W.chroma_burst_walk(*args)
+    ms = cuda_ms(lambda: W.chroma_burst_walk(*args), reps=5)
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+    t0 = time.perf_counter()
+    ref = W.chroma_burst_walk(*cpu_args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    phase_err = max(float((got[0].cpu() - ref[0]).abs().max()),
+                    float((got[2].cpu() - ref[2]).abs().max()))
+    out_err = float((got[1].cpu() - ref[1]).abs().max())
+    locked = float(np.abs(np.angle(got[1][-20:].cpu().numpy())).mean())
+    if not out_err <= WALK_OUT_TOL or not locked < 0.05:
+        raise AssertionError(f"chroma_burst_walk: outputs {out_err} > "
+                             f"{WALK_OUT_TOL} or not locked ({locked})")
+    cases.append(_walk_case(
+        "chroma_burst_walk", "atv", [L, nb], [L, nb], phase_err, WALK_TOL,
+        ms, plain_ms, L * nb * 16 + L * 4 + L * 16 + 16,
+        L * nb * CHROMA_OPS_PER_STEP, out_err=out_err,
+        locked_phase_err=locked, us_per_step=ms * 1e3 / (L * nb)))
+    # cyclic_sync_walk
+    cs = CyclicSync(DAB_FFT / DAB_FS, DAB_CP / DAB_FS, DAB_FS, device=dev)
+    st = cs.init_state()
+    xb = torch.from_numpy(dab_signal(DAB_BLOCK)).to(dev)
+    _, rcorr, vals = cyclic_prefix_correlation(st["tail"], xb,
+                                               cs.symbol_samps,
+                                               cs.prefix_samps)
+    args = (rcorr, vals, torch.stack([st["avg_corr"], st["peak_corr"],
+                                      st["last_corr"]]),
+            st["since_peak"].reshape(1), st["sym_buf"],
+            cs.max_symbols(DAB_BLOCK), cs.agc_rate)
+    got = W.cyclic_sync_walk(*args)
+    ms = cuda_ms(lambda: W.cyclic_sync_walk(*args), reps=5)
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+    t0 = time.perf_counter()
+    ref = W.cyclic_sync_walk(*cpu_args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
+    cases.append(_walk_case(
+        "cyclic_sync_walk", "dab", [DAB_BLOCK], [DAB_BLOCK], err, 0.0, ms,
+        plain_ms, DAB_BLOCK * 12 + DAB_FFT * 16 + args[5] * 4 + 32,
+        DAB_BLOCK * CYCLIC_OPS_PER_SAMPLE, emits=int(ref[1]),
+        ns_per_sample=ms * 1e6 / DAB_BLOCK))
+    # wrong arguments raise ValueError and launch nothing
+    before = {n: f.launches for n, f in kernel_fns().items()}
+    f32 = torch.float32
+    for what, call in (
+            ("bank", lambda: W.line_sync_walk(buf, ls.bank[:64], carry[:2],
+                                              torch.zeros(1, dtype=torch.bool,
+                                                          device=dev), 4,
+                                              0, 0, 0, 0, 0, 0)),
+            ("complex64 [L, nb]", lambda: W.chroma_burst_walk(
+                burst.real.contiguous(), refs, carry, 1, 1, 0, 0, 0, 0)),
+            ("since", lambda: W.cyclic_sync_walk(
+                rcorr, vals, args[2], args[3].to(f32), args[4], 4, 0.001)),
+            ("one device", lambda: W.cyclic_sync_walk(
+                rcorr, vals.cpu(), *args[2:]))):
+        try:
+            call()
+        except ValueError as e:
+            if what not in str(e):
+                raise AssertionError(f"a walk raised {e!r}, expected "
+                                     f"{what!r}") from e
+        else:
+            raise AssertionError(f"a walk took bad arguments ({what})")
+    if {n: f.launches for n, f in kernel_fns().items()} != before:
+        raise AssertionError("a walk counted a launch it refused")
+    log("the walks on CUDA: four wrong arguments raise ValueError, nothing "
+        "launched")
+    return cases
+
+
 def phase_pipeline_identity(device="cuda"):
     """``cli run`` (WFM, 4 blocks) and ``cli bank`` (64 NFM channels, 4
     blocks) through the pipeline, against the same loops run unpipelined
@@ -4761,7 +5399,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    names = ("loop_scan", "mm_clock", "viterbi", "decim_fir")
+    names = ("loop_scan", "mm_clock", "viterbi", "decim_fir", "sync_walk")
     hosts = ("kernels_host",)
     with ThreadPoolExecutor(len(names) + len(hosts)) as pool:
         built = [pool.submit(cuda_lib.build_host, h) for h in hosts]
@@ -4783,7 +5421,7 @@ def main() -> int:
     kernels = (loops + phase_kernels_digital(dev)
                + phase_kernels_decode_mm(dev) + viterbi
                + phase_kernels_fec(dev, k9[1], k6[1])
-               + phase_kernels_fir(dev))
+               + phase_kernels_fir(dev) + phase_kernels_walks(dev))
 
     iq = composite(NBLOCKS * BLOCK)
     audio, block_ms, wall_s, launches = phase_slice(iq)
@@ -4835,6 +5473,10 @@ def main() -> int:
     fec = phase_fec(dev, k9, k6)
     del k9, k6
     rs = phase_rs_erasures(dev)
+    run_resume = phase_run_resume(dev)
+    mp3 = phase_mp3(dev)
+    atv = phase_atv(dev)
+    dab = phase_dab(dev)
     ab = phase_ab(meteor["block"], ab_inputs,
                   dict(ab_viterbi, pass_u8=pass_u8))
 
@@ -4850,7 +5492,10 @@ def main() -> int:
              "fec_k9": fec["fec_k9"]["launches"],
              "fec_k6": fec["fec_k6"]["launches"],
              "dsp_lib": dsp["launches"],
-             "ui": ui["launches"]}
+             "ui": ui["launches"],
+             "run_wfm": run_resume["launches"]["wfm"],
+             "run_am": run_resume["launches"]["am"],
+             "atv": atv["launches"], "dab": dab["launches"]}
     rows = []
     for entry in SOURCES:
         mine = [k for k in kernels if k["entry"] == entry]
@@ -4881,7 +5526,8 @@ def main() -> int:
                     "radio": radio, "pipeline": pipeline,
                     "decode": decode, "fec": fec, "rs_erasures": rs,
                     "dsp_lib": dsp, "ui": ui, "serve": serve,
-                    "ui_fault": ui_fault, "ab": ab},
+                    "ui_fault": ui_fault, "run_resume": run_resume,
+                    "mp3": mp3, "atv": atv, "dab": dab, "ab": ab},
                    default=float))
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -4,12 +4,17 @@
 The counterparts of ``sdrpp_tpu``'s commands (sdrpp_tpu/cli.py):
 
 - ``run``: IQ from a test source or a WAV file -> one ``RadioChannel`` in
-  any of its eight modes -> a WAV file at ``--audio-rate`` in
-  ``--sample-format`` (cli.py:110-254, without its checkpoint, trace and
-  watchdog options and the flac/mp3 containers); ``--mode raw`` records
-  the baseband IQ as stereo WAV on the host, as the JAX command does;
+  any of its eight modes -> a WAV, FLAC or MP3 recording (``--container``)
+  at ``--audio-rate`` in ``--sample-format`` (cli.py:110-254): the step
+  runs under ``utils.watchdog.StepWatchdog`` (retries, the poisoned-device
+  probe, ``--checkpoint-every N`` blocks), the final state is saved to
+  ``--checkpoint`` with the stream offset and ``--resume`` continues from
+  it (seeking a WAV source), ``--trace LOGDIR`` writes a
+  ``torch.profiler`` Chrome trace of the loop, and a ``StreamMonitor``'s
+  throughput line is logged; ``--mode raw`` records the baseband IQ as
+  stereo WAV on the host, as the JAX command does;
 - ``bank``: many channels at once through the batched ``ScannerBank``, one
-  WAV per channel (cli.py:257-331);
+  WAV, FLAC or MP3 recording per channel (cli.py:257-331);
 - ``spectrum``: the ``IQFrontEnd``'s waterfall dB lines to .npy, and the
   palette-mapped framebuffer with ``--framebuffer`` (cli.py:334-387);
 - ``scan``: the scanner's sweep over the front end's FFT lines, reporting
@@ -62,6 +67,8 @@ Usage: python -m sdrpp_tpu_torch run --source test:2400000 --mode cw
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import sys
 import time
 
@@ -158,16 +165,17 @@ def _auto_block(fs: float, if_rate: float, block_multiple: int,
     return max(block_multiple, (want // block_multiple) * block_multiple)
 
 
-def _blocks(src, block: int, max_blocks: int, device):
+def _blocks(src, block: int, max_blocks: int, device, start: int = 0):
     """Yield ``block``-sample complex64 tensors on ``device`` from
     ``src`` through a ``Prefetcher``: ``max_blocks`` of them (0 = until a
-    capture's end, or 100 blocks of an endless source)."""
+    capture's end, or 100 blocks of an endless source). ``start`` is the
+    source's position (a resumed run's offset), for the capture's end."""
     from .utils.pipeline import Prefetcher
 
     cap = getattr(src, "num_frames", None)
     pre = Prefetcher(src, block, device=device)
     try:
-        total = nblocks = 0
+        total, nblocks = start, 0
         while max_blocks == 0 or nblocks < max_blocks:
             if cap is not None and total + block > cap:
                 return
@@ -180,21 +188,26 @@ def _blocks(src, block: int, max_blocks: int, device):
         pre.close()
 
 
-def _stream(step, state, src, block: int, max_blocks: int, device, write):
+def _stream(step, state, src, block: int, max_blocks: int, device, write,
+            monitor=None, label: str | None = None, offset: int = 0):
     """The device loop of ``run`` and ``bank``: each block of ``src``
-    (``_blocks``) through ``step`` (state, x) -> (state, y), each y handed
-    to ``write`` on the host one block late (``DeferredWriter``). Returns
-    the input samples processed."""
+    (``_blocks``, from stream position ``offset``) through ``step`` (state,
+    x) -> (state, y), inside ``monitor.block`` (a ``StreamMonitor``) and an
+    ``annotate(label)`` trace region when given, each y handed to
+    ``write`` on the host one block late (``DeferredWriter``). Returns
+    (final state, stream position)."""
     from .utils.pipeline import DeferredWriter
+    from .utils.tracing import annotate
 
     writer = DeferredWriter(write)
-    total = 0
-    for x in _blocks(src, block, max_blocks, device):
-        state, y = step(state, x)
-        writer.push(y)
-        total += block
+    for x in _blocks(src, block, max_blocks, device, start=offset):
+        with (monitor.block(block) if monitor else contextlib.nullcontext()), \
+                (annotate(label) if label else contextlib.nullcontext()):
+            state, y = step(state, x)
+            writer.push(y)
+        offset += block
     writer.flush()
-    return total
+    return state, offset
 
 
 def _add_device_arg(p):
@@ -214,9 +227,13 @@ def cmd_run(argv):
     p.add_argument("--bandwidth", type=float, default=None)
     p.add_argument("--audio-rate", type=float, default=48000.0)
     p.add_argument("--out", default="audio.wav")
+    p.add_argument("--container", default="wav",
+                   choices=["wav", "flac", "mp3"],
+                   help="recording container (the recorder's WAV/FLAC/MP3)")
     p.add_argument("--sample-format", default="i16",
                    choices=["u8", "i16", "i24", "i32", "f32"],
-                   help="sample depth (recorder main.cpp:48-60)")
+                   help="sample depth (recorder main.cpp:48-60; f32 WAV "
+                        "only)")
     p.add_argument("--blocks", type=int, default=0, help="0 = until EOF")
     p.add_argument("--block-size", type=int, default=None,
                    help="input samples per device step (default: auto, so "
@@ -224,10 +241,23 @@ def cmd_run(argv):
     p.add_argument("--squelch", type=float, default=None)
     p.add_argument("--deemphasis", default=None,
                    choices=[None, "22us", "50us", "75us"])
+    p.add_argument("--checkpoint", default=None,
+                   help="save the chain's state and the stream offset here "
+                        "at the end (.npz, the JAX package's format)")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="also checkpoint every N blocks during the run")
+    p.add_argument("--resume", action="store_true",
+                   help="start from --checkpoint's state and offset")
+    p.add_argument("--trace", default=None, metavar="LOGDIR",
+                   help="write a torch.profiler Chrome trace of the run "
+                        "to LOGDIR")
     args = p.parse_args(argv)
 
     from .io.sinks import RecorderSink
     from .models.radio import RadioChannel
+    from .utils.checkpoint import load_state, save_state
+    from .utils.tracing import StreamMonitor, trace
+    from .utils.watchdog import StepWatchdog
 
     device = torch.device(args.device)
     src = _make_source(args.source, args.tone)
@@ -248,15 +278,41 @@ def cmd_run(argv):
              block, device, chan.audio_rate)
 
     state = chan.init_state()
+    offset = 0
+    if args.resume and args.checkpoint:
+        try:
+            state, offset = load_state(args.checkpoint, state)
+        except ValueError as e:
+            log.error("cannot resume: checkpoint was written by a different "
+                      "chain configuration (%s)", e)
+            return 2
+        if hasattr(src, "seek"):
+            src.seek(offset)
+        log.info("resumed from %s at sample %d", args.checkpoint, offset)
+
+    step = StepWatchdog(lambda: chan, max_retries=2, backoff_s=2.0,
+                        checkpoint_path=args.checkpoint,
+                        checkpoint_every=args.checkpoint_every)
     sink = RecorderSink(args.out, int(chan.audio_rate),
+                        container=args.container,
                         channels=2 if chan.stereo_out else 1,
                         sample_format=args.sample_format)
-    t0 = time.perf_counter()
-    total = _stream(chan, state, src, block, args.blocks, device, sink.write)
+    mon = StreamMonitor(samplerate=fs)
+    start = offset
+    after = itertools.count(offset + block, block)  # offset after a block
+    with (trace(args.trace) if args.trace else contextlib.nullcontext()):
+        state, offset = _stream(
+            lambda s, x: step(s, x, offset=next(after)), state, src, block,
+            args.blocks, device, sink.write, monitor=mon,
+            label=f"run:{args.mode}", offset=offset)
     sink.close()
-    dt = time.perf_counter() - t0
-    log.info("processed %d samples in %.3f s (%.3f Msamp/s) -> %s", total, dt,
-             total / max(dt, 1e-9) / 1e6, args.out)
+    log.info(str(mon))
+    if args.trace:
+        log.info("profiler trace -> %s", args.trace)
+    if args.checkpoint:
+        save_state(args.checkpoint, state, stream_offset=offset)
+        log.info("checkpoint -> %s", args.checkpoint)
+    log.info("processed %d samples -> %s", offset - start, args.out)
     return 0
 
 
@@ -433,8 +489,7 @@ def cmd_bank(argv):
     p.add_argument("--out-dir", default="bank_audio")
     p.add_argument("--container", default="wav",
                    choices=["wav", "flac", "mp3"],
-                   help="recording container; flac and mp3 raise until "
-                        "io/flac.py and io/mp3.py are ported")
+                   help="recording container (the recorder's WAV/FLAC/MP3)")
     p.add_argument("--blocks", type=int, default=4)
     p.add_argument("--block-size", type=int, default=262144)
     _add_device_arg(p)
@@ -444,6 +499,7 @@ def cmd_bank(argv):
 
     from .io.sinks import RecorderSink
     from .parallel.vfo_bank import ScannerBank
+    from .utils.tracing import StreamMonitor
 
     device = torch.device(args.device)
     src = _make_source(args.source, args.tone)
@@ -467,16 +523,15 @@ def cmd_bank(argv):
                           channels=2 if args.mode == "wfm" else 1)
              for i, o in enumerate(offsets)]
     state = bank.init_state()
-    t0 = time.perf_counter()
-    total = _stream(
-        bank, state, src, block, args.blocks, device,
-        lambda a: [sink.write(a[i]) for i, sink in enumerate(sinks)])
+    mon = StreamMonitor(samplerate=fs)
+    _stream(bank, state, src, block, args.blocks, device,
+            lambda a: [sink.write(a[i]) for i, sink in enumerate(sinks)],
+            monitor=mon)
     for sink in sinks:
         sink.close()
-    dt = time.perf_counter() - t0
-    log.info("processed %d samples in %.3f s (%.3f Msamp/s x %d channels); "
-             "%d channel recordings -> %s/", total, dt,
-             total / max(dt, 1e-9) / 1e6, len(offsets), len(sinks), out_dir)
+    log.info("%s (x%d channels = %.1f Maggsamp/s)", mon, len(offsets),
+             mon.samples_per_sec * len(offsets) / 1e6)
+    log.info("%d channel recordings -> %s/", len(sinks), out_dir)
     return 0
 
 

@@ -2,8 +2,8 @@
 
 A numpy-only copy of the file sinks of ``sdrpp_tpu.io.sinks`` (reference:
 core/src/signal_path/sink.{h,cpp} — named streams, each a volume and a
-pluggable provider). ``RecorderSink`` writes WAV; its FLAC and MP3
-containers are not copied yet (ROADMAP A9) and raise.
+pluggable provider). ``RecorderSink`` writes WAV, FLAC (``io.flac``) or
+MP3 (``io.mp3``, the system libmp3lame; ImportError without it).
 """
 
 from __future__ import annotations
@@ -35,21 +35,35 @@ class WavSink:
 
 
 class RecorderSink:
-    """Container-selectable recording sink (the reference recorder's
-    container and sample-depth options, misc_modules/recorder/src/
-    main.cpp:48-60). Only the WAV container is ported."""
+    """Container-selectable recording sink: WAV / FLAC / MP3.
+
+    The reference recorder's container + sample-depth options
+    (misc_modules/recorder/src/main.cpp:48-60; containers WAV/FLAC/MP3,
+    FLAC restricted to integer formats, MP3 ignores the depth). FLAC is
+    the pure-Python encoder in io/flac.py; MP3 binds the system
+    libmp3lame (io/mp3.py) and raises ImportError when absent.
+    """
 
     def __init__(self, path, samplerate: int, container: str = "wav",
                  channels: int = 1, sample_format: str = "i16"):
         container = container.lower()
         self.container = container
-        if container in ("flac", "mp3"):
-            raise NotImplementedError(
-                f"the {container} container (io/{container}.py) is not "
-                f"ported to sdrpp_tpu_torch yet (ROADMAP A9); use wav")
-        if container != "wav":
+        if container == "wav":
+            self._sink = WavSink(path, samplerate, sample_format)
+        elif container == "flac":
+            if sample_format not in ("u8", "i16", "i24", "i32"):
+                # wav.cpp:95 FLAC requires integer sample formats
+                raise ValueError(f"FLAC needs an integer format, "
+                                 f"got {sample_format}")
+            bits = {"u8": 8, "i16": 16, "i24": 24, "i32": 32}[sample_format]
+            from .flac import FlacWriter
+            self._sink = FlacWriter(path, samplerate, channels=channels,
+                                    bits=bits)
+        elif container == "mp3":
+            from .mp3 import Mp3Writer
+            self._sink = Mp3Writer(path, samplerate, channels=channels)
+        else:
             raise ValueError(f"unknown container {container}")
-        self._sink = WavSink(path, samplerate, sample_format)
 
     def write(self, audio: np.ndarray):
         self._sink.write(np.asarray(audio))

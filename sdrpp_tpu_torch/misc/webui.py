@@ -825,18 +825,12 @@ class ReceiverEngine:
         self._build()
 
     def _device_poisoned(self) -> bool:
-        """True when the engine's device can no longer run anything: on
-        CUDA a device-side fault (an illegal address, a device-side
-        assert) poisons the context until the process exits, and a tiny
-        launch followed by a synchronize raises. Any other device: never."""
-        if self.device.type != "cuda":
-            return False
-        try:
-            torch.ones(1, device=self.device).add_(1.0)
-            torch.cuda.synchronize(self.device)
-        except Exception:
-            return True
-        return False
+        """True when the engine's device can no longer run anything
+        (``utils.watchdog.device_poisoned``: on CUDA a tiny launch and a
+        synchronize; any other device: never)."""
+        from ..utils.watchdog import device_poisoned
+
+        return device_poisoned(self.device)
 
     def _fatal_exit(self):
         """The supervised rung-4 exit: the registered pre-exit hook (the

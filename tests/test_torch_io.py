@@ -109,23 +109,36 @@ def test_sinks_match(tmp_path):
 
 @pytest.mark.parametrize("container", ["flac", "mp3"])
 def test_unported_containers_raise(tmp_path, container):
-    with pytest.raises(NotImplementedError, match="A9"):
-        tsinks.RecorderSink(tmp_path / f"a.{container}", 48000,
-                            container=container)
+    """The FLAC and MP3 containers, once refused, are ported: the recorder
+    and ``cli bank`` write them; what still raises is what the JAX sink
+    refuses (FLAC with a float format, ValueError), and MP3 without
+    libmp3lame (ImportError)."""
     from sdrpp_tpu_torch.cli import main
+    from sdrpp_tpu_torch.io import mp3
 
-    with pytest.raises(NotImplementedError, match=f"io/{container}.py"):
-        main(["bank", "--source", "test:768000", "--offsets", "0",
-              "--blocks", "1", "--device", "cpu", "--container", container,
-              "--out-dir", str(tmp_path / "bank")])
+    if container == "flac":
+        for mod in (jsinks, tsinks):
+            with pytest.raises(ValueError, match="integer format"):
+                mod.RecorderSink(tmp_path / "a.flac", 48000,
+                                 container="flac", sample_format="f32")
+    elif not mp3.available():
+        with pytest.raises(ImportError):
+            tsinks.RecorderSink(tmp_path / "a.mp3", 48000, container="mp3")
+        return
+    assert main(["bank", "--source", "test:768000", "--offsets", "0",
+                 "--blocks", "1", "--device", "cpu", "--container", container,
+                 "--out-dir", str(tmp_path / "bank")]) == 0
+    assert len(list((tmp_path / "bank").glob(f"*.{container}"))) == 1
 
 
 def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
-    """``cli run`` (nfm, cw, raw), ``cli decode meteor``, ``cli bank``,
+    """``cli run`` (nfm, and with FLAC, a checkpoint and a trace; cw, raw),
+    ``cli decode meteor``, ``cli bank``,
     ``cli spectrum``, ``cli scan``, ``cli serve --blocks 2`` to a client,
     a two-block ``ReceiverEngine`` and ``cli preheat --modes nfm,meteor
     --no-variants`` on the CPU, then an import of every module of the port
-    (but ``__main__``, which runs the CLI), in a fresh interpreter where
+    (but ``__main__``, which runs the CLI) and of chip_smoke.py with its
+    kernel wrappers, in a fresh interpreter where
     websockets and zstandard cannot be imported: every step works, and no
     module named jax, jax.*, sdrpp_tpu or sdrpp_tpu.* is loaded."""
     modules = sorted(
@@ -141,6 +154,10 @@ tmp = {str(tmp_path)!r}
 assert main(['run', '--source', 'test:480000', '--mode', 'nfm', '--blocks',
              '1', '--block-size', '48000', '--device', 'cpu', '--out',
              tmp + '/run.wav']) == 0
+assert main(['run', '--source', 'test:480000', '--mode', 'nfm', '--blocks',
+             '1', '--block-size', '48000', '--device', 'cpu', '--container',
+             'flac', '--checkpoint', tmp + '/c.npz', '--checkpoint-every',
+             '1', '--trace', tmp + '/trace', '--out', tmp + '/run.flac']) == 0
 assert main(['decode', 'meteor', '--source', 'test:300000', '--blocks', '1',
              '--block-size', '32768', '--device', 'cpu', '--out',
              tmp + '/m.s']) == 0
@@ -204,6 +221,8 @@ assert main(['preheat', '--modes', 'nfm,meteor', '--no-variants',
              '--fft-size', '4096', '--device', 'cpu']) == 0
 for name in {modules!r}:
     importlib.import_module(name)
+import chip_smoke
+assert set(chip_smoke.kernel_fns()) | set(chip_smoke.GENERAL) == set(chip_smoke.SOURCES)
 bad = sorted(m for m in sys.modules
              if m in ('jax', 'sdrpp_tpu') or m.startswith(('jax.',
                                                            'sdrpp_tpu.')))
@@ -226,7 +245,9 @@ def test_entry_points_default_to_the_card(tmp_path):
     import torch
 
     from sdrpp_tpu_torch.cli import main
+    from sdrpp_tpu_torch.decoders.atv import ATVDecoder
     from sdrpp_tpu_torch.decoders.meteor_lrpt import MeteorLRPTDecoder
+    from sdrpp_tpu_torch.ops.ofdm import CyclicSync
     from sdrpp_tpu_torch.parallel.vfo_bank import ScannerBank
     from sdrpp_tpu_torch.receiver import Receiver
     from sdrpp_tpu_torch.utils.pipeline import Prefetcher
@@ -236,11 +257,16 @@ def test_entry_points_default_to_the_card(tmp_path):
     for make in (lambda: Receiver(240000.0, block_size=48000, fft_size=1024),
                  lambda: MeteorLRPTDecoder(),
                  lambda: ScannerBank([0.0], 768000.0, mode="nfm"),
-                 lambda: Prefetcher(tsources.TestSource(48000.0), 1000)):
+                 lambda: Prefetcher(tsources.TestSource(48000.0), 1000),
+                 lambda: ATVDecoder(),
+                 lambda: CyclicSync(2048, 504, 1.0).init_state()):
         with pytest.raises((RuntimeError, AssertionError)):
             make()
     for argv in (["run", "--source", "test:240000", "--blocks", "1",
                   "--out", str(tmp_path / "a.wav")],
+                 ["run", "--source", "test:240000", "--blocks", "1",
+                  "--checkpoint", str(tmp_path / "c.npz"),
+                  "--out", str(tmp_path / "c.wav")],
                  ["bank", "--source", "test:768000", "--offsets", "0",
                   "--blocks", "1", "--out-dir", str(tmp_path / "bank")],
                  ["decode", "meteor", "--source", "test:150000", "--blocks",

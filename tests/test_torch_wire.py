@@ -797,10 +797,6 @@ def test_cli_arguments_match_jax():
         j, t = options(jcli, cmd), options(tcli, cmd)
         assert t.pop("device") == "cuda"
         j.pop("cpu")
-        for dropped in ("container", "checkpoint", "checkpoint_every",
-                        "resume", "trace"):  # cli run's options left out
-            if cmd == "run":
-                j.pop(dropped, None)
         assert t == j, cmd
     assert set(tcli.COMMANDS) == set(jcli.COMMANDS) - {"bench"}
     assert tcli.BACKEND_FATAL_EXIT == jcli.BACKEND_FATAL_EXIT == 86
