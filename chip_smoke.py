@@ -45,7 +45,17 @@ exit, no result line) if any phase fails:
    bank must raise; the decode paths' rows [1, 7 + 262144]: the float
    variant at Falcon 9's 1.68, M17's and KG-STV's 10 samples a symbol, the
    complex one at HRPT's 2.2542, each held on its whole row, with clock64
-   cycles a symbol),
+   cycles a symbol; the rows the paths now run chunked, meteor's, HRPT's
+   and M17's, are held off the paths beside the chunked kernel),
+   ``mm_symbols_chunked`` (``phase_kernels_chunked_mm``: the chunked
+   M&M's group steps at each path's shape, hrpt-3M complex [262144],
+   m17-48k float [262144], meteor-30s complex [65536] and the ui-2p4
+   meteor VFO's complex block, on the arguments the block passes for the
+   second of two carried blocks, masks, offsets and positions equal to
+   mm_symbols_chunked_plain's and symbols within KERNEL_TOL, beside the
+   whole block's time and the exact walker's on the same block; three
+   wrong arguments must raise and launch nothing), ``fd_symbols`` (the FD
+   synchronizer at m17's rate and block, off the paths),
    ``viterbi_acs_batched`` and ``viterbi_traceback_batched`` (the 30-s
    pass's [528, 4288, 2] as the path launches them, a uint8 soft-bit
    stream plus window starts, and the exact decode's [1, 4288, 2]; off
@@ -107,8 +117,9 @@ exit, no result line) if any phase fails:
    20 ppm off, Es/N0 12 dB, at +250 kHz in a 2.4 Msps stream) through
    ``RxVFO`` and ``MeteorLRPTDecoder(device="cuda")`` at
    ``cli._auto_block``'s block, then ``finalize``: every VCDU must come
-   back equal to its payload, and lane_scan, mm_symbols, both Viterbi
-   entries and decimating_fir must be launched;
+   back equal to its payload, and lane_scan, mm_symbols_chunked, both
+   Viterbi entries and decimating_fir must be launched; the M&M's
+   CUDA-event ms a block and its share of the block;
 8. card against CPU: the first two demod blocks again on device="cpu";
    equal symbol counts, symbols within METEOR_CPU_TOL (max) and
    METEOR_CPU_RMS_TOL (RMS) after the lock;
@@ -160,10 +171,10 @@ exit, no result line) if any phase fails:
     share where a tap times it, real-time factor, launches):
     hrpt-3M, HRPT_FRAMES seeded minor frames as Manchester BPSK at 3 Msps
     (a carrier phase, HRPT_CARRIER_HZ off) through
-    ``HRPTDecoder(device="cuda")``, its loops chunked: every frame with 0
-    sync errors, its spacecraft id, frame number and words exact;
-    lane_scan and mm_symbols launched; then the loops' chunked and exact
-    routes on that signal and on the same frames in noise (HRPT_NOISE a
+    ``HRPTDecoder(device="cuda")``, its loops and M&M chunked: every
+    frame with 0 sync errors, its spacecraft id, frame number and words
+    exact; lane_scan and mm_symbols_chunked launched; then the loops'
+    chunked and exact routes (the M&M with them) on that signal and on the same frames in noise (HRPT_NOISE a
     component), each route's frames, sync errors and wrong words printed,
     the exact route held exact on both (the chunked route's losses in
     noise are the JAX package's warm-ups, ROADMAP C); falcon9-6M, F9_FRAMES frames
@@ -171,7 +182,8 @@ exit, no result line) if any phase fails:
     every packet exact; m17-48k, an LSF and M17_FRAMES stream frames
     shaped by the port's ``RRCInterpolator`` with light noise, through
     ``GFSKDemod``, ``slice_4fsk``, ``FrameDemux`` and the frame decodes
-    on the card: the LSF's callsigns and every payload exact, and with
+    on the card (its M&M chunked: mm_symbols_chunked launched): the
+    LSF's callsigns and every payload exact, and with
     libcodec2 ``M17Decoder``'s voice sample count (else "m17 voice:
     libcodec2 absent"); kgsstv-12k, KG_FRAMES frames through
     ``KGSSTVDecoder``: every frame exact but its last two bits, which the
@@ -357,6 +369,8 @@ SERVE_BLOCK = 262144
 SOURCES = {"lane_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "single_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "mm_symbols": "sdrpp_tpu_torch/csrc/mm_clock.cu",
+           "mm_symbols_chunked": "sdrpp_tpu_torch/csrc/mm_clock.cu",
+           "fd_symbols": "sdrpp_tpu_torch/csrc/mm_clock.cu",
            "viterbi_acs_batched": "sdrpp_tpu_torch/csrc/viterbi.cu",
            "viterbi_traceback_batched": "sdrpp_tpu_torch/csrc/viterbi.cu",
            "viterbi_acs_general": "sdrpp_tpu_torch/csrc/viterbi.cu",
@@ -376,7 +390,10 @@ REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
             # XLA-lowered lax.scans, not Pallas kernels
             "line_sync_walk": "sdrpp_tpu/decoders/atv.py:97",
             "chroma_burst_walk": "sdrpp_tpu/decoders/atv.py:178",
-            "cyclic_sync_walk": "sdrpp_tpu/ops/ofdm.py:109"}
+            "cyclic_sync_walk": "sdrpp_tpu/ops/ofdm.py:109",
+            "mm_symbols_chunked":
+                "sdrpp_tpu/ops/clock_recovery_chunked.py:92",
+            "fd_symbols": "sdrpp_tpu/ops/clock_recovery.py:162"}
 # rows counted by a wrapper's second count: the general kernels' launches
 # (S > 64, or R > 4 for the ACS), as the host path reports them
 GENERAL = {"viterbi_acs_general": "viterbi_acs_batched",
@@ -385,16 +402,17 @@ GENERAL = {"viterbi_acs_general": "viterbi_acs_batched",
 REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "radio": ("lane_scan", "single_scan", "mm_symbols",
                       "decimating_fir"),
-            "meteor": ("lane_scan", "mm_symbols", "viterbi_acs_batched",
-                       "viterbi_traceback_batched", "decimating_fir"),
+            "meteor": ("lane_scan", "mm_symbols_chunked",
+                       "viterbi_acs_batched", "viterbi_traceback_batched",
+                       "decimating_fir"),
             "wideband": ("decimating_fir",),
             "ssb_bank": ("lane_scan",),
             "muted_bank": (),
             "bank": ("decimating_fir",),
             "bank_fft": (),
-            "hrpt": ("lane_scan", "mm_symbols"),
+            "hrpt": ("lane_scan", "mm_symbols_chunked"),
             "falcon9": ("mm_symbols",),
-            "m17": ("mm_symbols", "viterbi_acs_batched",
+            "m17": ("mm_symbols_chunked", "viterbi_acs_batched",
                     "viterbi_traceback_batched"),
             "kgsstv": ("mm_symbols", "viterbi_acs_batched",
                        "viterbi_traceback_batched"),
@@ -403,7 +421,7 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "fec_k6": ("viterbi_acs_batched", "viterbi_traceback_batched"),
             "dsp_lib": ("lane_scan", "single_scan", "decimating_fir"),
             "ui": ("lane_scan", "single_scan", "mm_symbols",
-                   "decimating_fir"),
+                   "mm_symbols_chunked", "decimating_fir"),
             "run_wfm": ("lane_scan",),
             "run_am": ("single_scan", "decimating_fir"),
             "atv": ("line_sync_walk", "chroma_burst_walk"),
@@ -462,7 +480,7 @@ WIDE_CPU_SETTLE = 1000     # audio samples of the chain's start left out
 BANK_BLOCK = 1 << 18       # bench.py's bank block at 6.144 Msps
 PIPE_CMDS = {"run": ("test:2400000", BLOCK),      # cli source, block
              "bank": ("test:6144000", BANK_BLOCK)}
-PIPE_BLOCKS = 50           # blocks of each timed cli loop
+PIPE_BLOCKS = 30           # blocks of each timed cli loop
 PIPE_PAIRS = 10            # pipelined / plain pairs a command
 PIPE_READS = 20            # blocks of the source's read timed alone
 PROFILE_BLOCKS = 5
@@ -698,6 +716,7 @@ def bound(nbytes: float, ops: float):
 
 def kernel_fns():
     """Every kernel wrapper of the port by name; each carries ``launches``."""
+    from sdrpp_tpu_torch.ops import clock_recovery_chunked as CC
     from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
     from sdrpp_tpu_torch.ops import fec_kernels as FK
     from sdrpp_tpu_torch.ops import fir_kernels as DK
@@ -706,6 +725,8 @@ def kernel_fns():
 
     return {"lane_scan": K.lane_scan, "single_scan": K.single_scan,
             "mm_symbols": MK.mm_symbols,
+            "mm_symbols_chunked": CC.mm_symbols_chunked_lanes,
+            "fd_symbols": MK.fd_symbols,
             "viterbi_acs_batched": FK.viterbi_acs_batched,
             "viterbi_traceback_batched": FK.viterbi_traceback_batched,
             "decimating_fir": DK.decimating_fir,
@@ -1396,8 +1417,10 @@ def phase_kernels_digital(dev):
     if not err <= tol:
         raise AssertionError(f"mm_symbols disagrees with its plain version: "
                              f"{err} > {tol}")
+    # the meteor path runs the chunked M&M (mm_symbols_chunked); this is
+    # the exact walker at its row, kept beside it off the paths
     results.append(dict(entry="mm_symbols", body="complex", shape=shape,
-                        plain_shape=plain_shape, path="meteor",
+                        plain_shape=plain_shape, path=None,
                         max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                         ms_at_plain_shape=ms_part, bound_ms=bms,
                         bound_by=bby, library_ms=None,
@@ -1908,6 +1931,7 @@ def phase_meteor():
     vfo = RxVFO(METEOR_FS, METEOR_IF, bandwidth=METEOR_IF,
                 offset=METEOR_OFFSET, device="cuda")
     dec = MeteorLRPTDecoder(METEOR_IF, device="cuda")
+    dec.demod.recov = mm = MMTimer(dec.demod.recov)
     block = cli._auto_block(METEOR_FS, METEOR_IF, vfo.block_multiple)
     nblocks = int(METEOR_SECONDS * METEOR_FS) // block
     vstate = vfo.init_state()
@@ -1937,12 +1961,17 @@ def phase_meteor():
     nsyms = len(dec.symbols)
     if_block = vfo.out_count(block)
     med_ms = float(np.median(block_ms[1:]))
+    mm_ms = [a.elapsed_time(b) for a, b in mm.ms]
+    med_mm = float(np.median(mm_ms[1:]))
+    mm_share = sum(mm_ms[1:]) / sum(block_ms[1:])
     sym_rate = nsyms / nblocks / (med_ms / 1e3)  # symbols/s processed
     log(f"meteor: {nblocks} blocks of {block} samples ({if_block} at "
         f"{METEOR_IF:g} Hz), {nsyms} symbols; median {med_ms / 1e3:.4f} "
         f"s/block over blocks 2..{nblocks} (CUDA events, RxVFO + demod); "
         f"{sym_rate:.0f} symbols/s = {sym_rate / 72000.0:.2f}x the 72 ksym/s "
-        f"real-time rate; signal made in {gen_s + sum(gen_block_s):.1f} s")
+        f"real-time rate; signal made in {gen_s + sum(gen_block_s):.1f} s;"
+        f" the M&M {med_mm:.3f} ms a block, {100 * mm_share:.1f} % of the "
+        f"block")
     log(f"meteor finalize: {fin_s:.3f} s (viterbi "
         f"{dec.timings['viterbi_s']:.3f}, sync {dec.timings['sync_s']:.3f}, "
         f"RS {dec.timings['rs_s']:.3f}); {info}; peak device memory "
@@ -1957,6 +1986,7 @@ def phase_meteor():
             "symbols": nsyms, "block_ms": block_ms,
             "median_s_per_block": med_ms / 1e3, "symbols_per_s": sym_rate,
             "realtime_x": sym_rate / 72000.0, "finalize_s": fin_s,
+            "mm_ms": mm_ms, "median_mm_ms": med_mm, "mm_share": mm_share,
             "peak_mib": peak_mib,
             **dec.timings, "vcdus": int(len(vcdus)), **info,
             "launches": launches}, first_if, pass_u8[:len(pass_u8) // 2 * 2]
@@ -4437,11 +4467,215 @@ def phase_kernels_decode_mm(dev):
         if not (exact and err <= tol):
             raise AssertionError(f"mm_symbols[{body}] at the {path} row "
                                  f"disagrees with its plain version")
+        # hrpt and m17 run the chunked M&M: their exact rows stay beside it
+        # off the paths
         results.append(dict(entry="mm_symbols", body=body, shape=shape,
-                            plain_shape=shape, path=path, max_abs_err=err,
+                            plain_shape=shape, max_abs_err=err,
+                            path=path if path in ("falcon9", "kgsstv")
+                            else None,
                             tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                             bound_by=bby, library_ms=None, symbols=nsym,
                             cycles_per_symbol=cps))
+    return results
+
+
+# bytes and float32 operations of one chunked M&M symbol slot: the coarse
+# pass (2 taps, the error, the closed form) and the full one (8 taps, the
+# error, the closed form); every slot is computed
+MM_CHUNK_OPS_PER_SLOT = 90
+FD_OPS_PER_SYMBOL = 63     # 3 x 8 taps x (mul + add) + the error and loop
+
+
+def chunked_mm_args(dev, block, x):
+    """The kernel arguments the chunked block ``block`` passes for ``x`` as
+    its second block (the first carried in), captured from the wrapper."""
+    from sdrpp_tpu_torch.ops import clock_recovery_chunked as CC
+
+    n = len(x) // 2
+    xs = torch_from(x, dev)
+    st, _ = block(block.init_state(), xs[:n])
+    cap = {}
+    real = CC.mm_symbols_chunked_lanes
+
+    def spy(*a):
+        cap["a"] = a
+        return real(*a)
+
+    spy.launches = 0
+    CC.mm_symbols_chunked_lanes = spy
+    try:
+        block(st, xs[n:])
+    finally:
+        CC.mm_symbols_chunked_lanes = real
+    return cap["a"]
+
+
+def torch_from(x, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def phase_kernels_chunked_mm(dev):
+    """mm_symbols_chunked at each path's shape (hrpt-3M complex [262144],
+    m17-48k float [262144], meteor-30s complex [65536], the ui-2p4 meteor
+    VFO's complex block) on the block's own arguments (seeds, bounds,
+    lane offsets; the second of two carried blocks), against
+    mm_symbols_chunked_plain on the same tensors: masks, offsets and
+    positions equal, symbols and state within KERNEL_TOL of the largest
+    symbol; the exact mm_symbols on the same block beside it (its time, the
+    path's old kernel). Then fd_symbols at m17's rate and block against
+    fd_symbols_plain, and wrong arguments to the chunked kernel, which
+    must raise ValueError and launch nothing."""
+    import torch
+    from sdrpp_tpu_torch import cli
+    from sdrpp_tpu_torch.decoders import hrpt
+    from sdrpp_tpu_torch.decoders import m17_frame as mf
+    from sdrpp_tpu_torch.models.channel import RxVFO
+    from sdrpp_tpu_torch.models.lrpt import MeteorChannel
+    from sdrpp_tpu_torch.ops import clock_recovery_chunked as CC
+    from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
+    from sdrpp_tpu_torch.ops.clock_recovery import (FDClockRecovery,
+                                                    MMClockRecovery)
+
+    rng = np.random.default_rng(15)
+    vfo = RxVFO(METEOR_FS, METEOR_IF, bandwidth=METEOR_IF,
+                offset=METEOR_OFFSET, device="cpu")
+    meteor_n = vfo.out_count(cli._auto_block(METEOR_FS, METEOR_IF,
+                                             vfo.block_multiple))
+    ui_block = ui_engine(np.zeros(1, np.complex64), "cpu")._block
+    ui_n = MeteorChannel(FS, offset=UI_METEOR, bandwidth=140000.0,
+                         device="cpu").vfo.out_count(ui_block)
+    hrpt_sps = HRPT_FS / hrpt.SYMBOL_RATE
+    m17_sps = M17_FS / mf.M17_BAUDRATE
+
+    def fsk(n, sps):
+        levels = rng.choice([-1.0, -1 / 3, 1 / 3, 1.0], int(n / sps) + 2)
+        y = levels[(np.arange(n) / sps).astype(np.int64)]
+        y = np.convolve(y, np.hanning(9) / np.hanning(9).sum(), "same")
+        return (y + 0.02 * rng.standard_normal(n)).astype(np.float32)
+
+    def bpsk(n, sps):
+        b = rng.choice([-1.0, 1.0], int(n / sps) + 2)
+        y = b[(np.arange(n) / sps).astype(np.int64)] * np.exp(0.3j)
+        return (y + 0.05 * (rng.standard_normal(n) + 1j
+                            * rng.standard_normal(n))).astype(np.complex64)
+
+    cases = [  # (path, body, x: two blocks, omega, omega_gain, rel)
+        ("hrpt", "complex", bpsk(2 * DECODE_BLOCK, hrpt_sps), hrpt_sps,
+         (0.01 ** 2) / 4.0, 0.005),
+        ("m17", "float", fsk(2 * DECODE_BLOCK, m17_sps), m17_sps, 1e-6, 0.01),
+        ("meteor", "complex", mm_signal(rng, 2 * meteor_n, True),
+         METEOR_IF / 72000.0, 0.001, 0.01),
+        ("ui", "complex", mm_signal(rng, 2 * ui_n, True),
+         METEOR_IF / 72000.0, 0.001, 0.01)]
+    results = []
+    for path, body, x, omega, og, rel in cases:
+        cplx = body == "complex"
+        blk = CC.MMClockRecoveryChunked(omega, og, 0.01, rel,
+                                        complex_input=cplx, device=dev)
+        n = len(x) // 2
+        a = chunked_mm_args(dev, blk, x)
+        geom = a[8]
+        got = CC.mm_symbols_chunked_lanes(*a)
+        torch.cuda.synchronize()
+        warm(lambda: CC.mm_symbols_chunked_lanes(*a))
+        ms = cuda_ms(lambda: CC.mm_symbols_chunked_lanes(*a), reps=10)
+        ref = {}
+        plain_ms = cuda_ms(lambda: ref.setdefault(
+            "r", CC.mm_symbols_chunked_plain(*a)), reps=1)
+        want = ref["r"]
+        exact = all(torch.equal(g, w) for g, w in
+                    zip((got[1], got[2], got[3]), (want[1], want[2],
+                                                   want[3])))
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[4] - want[4]).abs().max()))
+        tol = KERNEL_TOL * float(want[0].abs().max())
+        emitted = int(got[1].sum())
+        # the whole block (glue, seeding and the kernel) and the exact
+        # walker on the same block
+        st, _ = blk(blk.init_state(), torch_from(x[:n], dev))
+        xn = torch_from(x[n:], dev)
+        block_ms = cuda_ms(lambda: blk(st, xn), reps=10)
+        ex = MMClockRecovery(omega, og, 0.01, rel, complex_input=cplx,
+                             device=dev)
+        est = ex.init_state()
+        exact_ms = cuda_ms(lambda: ex(est, xn), reps=3)
+        slots = geom.K * geom.steps * geom.M
+        nbytes = (a[0].numel() * a[0].element_size() + a[7].numel() * 4
+                  + 7 * geom.K * 4
+                  + slots * (got[0].element_size() + 1 + 4) + 11 * 4)
+        bms, bby = bound(nbytes, MM_CHUNK_OPS_PER_SLOT * slots)
+        shape = [int(a[0].shape[0])]
+        log(f"kernel mm_symbols_chunked[{body}] {shape} ({path}: n {n}, K "
+            f"{geom.K}, M {geom.M}, {geom.steps} group steps, {emitted} "
+            f"symbols): masks, offsets and positions "
+            f"{'equal' if exact else 'DIFFER'}, max abs err {err:.3g} (tol "
+            f"{tol:.3g}); kernel {ms:.4f} ms, the block {block_ms:.4f} ms, "
+            f"the exact walker on the block {exact_ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bms:.5f} ms ({bby})")
+        if not (exact and err <= tol):
+            raise AssertionError(f"mm_symbols_chunked[{body}] at the {path} "
+                                 f"shape disagrees with its plain version")
+        results.append(dict(entry="mm_symbols_chunked", body=body,
+                            shape=shape, plain_shape=shape, path=path,
+                            n=n, K=geom.K, M=geom.M, steps=geom.steps,
+                            symbols=emitted, max_abs_err=err, tol=tol, ms=ms,
+                            plain_ms=plain_ms, block_ms=block_ms,
+                            exact_block_ms=exact_ms, bound_ms=bms,
+                            bound_by=bby, library_ms=None))
+    # the chunked kernel's own conditions on the card: no launch, no
+    # fallback to the plain version (which takes any bank and group)
+    before = CC.mm_symbols_chunked_lanes.launches
+    bad = (("a [64, 8] bank", lambda a: (*a[:7], a[7][:64], *a[8:])),
+           ("M = 12", lambda a: (*a[:8], a[8]._replace(M=12), *a[9:])),
+           ("a short ext", lambda a: (a[0][:-1], *a[1:])))
+    for what, edit in bad if a[0].is_cuda else ():
+        try:
+            CC.mm_symbols_chunked_lanes(*edit(a))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"mm_symbols_chunked took {what}")
+    if CC.mm_symbols_chunked_lanes.launches != before:
+        raise AssertionError("mm_symbols_chunked launched on wrong arguments")
+    log(f"mm_symbols_chunked refused {len(bad)} wrong arguments on the card")
+
+    # fd_symbols: the FD synchronizer at m17's rate and block
+    fd = FDClockRecovery(m17_sps, 1e-6, 0.01, 0.01, device=dev)
+    st = fd.init_state()
+    xf = fsk(DECODE_BLOCK, m17_sps)
+    buf = torch.cat([st["tail"], torch_from(xf, dev)])[None]
+    fa = (buf, st["offset"].reshape(1),
+          torch.stack([st["phase"], st["freq"]])[None], fd._bank,
+          fd.max_symbols(DECODE_BLOCK), fd.omega_gain, fd.mu_gain,
+          fd.min_freq, fd.max_freq)
+    got = MK.fd_symbols(*fa)
+    torch.cuda.synchronize()
+    warm(lambda: MK.fd_symbols(*fa), calls=2)
+    ms = cuda_ms(lambda: MK.fd_symbols(*fa), reps=3)
+    ref = {}
+    plain_ms = cuda_ms(lambda: ref.setdefault("r", MK.fd_symbols_plain(
+        *fa[:5], *(float(np.float32(v)) for v in fa[5:]))), reps=1)
+    want = ref["r"]
+    exact = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[3] - want[3]).abs().max()))
+    tol = KERNEL_TOL * float(want[0].abs().max())
+    nsym = int(got[1].sum())
+    bms, bby = bound(buf.numel() * 4 + fd._bank.numel() * 4
+                     + got[0].numel() * 4 + 16, FD_OPS_PER_SYMBOL * nsym)
+    shape = list(buf.shape)
+    log(f"kernel fd_symbols {shape} (m17's rate and block, off the paths): "
+        f"{nsym} symbols, masks and offsets {'equal' if exact else 'DIFFER'},"
+        f" max abs err {err:.3g} (tol {tol:.3g}), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bms:.5f} ms ({bby})")
+    if not (exact and err <= tol):
+        raise AssertionError("fd_symbols disagrees with its plain version")
+    results.append(dict(entry="fd_symbols", body="float", shape=shape,
+                        plain_shape=shape, path=None, symbols=nsym,
+                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=bby, library_ms=None))
     return results
 
 
@@ -4658,6 +4892,29 @@ class SymbolTap:
         return np.concatenate(self.symbols) if self.symbols else np.zeros(0)
 
 
+class MMTimer:
+    """Wraps a decoder's M&M block: brackets each call with CUDA events (its
+    device time in the block's stream), nothing read back."""
+
+    def __init__(self, block):
+        self.block, self.ms = block, []
+
+    def __getattr__(self, name):
+        return getattr(self.block, name)
+
+    def __call__(self, state, x):
+        import torch
+
+        if not x.is_cuda:
+            return self.block(state, x)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.block(state, x)
+        ev[1].record()
+        self.ms.append(ev)
+        return out
+
+
 def run_decoder(dec, iq, nblocks=None, attr=None, dev="cuda"):
     """Blocks of DECODE_BLOCK samples of ``iq`` through ``dec.process``:
     (each block's outputs, per-block CUDA-event ms, host s, the tap on
@@ -4686,10 +4943,13 @@ def run_decoder(dec, iq, nblocks=None, attr=None, dev="cuda"):
     return outs, ms, wall, tap
 
 
-def block_report(path, fs, ms, wall, tap, rate_name):
-    """Median block ms (CUDA events, blocks 2..), the M&M's share of it,
-    the host time a block and the real-time factor against ``fs``."""
-    mm_ms = [a.elapsed_time(b) for a, b in tap.ms] if tap and tap.ms else []
+def block_report(path, fs, ms, wall, tap, rate_name, mm=None):
+    """Median block ms (CUDA events, blocks 2..), the M&M's share of it
+    (``mm``'s events, else the tap's), the host time a block and the
+    real-time factor against ``fs``."""
+    timed = mm if mm is not None else tap
+    mm_ms = ([a.elapsed_time(b) for a, b in timed.ms] if timed and timed.ms
+             else [])
     ms = ms or [1e3 * w for w in wall]  # a CPU rehearsal has no events
     med = float(np.median(ms[1:] if len(ms) > 1 else ms))
     med_wall = float(np.median(wall[1:] if len(wall) > 1 else wall))
@@ -4716,10 +4976,11 @@ def phase_hrpt(dev="cuda"):
     """hrpt-3M: HRPT_FRAMES minor frames through HRPTDecoder on the card,
     its loops chunked as the JAX package runs them (K = 128): every frame
     with sync_errors 0, its spacecraft id, frame number and words exact;
-    lane_scan and mm_symbols launched. Then the loops' two routes (the
-    exact one by lane counts forced to 0) on that signal and on the same
-    frames in noise (HRPT_NOISE a component): each route's frames, sync
-    errors and wrong words printed; the exact route must be exact on
+    lane_scan and mm_symbols_chunked launched; the M&M's share of the
+    block from CUDA events on it. Then the loops' two routes (the exact
+    one by lane counts forced to 0, the M&M's too) on that signal and on
+    the same frames in noise (HRPT_NOISE a component): each route's
+    frames, sync errors and wrong words printed; the exact route must be exact on
     both, the chunked one on the clean signal (the JAX package's
     warm-ups are short of HRPT's loop time constants, ROADMAP C)."""
     from sdrpp_tpu_torch.decoders.hrpt import HRPTDecoder
@@ -4727,9 +4988,10 @@ def phase_hrpt(dev="cuda"):
     words, iq = hrpt_pass()
     reset_counts()
     dec = HRPTDecoder(HRPT_FS, device=dev)
+    dec.demod.recov = mm = MMTimer(dec.demod.recov)
     per_block, ms, wall, tap = run_decoder(dec, iq, attr="demod", dev=dev)
     launches = read_counts("hrpt")
-    res = block_report("hrpt-3M", HRPT_FS, ms, wall, None, "3 Msps")
+    res = block_report("hrpt-3M", HRPT_FS, ms, wall, None, "3 Msps", mm)
     frames = sum(per_block, [])
     routes = {}
     for sig, x in (("clean", iq), ("noisy", hrpt_pass(noise=HRPT_NOISE)[1])):
@@ -4740,6 +5002,7 @@ def phase_hrpt(dev="cuda"):
                 d = HRPTDecoder(HRPT_FS, device=dev)
                 if route == "exact":
                     d.demod.agc.max_lanes = d.demod.costas.max_lanes = 1
+                    d.demod.recov.max_lanes = 1
                 got = sum(run_decoder(d, x, dev=dev)[0], [])
             wrong = [int((f.words != w).sum()) for f, w in zip(got, words)]
             routes[f"{sig} {route}"] = {
@@ -4836,17 +5099,19 @@ def phase_m17(dev="cuda"):
     """m17-48k: an M17 call (LSF, M17_FRAMES stream frames) through the
     port's GFSK demod and frame layer on the card: the LSF callsigns exact,
     every stream frame's 18 payload bytes exact, LICH LSFs valid;
-    mm_symbols and both Viterbi kernels launched. With libcodec2, also
+    mm_symbols_chunked and both Viterbi kernels launched; the M&M's share
+    of the block from CUDA events on it. With libcodec2, also
     ``M17Decoder``: its voice sample count."""
     from sdrpp_tpu_torch.decoders import codec2
 
     lsf, voice, iq = m17_call(dev)
     reset_counts()
     m17p = M17Path(dev)
+    m17p.demod.recov = mm = MMTimer(m17p.demod.recov)
     per_block, ms, wall, tap = run_decoder(m17p, iq, attr="demod", dev=dev)
     launches = read_counts("m17")
     lsfs, liches, payloads = m17p.lsfs, m17p.liches, sum(per_block, [])
-    res = block_report("m17-48k", M17_FS, ms, wall, tap, "48 kHz")
+    res = block_report("m17-48k", M17_FS, ms, wall, tap, "48 kHz", mm)
     want = [bytes([fn >> 8, fn & 0xFF]) + v for fn, v in enumerate(voice)]
     found = [p for p in payloads if p in want]
     log(f"m17-48k: {len(lsfs)} LSF frames ({[(l.dst, l.src, l.valid) for l in lsfs]}), "
@@ -5419,7 +5684,8 @@ def main() -> int:
     viterbi, ab_viterbi = phase_kernels_viterbi(dev)
     k9, k6 = fec_path_soft(9), fec_path_soft(6)
     kernels = (loops + phase_kernels_digital(dev)
-               + phase_kernels_decode_mm(dev) + viterbi
+               + phase_kernels_decode_mm(dev)
+               + phase_kernels_chunked_mm(dev) + viterbi
                + phase_kernels_fec(dev, k9[1], k6[1])
                + phase_kernels_fir(dev) + phase_kernels_walks(dev))
 
@@ -5504,6 +5770,8 @@ def main() -> int:
         total = sum(by_path.values())
         # the live receiver's entry is its launches a block
         by_path["ui"] = ui["launches_per_block"].get(entry, 0)
+        # an entry no path runs (fd_symbols) reports its off-path cases
+        on_path = on_path or mine
         lib = [k["library_ms"] for k in on_path]
         rows.append({
             "name": entry, "route": "cuda", "source": SOURCES[entry],

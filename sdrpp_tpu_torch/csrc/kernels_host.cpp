@@ -3,8 +3,7 @@
 // allocations and its kernel's launch on the current stream of its tensors'
 // device in one CPython call. At the paths' shapes a kernel takes about as
 // long on the device as a Python wrapper's checks, allocations and ctypes
-// call took on the host. (mm_symbols, csrc/mm_clock.cu, still goes through
-// ctypes.)
+// call took on the host.
 //
 //   decim_fir(tail, x, taps, r) -> (new_tail, y)
 //       ops/fir_kernels.decimating_fir: tail [..., m-1], x [..., n]
@@ -36,11 +35,32 @@
 //       num_states (64 by default; a power of two in [2, 16384]) states,
 //       int64 [B, T] (S <= 64) or [B, T, S / 64], on a CUDA device;
 //       cycles as above. Allocates bits [B, T] uint8; general as above.
+//   mm_symbols(buf, offset, fstate, bank, max_syms, params, cycles)
+//       -> (syms, count, offset_out, fstate_out)
+//       ops/clock_recovery_kernels.mm_symbols: buf [C, n + 7] complex64 or
+//       float32, offset int32 [C], fstate float32 [C, 10 | 3], bank
+//       float32 [128, 8], on one CUDA device; params (mu, omega_gain,
+//       min_freq, max_freq); cycles None or a contiguous int64 [C] tensor.
+//   mm_chunked(ext, off0, ph0, fr0, emit_lo, emit_hi, goff, bank, geom,
+//              params) -> (syms, valid, pos, offset, fstate)
+//       ops/clock_recovery_chunked.mm_symbols_chunked_lanes: ext a
+//       complex64 or float32 vector, the [K] seeds and bounds (int32 off0
+//       and emit_hi, float32 the rest), bank float32 [128, 8]; geom (K, L,
+//       cols, R, J, M, steps, n) with K <= 256 and M in {8, 16, 32};
+//       params (mu, omega_gain, min_freq, max_freq, half_omega).
+//   fd_symbols(buf, offset, fstate, bank, max_syms, params)
+//       -> (syms, count, offset_out, fstate_out)
+//       ops/clock_recovery_kernels.fd_symbols: buf float32 [C, n + 7],
+//       offset int32 [C], fstate float32 [C, 2], bank float32 [128, 8];
+//       params (omega_gain, mu, min_freq, max_freq).
 //   bind_decim_fir(c64_entry, f32_entry), bind_loop_scan(entry),
-//   bind_viterbi(acs_entry, traceback_entry)
+//   bind_viterbi(acs_entry, traceback_entry), bind_mm_clock(mm_complex,
+//   mm_real, chunked_complex, chunked_real, fd)
 //       the addresses of the kernel libraries' C entries (decim_fir.cu's
 //       decim_fir_c64 / decim_fir_f32, loop_scan.cu's loop_scan,
-//       viterbi.cu's viterbi_acs / viterbi_traceback).
+//       viterbi.cu's viterbi_acs / viterbi_traceback, mm_clock.cu's
+//       mm_symbols_complex / mm_symbols_real / mm_chunked_complex /
+//       mm_chunked_real / fd_symbols).
 //
 // Each entry raises ValueError on a wrong argument, with the checks, the
 // order and the messages of its wrapper's Python `_check`, and
@@ -679,6 +699,383 @@ PyObject* bind_viterbi(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   Py_RETURN_NONE;
 }
 
+// ---------------------------------------------------------------------------
+// mm_symbols / mm_chunked / fd_symbols (csrc/mm_clock.cu)
+// ---------------------------------------------------------------------------
+
+using MmSymbolsEntry = int (*)(const void* x, int n, int C, const float* bank,
+                               const int* offset, const float* fstate,
+                               int* offset_out, float* fstate_out, void* out,
+                               int* count, int max_syms, float mu,
+                               float omega_gain, float min_freq,
+                               float max_freq, long long* cycles,
+                               void* stream);
+using MmChunkedEntry = int (*)(const void* ext, const float* bank,
+                               const int* off0, const float* ph0,
+                               const float* fr0, const float* emit_lo,
+                               const int* emit_hi, const float* goff, int K,
+                               int L, int cols, int R, int J, int M, int steps,
+                               int n, float mu, float omega_gain,
+                               float min_freq, float max_freq,
+                               float half_omega, void* syms, void* valid,
+                               float* pos, int* off_f, float* fst,
+                               void* stream);
+using FdSymbolsEntry = int (*)(const float* x, int n, int C, const float* bank,
+                               const int* offset, const float* fstate,
+                               int* offset_out, float* fstate_out, float* out,
+                               int* count, int max_syms, float omega_gain,
+                               float mu, float min_freq, float max_freq,
+                               void* stream);
+
+MmSymbolsEntry g_mm_complex = nullptr;
+MmSymbolsEntry g_mm_real = nullptr;
+MmChunkedEntry g_chunked_complex = nullptr;
+MmChunkedEntry g_chunked_real = nullptr;
+FdSymbolsEntry g_fd = nullptr;
+
+constexpr int64_t kMmPhases = 128;  // clock_recovery_kernels.KERNEL_PHASES
+constexpr int64_t kMmTaps = 8;      // clock_recovery_kernels.KERNEL_TAPS
+constexpr int64_t kChunkMaxLanes = 256;
+
+// `count` floats from a Python sequence into `out`; false with the error set
+bool float_params(PyObject* o, const char* what, Py_ssize_t count,
+                  float* out) {
+  THPObjectPtr seq(PySequence_Fast(o, what));
+  if (!seq) return false;
+  if (PySequence_Fast_GET_SIZE(seq.get()) != count) {
+    PyErr_Format(PyExc_TypeError, "%s: %zd parameters", what, count);
+    return false;
+  }
+  for (Py_ssize_t i = 0; i < count; ++i) {
+    const double v = PyFloat_AsDouble(PySequence_Fast_GET_ITEM(seq.get(), i));
+    if (v == -1.0 && PyErr_Occurred()) return false;
+    out[i] = static_cast<float>(v);
+  }
+  return true;
+}
+
+std::string bank_shape_error(const char* kernel, const at::Tensor& bank) {
+  return std::string("the ") + kernel + " kernel takes a [" +
+         std::to_string(kMmPhases) + ", " + std::to_string(kMmTaps) +
+         "] bank, not " + shape_str(bank.sizes());
+}
+
+bool bank_ok(const at::Tensor& bank) {
+  return bank.size(0) == kMmPhases && bank.size(1) == kMmTaps;
+}
+
+at::Tensor contiguous(const at::Tensor& t) {
+  return t.is_contiguous() ? t : t.contiguous();
+}
+
+// (syms, count, offset_out, fstate_out) from a walker entry's launch
+PyObject* walk_result(at::Tensor syms, at::Tensor count, at::Tensor off,
+                      at::Tensor fst) {
+  return Py_BuildValue("(NNNN)", THPVariable_Wrap(std::move(syms)),
+                       THPVariable_Wrap(std::move(count)),
+                       THPVariable_Wrap(std::move(off)),
+                       THPVariable_Wrap(std::move(fst)));
+}
+
+PyObject* mm_symbols(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  if (nargs != 7 || !THPVariable_Check(args[0]) ||
+      !THPVariable_Check(args[1]) || !THPVariable_Check(args[2]) ||
+      !THPVariable_Check(args[3]))
+    return type_error(
+        "mm_symbols(buf, offset, fstate, bank, max_syms, params, cycles)");
+  const at::Tensor& buf = THPVariable_Unpack(args[0]);
+  const at::Tensor& offset = THPVariable_Unpack(args[1]);
+  const at::Tensor& fstate = THPVariable_Unpack(args[2]);
+  const at::Tensor& bank = THPVariable_Unpack(args[3]);
+  const long long max_syms = PyLong_AsLongLong(args[4]);
+  if (max_syms == -1 && PyErr_Occurred()) return nullptr;
+  float params[4];
+  if (!float_params(args[5], "mm_symbols: params", 4, params)) return nullptr;
+
+  // the checks of clock_recovery_kernels._check, in its order and with its
+  // messages
+  if (buf.dim() != 2) return value_error("buf must be [C, n + taps - 1]");
+  const int64_t C = buf.size(0);
+  const bool cplx = buf.scalar_type() == c10::kComplexFloat;
+  const int64_t kf = cplx ? 10 : 3;
+  if (!cplx && buf.scalar_type() != c10::kFloat)
+    return value_error("buf must be complex64 or float32");
+  if (offset.scalar_type() != c10::kInt || offset.dim() != 1 ||
+      offset.size(0) != C)
+    return value_error("offset must be int32 [C]");
+  if (fstate.scalar_type() != c10::kFloat || fstate.dim() != 2 ||
+      fstate.size(0) != C || fstate.size(1) != kf)
+    return value_error("fstate must be float32 [C, " + std::to_string(kf) +
+                       "]");
+  if (bank.scalar_type() != c10::kFloat || bank.dim() != 2)
+    return value_error("bank must be float32 [phases, taps]");
+  if (offset.device() != buf.device() || fstate.device() != buf.device() ||
+      bank.device() != buf.device())
+    return value_error("mm_symbols takes tensors on one device");
+  const int64_t n = buf.size(1) - (bank.size(1) - 1);
+  if (n < 1) return value_error("empty block");
+  // the kernel's own conditions
+  if (!bank_ok(bank)) return value_error(bank_shape_error("mm_symbols", bank));
+  if (!buf.is_cuda())
+    return value_error("the compiled mm_symbols takes CUDA tensors");
+  if (max_syms < 0 || max_syms > INT_MAX || buf.size(1) > INT_MAX ||
+      C > INT_MAX)
+    return value_error("mm_symbols takes fewer than 2^31 samples, streams "
+                       "and symbols, max_syms >= 0");
+  long long* cycles = nullptr;
+  if (args[6] != Py_None) {
+    if (!THPVariable_Check(args[6]))
+      return type_error("mm_symbols: cycles is a tensor or None");
+    const at::Tensor& cy = THPVariable_Unpack(args[6]);
+    if (cy.scalar_type() != c10::kLong || cy.dim() != 1 || cy.size(0) != C ||
+        !cy.is_contiguous() || cy.device() != buf.device())
+      return value_error("cycles must be a contiguous int64 [C] tensor on "
+                         "buf's device");
+    cycles = reinterpret_cast<long long*>(cy.data_ptr<int64_t>());
+  }
+  const MmSymbolsEntry fn = cplx ? g_mm_complex : g_mm_real;
+  if (fn == nullptr) {
+    PyErr_SetString(PyExc_RuntimeError,
+                    "mm_symbols: the kernel entries are not bound");
+    return nullptr;
+  }
+
+  const at::Tensor bc = contiguous(buf), oc = contiguous(offset),
+                   fc = contiguous(fstate), kc = contiguous(bank);
+  at::Tensor syms = at::empty({C, max_syms}, buf.options());
+  at::Tensor count = at::empty({C}, offset.options());
+  at::Tensor off = at::empty({C}, offset.options());
+  at::Tensor fst = at::empty({C, kf}, fstate.options());
+
+  const OnStream on(buf.device());
+  const int rc = fn(bc.data_ptr(), static_cast<int>(n), static_cast<int>(C),
+                    kc.data_ptr<float>(), oc.data_ptr<int32_t>(),
+                    fc.data_ptr<float>(), off.data_ptr<int32_t>(),
+                    fst.data_ptr<float>(), syms.data_ptr(),
+                    count.data_ptr<int32_t>(), static_cast<int>(max_syms),
+                    params[0], params[1], params[2], params[3], cycles,
+                    on.stream);
+  if (rc != 0) {
+    PyErr_Format(PyExc_RuntimeError,
+                 "mm_symbols launch failed: CUDA error %d at n=%lld, C=%lld",
+                 rc, static_cast<long long>(n), static_cast<long long>(C));
+    return nullptr;
+  }
+  return walk_result(std::move(syms), std::move(count), std::move(off),
+                     std::move(fst));
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* mm_chunked(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  bool tensors = nargs == 10;
+  for (int i = 0; tensors && i < 8; ++i) tensors = THPVariable_Check(args[i]);
+  if (!tensors)
+    return type_error("mm_chunked(ext, off0, ph0, fr0, emit_lo, emit_hi, "
+                      "goff, bank, geom, params) takes eight tensors and two "
+                      "sequences");
+  const at::Tensor& ext = THPVariable_Unpack(args[0]);
+  const at::Tensor& bank = THPVariable_Unpack(args[7]);
+  int64_t geom[8];
+  {
+    THPObjectPtr seq(PySequence_Fast(args[8], "mm_chunked: geom"));
+    if (!seq) return nullptr;
+    if (PySequence_Fast_GET_SIZE(seq.get()) != 8)
+      return type_error("mm_chunked: geom is (K, L, cols, R, J, M, steps, n)");
+    for (int i = 0; i < 8; ++i) {
+      geom[i] = PyLong_AsLongLong(PySequence_Fast_GET_ITEM(seq.get(), i));
+      if (geom[i] == -1 && PyErr_Occurred()) return nullptr;
+    }
+  }
+  float params[5];
+  if (!float_params(args[9], "mm_chunked: params", 5, params)) return nullptr;
+
+  // the checks of clock_recovery_chunked._check, in its order and with its
+  // messages
+  const bool cplx = ext.scalar_type() == c10::kComplexFloat;
+  if ((!cplx && ext.scalar_type() != c10::kFloat) || ext.dim() != 1)
+    return value_error("ext must be a complex64 or float32 vector");
+  if (bank.scalar_type() != c10::kFloat || bank.dim() != 2 ||
+      bank.size(1) < 2)
+    return value_error("bank must be float32 [phases, taps >= 2]");
+  const int64_t K = geom[0], L = geom[1], cols = geom[2], R = geom[3],
+                J = geom[4], M = geom[5], steps = geom[6], n = geom[7];
+  const int64_t T = bank.size(1);
+  if (K < 1 || L < 1 || M < 1 || steps < 1 || n < 1 || J < T || R < J ||
+      cols < R) {
+    std::string g = "(";
+    for (int i = 0; i < 8; ++i) g += (i ? ", " : "") + std::to_string(geom[i]);
+    return value_error("bad geometry " + g + ") for " + std::to_string(T) +
+                       " taps");
+  }
+  const int64_t need = (K - 1) * L + cols;
+  if (ext.size(0) < need)
+    return value_error("ext holds " + std::to_string(ext.size(0)) +
+                       " samples, the lanes need " + std::to_string(need));
+  const char* names[6] = {"off0", "ph0", "fr0", "emit_lo", "emit_hi", "goff"};
+  const bool is_int[6] = {true, false, false, false, true, false};
+  for (int i = 0; i < 6; ++i) {
+    const at::Tensor& t = THPVariable_Unpack(args[1 + i]);
+    if (t.scalar_type() != (is_int[i] ? c10::kInt : c10::kFloat) ||
+        t.dim() != 1 || t.size(0) != K)
+      return value_error(std::string(names[i]) + " must be " +
+                         (is_int[i] ? "int32" : "float32") + " [" +
+                         std::to_string(K) + "]");
+  }
+  for (int i = 1; i < 8; ++i)
+    if (THPVariable_Unpack(args[i]).device() != ext.device())
+      return value_error("mm_symbols_chunked takes tensors on one device");
+  // the kernel's own conditions
+  if (!bank_ok(bank))
+    return value_error(bank_shape_error("mm_symbols_chunked", bank));
+  if (K > kChunkMaxLanes)
+    return value_error("the mm_symbols_chunked kernel takes at most " +
+                       std::to_string(kChunkMaxLanes) + " lanes, got " +
+                       std::to_string(K));
+  if (M != 8 && M != 16 && M != 32)
+    return value_error("the mm_symbols_chunked kernel takes M = 8, 16 or 32, "
+                       "got " + std::to_string(M));
+  if (ext.size(0) > INT_MAX || K * steps * M > INT_MAX || n > INT_MAX)
+    return value_error("mm_symbols_chunked takes fewer than 2^31 samples "
+                       "and symbols");
+  if (!ext.is_cuda())
+    return value_error("the compiled mm_symbols_chunked takes CUDA tensors");
+  const MmChunkedEntry fn = cplx ? g_chunked_complex : g_chunked_real;
+  if (fn == nullptr) {
+    PyErr_SetString(PyExc_RuntimeError,
+                    "mm_chunked: the kernel entries are not bound");
+    return nullptr;
+  }
+
+  at::Tensor in[8];
+  for (int i = 0; i < 8; ++i) in[i] = contiguous(THPVariable_Unpack(args[i]));
+  const int64_t msc = steps * M;
+  at::Tensor syms = at::empty({K, msc}, ext.options());
+  at::Tensor valid = at::empty({K, msc}, ext.options().dtype(c10::kBool));
+  at::Tensor pos = at::empty({K, msc}, ext.options().dtype(c10::kFloat));
+  at::Tensor off_f = at::empty({}, ext.options().dtype(c10::kInt));
+  at::Tensor fst = at::empty({cplx ? 10 : 3}, ext.options().dtype(c10::kFloat));
+
+  const OnStream on(ext.device());
+  const int rc = fn(
+      in[0].data_ptr(), in[7].data_ptr<float>(), in[1].data_ptr<int32_t>(),
+      in[2].data_ptr<float>(), in[3].data_ptr<float>(),
+      in[4].data_ptr<float>(), in[5].data_ptr<int32_t>(),
+      in[6].data_ptr<float>(), static_cast<int>(K), static_cast<int>(L),
+      static_cast<int>(cols), static_cast<int>(R), static_cast<int>(J),
+      static_cast<int>(M), static_cast<int>(steps), static_cast<int>(n),
+      params[0], params[1], params[2], params[3], params[4], syms.data_ptr(),
+      valid.data_ptr(), pos.data_ptr<float>(), off_f.data_ptr<int32_t>(),
+      fst.data_ptr<float>(), on.stream);
+  if (rc != 0) {
+    PyErr_Format(PyExc_RuntimeError,
+                 "mm_symbols_chunked launch failed: CUDA error %d at K=%lld, "
+                 "M=%lld, steps=%lld", rc, static_cast<long long>(K),
+                 static_cast<long long>(M), static_cast<long long>(steps));
+    return nullptr;
+  }
+  return Py_BuildValue("(NNNNN)", THPVariable_Wrap(std::move(syms)),
+                       THPVariable_Wrap(std::move(valid)),
+                       THPVariable_Wrap(std::move(pos)),
+                       THPVariable_Wrap(std::move(off_f)),
+                       THPVariable_Wrap(std::move(fst)));
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* fd_symbols(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  if (nargs != 6 || !THPVariable_Check(args[0]) ||
+      !THPVariable_Check(args[1]) || !THPVariable_Check(args[2]) ||
+      !THPVariable_Check(args[3]))
+    return type_error(
+        "fd_symbols(buf, offset, fstate, bank, max_syms, params)");
+  const at::Tensor& buf = THPVariable_Unpack(args[0]);
+  const at::Tensor& offset = THPVariable_Unpack(args[1]);
+  const at::Tensor& fstate = THPVariable_Unpack(args[2]);
+  const at::Tensor& bank = THPVariable_Unpack(args[3]);
+  const long long max_syms = PyLong_AsLongLong(args[4]);
+  if (max_syms == -1 && PyErr_Occurred()) return nullptr;
+  float params[4];
+  if (!float_params(args[5], "fd_symbols: params", 4, params)) return nullptr;
+
+  // the checks of clock_recovery_kernels._check_fd, in its order and with
+  // its messages
+  if (buf.scalar_type() != c10::kFloat || buf.dim() != 2)
+    return value_error("buf must be float32 [C, n + taps - 1]");
+  const int64_t C = buf.size(0);
+  if (offset.scalar_type() != c10::kInt || offset.dim() != 1 ||
+      offset.size(0) != C)
+    return value_error("offset must be int32 [C]");
+  if (fstate.scalar_type() != c10::kFloat || fstate.dim() != 2 ||
+      fstate.size(0) != C || fstate.size(1) != 2)
+    return value_error("fstate must be float32 [C, 2]");
+  if (bank.scalar_type() != c10::kFloat || bank.dim() != 2)
+    return value_error("bank must be float32 [phases, taps]");
+  if (offset.device() != buf.device() || fstate.device() != buf.device() ||
+      bank.device() != buf.device())
+    return value_error("fd_symbols takes tensors on one device");
+  const int64_t n = buf.size(1) - (bank.size(1) - 1);
+  if (n < 1) return value_error("empty block");
+  // the kernel's own conditions
+  if (!bank_ok(bank)) return value_error(bank_shape_error("fd_symbols", bank));
+  if (!buf.is_cuda())
+    return value_error("the compiled fd_symbols takes CUDA tensors");
+  if (max_syms < 0 || max_syms > INT_MAX || buf.size(1) > INT_MAX ||
+      C > INT_MAX)
+    return value_error("fd_symbols takes fewer than 2^31 samples, streams "
+                       "and symbols, max_syms >= 0");
+  if (g_fd == nullptr) {
+    PyErr_SetString(PyExc_RuntimeError,
+                    "fd_symbols: the kernel entry is not bound");
+    return nullptr;
+  }
+
+  const at::Tensor bc = contiguous(buf), oc = contiguous(offset),
+                   fc = contiguous(fstate), kc = contiguous(bank);
+  at::Tensor syms = at::empty({C, max_syms}, buf.options());
+  at::Tensor count = at::empty({C}, offset.options());
+  at::Tensor off = at::empty({C}, offset.options());
+  at::Tensor fst = at::empty({C, 2}, fstate.options());
+
+  const OnStream on(buf.device());
+  const int rc = g_fd(bc.data_ptr<float>(), static_cast<int>(n),
+                      static_cast<int>(C), kc.data_ptr<float>(),
+                      oc.data_ptr<int32_t>(), fc.data_ptr<float>(),
+                      off.data_ptr<int32_t>(), fst.data_ptr<float>(),
+                      syms.data_ptr<float>(), count.data_ptr<int32_t>(),
+                      static_cast<int>(max_syms), params[0], params[1],
+                      params[2], params[3], on.stream);
+  if (rc != 0) {
+    PyErr_Format(PyExc_RuntimeError,
+                 "fd_symbols launch failed: CUDA error %d at n=%lld, C=%lld",
+                 rc, static_cast<long long>(n), static_cast<long long>(C));
+    return nullptr;
+  }
+  return walk_result(std::move(syms), std::move(count), std::move(off),
+                     std::move(fst));
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* bind_mm_clock(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 5)
+    return type_error("bind_mm_clock(mm_complex, mm_real, chunked_complex, "
+                      "chunked_real, fd)");
+  MmSymbolsEntry mc, mr;
+  MmChunkedEntry cc, cr;
+  FdSymbolsEntry fd;
+  if (!entry_arg(args[0], &mc) || !entry_arg(args[1], &mr) ||
+      !entry_arg(args[2], &cc) || !entry_arg(args[3], &cr) ||
+      !entry_arg(args[4], &fd))
+    return nullptr;
+  g_mm_complex = mc;
+  g_mm_real = mr;
+  g_chunked_complex = cc;
+  g_chunked_real = cr;
+  g_fd = fd;
+  Py_RETURN_NONE;
+}
+
 template <PyObject* (*F)(PyObject*, PyObject* const*, Py_ssize_t)>
 PyCFunction fastcall() {
   return reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(F));
@@ -706,6 +1103,21 @@ PyMethodDef kMethods[] = {
      "current stream."},
     {"bind_viterbi", fastcall<bind_viterbi>(), METH_FASTCALL,
      "bind_viterbi(acs_entry, traceback_entry): viterbi.cu's C entries."},
+    {"mm_symbols", fastcall<mm_symbols>(), METH_FASTCALL,
+     "mm_symbols(buf, offset, fstate, bank, max_syms, params, cycles) -> "
+     "(syms, count, offset, fstate): check, allocate and launch the M&M "
+     "walker on buf's current stream."},
+    {"mm_chunked", fastcall<mm_chunked>(), METH_FASTCALL,
+     "mm_chunked(ext, off0, ph0, fr0, emit_lo, emit_hi, goff, bank, geom, "
+     "params) -> (syms, valid, pos, offset, fstate): check, allocate and "
+     "launch the chunked M&M on ext's current stream."},
+    {"fd_symbols", fastcall<fd_symbols>(), METH_FASTCALL,
+     "fd_symbols(buf, offset, fstate, bank, max_syms, params) -> (syms, "
+     "count, offset, fstate): check, allocate and launch the FD walker on "
+     "buf's current stream."},
+    {"bind_mm_clock", fastcall<bind_mm_clock>(), METH_FASTCALL,
+     "bind_mm_clock(mm_complex, mm_real, chunked_complex, chunked_real, fd): "
+     "mm_clock.cu's C entries."},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "kernels_host",

@@ -11,11 +11,12 @@ The counterpart of ``sdrpp_tpu.models.digital``. Reference chains:
   (decoder_modules/meteor_demodulator/src/meteor_demod.h:24-45, 150-167,
   meteor_costas.h:24-56)
 
-FastAGC and Costas are the chunk-parallel blocks of ``ops.scans_kernels``
-(chunked for long blocks, exact otherwise, as the JAX package decides);
-the MM always runs exact (``MMClockRecoveryChunked``). Output:
-(symbols[max_syms], valid[max_syms]), the valid symbols a prefix, where
-the JAX package gives a mask over the same symbols.
+FastAGC, Costas and the MM are the chunk-parallel blocks of
+``ops.scans_kernels`` and ``ops.clock_recovery_chunked`` (chunked for long
+1-D blocks, exact otherwise or under SDRPP_TPU_LOOPS=exact, as the JAX
+package decides on its accelerator). Output: (symbols[max_syms],
+valid[max_syms]), ``valid`` a mask over the symbols (a prefix when the MM
+ran exact); consumers boolean-index.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import taps as taps_mod
-from ..ops.clock_recovery_kernels import MMClockRecoveryChunked
+from ..ops.clock_recovery_chunked import MMClockRecoveryChunked
 from ..ops.fir import FIR
 from ..ops.fm import Quadrature
 from ..ops.scans_kernels import CostasChunked, FastAGCChunked

@@ -57,8 +57,9 @@ class LRPTDecoder:
 
 class MeteorChannel:
     """Digital receive channel: RxVFO (input rate -> 150 kHz IF) ->
-    MeteorDemod (72 ksym QPSK). Output = (symbols, valid) with the valid
-    symbols a prefix. With ``dynamic_offset`` the VFO's offset is state,
+    MeteorDemod (72 ksym QPSK). Output = (symbols, valid), ``valid`` a
+    mask over the chunked M&M's lane-major slots (a prefix on blocks the
+    M&M runs exact). With ``dynamic_offset`` the VFO's offset is state,
     moved by ``retune_state``."""
 
     IF_RATE = 150000.0

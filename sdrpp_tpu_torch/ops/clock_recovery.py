@@ -7,7 +7,9 @@ window at the current integer offset, the polyphase-interpolation dot
 product at the fractional phase, the M&M timing error, the phase-control
 loop advance. The loop runs in the kernel wrapper
 ``clock_recovery_kernels.mm_symbols`` (CUDA kernel on CUDA tensors, plain
-loop on CPU tensors).
+loop on CPU tensors). ``FDClockRecovery`` is the float early-late
+synchronizer (reference fd.h), its loop in
+``clock_recovery_kernels.fd_symbols``.
 
 Output: (symbols[max_syms], valid[max_syms]) with the valid symbols a
 prefix; max_syms = ceil(n / min_freq) + 1.
@@ -22,7 +24,7 @@ from ..utils.blocks import Block
 from .resample import build_polyphase_bank
 from .taps import windowed_sinc
 
-__all__ = ["MMClockRecovery"]
+__all__ = ["MMClockRecovery", "FDClockRecovery"]
 
 
 def _interp_bank(phase_count: int, tap_count: int) -> np.ndarray:
@@ -113,3 +115,58 @@ class MMClockRecovery(Block):
         else:
             new_state["last"] = fst[2]
         return new_state, (syms[0], valid[0])
+
+
+class FDClockRecovery(Block):
+    """Frequency-discriminator (early-late derivative) symbol synchronizer,
+    one float [n] stream (the JAX block of the same name,
+    clock_recovery.py:162; reference core/src/dsp/clock_recovery/fd.h:
+    95-150): the timing error is dfdt * sign(out), dfdt the central
+    difference of the neighbouring interpolation phases (one-sided at the
+    bank's edges); the loop advance as the M&M's. State: ``tail``, int32
+    ``offset``, ``phase``, ``freq``."""
+
+    def __init__(self, omega: float, omega_gain: float, mu_gain: float,
+                 omega_rel_limit: float = 0.01, interp_phase_count: int = 128,
+                 interp_tap_count: int = 8, *, device):
+        self.omega = float(omega)
+        self.mu_gain = np.float32(mu_gain)
+        self.omega_gain = np.float32(omega_gain)
+        self.min_freq = np.float32(omega * (1.0 - omega_rel_limit))
+        self.max_freq = np.float32(omega * (1.0 + omega_rel_limit))
+        self.phase_count = int(interp_phase_count)
+        self.tap_count = int(interp_tap_count)
+        self.bank = _interp_bank(self.phase_count, self.tap_count)
+        self.device = torch.device(device)
+        self._bank = torch.from_numpy(
+            self.bank.astype(np.float32)).to(self.device)
+
+    def max_symbols(self, n: int) -> int:
+        return int(np.ceil(n / float(self.min_freq))) + 1
+
+    def init_state(self):
+        dev = self.device
+        return {
+            "tail": torch.zeros(self.tap_count - 1, dtype=torch.float32,
+                                device=dev),
+            "offset": torch.zeros((), dtype=torch.int32, device=dev),
+            "phase": torch.zeros((), dtype=torch.float32, device=dev),
+            "freq": torch.full((), float(np.float32(self.omega)),
+                               dtype=torch.float32, device=dev),
+        }
+
+    def __call__(self, state, x):
+        from .clock_recovery_kernels import fd_symbols
+
+        if x.ndim != 1:
+            raise ValueError("FD runs on one [n] stream")
+        n = x.shape[-1]
+        buf = torch.cat([state["tail"], x.to(torch.float32)])
+        fstate = torch.stack([state["phase"], state["freq"]])
+        syms, valid, off, fst = fd_symbols(
+            buf[None], state["offset"].reshape(1), fstate[None], self._bank,
+            self.max_symbols(n), self.omega_gain, self.mu_gain,
+            self.min_freq, self.max_freq)
+        return ({"tail": buf[n:].clone(), "offset": off[0],
+                 "phase": fst[0, 0], "freq": fst[0, 1]},
+                (syms[0], valid[0]))

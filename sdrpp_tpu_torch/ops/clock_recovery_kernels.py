@@ -1,26 +1,25 @@
-"""The M&M clock-recovery kernel and the chunked block's exact branch.
+"""The M&M and FD clock-recovery walks: one dependent chain per stream.
 
-The counterpart of ``sdrpp_tpu.ops.clock_recovery_pallas`` and
-``clock_recovery_chunked``. ``mm_symbols`` runs a whole block's M&M
+The counterpart of ``sdrpp_tpu.ops.clock_recovery_pallas`` and of
+``FDClockRecovery``'s scan. ``mm_symbols`` runs a whole block's M&M
 recurrence for C independent streams in one launch (replaces the Pallas
-kernel ``_mm_chunk_call``, clock_recovery_pallas.py:35). On a CUDA tensor
-it launches ``csrc/mm_clock.cu`` (built on first use; a failed build
-raises) and adds one to its ``launches`` count; on a CPU tensor it runs
-``mm_symbols_plain``, a Python loop over each stream's symbols in numpy
-float32 scalars, operation for operation the kernel's. Any other device
-raises. The kernel takes the
-128 x 8 bank every caller builds (a CUDA call with another bank shape
-raises), reads the complex64 row as it is and writes each stream's symbol
-count, from which the wrapper builds the valid prefix mask with one
-comparison on the device.
+kernel ``_mm_chunk_call``, clock_recovery_pallas.py:35); ``fd_symbols``
+runs the FD (early-late) synchronizer's (replaces the ``lax.scan`` of
+``FDClockRecovery``, clock_recovery.py:162). On a CUDA tensor each
+launches its entry of ``csrc/mm_clock.cu`` through the compiled host path
+(``csrc/kernels_host.cpp``, which checks the arguments, allocates and
+launches in one C++ call; both built on first use, a failed build raises)
+and adds one to its ``launches`` count; on a CPU tensor it runs its plain
+version (``mm_symbols_plain`` / ``fd_symbols_plain``), a Python loop over
+each stream's symbols in numpy float32 scalars, operation for operation
+the kernel's. Any other device raises. The kernels take the 128 x 8 bank
+every caller builds (a CUDA call with another bank shape raises) and
+write each stream's symbol count, from which the wrapper builds the valid
+prefix mask with one comparison on the device.
 
-``MMClockRecovery`` (ops/clock_recovery.py) is the block that calls it,
-the counterpart of both ``MMClockRecovery`` and ``MMClockRecoveryPallas``:
-the port has one path, the kernel's. ``MMClockRecoveryChunked`` carries
-the JAX chunked block's state tree (a ``hist`` of raw samples) and always
-takes its exact branch, which is what the JAX package does off the TPU and
-under SDRPP_TPU_LOOPS=exact; the group-predictive chunked MM
-(``mm_symbols_chunked``) was built around TPU gathers and is not ported.
+``MMClockRecovery`` (ops/clock_recovery.py) is the exact block that calls
+``mm_symbols``; ``MMClockRecoveryChunked`` (ops/clock_recovery_chunked.py)
+takes it on short blocks and under SDRPP_TPU_LOOPS=exact.
 """
 
 from __future__ import annotations
@@ -31,9 +30,9 @@ import numpy as np
 import torch
 
 from ..utils import cuda_lib
-from .clock_recovery import MMClockRecovery
 
-__all__ = ["mm_symbols", "mm_symbols_plain", "MMClockRecoveryChunked"]
+__all__ = ["mm_symbols", "mm_symbols_plain", "fd_symbols", "fd_symbols_plain",
+           "host_module"]
 
 
 def _check(buf, offset, fstate, bank):
@@ -133,9 +132,7 @@ def mm_symbols_plain(buf, offset, fstate, bank, max_syms, mu, omega_gain,
             torch.from_numpy(st).to(dev))
 
 
-KERNEL_PHASES, KERNEL_TAPS = 128, 8   # the bank shape the kernel takes
-_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-             + [ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 2)
+KERNEL_PHASES, KERNEL_TAPS = 128, 8   # the bank shape the kernels take
 _positions: dict[tuple[int, torch.device], torch.Tensor] = {}
 
 
@@ -150,35 +147,26 @@ def _prefix_mask(count, max_syms):
     return pos < count[:, None]
 
 
-def _launch(buf, offset, fstate, bank, n, max_syms, params, cycles):
-    if tuple(bank.shape) != (KERNEL_PHASES, KERNEL_TAPS):
-        raise ValueError(f"the mm_symbols kernel takes a [{KERNEL_PHASES}, "
-                         f"{KERNEL_TAPS}] bank, not {list(bank.shape)}")
-    C = buf.shape[0]
-    dev = buf.device
-    buf, offset, fstate, bank = (t if t.is_contiguous() else t.contiguous()
-                                 for t in (buf, offset, fstate, bank))
-    if cycles is not None and (cycles.dtype != torch.int64
-                               or tuple(cycles.shape) != (C,)
-                               or cycles.device != dev
-                               or not cycles.is_contiguous()):
-        raise ValueError("cycles must be a contiguous int64 [C] tensor on "
-                         "buf's device")
-    off = offset.new_empty(offset.shape)
-    fst = fstate.new_empty(fstate.shape)
-    syms = buf.new_empty((C, max_syms))
-    count = offset.new_empty((C,))
-    fn = cuda_lib.bind("mm_clock", "mm_symbols_complex" if buf.is_complex()
-                       else "mm_symbols_real", _ARGTYPES)
-    rc = cuda_lib.launch(fn, dev, buf.data_ptr(), n, C, bank.data_ptr(),
-                         offset.data_ptr(), fstate.data_ptr(), off.data_ptr(),
-                         fst.data_ptr(), syms.data_ptr(), count.data_ptr(),
-                         max_syms, *params,
-                         None if cycles is None else cycles.data_ptr())
-    if rc != 0:
-        raise RuntimeError(f"mm_symbols launch failed: CUDA error {rc} at "
-                           f"n={n}, C={C}")
-    return syms, _prefix_mask(count, max_syms), off, fst
+_host = None
+
+
+def host_module():
+    """csrc/kernels_host.cpp's module with mm_clock.cu's C entries bound
+    (mm_symbols, mm_chunked, fd_symbols); both built and loaded on first
+    use."""
+    global _host
+    if _host is None:
+        lib = cuda_lib.load("mm_clock")
+        mod = cuda_lib.load_host("kernels_host")
+        mod.bind_mm_clock(*(ctypes.cast(getattr(lib, e), ctypes.c_void_p).value
+                            for e in MM_CLOCK_ENTRIES))
+        _host = mod
+    return _host
+
+
+# the C entries of csrc/mm_clock.cu, in bind_mm_clock's order
+MM_CLOCK_ENTRIES = ("mm_symbols_complex", "mm_symbols_real",
+                    "mm_chunked_complex", "mm_chunked_real", "fd_symbols")
 
 
 def mm_symbols(buf, offset, fstate, bank, max_syms, mu, omega_gain, min_freq,
@@ -193,7 +181,6 @@ def mm_symbols(buf, offset, fstate, bank, max_syms, mu, omega_gain, min_freq,
     [C, max_syms] bool, a prefix, next offset [C], next fstate); symbols
     past the prefix are 0. On CUDA, ``cycles`` (an int64 [C] tensor, or
     None) receives each stream's clock64() cycles over its walk."""
-    n = _check(buf, offset, fstate, bank)
     max_syms = int(max_syms)
     params = tuple(float(np.float32(v))
                    for v in (mu, omega_gain, min_freq, max_freq))
@@ -202,34 +189,117 @@ def mm_symbols(buf, offset, fstate, bank, max_syms, mu, omega_gain, min_freq,
     if buf.device.type != "cuda":
         raise RuntimeError(f"mm_symbols runs on CUDA or CPU tensors, not "
                            f"{buf.device}")
-    result = _launch(buf, offset, fstate, bank, n, max_syms, params, cycles)
+    syms, count, off, fst = host_module().mm_symbols(
+        buf, offset, fstate, bank, max_syms, params, cycles)
     mm_symbols.launches += 1
-    return result
+    return syms, _prefix_mask(count, max_syms), off, fst
 
 
 mm_symbols.launches = 0
 
 
-class MMClockRecoveryChunked(MMClockRecovery):
-    """The JAX chunked MM block's interface (clock_recovery_chunked.py:477):
-    its state tree grows ``hist``, the last ``warmup + tap_count - 1`` raw
-    samples. This port always runs the exact recurrence."""
+def _check_fd(buf, offset, fstate, bank):
+    if buf.dtype != torch.float32 or buf.ndim != 2:
+        raise ValueError("buf must be float32 [C, n + taps - 1]")
+    C = buf.shape[0]
+    if offset.dtype != torch.int32 or tuple(offset.shape) != (C,):
+        raise ValueError("offset must be int32 [C]")
+    if fstate.dtype != torch.float32 or tuple(fstate.shape) != (C, 2):
+        raise ValueError("fstate must be float32 [C, 2]")
+    if bank.dtype != torch.float32 or bank.ndim != 2:
+        raise ValueError("bank must be float32 [phases, taps]")
+    for t in (offset, fstate, bank):
+        if t.device != buf.device:
+            raise ValueError("fd_symbols takes tensors on one device")
+    n = buf.shape[1] - (bank.shape[1] - 1)
+    if n < 1:
+        raise ValueError("empty block")
+    return n
 
-    def __init__(self, *args, warmup: int = 512, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.warmup = int(warmup)
 
-    def _hist_len(self):
-        return self.warmup + self.tap_count - 1
+def fd_symbols_plain(buf, offset, fstate, bank, max_syms, omega_gain, mu,
+                     min_freq, max_freq):
+    """Plain version of ``fd_symbols``: each stream's symbols in a Python
+    loop over numpy float32 scalars, one rounding a product or sum as in
+    the kernel, each of the three tap sums in order."""
+    n = _check_fd(buf, offset, fstate, bank)
+    C = buf.shape[0]
+    P, T = bank.shape
+    f32 = np.float32
+    b = buf.detach().cpu().numpy().astype(np.float32)
+    bk = bank.detach().cpu().numpy().astype(np.float32)
+    og, mu, lo, hi = (f32(v) for v in (omega_gain, mu, min_freq, max_freq))
+    one, zero, half, fP = f32(1.0), f32(0.0), f32(0.5), f32(P)
+    offs = offset.cpu().numpy().astype(np.int64)
+    st = fstate.detach().cpu().numpy().astype(np.float32)
+    outs = np.zeros((C, max_syms), np.float32)
+    count = np.zeros(C, np.int64)
+    new_off = np.zeros(C, np.int32)
 
-    def init_state(self):
-        st = super().init_state()
-        st["hist"] = torch.zeros(self._hist_len(), dtype=self.dtype,
-                                 device=self.device)
-        return st
+    def dot(win, row):
+        a = zero + win[0] * row[0]
+        for j in range(1, T):
+            a = a + win[j] * row[j]
+        return a
 
-    def __call__(self, state, x):
-        sub = {k: v for k, v in state.items() if k != "hist"}
-        sub, out = super().__call__(sub, x)
-        hist = torch.cat([state["hist"], x.to(self.dtype)])[-self._hist_len():]
-        return {**sub, "hist": hist}, out
+    for c in range(C):
+        off = int(offs[c])
+        phase, freq = st[c]
+        k = 0
+        while k < max_syms and off < n:
+            ph = min(max(int(np.floor(phase * fP)), 0), P - 1)
+            base = min(max(off, 0), n - 1)
+            win = b[c, base:base + T]
+            out = dot(win, bk[ph])
+            lo_v = dot(win, bk[max(ph - 1, 0)])
+            hi_v = dot(win, bk[min(ph + 1, P - 1)])
+            if ph == 0:
+                dfdt = hi_v - out
+            elif ph == P - 1:
+                dfdt = out - lo_v
+            else:
+                dfdt = (hi_v - lo_v) * half
+            err = dfdt * (one if out > 0 else -one)
+            err = min(max(err, -one), one)
+            freq = min(max(freq + og * err, lo), hi)
+            new_phase = (phase + freq) + mu * err
+            delta = np.floor(new_phase)
+            off += int(delta)
+            phase = new_phase - delta
+            outs[c, k] = out
+            k += 1
+        count[c] = k
+        new_off[c] = off - n
+        st[c] = (phase, freq)
+    dev = buf.device
+    valid = (torch.arange(max_syms, device=dev)[None]
+             < torch.from_numpy(count).to(dev)[:, None])
+    return (torch.from_numpy(outs).to(dev), valid,
+            torch.from_numpy(new_off).to(dev), torch.from_numpy(st).to(dev))
+
+
+def fd_symbols(buf, offset, fstate, bank, max_syms, omega_gain, mu, min_freq,
+               max_freq):
+    """Run the FD (early-late) symbol synchronizer over C float streams of
+    one block.
+
+    ``buf`` [C, n + T - 1] float32: each stream's carried tail and the
+    block. ``offset`` [C] int32, ``fstate`` [C, 2] float32 (phase, freq):
+    the carried state. ``bank`` [P, T] float32 ([128, 8] on CUDA). Returns
+    (symbols [C, max_syms], valid [C, max_syms] bool, a prefix, next offset
+    [C], next fstate)."""
+    max_syms = int(max_syms)
+    params = tuple(float(np.float32(v))
+                   for v in (omega_gain, mu, min_freq, max_freq))
+    if buf.device.type == "cpu":
+        return fd_symbols_plain(buf, offset, fstate, bank, max_syms, *params)
+    if buf.device.type != "cuda":
+        raise RuntimeError(f"fd_symbols runs on CUDA or CPU tensors, not "
+                           f"{buf.device}")
+    syms, count, off, fst = host_module().fd_symbols(
+        buf, offset, fstate, bank, max_syms, params)
+    fd_symbols.launches += 1
+    return syms, _prefix_mask(count, max_syms), off, fst
+
+
+fd_symbols.launches = 0

@@ -33,12 +33,14 @@ stream [hist | block] and each lane's payload lands in sample order in
 the output, so the only copy around the kernel is that extension.
 Whether a loop runs chunked or exact is decided by ``_chunk_lanes_for``
 alone, on every device, so the CPU tests exercise the same glue the card
-runs.
+runs; ``SDRPP_TPU_LOOPS=exact`` (``LOOPS_MODE``) makes it 0 everywhere,
+for these loops and the chunked M&M alike.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -626,14 +628,21 @@ def costas_phases_chunked(s1, s2, hist1, hist2, phase0, freq0, order, alpha,
             fin[1, :, -1].reshape(lead))
 
 
+# "auto": the chunk-parallel loops (and the chunked M&M) for long 1-D
+# blocks; "exact": always the exact recurrences. Read once, at import, as
+# the JAX package reads SDRPP_TPU_LOOPS (scans_pallas.py:57).
+LOOPS_MODE = os.environ.get("SDRPP_TPU_LOOPS", "auto")
+
+
 def _chunk_lanes_for(n: int, warmup: int, max_lanes: int,
                      channels: int = 1) -> int:
     """Per-channel lane count K minimizing the JAX package's cost model
     ``ceil(channels*K / 128) * (W + ceil(n/K))``, or 0 (run exact) unless
-    the best chunked cost beats half the exact ``ceil(channels/128)*n``.
-    Kept as scans_pallas.py:835 has it, so both packages take the same
-    branch; re-deriving it for the GPU is the kernel's tuning work."""
-    if warmup <= 0:
+    the best chunked cost beats half the exact ``ceil(channels/128)*n``,
+    and always 0 under ``LOOPS_MODE == "exact"``. Kept as
+    scans_pallas.py:835 has it, so both packages take the same branch;
+    re-deriving it for the GPU is the kernel's tuning work."""
+    if LOOPS_MODE == "exact" or warmup <= 0:
         return 0
     best_k, best_cost = 0, None
     for k in range(1, max_lanes + 1):

@@ -14,7 +14,9 @@ reference decodes 16 bits past the 108 symbols a frame carries
 (kg_sstv_dsp.h:196 vs :177), so those two bits come out of erasures and
 follow the soft symbols' last ulps. The port's HRPT loops run chunked at
 these blocks (``_chunk_lanes_for`` decides on every device), the JAX
-package's on the CPU exact; both recover the frame.
+package's FastAGC and Costas on the CPU exact; both recover the frame.
+The HRPT and M17 M&Ms run chunked on both sides (the JAX one with
+``interpret = True``, as on its accelerator).
 """
 
 import numpy as np
@@ -154,7 +156,9 @@ def _mask(frames):
 def test_hrpt_decoder_matches_jax():
     words, iq = hrpt_signal()
     j = jhrpt.HRPTDecoder(jhrpt.VFO_RATE)
+    j.demod.recov.interpret = True    # JAX's chunked M&M, as the port's
     t = thrpt.HRPTDecoder(thrpt.VFO_RATE, device="cpu")
+    assert t.demod.recov._lanes_for(120_000) >= 1
     want, got = [], []
     for blk in _blocks(iq, 120_000):
         want += j.process(blk)
@@ -205,8 +209,10 @@ def test_m17_lsf_and_payloads_match_jax():
         jmf.encode_stream_frame(LSF, fn, voice[fn]) for fn in range(8)]
     iq = m17_signal(blocks, 3)
     jd = JGFSK(jmf.M17_BAUDRATE, 48000.0, jmf.M17_DEVIATION, **kw)
+    jd.recov.interpret = True         # JAX's chunked M&M, as the port's
     td = tdigital.GFSKDemod(jmf.M17_BAUDRATE, 48000.0, jmf.M17_DEVIATION,
                             **kw, device="cpu")
+    assert td.recov._lanes_for(12000) >= 1
     jstep, jst, tst = jax.jit(jd), jd.init_state(), td.init_state()
     jdemux, tdemux = jmf.FrameDemux(), tmf.FrameDemux()
     jl, tl = jmf.LICHAssembler(), tmf.LICHAssembler()
@@ -262,6 +268,7 @@ def test_m17_decoder_voice_matches_jax():
         for fn in range(nframes)]
     iq = m17_signal(blocks, 3)
     j, tdec = JM17(48000.0), TM17(48000.0, device="cpu")
+    j.demod.recov.interpret = True    # JAX's chunked M&M, as the port's
     fed = {id(j): [], id(tdec): []}
     for dec in (j, tdec):
         def record(payload, dec=dec, process=dec.voice.process):

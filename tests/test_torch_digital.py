@@ -53,8 +53,8 @@ from sdrpp_tpu.ops.clock_recovery_pallas import MMClockRecoveryPallas
 from sdrpp_tpu_torch.models.digital import MeteorDemod
 from sdrpp_tpu_torch.ops import scans_kernels as K
 from sdrpp_tpu_torch.ops.clock_recovery import MMClockRecovery
-from sdrpp_tpu_torch.ops.clock_recovery_kernels import (MMClockRecoveryChunked,
-                                                        mm_symbols)
+from sdrpp_tpu_torch.ops.clock_recovery_chunked import MMClockRecoveryChunked
+from sdrpp_tpu_torch.ops.clock_recovery_kernels import mm_symbols
 from sdrpp_tpu_torch.ops.scans import Costas, FastAGC
 from sdrpp_tpu_torch.utils.blocks import state_from_numpy, state_to_numpy
 
@@ -291,16 +291,39 @@ def test_mm_matches_pallas_interpret(cplx):
 
 def test_mm_chunked_block_state_tree_and_exact_branch():
     """The port's MMClockRecoveryChunked carries the JAX chunked block's
-    state tree (with ``hist``) and runs the exact recurrence."""
+    state tree (with ``hist``) and takes its branch: the exact recurrence
+    on short blocks, and the chunked one on long blocks, where it matches
+    the JAX block in interpret mode (equal masks, MM_TOL)."""
     from sdrpp_tpu.ops.clock_recovery_chunked import \
         MMClockRecoveryChunked as JaxChunked
 
     sps = 150000.0 / 72000.0
     x = _mm_signal(6000, sps, True, 0)
+    t = MMClockRecoveryChunked(sps, 0.001, 0.01, 0.01, complex_input=True,
+                               device="cpu")
+    assert t._lanes_for(2000) == 0
     _check_mm_blocks(JaxChunked(sps, 0.001, 0.01, 0.01, complex_input=True),
-                     MMClockRecoveryChunked(sps, 0.001, 0.01, 0.01,
-                                            complex_input=True, device="cpu"),
-                     x, lambda x: (x[:2500], x[2500:]))
+                     t, x, lambda x: (x[:2000], x[2000:4000]))
+    # the chunked branch: 2 x 16384 samples, K = 32 lanes
+    x = _mm_signal(2 * 16384, sps, True, 1)
+    assert t._lanes_for(16384) == 32
+    j = JaxChunked(sps, 0.001, 0.01, 0.01, complex_input=True,
+                   interpret=True)
+    js, ts = j.init_state(), t.init_state()
+    step = jax.jit(j)
+    for blk in (x[:16384], x[16384:]):
+        js, (jy, jv) = step(js, jnp.asarray(blk))
+        ts, (ty, tv) = t(ts, _t(blk))
+        jv = np.asarray(jv).astype(bool)
+        assert ty.shape[0] == t.max_symbols(16384) == jy.shape[0]
+        np.testing.assert_array_equal(tv.numpy(), jv)
+        assert not tv[:int(tv.sum())].all()     # a mask, not a prefix
+        assert np.abs(ty.numpy()[jv] - np.asarray(jy)[jv]).max() <= MM_TOL
+    jn, tn = jax.tree_util.tree_map(np.asarray, js), state_to_numpy(ts)
+    assert set(jn) == set(tn)
+    for k in jn:
+        np.testing.assert_allclose(tn[k], jn[k], rtol=0, atol=MM_TOL,
+                                   err_msg=k)
 
 
 def test_mm_symbols_streams_are_independent():

@@ -1,10 +1,12 @@
 """The compiled host path's argument checks against the Python ones.
 
 ``csrc/kernels_host.cpp`` repeats, in C++, the checks of
-``scans_kernels._check`` (lane_scan / single_scan) and
-``fir_kernels._check`` (decimating_fir) and ``fec_kernels._check_acs`` /
-``_check_traceback`` (the Viterbi entries), in their order and with their
-messages: on the card it is the only check a call gets. Here it is built
+``scans_kernels._check`` (lane_scan / single_scan),
+``fir_kernels._check`` (decimating_fir), ``fec_kernels._check_acs`` /
+``_check_traceback`` (the Viterbi entries), and
+``clock_recovery_kernels._check`` / ``_check_fd`` and
+``clock_recovery_chunked._check`` (mm_symbols, fd_symbols, the chunked
+M&M), in their order and with their messages: on the card it is the only check a call gets. Here it is built
 without CUDA (``cuda_lib.load_host(..., cuda=False)``: the same checks,
 no launch) and both validators get the same wrong arguments on CPU
 tensors: each case must raise ValueError with the same message from both.
@@ -16,6 +18,8 @@ as the card's build does); the build takes about 20 s.
 import pytest
 import torch
 
+from sdrpp_tpu_torch.ops import clock_recovery_chunked as CC
+from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
 from sdrpp_tpu_torch.ops import fec_kernels as FK
 from sdrpp_tpu_torch.ops import fir_kernels as F
 from sdrpp_tpu_torch.ops import scans_kernels as K
@@ -254,3 +258,154 @@ def test_viterbi_host_checks_its_own_arguments(host):
         host.viterbi_acs(s, st, 10.0, e, None)
     with pytest.raises(TypeError):
         host.viterbi_traceback(torch.zeros((2, 3), dtype=torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# mm_symbols / fd_symbols / the chunked M&M (csrc/mm_clock.cu)
+# ---------------------------------------------------------------------------
+
+BANK = torch.zeros((128, 8))
+MM_PARAMS = (0.01, 0.001, 2.0, 2.2)
+
+
+def _walk_cases(cplx):
+    """(id, buf, offset, fstate, bank) for mm_symbols (cplx None: the FD
+    walker's float rows and [C, 2] state)."""
+    fd = cplx is None
+    dt = torch.complex64 if cplx else torch.float32
+    kf = 2 if fd else (10 if cplx else 3)
+    buf = torch.zeros((2, 107), dtype=dt)
+    off = torch.zeros(2, dtype=torch.int32)
+    fst = torch.zeros((2, kf))
+    cases = [
+        ("buf 1-D", buf[0], off, fst, BANK),
+        ("buf dtype", buf.to(torch.complex128 if cplx else torch.float64),
+         off, fst, BANK),
+        ("buf int", buf.real.int(), off, fst, BANK),
+        ("offset dtype", buf, off.long(), fst, BANK),
+        ("offset length", buf, off[:1], fst, BANK),
+        ("fstate width", buf, off, fst[:, :1], BANK),
+        ("fstate dtype", buf, off, fst.double(), BANK),
+        ("bank dtype", buf, off, fst, BANK.double()),
+        ("bank 1-D", buf, off, fst, BANK[0]),
+        ("offset device", buf, off.to("meta"), fst, BANK),
+        ("bank device", buf, off, fst, BANK.to("meta")),
+        ("empty block", buf[:, :7], off, fst, BANK),
+        ("accepted", buf, off, fst, BANK),
+        ("accepted strided", torch.zeros((107, 2), dtype=dt).T, off,
+         fst.T.contiguous().T, BANK),
+    ]
+    if fd:
+        cases.append(("buf complex", buf.to(torch.complex64), off, fst, BANK))
+    return cases
+
+
+@pytest.mark.parametrize("cplx", [True, False])
+@pytest.mark.parametrize("case", range(14))
+def test_mm_symbols_checks_match_python(host, cplx, case):
+    name, buf, off, fst, bank = _walk_cases(cplx)[case]
+    want = _message(MK._check, buf, off, fst, bank)
+    got = _message(host.mm_symbols, buf, off, fst, bank, 40, MM_PARAMS, None)
+    if want is None:
+        assert name.startswith("accepted")
+        assert got == "the compiled mm_symbols takes CUDA tensors"
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("case", range(15))
+def test_fd_symbols_checks_match_python(host, case):
+    name, buf, off, fst, bank = _walk_cases(None)[case]
+    want = _message(MK._check_fd, buf, off, fst, bank)
+    got = _message(host.fd_symbols, buf, off, fst, bank, 40, MM_PARAMS)
+    if want is None:
+        assert name.startswith("accepted")
+        assert got == "the compiled fd_symbols takes CUDA tensors"
+    else:
+        assert got == want
+
+
+def _chunked_args(cplx=True):
+    geom, _, _ = CC.chunk_geometry(2400, 4, 512, 8, 2.0, 2.2)
+    K = geom.K
+    ext = torch.zeros((K - 1) * geom.L + geom.cols,
+                      dtype=torch.complex64 if cplx else torch.float32)
+    i32 = torch.zeros(K, dtype=torch.int32)
+    f32 = torch.zeros(K)
+    return [ext, i32, f32, f32, f32, i32, f32, BANK, geom]
+
+
+def _chunked_cases():
+    """(id, index of the replaced argument, its replacement)."""
+    a = _chunked_args()
+    geom = a[8]
+    return [
+        ("ext dtype", 0, a[0].to(torch.complex128)),
+        ("ext 2-D", 0, a[0][None]),
+        ("ext short", 0, a[0][:-1]),
+        ("bank dtype", 7, BANK.double()),
+        ("bank one tap", 7, BANK[:, :1]),
+        ("geometry K", 8, geom._replace(K=0)),
+        ("geometry J", 8, geom._replace(J=7)),
+        ("geometry cols", 8, geom._replace(cols=geom.R - 1)),
+        ("geometry steps", 8, geom._replace(steps=0)),
+        ("off0 dtype", 1, a[1].long()),
+        ("ph0 length", 2, a[2][:3]),
+        ("fr0 dtype", 3, a[3].double()),
+        ("emit_lo dtype", 4, a[4].int()),
+        ("emit_hi dtype", 5, a[5].float()),
+        ("goff length", 6, a[6][:2]),
+        ("off0 device", 1, a[1].to("meta")),
+        ("bank device", 7, BANK.to("meta")),
+        ("accepted", 0, a[0]),
+        ("accepted float", 0, a[0].real.contiguous()),
+    ]
+
+
+@pytest.mark.parametrize("case", _chunked_cases(), ids=lambda c: c[0])
+def test_mm_chunked_checks_match_python(host, case):
+    name, i, v = case
+    a = _chunked_args()
+    a[i] = v
+    want = _message(CC._check, *a)
+    got = _message(host.mm_chunked, *a[:8], tuple(a[8]), MM_PARAMS + (1.0,))
+    if want is None:
+        assert name.startswith("accepted")
+        assert got == "the compiled mm_symbols_chunked takes CUDA tensors"
+    else:
+        assert got == want
+
+
+def test_mm_clock_host_checks_its_own_arguments(host):
+    """The kernel's own conditions come before the device's: a bank other
+    than [128, 8], more than 256 lanes, a group other than 8, 16 or 32;
+    wrong argument kinds raise TypeError; null entries ValueError."""
+    buf = torch.zeros((1, 107), dtype=torch.complex64)
+    off = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\[128, 8\] bank, not \[64, 8\]"):
+        host.mm_symbols(buf, off, torch.zeros((1, 10)), BANK[:64], 40,
+                        MM_PARAMS, None)
+    with pytest.raises(ValueError, match=r"\[128, 8\] bank"):
+        host.fd_symbols(buf.real.contiguous(), off, torch.zeros((1, 2)),
+                        BANK[:, :6], 40, MM_PARAMS)
+    a = _chunked_args()
+    with pytest.raises(ValueError, match=r"\[128, 8\] bank"):
+        host.mm_chunked(*a[:7], BANK[:64], tuple(a[8]), MM_PARAMS + (1.0,))
+    with pytest.raises(ValueError, match="M = 8, 16 or 32, got 12"):
+        host.mm_chunked(*a[:8], tuple(a[8]._replace(M=12)),
+                        MM_PARAMS + (1.0,))
+    K = 300
+    g = a[8]._replace(K=K)
+    big = [torch.zeros((K - 1) * g.L + g.cols, dtype=torch.complex64)] + [
+        t.new_zeros(K) for t in a[1:7]]
+    with pytest.raises(ValueError, match="at most 256 lanes, got 300"):
+        host.mm_chunked(*big, BANK, tuple(g), MM_PARAMS + (1.0,))
+    with pytest.raises(TypeError):
+        host.mm_chunked(*a[:8], tuple(a[8])[:7], MM_PARAMS + (1.0,))
+    with pytest.raises(TypeError):
+        host.mm_symbols(buf, off, torch.zeros((1, 10)), BANK, 40, (1.0,),
+                        None)
+    with pytest.raises(TypeError):
+        host.fd_symbols(buf, off, torch.zeros((1, 2)), BANK, 40)
+    with pytest.raises(ValueError, match="null entry"):
+        host.bind_mm_clock(1, 1, 1, 1, 0)

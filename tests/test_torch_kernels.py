@@ -124,12 +124,16 @@ def test_mm_wrappers_raise_and_never_fall_back():
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         MK.mm_symbols(row.to("meta"), off.to("meta"), fst.to("meta"),
                       mm._bank.to("meta"), *args)
-    # the kernel takes the 128 x 8 bank only; the check comes before any
-    # launch, and the plain version keeps taking other banks
+    # the kernel takes the 128 x 8 bank only; the compiled host path checks
+    # it before any launch (here its build without CUDA), and the plain
+    # version keeps taking other banks
+    from sdrpp_tpu_torch.utils import cuda_lib
+
     bank = mm._bank[:64]
     params = tuple(float(np.float32(v)) for v in _params(mm))
+    host = cuda_lib.load_host("kernels_host", cuda=False)
     with pytest.raises(ValueError, match=r"\[128, 8\] bank"):
-        MK._launch(row, off, fst, bank, 33, args[0], params, None)
+        host.mm_symbols(row, off, fst, bank, 33, params, None)
     before = MK.mm_symbols.launches
     syms, valid, _, _ = MK.mm_symbols(row, off, fst, bank, *args)
     assert MK.mm_symbols.launches == before and syms.shape == valid.shape

@@ -895,15 +895,13 @@ class _ToEOF:
 
 
 def _interpret_loops(block, seen=None):
-    """The JAX block tree's Pallas loops in interpret mode, but the M&M's
-    (the port runs the exact walker, as JAX does off the TPU)."""
+    """The JAX block tree's Pallas loops in interpret mode, the M&M's
+    included (the port takes the chunked M&M by JAX's accelerator rule)."""
     seen = set() if seen is None else seen
     if id(block) in seen:
         return
     seen.add(id(block))
-    name = type(block).__name__
-    if hasattr(block, "interpret") and "MM" not in name \
-            and "Clock" not in name:
+    if hasattr(block, "interpret"):
         block.interpret = True
     for v in getattr(block, "__dict__", {}).values():
         if hasattr(v, "__dict__"):

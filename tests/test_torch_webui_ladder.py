@@ -262,7 +262,14 @@ def test_ladder_rung4_only_on_a_poisoned_device(monkeypatch):
     """Fix 2: a streak of failures through the whole ladder (retry,
     rebuild, revert, grace) on a device that still runs does NOT declare
     fatal: the engine keeps backing off and the surface stays alive. Only
-    when the device probe fails is the backend declared fatal."""
+    when the device probe fails is the backend declared fatal.
+
+    The streak starts in the engine thread, at a block boundary (the step,
+    the plan and the probe swapped there, the streak's first failure count
+    read there), and the probe records the failure it runs for: the
+    engine counts a failure before it probes for it, so a test that reads
+    the count alone can find the 6th failure counted and its probe not yet
+    run."""
     monkeypatch.delenv("SDRPP_TPU_SUPERVISED", raising=False)
     eng = _engine()
     try:
@@ -270,21 +277,38 @@ def test_ladder_rung4_only_on_a_poisoned_device(monkeypatch):
         assert _wait(lambda: eng.blocks >= 2), eng.error
         assert eng._device_poisoned() is False  # the CPU never is
         probes = []
+        streak = {}
         real_probe = eng._device_poisoned
+        real_apply = eng._apply_controls
 
         def probe():
-            probes.append(1)
+            probes.append(eng.failures - streak["f0"])
             return real_probe()
 
-        eng._device_poisoned = probe
-        eng._step = _boom
-        monkeypatch.setattr(type(eng), "_plan", _boom)
-        f0 = eng.failures
-        assert _wait(lambda: eng.failures >= f0 + 6, timeout=120)
+        def start_streak():
+            eng._apply_controls = real_apply
+            streak["f0"] = eng.failures
+            eng._device_poisoned = probe
+            eng._step = _boom
+            monkeypatch.setattr(type(eng), "_plan", _boom)
+            real_apply()
+
+        eng._apply_controls = start_streak
+        assert _wait(lambda: "f0" in streak, timeout=60)
+        f0 = streak["f0"]
+        assert _wait(lambda: eng.failures >= f0 + 6 and len(probes) >= 2,
+                     timeout=120)
         assert len(probes) >= 2  # probed from the 5th failure of the streak
+        assert probes[:2] == [5, 6], probes
         assert not eng.fatal and eng._thread.is_alive()
         assert "restart required" not in (eng.error or "")
-        eng._device_poisoned = lambda: True
+
+        def poison():
+            eng._apply_controls = real_apply
+            eng._device_poisoned = lambda: True
+            real_apply()
+
+        eng._apply_controls = poison
         assert _wait(lambda: eng.fatal, timeout=120)
         assert eng.error and "restart required" in eng.error
         assert eng._thread.is_alive()  # HTTP surface stays serviceable
