@@ -4484,30 +4484,57 @@ def phase_kernels_decode_mm(dev):
 # error, the closed form); every slot is computed
 MM_CHUNK_OPS_PER_SLOT = 90
 FD_OPS_PER_SYMBOL = 63     # 3 x 8 taps x (mul + add) + the error and loop
+# the chunked kernel's clock64 split (mm_clock.cu's slots, in order)
+MM_CHUNK_PHASES = ("total", "seed", "anchor", "coarse", "sum1", "full",
+                   "sum2", "seam")
+
+
+def chunked_chain_floor(geom, fused: bool) -> int:
+    """A model estimate, not a measurement, of the cycles of the chunked
+    M&M's dependent chain: what a group step cannot go below whatever the
+    issue rate, from assumed latencies of its steps in order (a shuffle or
+    a shared load 25-30 cycles, a barrier 30, a float add 4, a push into
+    another CTA's shared memory with its mbarrier arrival about 200; none
+    measured on the card): the anchor's minima and their exchange
+    (400), the coarse pass (150), each pass's lane sums (the 32-lane
+    tree, the exchange, the means: 500 each), the full pass (200), the
+    position and carry closed forms over registers (30 + 4 M each) and the
+    window, prefetched behind the step (0); once a call, the seed (2,000,
+    the block entry only: the table, two 256-sample chunks of the warm-up
+    from L2, their in-order sums, the tree and atan2) and the seam mask
+    (600)."""
+    per_step = 400 + 150 + 2 * 500 + 200 + 2 * (30 + 4 * geom.M)
+    return geom.steps * per_step + (2000 if fused else 0) + 600
 
 
 def chunked_mm_args(dev, block, x):
-    """The kernel arguments the chunked block ``block`` passes for ``x`` as
-    its second block (the first carried in), captured from the wrapper."""
+    """The arguments the chunked block ``block`` passes its block entry for
+    ``x`` as its second block (the first carried in), captured from the
+    wrapper, and the lanes entry's arguments for the same call (the glue's
+    extended stream, seeds and bounds, from ``chunked_lanes_args``)."""
     from sdrpp_tpu_torch.ops import clock_recovery_chunked as CC
 
     n = len(x) // 2
     xs = torch_from(x, dev)
     st, _ = block(block.init_state(), xs[:n])
     cap = {}
-    real = CC.mm_symbols_chunked_lanes
+    real = CC.mm_symbols_chunked_block
 
     def spy(*a):
         cap["a"] = a
         return real(*a)
 
-    spy.launches = 0
-    CC.mm_symbols_chunked_lanes = spy
+    CC.mm_symbols_chunked_block = spy
     try:
         block(st, xs[n:])
     finally:
-        CC.mm_symbols_chunked_lanes = real
-    return cap["a"]
+        CC.mm_symbols_chunked_block = real
+    b = cap["a"]
+    x_, hist, off0, ph0, fr0, bank, geom, W, pad = b[:9]
+    mu, og, fmin, fmax, half, allow, lo = b[9:16]
+    lanes = CC.chunked_lanes_args(x_, hist, off0, ph0, fr0, bank.shape[1],
+                                  geom, W, pad, allow, lo)
+    return b, (*lanes, bank, geom, mu, og, fmin, fmax, half)
 
 
 def torch_from(x, dev):
@@ -4519,14 +4546,25 @@ def torch_from(x, dev):
 def phase_kernels_chunked_mm(dev):
     """mm_symbols_chunked at each path's shape (hrpt-3M complex [262144],
     m17-48k float [262144], meteor-30s complex [65536], the ui-2p4 meteor
-    VFO's complex block) on the block's own arguments (seeds, bounds,
-    lane offsets; the second of two carried blocks), against
-    mm_symbols_chunked_plain on the same tensors: masks, offsets and
-    positions equal, symbols and state within KERNEL_TOL of the largest
-    symbol; the exact mm_symbols on the same block beside it (its time, the
-    path's old kernel). Then fd_symbols at m17's rate and block against
-    fd_symbols_plain, and wrong arguments to the chunked kernel, which
-    must raise ValueError and launch nothing."""
+    VFO's complex block) on the block's own arguments (the second of two
+    carried blocks): the block entry, one launch that the paths make (the
+    glue, every group step, the seam mask and the carry), against
+    mm_symbols_chunked_block_plain, and the lanes entry on the glue's
+    extended stream, seeds and bounds against mm_symbols_chunked_plain;
+    masks, offsets and positions equal, symbols and state within
+    KERNEL_TOL of the largest symbol. Off the paths, the same at 250
+    samples a symbol (2.4 Msps at 9,600 Bd, complex and float), whose
+    windows the kernel copies in pieces. Each prints its time, the block's
+    time, the exact mm_symbols on the same block (the path's old kernel),
+    the shared-memory layout (mm_clock.cu's, which must equal
+    kernel_layout's), the clock64 split a group step, the bound and a
+    model estimate of the chain floor (from assumed latencies; logged,
+    not in the result).
+    Then fd_symbols at m17's rate and block against fd_symbols_plain, and
+    wrong arguments to both chunked entries, which must raise ValueError
+    and launch nothing."""
+    import ctypes
+
     import torch
     from sdrpp_tpu_torch import cli
     from sdrpp_tpu_torch.decoders import hrpt
@@ -4537,6 +4575,7 @@ def phase_kernels_chunked_mm(dev):
     from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
     from sdrpp_tpu_torch.ops.clock_recovery import (FDClockRecovery,
                                                     MMClockRecovery)
+    from sdrpp_tpu_torch.utils import cuda_lib
 
     rng = np.random.default_rng(15)
     vfo = RxVFO(METEOR_FS, METEOR_IF, bandwidth=METEOR_IF,
@@ -4561,39 +4600,95 @@ def phase_kernels_chunked_mm(dev):
         return (y + 0.05 * (rng.standard_normal(n) + 1j
                             * rng.standard_normal(n))).astype(np.complex64)
 
-    cases = [  # (path, body, x: two blocks, omega, omega_gain, rel)
+    def split_of(fn, args, steps):
+        """The clock64 split of one instrumented launch (a barrier ends
+        each phase; not a timed call), and its log text."""
+        if not args[0].is_cuda:
+            return None, "no clock64 split on the CPU"
+        cyc = torch.zeros(len(MM_CHUNK_PHASES), dtype=torch.int64,
+                          device=dev)
+        fn(*args, cycles=cyc)
+        split = dict(zip(MM_CHUNK_PHASES, cyc.tolist()))
+        per = ", ".join(f"{k} {split[k] / steps:.0f}"
+                        for k in MM_CHUNK_PHASES[2:7])
+        return split, (f"{split['total'] / steps:.0f} cycles a group step "
+                       f"over {steps} steps (total {split['total']}), a "
+                       f"step: {per}; once a call: seed {split['seed']}, "
+                       f"seam {split['seam']}")
+
+    def held(got, want):
+        """(masks, offsets and positions equal, max abs error of symbols
+        and state, its tolerance)."""
+        exact = all(torch.equal(g, w) for g, w in
+                    zip((got[1], got[2], got[3]), (want[1], want[2],
+                                                   want[3])))
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[4] - want[4]).abs().max()))
+        return exact, err, KERNEL_TOL * float(want[0].abs().max())
+
+    lib = cuda_lib.load("mm_clock") if torch.device(dev).type == "cuda" \
+        else None
+
+    def layout(geom, cplx):
+        """mm_clock.cu's shared-memory layout of a CTA (bytes, a lane's
+        window buffer in samples, pieces; 0 pieces: whole), held equal to
+        kernel_layout's copy (that copy alone on the CPU)."""
+        if lib is None:
+            return CC.kernel_layout(geom, cplx)
+        stride, pieces = ctypes.c_int(), ctypes.c_int()
+        nbytes = lib.mm_chunked_layout(geom.K, geom.R, geom.M,
+                                       8 if cplx else 4, ctypes.byref(stride),
+                                       ctypes.byref(pieces))
+        got = (nbytes, stride.value, pieces.value)
+        if got != CC.kernel_layout(geom, cplx):
+            raise AssertionError(f"mm_chunked_layout {got} differs from "
+                                 f"kernel_layout "
+                                 f"{CC.kernel_layout(geom, cplx)}")
+        return got
+
+    hi_sps = 2.4e6 / 9600.0
+    cases = [  # (path or None, body, x: two blocks, omega, omega_gain, rel)
         ("hrpt", "complex", bpsk(2 * DECODE_BLOCK, hrpt_sps), hrpt_sps,
          (0.01 ** 2) / 4.0, 0.005),
         ("m17", "float", fsk(2 * DECODE_BLOCK, m17_sps), m17_sps, 1e-6, 0.01),
         ("meteor", "complex", mm_signal(rng, 2 * meteor_n, True),
          METEOR_IF / 72000.0, 0.001, 0.01),
         ("ui", "complex", mm_signal(rng, 2 * ui_n, True),
-         METEOR_IF / 72000.0, 0.001, 0.01)]
+         METEOR_IF / 72000.0, 0.001, 0.01),
+        (None, "complex", bpsk(2 * DECODE_BLOCK, hi_sps), hi_sps,
+         (0.01 ** 2) / 4.0, 0.005),
+        (None, "float", fsk(2 * DECODE_BLOCK, hi_sps), hi_sps,
+         (0.01 ** 2) / 4.0, 0.005)]
     results = []
     for path, body, x, omega, og, rel in cases:
+        name = path or f"{omega:.0f} samples a symbol"
         cplx = body == "complex"
         blk = CC.MMClockRecoveryChunked(omega, og, 0.01, rel,
                                         complex_input=cplx, device=dev)
         n = len(x) // 2
-        a = chunked_mm_args(dev, blk, x)
-        geom = a[8]
-        got = CC.mm_symbols_chunked_lanes(*a)
-        torch.cuda.synchronize()
-        warm(lambda: CC.mm_symbols_chunked_lanes(*a))
-        ms = cuda_ms(lambda: CC.mm_symbols_chunked_lanes(*a), reps=10)
-        ref = {}
-        plain_ms = cuda_ms(lambda: ref.setdefault(
-            "r", CC.mm_symbols_chunked_plain(*a)), reps=1)
-        want = ref["r"]
-        exact = all(torch.equal(g, w) for g, w in
-                    zip((got[1], got[2], got[3]), (want[1], want[2],
-                                                   want[3])))
-        err = max(float((got[0] - want[0]).abs().max()),
-                  float((got[4] - want[4]).abs().max()))
-        tol = KERNEL_TOL * float(want[0].abs().max())
-        emitted = int(got[1].sum())
-        # the whole block (glue, seeding and the kernel) and the exact
-        # walker on the same block
+        b, a = chunked_mm_args(dev, blk, x)
+        geom = b[6]
+        smem, lane_buf, pieces = layout(geom, cplx)
+        lines = []
+        for entry, fn, plain, args in (
+                ("block", CC.mm_symbols_chunked_block,
+                 CC.mm_symbols_chunked_block_plain, b),
+                ("lanes", CC.mm_symbols_chunked_lanes,
+                 CC.mm_symbols_chunked_plain, a)):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            warm(lambda: fn(*args))
+            ms = cuda_ms(lambda: fn(*args), reps=10)
+            ref = {}
+            plain_ms = cuda_ms(lambda: ref.setdefault("r", plain(*args)),
+                               reps=1)
+            exact, err, tol = held(got, ref["r"])
+            split, split_txt = split_of(fn, args, geom.steps)
+            lines.append((entry, got, ms, plain_ms, exact, err, tol, split,
+                          split_txt))
+        emitted = int(lines[0][1][1].sum())
+        # the whole block (the chunked M&M as the path calls it) and the
+        # exact walker on the same block
         st, _ = blk(blk.init_state(), torch_from(x[:n], dev))
         xn = torch_from(x[n:], dev)
         block_ms = cuda_ms(lambda: blk(st, xn), reps=10)
@@ -4602,37 +4697,63 @@ def phase_kernels_chunked_mm(dev):
         est = ex.init_state()
         exact_ms = cuda_ms(lambda: ex(est, xn), reps=3)
         slots = geom.K * geom.steps * geom.M
-        nbytes = (a[0].numel() * a[0].element_size() + a[7].numel() * 4
-                  + 7 * geom.K * 4
-                  + slots * (got[0].element_size() + 1 + 4) + 11 * 4)
+        sz = lines[0][1][0].element_size()
+        nbytes = ((b[0].numel() + b[1].numel()) * sz + b[5].numel() * 4
+                  + 12 + slots * (sz + 1 + 4) + 11 * 4)
         bms, bby = bound(nbytes, MM_CHUNK_OPS_PER_SLOT * slots)
-        shape = [int(a[0].shape[0])]
-        log(f"kernel mm_symbols_chunked[{body}] {shape} ({path}: n {n}, K "
-            f"{geom.K}, M {geom.M}, {geom.steps} group steps, {emitted} "
-            f"symbols): masks, offsets and positions "
-            f"{'equal' if exact else 'DIFFER'}, max abs err {err:.3g} (tol "
-            f"{tol:.3g}); kernel {ms:.4f} ms, the block {block_ms:.4f} ms, "
-            f"the exact walker on the block {exact_ms:.4f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {bms:.5f} ms ({bby})")
-        if not (exact and err <= tol):
-            raise AssertionError(f"mm_symbols_chunked[{body}] at the {path} "
-                                 f"shape disagrees with its plain version")
+        floor_cy = chunked_chain_floor(geom, True)
+        shape = [int(b[0].shape[0])]
+        log(f"kernel mm_symbols_chunked[{body}] {shape} ({name}: n {n}, K "
+            f"{geom.K}, R {geom.R}, M {geom.M}, {geom.steps} group steps, "
+            f"{emitted} symbols, shared memory {smem} bytes, windows "
+            + (f"whole ({lane_buf} samples a lane)" if pieces == 0 else
+               f"in {pieces} pieces a pass ({lane_buf} samples a lane)")
+            + f"): the block entry {lines[0][2]:.4f} ms, the lanes entry "
+            f"{lines[1][2]:.4f} ms, the block {block_ms:.4f} ms, the exact "
+            f"walker on the block {exact_ms:.4f} ms, bound {bms:.5f} ms "
+            f"({bby}); chain floor, a model estimate from assumed latencies "
+            f"(chunked_chain_floor, not measured): {floor_cy} cycles "
+            f"({floor_cy / geom.steps:.0f} a group step)")
+        for entry, got, ms, plain_ms, exact, err, tol, split, txt in lines:
+            log(f"  {entry} entry at {name}: masks, offsets and positions "
+                f"{'equal' if exact else 'DIFFER'}, max abs err {err:.3g} "
+                f"(tol {tol:.3g}); {ms:.4f} ms, plain {plain_ms:.1f} ms; "
+                f"cycles {txt}")
+            if not (exact and err <= tol):
+                raise AssertionError(f"mm_symbols_chunked[{body}]'s {entry} "
+                                     f"entry at the {name} shape disagrees "
+                                     f"with its plain version")
+        blk_line, lanes_line = lines
         results.append(dict(entry="mm_symbols_chunked", body=body,
                             shape=shape, plain_shape=shape, path=path,
-                            n=n, K=geom.K, M=geom.M, steps=geom.steps,
-                            symbols=emitted, max_abs_err=err, tol=tol, ms=ms,
-                            plain_ms=plain_ms, block_ms=block_ms,
+                            n=n, K=geom.K, R=geom.R, M=geom.M,
+                            steps=geom.steps, smem_bytes=smem,
+                            window_pieces=pieces, symbols=emitted,
+                            max_abs_err=max(blk_line[5], lanes_line[5]),
+                            tol=blk_line[6], ms=blk_line[2],
+                            plain_ms=blk_line[3], lanes_ms=lanes_line[2],
+                            lanes_plain_ms=lanes_line[3], block_ms=block_ms,
                             exact_block_ms=exact_ms, bound_ms=bms,
-                            bound_by=bby, library_ms=None))
+                            bound_by=bby, library_ms=None,
+                            cycles=blk_line[7], lanes_cycles=lanes_line[7]))
     # the chunked kernel's own conditions on the card: no launch, no
-    # fallback to the plain version (which takes any bank and group)
+    # fallback to the plain versions (which take any bank and group)
     before = CC.mm_symbols_chunked_lanes.launches
-    bad = (("a [64, 8] bank", lambda a: (*a[:7], a[7][:64], *a[8:])),
-           ("M = 12", lambda a: (*a[:8], a[8]._replace(M=12), *a[9:])),
-           ("a short ext", lambda a: (a[0][:-1], *a[1:])))
-    for what, edit in bad if a[0].is_cuda else ():
+    bad = (("a [64, 8] bank", CC.mm_symbols_chunked_lanes,
+            lambda a: (*a[:7], a[7][:64], *a[8:])),
+           ("M = 12", CC.mm_symbols_chunked_lanes,
+            lambda a: (*a[:8], a[8]._replace(M=12), *a[9:])),
+           ("a short ext", CC.mm_symbols_chunked_lanes,
+            lambda a: (a[0][:-1], *a[1:])),
+           ("a [64, 8] bank", CC.mm_symbols_chunked_block,
+            lambda a: (*b[:5], b[5][:64], *b[6:])),
+           ("M = 12", CC.mm_symbols_chunked_block,
+            lambda a: (*b[:6], b[6]._replace(M=12), *b[7:])),
+           ("a short hist", CC.mm_symbols_chunked_block,
+            lambda a: (b[0], b[1][:-1], *b[2:])))
+    for what, fn, edit in bad if a[0].is_cuda else ():
         try:
-            CC.mm_symbols_chunked_lanes(*edit(a))
+            fn(*edit(a))
         except ValueError:
             pass
         else:

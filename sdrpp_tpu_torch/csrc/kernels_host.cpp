@@ -48,6 +48,14 @@
 //       and emit_hi, float32 the rest), bank float32 [128, 8]; geom (K, L,
 //       cols, R, J, M, steps, n) with K <= 256 and M in {8, 16, 32};
 //       params (mu, omega_gain, min_freq, max_freq, half_omega).
+//   mm_chunked_block(x, hist, offset0, phase0, freq0, bank, geom, W, pad,
+//                    params[, cycles]) -> (syms, valid, pos, offset, fstate)
+//       ops/clock_recovery_chunked.mm_symbols_chunked_block: x [n] and
+//       hist [W + 7] complex64 or float32, the carried offset0 (int32),
+//       phase0 and freq0 (float32) one element each, bank float32 [128, 8];
+//       geom as mm_chunked's, W warm-up samples, pad = K * L - n; params
+//       (mu, omega_gain, min_freq, max_freq, half_omega, allow, lo).
+//       Both chunked entries take a cycles tensor (None or int64 [8]).
 //   fd_symbols(buf, offset, fstate, bank, max_syms, params)
 //       -> (syms, count, offset_out, fstate_out)
 //       ops/clock_recovery_kernels.fd_symbols: buf float32 [C, n + 7],
@@ -55,12 +63,14 @@
 //       params (omega_gain, mu, min_freq, max_freq).
 //   bind_decim_fir(c64_entry, f32_entry), bind_loop_scan(entry),
 //   bind_viterbi(acs_entry, traceback_entry), bind_mm_clock(mm_complex,
-//   mm_real, chunked_complex, chunked_real, fd)
+//   mm_real, chunked_complex, chunked_real, fd),
+//   bind_mm_chunked_block(block_complex, block_real)
 //       the addresses of the kernel libraries' C entries (decim_fir.cu's
 //       decim_fir_c64 / decim_fir_f32, loop_scan.cu's loop_scan,
 //       viterbi.cu's viterbi_acs / viterbi_traceback, mm_clock.cu's
 //       mm_symbols_complex / mm_symbols_real / mm_chunked_complex /
-//       mm_chunked_real / fd_symbols).
+//       mm_chunked_real / fd_symbols, mm_chunked_block_complex /
+//       mm_chunked_block_real).
 //
 // Each entry raises ValueError on a wrong argument, with the checks, the
 // order and the messages of its wrapper's Python `_check`, and
@@ -111,6 +121,13 @@ std::string shape_str(c10::IntArrayRef s) {
   for (size_t i = 0; i < s.size(); ++i)
     out += (i ? ", " : "") + std::to_string(s[i]);
   return out + "]";
+}
+
+// a geometry tuple as Python prints it
+std::string geom_str(const int64_t* geom) {
+  std::string g = "(";
+  for (int i = 0; i < 8; ++i) g += (i ? ", " : "") + std::to_string(geom[i]);
+  return g + ")";
 }
 
 // str(dtype) as Python prints it
@@ -719,7 +736,18 @@ using MmChunkedEntry = int (*)(const void* ext, const float* bank,
                                float min_freq, float max_freq,
                                float half_omega, void* syms, void* valid,
                                float* pos, int* off_f, float* fst,
-                               void* stream);
+                               long long* cycles, void* stream);
+using MmChunkedBlockEntry = int (*)(const void* x, const void* hist,
+                                    const int* offset0, const float* phase0,
+                                    const float* freq0, const float* bank,
+                                    int K, int L, int cols, int R, int J,
+                                    int M, int steps, int n, int W, int pad,
+                                    float mu, float omega_gain,
+                                    float min_freq, float max_freq,
+                                    float half_omega, float allow, float lo,
+                                    void* syms, void* valid, float* pos,
+                                    int* off_f, float* fst, long long* cycles,
+                                    void* stream);
 using FdSymbolsEntry = int (*)(const float* x, int n, int C, const float* bank,
                                const int* offset, const float* fstate,
                                int* offset_out, float* fstate_out, float* out,
@@ -731,12 +759,14 @@ MmSymbolsEntry g_mm_complex = nullptr;
 MmSymbolsEntry g_mm_real = nullptr;
 MmChunkedEntry g_chunked_complex = nullptr;
 MmChunkedEntry g_chunked_real = nullptr;
+MmChunkedBlockEntry g_block_complex = nullptr;
+MmChunkedBlockEntry g_block_real = nullptr;
 FdSymbolsEntry g_fd = nullptr;
 
 constexpr int64_t kMmPhases = 128;  // clock_recovery_kernels.KERNEL_PHASES
 constexpr int64_t kMmTaps = 8;      // clock_recovery_kernels.KERNEL_TAPS
 constexpr int64_t kChunkMaxLanes = 256;
-
+constexpr int64_t kChunkPhases = 8;  // mm_clock.cu's clock64 split
 // `count` floats from a Python sequence into `out`; false with the error set
 bool float_params(PyObject* o, const char* what, Py_ssize_t count,
                   float* out) {
@@ -766,6 +796,83 @@ bool bank_ok(const at::Tensor& bank) {
 
 at::Tensor contiguous(const at::Tensor& t) {
   return t.is_contiguous() ? t : t.contiguous();
+}
+
+// the geometry (K, L, cols, R, J, M, steps, n) from a Python sequence;
+// false with the error set
+bool chunk_geom(PyObject* o, const char* what, int64_t* geom) {
+  THPObjectPtr seq(PySequence_Fast(o, what));
+  if (!seq) return false;
+  if (PySequence_Fast_GET_SIZE(seq.get()) != 8) {
+    PyErr_Format(PyExc_TypeError, "%s is (K, L, cols, R, J, M, steps, n)",
+                 what);
+    return false;
+  }
+  for (int i = 0; i < 8; ++i) {
+    geom[i] = PyLong_AsLongLong(PySequence_Fast_GET_ITEM(seq.get(), i));
+    if (geom[i] == -1 && PyErr_Occurred()) return false;
+  }
+  return true;
+}
+
+// the geometry check of clock_recovery_chunked._check; empty when it holds
+std::string chunk_geom_error(const int64_t* geom, int64_t T) {
+  const int64_t K = geom[0], L = geom[1], cols = geom[2], R = geom[3],
+                J = geom[4], M = geom[5], steps = geom[6], n = geom[7];
+  if (K < 1 || L < 1 || M < 1 || steps < 1 || n < 1 || J < T || R < J ||
+      cols < R)
+    return "bad geometry " + geom_str(geom) + " for " + std::to_string(T) +
+           " taps";
+  return "";
+}
+
+// the chunked kernel's own conditions; empty when it takes the call
+std::string chunk_kernel_error(const at::Tensor& bank, const int64_t* geom,
+                               int64_t samples) {
+  const int64_t K = geom[0], M = geom[5], steps = geom[6], n = geom[7];
+  if (!bank_ok(bank)) return bank_shape_error("mm_symbols_chunked", bank);
+  if (K > kChunkMaxLanes)
+    return "the mm_symbols_chunked kernel takes at most " +
+           std::to_string(kChunkMaxLanes) + " lanes, got " +
+           std::to_string(K);
+  if (M != 8 && M != 16 && M != 32)
+    return "the mm_symbols_chunked kernel takes M = 8, 16 or 32, got " +
+           std::to_string(M);
+  if (samples > INT_MAX || K * steps * M > INT_MAX || n > INT_MAX)
+    return "mm_symbols_chunked takes fewer than 2^31 samples and symbols";
+  return "";
+}
+
+// the optional cycles tensor of a chunked entry; false with the error set
+bool chunk_cycles(PyObject* const* args, Py_ssize_t nargs, Py_ssize_t i,
+                  const at::Tensor& like, long long** out) {
+  *out = nullptr;
+  if (nargs <= i || args[i] == Py_None) return true;
+  if (!THPVariable_Check(args[i])) {
+    type_error("mm_chunked: cycles is a tensor or None");
+    return false;
+  }
+  const at::Tensor& cy = THPVariable_Unpack(args[i]);
+  if (cy.scalar_type() != c10::kLong || cy.dim() != 1 ||
+      cy.size(0) != kChunkPhases || !cy.is_contiguous() ||
+      cy.device() != like.device()) {
+    value_error("cycles must be a contiguous int64 [" +
+                std::to_string(kChunkPhases) + "] tensor on the block's "
+                "device");
+    return false;
+  }
+  *out = reinterpret_cast<long long*>(cy.data_ptr<int64_t>());
+  return true;
+}
+
+// (syms, valid, pos, offset, fstate) of a chunked call
+PyObject* chunk_result(at::Tensor syms, at::Tensor valid, at::Tensor pos,
+                       at::Tensor off_f, at::Tensor fst) {
+  return Py_BuildValue("(NNNNN)", THPVariable_Wrap(std::move(syms)),
+                       THPVariable_Wrap(std::move(valid)),
+                       THPVariable_Wrap(std::move(pos)),
+                       THPVariable_Wrap(std::move(off_f)),
+                       THPVariable_Wrap(std::move(fst)));
 }
 
 // (syms, count, offset_out, fstate_out) from a walker entry's launch
@@ -869,25 +976,16 @@ PyObject* mm_symbols(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
 
 PyObject* mm_chunked(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   HANDLE_TH_ERRORS
-  bool tensors = nargs == 10;
+  bool tensors = nargs == 10 || nargs == 11;
   for (int i = 0; tensors && i < 8; ++i) tensors = THPVariable_Check(args[i]);
   if (!tensors)
     return type_error("mm_chunked(ext, off0, ph0, fr0, emit_lo, emit_hi, "
-                      "goff, bank, geom, params) takes eight tensors and two "
-                      "sequences");
+                      "goff, bank, geom, params[, cycles]) takes eight "
+                      "tensors, two sequences and a tensor or None");
   const at::Tensor& ext = THPVariable_Unpack(args[0]);
   const at::Tensor& bank = THPVariable_Unpack(args[7]);
   int64_t geom[8];
-  {
-    THPObjectPtr seq(PySequence_Fast(args[8], "mm_chunked: geom"));
-    if (!seq) return nullptr;
-    if (PySequence_Fast_GET_SIZE(seq.get()) != 8)
-      return type_error("mm_chunked: geom is (K, L, cols, R, J, M, steps, n)");
-    for (int i = 0; i < 8; ++i) {
-      geom[i] = PyLong_AsLongLong(PySequence_Fast_GET_ITEM(seq.get(), i));
-      if (geom[i] == -1 && PyErr_Occurred()) return nullptr;
-    }
-  }
+  if (!chunk_geom(args[8], "mm_chunked: geom", geom)) return nullptr;
   float params[5];
   if (!float_params(args[9], "mm_chunked: params", 5, params)) return nullptr;
 
@@ -901,14 +999,8 @@ PyObject* mm_chunked(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
     return value_error("bank must be float32 [phases, taps >= 2]");
   const int64_t K = geom[0], L = geom[1], cols = geom[2], R = geom[3],
                 J = geom[4], M = geom[5], steps = geom[6], n = geom[7];
-  const int64_t T = bank.size(1);
-  if (K < 1 || L < 1 || M < 1 || steps < 1 || n < 1 || J < T || R < J ||
-      cols < R) {
-    std::string g = "(";
-    for (int i = 0; i < 8; ++i) g += (i ? ", " : "") + std::to_string(geom[i]);
-    return value_error("bad geometry " + g + ") for " + std::to_string(T) +
-                       " taps");
-  }
+  const std::string bad_geom = chunk_geom_error(geom, bank.size(1));
+  if (!bad_geom.empty()) return value_error(bad_geom);
   const int64_t need = (K - 1) * L + cols;
   if (ext.size(0) < need)
     return value_error("ext holds " + std::to_string(ext.size(0)) +
@@ -927,20 +1019,13 @@ PyObject* mm_chunked(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
     if (THPVariable_Unpack(args[i]).device() != ext.device())
       return value_error("mm_symbols_chunked takes tensors on one device");
   // the kernel's own conditions
-  if (!bank_ok(bank))
-    return value_error(bank_shape_error("mm_symbols_chunked", bank));
-  if (K > kChunkMaxLanes)
-    return value_error("the mm_symbols_chunked kernel takes at most " +
-                       std::to_string(kChunkMaxLanes) + " lanes, got " +
-                       std::to_string(K));
-  if (M != 8 && M != 16 && M != 32)
-    return value_error("the mm_symbols_chunked kernel takes M = 8, 16 or 32, "
-                       "got " + std::to_string(M));
-  if (ext.size(0) > INT_MAX || K * steps * M > INT_MAX || n > INT_MAX)
-    return value_error("mm_symbols_chunked takes fewer than 2^31 samples "
-                       "and symbols");
+  const std::string bad_kernel =
+      chunk_kernel_error(bank, geom, ext.size(0));
+  if (!bad_kernel.empty()) return value_error(bad_kernel);
   if (!ext.is_cuda())
     return value_error("the compiled mm_symbols_chunked takes CUDA tensors");
+  long long* cycles;
+  if (!chunk_cycles(args, nargs, 10, ext, &cycles)) return nullptr;
   const MmChunkedEntry fn = cplx ? g_chunked_complex : g_chunked_real;
   if (fn == nullptr) {
     PyErr_SetString(PyExc_RuntimeError,
@@ -967,7 +1052,7 @@ PyObject* mm_chunked(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
       static_cast<int>(M), static_cast<int>(steps), static_cast<int>(n),
       params[0], params[1], params[2], params[3], params[4], syms.data_ptr(),
       valid.data_ptr(), pos.data_ptr<float>(), off_f.data_ptr<int32_t>(),
-      fst.data_ptr<float>(), on.stream);
+      fst.data_ptr<float>(), cycles, on.stream);
   if (rc != 0) {
     PyErr_Format(PyExc_RuntimeError,
                  "mm_symbols_chunked launch failed: CUDA error %d at K=%lld, "
@@ -975,11 +1060,112 @@ PyObject* mm_chunked(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
                  static_cast<long long>(M), static_cast<long long>(steps));
     return nullptr;
   }
-  return Py_BuildValue("(NNNNN)", THPVariable_Wrap(std::move(syms)),
-                       THPVariable_Wrap(std::move(valid)),
-                       THPVariable_Wrap(std::move(pos)),
-                       THPVariable_Wrap(std::move(off_f)),
-                       THPVariable_Wrap(std::move(fst)));
+  return chunk_result(std::move(syms), std::move(valid), std::move(pos),
+                      std::move(off_f), std::move(fst));
+  END_HANDLE_TH_ERRORS
+}
+
+PyObject* mm_chunked_block(PyObject*, PyObject* const* args,
+                           Py_ssize_t nargs) {
+  HANDLE_TH_ERRORS
+  bool tensors = nargs == 10 || nargs == 11;
+  for (int i = 0; tensors && i < 6; ++i) tensors = THPVariable_Check(args[i]);
+  if (!tensors)
+    return type_error("mm_chunked_block(x, hist, offset0, phase0, freq0, "
+                      "bank, geom, W, pad, params[, cycles]) takes six "
+                      "tensors, a sequence, two ints, a sequence and a "
+                      "tensor or None");
+  const at::Tensor& x = THPVariable_Unpack(args[0]);
+  const at::Tensor& hist = THPVariable_Unpack(args[1]);
+  const at::Tensor& bank = THPVariable_Unpack(args[5]);
+  int64_t geom[8];
+  if (!chunk_geom(args[6], "mm_chunked_block: geom", geom)) return nullptr;
+  const long long W = PyLong_AsLongLong(args[7]);
+  if (W == -1 && PyErr_Occurred()) return nullptr;
+  const long long pad = PyLong_AsLongLong(args[8]);
+  if (pad == -1 && PyErr_Occurred()) return nullptr;
+  float params[7];
+  if (!float_params(args[9], "mm_chunked_block: params", 7, params))
+    return nullptr;
+
+  // the checks of clock_recovery_chunked._check_block, in its order and
+  // with its messages
+  const bool cplx = x.scalar_type() == c10::kComplexFloat;
+  if ((!cplx && x.scalar_type() != c10::kFloat) || x.dim() != 1)
+    return value_error("x must be a complex64 or float32 vector");
+  if (bank.scalar_type() != c10::kFloat || bank.dim() != 2 ||
+      bank.size(1) < 2)
+    return value_error("bank must be float32 [phases, taps >= 2]");
+  const int64_t K = geom[0], L = geom[1], cols = geom[2], R = geom[3],
+                J = geom[4], M = geom[5], steps = geom[6], n = geom[7];
+  const int64_t T = bank.size(1);
+  const std::string bad_geom = chunk_geom_error(geom, T);
+  if (!bad_geom.empty()) return value_error(bad_geom);
+  if (x.size(0) != n || W < 1 || W > L || pad != K * L - n)
+    return value_error("bad layout: " + std::to_string(x.size(0)) +
+                       " samples, W " + std::to_string(W) + ", pad " +
+                       std::to_string(pad) + " for the geometry " +
+                       geom_str(geom));
+  if (hist.scalar_type() != x.scalar_type() || hist.dim() != 1 ||
+      hist.size(0) != W + T - 1)
+    return value_error(std::string("hist must be ") +
+                       (cplx ? "complex64" : "float32") + " [" +
+                       std::to_string(W + T - 1) + "]");
+  const char* names[3] = {"offset0", "phase0", "freq0"};
+  for (int i = 0; i < 3; ++i) {
+    const at::Tensor& v = THPVariable_Unpack(args[2 + i]);
+    if (v.scalar_type() != (i == 0 ? c10::kInt : c10::kFloat) ||
+        v.numel() != 1)
+      return value_error(std::string(names[i]) + " must be one " +
+                         (i == 0 ? "int32" : "float32"));
+  }
+  for (int i = 1; i < 6; ++i)
+    if (THPVariable_Unpack(args[i]).device() != x.device())
+      return value_error("mm_symbols_chunked takes tensors on one device");
+  // the kernel's own conditions
+  const std::string bad_kernel =
+      chunk_kernel_error(bank, geom, (K - 1) * L + cols);
+  if (!bad_kernel.empty()) return value_error(bad_kernel);
+  if (!x.is_cuda())
+    return value_error("the compiled mm_symbols_chunked takes CUDA tensors");
+  long long* cycles;
+  if (!chunk_cycles(args, nargs, 10, x, &cycles)) return nullptr;
+  const MmChunkedBlockEntry fn = cplx ? g_block_complex : g_block_real;
+  if (fn == nullptr) {
+    PyErr_SetString(PyExc_RuntimeError,
+                    "mm_chunked_block: the kernel entries are not bound");
+    return nullptr;
+  }
+
+  at::Tensor in[6];
+  for (int i = 0; i < 6; ++i) in[i] = contiguous(THPVariable_Unpack(args[i]));
+  const int64_t msc = steps * M;
+  at::Tensor syms = at::empty({K, msc}, x.options());
+  at::Tensor valid = at::empty({K, msc}, x.options().dtype(c10::kBool));
+  at::Tensor pos = at::empty({K, msc}, x.options().dtype(c10::kFloat));
+  at::Tensor off_f = at::empty({}, x.options().dtype(c10::kInt));
+  at::Tensor fst = at::empty({cplx ? 10 : 3}, x.options().dtype(c10::kFloat));
+
+  const OnStream on(x.device());
+  const int rc = fn(
+      in[0].data_ptr(), in[1].data_ptr(), in[2].data_ptr<int32_t>(),
+      in[3].data_ptr<float>(), in[4].data_ptr<float>(),
+      in[5].data_ptr<float>(), static_cast<int>(K), static_cast<int>(L),
+      static_cast<int>(cols), static_cast<int>(R), static_cast<int>(J),
+      static_cast<int>(M), static_cast<int>(steps), static_cast<int>(n),
+      static_cast<int>(W), static_cast<int>(pad), params[0], params[1],
+      params[2], params[3], params[4], params[5], params[6], syms.data_ptr(),
+      valid.data_ptr(), pos.data_ptr<float>(), off_f.data_ptr<int32_t>(),
+      fst.data_ptr<float>(), cycles, on.stream);
+  if (rc != 0) {
+    PyErr_Format(PyExc_RuntimeError,
+                 "mm_symbols_chunked launch failed: CUDA error %d at K=%lld, "
+                 "M=%lld, steps=%lld", rc, static_cast<long long>(K),
+                 static_cast<long long>(M), static_cast<long long>(steps));
+    return nullptr;
+  }
+  return chunk_result(std::move(syms), std::move(valid), std::move(pos),
+                      std::move(off_f), std::move(fst));
   END_HANDLE_TH_ERRORS
 }
 
@@ -1076,6 +1262,17 @@ PyObject* bind_mm_clock(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
   Py_RETURN_NONE;
 }
 
+PyObject* bind_mm_chunked_block(PyObject*, PyObject* const* args,
+                                Py_ssize_t nargs) {
+  if (nargs != 2)
+    return type_error("bind_mm_chunked_block(block_complex, block_real)");
+  MmChunkedBlockEntry bc, br;
+  if (!entry_arg(args[0], &bc) || !entry_arg(args[1], &br)) return nullptr;
+  g_block_complex = bc;
+  g_block_real = br;
+  Py_RETURN_NONE;
+}
+
 template <PyObject* (*F)(PyObject*, PyObject* const*, Py_ssize_t)>
 PyCFunction fastcall() {
   return reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(F));
@@ -1111,6 +1308,11 @@ PyMethodDef kMethods[] = {
      "mm_chunked(ext, off0, ph0, fr0, emit_lo, emit_hi, goff, bank, geom, "
      "params) -> (syms, valid, pos, offset, fstate): check, allocate and "
      "launch the chunked M&M on ext's current stream."},
+    {"mm_chunked_block", fastcall<mm_chunked_block>(), METH_FASTCALL,
+     "mm_chunked_block(x, hist, offset0, phase0, freq0, bank, geom, W, pad, "
+     "params[, cycles]) -> (syms, valid, pos, offset, fstate): check, "
+     "allocate and launch one block of the chunked M&M, glue included, on "
+     "x's current stream."},
     {"fd_symbols", fastcall<fd_symbols>(), METH_FASTCALL,
      "fd_symbols(buf, offset, fstate, bank, max_syms, params) -> (syms, "
      "count, offset, fstate): check, allocate and launch the FD walker on "
@@ -1118,6 +1320,10 @@ PyMethodDef kMethods[] = {
     {"bind_mm_clock", fastcall<bind_mm_clock>(), METH_FASTCALL,
      "bind_mm_clock(mm_complex, mm_real, chunked_complex, chunked_real, fd): "
      "mm_clock.cu's C entries."},
+    {"bind_mm_chunked_block", fastcall<bind_mm_chunked_block>(),
+     METH_FASTCALL,
+     "bind_mm_chunked_block(block_complex, block_real): mm_clock.cu's block "
+     "entries of the chunked M&M."},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "kernels_host",

@@ -20,15 +20,23 @@ static per-symbol band; the band test ``ok`` decides what is emitted,
 and the clipped row what an out-of-band symbol reads, exactly as the JAX
 package does, so both are part of the result.
 
-``mm_symbols_chunked`` is the glue: lane layout, seeding (Oerder-Meyr over
-each lane's warm-up, lane 0 on the carried grid), emission bounds, then
-the group steps in ``mm_symbols_chunked_lanes``, which on a CUDA tensor
-launches ``mm_symbols_chunked`` of ``csrc/mm_clock.cu`` through the
-compiled host path (``csrc/kernels_host.cpp``) and adds one to its
-``launches`` count, and on a CPU tensor runs ``mm_symbols_chunked_plain``:
-a Python loop over group steps on [M, K] float32 tensors, operation for
-operation the kernel's, the across-lane sums in its order (a warp's 32
-lanes by halves, then the warps in turn). Any other device raises.
+``mm_symbols_chunked`` (the JAX function's arguments) lays a block out
+and calls ``mm_symbols_chunked_block``, which on a CUDA tensor launches
+``mm_chunked_block`` of ``csrc/mm_clock.cu`` through the compiled host
+path (``csrc/kernels_host.cpp``): one launch does the glue (the extended
+stream read by index, each lane's Oerder-Meyr seed over its warm-up,
+lane 0 on the carried grid, the emission bounds), every group step, the
+seam mask and the carry. On a CPU tensor it runs
+``mm_symbols_chunked_block_plain``: the glue in torch operations
+(``chunked_lanes_args``, the seed's sums in the kernel's order,
+``_seed_sum``), then ``mm_symbols_chunked_plain``, a Python loop over
+group steps on [M, K] float32 tensors, operation for operation the
+kernel's, the across-lane sums in its order (32 lanes by halves, then
+the 32-lane groups in turn). ``mm_symbols_chunked_lanes`` runs the group
+steps alone on a given extended stream and seeds (the same kernel's
+lanes entry, or ``mm_symbols_chunked_plain``). Both wrappers add one to
+``mm_symbols_chunked_lanes.launches`` where they launch; any device
+other than CUDA or the CPU raises.
 
 ``MMClockRecoveryChunked`` is the block: chunked when ``x`` is one stream
 and ``_lanes_for(n) >= 1`` (``scans_kernels._chunk_lanes_for``, which
@@ -39,6 +47,7 @@ accelerator.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -48,13 +57,19 @@ from . import scans_kernels
 from .clock_recovery import MMClockRecovery
 from .clock_recovery_kernels import host_module
 
-__all__ = ["ChunkGeometry", "MMClockRecoveryChunked", "mm_symbols_chunked",
-           "mm_symbols_chunked_lanes", "mm_symbols_chunked_plain",
-           "chunk_geometry"]
+__all__ = ["ChunkGeometry", "MMClockRecoveryChunked", "chunk_geometry",
+           "chunked_lanes_args", "kernel_layout", "mm_symbols_chunked",
+           "mm_symbols_chunked_block", "mm_symbols_chunked_block_plain",
+           "mm_symbols_chunked_lanes", "mm_symbols_chunked_plain"]
 
 _GROUP = 32          # symbols a group step, before the adaptive halving
 KERNEL_MAX_LANES = 256
 KERNEL_WARP = 32
+KERNEL_SMEM_BYTES = 232448   # shared memory one CTA may take on an H100
+KERNEL_CTA_LANES = 32        # lanes a CTA of the kernel's cluster holds
+SEED_PARTS = 8       # the seed sums' strided partials (mm_clock.cu)
+SEED_CHUNK = 256     # warm-up samples a lane the kernel stages at a time
+WINDOW_SLACK = 8     # samples a prefetched window holds on either side
 
 
 class ChunkGeometry(NamedTuple):
@@ -82,6 +97,7 @@ def group_for(warmup: int, omega: float) -> int:
     return M
 
 
+@functools.lru_cache(maxsize=64)
 def chunk_geometry(n: int, K: int, W: int, T: int, min_freq, max_freq):
     """(ChunkGeometry, pad_e, pad): the JAX package's layout
     (clock_recovery_chunked.py:92-216) for an n-sample block in K lanes
@@ -103,6 +119,47 @@ def chunk_geometry(n: int, K: int, W: int, T: int, min_freq, max_freq):
     msc = int(np.ceil((L + W + T) / float(min_freq))) + 1
     msc = M * (-(-msc // M))
     return ChunkGeometry(K, L, cols, R, J, M, msc // M, n), pad_e, K * L - n
+
+
+def kernel_layout(geom: ChunkGeometry, cplx: bool):
+    """(bytes, stride, pieces): the shared memory each CTA of the CUDA
+    kernel takes for ``geom`` (mm_clock.cu's chunk_smem, exported there as
+    ``mm_chunked_layout``; a CTA holds 32 of the K lanes), a lane's window
+    buffer in samples, and the pieces each pass copies a window in (0:
+    whole, prefetched a step ahead). The bank, the errors [lanes, M + 4],
+    the carry's outputs [lanes, 4], the seam's positions [lanes], the
+    means, the two passes' group sums of every CTA [2, 8, M], the bands,
+    the warps' and CTAs' minima and four mbarriers, each part rounded up to
+    16 bytes; then the windows in the rest of KERNEL_SMEM_BYTES: R samples
+    and WINDOW_SLACK either side a lane (copied from the 16-byte boundary
+    at or below their start, in 16-byte units) when they fit, else the
+    largest buffer a lane that fits, whose pieces overlap by 7 samples;
+    at least the block entry's seed region, a SEED_CHUNK-sample rotation
+    table and a SEED_CHUNK-sample warm-up chunk a lane."""
+    def up(v):
+        return -(-v // 16) * 16
+
+    K, R, M = min(geom.K, KERNEL_CTA_LANES), geom.R, geom.M
+    sample = 8 if cplx else 4
+    a = 16 // sample
+
+    def stride(n):
+        return (n + 2 * (a - 1)) // a * a
+
+    o = 128 * 8 * 4
+    ctas = KERNEL_MAX_LANES // KERNEL_CTA_LANES
+    for size in (K * (M + 4) * 4, K * 16, K * 4, M * 4, 2 * ctas * M * 4,
+                 M * 4, (32 + ctas) * 4, 4 * 8):
+        o = up(o + size)
+    room = KERNEL_SMEM_BYTES - o
+    whole = stride(R + 2 * WINDOW_SLACK)
+    if K * whole * sample <= room:
+        lane, pieces = whole, 0
+    else:
+        lane = room // (K * sample) // a * a
+        pieces = (R - 8) // (lane - a + 1 - 7) + 1
+    seed = up(8 * SEED_CHUNK) + K * stride(SEED_CHUNK) * sample
+    return up(o + max(K * lane * sample, seed)), lane, pieces
 
 
 def _gstat(geom: ChunkGeometry, min_freq) -> np.ndarray:
@@ -140,6 +197,34 @@ def _check(ext, off0, ph0, fr0, emit_lo, emit_hi, goff, bank, geom):
             raise ValueError("mm_symbols_chunked takes tensors on one device")
 
 
+def _check_block(x, hist, offset0, phase0, freq0, bank, geom, W, pad):
+    """Validates a block call's arguments (``mm_symbols_chunked_block``);
+    on CUDA tensors the compiled host path makes the same checks, in this
+    order and with these messages."""
+    if x.dtype not in (torch.complex64, torch.float32) or x.dim() != 1:
+        raise ValueError("x must be a complex64 or float32 vector")
+    if bank.dtype != torch.float32 or bank.dim() != 2 or bank.shape[1] < 2:
+        raise ValueError("bank must be float32 [phases, taps >= 2]")
+    K, L, cols, R, J, M, steps, n = (int(v) for v in geom)
+    T = bank.shape[1]
+    if (K < 1 or L < 1 or M < 1 or steps < 1 or n < 1 or J < T or R < J
+            or cols < R):
+        raise ValueError(f"bad geometry {tuple(geom)} for {T} taps")
+    if x.shape[0] != n or W < 1 or W > L or pad != K * L - n:
+        raise ValueError(f"bad layout: {x.shape[0]} samples, W {W}, pad "
+                         f"{pad} for the geometry {tuple(geom)}")
+    if hist.dtype != x.dtype or tuple(hist.shape) != (W + T - 1,):
+        raise ValueError(f"hist must be {str(x.dtype)[6:]} [{W + T - 1}]")
+    for name, t, dt in (("offset0", offset0, torch.int32),
+                        ("phase0", phase0, torch.float32),
+                        ("freq0", freq0, torch.float32)):
+        if t.dtype != dt or t.numel() != 1:
+            raise ValueError(f"{name} must be one {str(dt)[6:]}")
+    for t in (hist, offset0, phase0, freq0, bank):
+        if t.device != x.device:
+            raise ValueError("mm_symbols_chunked takes tensors on one device")
+
+
 _consts: dict = {}
 
 
@@ -160,14 +245,12 @@ def _const(dev, size: int, kind: str):
     return t
 
 
-def _lanes(dev, dtype, geom: ChunkGeometry, W: int, T: int, pad: int,
-           pad_e: int):
+def _lanes(dev, dtype, geom: ChunkGeometry, W: int, T: int, pad: int):
     """The lane constants of a layout, cached: lane 0's mask, the lanes'
     starts j*L, their offsets j*L - W from lane to block positions, the
-    emission ceilings (W + L, lane K-1's short of the padding), the lanes
-    j > 0's emission floor W - pad_e, and the extended stream's zero
-    tail."""
-    key = (dev, dtype, geom, W, T, pad, pad_e)
+    emission ceilings (W + L, lane K-1's short of the padding) and the
+    extended stream's zero tail."""
+    key = (dev, dtype, geom, W, T, pad)
     c = _consts.get(key)
     if c is None:
         K, L = geom.K, geom.L
@@ -177,10 +260,26 @@ def _lanes(dev, dtype, geom: ChunkGeometry, W: int, T: int, pad: int,
         emit_hi[-1] = W + L - pad
         c = _consts[key] = (
             lane == 0, base, base - float(np.float32(W)), emit_hi,
-            torch.full((K,), float(np.float32(W - pad_e)), device=dev),
             torch.zeros(geom.cols - (W + L + T - 1), dtype=dtype,
                         device=dev))
     return c
+
+
+def _seed_sum(p):
+    """[K, W] -> [K]: the kernel's order of the seed's sums, SEED_PARTS
+    strided partials (partial j over columns j, j + 8, ..., one float32 add
+    a column in order from 0.0), then the xor tree 4, 2, 1 over them."""
+    K, W = p.shape
+    w8 = -(-W // SEED_PARTS) * SEED_PARTS
+    v = torch.nn.functional.pad(p, (0, w8 - W)).reshape(K, -1, SEED_PARTS)
+    s = torch.zeros((K, SEED_PARTS), dtype=p.dtype, device=p.device)
+    for i in range(v.shape[1]):
+        s = s + v[:, i]
+    w = SEED_PARTS
+    while w > 1:
+        w //= 2
+        s = s[:, :w] + s[:, w:2 * w]
+    return s[:, 0]
 
 
 def _lane_sum(e, K: int):
@@ -378,7 +477,7 @@ def mm_symbols_chunked_plain(ext, off0, ph0, fr0, emit_lo, emit_hi, goff,
 
 def mm_symbols_chunked_lanes(ext, off0, ph0, fr0, emit_lo, emit_hi, goff,
                              bank, geom, mu, omega_gain, min_freq, max_freq,
-                             half_omega):
+                             half_omega, cycles=None):
     """The group steps of a chunked call over the lanes of ``ext``.
 
     ``ext`` [(K - 1) * L + cols] complex64 or float32: the extended stream
@@ -391,7 +490,11 @@ def mm_symbols_chunked_lanes(ext, off0, ph0, fr0, emit_lo, emit_hi, goff,
     bool, positions [K, msc] float32 (inf where nothing is emitted), the
     carried offset (int32, next block's coordinates) and fstate
     [10 | 3] float32: phase, freq, then p1 p2 c1 c2 as re/im pairs, or
-    ``last``), the carry lane K-1's."""
+    ``last``), the carry lane K-1's. ``cycles``: None, or on CUDA a
+    contiguous int64 [8] tensor receiving the kernel's clock64 split
+    (total, seed, anchor with the window copy, coarse pass, first lane sum
+    with the positions, full pass with its stores, second lane sum with
+    the carry, seam; a barrier ends each phase)."""
     params = tuple(float(np.float32(v)) for v in (mu, omega_gain, min_freq,
                                                   max_freq, half_omega))
     if ext.device.type == "cpu":
@@ -402,12 +505,113 @@ def mm_symbols_chunked_lanes(ext, off0, ph0, fr0, emit_lo, emit_hi, goff,
                            f"not {ext.device}")
     result = host_module().mm_chunked(ext, off0, ph0, fr0, emit_lo, emit_hi,
                                       goff, bank, tuple(int(v) for v in geom),
-                                      params)
+                                      params, cycles)
     mm_symbols_chunked_lanes.launches += 1
     return result
 
 
 mm_symbols_chunked_lanes.launches = 0
+
+
+def chunked_lanes_args(x, hist, offset0, phase0, freq0, T: int, geom, W: int,
+                       pad: int, allow, lo):
+    """The glue of a block call in torch operations: the extended stream
+    [hist | x | x[-1] x pad | zeros], each lane's seed (lane 0 continues
+    the carried grid; lanes 1..K-1 from the Oerder-Meyr square-law
+    estimate over their warm-up, mod freq0, its sums in the kernel's order)
+    and emission bounds (lane 0 positional from the carried grid origin,
+    ``allow`` below it; lanes j > 0 from ``lo``, reaching back into the
+    warm-up; lane K-1's ceiling before the replicate padding). Returns
+    ``mm_symbols_chunked_lanes``'s (ext, off0, ph0, fr0, emit_lo, emit_hi,
+    goff)."""
+    K, L = geom.K, geom.L
+    cplx = x.is_complex()
+    dev, f32 = x.device, torch.float32
+    lane0, base, goff, emit_hi, zeros = _lanes(dev, x.dtype, geom, W, T, pad)
+    ext = torch.cat([hist, x, x[-1:].expand(pad), zeros])
+    p0 = (offset0.to(f32) + phase0) + float(np.float32(W))
+    warm = ext.as_strided((K, W), (L, 1))
+    pw = warm.real * warm.real + warm.imag * warm.imag if cplx \
+        else warm * warm
+    # exp(-2 pi i t / freq0) as its real and imaginary planes
+    ang = _const(dev, W, "ang") / freq0
+    c_re = _seed_sum(pw * torch.cos(ang))
+    c_im = _seed_sum(pw * torch.sin(ang))
+    t_hat = (-torch.atan2(c_im, c_re) * freq0) / _const(dev, 0, "two_pi")
+    pj_om = torch.remainder(t_hat - float(np.float32((T - 1) / 2.0)), freq0)
+    pj = torch.where(lane0, torch.remainder(p0 - base, freq0), pj_om)
+    fl = torch.floor(pj)
+    return (ext, fl.to(torch.int32), pj - fl,
+            freq0.reshape(()).expand(K).contiguous(),
+            torch.where(lane0, p0 - allow, lo), emit_hi, goff)
+
+
+def mm_symbols_chunked_block_plain(x, hist, offset0, phase0, freq0, bank,
+                                   geom, W, pad, mu, omega_gain, min_freq,
+                                   max_freq, half_omega, allow, lo):
+    """Plain PyTorch version of ``mm_symbols_chunked_block`` (same
+    arguments and results): ``chunked_lanes_args``, then
+    ``mm_symbols_chunked_plain``."""
+    _check_block(x, hist, offset0, phase0, freq0, bank, geom, W, pad)
+    lanes = chunked_lanes_args(x, hist, offset0, phase0, freq0,
+                               bank.shape[1], geom, W, pad, allow, lo)
+    return mm_symbols_chunked_plain(*lanes, bank, geom, mu, omega_gain,
+                                    min_freq, max_freq, half_omega)
+
+
+def mm_symbols_chunked_block(x, hist, offset0, phase0, freq0, bank, geom, W,
+                             pad, mu, omega_gain, min_freq, max_freq,
+                             half_omega, allow, lo, cycles=None):
+    """One block of the chunked M&M, glue and group steps in one call.
+
+    ``x`` [n] complex64 or float32; ``hist`` [W + T - 1] the previous
+    block's last raw samples, of x's type; ``offset0`` (int32), ``phase0``,
+    ``freq0`` (float32): the carried loop state, one element each;
+    ``bank`` [P, T] float32 ([128, 8] on CUDA); ``geom`` the layout
+    (``chunk_geometry``) with ``W`` warm-up samples and ``pad`` = K*L - n;
+    ``allow`` lane 0's emission allowance below its first position, ``lo``
+    the other lanes' emission floor. Returns what
+    ``mm_symbols_chunked_lanes`` returns for ``chunked_lanes_args``'s
+    lanes; on CUDA one launch of csrc/mm_clock.cu's block entry
+    (``cycles`` as there), on the CPU ``mm_symbols_chunked_block_plain``."""
+    params = tuple(float(np.float32(v)) for v in (
+        mu, omega_gain, min_freq, max_freq, half_omega, allow, lo))
+    if x.device.type == "cpu":
+        return mm_symbols_chunked_block_plain(x, hist, offset0, phase0,
+                                              freq0, bank, geom, W, pad,
+                                              *params)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"mm_symbols_chunked runs on CUDA or CPU tensors, "
+                           f"not {x.device}")
+    result = host_module().mm_chunked_block(x, hist, offset0, phase0, freq0,
+                                            bank, geom, W, pad, params,
+                                            cycles)
+    mm_symbols_chunked_lanes.launches += 1
+    return result
+
+
+@functools.lru_cache(maxsize=64)
+def _block_layout(n: int, K: int, W: int, T: int, mu_gain, omega_gain,
+                  min_freq, max_freq):
+    """(geom, pad, the block entry's float parameters: mu, omega_gain,
+    min_freq, max_freq, omega / 2, lane 0's allowance 0.4 omega and the
+    other lanes' emission floor W - ceil(omega)) of a layout."""
+    geom, pad_e, pad = chunk_geometry(n, K, W, T, min_freq, max_freq)
+    omega = float((min_freq + max_freq) / 2.0)
+    return geom, pad, tuple(float(np.float32(v)) for v in (
+        mu_gain, omega_gain, min_freq, max_freq, omega / 2.0, 0.4 * omega,
+        W - pad_e))
+
+
+def _carry(off_f, fst, cplx: bool) -> dict:
+    """The carried loop state from a call's offset and fstate, as views."""
+    carry = {"offset": off_f, "phase": fst[0], "freq": fst[1]}
+    if cplx:
+        errs = fst[2:].view(torch.complex64)
+        carry.update(zip(("p1", "p2", "c1", "c2"), errs))
+    else:
+        carry["last"] = fst[2]
+    return carry
 
 
 def mm_symbols_chunked(x, hist, offset0, phase0, freq0, err0, bank, mu_gain,
@@ -423,52 +627,16 @@ def mm_symbols_chunked(x, hist, offset0, phase0, freq0, err0, bank, mu_gain,
     valid (a mask) and positions flattened [K * msc] lane-major, and the
     carry, lane K-1's final loop state in the next block's coordinates."""
     del err0
-    cplx = x.is_complex()
-    bank = bank.to(device=x.device, dtype=torch.float32)
-    P, T = bank.shape
-    K, W, n = int(lanes_k), int(warmup), x.shape[-1]
-    geom, pad_e, pad = chunk_geometry(n, K, W, T, min_freq, max_freq)
-    L = geom.L
-    omega = float((min_freq + max_freq) / 2.0)
-    dev, f32 = x.device, torch.float32
-    lane0, base, goff, emit_hi, lo, zeros = _lanes(
-        dev, x.dtype, geom, W, T, pad, pad_e)
-    ext = torch.cat([hist.to(x.dtype), x, x[-1:].expand(pad), zeros])
-
-    # seeding: lane 0 continues the carried grid; lanes 1..K-1 from the
-    # Oerder-Meyr square-law estimate over their warm-up, mod freq0
-    freq0 = freq0.to(f32)
-    p0 = (offset0.to(f32) + phase0) + float(np.float32(W))
-    warm = ext.as_strided((K, W), (L, 1))
-    pw = warm.real * warm.real + warm.imag * warm.imag if cplx \
-        else warm * warm
-    # exp(-2 pi i t / freq0) as its real and imaginary planes
-    ang = _const(dev, W, "ang") / freq0
-    c_re = torch.sum(pw * torch.cos(ang), dim=-1)
-    c_im = torch.sum(pw * torch.sin(ang), dim=-1)
-    t_hat = (-torch.atan2(c_im, c_re) * freq0) / _const(dev, 0, "two_pi")
-    pj_om = torch.remainder(t_hat - float(np.float32((T - 1) / 2.0)), freq0)
-    pj = torch.where(lane0, torch.remainder(p0 - base, freq0), pj_om)
-    fl = torch.floor(pj)
-    off_j = fl.to(torch.int32)
-    ph_j = pj - fl
-    fr_j = freq0.expand(K).contiguous()
-
-    # emission bounds: lane 0 positional from the carried grid origin,
-    # lanes j > 0 reaching back pad_e samples; lane K-1's ceiling stops
-    # before the replicate padding
-    emit_lo = torch.where(lane0, p0 - float(np.float32(0.4 * omega)), lo)
-
-    syms, valid, pos, off_f, fst = mm_symbols_chunked_lanes(
-        ext, off_j, ph_j, fr_j, emit_lo, emit_hi, goff, bank, geom, mu_gain,
-        omega_gain, min_freq, max_freq, np.float32(omega / 2.0))
-    carry = {"offset": off_f, "phase": fst[0], "freq": fst[1]}
-    if cplx:
-        carry.update({k: torch.complex(fst[2 + 2 * j], fst[3 + 2 * j])
-                      for j, k in enumerate(("p1", "p2", "c1", "c2"))})
-    else:
-        carry["last"] = fst[2]
-    return syms.reshape(-1), valid.reshape(-1), pos.reshape(-1), carry
+    f32 = torch.float32
+    bank = bank.to(device=x.device, dtype=f32)
+    geom, pad, params = _block_layout(x.shape[-1], int(lanes_k), int(warmup),
+                                      bank.shape[1], mu_gain, omega_gain,
+                                      min_freq, max_freq)
+    syms, valid, pos, off_f, fst = mm_symbols_chunked_block(
+        x, hist.to(x.dtype), offset0.to(torch.int32), phase0.to(f32),
+        freq0.to(f32), bank, geom, int(warmup), pad, *params)
+    return (syms.reshape(-1), valid.reshape(-1), pos.reshape(-1),
+            _carry(off_f, fst, x.is_complex()))
 
 
 class MMClockRecoveryChunked(MMClockRecovery):

@@ -152,14 +152,19 @@ _host = None
 
 def host_module():
     """csrc/kernels_host.cpp's module with mm_clock.cu's C entries bound
-    (mm_symbols, mm_chunked, fd_symbols); both built and loaded on first
-    use."""
+    (mm_symbols, mm_chunked, mm_chunked_block, fd_symbols); both built and
+    loaded on first use."""
     global _host
     if _host is None:
         lib = cuda_lib.load("mm_clock")
         mod = cuda_lib.load_host("kernels_host")
-        mod.bind_mm_clock(*(ctypes.cast(getattr(lib, e), ctypes.c_void_p).value
-                            for e in MM_CLOCK_ENTRIES))
+
+        def entries(names):
+            return (ctypes.cast(getattr(lib, e), ctypes.c_void_p).value
+                    for e in names)
+
+        mod.bind_mm_clock(*entries(MM_CLOCK_ENTRIES))
+        mod.bind_mm_chunked_block(*entries(MM_CHUNKED_BLOCK_ENTRIES))
         _host = mod
     return _host
 
@@ -167,6 +172,9 @@ def host_module():
 # the C entries of csrc/mm_clock.cu, in bind_mm_clock's order
 MM_CLOCK_ENTRIES = ("mm_symbols_complex", "mm_symbols_real",
                     "mm_chunked_complex", "mm_chunked_real", "fd_symbols")
+# the chunked M&M's block entries, in bind_mm_chunked_block's order
+MM_CHUNKED_BLOCK_ENTRIES = ("mm_chunked_block_complex",
+                            "mm_chunked_block_real")
 
 
 def mm_symbols(buf, offset, fstate, bank, max_syms, mu, omega_gain, min_freq,

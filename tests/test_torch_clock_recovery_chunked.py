@@ -150,6 +150,94 @@ def test_lane_sum_is_the_kernels_order():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_seed_sum_is_the_kernels_order():
+    """The seed's sums over a lane's warm-up: 8 strided partials (partial p
+    over columns p, p + 8, ..., one float32 add a column in order from
+    0.0), then the xor tree 4, 2, 1 over them; 45 columns leave partials
+    of 6 and 5 terms."""
+    p = np.random.default_rng(4).standard_normal((3, 45)).astype(np.float32)
+    got = CC._seed_sum(_t(p))
+    part = np.zeros((3, 8), np.float32)
+    for i in range(45):
+        part[:, i % 8] = part[:, i % 8] + p[:, i]
+    for o in (4, 2, 1):
+        part = part + part[:, np.arange(8) ^ o]
+    np.testing.assert_array_equal(got.numpy(), part[:, 0])
+
+
+def _glue_then_plain(x, hist, offset0, phase0, freq0, bank, lanes_k, blk):
+    """The chunked M&M's glue written out in torch operations (the
+    extended stream by concatenation, the Oerder-Meyr seed with its sums in
+    the kernel's order, the emission bounds), then
+    ``mm_symbols_chunked_plain``."""
+    f32 = torch.float32
+    K, W, n, T = lanes_k, blk.warmup, x.shape[0], blk.tap_count
+    geom, pad_e, pad = CC.chunk_geometry(n, K, W, T, blk.min_freq,
+                                         blk.max_freq)
+    L = geom.L
+    omega = float((blk.min_freq + blk.max_freq) / 2.0)
+    zeros = torch.zeros(geom.cols - (W + L + T - 1), dtype=x.dtype)
+    ext = torch.cat([hist, x, x[-1:].expand(pad), zeros])
+    lane0 = torch.arange(K) == 0
+    base = torch.arange(K).to(f32) * float(np.float32(L))
+    p0 = (offset0.to(f32) + phase0) + float(np.float32(W))
+    warm = ext.as_strided((K, W), (L, 1))
+    pw = (warm.real * warm.real + warm.imag * warm.imag if x.is_complex()
+          else warm * warm)
+    ang = (float(np.float32(-2.0 * np.pi)) * torch.arange(W, dtype=f32)
+           / freq0)
+    c_re = CC._seed_sum(pw * torch.cos(ang))
+    c_im = CC._seed_sum(pw * torch.sin(ang))
+    two_pi = torch.full((), float(np.float32(2.0 * np.pi)))
+    t_hat = (-torch.atan2(c_im, c_re) * freq0) / two_pi
+    pj = torch.where(lane0, torch.remainder(p0 - base, freq0),
+                     torch.remainder(t_hat - float(np.float32((T - 1) / 2.0)),
+                                     freq0))
+    fl = torch.floor(pj)
+    emit_hi = torch.full((K,), W + L, dtype=torch.int32)
+    emit_hi[-1] = W + L - pad
+    emit_lo = torch.where(lane0, p0 - float(np.float32(0.4 * omega)),
+                          torch.full((K,), float(np.float32(W - pad_e))))
+    return CC.mm_symbols_chunked_plain(
+        ext, fl.to(torch.int32), pj - fl, freq0.expand(K).contiguous(),
+        emit_lo, emit_hi, base - float(np.float32(W)), bank, geom,
+        *(float(np.float32(v)) for v in (
+            blk.mu_gain, blk.omega_gain, blk.min_freq, blk.max_freq,
+            omega / 2.0)))
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_block_entry_plain_is_the_glue_then_plain_over_two_blocks(cplx):
+    """The fused entry's plain version (``mm_symbols_chunked`` on CPU
+    tensors: ``mm_symbols_chunked_block_plain``) equals the glue written
+    out in torch operations followed by ``mm_symbols_chunked_plain``, bit
+    for bit, at K = 16 and n = 2^14 over two carried blocks."""
+    sig, sps = _signal(cplx, 1 << 15, seed=11)
+    blk = MMClockRecoveryChunked(**_kw(sps, cplx), device="cpu")
+    n, K = 1 << 14, 16
+    st = blk.init_state()
+    hist, off, ph, fr = st["hist"], st["offset"], st["phase"], st["freq"]
+    for i in range(2):
+        x = _t(sig[i * n:(i + 1) * n])
+        want = _glue_then_plain(x, hist, off, ph, fr, blk._bank, K, blk)
+        got = CC.mm_symbols_chunked(x, hist, off, ph, fr, None, blk._bank,
+                                    blk.mu_gain, blk.omega_gain,
+                                    blk.min_freq, blk.max_freq, lanes_k=K,
+                                    warmup=blk.warmup)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w.reshape(-1))
+        carry = got[3]
+        assert torch.equal(carry["offset"], want[3])
+        fst = torch.stack([carry["phase"], carry["freq"]] + (
+            [v for k in ("p1", "p2", "c1", "c2")
+             for v in (carry[k].real, carry[k].imag)] if cplx
+            else [carry["last"]]))
+        assert torch.equal(fst, want[4])
+        assert int(got[1].sum()) > 0.9 * n / sps
+        hist = torch.cat([hist, x])[-hist.shape[0]:]
+        off, ph, fr = carry["offset"], carry["phase"], carry["freq"]
+
+
 def test_fma_rounds_once():
     """``fma`` equals a * b + c rounded once: checked against exact
     rationals, including float32 halfway points that a float64 sum would
@@ -532,12 +620,15 @@ def _kinds(params):
     ("mm_symbols_real", "MmSymbolsEntry"),
     ("mm_chunked_complex", "MmChunkedEntry"),
     ("mm_chunked_real", "MmChunkedEntry"),
-    ("fd_symbols", "FdSymbolsEntry")])
+    ("fd_symbols", "FdSymbolsEntry"),
+    ("mm_chunked_block_complex", "MmChunkedBlockEntry"),
+    ("mm_chunked_block_real", "MmChunkedBlockEntry")])
 def test_host_entries_bind_every_c_argument(entry, typedef):
     """Each C entry of csrc/mm_clock.cu and the function type the compiled
     host path calls it through (csrc/kernels_host.cpp) agree argument for
     argument (pointer, int or float; the stream last), and the Python
-    binder hands them over in the host's order."""
+    binder hands them over in the host's order (bind_mm_clock's, or
+    bind_mm_chunked_block's for the chunked M&M's block entries)."""
     csrc = Path(CK.__file__).resolve().parent.parent / "csrc"
     cu = (csrc / "mm_clock.cu").read_text()
     host = (csrc / "kernels_host.cpp").read_text()
@@ -547,17 +638,52 @@ def test_host_entries_bind_every_c_argument(entry, typedef):
     got = _kinds(p.strip() for p in m.group(1).split(","))
     assert got == want
     assert _c_params(cu, entry)[-1] == "void* stream"
-    assert entry in CK.MM_CLOCK_ENTRIES
-    order = re.search(r"bind_mm_clock\(([^)]*)\)\"\);", host).group(1)
-    assert len(CK.MM_CLOCK_ENTRIES) == len(order.split(","))
+    entries, binder = ((CK.MM_CHUNKED_BLOCK_ENTRIES, "bind_mm_chunked_block")
+                       if typedef == "MmChunkedBlockEntry"
+                       else (CK.MM_CLOCK_ENTRIES, "bind_mm_clock"))
+    assert entry in entries
+    order = re.search(rf"{binder}\(([^)]*)\)\"\);", host).group(1)
+    assert len(entries) == len(order.split(","))
 
 
 def test_kernel_geometry_fits_the_kernel():
     """Every block the decode paths run chunks into a layout the CUDA
-    kernel takes: K <= 256 lanes, M in {8, 16, 32}."""
-    for n, omega in ((262144, 3e6 / 1.3308e6), (262144, 10.0),
-                     (65536, 150000.0 / 72000.0), (15120, 150000 / 72000)):
+    kernel takes: K <= 256 lanes (a cluster of ceil(K / 32) CTAs, 32 lanes
+    each), M in {8, 16, 32}, and each CTA's shared memory for the bank,
+    its lanes' whole windows of a group step (R samples and 8 of slack
+    either side, copied from a 16-byte boundary: 35,328 bytes at hrpt's
+    and meteor's 32 lanes of R = 120 complex), prefetched a step ahead,
+    the errors and the carry within the 227 KB a CTA may take, for either
+    sample type. A symbol period of ~250 samples (R = 2,048, 2.4 Msps at
+    9,600 Bd) fits too: each pass copies its windows in pieces of the
+    largest buffer that fits, three complex, two float, overlapping by 7
+    samples and covering R with none to spare."""
+    for n, omega, cplx, window in (
+            (262144, 3e6 / 1.3308e6, True, 35328),
+            (262144, 10.0, False, 16896),
+            (65536, 150000.0 / 72000.0, True, 35328),
+            (15120, 150000 / 72000, True, 32016),
+            (16200, 150000 / 72000, True, 34224)):
         k = SK._chunk_lanes_for(n, 512, 256)
         geom, _, _ = CC.chunk_geometry(n, k, 512, 8, np.float32(omega * 0.99),
                                        np.float32(omega * 1.01))
         assert 1 <= geom.K <= CC.KERNEL_MAX_LANES and geom.M in (8, 16, 32)
+        lanes = min(geom.K, CC.KERNEL_CTA_LANES)
+        for c in (False, True):
+            a = 2 if c else 4
+            stride = (geom.R + 2 * CC.WINDOW_SLACK + 2 * (a - 1)) // a * a
+            if c == cplx:
+                assert lanes * stride * (8 if cplx else 4) == window
+            smem, lane, pieces = CC.kernel_layout(geom, c)
+            assert pieces == 0 and lane == stride, (n, c, lane)
+            assert lanes * stride * (8 if c else 4) < smem
+            assert smem <= CC.KERNEL_SMEM_BYTES, (n, c, smem)
+    slow, _, _ = CC.chunk_geometry(262144, 128, 512, 8, np.float32(247.5),
+                                   np.float32(252.5))
+    assert slow.R == 2048 and slow.M == 8
+    for cplx, want in ((True, 3), (False, 2)):
+        smem, lane, pieces = CC.kernel_layout(slow, cplx)
+        assert smem <= CC.KERNEL_SMEM_BYTES and pieces == want
+        plen = lane - 16 // (8 if cplx else 4) + 1
+        step = plen - 7
+        assert (pieces - 1) * step + plen >= slow.R > (pieces - 2) * step + plen

@@ -409,3 +409,96 @@ def test_mm_clock_host_checks_its_own_arguments(host):
         host.fd_symbols(buf, off, torch.zeros((1, 2)), BANK, 40)
     with pytest.raises(ValueError, match="null entry"):
         host.bind_mm_clock(1, 1, 1, 1, 0)
+
+
+def _block_args(cplx=True):
+    geom, _, pad = CC.chunk_geometry(2400, 4, 512, 8, 2.0, 2.2)
+    dt = torch.complex64 if cplx else torch.float32
+    return [torch.zeros(2400, dtype=dt), torch.zeros(512 + 7, dtype=dt),
+            torch.zeros((), dtype=torch.int32), torch.zeros(()),
+            torch.full((), 2.1), BANK, geom, 512, pad]
+
+
+def _block_cases():
+    """(id, index of the replaced argument, its replacement) for the
+    chunked M&M's block entry."""
+    a = _block_args()
+    geom = a[6]
+    return [
+        ("x dtype", 0, a[0].to(torch.complex128)),
+        ("x 2-D", 0, a[0][None]),
+        ("bank dtype", 5, BANK.double()),
+        ("bank one tap", 5, BANK[:, :1]),
+        ("geometry J", 6, geom._replace(J=7)),
+        ("geometry steps", 6, geom._replace(steps=0)),
+        ("x short", 0, a[0][:-1]),
+        ("W above L", 7, geom.L + 1),
+        ("W zero", 7, 0),
+        ("pad", 8, a[8] + 1),
+        ("hist length", 1, a[1][:-1]),
+        ("hist dtype", 1, a[1].real.contiguous()),
+        ("offset0 dtype", 2, a[2].long()),
+        ("phase0 two", 3, torch.zeros(2)),
+        ("freq0 dtype", 4, a[4].double()),
+        ("hist device", 1, a[1].to("meta")),
+        ("freq0 device", 4, a[4].to("meta")),
+        ("accepted", 0, a[0]),
+    ]
+
+
+def _block_call(host, a, cycles=None):
+    return host.mm_chunked_block(*a[:6], tuple(a[6]), a[7], a[8],
+                                 MM_PARAMS + (1.0, 0.8, 509.0), cycles)
+
+
+@pytest.mark.parametrize("case", _block_cases(), ids=lambda c: c[0])
+def test_mm_chunked_block_checks_match_python(host, case):
+    name, i, v = case
+    a = _block_args()
+    a[i] = v
+    want = _message(CC._check_block, *a)
+    got = _message(_block_call, host, a)
+    if want is None:
+        assert name.startswith("accepted")
+        assert got == "the compiled mm_symbols_chunked takes CUDA tensors"
+    else:
+        assert got == want
+
+
+def test_mm_chunked_block_accepts_float_and_refuses_its_own(host):
+    """The float block passes the checks; the block entry's own
+    conditions (the bank, M) come before the device's, with the lanes
+    entry's messages."""
+    a = _block_args(cplx=False)
+    assert CC._check_block(*a) is None
+    assert (_message(_block_call, host, a)
+            == "the compiled mm_symbols_chunked takes CUDA tensors")
+    with pytest.raises(ValueError, match=r"\[128, 8\] bank, not \[64, 8\]"):
+        _block_call(host, [*a[:5], BANK[:64], *a[6:]])
+    with pytest.raises(ValueError, match="M = 8, 16 or 32, got 12"):
+        _block_call(host, [*a[:6], a[6]._replace(M=12), *a[7:]])
+    with pytest.raises(TypeError):
+        host.mm_chunked_block(*a[:6], tuple(a[6]), a[7], a[8], MM_PARAMS)
+
+
+@pytest.mark.parametrize("cplx", [True, False])
+def test_mm_chunked_takes_any_symbol_period(host, cplx):
+    """128 lanes of 2,048-sample windows (a 250-sample symbol period, 2.4
+    Msps at 9,600 Bd), more than a CTA's shared memory holds whole: both
+    entries pass every check and stop only at the device, the kernel
+    copying each window in pieces (kernel_layout)."""
+    n = 262144
+    geom, _, pad = CC.chunk_geometry(n, 128, 512, 8, 247.5, 252.5)
+    assert geom.R == 2048 and CC.kernel_layout(geom, cplx)[2] > 1
+    dt = torch.complex64 if cplx else torch.float32
+    ext = torch.zeros((geom.K - 1) * geom.L + geom.cols, dtype=dt)
+    i32, f32 = torch.zeros(128, dtype=torch.int32), torch.zeros(128)
+    params = (0.01, 6.25e-6, 247.5, 252.5, 125.0)
+    lanes = _message(host.mm_chunked, ext, i32, f32, f32, f32, i32, f32,
+                     BANK, tuple(geom), params)
+    block = _message(host.mm_chunked_block, torch.zeros(n, dtype=dt),
+                     torch.zeros(519, dtype=dt),
+                     torch.zeros((), dtype=torch.int32), torch.zeros(()),
+                     torch.full((), 250.0), BANK, tuple(geom), 512, pad,
+                     params + (100.0, 262.0), None)
+    assert lanes == block == "the compiled mm_symbols_chunked takes CUDA tensors"
