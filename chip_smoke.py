@@ -88,12 +88,18 @@ exit, no result line) if any phase fails:
    then wrong arguments on the card must raise ValueError and launch
    nothing, and a strided view must give what its copy gives; the three
    walks of csrc/sync_walk.cu (``phase_kernels_walks``): ``line_sync_walk``
-   on the first ATV block's discriminator output [450007] and
-   ``cyclic_sync_walk`` on the first DAB block [204800], each bit-exact,
-   and ``chroma_burst_walk`` on [625, 28] bursts of a locked tone at
-   ATV_LOCKING_BW, phases within WALK_TOL and outputs within WALK_OUT_TOL
-   (at the decoder's bandwidth the PLL does not lock, ROADMAP C), with
-   four wrong arguments that must raise and launch nothing. A
+   on the first ATV block's discriminator output [450007], bit-exact;
+   ``cyclic_sync_walk`` on the first DAB block [204800] and, off the
+   paths, on ``cyclic_walk_cases``' edge cases (ties, a peak every
+   sample, sym = 1, a buffer past shared memory, a ragged block with a
+   negative since, a carried since >= sym, more emits than max_syms,
+   signed zeros, a NaN peak), each bit for bit; and
+   ``chroma_burst_walk`` on [625, 28] bursts of a locked tone at
+   ATV_LOCKING_BW and, off the paths, on bursts whose phases sit at +-pi
+   (``chroma_walk_case``), phases within WALK_TOL, outputs within
+   WALK_OUT_TOL, locked (at the decoder's bandwidth the PLL does not
+   lock, ROADMAP C); each case's ns a sample or us a step beside its
+   bound's; four wrong arguments must raise and launch nothing. A
    case's ``ms`` is the kernel at ``shape``, its ``plain_ms`` the plain
    version on ``plain_shape`` (the same, or the prefix held); ``path``
    names the path that launches ``shape``; ``bound_ms`` is the least time
@@ -588,6 +594,7 @@ WALK_OUT_TOL = 1e-5        # and the burst's unit-amplitude outputs
 CHROMA_OPS_PER_STEP = 40   # float operations a burst step: the complex mix
                            # (6), the loop (8), cosf, sinf and atan2f (~8 each)
 CYCLIC_OPS_PER_SAMPLE = 7  # 2 compares, 2 products, a sum, the count, a test
+CYCLIC_BIG_SYM = 40000     # a symbol buffer (320 KB) past shared memory
 DAB_FS = 2.048e6
 DAB_FFT = 2048             # transmission mode I
 DAB_CP = 504
@@ -3512,22 +3519,140 @@ def _walk_case(entry, path, shape, plain_shape, err, tol, ms, plain_ms,
                 library_ms=None, bytes=nbytes, ops=ops, **extra)
 
 
+def chroma_walk_case(dev, kind: str):
+    """``chroma_burst_walk``'s arguments for [625, 28] bursts (one PAL
+    frame's lines, the decoder's burst window and free-run segments) and
+    the phase the locked outputs sit at:
+
+    - "locked": a tone at the subcarrier, ref 0, the decoder's frequency
+      limits, at ATV_LOCKING_BW (at the decoder's 0.01 the PLL does not
+      lock, ROADMAP C, and its cos / sin / atan2 ulps would grow without
+      bound);
+    - "wrap": a tone at 1.8 pi rad a sample (-0.2 pi aliased), limits
+      [1.7 pi, 1.9 pi], ref pi, seeded noise at -40 dB: the locked outputs
+      sit at +-pi, so atan2 flips across its branch cut and the error's
+      wrap fires, and ph + fr crosses pi on most steps, so the phase's
+      wrap (the kernel's compare-and-subtract) is taken on most steps.
+    In both the first burst step of a line (its phase advanced over the
+    pre-burst segment) takes the fmodf fallback."""
+    import torch
+    from sdrpp_tpu_torch.decoders import atv
+
+    L, nb = ATV_BLOCK // 720, atv.BURST_END - atv.BURST_START
+    t = (np.arange(L)[:, None] * 720 + atv.BURST_START + np.arange(nb))
+    if kind == "locked":
+        w0 = 2 * np.pi * atv.CHROMA_SUBCARRIER / ATV_FS
+        x = np.exp(1j * (w0 * t + 0.3))
+        lo, hi, ref = w0 * 0.9, w0 * 1.1, 0.0
+    else:
+        w0 = 1.8 * np.pi
+        rng = np.random.default_rng(15)
+        x = np.exp(1j * (w0 * t + np.pi)) + 0.01 * (
+            rng.standard_normal(t.shape) + 1j * rng.standard_normal(t.shape))
+        lo, hi, ref = 1.7 * np.pi, 1.9 * np.pi, np.pi
+    burst = torch.from_numpy(x.astype(np.complex64)).to(dev)
+    pll = atv.ChromaPLL(ATV_LOCKING_BW, 720, atv.BURST_START, atv.BURST_END,
+                        init_freq=w0, min_freq=lo, max_freq=hi, device=dev)
+    carry = torch.tensor([0.0, np.float32(w0)], dtype=torch.float32,
+                         device=dev)
+    refs = torch.full((L,), float(np.float32(ref)), dtype=torch.float32,
+                      device=dev)
+    return (burst, refs, carry, atv.BURST_START, 720 - atv.BURST_END,
+            pll.alpha, pll.beta, pll.min_freq, pll.max_freq), ref
+
+
+def cyclic_walk_cases(dev):
+    """``cyclic_sync_walk``'s cases as (name, path, args): the first DAB
+    block ([204800], 2048-sample symbols, the path's launch), then off the
+    paths the inputs that reach the kernel's every branch: a constant
+    correlation (ties: rc == avg and rc == peak are no peaks), a strictly
+    rising one (a peak every sample: since never reaches sym), sym = 1 (an
+    emit every sample), a symbol longer than the kernel's shared-memory
+    buffer (sym = CYCLIC_BIG_SYM, the buffer kept in device memory), a
+    block that is not a multiple of the tile with a negative carried
+    since, a carried since >= sym, more emits than max_syms, signed zeros
+    above a negative average (the peak a zero of either sign; the kernel's
+    running maximum must keep the plain select's sign) and a carried NaN
+    peak."""
+    import torch
+    from sdrpp_tpu_torch.ops.ofdm import CyclicSync, cyclic_prefix_correlation
+
+    f32 = torch.float32
+    cs = CyclicSync(DAB_FFT / DAB_FS, DAB_CP / DAB_FS, DAB_FS, device=dev)
+    st = cs.init_state()
+    xb = torch.from_numpy(dab_signal(DAB_BLOCK)).to(dev)
+    _, rcorr, vals = cyclic_prefix_correlation(st["tail"], xb,
+                                               cs.symbol_samps,
+                                               cs.prefix_samps)
+    rng = np.random.default_rng(16)
+
+    def noise(n):
+        return torch.from_numpy((rng.standard_normal(n) + 1j
+                                 * rng.standard_normal(n)).astype(
+            np.complex64)).to(dev)
+
+    def carried(avg, peak, since, sym, max_syms):
+        return (torch.tensor([avg, peak, 0.5], dtype=f32, device=dev),
+                torch.tensor([since], dtype=torch.int32, device=dev),
+                noise(sym), int(max_syms), cs.agc_rate)
+
+    def rc(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    sym = cs.symbol_samps
+    n_off = 50000
+    bumps = np.abs(rng.standard_normal(DAB_BLOCK)) \
+        + 4.0 * (np.arange(DAB_BLOCK) % 45000 < 500)
+    ragged = DAB_BLOCK - 333
+    return [
+        ("dab", "dab",
+         (rcorr, vals, torch.stack([st["avg_corr"], st["peak_corr"],
+                                    st["last_corr"]]),
+          st["since_peak"].reshape(1), st["sym_buf"],
+          cs.max_symbols(DAB_BLOCK), cs.agc_rate)),
+        ("ties", "", (rc(np.full(n_off, 0.25)), noise(n_off))
+         + carried(0.25, 0.25, 0, sym, n_off // sym + 2)),
+        ("rising", "", (rc(1.0 + np.arange(65536) * 1e-3), noise(65536))
+         + carried(0.0, 0.0, 5, sym, 4)),
+        ("sym1", "", (rc(rng.random(10000)), noise(10000))
+         + carried(0.5, 0.0, 0, 1, 10002)),
+        ("big_sym", "", (rc(bumps), noise(DAB_BLOCK))
+         + carried(0.0, 0.0, 0, CYCLIC_BIG_SYM,
+                   DAB_BLOCK // CYCLIC_BIG_SYM + 2)),
+        ("ragged", "", (rcorr[:ragged], vals[:ragged])
+         + carried(0.0, 0.0, -300, sym, ragged // sym + 2)),
+        ("since", "", (rcorr, vals)
+         + carried(0.0, 0.1, sym + 7, sym, cs.max_symbols(DAB_BLOCK))),
+        ("max_syms", "", (rc(rng.random(n_off)), noise(n_off))
+         + carried(0.5, 0.0, 0, 64, 10)),
+        ("zeros", "", (rc(np.where(rng.random(n_off) < 0.5, 0.0, -0.0)
+                          * (np.arange(n_off) % 300 > 5) - 0.5
+                          * (np.arange(n_off) % 300 <= 5)), noise(n_off))
+         + carried(-1.0, -0.0, 0, sym, n_off // sym + 2)),
+        ("nan_peak", "", (rcorr, vals)
+         + carried(0.0, float("nan"), 3, sym, cs.max_symbols(DAB_BLOCK))),
+    ]
+
+
 def phase_kernels_walks(dev):
-    """The three walks against their plain versions at the paths' shapes,
-    on the same inputs: line_sync_walk on the first ATV block's
-    discriminator output ([450007] with the tail; exact), chroma_burst_walk
-    on [625, 28] bursts of a locked tone (ATV_LOCKING_BW: at the decoder's
-    0.01 the PLL does not lock, ROADMAP C, and its cos / sin / atan2 ulps
-    would grow without bound; phases within WALK_TOL, outputs within
-    WALK_OUT_TOL), cyclic_sync_walk on the first DAB block ([204800],
-    2048-sample symbols; exact), each timed with CUDA events, with its
-    time a line, a burst step or a sample beside it; then wrong arguments
-    must raise ValueError and launch nothing."""
+    """The three walks against their plain versions on the same inputs:
+    line_sync_walk on the first ATV block's discriminator output
+    ([450007] with the tail; exact); chroma_burst_walk on
+    ``chroma_walk_case``'s [625, 28] bursts, "locked" (the path's case)
+    and "wrap" (phases at +-pi), phases within WALK_TOL, outputs within
+    WALK_OUT_TOL, locked in both; cyclic_sync_walk on every case of
+    ``cyclic_walk_cases`` (the first DAB block and nine edge cases; each
+    bit for bit); each timed with CUDA events, with its time a line, a
+    burst step or a sample beside the bound's; then wrong arguments must
+    raise ValueError and launch nothing."""
     import torch
     from sdrpp_tpu_torch.decoders import atv
     from sdrpp_tpu_torch.ops import sync_walks as W
     from sdrpp_tpu_torch.ops.fm import Quadrature
-    from sdrpp_tpu_torch.ops.ofdm import CyclicSync, cyclic_prefix_correlation
+
+    def on_cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
 
     cases = []
     # line_sync_walk
@@ -3544,10 +3669,8 @@ def phase_kernels_walks(dev):
             ls.max_freq, ls.sync_level, ls.sync_bias)
     got = W.line_sync_walk(*args)
     ms = cuda_ms(lambda: W.line_sync_walk(*args), reps=5)
-    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
-                     for a in args)
     t0 = time.perf_counter()
-    ref = W.line_sync_walk(*cpu_args)
+    ref = W.line_sync_walk(*on_cpu(args))
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(float((g.cpu().float() - r.float()).abs().max())
               for g, r in zip(got, ref))
@@ -3558,63 +3681,68 @@ def phase_kernels_walks(dev):
         + args[4] * 720 * 4 + 32, lines * (720 * 21 + 40), lines=lines,
         us_per_line=ms * 1e3 / max(lines, 1)))
     # chroma_burst_walk
-    L, nb = ATV_BLOCK // 720, atv.BURST_END - atv.BURST_START
-    w0 = 2 * np.pi * atv.CHROMA_SUBCARRIER / ATV_FS
-    t = (np.arange(L)[:, None] * 720 + atv.BURST_START + np.arange(nb))
-    burst = torch.from_numpy(np.exp(1j * (w0 * t + 0.3)).astype(
-        np.complex64)).to(dev)
-    pll = atv.ChromaPLL(ATV_LOCKING_BW, 720, atv.BURST_START, atv.BURST_END,
-                        init_freq=w0, min_freq=w0 * 0.9, max_freq=w0 * 1.1,
-                        device=dev)
-    carry = torch.tensor([0.0, np.float32(w0)], dtype=torch.float32,
-                         device=dev)
-    refs = torch.zeros(L, dtype=torch.float32, device=dev)
-    args = (burst, refs, carry, atv.BURST_START, 720 - atv.BURST_END,
-            pll.alpha, pll.beta, pll.min_freq, pll.max_freq)
-    got = W.chroma_burst_walk(*args)
-    ms = cuda_ms(lambda: W.chroma_burst_walk(*args), reps=5)
-    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
-                     for a in args)
-    t0 = time.perf_counter()
-    ref = W.chroma_burst_walk(*cpu_args)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    phase_err = max(float((got[0].cpu() - ref[0]).abs().max()),
-                    float((got[2].cpu() - ref[2]).abs().max()))
-    out_err = float((got[1].cpu() - ref[1]).abs().max())
-    locked = float(np.abs(np.angle(got[1][-20:].cpu().numpy())).mean())
-    if not out_err <= WALK_OUT_TOL or not locked < 0.05:
-        raise AssertionError(f"chroma_burst_walk: outputs {out_err} > "
-                             f"{WALK_OUT_TOL} or not locked ({locked})")
-    cases.append(_walk_case(
-        "chroma_burst_walk", "atv", [L, nb], [L, nb], phase_err, WALK_TOL,
-        ms, plain_ms, L * nb * 16 + L * 4 + L * 16 + 16,
-        L * nb * CHROMA_OPS_PER_STEP, out_err=out_err,
-        locked_phase_err=locked, us_per_step=ms * 1e3 / (L * nb)))
+    for kind, path in (("locked", "atv"), ("wrap", "")):
+        args, ref_phase = chroma_walk_case(dev, kind)
+        burst = args[0]
+        L, nb = burst.shape
+        got = W.chroma_burst_walk(*args)
+        warm(lambda: W.chroma_burst_walk(*args), calls=3)
+        ms = cuda_ms(lambda: W.chroma_burst_walk(*args), reps=5)
+        t0 = time.perf_counter()
+        ref = W.chroma_burst_walk(*on_cpu(args))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        phase_err = max(float((got[0].cpu() - ref[0]).abs().max()),
+                        float((got[2].cpu() - ref[2]).abs().max()))
+        out_err = float((got[1].cpu() - ref[1]).abs().max())
+        out = got[1].cpu().numpy()
+        locked = float(np.abs(np.angle(
+            out[-20:] * np.exp(-1j * ref_phase))).mean())
+        # the phase each step mixed with, from its output, and the share of
+        # steps whose update ph + fr left [-pi, pi) (alpha * err ignored):
+        # the kernel's compare-and-subtract (or add) wrap
+        ph = np.angle(burst.cpu().numpy() / out)
+        fr = got[0][:, 1].cpu().numpy()[:, None]
+        wrapped = float(np.mean((ph + fr >= np.pi) | (ph + fr < -np.pi)))
+        if not out_err <= WALK_OUT_TOL or not locked < 0.05:
+            raise AssertionError(f"chroma_burst_walk ({kind}): outputs "
+                                 f"{out_err} > {WALK_OUT_TOL} or not locked "
+                                 f"({locked})")
+        nbytes, ops = L * nb * 16 + L * 4 + L * 16 + 16, \
+            L * nb * CHROMA_OPS_PER_STEP
+        cases.append(_walk_case(
+            "chroma_burst_walk", path, [L, nb], [L, nb], phase_err, WALK_TOL,
+            ms, plain_ms, nbytes, ops, case=kind, out_err=out_err,
+            locked_phase_err=locked, wrapped_share=wrapped,
+            us_per_step=ms * 1e3 / (L * nb),
+            bound_us_per_step=bound(nbytes, ops)[0] * 1e3 / (L * nb)))
     # cyclic_sync_walk
-    cs = CyclicSync(DAB_FFT / DAB_FS, DAB_CP / DAB_FS, DAB_FS, device=dev)
-    st = cs.init_state()
-    xb = torch.from_numpy(dab_signal(DAB_BLOCK)).to(dev)
-    _, rcorr, vals = cyclic_prefix_correlation(st["tail"], xb,
-                                               cs.symbol_samps,
-                                               cs.prefix_samps)
-    args = (rcorr, vals, torch.stack([st["avg_corr"], st["peak_corr"],
-                                      st["last_corr"]]),
-            st["since_peak"].reshape(1), st["sym_buf"],
-            cs.max_symbols(DAB_BLOCK), cs.agc_rate)
-    got = W.cyclic_sync_walk(*args)
-    ms = cuda_ms(lambda: W.cyclic_sync_walk(*args), reps=5)
-    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
-                     for a in args)
-    t0 = time.perf_counter()
-    ref = W.cyclic_sync_walk(*cpu_args)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
-    cases.append(_walk_case(
-        "cyclic_sync_walk", "dab", [DAB_BLOCK], [DAB_BLOCK], err, 0.0, ms,
-        plain_ms, DAB_BLOCK * 12 + DAB_FFT * 16 + args[5] * 4 + 32,
-        DAB_BLOCK * CYCLIC_OPS_PER_SAMPLE, emits=int(ref[1]),
-        ns_per_sample=ms * 1e6 / DAB_BLOCK))
+    for kind, path, args in cyclic_walk_cases(dev):
+        n, sym, max_syms = args[0].shape[0], args[4].shape[0], args[5]
+        got = W.cyclic_sync_walk(*args)
+        warm(lambda: W.cyclic_sync_walk(*args), calls=3)
+        ms = cuda_ms(lambda: W.cyclic_sync_walk(*args), reps=5)
+        t0 = time.perf_counter()
+        ref = W.cyclic_sync_walk(*on_cpu(args))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        # bit for bit (a NaN peak, the sign of a zero)
+        same = all(torch.equal(*(t.view(torch.int32) if t.dtype
+                                 == torch.float32 else t.view(torch.int64)
+                                 if t.is_complex() else t
+                                 for t in (g.cpu(), r)))
+                   for g, r in zip(got, ref))
+        err = 0.0 if same else float("inf")
+        nbytes, ops = n * 12 + sym * 16 + max_syms * 4 + 32, \
+            n * CYCLIC_OPS_PER_SAMPLE
+        cases.append(_walk_case(
+            "cyclic_sync_walk", path, [n], [n], err, 0.0, ms, plain_ms,
+            nbytes, ops, case=kind, sym=sym, since_in=int(args[3][0]),
+            max_syms=max_syms, emits=int(ref[1]), ns_per_sample=ms * 1e6 / n,
+            bound_ns_per_sample=bound(nbytes, ops)[0] * 1e6 / n))
     # wrong arguments raise ValueError and launch nothing
+    args, _ = chroma_walk_case(dev, "locked")
+    burst, refs, carry = args[:3]
+    _, _, args = cyclic_walk_cases(dev)[0]
+    rcorr, vals = args[:2]
     before = {n: f.launches for n, f in kernel_fns().items()}
     f32 = torch.float32
     for what, call in (

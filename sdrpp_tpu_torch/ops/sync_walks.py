@@ -24,8 +24,10 @@ order (numpy float32 scalars for the carries, as
 ``clock_recovery_kernels.mm_symbols_plain``, torch float32 vectors within a
 line). Any other device raises. ``line_sync_walk`` and ``cyclic_sync_walk``
 equal their plain versions bit for bit; ``chroma_burst_walk`` calls the
-card's cosf / sinf / atan2f and is held to its plain version at a
-tolerance. Every argument is checked before a launch (ValueError).
+card's sincosf / atan2f and takes most burst steps' error from a
+difference of angles (csrc/sync_walk.cu), and is held to its plain
+version at a tolerance. Every argument is checked before a launch
+(ValueError).
 """
 
 from __future__ import annotations
