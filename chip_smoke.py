@@ -70,8 +70,9 @@ exit, no result line) if any phase fails:
    = 2 on uint8 and float32 soft bits over FEC_T steps, R = 3 and 6 at S =
    256 and R = 5 at S = 16, uint8 windows of FEC_RENORM_T steps (two
    renormalisations of the fast form) at S = 128 ... 16384 and at R = 6,
-   a [64, 4288] windowed launch at S = 32, and
-   the fec paths' launches: k9's [1, 2097162, 2], held on its first and
+   the radix-4 kernel's reference form at S = 256 (expected outputs that
+   are not integers), [64, 4288] windowed launches at S = 32, 128 and 256,
+   and the fec paths' launches: k9's [1, 2097162, 2], held on its first and
    last FEC_HELD steps, and k6's [513, 4288, 2] windows (the general
    kernels, S > 64 or R > 4, as the rows ``viterbi_acs_general`` /
    ``viterbi_traceback_general``), each bit-exact with both walkers'
@@ -88,7 +89,10 @@ exit, no result line) if any phase fails:
    then wrong arguments on the card must raise ValueError and launch
    nothing, and a strided view must give what its copy gives; the three
    walks of csrc/sync_walk.cu (``phase_kernels_walks``): ``line_sync_walk``
-   on the first ATV block's discriminator output [450007], bit-exact;
+   on the first ATV block's discriminator output [450007] and, off the
+   paths, on ``line_walk_cases``' edge cases (among them a block past
+   the kernel's 1024-line record ring and positions past 2^22), each
+   bit for bit;
    ``cyclic_sync_walk`` on the first DAB block [204800] and, off the
    paths, on ``cyclic_walk_cases``' edge cases (ties, a peak every
    sample, sym = 1, a buffer past shared memory, a ragged block with a
@@ -565,6 +569,7 @@ FEC_T = 2048               # steps of each off-path general-kernel case
 # viterbi.cu, every VIT_RENORM steps)
 FEC_RENORM_T = 2 * VIT_RENORM + 256
 FEC_HELD = FEC_RENORM_T
+FEC_ODD_T = VIT_RENORM + 3   # odd, one renormalisation in
 FEC_WINDOWS = 64           # the off-path 32-state windowed launch
 RS_BLOCKS = 1024
 DSP_BLOCK = 654400         # the receive path's block at 2.4 Msps
@@ -589,6 +594,14 @@ ATV_BLOCK = 450000         # one PAL frame: 625 lines of 720 samples, 40 ms
 ATV_BLOCKS = 3
 ATV_LOCKING_BW = 0.003     # chroma_burst_walk's case: a PLL bandwidth that
                            # locks at 720-sample lines
+LINE_FLOOR_CYCLES = 586.7  # LineSync's one-warp chain alone, clock64 cycles a
+#                            line (tools/sync_walk_probe.py, PERF.md 6): the
+#                            probe's figure, logged beside the cases, never
+#                            measured here
+LINE_LONG_LINES = 1100     # line_sync_walk's "long" case: past the kernel's
+                           # 1024-record ring (csrc/sync_walk.cu kLineRecs)
+LINE_BIG_POS = 4194304.0   # 2^22: past it the kernel locates positions with
+                           # floorf and conversions (locate)
 WALK_TOL = 3.6e-6          # chroma_burst_walk card vs plain: phases (rad)
 WALK_OUT_TOL = 1e-5        # and the burst's unit-amplitude outputs
 CHROMA_OPS_PER_STEP = 40   # float operations a burst step: the complex mix
@@ -3634,10 +3647,107 @@ def cyclic_walk_cases(dev):
     ]
 
 
+def line_walk_cases(dev):
+    """``line_sync_walk``'s cases as (name, path, args): the first ATV
+    block ([450007] with the tail, the path's launch), then off the paths:
+    a carried pos near -717 (the first windows clamped to sample 0), freq
+    pinned at either limit (omega_gain 0.05, sync_bias +-1 over an
+    always-met sync level, so err keeps one sign), unlocked lines (a sync
+    level below every sum: err = 0 and locked cleared), max_lines reached
+    before the block's end, a block with no line (pos past n - 720 freq)
+    and jumps past the staging guard (mu_gain 4000 and 40000 over seeded
+    noise: pos moves by hundreds to tens of thousands of samples either
+    way a line, and sits at sample 0 for stretches); a block of
+    LINE_LONG_LINES lines (the record ring wraps: the walker waits for
+    free slots, the drawers for the slot's previous line) and lines whose
+    positions pass LINE_BIG_POS (2^22: located by floorf, not by the
+    kernel's exact float trick), each way: a carried pos just below 2^22
+    in a buffer that holds 40 lines past it, and one near -5e6 (every
+    window clamped to sample 0)."""
+    import torch
+    from sdrpp_tpu_torch.decoders import atv
+    from sdrpp_tpu_torch.ops.fm import Quadrature
+
+    quad = Quadrature(ATV_FS / 2, ATV_FS, device=dev)
+    ls = atv.LineSync(1.0, omega_gain=1e-6, mu_gain=1.0,
+                      omega_rel_limit=0.05, device=dev)
+    st = ls.init_state()
+
+    def video(n_lines):  # the discriminator's output with the tail
+        iq = torch.from_numpy(atv_composite(n_lines)).to(dev)
+        return torch.cat([st["tail"], quad(quad.init_state(), iq)[1]])
+
+    buf = video(ATV_BLOCK // 720)
+    n = buf.shape[0] - 7
+    f32 = torch.float32
+
+    def case(carry=(0.0, 1.0), locked=False, b=buf, max_lines=None,
+             omega_gain=ls.omega_gain, mu_gain=ls.mu_gain,
+             sync_level=ls.sync_level, sync_bias=ls.sync_bias):
+        return (b, ls.bank, torch.tensor(carry, dtype=f32, device=dev),
+                torch.tensor([locked], device=dev),
+                ls.max_lines(b.shape[0] - 7) if max_lines is None
+                else max_lines, omega_gain, mu_gain, ls.min_freq,
+                ls.max_freq, sync_level, sync_bias)
+
+    rng = np.random.default_rng(18)
+    noise = torch.from_numpy(rng.standard_normal(n + 7).astype(
+        np.float32)).to(dev)
+    big = torch.from_numpy(rng.standard_normal(
+        int(LINE_BIG_POS) + 40 * 720).astype(np.float32)).to(dev)
+    return [
+        ("atv", "atv", case(carry=(float(st["pos"]), float(st["freq"])),
+                            locked=bool(st["locked"]))),
+        ("neg_pos", "", case(carry=(-717.25, 1.0))),
+        ("freq_hi", "", case(omega_gain=0.05, sync_level=1e9,
+                             sync_bias=1.0)),
+        ("freq_lo", "", case(omega_gain=0.05, sync_level=1e9,
+                             sync_bias=-1.0)),
+        ("unlocked", "", case(locked=True, sync_level=-1e9)),
+        ("max_lines", "", case(max_lines=40)),
+        ("no_line", "", case(carry=(n - 700.0, 1.0))),
+        ("jump", "", case(b=noise, mu_gain=4000.0, sync_level=1e9)),
+        ("far_jump", "", case(b=noise, mu_gain=40000.0, sync_level=1e9)),
+        ("long", "", case(b=video(LINE_LONG_LINES))),
+        ("big_pos", "", case(b=big, carry=(LINE_BIG_POS - 100.25, 1.0),
+                             sync_level=1e9)),
+        ("big_neg", "", case(carry=(-5e6, 1.0), max_lines=40)),
+    ]
+
+
+def sm_clock_mhz():
+    """The card's maximum SM clock in MHz as nvidia-smi reads it, or None
+    where it reads none."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30)
+        return float(out.stdout.split()[0])
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        return None
+
+
+def same_bits(got, ref) -> bool:
+    """Every output of a kernel equal to its plain version's bit for bit
+    (NaN payloads and the sign of zero included)."""
+    import torch
+
+    def bits(t):
+        t = t.cpu()
+        if t.is_complex():
+            return t.view(torch.int64)
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return all(torch.equal(bits(g), bits(r)) for g, r in zip(got, ref))
+
+
 def phase_kernels_walks(dev):
     """The three walks against their plain versions on the same inputs:
-    line_sync_walk on the first ATV block's discriminator output
-    ([450007] with the tail; exact); chroma_burst_walk on
+    line_sync_walk on every case of ``line_walk_cases`` (the first ATV
+    block's discriminator output, [450007] with the tail, and eleven edge
+    cases; each bit for bit, with its us a line logged beside the one-warp
+    chain's floor, the probe's LINE_FLOOR_CYCLES, which this run does not
+    measure);
+    chroma_burst_walk on
     ``chroma_walk_case``'s [625, 28] bursts, "locked" (the path's case)
     and "wrap" (phases at +-pi), phases within WALK_TOL, outputs within
     WALK_OUT_TOL, locked in both; cyclic_sync_walk on every case of
@@ -3646,40 +3756,36 @@ def phase_kernels_walks(dev):
     burst step or a sample beside the bound's; then wrong arguments must
     raise ValueError and launch nothing."""
     import torch
-    from sdrpp_tpu_torch.decoders import atv
     from sdrpp_tpu_torch.ops import sync_walks as W
-    from sdrpp_tpu_torch.ops.fm import Quadrature
 
     def on_cpu(args):
         return tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                      for a in args)
 
     cases = []
-    # line_sync_walk
-    iq = torch.from_numpy(atv_composite(ATV_BLOCK // 720)).to(dev)
-    quad = Quadrature(ATV_FS / 2, ATV_FS, device=dev)
-    _, y = quad(quad.init_state(), iq)
-    ls = atv.LineSync(1.0, omega_gain=1e-6, mu_gain=1.0,
-                      omega_rel_limit=0.05, device=dev)
-    st = ls.init_state()
-    buf = torch.cat([st["tail"], y])
-    carry = torch.stack([st["pos"], st["freq"]])
-    args = (buf, ls.bank, carry, st["locked"].reshape(1),
-            ls.max_lines(ATV_BLOCK), ls.omega_gain, ls.mu_gain, ls.min_freq,
-            ls.max_freq, ls.sync_level, ls.sync_bias)
-    got = W.line_sync_walk(*args)
-    ms = cuda_ms(lambda: W.line_sync_walk(*args), reps=5)
-    t0 = time.perf_counter()
-    ref = W.line_sync_walk(*on_cpu(args))
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(float((g.cpu().float() - r.float()).abs().max())
-              for g, r in zip(got, ref))
-    lines = int(ref[1])
-    cases.append(_walk_case(
-        "line_sync_walk", "atv", [ATV_BLOCK + 7], [ATV_BLOCK + 7], err, 0.0,
-        ms, plain_ms, (ATV_BLOCK + 7) * 4 + 128 * 8 * 4
-        + args[4] * 720 * 4 + 32, lines * (720 * 21 + 40), lines=lines,
-        us_per_line=ms * 1e3 / max(lines, 1)))
+    # line_sync_walk, bit for bit (NaN and the sign of zero included)
+    mhz = sm_clock_mhz()
+    log(f"line_sync_walk's chain floor (tools/sync_walk_probe.py's "
+        f"line_floor, PERF.md 6; not measured in this run): "
+        f"{LINE_FLOOR_CYCLES} cycles a line"
+        + (f", {LINE_FLOOR_CYCLES / mhz:.4f} us at the card's maximum SM "
+           f"clock of {mhz:.0f} MHz" if mhz else ""))
+    for kind, path, args in line_walk_cases(dev):
+        got = W.line_sync_walk(*args)
+        warm(lambda: W.line_sync_walk(*args), calls=3)
+        ms = cuda_ms(lambda: W.line_sync_walk(*args), reps=5)
+        t0 = time.perf_counter()
+        ref = W.line_sync_walk(*on_cpu(args))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = 0.0 if same_bits(got, ref) else float("inf")
+        lines, n = int(ref[1]), args[0].shape[0] - 7
+        nbytes = (n + 7) * 4 + 128 * 8 * 4 + args[4] * 720 * 4 + 32
+        cases.append(_walk_case(
+            "line_sync_walk", path, [n + 7], [n + 7], err, 0.0, ms, plain_ms,
+            nbytes, lines * (720 * 21 + 40), case=kind, lines=lines,
+            max_lines=args[4], us_per_line=ms * 1e3 / max(lines, 1),
+            bound_us_per_line=bound(nbytes, lines * (720 * 21 + 40))[0]
+            * 1e3 / max(lines, 1)))
     # chroma_burst_walk
     for kind, path in (("locked", "atv"), ("wrap", "")):
         args, ref_phase = chroma_walk_case(dev, kind)
@@ -3725,12 +3831,7 @@ def phase_kernels_walks(dev):
         ref = W.cyclic_sync_walk(*on_cpu(args))
         plain_ms = (time.perf_counter() - t0) * 1e3
         # bit for bit (a NaN peak, the sign of a zero)
-        same = all(torch.equal(*(t.view(torch.int32) if t.dtype
-                                 == torch.float32 else t.view(torch.int64)
-                                 if t.is_complex() else t
-                                 for t in (g.cpu(), r)))
-                   for g, r in zip(got, ref))
-        err = 0.0 if same else float("inf")
+        err = 0.0 if same_bits(got, ref) else float("inf")
         nbytes, ops = n * 12 + sym * 16 + max_syms * 4 + 32, \
             n * CYCLIC_OPS_PER_SAMPLE
         cases.append(_walk_case(
@@ -3739,6 +3840,7 @@ def phase_kernels_walks(dev):
             max_syms=max_syms, emits=int(ref[1]), ns_per_sample=ms * 1e6 / n,
             bound_ns_per_sample=bound(nbytes, ops)[0] * 1e6 / n))
     # wrong arguments raise ValueError and launch nothing
+    buf, bank, carry = line_walk_cases(dev)[0][2][:3]
     args, _ = chroma_walk_case(dev, "locked")
     burst, refs, carry = args[:3]
     _, _, args = cyclic_walk_cases(dev)[0]
@@ -3746,7 +3848,7 @@ def phase_kernels_walks(dev):
     before = {n: f.launches for n, f in kernel_fns().items()}
     f32 = torch.float32
     for what, call in (
-            ("bank", lambda: W.line_sync_walk(buf, ls.bank[:64], carry[:2],
+            ("bank", lambda: W.line_sync_walk(buf, bank[:64], carry[:2],
                                               torch.zeros(1, dtype=torch.bool,
                                                           device=dev), 4,
                                               0, 0, 0, 0, 0, 0)),
@@ -4241,10 +4343,15 @@ def phase_kernels_fec(dev, k9_soft, k6_soft):
     ... 16384) at R = 2 on uint8 and on float32 soft bits, FEC_T steps
     from step 0 (B5's single stream); R = 3 and R = 6 at S = 256 and R = 5
     at S = 16 (the warp kernel of R > 4); uint8 over FEC_RENORM_T steps,
-    two of the CTA kernel's renormalisations, at S = 128, 256 (a thread a
-    state), 2048, 4096, 8192, 16384 (2 to 16 states a thread) and R = 6
-    at S = 256 (expected rows read through the cache); a
-    [FEC_WINDOWS, 4288] windowed launch at S = 32 (B6); the fec paths'
+    two of the CTA kernel's renormalisations, at S = 128 ... 1024 (the
+    radix-4 kernel, a thread a state) at R = 2 and 3, 2048, 4096, 8192,
+    16384 (2 to 16 states a thread), R = 6 at S = 64 and 256 and R = 5 at
+    S = 256 (expected rows read through the cache); FEC_ODD_T steps (odd,
+    across the first renormalisation) at S = 128 ... 1024, R = 2 and 3,
+    and all-128 ties at S = 256; S = 256 with expected outputs that are
+    not integers (the radix-4 kernel's reference form) over FEC_ODD_T
+    steps; [FEC_WINDOWS, 4288] windowed launches at S = 128 and 256 (two
+    starts out of range, clamped) and at S = 32 (B6); the fec paths'
     launches at their shapes, k9's [1, 2097162, 2] (held on its first and
     last FEC_HELD steps) and k6's [513, 4288, 2] windows."""
     from sdrpp_tpu_torch.ops import fec as F
@@ -4265,13 +4372,39 @@ def phase_kernels_fec(dev, k9_soft, k6_soft):
                       viterbi_stream(rng, code, FEC_T), one, FEC_T,
                       code._expected))
     for rate, order in ((2, 8), (2, 9), (2, 12), (2, 13), (2, 14), (2, 15),
-                        (6, 9)):
+                        (6, 9), (3, 8), (3, 9), (2, 10), (3, 10), (2, 11),
+                        (3, 11), (6, 7), (5, 9)):
         code = F.ConvCode(rate, order, fec_polys(rate, order), device=dev)
         cases.append((f"k{order} rate {rate} renormalised", None,
                       viterbi_stream(rng, code, FEC_RENORM_T), one,
                       FEC_RENORM_T, code._expected))
-    k6 = F.ConvCode(2, 6, F.CONV_R12_6, device=dev)
+    # the radix-4 kernel (S = 128 ... 1024): an odd T across the first
+    # renormalisation, and all-128 ties
+    for order in (8, 9, 10, 11):
+        for rate in (2, 3):
+            code = F.ConvCode(rate, order, fec_polys(rate, order),
+                              device=dev)
+            cases.append((f"k{order} rate {rate} odd T", None,
+                          viterbi_stream(rng, code, FEC_ODD_T), one,
+                          FEC_ODD_T, code._expected))
+    k9 = F.ConvCode(2, 9, F.CONV_R12_9, device=dev)
+    cases.append(("k9 ties", None, viterbi_stream(rng, k9, FEC_ODD_T, "ties"),
+                  one, FEC_ODD_T, k9._expected))
+    # the radix-4 kernel's reference form (expected outputs that are not
+    # integers: every step the radix-2 reference step), and its windowed
+    # launches at S = 128 and 256, two starts out of range (clamped)
+    cases.append(("k9 non-integral", None,
+                  viterbi_stream(rng, k9, FEC_ODD_T), one, FEC_ODD_T,
+                  k9._expected + 0.25))
     win_total = FEC_WINDOWS * VIT_L - 1000
+    for order in (8, 9):
+        code = F.ConvCode(2, order, fec_polys(2, order), device=dev)
+        starts = viterbi_starts(win_total)
+        starts[1], starts[2] = win_total + 500, -777
+        cases.append((f"k{order} windows", None,
+                      viterbi_stream(rng, code, win_total), starts, VIT_T,
+                      code._expected))
+    k6 = F.ConvCode(2, 6, F.CONV_R12_6, device=dev)
     cases.append(("k6 windows", None, viterbi_stream(rng, k6, win_total),
                   viterbi_starts(win_total), VIT_T, k6._expected))
     cases.append(("k6 path windows", "fec_k6", k6_soft,
@@ -4280,7 +4413,6 @@ def phase_kernels_fec(dev, k9_soft, k6_soft):
     for label, path, soft_np, starts_np, T, expected in cases:
         results += viterbi_case(dev, label, path, soft_np, starts_np, T,
                                 expected)
-    k9 = F.ConvCode(2, 9, F.CONV_R12_9, device=dev)
     return results + viterbi_case(dev, "k9 path", "fec_k9", k9_soft, one,
                                   k9_soft.shape[0], k9._expected,
                                   held_steps=FEC_HELD, reps=3)

@@ -17,11 +17,15 @@
 // line (LineSync), burst sample (ChromaPLL) or sample (CyclicSync) depends
 // on the carry of the one before, so a block is one dependent sequence.
 // The designs keep everything else off that chain:
-// - LineSync: 736 threads compute a line's 720 interpolated samples at
-//   once (the 8-tap windows from device memory, the 128 x 8 bank from
-//   shared memory), warp 0 sums the two 44-sample sync regions with a
-//   fixed shuffle tree, and lane 0 updates pos / freq / locked. Two
-//   barriers a line.
+// - LineSync: one warp walks only the sync chain (the 88 samples of the
+//   two 44-sample sync regions, from a shared-memory ring another warp
+//   stages ahead with cp.async, summed by the plain version's tree, and
+//   the update in registers), recording each line's (pos, freq); eleven
+//   warps draw the 720-sample lines from those records behind it. No CTA
+//   barrier after the set-up (line_sync_kernel). Measured by clock64
+//   ablation before the redesign (tools/sync_walk_probe.py, PERF.md): the
+//   736-thread form lost its time to the windows' device loads, the two
+//   barriers and the trees, all on every line's chain.
 // - ChromaPLL: the free-run segments before and after the burst are
 //   parallel mixes done outside (torch operations on the phases this walk
 //   records); inside the burst lane 0 walks only the phase and frequency
@@ -38,7 +42,8 @@
 //
 // Numerics: built with --fmad=false and no fast math, so every product and
 // sum rounds once. LineSync and CyclicSync use only + - * / floor and
-// comparisons, in the order of their plain PyTorch versions
+// comparisons (LineSync takes a floor by a rounded-down add where that is
+// exact, locate_small), in the order of their plain PyTorch versions
 // (ops/sync_walks.py), and match them bit for bit. ChromaPLL calls
 // sincosf and atan2f, which differ from the host's cos / sin / arctan2 by
 // ulps, and takes the mixed sample's angle as a difference of angles: it
@@ -62,23 +67,188 @@
 
 namespace {
 
+// Asynchronous copies of 4, 8 or 16 bytes into shared memory (cp.async,
+// through L1), and the wait for this thread's.
+template <int bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n (0 ... 7) of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait_groups(int n) {
+  switch (n) {
+#define WAIT_GROUPS(k) \
+  case k:              \
+    asm volatile("cp.async.wait_group " #k ";\n" ::: "memory"); \
+    break;
+    WAIT_GROUPS(0) WAIT_GROUPS(1) WAIT_GROUPS(2) WAIT_GROUPS(3)
+    WAIT_GROUPS(4) WAIT_GROUPS(5) WAIT_GROUPS(6)
+#undef WAIT_GROUPS
+    default:
+      asm volatile("cp.async.wait_group 7;\n" ::: "memory");
+  }
+}
+
+constexpr unsigned kAll = 0xffffffffu;
+
 // ---------------------------------------------------------------- LineSync
 constexpr int kLineLen = 720;
 constexpr int kTaps = 8;
 constexpr int kPhases = 128;
-constexpr int kLineThreads = 736;  // 23 warps: one thread a line sample
-constexpr int kSyncLen = 44;       // samples of each sync half
+constexpr int kSyncLen = 44;        // samples of each sync half
+constexpr int kLineThreads = 512;   // 16 warps, see line_sync_kernel
+constexpr int kLineDrawers = 11;    // warps 2 ... 15 but 4, 8 and 12
+constexpr int kLineStager = 1;      // the stager's warp
+constexpr int kLineRing = 16384;    // buf samples staged (a power of two)
+constexpr int kLineRecs = 1024;     // (pos, freq) records (a power of two)
+constexpr int kStageGroup = 1024;   // samples a stager copy group
+constexpr int kStageDepth = 8;      // stager groups in flight
+constexpr unsigned kLinePoll = 256;  // ns between a waiting warp's polls
+constexpr unsigned long long kNoRec = ~0ull;  // an empty record (pos NaN)
+constexpr int kLineSmem =           // dynamic: bank, ring + mirror, records
+    (kPhases * kTaps + kLineRing + kTaps) * 4 + kLineRecs * 8;
 
-// The sum of v[0..43] in the plain version's tree: v zero-padded to 64,
-// s[i] = v[i] + v[i + 32], then halves added pairwise down to lane 0.
-__device__ __forceinline__ float tree44(float a, float b) {
-  float s = a + b;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s = s + __shfl_down_sync(0xffffffffu, s, off);
-  return s;
+// A wait on another warp that has not ended after 2^32 cycles (about two
+// seconds) is a protocol fault: trap, so the launch fails instead of
+// hanging.
+__device__ __forceinline__ void check_wait(long long since) {
+  if (clock64() - since > (1ll << 32)) __trap();
 }
 
+// Shared-memory words that one warp writes and another polls.
+__device__ __forceinline__ int ld_flag(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+__device__ __forceinline__ void st_flag(int* p, int v) {
+  *reinterpret_cast<volatile int*>(p) = v;
+}
+// s_hi, the stager's staged frontier, with acquire / release order: the
+// walker's ring loads after the acquire see every sample the stager wrote
+// before its release (a volatile load is relaxed, and the ring loads could
+// be performed ahead of it, reading a stale window below a newer hi).
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p)))
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(p))),
+               "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned long long ld_rec(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+__device__ __forceinline__ void st_rec(unsigned long long* p,
+                                       unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// sum_j w[j] * b[j] in j order (the plain version's), b the 16-byte
+// aligned bank row
+__device__ __forceinline__ float taps8(const float (&w)[kTaps],
+                                      const float* b) {
+  const float4 b0 = *reinterpret_cast<const float4*>(b);
+  const float4 b1 = *reinterpret_cast<const float4*>(b + 4);
+  float acc = w[0] * b0.x;
+  acc = acc + w[1] * b0.y;
+  acc = acc + w[2] * b0.z;
+  acc = acc + w[3] * b0.w;
+  acc = acc + w[4] * b1.x;
+  acc = acc + w[5] * b1.y;
+  acc = acc + w[6] * b1.z;
+  acc = acc + w[7] * b1.w;
+  return acc;
+}
+
+// Sample position p's bank row and window start, as the plain version:
+// phase min(max(int(mu * 128), 0), 127), base min(max(int(floor(p)), 0),
+// n - 1).
+__device__ __forceinline__ int window(float p, int n) {
+  return min(max(static_cast<int>(floorf(p)), 0), n - 1);
+}
+
+// The same without a conversion instruction (F2I / FRND issue at a
+// quarter of the rate and sit on the walker's chain), for |p| < 2^22: t =
+// p + 1.5 * 2^23 rounded down lies in [2^23, 2^24), where floats are the
+// integers, so t = 1.5 * 2^23 + floor(p) exactly; its bits minus those of
+// 1.5 * 2^23 are floor(p), and t - 1.5 * 2^23 is floor(p) as a float
+// (exact, Sterbenz). mu * 128 is exact and in [0, 128], so 2^23 + mu * 128
+// rounded down is 2^23 + floor(mu * 128), the truncation the plain
+// version takes (mu >= 0: no clamp at 0 is needed).
+constexpr float kMagicMax = 4194304.0f;  // 2^22
+__device__ __forceinline__ void locate_small(float p, int n, int& ph,
+                                             int& base) {
+  const float t = __fadd_rd(p, 12582912.0f);
+  const float mu = p - (t - 12582912.0f);
+  const float u = __fadd_rd(mu * 128.0f, 8388608.0f);
+  ph = min(__float_as_int(u) - 0x4B000000, kPhases - 1);
+  base = min(max(__float_as_int(t) - 0x4B400000, 0), n - 1);
+}
+__device__ __forceinline__ void locate(float p, int n, int& ph, int& base) {
+  const float fp = floorf(p);
+  const float mu = p - fp;
+  ph = min(max(static_cast<int>(mu * 128.0f), 0), kPhases - 1);
+  base = min(max(static_cast<int>(fp), 0), n - 1);
+}
+
+// One CTA of 16 warps, no CTA barrier after its set-up. Warp 0 walks the
+// sync chain; warp 1 stages buf into a shared-memory ring ahead of it;
+// the eleven warps 2 ... 15 but 4, 8 and 12 draw the lines from the
+// walker's records; warps 4, 8 and 12 leave after the set-up (warps share
+// a scheduler by w % 4, so the walker has its scheduler to itself).
+//
+// The walker: lanes 0-15 the left sum, 16-31 the right; lane L of a half
+// interpolates samples v[L], v[L + 16] and (L < 12) v[L + 32] of its half
+// (left: v[i] = line[703 + i] for i < 17, else line[i - 17]; right: v[i]
+// = line[27 + i]), adds them in the tree's first two levels, s[L] = v[L] +
+// v[L + 32] (or + 0) and t[L] = s[L] + (v[L + 16] + 0), then xor shuffles
+// 8, 4, 2, 1 finish the tree in every lane of the half (lane i adds t[i]
+// and t[i ^ k]; addition commutes, so each lane holds the plain version's
+// value) and one xor 16 brings the other half's. Every lane then does the
+// update with the plain version's rounding, so pos / freq stay in
+// registers. A line's windows come from the ring when all of them (those
+// of k = 0 and 719 bound them) lie at or above the release (the walker's
+// own lowest window so far, raised line by line; the stager overwrites
+// only samples below the release it last read) and below s_hi (staged),
+// else from device memory: a jump past the staged tile costs time, never
+// a wrong value. The ring is read first, speculatively, so the 24 loads
+// wait for nothing but the positions; the test follows, and a line that
+// fails it reads again from device memory. Positions are located without
+// conversion instructions where |p| < 2^22 (locate_small). Lane 0 puts
+// each line's (pos, freq) into a record ring, waiting for a free slot
+// only past kLineRecs lines.
+//
+// The stager: copies buf in groups of kStageGroup samples with cp.async
+// (16 bytes where buf is 16-byte aligned, else 4), up to kStageDepth
+// groups in flight, a group only when the samples its slots held lie
+// below the release; samples at ring slots 0-7 also go to kLineRing +
+// slot, so a window reads eight consecutive words. As each oldest group
+// lands it publishes s_hi; when the walker has passed all it issued, it
+// drains and starts again at the release.
+//
+// A drawer takes lines j, j + 11, ...: waits for the record (past
+// kLineRecs lines, also for the slot's previous line to have been taken),
+// frees its slot, and interpolates the line's 720 samples from device
+// memory into `lines`, as the plain version does. When the walker has
+// finished (s_count >= 0) a drawer past the count zeroes its remaining
+// rows.
 __global__ void __launch_bounds__(kLineThreads, 1)
 line_sync_kernel(const float* __restrict__ buf, int n,
                  const float* __restrict__ bank,
@@ -89,69 +259,230 @@ line_sync_kernel(const float* __restrict__ buf, int n,
                  int max_lines, float omega_gain, float mu_gain,
                  float min_freq, float max_freq, float sync_level,
                  float sync_bias) {
-  __shared__ float sbank[kPhases * kTaps];
-  __shared__ float sline[kLineLen];
-  __shared__ float s_pos, s_freq;
-  __shared__ int s_locked;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kPhases * kTaps; i += blockDim.x) sbank[i] = bank[i];
+  extern __shared__ __align__(16) float lsm[];
+  float* const sbank = lsm;
+  float* const ring = lsm + kPhases * kTaps;
+  unsigned long long* const recs = reinterpret_cast<unsigned long long*>(
+      ring + kLineRing + kTaps);
+  __shared__ int s_hi, s_release, s_count, s_next[kLineDrawers];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < kPhases * kTaps; i += kLineThreads) sbank[i] = bank[i];
+  for (int i = tid; i < kLineRecs; i += kLineThreads) recs[i] = kNoRec;
+  if (tid < kLineDrawers) s_next[tid] = tid;  // each drawer's next line
   if (tid == 0) {
-    s_pos = carry_in[0];
-    s_freq = carry_in[1];
-    s_locked = locked_in[0] ? 1 : 0;
+    s_hi = 0;
+    s_release = 0;
+    s_count = -1;
   }
   __syncthreads();
-  const float fn = static_cast<float>(n);
-  int l = 0;
-  for (; l < max_lines; ++l) {
-    const float pos = s_pos, freq = s_freq;
-    if (!(pos + 720.0f * freq < fn)) break;  // the same for every thread
-    if (tid < kLineLen) {
-      const float p = pos + static_cast<float>(tid) * freq;
-      const float fp = floorf(p);
-      const float mu = p - fp;
-      const int ph = min(max(static_cast<int>(mu * 128.0f), 0), kPhases - 1);
-      const int base = min(max(static_cast<int>(fp), 0), n - 1);
-      const float* w = buf + base;
-      const float* b = sbank + ph * kTaps;
-      float acc = w[0] * b[0];
+  const int total = n + kTaps - 1;  // buf's samples
+  if (warp == 0) {
+    WALK_ROUND();
+    const int half = lane >> 4, L = lane & 15;
+    const bool third = L + 32 < kSyncLen;
+    float kf[3];
 #pragma unroll
-      for (int j = 1; j < kTaps; ++j) acc = acc + w[j] * b[j];
-      sline[tid] = acc;
-      lines[static_cast<size_t>(l) * kLineLen + tid] = acc;
+    for (int r = 0; r < 3; ++r) {
+      const int i = r < 2 || third ? L + 16 * r : L;
+      kf[r] = static_cast<float>(half ? 27 + i : (i < 17 ? 703 + i : i - 17));
     }
-    __syncthreads();
-    if (tid < 32) {
-      // left: line[703..719] then line[0..26]; right: line[27..70]
-      const int lane = tid;
-      const float la = lane < 17 ? sline[703 + lane] : sline[lane - 17];
-      const float lb = lane + 32 < kSyncLen ? sline[lane + 15] : 0.0f;
-      const float ra = sline[27 + lane];
-      const float rb = lane + 32 < kSyncLen ? sline[59 + lane] : 0.0f;
-      const float sl = tree44(la, lb);
-      const float sr = tree44(ra, rb);
-      if (lane == 0) {
-        const float left = sl / 44.0f, right = sr / 44.0f;
-        const bool ok = (left < sync_level) && (right < sync_level);
-        const float err = ok ? (left + sync_bias) - right : 0.0f;
-        const float nf =
-            fminf(fmaxf(freq + omega_gain * err, min_freq), max_freq);
-        s_pos = ((pos + 719.0f * freq) + nf) + mu_gain * err;
-        s_freq = nf;
-        s_locked = ok ? 1 : 0;
+    float pos = carry_in[0], freq = carry_in[1];
+    bool locked = locked_in[0];
+    const float fn = static_cast<float>(n);
+    int release = 0, l = 0;
+    for (; l < max_lines; ++l) {
+      if (!(pos + 720.0f * freq < fn)) break;
+      const int hi = ld_acquire(&s_hi);  // before the ring loads
+      // the line's positions lie between pos and pos + 720 freq
+      const bool small =
+          fabsf(pos) < kMagicMax && fabsf(pos + 720.0f * freq) < kMagicMax;
+      int ph[3], b[3], bases[2], unused;
+      if (small) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+          locate_small(pos + kf[r] * freq, n, ph[r], b[r]);
+        locate_small(pos, n, unused, bases[0]);
+        locate_small(pos + 719.0f * freq, n, unused, bases[1]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) locate(pos + kf[r] * freq, n, ph[r], b[r]);
+        bases[0] = window(pos, n);
+        bases[1] = window(pos + 719.0f * freq, n);
       }
+      // the windows from the ring, whether staged or not (the test below
+      // is off the loads' path); device memory when not
+      float w[3][kTaps];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const float* x = ring + (b[r] & (kLineRing - 1));
+#pragma unroll
+        for (int j = 0; j < kTaps; ++j) w[r][j] = x[j];
+      }
+      float v[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) v[r] = taps8(w[r], sbank + ph[r] * kTaps);
+      // the line reads the ring only if all its windows lie in [release,
+      // hi): its lowest and highest are those of k = 0 and 719 (swapped
+      // if freq < 0), each lane's own copies (bases[0], bases[1])
+      const int lo = min(bases[0], bases[1]);
+      release = max(release, lo);
+      if (!(lo >= release && max(bases[0], bases[1]) + kTaps <= hi)) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+#pragma unroll
+          for (int j = 0; j < kTaps; ++j) w[r][j] = __ldg(buf + b[r] + j);
+          v[r] = taps8(w[r], sbank + ph[r] * kTaps);
+        }
+      }
+      if (lane == 0) {
+        unsigned long long* slot = recs + (l & (kLineRecs - 1));
+        if (l >= kLineRecs) {
+          const long long since = clock64();
+          while (ld_rec(slot) != kNoRec) check_wait(since);
+        }
+        st_rec(slot, static_cast<unsigned long long>(__float_as_uint(pos)) |
+                         (static_cast<unsigned long long>(
+                              __float_as_uint(freq))
+                          << 32));
+        st_flag(&s_release, release);
+      }
+      float t = (v[0] + (third ? v[2] : 0.0f)) + (v[1] + 0.0f);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        t = t + __shfl_xor_sync(kAll, t, off);
+      const float o = __shfl_xor_sync(kAll, t, 16);
+      const float left = (half ? o : t) / 44.0f;
+      const float right = (half ? t : o) / 44.0f;
+      const bool ok = (left < sync_level) && (right < sync_level);
+      const float err = ok ? (left + sync_bias) - right : 0.0f;
+      const float nf =
+          fminf(fmaxf(freq + omega_gain * err, min_freq), max_freq);
+      pos = ((pos + 719.0f * freq) + nf) + mu_gain * err;
+      freq = nf;
+      locked = ok;
     }
-    __syncthreads();
-  }
-  const size_t total = static_cast<size_t>(max_lines) * kLineLen;
-  for (size_t i = static_cast<size_t>(l) * kLineLen + tid; i < total;
-       i += blockDim.x)
-    lines[i] = 0.0f;
-  if (tid == 0) {
-    carry_out[0] = s_pos;
-    carry_out[1] = s_freq;
-    locked_out[0] = s_locked != 0;
-    count[0] = l;
+    if (lane == 0) {
+      carry_out[0] = pos;
+      carry_out[1] = freq;
+      locked_out[0] = locked;
+      count[0] = l;
+      __threadfence_block();
+      st_flag(&s_count, l);
+    }
+    WALK_DONE(0);
+  } else if (warp == kLineStager) {
+    WALK_ROUND();
+    // groups of kStageGroup samples, up to kStageDepth in flight;
+    // [done, issued) in flight, s_hi = done published
+    const bool v4 = (reinterpret_cast<uintptr_t>(buf) & 15) == 0;
+    int issued = 0, done = 0, inflight = 0;
+    long long since = clock64();  // the last progress
+    for (;;) {
+      check_wait(since);
+      if (__shfl_sync(kAll, ld_flag(&s_count), 0) >= 0) break;
+      const int rel = __shfl_sync(kAll, ld_flag(&s_release), 0);
+      if (rel > issued) {
+        // the walker is past all that was issued: drain, and go on from
+        // the release (nothing below it is read from the ring)
+        cp_async_wait_all();
+        inflight = 0;
+        issued = done = rel & ~3;
+      }
+      if (inflight < kStageDepth && issued < total &&
+          issued + kStageGroup - kLineRing <= rel) {
+        const int end = min(total, issued + kStageGroup);
+        if (v4) {  // 16-byte copies; slots and addresses both aligned
+          const int end4 = end & ~3;
+          for (int i = issued + 4 * lane; i < end4; i += 128) {
+            const int at = i & (kLineRing - 1);
+            cp_async<16>(ring + at, buf + i);
+            if (at < kTaps) cp_async<16>(ring + kLineRing + at, buf + i);
+          }
+          for (int i = end4 + lane; i < end; i += 32)
+            cp_async<4>(ring + (i & (kLineRing - 1)), buf + i);
+        } else {
+          for (int i = issued + lane; i < end; i += 32) {
+            const int at = i & (kLineRing - 1);
+            cp_async<4>(ring + at, buf + i);
+            if (at < kTaps) cp_async<4>(ring + kLineRing + at, buf + i);
+          }
+        }
+        cp_async_commit();
+        ++inflight;
+        issued = end;
+        continue;
+      }
+      if (inflight == 0) {
+        if (issued >= total) break;
+        __nanosleep(kLinePoll);
+        continue;
+      }
+      cp_async_wait_groups(inflight - 1);  // the oldest group has landed
+      --inflight;
+      __threadfence_block();
+      __syncwarp();
+      done = min(total, done + kStageGroup);
+      if (lane == 0) st_release(&s_hi, done);
+      since = clock64();
+    }
+    cp_async_wait_all();
+    WALK_DONE(1);
+  } else if (warp >= 2 && warp % 4 != 0) {
+    WALK_ROUND();
+    const int j = warp - 2 - (warp >> 2);  // 0 ... 10
+    int d = j;
+    for (;; d += kLineDrawers) {
+      unsigned long long* slot = recs + (d & (kLineRecs - 1));
+      // past kLineRecs lines the slot held line d - kLineRecs first: its
+      // drawer must have taken it (s_next) before this one reads the slot
+      const int prev = d - kLineRecs;
+      unsigned long long rec = kNoRec;
+      const long long since = clock64();
+      for (;;) {
+        check_wait(since);
+        const int c = __shfl_sync(kAll, ld_flag(&s_count), 0);
+        if (c >= 0 && d >= c) break;  // no such line
+        if (prev < 0 || __shfl_sync(kAll, ld_flag(s_next + prev % kLineDrawers),
+                                    0) > prev) {
+          __threadfence_block();
+          rec = __shfl_sync(kAll, ld_rec(slot), 0);
+          if (rec != kNoRec) break;
+        }
+        // a line takes the walker ~0.5 us: poll rarely, so the waiting
+        // drawers keep off the shared-memory pipe the walker reads through
+        __nanosleep(kLinePoll);
+      }
+      if (rec == kNoRec) break;
+      __syncwarp();
+      if (lane == 0) {
+        st_rec(slot, kNoRec);
+        __threadfence_block();
+        st_flag(s_next + j, d + kLineDrawers);
+      }
+      const float pos = __uint_as_float(static_cast<unsigned>(rec));
+      const float freq = __uint_as_float(static_cast<unsigned>(rec >> 32));
+      float* out = lines + static_cast<size_t>(d) * kLineLen;
+      auto draw = [&](auto locate_fn) {
+#pragma unroll 4
+        for (int k = lane; k < kLineLen; k += 32) {
+          int ph, b;
+          locate_fn(pos + static_cast<float>(k) * freq, n, ph, b);
+          float w[kTaps];
+#pragma unroll
+          for (int q = 0; q < kTaps; ++q) w[q] = __ldg(buf + b + q);
+          out[k] = taps8(w, sbank + ph * kTaps);
+        }
+      };
+      if (fabsf(pos) < kMagicMax && fabsf(pos + 720.0f * freq) < kMagicMax)
+        draw([](float q, int m, int& a, int& c) { locate_small(q, m, a, c); });
+      else
+        draw([](float q, int m, int& a, int& c) { locate(q, m, a, c); });
+    }
+    for (; d < max_lines; d += kLineDrawers) {
+      float* out = lines + static_cast<size_t>(d) * kLineLen;
+      for (int k = lane; k < kLineLen; k += 32) out[k] = 0.0f;
+    }
+    WALK_DONE(2);
   }
 }
 
@@ -386,17 +717,6 @@ chroma_burst_kernel(const float2* __restrict__ burst, int L, int nb,
 // the last lane of each index writes (__match_any_sync), as in the
 // sequential version. The buffer is in shared memory when sym fits
 // (kCycBufMax, ~24k samples), else in device memory, and written out once.
-template <int bytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 constexpr int kCycThreads = 128;
 constexpr int kCycTile = 1024;
@@ -405,8 +725,6 @@ constexpr int kCycStatic = 3 * kCycTile * 4 + 2 * kCycTile * 8
                            + 2 * 2 * kCycWords * 4 + 16;
 constexpr int kCycBufMax = 227 * 1024 - kCycStatic - 1024;  // bytes
 constexpr int kCycDefaultDyn = 48 * 1024 - kCycStatic;
-constexpr unsigned kAll = 0xffffffffu;
-
 // G words that hold no emit (rc: their samples; bw: their rc > avg bits;
 // rs: their reset words), lane `lane` of the walker warp; peak / d / pend
 // are the walker's carry, the same in every lane.
@@ -637,7 +955,12 @@ int line_sync_walk(const float* buf, int n, const float* bank,
                    float min_freq, float max_freq, float sync_level,
                    float sync_bias, void* stream) {
   if (n < 1 || max_lines < 1) return static_cast<int>(cudaErrorInvalidValue);
-  line_sync_kernel<<<1, kLineThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t attr = cudaFuncSetAttribute(
+      line_sync_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kLineSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  line_sync_kernel<<<1, kLineThreads, kLineSmem,
+                     static_cast<cudaStream_t>(stream)>>>(
       buf, n, bank, carry_in, locked_in, carry_out, locked_out, lines, count,
       max_lines, omega_gain, mu_gain, min_freq, max_freq, sync_level,
       sync_bias);

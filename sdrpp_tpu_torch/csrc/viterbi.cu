@@ -88,7 +88,26 @@
 // * took.
 //
 // General ACS (S >= 128, and every S at R > 4):
-//   - S >= 128, and S = 64 at R > 4 (acs_cta_kernel): one CTA a window
+//   - uint8 soft bits at S = 64 ... 1024 (S = 64 only at R > 4) and R <=
+//     16 (acs_r4_kernel): one CTA of S threads a window, a state a thread,
+//     two trellis steps a barrier (radix 4). Thread n reads the four
+//     ancestors of its state two steps back, computes the two
+//     intermediate states n >> 1 and (n >> 1) + S / 2 (each also computed
+//     by thread n ^ 1) and then its own, every candidate one float32 add
+//     and the reference's c1 < c0; the intermediate words come from one
+//     shuffle and one ballot a warp (acs_r4_kernel's comment). Branch
+//     metrics of the six rows a thread needs are taken from soft bits
+//     loaded a unit ahead (rows in registers for R <= 4: kR = R), so
+//     after the barrier the chain is four reads, two add-compare-selects
+//     and a store. A window's first K - 1 steps, every 4096th and the
+//     one after it, and a plain run's odd last step take the radix-2
+//     reference step; so does every step when the expected outputs are
+//     not integers in [0, 255]. Measured by clock64 ablation before the
+//     redesign (tools/viterbi_probe.py, PERF.md): the one-step-a-barrier
+//     form lost its time to the branch metrics read after the barrier
+//     and to the per-step renormalisation bookkeeping, not to the barrier.
+//   - float32 soft bits, R > 16, and S >= 2048 (acs_cta_kernel): one CTA
+//     a window
 //     with min(S, 1024) threads, thread i keeping states i, i + threads,
 //     ...; the metrics
 //     are double-buffered in shared memory (2 x S floats: 128 KB at S =
@@ -767,6 +786,250 @@ __global__ void __launch_bounds__(kCtaThreads)
   if (cycles != nullptr && tid == 0) cycles[w] = clock64() - t_start;
 }
 
+// uint8 soft bits at S = 64 ... 1024, R <= kFastRate: a thread a state
+// (n = threadIdx.x), two trellis steps a barrier. Dynamic shared memory:
+// metrics [2][S], warp minima [2][32], decision words [2][32][S / 32]
+// (a group of 32 steps each), soft bits [2][CH * R] as floats (a chunk of
+// CH = 2^cs steps each, CH * R <= 4 S: four values a thread to stage).
+//
+// Thread n's state at step t + 2 has the intermediate predecessors q0 =
+// n >> 1 and q1 = q0 + S / 2 at t + 1, and those have the four
+// predecessors a = n >> 2, a + S / 4, a + S / 2 and a + 3 S / 4 at t. A
+// pair reads the four, computes q0's and q1's metrics with the reference's
+// rule (c1 < c0 takes the second, one float32 add each), then state n's;
+// the pair of threads n, n ^ 1 computes the same q0 and q1, so each
+// intermediate decision is known twice. The intermediate step's words:
+// lane l < 16 takes q0's decision from lane 2 l, lane l >= 16 q1's from
+// lane 2 (l - 16) (one shuffle), and one ballot gives states [16 w, 16 w
+// + 16) in its low half and [S / 2 + 16 w, ...) in its high half, the u16
+// halves at indices w and S / 32 + w of the step's words. The final step's
+// ballot is word w. Rows (expected outputs) of the six branches a thread
+// needs (q0, q0 + S, q1, q1 + S, n, n + S) stay in registers (kReg: R <=
+// kRegRate) or are read through the cache; a pair's branch metrics are
+// computed from soft bits loaded a unit ahead, so after the barrier the
+// chain is the four metric reads, two levels of add-compare-select and the
+// store.
+//
+// Steps that record or subtract a minimum (a window's first K - 1, every
+// 4096th and the one after it) and a plain run's odd last step run the
+// radix-2 reference step; so does every step when the expected outputs
+// are not integers in [0, 255] (the reference form). The split loop
+// tests only its bounds and one event index a unit: the soft-bit chunk
+// c + 1 is loaded into registers at step c CH and stored at c CH + CH / 2
+// (at least two steps before any unit reads it), and each group of 32
+// steps' words leave, one coalesced word a thread, in the first unit after
+// the group; both happen before that unit's barrier.
+template <int kR, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    acs_r4_kernel(const uint8_t* __restrict__ soft,
+                  const int* __restrict__ starts,
+                  const float* __restrict__ expected,
+                  uint32_t* __restrict__ dec, int T, long long total, int R,
+                  int S, int cs, long long* __restrict__ cycles) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = threadIdx.x, lane = n & 31, warp = n >> 5;
+  const int nwarps = S >> 5, wps = S >> 5;  // 32-bit words a step
+  const int half = S >> 1, quarter = S >> 2;
+  const int CH = 1 << cs, CHR = CH * R;  // a chunk's steps and values
+  constexpr bool kReg = kR > 0;          // R known, rows in registers
+  float* const mbuf = smem;
+  float* const wmin = mbuf + 2 * S;
+  uint32_t* const stage = reinterpret_cast<uint32_t*>(wmin + 64);
+  float* const sbuf = reinterpret_cast<float*>(stage + 2 * 32 * wps);
+  const int w = blockIdx.x;
+  const long long t_start = clock64();
+  const long long start =
+      min(max(static_cast<long long>(starts[w]), 0LL), total - T);
+  const uint8_t* sw = soft + start * R;
+  const long long nvals = static_cast<long long>(T) * R;
+  uint32_t* dw = dec + static_cast<long long>(w) * T * wps;
+  // the six rows: q0, q0 + S, q1, q1 + S (step t), n, n + S (step t + 1)
+  const int q0 = n >> 1, a = n >> 2;
+  const int rows[6] = {q0, q0 + S, q0 + half, q0 + half + S, n, n + S};
+  float e[6][kRegRate];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) cache_row<kReg>(expected, rows[k], R, e[k]);
+  bool e_ok = true;  // rows n and n + S: integers in [0, 255]
+  for (int j = 0; j < R; ++j) {
+    const float x0 = expected[n * R + j], x1 = expected[(n + S) * R + j];
+    e_ok = e_ok && x0 == rintf(x0) && x0 >= 0.0f && x0 <= 255.0f &&
+           x1 == rintf(x1) && x1 >= 0.0f && x1 <= 255.0f;
+  }
+  mbuf[n] = n == 0 ? 0.0f : 1e9f;
+  // soft-bit chunk 0, and chunk 1 into registers (value k: index n + k S)
+  float pend[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = n + k * S;
+    if (i < CHR) sbuf[i] = i < nvals ? static_cast<float>(sw[i]) : 0.0f;
+    pend[k] = 0.0f;
+  }
+  const bool fast = __syncthreads_and(e_ok) != 0;
+  const int ref_steps = 31 - __clz(S);  // K - 1
+  // a step records its minimum: every step in the reference form, else a
+  // window's first K - 1 and every 4096th
+  auto rec = [&](int t) {
+    return !fast || t < ref_steps || ((t + 1) & (kRenormSteps - 1)) == 0;
+  };
+  // step t's soft bits: chunk c in half c & 1 of the buffer
+  auto soft_at = [&](int t) -> const float* {
+    return sbuf + (t & (2 * CH - 1)) * R;
+  };
+  constexpr int kP = kReg ? kR : 1;
+  float pf0[kP], pf1[kP];  // the next unit's soft bits (kReg)
+  auto prefetch = [&](int t) {
+    if constexpr (kReg) {
+      // past the window's end: values of no step, never used
+      const float* s0 = soft_at(t);
+      const float* s1 = soft_at(t + 1);
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        pf0[j] = s0[j];
+        pf1[j] = s1[j];
+      }
+    }
+  };
+  // the branch metric of row k at soft bits s (kR = 0) or pf (kR > 0):
+  // sum_j |s_j - e_j| in j order
+  auto bm = [&](int k, const float* s, const float (&pf)[kP]) {
+    if constexpr (kReg) {
+      float acc = fabsf(pf[0] - e[k][0]);
+#pragma unroll
+      for (int j = 1; j < kR; ++j) acc = acc + fabsf(pf[j] - e[k][j]);
+      return acc;
+    } else {
+      return branch_metric<false>(s, expected, e[k], rows[k], R);
+    }
+  };
+  int cur = 0, wb = 0;             // metric buffer, warp-minima buffer
+  int flush_at = 32, chunk_ev = 0, chunk_phase = 0, next_ev = 0;
+  auto flush = [&](int g) {  // group g's words, one a thread
+    const int lo = g * 32, steps = min(32, T - lo);
+    if (n < steps * wps)
+      dw[static_cast<long long>(lo) * wps + n] = stage[(g & 1) * 32 * wps + n];
+  };
+  // a unit's events, before its barrier: the unit of step t is the first
+  // past each point, so the barrier before it has made the group's words
+  // and the chunk's readers complete
+  auto events = [&](int t) {
+    if (t < next_ev) return;
+    if (t >= flush_at) {
+      flush((flush_at >> 5) - 1);
+      flush_at += 32;
+    }
+    if (t >= chunk_ev) {
+      const int c = (chunk_ev >> cs) + 1;  // the chunk being staged
+      const long long base = static_cast<long long>(c) * CHR;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = n + k * S;
+        if (chunk_phase == 0) {
+          pend[k] = i < CHR && base + i < nvals
+                        ? static_cast<float>(sw[base + i])
+                        : 0.0f;
+        } else if (i < CHR) {
+          sbuf[(c & 1) * CHR + i] = pend[k];
+        }
+      }
+      chunk_phase ^= 1;
+      chunk_ev += CH >> 1;
+    }
+    next_ev = min(flush_at, chunk_ev);
+  };
+  // the radix-2 step t: subtracts the previous step's minimum (use_mn) as
+  // it reads a predecessor, records its own (record)
+  auto step2 = [&](int t, bool use_mn, bool record) {
+    const float* mo = mbuf + cur * S;
+    float* mw = mbuf + (cur ^ 1) * S;
+    const float mn =
+        use_mn ? warp_min(lane < nwarps ? wmin[wb * 32 + lane] : INFINITY)
+               : 0.0f;
+    const float* sv = soft_at(t);
+    const float bm0 = bm(4, sv, pf0), bm1 = bm(5, sv, pf0);
+    prefetch(t + 1);
+    float x = mo[q0], y = mo[q0 + half];
+    if (use_mn) {  // (m_old[p] - min) is the reference's metric m[p]
+      x = x - mn;
+      y = y - mn;
+    }
+    const float c0 = x + bm0, c1 = y + bm1;
+    const bool take = c1 < c0;
+    const float v = take ? c1 : c0;
+    mw[n] = v;
+    const unsigned word = __ballot_sync(FULL, take);
+    if (lane == 0) stage[(t & 63) * wps + warp] = word;
+    if (record) {
+      const float wm = warp_min(v);
+      if (lane == 0) wmin[(wb ^ 1) * 32 + warp] = wm;
+    }
+    events(t);
+    __syncthreads();
+    if (record) wb ^= 1;
+    cur ^= 1;
+  };
+  prefetch(0);
+  int t = 0;
+  while (t < T) {
+    if (rec(t) || (t > 0 && rec(t - 1))) {
+      step2(t, t > 0 && rec(t - 1), rec(t));
+      ++t;
+      continue;
+    }
+    // a plain run: steps [t, e) record and subtract nothing
+    const int e_end = min(T, t | (kRenormSteps - 1));
+    auto pair = [&](int t, bool ev) {
+      const float* mo = mbuf + cur * S;
+      float* mw = mbuf + (cur ^ 1) * S;
+      const float m0 = mo[a], m1 = mo[a + quarter];
+      const float m2 = mo[a + half], m3 = mo[a + half + quarter];
+      const float* s0 = soft_at(t);
+      const float* s1 = soft_at(t + 1);
+      const float b0 = bm(0, s0, pf0), b1 = bm(1, s0, pf0);
+      const float b2 = bm(2, s0, pf0), b3 = bm(3, s0, pf0);
+      const float b4 = bm(4, s1, pf1), b5 = bm(5, s1, pf1);
+      prefetch(t + 2);
+      const float c00 = m0 + b0, c01 = m2 + b1;
+      const bool tq0 = c01 < c00;
+      const float mq0 = tq0 ? c01 : c00;
+      const float c10 = m1 + b2, c11 = m3 + b3;
+      const bool tq1 = c11 < c10;
+      const float mq1 = tq1 ? c11 : c10;
+      // the intermediate decisions' exchange overlaps the last level
+      const unsigned both = __shfl_sync(
+          FULL, (tq0 ? 1u : 0u) | (tq1 ? 2u : 0u), (2 * lane) & 31);
+      const float c0 = mq0 + b4, c1 = mq1 + b5;
+      const bool tn = c1 < c0;
+      mw[n] = tn ? c1 : c0;
+      const unsigned x = __ballot_sync(FULL, (both >> (lane >> 4)) & 1u);
+      const unsigned f = __ballot_sync(FULL, tn);
+      uint32_t* row0 = stage + (t & 63) * wps;
+      uint32_t* row1 = stage + ((t + 1) & 63) * wps;
+      if (lane < 2)
+        reinterpret_cast<uint16_t*>(row0)[lane ? (S >> 5) + warp : warp] =
+            static_cast<uint16_t>(lane ? x >> 16 : x);
+      if (lane == 0) row1[warp] = f;
+      if (ev) events(t);
+      __syncthreads();
+      cur ^= 1;
+    };
+    // pairs that reach no event point run without the test
+    while (t + 1 < e_end) {
+      const int quiet = min(e_end - 1, next_ev);
+      for (; t < quiet; t += 2) pair(t, false);
+      if (t + 1 < e_end) {
+        pair(t, true);
+        t += 2;
+      }
+    }
+    if (t < e_end) {  // the run's odd last step
+      step2(t, false, false);
+      ++t;
+    }
+  }
+  for (; flush_at - 32 < T; flush_at += 32) flush((flush_at >> 5) - 1);
+  if (cycles != nullptr && n == 0) cycles[w] = clock64() - t_start;
+}
+
 template <typename In, bool kReg>
 int launch_warp(const void* soft, const int* starts, const float* expected,
                 unsigned long long* dec, int B, int T, long long total, int R,
@@ -799,6 +1062,51 @@ int launch_cta(const void* soft, const int* starts, const float* expected,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kR, int kThreads>
+int launch_r4(const void* soft, const int* starts, const float* expected,
+              unsigned long long* dec, int B, int T, long long total, int R,
+              int S, long long* cycles, cudaStream_t stream) {
+  int cs = 0;  // CH = 2^cs steps a soft-bit chunk, CH * R <= 4 S
+  while ((2 << cs) * R <= 4 * S) ++cs;
+  const size_t smem =
+      (2 * static_cast<size_t>(S) + 64 + 2 * static_cast<size_t>(S) +
+       2 * (static_cast<size_t>(R) << cs)) *
+      sizeof(float);
+  auto* kernel = acs_r4_kernel<kR, kThreads>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<B, S, smem, stream>>>(static_cast<const uint8_t*>(soft), starts,
+                                 expected, reinterpret_cast<uint32_t*>(dec),
+                                 T, total, R, S, cs, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the radix-4 kernel's instance: R = 2, 3, 4 known (rows in registers)
+// or not (kR = 0), and a launch bound of 256, 512 or 1024 threads (the
+// registers a thread may keep)
+template <int kThreads>
+int dispatch_r4(const void* soft, const int* starts, const float* expected,
+                unsigned long long* dec, int B, int T, long long total,
+                int R, int S, long long* cycles, cudaStream_t stream) {
+#define VITERBI_R4_ARGS \
+  soft, starts, expected, dec, B, T, total, R, S, cycles, stream
+  switch (R) {
+    case 2:
+      return launch_r4<2, kThreads>(VITERBI_R4_ARGS);
+    case 3:
+      return launch_r4<3, kThreads>(VITERBI_R4_ARGS);
+    case 4:
+      return launch_r4<4, kThreads>(VITERBI_R4_ARGS);
+    default:
+      return launch_r4<0, kThreads>(VITERBI_R4_ARGS);
+  }
+#undef VITERBI_R4_ARGS
+}
+
 template <typename In>
 int acs_general(int R, int S, const void* soft, const int* starts,
                 const float* expected, unsigned long long* dec, int B, int T,
@@ -820,8 +1128,17 @@ int acs_general(int R, int S, const void* soft, const int* starts,
     case 16384:
       return launch_cta<In, 16, false>(VITERBI_GENERAL_ARGS);
     default:  // 64 ... 1024: a thread a state
-      return reg ? launch_cta<In, 1, true>(VITERBI_GENERAL_ARGS)
-                 : launch_cta<In, 1, false>(VITERBI_GENERAL_ARGS);
+      if constexpr (sizeof(In) == 1) {
+        static_assert(kRegRate <= kFastRate, "uint8 rows past kFastRate");
+        if (R <= kFastRate)  // radix 4 (acs_r4_kernel)
+          return S <= 256   ? dispatch_r4<256>(VITERBI_GENERAL_ARGS)
+                 : S == 512 ? dispatch_r4<512>(VITERBI_GENERAL_ARGS)
+                            : dispatch_r4<1024>(VITERBI_GENERAL_ARGS);
+        return launch_cta<In, 1, false>(VITERBI_GENERAL_ARGS);
+      } else {
+        return reg ? launch_cta<In, 1, true>(VITERBI_GENERAL_ARGS)
+                   : launch_cta<In, 1, false>(VITERBI_GENERAL_ARGS);
+      }
   }
 #undef VITERBI_GENERAL_ARGS
 }

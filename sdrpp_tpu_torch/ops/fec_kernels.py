@@ -40,8 +40,9 @@ S <= 64 at R <= 4 (Meteor LRPT's and KG-STV's 64 states, M17's 16) runs
 the warp-per-window kernels: two states a lane for S = 64, one state a
 lane for S <= 32 (the lanes above S a copy). S > 64, and any S at R > 4,
 runs the general kernels: a CTA of min(S, 1024) threads a window (a warp
-a window for S <= 32 at R > 4), and the traceback stages S / 64 words a
-step. On uint8 soft bits with integral expected outputs (at R <=
+a window for S <= 32 at R > 4; on uint8 soft bits at S <= 1024 and R <=
+16 two trellis steps a barrier, csrc/viterbi.cu ``acs_r4_kernel``), and
+the traceback stages S / 64 words a step. On uint8 soft bits with integral expected outputs (at R <=
 4, or R <= 16 in the CTA kernel) the ACS runs the reference form (the
 minimum subtracted every step) for a window's first K - 1 steps, while
 states at the initial 1e9 remain; from then on every metric is an

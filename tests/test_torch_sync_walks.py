@@ -19,6 +19,13 @@ versions there); these tests check the designs' arithmetic here:
   for bit to the plain version's ``_py_mod(x + pi, 2 pi) - pi`` on every
   float32 of the ATV decoder's reachable range and on draws from the whole
   short-form domain.
+- ``line_model``: LineSync's split design: a one-warp walker over the 88
+  sync samples (three a lane, its windows from a staged ring above the
+  release or from ``buf``), the tree's first two levels in the lane and
+  xor shuffles after, the update in every lane; each line's (pos, freq)
+  recorded and the lines drawn from the records afterwards. It must equal
+  ``line_sync_walk_plain`` bit for bit (lines, count, carry, locked) on
+  chip_smoke.py's line cases at a CPU size.
 - ``chroma_model``: the burst walk with atan2 and sin / cos off the chain
   (each burst sample's angle taken before the walk, the error from
   angle - phase, the outputs mixed afterwards from the recorded phases):
@@ -350,3 +357,189 @@ def test_chroma_off_chain_form_within_walk_tol(kind):
     assert np.abs(got[0] - ref[0].numpy()).max() <= WALK_TOL
     assert np.abs(got[2] - ref[2].numpy()).max() <= WALK_TOL
     assert np.abs(got[1] - ref[1].numpy()).max() <= WALK_OUT_TOL
+
+
+# -------------------------------------------------------------- LineSync
+
+LINE_RING = 16384      # csrc/sync_walk.cu kLineRing
+TAPS = 8
+
+
+def _locate(p, n):
+    """A sample position's bank row and window start, as the kernel and
+    the plain version take them."""
+    fp = np.floor(p)
+    ph = min(max(int(F32(p - fp) * F32(128)), 0), 127)
+    return ph, min(max(int(fp), 0), n - 1)
+
+
+def _taps(w, b):
+    acc = w[0] * b[0]
+    for j in range(1, TAPS):
+        acc = acc + w[j] * b[j]
+    return acc
+
+
+def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
+               min_freq, max_freq, sync_level, sync_bias):
+    """numpy model of the split ``line_sync_kernel``: the walker (one warp)
+    interpolates only the 88 sync samples, lanes 0-15 the left half and
+    16-31 the right, three a lane (v[L], v[L + 16], v[L + 32]), reading
+    the line's 8-tap windows from the staged ring when all of them (k = 0
+    ... 719) lie at or above the release and below what the stager has
+    staged (a greedy stager: up to the last published release plus the
+    ring), else from ``buf``; sums
+    each half by the tree's first two levels in the lane and xor
+    shuffles 8, 4, 2, 1 and 16 (every lane's copy checked equal); records
+    each line's (pos, freq); the lines are drawn afterwards from the
+    records. Returns the kernel's outputs and the count of ring reads and
+    of reads from device memory."""
+    buf = np.asarray(buf, F32)
+    bank = np.asarray(bank, F32)
+    n, total = buf.shape[0] - 7, buf.shape[0]
+    og, mg, lo, hi, level, bias = (F32(x) for x in (
+        omega_gain, mu_gain, min_freq, max_freq, sync_level, sync_bias))
+    pos, freq = (F32(x) for x in carry)
+    lk = bool(locked)
+    ring = np.full(LINE_RING + TAPS, np.nan, F32)
+    staged, published, release = 0, 0, 0
+    kf = np.zeros((32, 3), F32)
+    for lane in range(32):
+        half, L = lane >> 4, lane & 15
+        for r in range(3):
+            i = L + 16 * r if (r < 2 or L + 32 < 44) else L
+            kf[lane, r] = 27 + i if half else (703 + i if i < 17 else i - 17)
+    records, reads = [], {"ring": 0, "device": 0}
+    l = 0
+    while l < max_lines and pos + F32(720) * freq < F32(n):
+        # the stager, as far as the published release allows
+        staged = max(staged, published)
+        end = min(total, published + LINE_RING)
+        for i in range(staged, end):
+            ring[i & (LINE_RING - 1)] = buf[i]
+            if (i & (LINE_RING - 1)) < TAPS:
+                ring[LINE_RING + (i & (LINE_RING - 1))] = buf[i]
+        staged = max(staged, end)
+        w0 = _locate(pos, n)[1]
+        w1 = _locate(pos + F32(719) * freq, n)[1]
+        release = max(release, min(w0, w1))
+        # the whole line from the ring, or from buf
+        ring_line = min(w0, w1) >= release and max(w0, w1) + TAPS <= staged
+        v = np.zeros((32, 3), F32)
+        for lane in range(32):
+            for r in range(3):
+                ph, b = _locate(pos + kf[lane, r] * freq, n)
+                if ring_line:
+                    assert b >= release and b + TAPS <= staged
+                    w = ring[(b & (LINE_RING - 1)):][:TAPS]
+                    assert np.array_equal(w.view(np.uint32),
+                                          buf[b:b + TAPS].view(np.uint32))
+                    reads["ring"] += 1
+                else:
+                    w = buf[b:b + TAPS]
+                    reads["device"] += 1
+                v[lane, r] = _taps(w, bank[ph])
+        records.append((pos, freq))
+        published = release
+        third = (np.arange(32) & 15) + 32 < 44
+        t = (v[:, 0] + np.where(third, v[:, 2], F32(0))) + (v[:, 1] + F32(0))
+        for off in (8, 4, 2, 1):
+            t = t + t[np.arange(32) ^ off]
+        o = t[np.arange(32) ^ 16]
+        sl = np.where(np.arange(32) < 16, t, o)
+        sr = np.where(np.arange(32) < 16, o, t)
+        assert len(set(sl.view(np.uint32))) == 1 == len(set(sr.view(
+            np.uint32)))
+        left, right = sl[0] / F32(44), sr[0] / F32(44)
+        ok = bool(left < level and right < level)
+        err = (left + bias) - right if ok else F32(0)
+        nf = min(max(freq + og * err, lo), hi)
+        pos = ((pos + F32(719) * freq) + nf) + mg * err
+        freq, lk = F32(nf), ok
+        l += 1
+    lines = np.zeros((max_lines, 720), F32)
+    ks = np.arange(720, dtype=F32)
+    for d, (p0, f0) in enumerate(records):
+        for k in range(720):
+            ph, b = _locate(p0 + ks[k] * f0, n)
+            lines[d, k] = _taps(buf[b:b + TAPS], bank[ph])
+    return (lines, l, np.array([pos, freq], F32), lk), reads
+
+
+def _line_cases():
+    """chip_smoke.line_walk_cases' kinds at CPU sizes (30 lines, the ring
+    wrapped once): a PAL-like sync pattern with noise, a carried pos near
+    -717, freq pinned at either limit, unlocked lines, max_lines reached,
+    no line, jumps past the staging guard over noise, and positions past
+    2^22 (where the kernel locates them with floorf, not its exact float
+    trick) each way."""
+    from sdrpp_tpu_torch.decoders import atv
+
+    ls = atv.LineSync(1.0, omega_gain=1e-6, mu_gain=1.0,
+                      omega_rel_limit=0.05, device="cpu")
+    rng = np.random.default_rng(19)
+    k = np.arange(30 * 720) % 720
+    video = np.where((k < 71) | (k >= 703), -0.3,
+                     0.1 + 0.3 * (k - 71) / 632.0)
+    y = (video + 0.01 * rng.standard_normal(k.shape)).astype(F32)
+    buf = np.concatenate([np.zeros(7, F32), y])
+    noise = rng.standard_normal(buf.shape).astype(F32)
+    big = rng.standard_normal(2 ** 22 + 30 * 720).astype(F32)
+    n = buf.shape[0] - 7
+    base = dict(buf=buf, carry=(0.0, 1.0), locked=False,
+                max_lines=ls.max_lines(n), omega_gain=ls.omega_gain,
+                mu_gain=ls.mu_gain, sync_level=ls.sync_level,
+                sync_bias=ls.sync_bias)
+    cases = {
+        "atv": {},
+        "neg_pos": dict(carry=(-717.25, 1.0)),
+        "freq_hi": dict(omega_gain=0.05, sync_level=1e9, sync_bias=1.0),
+        "freq_lo": dict(omega_gain=0.05, sync_level=1e9, sync_bias=-1.0),
+        "unlocked": dict(locked=True, sync_level=-1e9),
+        "max_lines": dict(max_lines=7),
+        "no_line": dict(carry=(n - 700.0, 1.0)),
+        "jump": dict(buf=noise, mu_gain=4000.0, sync_level=1e9),
+        "far_jump": dict(buf=noise, mu_gain=40000.0, sync_level=1e9),
+        "big_pos": dict(buf=big, carry=(2.0 ** 22 - 100.25, 1.0),
+                        max_lines=40, sync_level=1e9),
+        "big_neg": dict(carry=(-5e6, 1.0), max_lines=7),
+    }
+    out = {}
+    for name, kw in cases.items():
+        c = {**base, **kw}
+        out[name] = (c["buf"], ls.bank.numpy(), c["carry"], c["locked"],
+                     c["max_lines"], c["omega_gain"], c["mu_gain"],
+                     ls.min_freq, ls.max_freq, c["sync_level"],
+                     c["sync_bias"])
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(_line_cases()))
+def test_line_split_design_equals_plain(case):
+    buf, bank, carry, locked, *rest = _line_cases()[case]
+    (lines, count, carry_out, lk), reads = line_model(buf, bank, carry,
+                                                      locked, *rest)
+    ref = W.line_sync_walk_plain(
+        torch.from_numpy(buf), torch.from_numpy(bank),
+        torch.tensor(carry, dtype=torch.float32),
+        torch.tensor([locked]), *rest)
+    assert np.array_equal(lines.view(np.uint32), ref[0].numpy().view(
+        np.uint32))
+    assert count == int(ref[1])
+    assert np.array_equal(carry_out.view(np.uint32),
+                          ref[2].numpy().view(np.uint32))
+    assert lk == bool(ref[3])
+    if case == "max_lines":
+        assert count == rest[0]
+    if case in ("freq_hi", "freq_lo"):   # freq pinned at the limit
+        assert carry_out[1] == (rest[4] if case == "freq_hi" else rest[3])
+    if case == "unlocked":
+        assert not lk and carry_out[1] == F32(carry[1])
+    if case == "no_line":
+        assert count == 0 and not lines.any()
+    if case == "big_pos":  # the buffer's end, past 2^22, ends the walk
+        assert 0 < count < rest[0] and carry_out[0] > 2 ** 22
+    if case in ("atv", "jump", "far_jump"):
+        assert reads["ring"] > 0
+    if case in ("jump", "far_jump"):  # some windows fell outside the ring
+        assert reads["device"] > 0

@@ -1,6 +1,7 @@
-// Instrumented copies of the one-lane ChromaPLL and CyclicSync walk
-// kernels that csrc/sync_walk.cu had before its redesign (the "baseline"),
-// for measuring where their time goes on the card. Driven by
+// Instrumented copies of the walk kernels that csrc/sync_walk.cu had
+// before their redesigns (the "baseline": the one-lane ChromaPLL and
+// CyclicSync walks, the 736-thread LineSync walk with two barriers a
+// line), for measuring where their time goes on the card. Driven by
 // tools/sync_walk_probe.py; not part of the package and never built by it.
 //
 // Each probe is instantiated for each `mode` (a template argument, so the
@@ -21,11 +22,19 @@
 //                  cycles[1] = the walker's cycles inside the tile
 //                  barriers (waiting for the staging warps),
 //                  cycles[2] = the staging warps' cycles (warp 1, lane 0)
+//   line_probe     1: the 8-tap windows' loads from device memory
+//                  2: both barriers a line
+//                  4: the two shuffle trees
+//                  8: the update (divisions, err, clamp, pos)
+//                  16: the line's stores
+//                  cycles[0] = warp 0's cycles, cycles[1] = lines walked
 // Mode 0 is the baseline kernel with the stamps added; its outputs equal
-// the baseline's. The file also builds the package's
-// csrc/sync_walk.cu with each role's cycles a round stamped (its entries
-// keep their names: chroma_burst_walk, cyclic_sync_walk). Built like the
-// package's kernels (nvcc -O3 --fmad=false for sm_90a).
+// the baseline's. line_floor is LineSync's sync chain alone on one warp
+// (the floor of the redesign's walker). The file also builds the
+// package's csrc/sync_walk.cu with each role's cycles a round stamped
+// (its entries keep their names: line_sync_walk, chroma_burst_walk,
+// cyclic_sync_walk). Built like the package's kernels (nvcc -O3
+// --fmad=false for sm_90a).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -192,6 +201,198 @@ cyclic_probe_kernel(const float* __restrict__ rcorr,
   for (int i = s_cnt + tid; i < max_syms; i += blockDim.x) emits[i] = -1;
 }
 
+
+// ---------------------------------------------------------------- LineSync
+// The 736-thread line_sync_kernel (two barriers a line). Mode bits:
+//   1: the 8-tap windows' loads from device memory -> the position itself
+//   2: both barriers a line
+//   4: the two 44-sample shuffle trees -> one add each
+//   8: the update (two divisions, err, the clamp, pos) -> pos + 720 freq
+//  16: the line's stores to `lines`
+// cycles[0] = warp 0's cycles over the walk, cycles[1] = the lines walked.
+constexpr int kLineLen = 720;
+constexpr int kTaps = 8;
+constexpr int kPhases = 128;
+constexpr int kLineThreads = 736;
+constexpr int kSyncLen = 44;
+
+__device__ __forceinline__ float tree44(float a, float b) {
+  float s = a + b;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s = s + __shfl_down_sync(0xffffffffu, s, off);
+  return s;
+}
+
+template <int mode>
+__global__ void __launch_bounds__(kLineThreads, 1)
+line_probe_kernel(const float* __restrict__ buf, int n,
+                  const float* __restrict__ bank,
+                  const float* __restrict__ carry_in,
+                  const bool* __restrict__ locked_in,
+                  float* __restrict__ carry_out, bool* __restrict__ locked_out,
+                  float* __restrict__ lines, int* __restrict__ count,
+                  int max_lines, float omega_gain, float mu_gain,
+                  float min_freq, float max_freq, float sync_level,
+                  float sync_bias, long long* cycles) {
+  __shared__ float sbank[kPhases * kTaps];
+  __shared__ float sline[kLineLen];
+  __shared__ float s_pos, s_freq, s_keep;
+  __shared__ int s_locked;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kPhases * kTaps; i += blockDim.x) sbank[i] = bank[i];
+  if (tid == 0) {
+    s_pos = carry_in[0];
+    s_freq = carry_in[1];
+    s_locked = locked_in[0] ? 1 : 0;
+  }
+  __syncthreads();
+  const long long t0 = clock64();
+  const float fn = static_cast<float>(n);
+  int l = 0;
+  for (; l < max_lines; ++l) {
+    const float pos = s_pos, freq = s_freq;
+    if (!(pos + 720.0f * freq < fn)) break;
+    if (tid < kLineLen) {
+      const float p = pos + static_cast<float>(tid) * freq;
+      const float fp = floorf(p);
+      const float mu = p - fp;
+      const int ph = min(max(static_cast<int>(mu * 128.0f), 0), kPhases - 1);
+      const int base = min(max(static_cast<int>(fp), 0), n - 1);
+      const float* w = buf + base;
+      const float* b = sbank + ph * kTaps;
+      float acc = ((mode & 1) ? p : w[0]) * b[0];
+#pragma unroll
+      for (int j = 1; j < kTaps; ++j)
+        acc = acc + ((mode & 1) ? p : w[j]) * b[j];
+      sline[tid] = acc;
+      if (!(mode & 16)) lines[static_cast<size_t>(l) * kLineLen + tid] = acc;
+    }
+    if (!(mode & 2)) __syncthreads();
+    if (tid < 32) {
+      const int lane = tid;
+      const float la = lane < 17 ? sline[703 + lane] : sline[lane - 17];
+      const float lb = lane + 32 < kSyncLen ? sline[lane + 15] : 0.0f;
+      const float ra = sline[27 + lane];
+      const float rb = lane + 32 < kSyncLen ? sline[59 + lane] : 0.0f;
+      const float sl = (mode & 4) ? la + lb : tree44(la, lb);
+      const float sr = (mode & 4) ? ra + rb : tree44(ra, rb);
+      if (lane == 0) {
+        if (mode & 8) {
+          s_keep = sl + sr;
+          s_pos = pos + 720.0f * freq;
+        } else {
+          const float left = sl / 44.0f, right = sr / 44.0f;
+          const bool ok = (left < sync_level) && (right < sync_level);
+          const float err = ok ? (left + sync_bias) - right : 0.0f;
+          const float nf =
+              fminf(fmaxf(freq + omega_gain * err, min_freq), max_freq);
+          s_pos = ((pos + 719.0f * freq) + nf) + mu_gain * err;
+          s_freq = nf;
+          s_locked = ok ? 1 : 0;
+        }
+      }
+    }
+    if (!(mode & 2)) __syncthreads();
+  }
+  if (tid == 0) {
+    cycles[0] = clock64() - t0;
+    cycles[1] = l;
+  }
+  const size_t total = static_cast<size_t>(max_lines) * kLineLen;
+  for (size_t i = static_cast<size_t>(l) * kLineLen + tid; i < total;
+       i += blockDim.x)
+    lines[i] = 0.0f;
+  if (tid == 0) {
+    carry_out[0] = s_pos;
+    carry_out[1] = s_freq;
+    locked_out[0] = s_locked != 0;
+    count[0] = l;
+  }
+}
+
+// The sync chain alone, the floor of a one-warp walker: lanes 0-15 the
+// left sum, 16-31 the right, up to three of the 88 sync samples a lane
+// (v[L], v[L + 16], v[L + 32]), their 8-tap windows from a shared tile
+// (the index wrapped into it: latencies of shared memory, values not the
+// line's), the trees by xor shuffles within each half (8, 4, 2, 1) and
+// one across (16), the update in every lane; no barrier, no store.
+constexpr int kFloorTile = 4096;
+
+__global__ void __launch_bounds__(32, 1)
+line_floor_kernel(const float* __restrict__ buf, int n,
+                  const float* __restrict__ bank,
+                  const float* __restrict__ carry_in, int max_lines,
+                  float omega_gain, float mu_gain, float min_freq,
+                  float max_freq, float sync_level, float sync_bias,
+                  float* __restrict__ carry_out, long long* cycles) {
+  __shared__ __align__(16) float sbank[kPhases * kTaps];
+  __shared__ float tile[kFloorTile + kTaps];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < kPhases * kTaps; i += 32) sbank[i] = bank[i];
+  for (int i = lane; i < kFloorTile + kTaps; i += 32)
+    tile[i] = buf[min(i & (kFloorTile - 1), n - 1)];
+  __syncwarp();
+  const int half = lane >> 4, L = lane & 15;
+  // this lane's sync samples: k (the line index) of v[L], v[L + 16],
+  // v[L + 32] of its half (left: v[i] = line[703 + i] for i < 17, else
+  // line[i - 17]; right: line[27 + i])
+  float kf[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int i = L + 16 * r;
+    kf[r] = static_cast<float>(half ? 27 + i : (i < 17 ? 703 + i : i - 17));
+  }
+  const bool third = L + 32 < kSyncLen;
+  float pos = carry_in[0], freq = carry_in[1];
+  const float fn = static_cast<float>(n);
+  const long long t0 = clock64();
+  int l = 0;
+  for (; l < max_lines; ++l) {
+    if (!(pos + 720.0f * freq < fn)) break;
+    float v[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float p = pos + kf[r] * freq;
+      const float fp = floorf(p);
+      const float mu = p - fp;
+      const int ph = min(max(static_cast<int>(mu * 128.0f), 0), kPhases - 1);
+      const int base = min(max(static_cast<int>(fp), 0), n - 1);
+      const float* w = tile + (base & (kFloorTile - 1));
+      const float4 b0 = *reinterpret_cast<const float4*>(sbank + ph * kTaps);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(sbank + ph * kTaps + 4);
+      float acc = w[0] * b0.x;
+      acc = acc + w[1] * b0.y;
+      acc = acc + w[2] * b0.z;
+      acc = acc + w[3] * b0.w;
+      acc = acc + w[4] * b1.x;
+      acc = acc + w[5] * b1.y;
+      acc = acc + w[6] * b1.z;
+      acc = acc + w[7] * b1.w;
+      v[r] = acc;
+    }
+    float s = (v[0] + (third ? v[2] : 0.0f)) + (v[1] + 0.0f);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      s = s + __shfl_xor_sync(0xffffffffu, s, off);
+    const float o = __shfl_xor_sync(0xffffffffu, s, 16);
+    const float sl = half ? o : s, sr = half ? s : o;
+    const float left = sl / 44.0f, right = sr / 44.0f;
+    const bool ok = (left < sync_level) && (right < sync_level);
+    const float err = ok ? (left + sync_bias) - right : 0.0f;
+    const float nf = fminf(fmaxf(freq + omega_gain * err, min_freq), max_freq);
+    pos = ((pos + 719.0f * freq) + nf) + mu_gain * err;
+    freq = nf;
+  }
+  if (lane == 0) {
+    cycles[0] = clock64() - t0;
+    cycles[1] = l;
+    carry_out[0] = pos;
+    carry_out[1] = freq;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,10 +442,47 @@ int cyclic_probe(const float* rcorr, const void* vals, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+#define LINE_MODES(X) X(0) X(1) X(2) X(4) X(8) X(16) X(31)
+
+int line_probe(const float* buf, int n, const float* bank,
+               const float* carry_in, const bool* locked_in,
+               float* carry_out, bool* locked_out, float* lines, int* count,
+               int max_lines, float omega_gain, float mu_gain,
+               float min_freq, float max_freq, float sync_level,
+               float sync_bias, int mode, long long* cycles, void* stream) {
+  switch (mode) {
+#define LINE_CASE(m)                                                        \
+  case m:                                                                   \
+    line_probe_kernel<m><<<1, kLineThreads, 0,                              \
+                           static_cast<cudaStream_t>(stream)>>>(            \
+        buf, n, bank, carry_in, locked_in, carry_out, locked_out, lines,    \
+        count, max_lines, omega_gain, mu_gain, min_freq, max_freq,          \
+        sync_level, sync_bias, cycles);                                     \
+    break;
+    LINE_MODES(LINE_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int line_floor(const float* buf, int n, const float* bank,
+               const float* carry_in, int max_lines, float omega_gain,
+               float mu_gain, float min_freq, float max_freq,
+               float sync_level, float sync_bias, float* carry_out,
+               long long* cycles, void* stream) {
+  line_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      buf, n, bank, carry_in, max_lines, omega_gain, mu_gain, min_freq,
+      max_freq, sync_level, sync_bias, carry_out, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // extern "C"
 
 // The package's kernels (csrc/sync_walk.cu as it stands), each role's
 // clock64() cycles a round summed into walk_cycles by lane 0 of each warp:
+// line 0 the walker, 1 the stager, 2 the drawers (eleven warps, summed);
 // chroma 0 the walker, 1 the staging warps (three); cyclic 0 the average,
 // 1 the walker, 2 the buffer writer, 3 the stager.
 __device__ unsigned long long walk_cycles[8];

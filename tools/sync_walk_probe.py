@@ -1,23 +1,27 @@
-"""Where the ChromaPLL and CyclicSync walks spend their time, and the
-package's kernels against the one-lane kernels they replaced.
+"""Where the LineSync, ChromaPLL and CyclicSync walks spend their time,
+and the package's kernels against the ones they replaced.
 
     python3 tools/sync_walk_probe.py [--out walk_probe.json]
+                                     [--only line,chroma,cyclic]
 
-Builds tools/sync_walk_probe.cu (instrumented copies of the one-lane
-``chroma_burst_kernel`` and ``cyclic_sync_kernel`` csrc/sync_walk.cu had
-before its redesign, the "baseline", see its header) and the package's
-csrc/sync_walk.cu, then on chip_smoke.py's walk cases
-(``chroma_walk_case``, ``cyclic_walk_cases``):
+Builds tools/sync_walk_probe.cu (instrumented copies of the kernels
+csrc/sync_walk.cu had before its redesigns, the "baseline", see its
+header) and the package's csrc/sync_walk.cu, then on chip_smoke.py's walk
+cases (``line_walk_cases``, ``chroma_walk_case``, ``cyclic_walk_cases``):
 
 1. the split: each probe mode (one part of the walker's step taken out)
-   timed with CUDA events and the walker's clock64() cycles a step or a
-   sample; mode 0 is the baseline kernel;
+   timed with CUDA events and the walker's clock64() cycles a line, step
+   or sample; mode 0 is the baseline kernel; for LineSync also the chain
+   floor (``line_floor``: the one-warp sync chain alone);
 2. the package's kernels against mode 0 on every case: outputs bit for
-   bit (``equal``, and by output ``equal_fields``; CyclicSync must be
-   equal, ChromaPLL's design differs by ulps: ``max_abs_diff``), times side
-   by side in turns (baseline, package, package, baseline);
+   bit (``equal``, and by output ``equal_fields``; LineSync and
+   CyclicSync must be equal, ChromaPLL's design differs by ulps:
+   ``max_abs_diff``), times side by side in turns (baseline, package,
+   package, baseline); for LineSync also the package's time in
+   SPREAD_ROUNDS rounds (``package_spread_ms``);
 3. the package's kernels built with their stamps (``stamped``): each
-   role's clock64() cycles a step or sample, outputs equal the package's.
+   role's clock64() cycles a line, step or sample, outputs equal the
+   package's.
 
 Needs one CUDA card. Prints the card's name, power limit and maximum SM
 clock, then one JSON object (also written to --out).
@@ -45,10 +49,14 @@ from sdrpp_tpu_torch.utils import cuda_lib  # noqa: E402
 CHROMA_MODES = {0: "baseline kernel", 1: "no sincos", 2: "no atan2",
                 4: "no fmodf wrap", 8: "no load / store",
                 15: "none of the four"}
+LINE_MODES = {0: "baseline kernel", 1: "no buffer loads",
+              2: "no barriers", 4: "no shuffle trees", 8: "no update",
+              16: "no line stores", 31: "none of the five"}
 CYCLIC_MODES = {0: "baseline kernel", 1: "no buffer store",
                 2: "branch-free emit", 3: "neither",
                 11: "average chain alone", 7: "compare/select chain alone"}
 REPS = 5
+SPREAD_ROUNDS = 20   # rounds of REPS calls for the package's line spread
 
 
 def build_probe() -> ctypes.CDLL:
@@ -69,6 +77,11 @@ def build_probe() -> ctypes.CDLL:
     lib.chroma_probe.restype = lib.cyclic_probe.restype = ctypes.c_int
     lib.chroma_burst_walk.argtypes = W._BURST_ARGS
     lib.cyclic_sync_walk.argtypes = W._CYCLIC_ARGS
+    lib.line_probe.argtypes = ([p, i] + [p] * 7 + [i] + [f] * 6
+                               + [i, p, p])
+    lib.line_floor.argtypes = [p, i, p, p, i] + [f] * 6 + [p, p, p]
+    lib.line_probe.restype = lib.line_floor.restype = ctypes.c_int
+    lib.line_sync_walk.argtypes = W._LINE_ARGS
     lib.walk_stamps.argtypes = [p]
     return lib
 
@@ -114,6 +127,48 @@ def cyclic_probe(lib, args, mode):
                           stream())
     assert rc == 0, rc
     return (emits, count, carry_out, since_out, symbuf_out), cycles
+
+
+def line_probe(lib, args, mode):
+    buf, bank, carry, locked, max_lines = args[:5]
+    n = buf.shape[0] - 7
+    dev = buf.device
+    lines = buf.new_empty((max_lines, W.LINE_LEN))
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    carry_out = carry.new_empty(2)
+    locked_out = torch.empty((), dtype=torch.bool, device=dev)
+    cycles = torch.zeros(2, dtype=torch.int64, device=dev)
+    rc = lib.line_probe(buf.data_ptr(), n, bank.data_ptr(), carry.data_ptr(),
+                        locked.data_ptr(), carry_out.data_ptr(),
+                        locked_out.data_ptr(), lines.data_ptr(),
+                        count.data_ptr(), max_lines,
+                        *(float(np.float32(v)) for v in args[5:]), mode,
+                        cycles.data_ptr(), stream())
+    assert rc == 0, rc
+    return (lines, count, carry_out, locked_out), cycles
+
+
+def line_floor(lib, args):
+    """The one-warp sync chain alone (``line_floor_kernel``): clock64
+    cycles a line."""
+    buf, bank, carry, locked, max_lines = args[:5]
+    carry_out = carry.new_empty(2)
+    cycles = torch.zeros(2, dtype=torch.int64, device=buf.device)
+
+    def run():
+        rc = lib.line_floor(buf.data_ptr(), buf.shape[0] - 7, bank.data_ptr(),
+                            carry.data_ptr(), max_lines,
+                            *(float(np.float32(v)) for v in args[5:]),
+                            carry_out.data_ptr(), cycles.data_ptr(), stream())
+        assert rc == 0, rc
+    run()
+    C.warm(run, calls=2)
+    ms = C.cuda_ms(run, REPS)
+    run()
+    torch.cuda.synchronize()
+    cyc, lines = cycles.cpu().tolist()
+    return {"ms": ms, "cycles_per_line": cyc / max(lines, 1),
+            "lines": lines}
 
 
 def bits_of(x):
@@ -167,10 +222,12 @@ def split(fn, steps):
         _, cyc = fn(mode)
         torch.cuda.synchronize()
         cyc = cyc.cpu().tolist()
-        res[fn.modes[mode]] = {"ms": ms, "cycles_per_step": cyc[0] / steps,
+        # a line probe counts its own lines (a mode may walk others)
+        per = max(cyc[1], 1) if fn.modes is LINE_MODES else steps
+        res[fn.modes[mode]] = {"ms": ms, "cycles_per_step": cyc[0] / per,
                                "cycles": cyc}
         print(f"  mode {mode:2d} {fn.modes[mode]:28s} {ms:.4f} ms, "
-              f"{cyc[0] / steps:.1f} cycles a step; {cyc}", flush=True)
+              f"{cyc[0] / per:.1f} cycles a step; {cyc}", flush=True)
     return res
 
 
@@ -196,9 +253,19 @@ def versus(probe, package):
             "package_ms": times["package"]}
 
 
+def spread(fn, rounds: int = SPREAD_ROUNDS):
+    """fn's ms a call (CUDA events, REPS calls) in each of ``rounds``
+    rounds back to back: the spread of a kernel whose warps wait on each
+    other."""
+    C.warm(fn, calls=2)
+    return [C.cuda_ms(fn, REPS) for _ in range(rounds)]
+
+
 def main() -> int:
     out_path = Path(sys.argv[sys.argv.index("--out") + 1]) \
         if "--out" in sys.argv else None
+    only = (sys.argv[sys.argv.index("--only") + 1].split(",")
+            if "--only" in sys.argv else ["line", "chroma", "cyclic"])
     if not torch.cuda.is_available():
         print("sync_walk_probe: no CUDA device", file=sys.stderr)
         return 2
@@ -210,8 +277,31 @@ def main() -> int:
     print(cuda_lib.build("sync_walk").with_suffix(".log").read_text(),
           flush=True)
     dev = torch.device("cuda")
-    result = {"device": gpu, "chroma": {}, "cyclic": {}}
-    for kind in ("locked", "wrap"):
+    result = {"device": gpu, "line": {}, "chroma": {}, "cyclic": {}}
+    for kind, _, args in C.line_walk_cases(dev) if "line" in only else ():
+        lines = int(W.line_sync_walk_plain(*(
+            a.cpu() if isinstance(a, torch.Tensor) else a
+            for a in args))[1])
+
+        def probe(mode, args=args):
+            return line_probe(lib, args, mode)
+        probe.modes = LINE_MODES
+        print(f"line {kind} [{args[0].shape[0]}] {lines} lines", flush=True)
+        entry = {"split": split(probe, max(lines, 1)) if kind == "atv"
+                 else None, "lines": lines}
+        if kind == "atv":
+            entry["floor"] = line_floor(lib, args)
+            print(f"  chain floor {entry['floor']}", flush=True)
+        entry.update(versus(probe, lambda a=args: W.line_sync_walk(*a)))
+        entry["package_spread_ms"] = spread(
+            lambda a=args: W.line_sync_walk(*a))
+        entry["stamped"] = stamped(lib, "line_sync_walk", W.line_sync_walk,
+                                   args, max(lines, 1),
+                                   (("walker", 1), ("stager", 1),
+                                    ("drawer", 11)))
+        print(f"  package vs baseline: {entry}", flush=True)
+        result["line"][kind] = entry
+    for kind in ("locked", "wrap") if "chroma" in only else ():
         args, _ = C.chroma_walk_case(dev, kind)
         L, nb = args[0].shape
 
@@ -226,7 +316,8 @@ def main() -> int:
                                    (("walker", 1), ("staging", 3)))
         print(f"  package vs baseline: {entry}", flush=True)
         result["chroma"][kind] = entry
-    for kind, _, args in C.cyclic_walk_cases(dev):
+    for kind, _, args in C.cyclic_walk_cases(dev) if "cyclic" in only \
+            else ():
         n = args[0].shape[0]
 
         def probe(mode, args=args):
@@ -246,7 +337,8 @@ def main() -> int:
         out_path.parent.mkdir(parents=True, exist_ok=True)
         out_path.write_text(text)
     print(text)
-    ok = all(e["equal"] for e in result["cyclic"].values())
+    ok = all(e["equal"] for k in ("line", "cyclic")
+             for e in result[k].values())
     return 0 if ok else 1
 
 
