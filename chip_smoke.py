@@ -73,10 +73,16 @@ exit, no result line) if any phase fails:
    the radix-4 kernel's reference form at S = 256 (expected outputs that
    are not integers), [64, 4288] windowed launches at S = 32, 128 and 256,
    and the fec paths' launches: k9's [1, 2097162, 2], held on its first and
-   last FEC_HELD steps, and k6's [513, 4288, 2] windows (the general
-   kernels, S > 64 or R > 4, as the rows ``viterbi_acs_general`` /
+   last FEC_HELD steps and its walk's bits on all its steps against a host
+   walk over the words (with the walk's device ms by phase, maps, chain
+   and bits, from torch.profiler), and k6's [513, 4288, 2] windows (the
+   general kernels, S > 64 or R > 4, as the rows ``viterbi_acs_general`` /
    ``viterbi_traceback_general``), each bit-exact with both walkers'
-   cycles a step, and
+   cycles a step (for the traceback at S > 64 those of its segment
+   chain); the segment-parallel walk alone on the rotation words (no two
+   walks ever merge) and all-zero words at S = 256 over FEC_RENORM_T steps
+   and on random words at S = 128 and 16384, T = 1, L - 1, L + 1 and 64 L
+   + 5 (L = 32), each bit for bit against the plain walk, and
    ``decimating_fir`` (each case's time a call back to back, its device
    time alone behind a sleep kernel, and its host time a call) at the
    first r >= 8 stage of each path (wideband
@@ -1488,17 +1494,20 @@ def viterbi_starts(total: int) -> np.ndarray:
 
 
 def viterbi_case(dev, label, path, soft_np, starts_np, T, expected,
-                 held_steps=None, reps=10):
+                 held_steps=None, reps=10, whole_walk=False):
     """Both Viterbi entries on one case: [B] windows of T steps of the
     soft-bit stream ``soft_np`` from ``starts_np``, ``expected`` [2S, R].
     Held bit-exact against their plain versions on the first VIT_HELD
     windows, or, with ``held_steps``, the ACS on each window's first
     ``held_steps`` steps (a step's decisions depend on the steps before it
     only) and the walk on its last ``held_steps`` (it starts at state 0 at
-    the end, so their bits depend on their words only). Each entry's time
-    a call (CUDA events), the walkers' clock64 cycles a trellis step and
-    its bound. The entries are the general kernels' rows where the launch
-    took them (each wrapper's ``launches_general``). Returns the two
+    the end, so their bits depend on their words only); with
+    ``whole_walk`` the walk's bits also on every step of the first window
+    against ``host_walk`` over the words. Each entry's time a call (CUDA
+    events), the walkers' clock64 cycles a trellis step (for the traceback
+    at S > 64 its segment chain's, over the window's T steps and a link)
+    and its bound. The entries are the general kernels' rows where the
+    launch took them (each wrapper's ``launches_general``). Returns the two
     results."""
     import torch
     from sdrpp_tpu_torch.ops import fec_kernels as FK
@@ -1543,6 +1552,15 @@ def viterbi_case(dev, label, path, soft_np, starts_np, T, expected,
     acs_diff = int(FK.unpack_decisions(words[:held, :hs] ^ ref["w"],
                                        S).sum())
     tb_diff = int((bits[:held, T - hs:] != ref["b"]).sum())
+    split = traceback_split(words, S) if whole_walk and S > 64 else None
+    if whole_walk:
+        t0 = time.perf_counter()
+        host = host_walk(words[0].cpu().numpy(), S)
+        whole_diff = int((bits[0].cpu().numpy() != host).sum())
+        log(f"kernel traceback S={S} ({label}): {whole_diff} of the window's "
+            f"{T} bits differ from the host walk over its words "
+            f"({time.perf_counter() - t0:.1f} s)")
+        tb_diff += whole_diff
     # the bytes each function must move: the soft bits its windows cover,
     # read once, the starts and the expected outputs; its words written
     # once / the words read once and the bits written once
@@ -1568,10 +1586,14 @@ def viterbi_case(dev, label, path, soft_np, starts_np, T, expected,
         f"{acs_ms:.4f} ms, {acs_cps:.1f} cycles a step (clock64; "
         f"{acs_max:.1f} in the slowest window), plain {acs_plain_ms:.1f} ms "
         f"on [{held}, {hs}], bound {acs_bound[0]:.5f} ms ({acs_bound[1]})")
+    nseg = -(-T // FK.wide_segment_steps(T)) if S > 64 else T
+    tb_what = "chain cycles" if S > 64 else "cycles"
     log(f"kernel {tb_entry} S={S} [{B}, {T}] ({label}): {tb_diff} bits of "
         f"the first {held} windows' last {hs} steps differ, kernel "
-        f"{tb_ms:.4f} ms, {tb_cps:.1f} cycles a step (clock64; "
-        f"{tb_max:.1f} in the slowest window), plain {tb_plain_ms:.1f} ms "
+        f"{tb_ms:.4f} ms, {tb_cps:.1f} {tb_what} a step (clock64; "
+        f"{tb_max:.1f} in the slowest window"
+        + (f"; {tb_cps * T / nseg:.1f} a link of {nseg}" if S > 64 else "")
+        + f"), plain {tb_plain_ms:.1f} ms "
         f"on [{held}, {hs}], bound {tb_bound[0]:.5f} ms ({tb_bound[1]})")
     if acs_diff or tb_diff:
         raise AssertionError(f"a Viterbi kernel is not bit-exact against "
@@ -1586,7 +1608,109 @@ def viterbi_case(dev, label, path, soft_np, starts_np, T, expected,
             dict(entry=tb_entry, shape=[B, T], plain_shape=[held, hs],
                  max_abs_err=float(tb_diff), ms=tb_ms, plain_ms=tb_plain_ms,
                  cycles_per_step=tb_cps, cycles_per_step_max=tb_max,
+                 cycles_of=("the segment chain" if S > 64 else "the walk"),
+                 segments=nseg if S > 64 else None, phase_ms=split,
                  bound_ms=tb_bound[0], bound_by=tb_bound[1], **common)]
+
+
+def traceback_split(words, S: int) -> dict | None:
+    """The segment-parallel walk's device ms by phase (its three kernels:
+    maps, chain, bits) over one call, from torch.profiler's device times;
+    None if the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FK.viterbi_traceback_batched(words, num_states=S)
+        torch.cuda.synchronize()
+    names = {"tb_map_kernel": "maps", "tb_chain_kernel": "chain",
+             "tb_select_kernel": "bits"}
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        for kernel, phase in names.items():
+            if kernel in e.key:
+                out[phase] = out.get(phase, 0.0) + us / 1e3
+    log(f"traceback S={S} {list(words.shape[:2])}: device ms by phase "
+        f"(torch.profiler) {out or 'not measured'}")
+    return out or None
+
+
+def traceback_cases(dev):
+    """The segment-parallel walk (S > 64) on words that stress its schedule,
+    each held bit for bit against the plain walk on every step: the
+    rotation words (state s takes s & 1: every step a rotation of the
+    states, so no two walks ever merge) and all-zero words at S = 256 over
+    FEC_RENORM_T steps; random words at S = 128 and 16384, B = 2, T = 1,
+    L - 1 and L + 1 (L = 32, the walk's segment length below 4096 steps)
+    and 64 L + 5 (65 segments of 64 steps, the top one 5). Each case's time
+    a call (CUDA events) and its bound, as viterbi_case's walk."""
+    import torch
+    from sdrpp_tpu_torch.ops import fec_kernels as FK
+
+    rng = np.random.default_rng(16)
+    L = FK.wide_segment_steps(1)
+    rot = -0x5555555555555556   # 0xAAAA...: bit n of every word is n & 1
+    cases = [("rotation", np.full((1, FEC_RENORM_T, 4), rot, np.int64)),
+             ("all zero", np.zeros((1, FEC_RENORM_T, 4), np.int64))]
+    for S in (128, 16384):
+        for T in (1, L - 1, L + 1, 64 * 64 + 5):
+            cases.append((f"random T={T}", rng.integers(
+                -2**63, 2**63 - 1, (2, T, S // 64), dtype=np.int64)))
+    tb = FK.viterbi_traceback_batched
+    results = []
+    for label, words_np in cases:
+        B, T, S = words_np.shape[0], words_np.shape[1], 64 * words_np.shape[2]
+        words = torch.from_numpy(words_np).to(dev)
+        cyc = torch.zeros(B, dtype=torch.int64, device=dev)
+        general = tb.launches_general
+        bits = tb(words, cyc, num_states=S)
+        if words.is_cuda and tb.launches_general != general + 1:
+            raise AssertionError(f"the S = {S} traceback did not report the "
+                                 f"general walk")
+        ref = {}
+        plain_ms = cuda_ms(lambda: ref.setdefault(
+            "b", FK.viterbi_traceback_batched_plain(words, S)), reps=1)
+        diff = int((bits != ref["b"]).sum())
+
+        def run():
+            return tb(words, num_states=S)
+
+        warm(run, calls=20)
+        ms = cuda_ms(run, reps=10)
+        nseg = -(-T // FK.wide_segment_steps(T))
+        cps = float(cyc.double().mean()) / T
+        bd = bound(words.numel() * 8 + bits.numel(), TB_OPS_PER_STEP * B * T)
+        log(f"kernel viterbi_traceback_general S={S} [{B}, {T}] ({label}): "
+            f"{diff} bits differ from the plain walk's, kernel {ms:.4f} ms, "
+            f"{cps * T / nseg:.1f} chain cycles a link of {nseg} (clock64), "
+            f"plain {plain_ms:.1f} ms, bound {bd[0]:.5f} ms ({bd[1]})")
+        if diff:
+            raise AssertionError(f"the segment-parallel walk is not bit-exact "
+                                 f"against the plain walk ({label}, S = {S})")
+        results.append(dict(
+            entry="viterbi_traceback_general", body=f"s{S}", path=None,
+            kind=f"traceback {label}", tol=0.0, library_ms=None, states=S,
+            shape=[B, T], plain_shape=[B, T], max_abs_err=float(diff),
+            ms=ms, plain_ms=plain_ms, cycles_per_step=cps,
+            cycles_of="the segment chain", segments=nseg, bound_ms=bd[0],
+            bound_by=bd[1]))
+    return results
+
+
+def host_walk(words: np.ndarray, S: int) -> np.ndarray:
+    """The survivor walk from state 0 at the last step over one window's
+    int64 words [T, S / 64], a plain Python loop -> [T] uint8 bits."""
+    w = words.view(np.uint64).tolist()
+    half, s = S // 2, 0
+    out = bytearray(len(w))
+    for t in range(len(w) - 1, -1, -1):
+        out[t] = s & 1
+        s = (s >> 1) + ((w[t][s >> 6] >> (s & 63)) & 1) * half
+    return np.frombuffer(bytes(out), np.uint8)
 
 
 def phase_kernels_viterbi(dev):
@@ -4351,9 +4475,12 @@ def phase_kernels_fec(dev, k9_soft, k6_soft):
     and all-128 ties at S = 256; S = 256 with expected outputs that are
     not integers (the radix-4 kernel's reference form) over FEC_ODD_T
     steps; [FEC_WINDOWS, 4288] windowed launches at S = 128 and 256 (two
-    starts out of range, clamped) and at S = 32 (B6); the fec paths'
-    launches at their shapes, k9's [1, 2097162, 2] (held on its first and
-    last FEC_HELD steps) and k6's [513, 4288, 2] windows."""
+    starts out of range, clamped) and at S = 32 (B6); ``traceback_cases``
+    (the segment-parallel walk on the rotation and all-zero words and at
+    T = 1, L - 1, L + 1 and 64 L + 5); the fec paths' launches at their
+    shapes, k9's [1, 2097162, 2] (held on its first and last FEC_HELD
+    steps, its walk on every step against ``host_walk``) and k6's [513,
+    4288, 2] windows."""
     from sdrpp_tpu_torch.ops import fec as F
 
     rng = np.random.default_rng(15)
@@ -4413,9 +4540,9 @@ def phase_kernels_fec(dev, k9_soft, k6_soft):
     for label, path, soft_np, starts_np, T, expected in cases:
         results += viterbi_case(dev, label, path, soft_np, starts_np, T,
                                 expected)
-    return results + viterbi_case(dev, "k9 path", "fec_k9", k9_soft, one,
-                                  k9_soft.shape[0], k9._expected,
-                                  held_steps=FEC_HELD, reps=3)
+    return results + traceback_cases(dev) + viterbi_case(
+        dev, "k9 path", "fec_k9", k9_soft, one, k9_soft.shape[0],
+        k9._expected, held_steps=FEC_HELD, reps=3, whole_walk=True)
 
 
 def fec_polys(rate: int, order: int) -> tuple:

@@ -34,7 +34,9 @@
 //       ops/fec_kernels.viterbi_traceback_batched: dec, the words of
 //       num_states (64 by default; a power of two in [2, 16384]) states,
 //       int64 [B, T] (S <= 64) or [B, T, S / 64], on a CUDA device;
-//       cycles as above. Allocates bits [B, T] uint8; general as above.
+//       cycles as above (for S > 64 the segment chain's cycles).
+//       Allocates bits [B, T] uint8 and, for S > 64, the segment-parallel
+//       walk's scratch (viterbi_traceback_scratch bytes); general as above.
 //   mm_symbols(buf, offset, fstate, bank, max_syms, params, cycles)
 //       -> (syms, count, offset_out, fstate_out)
 //       ops/clock_recovery_kernels.mm_symbols: buf [C, n + 7] complex64 or
@@ -62,12 +64,14 @@
 //       offset int32 [C], fstate float32 [C, 2], bank float32 [128, 8];
 //       params (omega_gain, mu, min_freq, max_freq).
 //   bind_decim_fir(c64_entry, f32_entry), bind_loop_scan(entry),
-//   bind_viterbi(acs_entry, traceback_entry), bind_mm_clock(mm_complex,
+//   bind_viterbi(acs_entry, traceback_entry, traceback_scratch_entry),
+//   bind_mm_clock(mm_complex,
 //   mm_real, chunked_complex, chunked_real, fd),
 //   bind_mm_chunked_block(block_complex, block_real)
 //       the addresses of the kernel libraries' C entries (decim_fir.cu's
 //       decim_fir_c64 / decim_fir_f32, loop_scan.cu's loop_scan,
-//       viterbi.cu's viterbi_acs / viterbi_traceback, mm_clock.cu's
+//       viterbi.cu's viterbi_acs / viterbi_traceback /
+//       viterbi_traceback_scratch, mm_clock.cu's
 //       mm_symbols_complex / mm_symbols_real / mm_chunked_complex /
 //       mm_chunked_real / fd_symbols, mm_chunked_block_complex /
 //       mm_chunked_block_real).
@@ -528,11 +532,13 @@ using ViterbiAcsEntry = int (*)(const void* soft, int soft_u8,
                                 int* general);
 using ViterbiTracebackEntry = int (*)(const long long* dec,
                                       unsigned char* bits, int B, int T, int S,
-                                      long long* cycles, void* stream,
-                                      int* general);
+                                      long long* cycles, void* scratch,
+                                      void* stream, int* general);
+using ViterbiScratchEntry = long long (*)(int B, int T, int S);
 
 ViterbiAcsEntry g_viterbi_acs = nullptr;
 ViterbiTracebackEntry g_viterbi_traceback = nullptr;
+ViterbiScratchEntry g_viterbi_traceback_scratch = nullptr;
 
 constexpr int64_t kViterbiMinRate = 2;   // fec_kernels.KERNEL_MIN_RATE
 constexpr int64_t kViterbiMaxRate = 32;  // fec_kernels.KERNEL_MAX_RATE
@@ -679,7 +685,8 @@ PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
   long long* cycles = nullptr;
   if (!viterbi_cycles(args[1], B, dec.device(), "dec", &cycles))
     return nullptr;
-  if (g_viterbi_traceback == nullptr) {
+  if (g_viterbi_traceback == nullptr ||
+      g_viterbi_traceback_scratch == nullptr) {
     PyErr_SetString(PyExc_RuntimeError,
                     "viterbi_traceback: the kernel entry is not bound");
     return nullptr;
@@ -689,11 +696,19 @@ PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
   at::Tensor bits = at::empty({B, T}, dec.options().dtype(c10::kByte));
 
   const OnStream on(dec.device());
+  // S > 64: the segment-parallel walk's maps, bits and entries, from the
+  // caching allocator on the launch's stream
+  const long long need = g_viterbi_traceback_scratch(
+      static_cast<int>(B), static_cast<int>(T), static_cast<int>(S));
+  at::Tensor scratch;
+  if (need > 0)
+    scratch = at::empty({need}, dec.options().dtype(c10::kByte));
   int general = 0;
   const int rc = g_viterbi_traceback(
       reinterpret_cast<const long long*>(dc.data_ptr<int64_t>()),
       bits.data_ptr<uint8_t>(), static_cast<int>(B), static_cast<int>(T),
-      static_cast<int>(S), cycles, on.stream, &general);
+      static_cast<int>(S), cycles,
+      need > 0 ? scratch.data_ptr() : nullptr, on.stream, &general);
   if (rc != 0) {
     PyErr_Format(PyExc_RuntimeError,
                  "viterbi_traceback_batched launch failed: CUDA error %d at "
@@ -707,12 +722,18 @@ PyObject* viterbi_traceback(PyObject*, PyObject* const* args,
 }
 
 PyObject* bind_viterbi(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
-  if (nargs != 2) return type_error("bind_viterbi(acs_entry, traceback_entry)");
+  if (nargs != 3)
+    return type_error(
+        "bind_viterbi(acs_entry, traceback_entry, traceback_scratch_entry)");
   ViterbiAcsEntry acs;
   ViterbiTracebackEntry tb;
-  if (!entry_arg(args[0], &acs) || !entry_arg(args[1], &tb)) return nullptr;
+  ViterbiScratchEntry scratch;
+  if (!entry_arg(args[0], &acs) || !entry_arg(args[1], &tb) ||
+      !entry_arg(args[2], &scratch))
+    return nullptr;
   g_viterbi_acs = acs;
   g_viterbi_traceback = tb;
+  g_viterbi_traceback_scratch = scratch;
   Py_RETURN_NONE;
 }
 

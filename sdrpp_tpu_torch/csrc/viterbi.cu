@@ -28,7 +28,8 @@
 // window, so the time is T times the latency of one step's chain (tens of
 // cycles), not bytes or operations; a launch has a few windows per SM, too
 // few for other warps to hide a latency on the chain. The designs take
-// everything they can off that chain.
+// everything they can off that chain; the general traceback (below) cuts
+// it into segments walked in parallel.
 //
 // ACS design, S = 64 (viterbi_acs): one warp per window, four windows a
 // CTA. Lane l keeps the path metrics of states l and l + 32 in registers;
@@ -135,10 +136,44 @@
 //   - S <= 32 at R > 4 (acs_warp_kernel): one warp a window, four windows
 //     a CTA, lane l keeping state l % S, the reference form every step.
 //
-// General traceback (S > 64, traceback_wide_kernel): the window's S / 64
-// words a step pass through the same two-stage shared-memory ring, 2048
-// words a stage, and lane 0 walks: the word s >> 6 of the step, bit s &
-// 63, the predecessor (s >> 1) + took * S / 2.
+// General traceback (S > 64): a segment-parallel survivor walk. The walk
+// is a composition of per-step maps, state -> predecessor, and
+// composition is associative, so the card walks every segment of L steps
+// at once (L = 2^(floor(log2 T) / 2) in [32, 4096]: 1024 at fec-k9's 2^21
+// steps, 64 at a 4288-step window) from each of its S possible end states,
+// and one chain of T / L lookups then picks each segment's end state. Three
+// launches, every step exact for any words (no early exit; a walk that
+// never merges, as under words where state s takes s & 1, costs the same):
+//   1. maps (tb_map_kernel): a CTA a (window, segment), min(16, S / 128)
+//      end states a thread (128 ... 1024 threads); the segment's words
+//      pass through a two-stage cp.async ring of 4 KB, every thread walks
+//      its states one step a row (a shared-memory load, a funnel shift, a
+//      multiply-add) and keeps their bits in a register, storing 32 steps'
+//      bits a state as one word (packed [B, T / 32, S] uint32, coalesced
+//      across the CTA) and, at the bottom, the state each leaves in (maps
+//      [B, T / L, S] uint16). Issue-bound: S * T walk steps of ~8
+//      instructions.
+//   2. chain (tb_chain_kernel): a warp a window, from state 0 at the top:
+//      entry[j] = s, s = maps[j][s]. The rows' addresses do not depend on
+//      s, so the warp stages them ahead through a two-stage 32-KB ring and
+//      a link is one shared-memory load of lane 0 (up to S = 2048; above,
+//      lane 0 reads the one entry from global memory). A dependent chain
+//      of T / L loads.
+//   3. bits (tb_select_kernel): a thread a 4-step group reads the packed
+//      word of its segment's entry state and writes the group's 4 bits as
+//      one 4-byte store (coalesced across the warp).
+// Recording every end state's bits (S * T / 8 bytes, the size of the
+// words) costs phase 1 one funnel shift a walk step and a store every 32,
+// which its issue-bound loop hides; walking each segment again from its
+// entry would cost a dependent chain of L loads a segment. No merge
+// shortcut (stopping a segment's walkers once they hold one state): it
+// ran the maps 11x faster on a noisy K = 9 stream's words but 1.5x slower
+// on words that never merge, and would need a tail walk and a second bits
+// path (tools/viterbi_probe.py). On an H100 the three take 0.32 ms at
+// fec-k9's [1, 2097162] words at S = 256, where one lane walking every
+// step took 60 ms; the bound is the words' 67 MB read once, 20 us.
+// The scratch (tb_layout) comes from the caller, the host path's caching
+// allocator.
 //
 // Numerics: decisions and bits are bit-exact against the JAX kernels and
 // the plain PyTorch versions: metrics start at 0 / 1e9, every candidate is
@@ -162,7 +197,13 @@ constexpr int MAX_ANY_RATE = 32;
 constexpr int MAX_STATES = 16384;   // order 15
 constexpr int kRegRate = 4;         // expected rows kept in registers up to
 constexpr int kCtaThreads = 1024;   // the general ACS's largest CTA
-constexpr int kWideStage = 2048;    // words a ring stage of the wide walk
+constexpr int kMapStage = 1024;     // 32-bit words a ring stage of the wide
+                                    // walk's maps (4 KB)
+constexpr int kChainStage = 16384;  // map entries a ring stage of its chain
+constexpr int kChainDirect = 4096;  // its chain reads global memory from here
+constexpr int kTbMaxPer = 16;       // most end states a thread of its maps
+constexpr int kTbMinLog = 5;        // its segments: 32 ... 4096 steps
+constexpr int kTbMaxLog = 12;
 constexpr int kRenormSteps = 4096;  // the general ACS's fast-form interval
 // the general ACS's fast form: (4096 + K - 1) * R * 255 < 2^24 for every
 // K <= 15 at R <= 16
@@ -1143,61 +1184,301 @@ int acs_general(int R, int S, const void* soft, const int* starts,
 #undef VITERBI_GENERAL_ARGS
 }
 
-// words [k * ch * W, min((k + 1) * ch, T) * W) of a window (W words a
-// step, ch steps a stage) into `dst`, as one cp.async group of this thread
-__device__ __forceinline__ void stage_wide(unsigned long long* dst,
-                                           const unsigned long long* src,
-                                           int k, int T, int ch, int W,
-                                           int lane) {
-  const long long lo = static_cast<long long>(k) * ch * W;
-  const int n = (min((k + 1) * ch, T) - k * ch) * W;
-  for (int i = lane; i < n; i += 32)
+// ---------------------------------------------------------------------------
+// General traceback (S > 64): the segment-parallel survivor walk
+// ---------------------------------------------------------------------------
+
+// the wide walk's segment length for T steps: 2^(floor(log2 T) / 2), in
+// [2^kTbMinLog, 2^kTbMaxLog] (ops/fec_kernels.wide_segment_steps mirrors it)
+int tb_segment_steps(int T) {
+  const int e = (31 - __builtin_clz(static_cast<unsigned>(T))) / 2;
+  return 1 << (e < kTbMinLog ? kTbMinLog : e > kTbMaxLog ? kTbMaxLog : e);
+}
+
+// the scratch of B windows of T steps in segments of L: the maps [B, nseg,
+// S] uint16 at its start, then the bits of every end state [B, ceil(T /
+// 32), S] uint32 and the entries [B, nseg] int32, each at a 256-byte
+// offset
+struct TbLayout {
+  int nseg;
+  long long packed, entries, bytes;
+};
+
+TbLayout tb_layout(int B, int T, int S, int L) {
+  TbLayout l;
+  l.nseg = (T + L - 1) / L;
+  const long long t32 = (T + 31) / 32;
+  auto up = [](long long x) { return (x + 255) / 256 * 256; };
+  l.packed = up(static_cast<long long>(B) * l.nseg * S * 2);
+  l.entries = l.packed + up(static_cast<long long>(B) * t32 * S * 4);
+  l.bytes = l.entries + up(static_cast<long long>(B) * l.nseg * 4);
+  return l;
+}
+
+// rows [k * rows, min((k + 1) * rows, n)) of a segment's words (W32 32-bit
+// words a step) into `dst`, 8 bytes a copy, as one cp.async group of this
+// thread
+__device__ __forceinline__ void stage_rows(uint32_t* dst, const uint32_t* src,
+                                           int k, int rows, int n, int W32,
+                                           int tid, int nthr) {
+  const long long lo = static_cast<long long>(k) * rows * W32;
+  const int cnt = (min((k + 1) * rows, n) - k * rows) * W32 / 2;
+  for (int i = tid; i < cnt; i += nthr)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
-                     smem_addr(dst + i)),
-                 "l"(src + lo + i)
+                     smem_addr(dst + 2 * i)),
+                 "l"(src + lo + 2 * i)
                  : "memory");
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// S > 64: W = S / 64 words a step, staged kWideStage words at a time
-__global__ void __launch_bounds__(32)
-    traceback_wide_kernel(const unsigned long long* __restrict__ dec,
-                          uint8_t* __restrict__ bits, int T, int S,
-                          long long* __restrict__ cycles) {
-  __shared__ __align__(16) unsigned long long ring[2][kWideStage];
-  __shared__ uint8_t sbits[kWideStage / 2];
-  const int lane = threadIdx.x;
-  const long long t_start = clock64();
-  const int W = S >> 6, ch = kWideStage / W;
+// Phase 1, the maps: one CTA a (segment j, window b), thread i walking the
+// kPer end states i, i + nthr, ... from the segment's top step down through
+// its n steps. Writes the state each leaves the segment in (maps[b, j, e])
+// and, after every step t = 0 mod 32, the bits its walk gave steps [t, t +
+// 32) (packed[b, t / 32, e], step t + i at bit 31 - i; the steps of a
+// block lie in one segment, since L is a multiple of 32). The words pass
+// through a two-stage ring of kMapStage 32-bit words. seg_cycles (null, or
+// [B, nseg]) receives thread 0's clock64 cycles.
+template <int kPer>
+__global__ void __launch_bounds__(kCtaThreads)
+    tb_map_kernel(const uint32_t* __restrict__ dec, int B, int T, int S,
+                  int L, uint16_t* __restrict__ maps,
+                  uint32_t* __restrict__ packed,
+                  long long* __restrict__ seg_cycles) {
+  __shared__ __align__(16) uint32_t ring[2][kMapStage];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int W32 = S >> 5, rows = kMapStage / W32;
   const uint32_t half = static_cast<uint32_t>(S) >> 1;
-  const unsigned long long* dw =
-      dec + static_cast<long long>(blockIdx.x) * T * W;
-  uint8_t* bw = bits + static_cast<long long>(blockIdx.x) * T;
-  const int nch = (T + ch - 1) / ch;
-  stage_wide(ring[(nch - 1) & 1], dw, nch - 1, T, ch, W, lane);
+  const int nseg = gridDim.x, j = blockIdx.x;
+  const int lo = j * L, n = min(L, T - lo);
+  const int nst = (n + rows - 1) / rows;
+  const long long t32 = (T + 31) >> 5;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const long long t_start = clock64();
+    const uint32_t* src = dec + (static_cast<long long>(b) * T + lo) * W32;
+    uint32_t s[kPer], acc[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      s[q] = static_cast<uint32_t>(tid + q * nthr);
+      acc[q] = 0;
+    }
+    stage_rows(ring[(nst - 1) & 1], src, nst - 1, rows, n, W32, tid, nthr);
+    for (int k = nst - 1; k >= 0; --k) {
+      if (k > 0) {
+        stage_rows(ring[(k - 1) & 1], src, k - 1, rows, n, W32, tid, nthr);
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+      }
+      __syncthreads();  // every thread's copies of stage k have landed
+      const uint32_t* st = ring[k & 1];
+      const int r0 = k * rows;
+#pragma unroll 4
+      for (int r = min(r0 + rows, n) - 1; r >= r0; --r) {
+        const uint32_t* row = st + (r - r0) * W32;
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) {
+          const uint32_t w = row[s[q] >> 5];
+          acc[q] = __funnelshift_r(acc[q], s[q], 1);  // bit 31: s & 1
+          // bit s & 31 of w: the decision; the predecessor (s >> 1) + S / 2
+          const uint32_t took = __funnelshift_r(w, w, s[q]) & 1u;
+          s[q] = (s[q] >> 1) + took * half;
+        }
+        if (((lo + r) & 31) == 0) {
+          uint32_t* out = packed + (b * t32 + ((lo + r) >> 5)) * S + tid;
+#pragma unroll
+          for (int q = 0; q < kPer; ++q) out[q * nthr] = acc[q];
+        }
+      }
+      __syncthreads();  // stage k's buffer takes stage k - 2 next
+    }
+    uint16_t* m = maps + (static_cast<long long>(b) * nseg + j) * S + tid;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) m[q * nthr] = static_cast<uint16_t>(s[q]);
+    if (seg_cycles != nullptr && tid == 0)
+      seg_cycles[static_cast<long long>(b) * nseg + j] = clock64() - t_start;
+  }
+}
+
+// map rows [k * R, min((k + 1) * R, nseg)) of a window (S entries a row)
+// into `dst`, 16 bytes a copy, as one cp.async group of this lane
+__device__ __forceinline__ void stage_maps(uint16_t* dst, const uint16_t* src,
+                                           int k, int R, int nseg, int S,
+                                           int lane) {
+  const long long lo = static_cast<long long>(k) * R * S;
+  const int cnt = (min((k + 1) * R, nseg) - k * R) * S / 8;
+  for (int i = lane; i < cnt; i += 32)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     smem_addr(dst + 8 * i)),
+                 "l"(src + lo + 8 * i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Phase 2, the chain: one warp a window. From state 0 at the top, entry[j]
+// = s and s = maps[j][s] for j = nseg - 1 down to 0. The rows' addresses
+// do not depend on s, so below kChainDirect states the warp stages them
+// ahead through a two-stage ring of kChainStage entries (dynamic shared
+// memory) and each link is one shared-memory load of lane 0 (~62 cycles
+// at S = 128 and 256 on the H100); from kChainDirect on, a stage holds
+// four rows or fewer and copying them takes longer than reading the one
+// entry a link needs from global memory (~290 cycles a link against
+// ~470 staged at S = 4096; tools/viterbi_probe.py). cycles (null, or [B])
+// receives the window's clock64 cycles.
+__global__ void __launch_bounds__(32)
+    tb_chain_kernel(const uint16_t* __restrict__ maps, int S, int nseg,
+                    int* __restrict__ entries,
+                    long long* __restrict__ cycles) {
+  extern __shared__ __align__(16) uint16_t cring[];
+  __shared__ int sent[kChainStage / 128];
+  const int lane = threadIdx.x, b = blockIdx.x;
+  const long long t_start = clock64();
+  const int R = max(1, kChainStage / S);  // rows a stage
+  const uint16_t* mw = maps + static_cast<long long>(b) * nseg * S;
+  int* ew = entries + static_cast<long long>(b) * nseg;
   uint32_t s = 0;  // the walk starts at state 0
-  for (int k = nch - 1; k >= 0; --k) {
+  if (S >= kChainDirect) {
+    if (lane == 0) {
+      for (int j = nseg - 1; j >= 0; --j) {
+        ew[j] = static_cast<int>(s);
+        s = mw[static_cast<long long>(j) * S + s];
+      }
+      if (cycles != nullptr) cycles[b] = clock64() - t_start;
+    }
+    return;
+  }
+  const int nst = (nseg + R - 1) / R;
+  stage_maps(cring + ((nst - 1) & 1) * kChainStage, mw, nst - 1, R, nseg, S,
+             lane);
+  for (int k = nst - 1; k >= 0; --k) {
     if (k > 0) {
-      stage_wide(ring[(k - 1) & 1], dw, k - 1, T, ch, W, lane);
+      stage_maps(cring + ((k - 1) & 1) * kChainStage, mw, k - 1, R, nseg, S,
+                 lane);
       asm volatile("cp.async.wait_group 1;" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;" ::: "memory");
     }
     __syncwarp();  // every lane's copies of stage k have landed
-    const int lo = k * ch, n = min(ch, T - lo);
+    const int lo = k * R, n = min(R, nseg - lo);
     if (lane == 0) {
-      const unsigned long long* r = ring[k & 1];
-      for (int i = n - 1; i >= 0; --i) {
-        const unsigned long long word = r[i * W + (s >> 6)];
-        sbits[i] = static_cast<uint8_t>(s & 1u);
-        const bool took = (word >> (s & 63u)) & 1ull;
-        s = (s >> 1) | (took ? half : 0u);  // (s >> 1) + S / 2 * took
+      // a row's address off the chain: a link is one add and one load
+      const uint16_t* row = cring + (k & 1) * kChainStage + (n - 1) * S;
+#pragma unroll 4
+      for (int i = n - 1; i >= 0; --i, row -= S) {
+        sent[i] = static_cast<int>(s);
+        s = row[s];
       }
     }
     __syncwarp();
-    for (int i = lane; i < n; i += 32) bw[lo + i] = sbits[i];
+    for (int i = lane; i < n; i += 32) ew[lo + i] = sent[i];
+    __syncwarp();  // sent and stage k's buffer are rewritten next
   }
-  if (cycles != nullptr && lane == 0) cycles[blockIdx.x] = clock64() - t_start;
+  if (cycles != nullptr && lane == 0) cycles[b] = clock64() - t_start;
+}
+
+// Phase 3, the bits: a thread a (window b, 32-step block q, group k of 4
+// steps) reads the packed word of the end state the block's segment was
+// entered in and writes steps 32 q + 4 k ... + 3: one 4-byte store where
+// the four lie before T and their address is 4-byte aligned, else byte by
+// byte.
+__global__ void __launch_bounds__(256)
+    tb_select_kernel(const uint32_t* __restrict__ packed,
+                     const int* __restrict__ entries,
+                     uint8_t* __restrict__ bits, int B, int T, int S, int L,
+                     int nseg) {
+  const long long t32 = (T + 31) >> 5, total = B * t32 * 8;
+  for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       g < total; g += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long bq = g >> 3, b = bq / t32;
+    const int lo = static_cast<int>(bq - b * t32) << 5;
+    const int t = lo + 4 * static_cast<int>(g & 7);
+    if (t >= T) continue;
+    const uint32_t w = packed[bq * S + entries[b * nseg + lo / L]];
+    const uint32_t v = w >> (28 - (t - lo));  // steps t ... t + 3: bits 3 ... 0
+    uint8_t* out = bits + b * T + t;
+    if (t + 4 <= T && (reinterpret_cast<uintptr_t>(out) & 3) == 0) {
+      *reinterpret_cast<uint32_t*>(out) =
+          ((v >> 3) & 1u) | ((v >> 2) & 1u) << 8 | ((v >> 1) & 1u) << 16 |
+          (v & 1u) << 24;
+    } else {
+      for (int i = 0; i < 4 && t + i < T; ++i)
+        out[i] = static_cast<uint8_t>((v >> (3 - i)) & 1u);
+    }
+  }
+}
+
+template <int kPer>
+int launch_tb_map(const uint32_t* dec, int B, int T, int S, int L, int nseg,
+                  uint16_t* maps, uint32_t* packed, long long* seg_cycles,
+                  cudaStream_t stream) {
+  const dim3 grid(nseg, min(B, 65535));
+  tb_map_kernel<kPer><<<grid, S / kPer, 0, stream>>>(dec, B, T, S, L, maps,
+                                                      packed, seg_cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// phase 1 at S = 128 ... 16384: min(kTbMaxPer, S / 128) end states a thread
+int tb_maps(const uint32_t* dec, int B, int T, int S, int L, int nseg,
+            uint16_t* maps, uint32_t* packed, long long* seg_cycles,
+            cudaStream_t stream) {
+  switch (min(kTbMaxPer, S / 128)) {
+    case 1:
+      return launch_tb_map<1>(dec, B, T, S, L, nseg, maps, packed,
+                              seg_cycles, stream);
+    case 2:
+      return launch_tb_map<2>(dec, B, T, S, L, nseg, maps, packed,
+                              seg_cycles, stream);
+    case 4:
+      return launch_tb_map<4>(dec, B, T, S, L, nseg, maps, packed,
+                              seg_cycles, stream);
+    case 8:
+      return launch_tb_map<8>(dec, B, T, S, L, nseg, maps, packed,
+                              seg_cycles, stream);
+    default:
+      return launch_tb_map<kTbMaxPer>(dec, B, T, S, L, nseg, maps, packed,
+                                      seg_cycles, stream);
+  }
+}
+
+int tb_chain(const uint16_t* maps, int B, int S, int nseg, int* entries,
+             long long* cycles, cudaStream_t stream) {
+  const int smem = S >= kChainDirect
+                       ? 0
+                       : 2 * kChainStage * static_cast<int>(sizeof(uint16_t));
+  const cudaError_t e = cudaFuncSetAttribute(
+      tb_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      2 * kChainStage * static_cast<int>(sizeof(uint16_t)));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  tb_chain_kernel<<<B, 32, smem, stream>>>(maps, S, nseg, entries, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tb_select(const uint32_t* packed, const int* entries, uint8_t* bits,
+              int B, int T, int S, int L, int nseg, cudaStream_t stream) {
+  const long long total = static_cast<long long>(B) * ((T + 31) / 32) * 8;
+  const int blocks = static_cast<int>(min(total / 256 + 1, 16384LL));
+  tb_select_kernel<<<blocks, 256, 0, stream>>>(packed, entries, bits, B, T, S,
+                                               L, nseg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the three phases in segments of L steps, the scratch laid out by
+// tb_layout
+int traceback_segmented(const unsigned long long* dec, uint8_t* bits, int B,
+                        int T, int S, int L, void* scratch, long long* cycles,
+                        cudaStream_t stream) {
+  const TbLayout l = tb_layout(B, T, S, L);
+  auto* base = static_cast<char*>(scratch);
+  auto* maps = reinterpret_cast<uint16_t*>(base);
+  auto* packed = reinterpret_cast<uint32_t*>(base + l.packed);
+  auto* entries = reinterpret_cast<int*>(base + l.entries);
+  int rc = tb_maps(reinterpret_cast<const uint32_t*>(dec), B, T, S, L,
+                   l.nseg, maps, packed, nullptr, stream);
+  if (rc == 0) rc = tb_chain(maps, B, S, l.nseg, entries, cycles, stream);
+  if (rc == 0)
+    rc = tb_select(packed, entries, bits, B, T, S, L, l.nseg, stream);
+  return rc;
 }
 
 bool states_ok(int S) {
@@ -1247,14 +1528,25 @@ int viterbi_acs(const void* soft, int soft_u8, const int* starts,
                                       total, cycles, s);
 }
 
+// the bytes of scratch viterbi_traceback needs for B windows of T steps
+// of S states: 0 for S <= 64, else the segment-parallel walk's maps, bits
+// and entries (tb_layout); -1 for arguments viterbi_traceback refuses
+long long viterbi_traceback_scratch(int B, int T, int S) {
+  if (B < 1 || T < 1 || !states_ok(S)) return -1;
+  return S <= 64 ? 0 : tb_layout(B, T, S, tb_segment_steps(T)).bytes;
+}
+
 // dec [B, T, max(S / 64, 1)] 64-bit decision words of S states (a power
 // of two in [2, 16384]) -> bits [B, T] uint8 (the state's low bit per
-// step, walking back from state 0); cycles: null or [B] int64; *general
-// (if not null) receives 1 where the general walker (S > 64) runs, else 0.
+// step, walking back from state 0); cycles: null or [B] int64, each
+// window's clock64 cycles (for S > 64 those of the segment chain); scratch:
+// viterbi_traceback_scratch(B, T, S) bytes of device memory, 256-byte
+// aligned (unused for S <= 64); *general (if not null) receives 1 where
+// the general walk (S > 64) runs, else 0.
 int viterbi_traceback(const long long* dec, unsigned char* bits, int B,
-                      int T, int S, long long* cycles, void* stream,
-                      int* general) {
-  if (B < 1 || T < 1 || !states_ok(S))
+                      int T, int S, long long* cycles, void* scratch,
+                      void* stream, int* general) {
+  if (B < 1 || T < 1 || !states_ok(S) || (S > 64 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* d = reinterpret_cast<const unsigned long long*>(dec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1266,7 +1558,8 @@ int viterbi_traceback(const long long* dec, unsigned char* bits, int B,
   else if (S < 64)
     traceback_kernel<0><<<B, 32, 0, s>>>(d, bits, T, S, cycles);
   else
-    traceback_wide_kernel<<<B, 32, 0, s>>>(d, bits, T, S, cycles);
+    return traceback_segmented(d, bits, B, T, S, tb_segment_steps(T),
+                               scratch, cycles, s);
   return static_cast<int>(cudaGetLastError());
 }
 

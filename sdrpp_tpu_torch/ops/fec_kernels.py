@@ -34,7 +34,8 @@ took a general kernel (viterbi.cu's dispatch decides); on a CPU tensor each
 runs its plain PyTorch version, a Python loop over trellis steps on [B,
 S] tensors that takes the same arguments and returns the same words and
 bits. Any other device raises. On CUDA, ``cycles`` (an int64 [B] tensor,
-or None) receives each window's clock64 cycles.
+or None) receives each window's clock64 cycles (for the traceback at S >
+64, those of its segment chain).
 
 S <= 64 at R <= 4 (Meteor LRPT's and KG-STV's 64 states, M17's 16) runs
 the warp-per-window kernels: two states a lane for S = 64, one state a
@@ -42,8 +43,11 @@ lane for S <= 32 (the lanes above S a copy). S > 64, and any S at R > 4,
 runs the general kernels: a CTA of min(S, 1024) threads a window (a warp
 a window for S <= 32 at R > 4; on uint8 soft bits at S <= 1024 and R <=
 16 two trellis steps a barrier, csrc/viterbi.cu ``acs_r4_kernel``), and
-the traceback stages S / 64 words a step. On uint8 soft bits with integral expected outputs (at R <=
-4, or R <= 16 in the CTA kernel) the ACS runs the reference form (the
+the traceback walks segments of ``wide_segment_steps(T)`` steps in
+parallel from every end state, then chains the segments' maps from state
+0 (three launches, the host path allocating their scratch). On uint8
+soft bits with integral expected outputs (at R <= 4, or R <= 16 in the
+CTA kernel) the ACS runs the reference form (the
 minimum subtracted every step) for a window's first K - 1 steps, while
 states at the initial 1e9 remain; from then on every metric is an
 integer within (K - 1) * R * 255 of the minimum and the kernel subtracts
@@ -63,7 +67,7 @@ from ..utils import cuda_lib
 
 __all__ = ["viterbi_acs_batched", "viterbi_traceback_batched",
            "viterbi_acs_batched_plain", "viterbi_traceback_batched_plain",
-           "pack_decisions", "unpack_decisions"]
+           "pack_decisions", "unpack_decisions", "wide_segment_steps"]
 
 KERNEL_MIN_RATE = 2
 KERNEL_MAX_RATE = 32
@@ -79,6 +83,13 @@ def _check_states(num_states):
     if not _states_ok(num_states):
         raise ValueError(f"the Viterbi kernels take S = 2, 4, ..., "
                          f"{KERNEL_MAX_STATES} states, got {num_states}")
+
+
+def wide_segment_steps(T: int) -> int:
+    """The segment length of the traceback's walk at S > 64 for windows of
+    ``T`` steps: 2^(floor(log2 T) / 2), clamped to [32, 4096] (csrc/
+    viterbi.cu ``tb_segment_steps``)."""
+    return 1 << min(max((int(T).bit_length() - 1) // 2, 5), 12)
 
 
 def _words_shape(lead, num_states):
@@ -186,13 +197,15 @@ _host = None
 
 def _bind_host():
     """(kernels_host.viterbi_acs, kernels_host.viterbi_traceback)
-    (csrc/kernels_host.cpp), bound to the kernel library's two C entries;
-    both built and loaded on first use."""
+    (csrc/kernels_host.cpp), bound to the kernel library's C entries (the
+    two kernels' and the traceback's scratch size); both built and loaded
+    on first use."""
     global _host
     lib = cuda_lib.load("viterbi")
     mod = cuda_lib.load_host("kernels_host")
     mod.bind_viterbi(*(ctypes.cast(getattr(lib, e), ctypes.c_void_p).value
-                       for e in ("viterbi_acs", "viterbi_traceback")))
+                       for e in ("viterbi_acs", "viterbi_traceback",
+                                 "viterbi_traceback_scratch")))
     _host = (mod.viterbi_acs, mod.viterbi_traceback)
     return _host
 

@@ -137,7 +137,11 @@ def test_loop_scan_host_checks_its_own_arguments(host):
     with pytest.raises(ValueError, match="null entry"):
         host.bind_decim_fir(1, 0)
     with pytest.raises(ValueError, match="null entry"):
-        host.bind_viterbi(1, 0)
+        host.bind_viterbi(1, 0, 1)
+    with pytest.raises(ValueError, match="null entry"):
+        host.bind_viterbi(1, 1, 0)   # the traceback's scratch-size entry
+    with pytest.raises(TypeError, match="traceback_scratch_entry"):
+        host.bind_viterbi(1, 1)
 
 
 def _fir_cases():

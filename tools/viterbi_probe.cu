@@ -1,10 +1,14 @@
-// An instrumented copy of the general Viterbi ACS kernel that
+// Two probes of the package's Viterbi kernels on the card, driven by
+// tools/viterbi_probe.py; not part of the package and never built by it.
+// This file includes the package's csrc/viterbi.cu, so its traceback
+// section calls the package's own phase launchers; its copies of older
+// kernels live in namespace probe.
+//
+// The ACS: an instrumented copy of the general Viterbi ACS kernel that
 // csrc/viterbi.cu had before its radix-4 redesign (the "baseline",
 // acs_cta_kernel<uint8_t, 1, true>: one CTA a window, a thread a state,
 // one __syncthreads a trellis step), for measuring where its time goes on
 // the card, and the floors of the dependent chain at radix 2, 4 and 8.
-// Driven by tools/viterbi_probe.py; not part of the package and never
-// built by it.
 //
 // acs_probe instantiates the baseline for each `mode` (a template
 // argument, so the taken-out parts cost nothing) whose bits take one part
@@ -27,11 +31,23 @@
 // are not kept. Built like the package's kernels (nvcc -O3 --fmad=false
 // for sm_90a).
 
+// The traceback: traceback_wide_kernel, the one-lane walk csrc/viterbi.cu
+// ran for S > 64 before its segment-parallel walk (the traceback's
+// "baseline", copied as it was), and two variants of the new walk's phases
+// for its step 0: the maps phase with a merge shortcut (every 32 steps the
+// CTA tests whether all its walkers hold one state and stops if so: a
+// lower bound on that design's phase 1, whose merged tail is not walked;
+// its outputs are not complete) and the chain reading its rows from global
+// memory (L2) instead of a shared-memory ring. tb_phase runs one phase of
+// the package's walk at any segment length L.
+//
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "../sdrpp_tpu_torch/csrc/viterbi.cu"
+
+namespace probe {
 
 constexpr int kRegRate = 4;
 constexpr int kCtaThreads = 1024;
@@ -202,8 +218,191 @@ __global__ void __launch_bounds__(kCtaThreads)
   out[n] = smem[(r & 1) * S + n];
 }
 
-}  // namespace
 
+// --- traceback ---
+
+constexpr int kWideStage = 2048;  // words a ring stage of the baseline
+
+// words [k * ch * W, min((k + 1) * ch, T) * W) of a window (W words a
+// step, ch steps a stage) into `dst`, as one cp.async group of this thread
+__device__ __forceinline__ void stage_wide(unsigned long long* dst,
+                                           const unsigned long long* src,
+                                           int k, int T, int ch, int W,
+                                           int lane) {
+  const long long lo = static_cast<long long>(k) * ch * W;
+  const int n = (min((k + 1) * ch, T) - k * ch) * W;
+  for (int i = lane; i < n; i += 32)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                     smem_addr(dst + i)),
+                 "l"(src + lo + i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// the baseline: S > 64, W = S / 64 words a step, staged kWideStage words
+// at a time, lane 0 walking every step
+__global__ void __launch_bounds__(32)
+    traceback_wide_kernel(const unsigned long long* __restrict__ dec,
+                          uint8_t* __restrict__ bits, int T, int S,
+                          long long* __restrict__ cycles) {
+  __shared__ __align__(16) unsigned long long ring[2][kWideStage];
+  __shared__ uint8_t sbits[kWideStage / 2];
+  const int lane = threadIdx.x;
+  const long long t_start = clock64();
+  const int W = S >> 6, ch = kWideStage / W;
+  const uint32_t half = static_cast<uint32_t>(S) >> 1;
+  const unsigned long long* dw =
+      dec + static_cast<long long>(blockIdx.x) * T * W;
+  uint8_t* bw = bits + static_cast<long long>(blockIdx.x) * T;
+  const int nch = (T + ch - 1) / ch;
+  stage_wide(ring[(nch - 1) & 1], dw, nch - 1, T, ch, W, lane);
+  uint32_t s = 0;  // the walk starts at state 0
+  for (int k = nch - 1; k >= 0; --k) {
+    if (k > 0) {
+      stage_wide(ring[(k - 1) & 1], dw, k - 1, T, ch, W, lane);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncwarp();  // every lane's copies of stage k have landed
+    const int lo = k * ch, n = min(ch, T - lo);
+    if (lane == 0) {
+      const unsigned long long* r = ring[k & 1];
+      for (int i = n - 1; i >= 0; --i) {
+        const unsigned long long word = r[i * W + (s >> 6)];
+        sbits[i] = static_cast<uint8_t>(s & 1u);
+        const bool took = (word >> (s & 63u)) & 1ull;
+        s = (s >> 1) | (took ? half : 0u);  // (s >> 1) + S / 2 * took
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) bw[lo + i] = sbits[i];
+  }
+  if (cycles != nullptr && lane == 0) cycles[blockIdx.x] = clock64() - t_start;
+}
+
+// the package's tb_map_kernel with the merge shortcut: every kCheck steps
+// thread 0 publishes its first state and the CTA stops once every walker
+// holds it (timing only: the maps and bits of a merged segment are not
+// complete)
+constexpr int kCheck = 32;
+
+template <int kPer>
+__global__ void __launch_bounds__(1024)
+    tb_map_merge_kernel(const uint32_t* __restrict__ dec, int B, int T,
+                        int S, int L, uint16_t* __restrict__ maps,
+                        uint32_t* __restrict__ packed,
+                        long long* __restrict__ seg_cycles) {
+  __shared__ __align__(16) uint32_t ring[2][kMapStage];
+  __shared__ uint32_t sref;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int W32 = S >> 5, rows = kMapStage / W32;
+  const uint32_t half = static_cast<uint32_t>(S) >> 1;
+  const int nseg = gridDim.x, j = blockIdx.x;
+  const int lo = j * L, n = min(L, T - lo);
+  const int nst = (n + rows - 1) / rows;
+  const long long t32 = (T + 31) >> 5;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const long long t_start = clock64();
+    const uint32_t* src = dec + (static_cast<long long>(b) * T + lo) * W32;
+    uint32_t s[kPer], acc[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      s[q] = static_cast<uint32_t>(tid + q * nthr);
+      acc[q] = 0;
+    }
+    stage_rows(ring[(nst - 1) & 1], src, nst - 1, rows, n, W32, tid, nthr);
+    int walked = 0;
+    bool merged = false;
+    for (int k = nst - 1; k >= 0 && !merged; --k) {
+      if (k > 0) {
+        stage_rows(ring[(k - 1) & 1], src, k - 1, rows, n, W32, tid, nthr);
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+      }
+      __syncthreads();
+      const uint32_t* st = ring[k & 1];
+      const int r0 = k * rows;
+      for (int r = min(r0 + rows, n) - 1; r >= r0 && !merged; --r) {
+        const uint32_t* row = st + (r - r0) * W32;
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) {
+          const uint32_t w = row[s[q] >> 5];
+          acc[q] = __funnelshift_r(acc[q], s[q], 1);
+          const uint32_t took = __funnelshift_r(w, w, s[q]) & 1u;
+          s[q] = (s[q] >> 1) + took * half;
+        }
+        if (((lo + r) & 31) == 0) {
+          uint32_t* out = packed + (b * t32 + ((lo + r) >> 5)) * S + tid;
+#pragma unroll
+          for (int q = 0; q < kPer; ++q) out[q * nthr] = acc[q];
+        }
+        if (++walked % kCheck == 0) {
+          if (tid == 0) sref = s[0];
+          __syncthreads();
+          bool eq = true;
+#pragma unroll
+          for (int q = 0; q < kPer; ++q) eq = eq && s[q] == sref;
+          merged = __syncthreads_and(eq) != 0;
+        }
+      }
+      __syncthreads();
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    uint16_t* m = maps + (static_cast<long long>(b) * nseg + j) * S + tid;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) m[q * nthr] = static_cast<uint16_t>(s[q]);
+    if (seg_cycles != nullptr && tid == 0)
+      seg_cycles[static_cast<long long>(b) * nseg + j] = clock64() - t_start;
+  }
+}
+
+int tb_maps_merge(const uint32_t* dec, int B, int T, int S, int L, int nseg,
+                  uint16_t* maps, uint32_t* packed, long long* seg_cycles,
+                  cudaStream_t stream) {
+  const dim3 grid(nseg, min(B, 65535));
+#define TB_MERGE(P)                                                        \
+  case P:                                                                  \
+    tb_map_merge_kernel<P><<<grid, S / P, 0, stream>>>(dec, B, T, S, L,    \
+                                                       maps, packed,       \
+                                                       seg_cycles);        \
+    break
+  switch (min(kTbMaxPer, S / 128)) {
+    TB_MERGE(1);
+    TB_MERGE(2);
+    TB_MERGE(4);
+    TB_MERGE(8);
+    default:
+      tb_map_merge_kernel<kTbMaxPer><<<grid, S / kTbMaxPer, 0, stream>>>(
+          dec, B, T, S, L, maps, packed, seg_cycles);
+  }
+#undef TB_MERGE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the chain with its rows read from global memory: lane 0 alone
+__global__ void __launch_bounds__(32)
+    tb_chain_l2_kernel(const uint16_t* __restrict__ maps, int S, int nseg,
+                       int* __restrict__ entries,
+                       long long* __restrict__ cycles) {
+  if (threadIdx.x != 0) return;
+  const int b = blockIdx.x;
+  const long long t_start = clock64();
+  const uint16_t* mw = maps + static_cast<long long>(b) * nseg * S;
+  int* ew = entries + static_cast<long long>(b) * nseg;
+  uint32_t s = 0;
+  for (int j = nseg - 1; j >= 0; --j) {
+    ew[j] = static_cast<int>(s);
+    s = mw[static_cast<long long>(j) * S + s];
+  }
+  if (cycles != nullptr) cycles[b] = clock64() - t_start;
+}
+
+}  // namespace probe
+
+namespace probe {
 extern "C" {
 
 #define ACS_MODES(X) X(0) X(1) X(2) X(4) X(8) X(16) X(28) X(31)
@@ -252,4 +451,59 @@ int acs_floor(const float* expected, int T, int S, int levels, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// dec [B, T, S / 64] words -> bits [B, T], the baseline one-lane walk
+// (S > 64); cycles null or [B]
+int tb_baseline(const unsigned long long* dec, uint8_t* bits, int B, int T,
+                int S, long long* cycles, void* stream) {
+  if (S <= 64 || B < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  traceback_wide_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      dec, bits, T, S, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the package's walk at segment length L (0: tb_segment_steps(T)): its
+// scratch bytes
+long long tb_scratch(int B, int T, int S, int L) {
+  return ::tb_layout(B, T, S, L > 0 ? L : ::tb_segment_steps(T)).bytes;
+}
+
+// one phase of the package's walk at segment length L (0: its own) on
+// tb_scratch(B, T, S, L) bytes of scratch: 0 all three (traceback_segmented;
+// cycles [B] the chain's), 1 the maps (cycles [B, nseg] per segment), 2
+// the chain (cycles [B]), 3 the bits, 4 the maps with the merge shortcut
+// (cycles [B, nseg]), 5 the chain from global memory (cycles [B])
+int tb_phase(int phase, const unsigned long long* dec, uint8_t* bits, int B,
+             int T, int S, int L, void* scratch, long long* cycles,
+             void* stream) {
+  if (S <= 64 || B < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (L <= 0) L = ::tb_segment_steps(T);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ::TbLayout l = ::tb_layout(B, T, S, L);
+  auto* base = static_cast<char*>(scratch);
+  auto* maps = reinterpret_cast<uint16_t*>(base);
+  auto* packed = reinterpret_cast<uint32_t*>(base + l.packed);
+  auto* entries = reinterpret_cast<int*>(base + l.entries);
+  const auto* d32 = reinterpret_cast<const uint32_t*>(dec);
+  switch (phase) {
+    case 0:
+      return ::traceback_segmented(dec, bits, B, T, S, L, scratch, cycles,
+                                   st);
+    case 1:
+      return ::tb_maps(d32, B, T, S, L, l.nseg, maps, packed, cycles, st);
+    case 2:
+      return ::tb_chain(maps, B, S, l.nseg, entries, cycles, st);
+    case 3:
+      return ::tb_select(packed, entries, bits, B, T, S, L, l.nseg, st);
+    case 4:
+      return tb_maps_merge(d32, B, T, S, L, l.nseg, maps, packed, cycles, st);
+    case 5:
+      tb_chain_l2_kernel<<<B, 32, 0, st>>>(maps, S, l.nseg, entries, cycles);
+      return static_cast<int>(cudaGetLastError());
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // extern "C"
+}  // namespace probe
