@@ -10,7 +10,8 @@ the FEC library's K = 9 and K = 6 decodes, RS erasures, the rest of the
 DSP library, the live receiver behind ``cli ui``, the baseband server
 behind ``cli serve``, the supervised recovery of a poisoned device, ``cli
 run``'s FLAC / MP3 containers, checkpoint / resume, trace and watchdog,
-and the ATV and DAB OFDM decoders with their walks) and fails (non-zero
+the ATV and DAB OFDM decoders with their walks, and the multi-device
+layer on an NCCL process group of one rank) and fails (non-zero
 exit, no result line) if any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
@@ -285,7 +286,26 @@ exit, no result line) if any phase fails:
     and time-major), both Viterbi entries on the pass case's stream and
     finalize's Viterbi on the 30-s pass's soft bits, each tree in its own
     process, parent, change, change, parent, printed as one "ab" line;
-    without it the phase says so and is skipped.
+    without it the phase says so and is skipped;
+26. the multi-device layer (``phase_multidevice``): ``distributed_init``
+    starts an NCCL process group of world 1 on cuda:0 from a ``file://``
+    store (NCCL takes no two ranks of one communicator on one card);
+    ``MultiHostReceiver`` at bank-6p144 (``wideband.bank_offsets()``, 64
+    USB channels at 6.144 Msps, MD_BLOCKS blocks of 2^18 samples) must
+    give audio bit-equal to the unsharded ``ScannerBank`` on the same
+    card and input, with lane_scan and decimating_fir launched inside
+    it; ``make_time_step_nfm`` on a 1-rank "time" mesh at 2.4 Msps,
+    MD_NFM_BLOCKS blocks of 654,400 samples of an NFM carrier, within
+    MD_NFM_TOL of the unsharded chain (FrequencyXlator -> FIR ->
+    Quadrature -> FIR) after the filters' start-up, its 1 kHz tone within
+    5 Hz at SNR > 25 dB; ``dist_fft`` (natural and matrix form) at 2^20
+    within MD_FFT_TOL of ``torch.fft.fft``'s peak and
+    ``dist_power_spectrum`` within MD_SPECTRUM_TOL of ``SpectrumFFT``'s
+    peak power; each timed beside its unsharded form in alternating
+    rounds with the collectives (all_gather, broadcast, all_to_all), the
+    card's name and power limit on each line; the group destroyed. Then,
+    never a pass condition, a 2-rank gloo world on the one card with
+    CUDA tensors: each collective's time, or the call that refused.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
@@ -441,7 +461,8 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "run_wfm": ("lane_scan",),
             "run_am": ("single_scan", "decimating_fir"),
             "atv": ("line_sync_walk", "chroma_burst_walk"),
-            "dab": ("cyclic_sync_walk",)}
+            "dab": ("cyclic_sync_walk",),
+            "multidevice": ("lane_scan", "decimating_fir")}
 # H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and float32
 # operations/s outside the tensor cores; a case's bound is the larger of
 # its bytes and its operations over these
@@ -6154,6 +6175,318 @@ def profile_meteor(summary, acts):
     return out
 
 
+MD_BLOCKS = 4               # blocks of the 64-channel sharded bank
+MD_REPS = 20                # calls a CUDA-event timing averages
+MD_NFM_FS = 2.4e6           # slice-2p4's rate and block
+MD_NFM_BLOCK = 654400
+MD_NFM_BLOCKS = 2
+MD_NFM_OFFSET = 200e3       # an NFM carrier, 1 kHz at 5 kHz deviation
+MD_NFM_BW = 12500.0
+MD_NFM_TOL = 1e-4           # tests/test_time_shard.py's quadrature bound
+MD_FFT_N = 1 << 20          # tools/check_aot_topology.py's dist_fft size
+MD_FFT_TOL = 2e-6           # of the spectrum's peak (tests/test_dist_fft.py)
+# the power line in linear power, of the peak: power is |X|^2, so twice
+# MD_FFT_TOL (a dB bound, tests/test_dist_fft.py's 2e-3 at 2^16, is
+# ill-posed at 2^20: the bins of a noise spectrum that fall near zero turn
+# an error at the FFT's rounding into tenths of a dB)
+MD_SPECTRUM_TOL = 2 * MD_FFT_TOL
+MD_GLOO_SCRIPT = r"""
+import datetime, json, sys, time
+import torch
+import torch.distributed as dist
+rank, init = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method="file://" + init, world_size=2,
+                        rank=rank, timeout=datetime.timedelta(seconds=60))
+torch.cuda.set_device(0)
+x = torch.randn(64, 2048, device="cuda") + rank
+calls = {
+    "all_gather": lambda: dist.all_gather([torch.empty_like(x)] * 2, x),
+    "broadcast": lambda: dist.broadcast(x.clone(), src=1),
+    "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x),
+                                                        x),
+}
+res = {}
+for name, fn in calls.items():
+    try:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t0) / 10 * 1e3
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        res[name] = "refused: " + str(e).splitlines()[0][:300]
+dist.destroy_process_group()
+if rank == 0:
+    print("GLOO " + json.dumps(res))
+"""
+
+
+def md_turns(fns: dict, rounds: int = 4) -> dict:
+    """Each fn's CUDA-event ms a call (``cuda_ms`` over MD_REPS calls) in
+    ``rounds`` rounds, the order reversed every round (a, b, b, a, ...),
+    after a warm-up of each; and its device time alone (``device_ms``).
+    Returns {name: {"ms": [per round], "median_ms", "device_ms"}}."""
+    for fn in fns.values():
+        warm(fn, calls=MD_REPS)
+    names = list(fns)
+    out = {k: {"ms": []} for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            out[k]["ms"].append(cuda_ms(fns[k], MD_REPS))
+    for k in names:
+        out[k]["median_ms"] = float(np.median(out[k]["ms"]))
+        out[k]["device_ms"] = device_ms(fns[k])
+    return out
+
+
+def md_line(t: dict) -> str:
+    return (f"{t['median_ms']:.4f} ms (rounds "
+            f"{' / '.join(f'{v:.4f}' for v in t['ms'])}; device alone "
+            f"{t['device_ms']:.4f})")
+
+
+def md_gloo_probe():
+    """Not a pass condition: a 2-rank gloo world on the one card with CUDA
+    tensors (MD_GLOO_SCRIPT, two processes), each collective the layer
+    uses timed (host ms a call over 10) or the error that refused it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MD_GLOO_SCRIPT, str(r), f"{tmp}/init"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=180))
+        except subprocess.TimeoutExpired:
+            return {"result": "timed out after 180 s"}
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    line = [l for l in outs[0][0].splitlines() if l.startswith("GLOO ")]
+    if not line:
+        return {"result": "failed", "rc": [p.returncode for p in procs],
+                "stderr": outs[0][1][-1500:]}
+    return {"result": json.loads(line[-1][5:])}
+
+
+def phase_multidevice(gpu: str, device="cuda"):
+    """The multi-device layer (parallel/) on a real NCCL process group of
+    world 1 on cuda:0, started by ``distributed_init`` from a ``file://``
+    store (NCCL takes no two ranks of one communicator on one card):
+    ``MultiHostReceiver`` at bank-6p144 (64 USB channels at 6.144 Msps,
+    blocks of 2^18) against the unsharded ``ScannerBank`` on the same card
+    and input, bit for bit, with its lane_scan and decimating_fir launches;
+    ``make_time_step_nfm`` on a 1-rank "time" mesh at slice-2p4's rate and
+    block against the unsharded chain; ``dist_fft`` and
+    ``dist_power_spectrum`` at 2^20 against ``torch.fft.fft`` and
+    ``SpectrumFFT``; CUDA-event ms of each beside its unsharded form and
+    of the collectives, each printed with the card's name and power limit;
+    the group destroyed at the end. Then, not a pass condition, a 2-rank
+    gloo world on the card (``md_gloo_probe``). ``device="cpu"`` is a CPU
+    dry run on gloo (with ``cuda_ms``, ``read_counts`` and
+    ``md_gloo_probe`` stubbed)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from sdrpp_tpu_torch.ops import taps as taps_mod
+    from sdrpp_tpu_torch.ops.fir import FIR
+    from sdrpp_tpu_torch.ops.fm import Quadrature
+    from sdrpp_tpu_torch.ops.mix import FrequencyXlator
+    from sdrpp_tpu_torch.ops.spectrum import SpectrumFFT
+    from sdrpp_tpu_torch.parallel import dist_fft as DF
+    from sdrpp_tpu_torch.parallel import multihost as MH
+    from sdrpp_tpu_torch.parallel import time_shard as TS
+    from sdrpp_tpu_torch.parallel import wideband as W
+    from sdrpp_tpu_torch.parallel.vfo_bank import ScannerBank
+
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    res = {}
+    # the group's store: NCCL reads it at its first collective, so the
+    # file outlives the group
+    store = tempfile.TemporaryDirectory()
+    world = MH.distributed_init(f"file://{store.name}/init", 1, 0,
+                                device=dev, timeout_s=120.0)
+    try:
+        if world != (1, 0) or dist.get_backend() != backend:
+            raise AssertionError(f"multidevice: world {world}, backend "
+                                 f"{dist.get_backend()}")
+        # ---- the channel-sharded bank, bank-6p144 -------------------------
+        offsets = W.bank_offsets()
+        kw = dict(mode="usb", if_rate=W.IF_RATE, bandwidth=2700.0)
+        rx = MH.MultiHostReceiver(offsets, W.FS_MID, coordinator=None,
+                                  device=dev, **kw)
+        bank = ScannerBank(offsets, W.FS_MID, device=dev, **kw)
+        n = bank.block_multiple * ((1 << 18) // bank.block_multiple)
+        t = np.arange(MD_BLOCKS * n) / W.FS_MID
+        rng = np.random.default_rng(17)
+        x = 1e-3 * (rng.standard_normal(t.size)
+                    + 1j * rng.standard_normal(t.size))
+        for ch in range(0, W.CHANNELS, 8):  # USB tones 1 kHz above 8 channels
+            x = x + 0.05 * np.exp(2j * np.pi * (offsets[ch] + 1000.0) * t)
+        xs = torch.from_numpy(x.astype(np.complex64)).to(dev).reshape(
+            MD_BLOCKS, n)
+        state = bank.init_state()
+        want = []
+        for k in range(MD_BLOCKS):
+            state, y = bank(state, xs[k])
+            want.append(y)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = [rx.process_block(xs[k]) for k in range(MD_BLOCKS)]
+        torch.cuda.synchronize()
+        launches = read_counts("multidevice")
+        full = [rx.gather_audio(g) for g in got]
+        equal = [bool(torch.equal(a, b)) for a, b in zip(full, want)]
+        if not all(equal) or not all(torch.isfinite(a).all() for a in full):
+            diffs = [float((a - b).abs().max()) for a, b in zip(full, want)]
+            raise AssertionError(f"multidevice bank: sharded audio not equal "
+                                 f"to the unsharded bank's: {diffs}")
+        t = md_turns({"sharded": lambda: rx.process_block(xs[0]),
+                      "unsharded": lambda: bank(state, xs[0]),
+                      "gather_audio": lambda: rx.gather_audio(got[0])})
+        res["bank"] = {"channels": W.CHANNELS, "block": n,
+                       "blocks": MD_BLOCKS, "bit_equal": equal,
+                       "launches": launches, "timing": t,
+                       "audio_shape": list(full[0].shape)}
+        log(f"multidevice bank-6p144: {W.CHANNELS} USB channels, {n} samples "
+            f"a block, {backend} world 1, audio bit-equal on {MD_BLOCKS} "
+            f"blocks; a block (CUDA events, in turns): sharded step "
+            f"{md_line(t['sharded'])}, unsharded bank "
+            f"{md_line(t['unsharded'])}; gather_audio ({backend} all_gather "
+            f"of [{W.CHANNELS}, {full[0].shape[-1]}] float32) "
+            f"{md_line(t['gather_audio'])} [{gpu}]")
+        del rx, bank, state, want, got, full, xs
+
+        # ---- the time-sharded NFM step, slice-2p4's rate and block --------
+        tmesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("time",))
+        nb = MD_NFM_BLOCKS * MD_NFM_BLOCK
+        tt = np.arange(nb) / MD_NFM_FS
+        iq = np.exp(1j * (2 * np.pi * MD_NFM_OFFSET * tt
+                          + np.cumsum(2 * np.pi * 5000.0
+                                      * np.sin(2 * np.pi * 1000.0 * tt)
+                                      / MD_NFM_FS)))
+        xs = torch.from_numpy(iq.astype(np.complex64)).to(dev).reshape(
+            MD_NFM_BLOCKS, MD_NFM_BLOCK)
+        step, init_state = TS.make_time_step_nfm(
+            tmesh, MD_NFM_OFFSET, MD_NFM_FS, MD_NFM_BW, MD_NFM_BLOCK)
+        bw = MD_NFM_BW
+        chan = taps_mod.low_pass(bw / 2.0, bw * 0.05, MD_NFM_FS)
+        aud = taps_mod.low_pass(bw / 2.0, bw * 0.1, MD_NFM_FS)
+        chain = [FrequencyXlator(-MD_NFM_OFFSET, MD_NFM_FS, device=dev),
+                 FIR(chan, device=dev), Quadrature(bw / 2.0, MD_NFM_FS,
+                                                   device=dev),
+                 FIR(aud, dtype=torch.float32, device=dev)]
+
+        def plain_step(states, x):
+            states = list(states)
+            for i, b in enumerate(chain):
+                states[i], x = b(states[i], x)
+            return states, x
+
+        st, pst = init_state(), [b.init_state() for b in chain]
+        got, want = [], []
+        for k in range(MD_NFM_BLOCKS):
+            st, y = step(st, xs[k])
+            pst, yp = plain_step(pst, xs[k])
+            got.append(y.cpu().numpy())
+            want.append(yp.cpu().numpy())
+        settle = len(chan) + len(aud)
+        err = max(float(np.abs(got[0][settle:] - want[0][settle:]).max()),
+                  *(float(np.abs(g - w).max())
+                    for g, w in zip(got[1:], want[1:])))
+        y = np.concatenate(got)
+        seg = y[len(y) // 2:] - np.mean(y[len(y) // 2:])
+        S = np.abs(np.fft.rfft(seg * np.hanning(len(seg)))) ** 2
+        freqs = np.fft.rfftfreq(len(seg), 1 / MD_NFM_FS)
+        kk = int(np.argmax(S[3:]) + 3)
+        sig = S[kk - 3: kk + 4].sum()
+        snr = float(10 * np.log10(sig / (S[3:].sum() - sig)))
+        if not (err <= MD_NFM_TOL and abs(freqs[kk] - 1000.0) < 5.0
+                and snr > 25.0 and np.isfinite(y).all()):
+            raise AssertionError(f"multidevice nfm: max diff {err} (tol "
+                                 f"{MD_NFM_TOL}), tone {freqs[kk]} Hz, SNR "
+                                 f"{snr} dB")
+        tail = xs[0][-(len(chan) - 1):]
+        t = md_turns({"sharded": lambda: step(st, xs[0]),
+                      "unsharded": lambda: plain_step(pst, xs[0]),
+                      "broadcast": lambda: TS._from_last_shard(tail, tmesh)})
+        res["nfm"] = {"block": MD_NFM_BLOCK, "blocks": MD_NFM_BLOCKS,
+                      "max_diff": err, "settle": settle, "tone_hz":
+                      float(freqs[kk]), "snr_db": snr, "timing": t}
+        log(f"multidevice nfm-2p4: time-sharded NFM step, 1-rank mesh, "
+            f"{MD_NFM_BLOCK} samples a block, max diff {err:.3g} from the "
+            f"unsharded chain after {settle} samples, tone {freqs[kk]:.2f} "
+            f"Hz at {snr:.1f} dB; a block (CUDA events, in turns): sharded "
+            f"step {md_line(t['sharded'])}, unsharded chain "
+            f"{md_line(t['unsharded'])}; {backend} broadcast of the "
+            f"[{len(chan) - 1}] complex64 tail (three a step) "
+            f"{md_line(t['broadcast'])} [{gpu}]")
+        del xs, chain, st, pst
+
+        # ---- the distributed FFT at 2^20 ----------------------------------
+        fmesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("fft",))
+        rng = np.random.default_rng(18)
+        xf = (rng.standard_normal(MD_FFT_N)
+              + 1j * rng.standard_normal(MD_FFT_N)).astype(np.complex64)
+        xl = DF.shard_input(xf, fmesh)
+        xd = torch.from_numpy(xf).to(dev)
+        ref = torch.fft.fft(xd)
+        scale = float(ref.abs().max())
+        fft_err = float((DF.dist_fft(xl, fmesh) - ref).abs().max()) / scale
+        mat = DF.dist_fft(xl, fmesh, natural=False)
+        mat_err = float((mat.transpose(0, 1).reshape(-1) - ref).abs().max()
+                        ) / scale
+        spec = SpectrumFFT(MD_FFT_N, float(MD_FFT_N), 1.0, device=dev)
+        win = torch.from_numpy(spec.window).to(dev)
+        xl1 = DF.shard_input(0.1 * xf, fmesh)
+        line = DF.dist_power_spectrum(xl1, win, fmesh)
+        p_ref = 10.0 ** (spec(0.1 * xd)[0].double() / 10.0)
+        line_err = float((10.0 ** (line.double() / 10.0) - p_ref).abs().max()
+                         / p_ref.max())
+        if not (fft_err <= MD_FFT_TOL and mat_err <= MD_FFT_TOL
+                and line_err <= MD_SPECTRUM_TOL):
+            raise AssertionError(f"multidevice dist_fft: {fft_err}, matrix "
+                                 f"{mat_err}, power line {line_err}")
+        xw = 0.1 * xd
+        blocks = torch.view_as_real(xl).contiguous()
+        t = md_turns({
+            "dist_fft": lambda: DF.dist_fft(xl, fmesh),
+            "torch_fft": lambda: torch.fft.fft(xd),
+            "matrix": lambda: DF.dist_fft(xl, fmesh, natural=False),
+            "dist_power_spectrum":
+                lambda: DF.dist_power_spectrum(xl1, win, fmesh),
+            "spectrum_fft": lambda: spec(xw),
+            "all_to_all": lambda: dist.all_to_all_single(
+                torch.empty_like(blocks), blocks,
+                group=fmesh.get_group("fft"))})
+        res["fft"] = {"n": MD_FFT_N, "err": fft_err, "matrix_err": mat_err,
+                      "line_err": line_err, "timing": t}
+        log(f"multidevice dist_fft: n = 2^20 on a 1-rank mesh, error "
+            f"{fft_err:.3g} (matrix form {mat_err:.3g}) of the peak, the "
+            f"power line within {line_err:.3g} of the peak's; a call (CUDA "
+            f"events, in turns): dist_fft {md_line(t['dist_fft'])} (matrix "
+            f"form {md_line(t['matrix'])}), torch.fft.fft "
+            f"{md_line(t['torch_fft'])}; dist_power_spectrum "
+            f"{md_line(t['dist_power_spectrum'])}, SpectrumFFT "
+            f"{md_line(t['spectrum_fft'])}; {backend} all_to_all_single of "
+            f"the 8 MiB block {md_line(t['all_to_all'])} [{gpu}]")
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    res["gloo_two_ranks"] = md_gloo_probe()
+    log(f"multidevice gloo, 2 ranks on one card, CUDA tensors (not a pass "
+        f"condition): {json.dumps(res['gloo_two_ranks'])} [{gpu}]")
+    res["launches"] = res["bank"]["launches"]
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -6253,6 +6586,7 @@ def main() -> int:
     dab = phase_dab(dev)
     ab = phase_ab(meteor["block"], ab_inputs,
                   dict(ab_viterbi, pass_u8=pass_u8))
+    multidevice = phase_multidevice(gpu)
 
     paths = {"receive": launches, "radio": r_launches,
              "meteor": meteor["launches"],
@@ -6269,7 +6603,8 @@ def main() -> int:
              "ui": ui["launches"],
              "run_wfm": run_resume["launches"]["wfm"],
              "run_am": run_resume["launches"]["am"],
-             "atv": atv["launches"], "dab": dab["launches"]}
+             "atv": atv["launches"], "dab": dab["launches"],
+             "multidevice": multidevice["launches"]}
     rows = []
     for entry in SOURCES:
         mine = [k for k in kernels if k["entry"] == entry]
@@ -6303,7 +6638,8 @@ def main() -> int:
                     "decode": decode, "fec": fec, "rs_erasures": rs,
                     "dsp_lib": dsp, "ui": ui, "serve": serve,
                     "ui_fault": ui_fault, "run_resume": run_resume,
-                    "mp3": mp3, "atv": atv, "dab": dab, "ab": ab},
+                    "mp3": mp3, "atv": atv, "dab": dab, "ab": ab,
+                    "multidevice": multidevice},
                    default=float))
     print(gpu)
     print(json.dumps({"kernels": rows}))

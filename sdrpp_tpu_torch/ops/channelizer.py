@@ -18,8 +18,12 @@ offset; full, all F bins. The JAX package cuts the pruned windows with
 one static slice per channel (a TPU workaround for its gather); the port
 gathers all channels at once through a precomputed [C, 2M] index tensor,
 the same bins. The FFTs are ``torch.fft`` (cuFFT on the card), as the JAX
-package leaves them to XLA. Its ``shard_map`` branches are not ported
-(ROADMAP A10).
+package leaves them to XLA. Inside ``parallel.spmd.channel_shard`` (the
+sharded bank's step, ``ScannerBank.sharded_step``) a carried phase of
+fewer rows than the bank's channels is this rank's channel shard: the
+plan's per-channel rows (``step``, ``corr``, ``idx``, ``H``) for it are
+taken from the full plan on the device, as the JAX package's
+``shard_map`` branches take them.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.spmd import current_channel_axis, local_rows
 from ..utils.blocks import Block
 from . import taps as taps_mod
 from .fir import FIR
@@ -148,18 +153,24 @@ class FFTChannelizerBank(Block):
         R, F, M = self.R, p["F"], p["M"]
         buf = torch.cat([state["tail"], x])
         X = torch.fft.fft(buf, F)
-        S = X[p["idx"]] * p["H"]
+        ph = state["phase"]
+        c = ph.shape[0]
+        idx, H, corr, step = p["idx"], p["H"], p["corr"], p["step"]
+        if c != self.channels and current_channel_axis() is not None:
+            # a rank's channel shard (parallel/spmd.py): its rows of the plan
+            idx, H, corr, step = (local_rows(t, c)
+                                  for t in (idx, H, corr, step))
+        S = X[idx] * H
         if self.prune:
             fold = S[:, M:] + S[:, :M]
         else:
-            fold = torch.sum(S.reshape(self.channels, R, M), dim=1)
+            fold = torch.sum(S.reshape(c, R, M), dim=1)
         z = torch.fft.ifft(fold, dim=-1)[:, : n // R] * float(np.float32(M / F))
-        ph = state["phase"]
         carry = torch.complex(torch.cos(ph), torch.sin(ph))
-        y = z * carry[:, None] * p["corr"]
+        y = z * carry[:, None] * corr
         new_state = {
             "tail": buf[n:].clone(),
-            "phase": torch.remainder(ph + p["step"], _TWO_PI32),
+            "phase": torch.remainder(ph + step, _TWO_PI32),
         }
         if self.filter is not None:
             fs, y = self.filter(state["filter"], y)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.spmd import current_channel_axis, local_rows
 from ..utils.blocks import Block
 
 __all__ = ["mix", "mix_ramp", "mix_bank", "mix_bank_tables",
@@ -158,12 +159,17 @@ def mix_bank(phase: torch.Tensor, x: torch.Tensor, omegas: np.ndarray,
     ``mix_bank_tables(n, omegas)``, built here when not given. Returns
     (new_phase [C], y [C, n]). The phase of sample i = a*K + b is
     ``(phi + hi[a]) + lo[b]`` wrapped to [0, 2pi), in the JAX package's
-    order."""
+    order. Inside ``parallel.spmd.channel_shard`` a ``phase`` of fewer
+    rows than the tables is this rank's channel shard, and the tables'
+    rows for it are taken."""
     n = x.shape[-1]
     if tables is None:
         tables = mix_bank_tables(n, omegas, x.device)
     hi, lo, step = tables
-    c = hi.shape[0]
+    c = phase.shape[0]
+    if c != hi.shape[0] and current_channel_axis() is not None:
+        # a rank's channel shard (parallel/spmd.py): its rows of the tables
+        hi, lo, step = (local_rows(t, c) for t in (hi, lo, step))
     new_phase = torch.remainder(phase + step, _TWO_PI32)
     ph = phase[:, None, None] + hi[:, :, None] + lo[:, None, :]
     ph = torch.remainder(ph, _TWO_PI32).reshape(c, n)

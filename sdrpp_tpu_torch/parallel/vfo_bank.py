@@ -5,10 +5,18 @@ thread chain per VFO (core/src/signal_path/iq_frontend.cpp:122-142; one
 VFO = RxVFO, channel/rx_vfo.h:6-135); here the bank is one batched
 computation: the shared wideband block is mixed against a bank of NCOs
 into [channels, n], then resampled, filtered, squelched and demodulated
-with a leading channel axis. The multi-chip placement of the JAX package
-(``shard``, ``sharded_step``) is not ported (ROADMAP A10). State trees keep
-the JAX package's keys, so ``utils.blocks.state_from_numpy`` carries a JAX
-bank state into the port.
+with a leading channel axis. State trees keep the JAX package's keys, so
+``utils.blocks.state_from_numpy`` carries a JAX bank state into the port.
+
+Channel sharding (``shard``, ``sharded_step``) keeps the JAX package's
+placement: a state leaf whose leading dim is the channel count splits
+over a mesh axis, the wideband input is replicated, and each rank's audio
+is its [C/d, n] rows. The JAX package runs the bank under ``shard_map``;
+here each rank is a process on its own device that runs the bank on its
+channel rows inside ``parallel.spmd.channel_shard``, where the NCO bank
+and the FFT channelizer take their tables' rows for that shard. The bank
+needs no collective: the only communication is the caller's, a gather of
+the audio (``parallel.multihost.gather_global``) where it wants it whole.
 """
 
 from __future__ import annotations
@@ -24,8 +32,18 @@ from ..ops.mix import FrequencyXlatorBank
 from ..ops.resample import RationalResampler
 from ..ops.scans import Squelch
 from ..utils.blocks import Block
+from .mesh import replicated, shard_placements
+from .spmd import axis_size, channel_shard, local_rows
 
 __all__ = ["VFOBank", "ScannerBank"]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 class VFOBank(Block):
@@ -161,3 +179,46 @@ class ScannerBank(Block):
             afs, planes = self.af(state["af"], audio.transpose(-1, -2))
             audio = planes.transpose(-1, -2)
         return {"vfo": vs, "squelch": ss, "demod": ds, "af": afs}, audio
+
+    def _leaf_spec(self, leaf, axis="channels"):
+        """``axis`` for a leaf whose leading dim is the channel count (it
+        splits over ``axis``), None for a replicated one."""
+        if leaf.ndim >= 1 and leaf.shape[0] == self.channels:
+            return axis
+        return None
+
+    def shard(self, mesh, state, axis="channels"):
+        """This rank's rows of the full carried ``state``, with the channel
+        dim split over ``axis`` of ``mesh``; returns (local_state,
+        in_placements, out_placements): the wideband input replicated, the
+        audio split on its leading (channel) dim."""
+        d = axis_size(mesh, axis)
+        if self.channels % d:
+            raise ValueError(f"{self.channels} channels do not split evenly "
+                             f"over {d} ranks")
+
+        def shard_leaf(leaf):
+            if self._leaf_spec(leaf, axis) is None:
+                return leaf
+            return local_rows(leaf, self.channels // d, axis, mesh)
+
+        return (_tree_map(shard_leaf, state), replicated(mesh),
+                shard_placements(mesh, axis, 0))
+
+    def sharded_step(self, mesh, axis="channels"):
+        """The channel-sharded step over ``axis`` of ``mesh`` (one mesh dim
+        name or a tuple, e.g. ("host", "chip") on a 2-D mesh): ``step(
+        local_state, x)`` runs the bank on this rank's channel rows of the
+        state (``shard``) and the whole wideband block ``x``, and returns
+        (local_state, audio [C/d, n]).
+
+        Returns (step, state_specs): per leaf of ``init_state()``, ``axis``
+        where it splits, None where it is replicated."""
+        specs = _tree_map(lambda l: self._leaf_spec(l, axis),
+                          self.init_state())
+
+        def step(state, x):
+            with channel_shard(axis, mesh):
+                return self(state, x)
+
+        return step, specs
