@@ -10,8 +10,9 @@ the FEC library's K = 9 and K = 6 decodes, RS erasures, the rest of the
 DSP library, the live receiver behind ``cli ui``, the baseband server
 behind ``cli serve``, the supervised recovery of a poisoned device, ``cli
 run``'s FLAC / MP3 containers, checkpoint / resume, trace and watchdog,
-the ATV and DAB OFDM decoders with their walks, and the multi-device
-layer on an NCCL process group of one rank) and fails (non-zero
+the ATV and DAB OFDM decoders with their walks, the multi-device
+layer on an NCCL process group of one rank, the library's last entry
+points and a soak of the live receiver) and fails (non-zero
 exit, no result line) if any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
@@ -305,7 +306,29 @@ exit, no result line) if any phase fails:
     rounds with the collectives (all_gather, broadcast, all_to_all), the
     card's name and power limit on each line; the group destroyed. Then,
     never a pass condition, a 2-rank gloo world on the one card with
-    CUDA tensors: each collective's time, or the call that refused.
+    CUDA tensors: each collective's time, or the call that refused;
+27. (run after the radio-options path, before ui-2p4) the library's last
+    entry points (``phase_library_tail``), each path's launches counted:
+    fec_bytes, ``ConvCode.decode_soft_bytes`` and ``decode_hard`` (K = 7
+    and 9) on tests/data/libcorrect_vectors.npz, equal to the vectors'
+    decode; acs_decisions, ``ConvCode.acs_decisions`` at S = 16, 64 and
+    256, [4096, S] uint8, bit for bit the CPU's; lrpt_viterbi,
+    ``LRPTDecoder.viterbi`` on the 30-s pass's soft bits, byte for byte
+    the CPU's; meteor_costas, ``MeteorCostas`` of orders 4 and "meteor"
+    over a 262,144-sample block (chunked) and a 2,048-sample one (exact),
+    carried, within LT_COSTAS_TOL of the CPU (its loop calls are path
+    cases of step 3); ``fft_zoom`` even and uneven, equal to the CPU;
+    ``NetworkSink`` over loopback UDP and TCP from a CUDA tensor, the
+    input's PCM16 exactly; each with its CUDA-event ms a call;
+28. soak (``phase_soak``): tools/soak_ui_torch.py's ``soak`` for SOAK_S
+    seconds, seed 0, on ``ReceiverEngine`` at the soak tool's defaults
+    (TestSource at 1 Msps, NFM at +100 kHz, FFT 4096, 262,144-sample
+    blocks, unpaced): every mode of ALL_MODES set once, each until its
+    chain runs and, analog, writes audio, then the random control mix;
+    the engine must run to the end with no stall or other problem;
+    actions, blocks, failures survived, the wall ms a block (the gap
+    between the engine's source reads, device time included; p50, p99),
+    the launches over the soak.
 
 The last lines are the card's name and power limit, the kernels' JSON
 record and {"ok": true, "device": {...}}.
@@ -462,7 +485,15 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "run_am": ("single_scan", "decimating_fir"),
             "atv": ("line_sync_walk", "chroma_burst_walk"),
             "dab": ("cyclic_sync_walk",),
-            "multidevice": ("lane_scan", "decimating_fir")}
+            "multidevice": ("lane_scan", "decimating_fir"),
+            "fec_bytes": ("viterbi_acs_batched", "viterbi_traceback_batched",
+                          "viterbi_acs_general", "viterbi_traceback_general"),
+            "acs_decisions": ("viterbi_acs_batched", "viterbi_acs_general"),
+            "lrpt_viterbi": ("viterbi_acs_batched",
+                             "viterbi_traceback_batched"),
+            "meteor_costas": ("lane_scan", "single_scan"),
+            "soak": ("lane_scan", "single_scan", "mm_symbols_chunked",
+                     "decimating_fir")}
 # H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s and float32
 # operations/s outside the tensor cores; a case's bound is the larger of
 # its bytes and its operations over these
@@ -561,6 +592,19 @@ METEOR_CLOCK_PPM = 20.0      # symbol clock error
 METEOR_CPU_SKIP = 4000       # symbols of acquisition left out
 METEOR_CPU_TOL = 0.05
 METEOR_CPU_RMS_TOL = 5e-3
+LT_VECTORS = "tests/data/libcorrect_vectors.npz"
+LT_ACS_ORDERS = (5, 7, 9)    # acs_decisions at S = 16, 64 and 256
+LT_ACS_STEPS = 4096          # trellis steps of each acs_decisions case
+LT_COSTAS_BLOCKS = (262144, 2048)  # MeteorCostas, carried: chunked (K = 128,
+#                              B1), then exact (B2)
+LT_COSTAS_BW = 0.005         # the meteor module's loop bandwidth
+LT_COSTAS_TOL = 2e-4         # card vs CPU: the port's Costas bound
+#                              (tests/test_torch_digital.py's COSTAS_TOL)
+LT_ZOOM_LINES = (8, 16384)   # fft_zoom's dB lines: UI_FFT-point spectra
+LT_ZOOMS = ((0, 16384, 1024), (1000, 12000, 1024))  # even, uneven
+LT_NET_SAMPLES = 48000       # NetworkSink: one second of 48 kHz audio
+LT_REPS = 5                  # CUDA-event timings average this many calls
+SOAK_S = 90.0                # phase_soak's seconds, the modes included
 GOLDEN_WAV = "tests/data/meteor_lrpt_150000Hz.wav"
 GOLDEN_PAYLOAD = "tests/data/meteor_lrpt_payload.bin"
 GOLDEN_CHAINS = "tests/data/golden_chains.npz"
@@ -1110,6 +1154,17 @@ def phase_kernels(dev):
          ("chunk", DECODE_BLOCK, 1, 128, 1024), "path"),
         ("lane_scan", "costas2_hrpt", "hrpt",
          ("chunk", DECODE_BLOCK, 1, 128, 512, 32), "path"),
+        # MeteorCostas on a 262,144-sample block (K = 128, W = 1024; order
+        # 4 with its seam steps, "meteor" without), then a 2,048-sample one
+        # (exact), both orders
+        ("lane_scan", "costas4", "meteor_costas",
+         ("chunk", LT_COSTAS_BLOCKS[0], 1, 128, 1024, 32), "path"),
+        ("lane_scan", "costas_meteor", "meteor_costas",
+         ("chunk", LT_COSTAS_BLOCKS[0], 1, 128, 1024), "path"),
+        ("single_scan", "costas4", "meteor_costas",
+         ("single", LT_COSTAS_BLOCKS[1]), "path"),
+        ("single_scan", "costas_meteor", "meteor_costas",
+         ("single", LT_COSTAS_BLOCKS[1]), "path"),
         ("lane_scan", "costas_meteor", None, ("chunk", 65536, 1, 64, 1024),
          "path"),
         ("single_scan", "pll", None, ("single", 65440), "path"),
@@ -2210,6 +2265,257 @@ def phase_decode_cli():
         raise AssertionError("cli decode meteor missed a golden payload")
     return {"soft_bytes": int(len(soft)), "vcdus": int(len(vcdus)),
             "seconds": secs}
+
+
+def lt_psk(n: int, seed: int, broken: bool) -> np.ndarray:
+    """Seeded QPSK for MeteorCostas: the meteor points (broken modulation)
+    or pi/4 + k pi/2, a slow carrier (2e-4 rad a sample), light AWGN."""
+    from sdrpp_tpu_torch.ops.scans_kernels import METEOR_PHASES
+
+    rng = np.random.default_rng(seed)
+    pts = (np.asarray(METEOR_PHASES) if broken
+           else np.pi / 4 + np.pi / 2 * np.arange(4))
+    ph = pts[rng.integers(0, 4, n)] + 2e-4 * np.arange(n)
+    x = np.exp(1j * ph) + 0.05 * (rng.standard_normal(n)
+                                  + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64)
+
+
+def phase_library_tail(dev, pass_u8):
+    """The library's last entry points on the card, each path's counts
+    reset before it and read after (timings made after the read):
+    fec_bytes, ``ConvCode.decode_soft_bytes`` and ``decode_hard`` (K = 7
+    and K = 9) on the libcorrect vectors, equal to their decode and to the
+    CPU; acs_decisions, ``ConvCode.acs_decisions`` at S = 16, 64 and 256
+    on LT_ACS_STEPS noisy steps, equal to the CPU's bit for bit;
+    lrpt_viterbi, ``LRPTDecoder.viterbi`` on the 30-s pass's soft bits
+    (528 windows), equal to the CPU's byte for byte; meteor_costas,
+    ``MeteorCostas`` of both orders over a 262,144-sample block (chunked,
+    B1) and a 2,048-sample one (exact, B2), carried, within LT_COSTAS_TOL
+    of the CPU; ``fft_zoom`` even and uneven equal to the CPU; and
+    ``NetworkSink`` over loopback UDP and TCP, a CUDA tensor in, the
+    PCM16 bytes and packets out. Each with its CUDA-event ms a call."""
+    import socket
+
+    import torch
+    from sdrpp_tpu_torch.io.sinks import NetworkSink
+    from sdrpp_tpu_torch.models.digital import MeteorCostas
+    from sdrpp_tpu_torch.models.lrpt import LRPTDecoder
+    from sdrpp_tpu_torch.ops import fec as F
+    from sdrpp_tpu_torch.ops.spectrum import fft_zoom
+
+    out, launches = {}, {}
+    vec = np.load(LT_VECTORS)
+    msg = vec["conv_msg"]
+    polys = {5: (0o23, 0o35), 7: F.CONV_R12_7, 9: F.CONV_R12_9}
+    codes = {d: {o: F.ConvCode(2, o, polys[o], device=d)
+                 for o in LT_ACS_ORDERS} for d in (dev, "cpu")}
+    calls = {"decode_soft_bytes k7": lambda c: c[7].decode_soft_bytes(
+                 vec["conv_soft"])[:int(vec["conv_declen"])],
+             "decode_hard k7": lambda c: c[7].decode_hard(
+                 vec["conv_enc"], int(vec["conv_nbits"]))[:len(msg)],
+             "decode_hard k9": lambda c: c[9].decode_hard(
+                 vec["conv9_enc"], int(vec["conv9_nbits"]))[:len(msg)]}
+    torch.cuda.synchronize()
+    reset_counts()
+    got = {k: fn(codes[dev]) for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    launches["fec_bytes"] = read_counts("fec_bytes")
+    for k, fn in calls.items():
+        same = np.array_equal(got[k], fn(codes["cpu"]))
+        ms = cuda_ms(lambda: fn(codes[dev]), LT_REPS)
+        out[k] = {"ms": ms, "equal_cpu": same}
+        log(f"library {k} on the libcorrect vectors: "
+            f"{'equal to' if np.array_equal(got[k], vec['conv_dec']) else 'DIFFERS FROM'} "
+            f"their decode, {'equal to' if same else 'DIFFERS FROM'} the "
+            f"CPU; {ms:.4f} ms a call (CUDA events)")
+        if not (same and np.array_equal(got[k], vec["conv_dec"])):
+            raise AssertionError(f"{k} does not return the vectors' message")
+
+    rng = np.random.default_rng(30)
+    soft = {o: viterbi_stream(rng, codes["cpu"][o], LT_ACS_STEPS).reshape(-1)
+            for o in LT_ACS_ORDERS}
+    reset_counts()
+    dec = {o: codes[dev][o].acs_decisions(soft[o]) for o in LT_ACS_ORDERS}
+    torch.cuda.synchronize()
+    launches["acs_decisions"] = read_counts("acs_decisions")
+    for o in LT_ACS_ORDERS:
+        cpu = codes["cpu"][o].acs_decisions(soft[o])
+        card = dec[o].cpu()
+        same = card.dtype == torch.uint8 and torch.equal(card, cpu)
+        ms = cuda_ms(lambda: codes[dev][o].acs_decisions(soft[o]), LT_REPS)
+        S = codes["cpu"][o].num_states
+        out[f"acs_decisions S={S}"] = {"shape": list(card.shape), "ms": ms,
+                                       "equal_cpu": same}
+        log(f"library acs_decisions S = {S}: {list(card.shape)} uint8 on the "
+            f"card, {'bit-exact against' if same else 'DIFFERS FROM'} the "
+            f"CPU; {ms:.4f} ms a call (CUDA events, the unpacking included)")
+        if not same:
+            raise AssertionError(f"acs_decisions at S = {S} differs from the "
+                                 f"CPU")
+
+    flat = np.ascontiguousarray(pass_u8.reshape(-1))
+    lrpt = LRPTDecoder(device=dev)
+    reset_counts()
+    card = lrpt.viterbi(flat)
+    torch.cuda.synchronize()
+    launches["lrpt_viterbi"] = read_counts("lrpt_viterbi")
+    t0 = time.perf_counter()
+    cpu = LRPTDecoder(device="cpu").viterbi(flat)
+    cpu_s = time.perf_counter() - t0
+    ms = cuda_ms(lambda: lrpt.viterbi(flat), LT_REPS)
+    same = np.array_equal(card, cpu)
+    out["lrpt_viterbi"] = {"soft_bits": int(len(flat)),
+                           "bytes": int(len(card)), "ms": ms,
+                           "cpu_s": cpu_s, "equal_cpu": same}
+    log(f"library LRPTDecoder.viterbi: {len(flat)} soft bits of the 30-s "
+        f"pass -> {len(card)} bytes, {'equal to' if same else 'DIFFERS FROM'}"
+        f" the CPU's byte for byte; {ms:.3f} ms a call (CUDA events, host "
+        f"upload and packing included), CPU {cpu_s:.2f} s")
+    if not same:
+        raise AssertionError("LRPTDecoder.viterbi differs from the CPU")
+
+    blocks = {b: lt_psk(sum(LT_COSTAS_BLOCKS), 31 + b, b)
+              for b in (False, True)}
+    loops = {(d, b): MeteorCostas(LT_COSTAS_BW, b, device=d)
+             for d in (dev, "cpu") for b in (False, True)}
+    n0 = LT_COSTAS_BLOCKS[0]
+
+    def costas(d, b):
+        mc = loops[(d, b)]
+        st, ys = mc.init_state(), []
+        for x in (blocks[b][:n0], blocks[b][n0:]):
+            st, y = mc(st, torch.from_numpy(x).to(d))
+            ys.append(y)
+        return torch.cat(ys), st
+
+    reset_counts()
+    card = {b: costas(dev, b) for b in (False, True)}
+    torch.cuda.synchronize()
+    launches["meteor_costas"] = read_counts("meteor_costas")
+    for b in (False, True):
+        y, st = card[b]
+        y_cpu, st_cpu = costas("cpu", b)
+        err = float((y.cpu() - y_cpu).abs().max())
+        ph_err = float(abs(np.exp(1j * float(st["phase"]))
+                           - np.exp(1j * float(st_cpu["phase"]))))
+        x0 = torch.from_numpy(blocks[b][:n0]).to(dev)
+        st0 = loops[(dev, b)].init_state()
+        ms = cuda_ms(lambda: loops[(dev, b)](st0, x0), LT_REPS)
+        name = f"MeteorCostas {'meteor' if b else 'order 4'}"
+        out[name] = {"max_abs_err": err, "phase_err": ph_err, "ms": ms}
+        log(f"library {name}: blocks {list(LT_COSTAS_BLOCKS)} carried, card "
+            f"vs CPU max |diff| {err:.3g}, phase {ph_err:.3g} (tol "
+            f"{LT_COSTAS_TOL}); the {n0}-sample block {ms:.4f} ms (CUDA "
+            f"events)")
+        if not (err <= LT_COSTAS_TOL and ph_err <= LT_COSTAS_TOL):
+            raise AssertionError(f"{name}: card and CPU disagree")
+
+    lines = np.random.default_rng(32).normal(-80.0, 10.0, LT_ZOOM_LINES) \
+        .astype(np.float32)
+    card_lines = torch.from_numpy(lines).to(dev)
+    for off, width, pixels in LT_ZOOMS:
+        z = fft_zoom(card_lines, off, width, pixels)
+        same = torch.equal(z.cpu(), fft_zoom(torch.from_numpy(lines), off,
+                                             width, pixels))
+        ms = cuda_ms(lambda: fft_zoom(card_lines, off, width, pixels),
+                     LT_REPS)
+        kind = "even" if width % pixels == 0 else "uneven"
+        out[f"fft_zoom {kind}"] = {"shape": list(z.shape), "ms": ms,
+                                   "equal_cpu": same}
+        log(f"library fft_zoom {kind} ({width} bins from {off} into "
+            f"{pixels}): {list(z.shape)}, {'equal to' if same else 'DIFFERS FROM'}"
+            f" the CPU; {ms:.4f} ms a call (CUDA events)")
+        if not same:
+            raise AssertionError(f"fft_zoom {kind} differs from the CPU")
+
+    audio = np.random.default_rng(33).uniform(-1.1, 1.1, LT_NET_SAMPLES) \
+        .astype(np.float32)
+    want = np.clip(audio * 32768.0, -32768, 32767).astype("<i2")
+    ps, half = 512, LT_NET_SAMPLES // 2 + 100
+    npk = LT_NET_SAMPLES // ps
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    rx.settimeout(5.0)
+    rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    sink = NetworkSink("127.0.0.1", rx.getsockname()[1], "udp",
+                       packet_samples=ps)
+    t0 = time.perf_counter()
+    sink.write(torch.from_numpy(audio[:half]).to(dev))
+    sink.write(torch.from_numpy(audio[half:]).to(dev))
+    send_ms = (time.perf_counter() - t0) * 1e3
+    pkts = [rx.recv(65536) for _ in range(npk)]
+    sink.close()
+    rx.close()
+    udp_ok = (all(len(p) == 2 * ps for p in pkts)
+              and b"".join(pkts) == want[:npk * ps].tobytes())
+    srv = socket.create_server(("127.0.0.1", 0))
+    sink = NetworkSink("127.0.0.1", srv.getsockname()[1], "tcp",
+                       packet_samples=ps)
+    conn, _ = srv.accept()
+    conn.settimeout(5.0)
+    sink.write(torch.from_numpy(audio).to(dev))
+    sink.close()
+    data = b""
+    while len(data) < 2 * npk * ps:
+        chunk = conn.recv(1 << 16)
+        if not chunk:
+            break
+        data += chunk
+    conn.close()
+    srv.close()
+    tcp_ok = data == want[:npk * ps].tobytes()
+    out["network_sink"] = {"packets": npk, "udp_ok": udp_ok,
+                           "tcp_ok": tcp_ok, "udp_send_ms": send_ms}
+    log(f"library NetworkSink: {LT_NET_SAMPLES} samples from a CUDA tensor "
+        f"in two writes, {npk} UDP packets of {ps} samples "
+        f"{'equal to' if udp_ok else 'DIFFER FROM'} the PCM16 of the input "
+        f"({send_ms:.2f} ms to send, host clock); TCP stream "
+        f"{'equal' if tcp_ok else 'DIFFERS'}")
+    if not (udp_ok and tcp_ok):
+        raise AssertionError("NetworkSink did not send the input's PCM16")
+    out["launches"] = launches
+    return out
+
+
+def phase_soak(device="cuda"):
+    """The live receiver soaked on the card: tools/soak_ui_torch.py's
+    ``soak`` for SOAK_S seconds, seed 0, every mode of ALL_MODES set once
+    first, then the random control mix, on ``ReceiverEngine`` at the soak
+    tool's defaults (TestSource at 1 Msps, NFM at +100 kHz, FFT 4096,
+    262,144-sample blocks, realtime off). Fails if the engine died, the
+    audio stalled or any other problem was recorded. The launches are
+    counted over the whole soak."""
+    import torch
+    from sdrpp_tpu_torch.io.sources import TestSource
+    from sdrpp_tpu_torch.misc.webui import ALL_MODES, ReceiverEngine
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from soak_ui_torch import soak
+
+    src = TestSource(1000000.0, tones=[(100000.0, -20.0),
+                                       (-250000.0, -40.0)],
+                     noise_dbfs=-60.0)
+    eng = ReceiverEngine(src, mode="nfm", offset=100000.0, realtime=False,
+                         fft_size=4096, base_block=262144, device=device)
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        res = soak(eng, SOAK_S, 0, modes_first=True, log=log)
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    res["launches"] = read_counts("soak")
+    log(f"soak: {res['actions']} actions in {res['seconds']:.1f} s, "
+        f"{res['blocks']} blocks, {res['failures']} failures survived, "
+        f"wall ms a block (gap between source reads) p50 "
+        f"{res['block_ms_p50']:.3f} / p99 "
+        f"{res['block_ms_p99']:.3f}, longest gap {res['max_block_gap_s']:.3f}"
+        f" s, modes set in {json.dumps(res['modes'])} s, running "
+        f"{res['running']}, problems {res['problems']}")
+    if not res["ok"] or list(res["modes"]) != ALL_MODES:
+        raise AssertionError(f"soak failed: {res['problems']}")
+    return res
 
 
 def wideband_block(dev):
@@ -6564,6 +6870,8 @@ def main() -> int:
     radio["card_vs_cpu"] = phase_radio_cpu(radio_iq, r_audio, r_rds)
     radio["cli"] = phase_radio_cli(radio_iq)
     del radio_iq, r_audio, r_rds
+    library_tail = phase_library_tail(dev, pass_u8)
+    soak_res = phase_soak()
     ui = phase_ui()
     serve = phase_serve()
     ui_fault = phase_ui_fault()
@@ -6604,7 +6912,8 @@ def main() -> int:
              "run_wfm": run_resume["launches"]["wfm"],
              "run_am": run_resume["launches"]["am"],
              "atv": atv["launches"], "dab": dab["launches"],
-             "multidevice": multidevice["launches"]}
+             "multidevice": multidevice["launches"],
+             **library_tail["launches"], "soak": soak_res["launches"]}
     rows = []
     for entry in SOURCES:
         mine = [k for k in kernels if k["entry"] == entry]
@@ -6639,7 +6948,8 @@ def main() -> int:
                     "dsp_lib": dsp, "ui": ui, "serve": serve,
                     "ui_fault": ui_fault, "run_resume": run_resume,
                     "mp3": mp3, "atv": atv, "dab": dab, "ab": ab,
-                    "multidevice": multidevice},
+                    "multidevice": multidevice,
+                    "library_tail": library_tail, "soak": soak_res},
                    default=float))
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -1,9 +1,11 @@
-"""Audio sinks: WAV file, buffer, null; stream registry with volume.
+"""Audio sinks: WAV file, buffer, null, network; stream registry with
+volume.
 
-A numpy-only copy of the file sinks of ``sdrpp_tpu.io.sinks`` (reference:
+A numpy copy of the sinks of ``sdrpp_tpu.io.sinks`` (reference:
 core/src/signal_path/sink.{h,cpp} — named streams, each a volume and a
 pluggable provider). ``RecorderSink`` writes WAV, FLAC (``io.flac``) or
-MP3 (``io.mp3``, the system libmp3lame; ImportError without it).
+MP3 (``io.mp3``, the system libmp3lame; ImportError without it);
+``NetworkSink`` sends PCM16 over UDP or TCP and takes tensors too.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ import numpy as np
 
 from . import wav
 
-__all__ = ["WavSink", "RecorderSink", "BufferSink", "NullSink", "SinkManager"]
+__all__ = ["WavSink", "RecorderSink", "BufferSink", "NullSink", "NetworkSink",
+           "SinkManager"]
 
 
 class WavSink:
@@ -93,6 +96,59 @@ class NullSink:
 
     def close(self):
         pass
+
+
+class NetworkSink:
+    """UDP/TCP PCM16 audio sink (reference:
+    sink_modules/network_sink/src/main.cpp:59-246): samples scaled by
+    32768 and clipped to int16, mono or interleaved stereo, sent in
+    ``packet_samples``-sample packets; a write's remainder is carried to
+    the next. ``write`` takes numpy or a tensor (one copy to the host a
+    write); the bytes and packets are sdrpp_tpu/io/sinks.py:138's."""
+
+    def __init__(self, host: str, port: int, protocol: str = "udp",
+                 stereo: bool = False, packet_samples: int = 512):
+        import socket
+
+        self.stereo = stereo
+        self.packet_samples = int(packet_samples)
+        self._partial = np.zeros((0, 2) if stereo else (0,), np.float32)
+        if protocol == "udp":
+            self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            self._dest = (host, port)
+            self._stream = False
+        elif protocol == "tcp":
+            self._sock = socket.create_connection((host, port))
+            self._dest = None
+            self._stream = True
+        else:
+            raise ValueError(protocol)
+
+    def write(self, audio):
+        if hasattr(audio, "detach"):  # a tensor, on any device
+            audio = audio.detach().float().cpu().numpy()
+        audio = np.asarray(audio, np.float32)
+        if self.stereo and audio.ndim == 1:
+            audio = np.stack([audio, audio], -1)
+        if not self.stereo and audio.ndim == 2:
+            audio = audio.mean(axis=-1)
+        buf = np.concatenate([self._partial, audio])
+        ps = self.packet_samples
+        n_pkts = len(buf) // ps
+        for k in range(n_pkts):
+            pkt = buf[k * ps:(k + 1) * ps]
+            pcm = np.clip(pkt * 32768.0, -32768, 32767).astype("<i2").tobytes()
+            if self._stream:
+                self._sock.sendall(pcm)
+            else:
+                self._sock.sendto(pcm, self._dest)
+        self._partial = buf[n_pkts * ps:]
+
+    def close(self):
+        try:
+            self._sock.close()
+        except OSError:
+            pass
 
 
 class SinkManager:

@@ -10,6 +10,9 @@ object with ``read(n) -> np.complex64``, ``samplerate`` and ``tune(freq)``:
 - TestSource: tones at given dBFS over seeded white noise (reference
   test_source, source_modules/test_source/src/main.cpp:84-130); its blocks
   are the JAX package's, sample for sample.
+- TableSource: the reference test source's fixed-point AES17 / SFDR
+  tables (``TEST_TABLES_14BIT``, decoded by ``decode_test_table``) played
+  cyclically.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import numpy as np
 
 from . import wav
 
-__all__ = ["FileSource", "TestSource", "SourceManager", "detect_center_freq"]
+__all__ = ["FileSource", "TestSource", "TableSource", "SourceManager",
+           "TEST_TABLES_14BIT", "decode_test_table", "detect_center_freq"]
 
 _FREQ_RE = re.compile(r"(\d{4,12})\s*Hz", re.IGNORECASE)
 _FREQ_RE2 = re.compile(r"_(\d{4,12})(?:_|\.)")
@@ -121,3 +125,64 @@ class SourceManager:
     def tune(self, freq: float):
         if self.source is not None:
             self.source.tune(freq)
+
+
+# Fixed-point AES17-style test vectors (pure data from the reference
+# test source, source_modules/test_source/src/main.cpp:41-48; 14-bit
+# two's-complement values, decoded as in TableSource::init main.cpp:84-96:
+# sign-extend to `bits`, scale by 1/((1<<bits)/2 - 1)).
+TEST_TABLES_14BIT = {
+    "aes17_0dB": (0x3fff, 0x0c3e, 0x16a0, 0x1d8f, 0x1fff, 0x1d8f, 0x16a0,
+                  0x0c3e, 0x0000, 0x33c1, 0x295f, 0x2270, 0x2000, 0x2270,
+                  0x295f, 0x33c1),
+    "aes17_m20dB": (0x3fff, 0x0139, 0x0243, 0x02f4, 0x0333, 0x02f4, 0x0243,
+                    0x0139, 0x0000, 0x3ec6, 0x3dbc, 0x3d0b, 0x3ccc, 0x3d0b,
+                    0x3dbc, 0x3ec6),
+    "aes17_m40dB": (0x3fff, 0x001f, 0x0039, 0x004b, 0x0051, 0x004b, 0x0039,
+                    0x001f, 0x0000, 0x3fe0, 0x3fc6, 0x3fb4, 0x3fae, 0x3fb4,
+                    0x3fc6, 0x3fe0),
+    "aes17_m60dB": (0x3fff, 0x0003, 0x0005, 0x0007, 0x0008, 0x0007, 0x0005,
+                    0x0003, 0x0000, 0x3ffc, 0x3ffa, 0x3ff8, 0x3ff7, 0x3ff8,
+                    0x3ffa, 0x3ffc),
+    "sfdr119_56dB": (0, 3107, 5741, 7501, 8119, 7501, 5741, 3107, 0, -3107,
+                     -5741, -7501, -8119, -7501, -5741, -3107),
+    "sine_hamster_nz4": (422, 3520, 6082, 7718, 8179, 7395, 5485, 2740,
+                         -422, -3520, -6082, -7718, -8179, -7395, -5485,
+                         -2740),
+    "sine_hamster_overflow": (1236, 4249, 6615, 7974, 8119, 7028, 4867, 1965,
+                              -1236, -4249, -6615, -7974, -8119, -7028,
+                              -4867, -1965),
+}
+
+
+def decode_test_table(name: str, bits: int = 14) -> np.ndarray:
+    """Decode a fixed-point table exactly as TableSource::init
+    (main.cpp:84-96): sign-extend to ``bits`` and scale by
+    1/((1<<bits)/2 - 1)."""
+    vals = np.asarray(TEST_TABLES_14BIT[name], np.int64)
+    shift = 64 - bits
+    vals = (vals << shift) >> shift  # arithmetic sign extension
+    scale = 1.0 / ((1 << bits) // 2 - 1)
+    return (vals * scale).astype(np.float32)
+
+
+class TableSource:
+    """Cyclic fixed-point table playback (the reference test source's table
+    modes for AES17 level/SFDR validation, main.cpp:51-107). The table is
+    the I channel; Q = 0 (reference TableSource.next: I=table, Q stays)."""
+
+    __test__ = False
+
+    def __init__(self, samplerate: float, table: str = "aes17_0dB"):
+        self.samplerate = float(samplerate)
+        self.table = decode_test_table(table)
+        self._phase = 0
+        self.center_freq = 0.0
+
+    def tune(self, freq: float):
+        self.center_freq = freq
+
+    def read(self, n: int) -> np.ndarray:
+        idx = (self._phase + np.arange(n)) % len(self.table)
+        self._phase = (self._phase + n) % len(self.table)
+        return (self.table[idx] + 0j).astype(np.complex64)

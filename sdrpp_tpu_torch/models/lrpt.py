@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.fec import RS_CCSDS, ConvCode, ReedSolomon
+from ..ops.fec import RS_CCSDS, ConvCode, ReedSolomon, _bytes_from_bits
 
 __all__ = ["CCSDS_CONV_POLYS", "symbols_to_soft_bits", "soft_s8_to_u8",
            "LRPTDecoder", "MeteorChannel"]
@@ -40,12 +40,27 @@ def soft_s8_to_u8(soft: np.ndarray) -> np.ndarray:
 
 
 class LRPTDecoder:
-    """Viterbi + RS tail of the LRPT chain, on ``device``."""
+    """Viterbi + RS tail of the LRPT chain, on ``device``: ``viterbi``
+    decodes a coded soft-bit stream, ``rs_decode_blocks`` the 255-byte
+    codewords."""
 
     def __init__(self, *, device):
         self.device = torch.device(device)
         self.conv = ConvCode(2, 7, CCSDS_CONV_POLYS, device=device)
         self.rs = ReedSolomon(RS_CCSDS, 112, 11, 32, device=device)
+
+    def viterbi(self, soft_u8, chunk_bits: int = 4096,
+                overlap_bits: int = 96) -> np.ndarray:
+        """Viterbi-decode a coded soft-bit stream (uint8, 0 strong 0 ...
+        255 strong 1; numpy or a tensor) to packed bytes by the windowed
+        stream decode, ``ConvCode.decode_soft_stream`` (chunk_bits-step
+        windows with overlap_bits of warm-up and warm-down; B6 and B7),
+        as sdrpp_tpu/models/lrpt.py:105 does. The symbols reach the device
+        as uint8. A wider overlap makes a seam error at low SNR rarer; a
+        stream of one window or less takes the exact decode."""
+        bits = self.conv.decode_soft_stream(soft_u8, chunk_bits=chunk_bits,
+                                            overlap_bits=overlap_bits)
+        return _bytes_from_bits(bits[:len(bits) // 8 * 8])
 
     def rs_decode_blocks(self, blocks: np.ndarray):
         """[N, 255] uint8 -> ([N, 223] corrected, [N] ok flags), one batched

@@ -9,7 +9,9 @@ core/libcorrect/src/convolutional/*.c, reed-solomon/*.c):
   full-trellis decode: the batched ACS and traceback kernels of
   ``fec_kernels`` with one window (B5 and B7 of the JAX package), and
   ``decode_soft_np`` the same with host arrays in and out (the JAX
-  package's host-facing decode). ``decode_soft_stream`` is the
+  package's host-facing decode), which ``decode_soft_bytes`` and
+  ``decode_hard`` pack into bytes. ``acs_decisions`` is the ACS alone,
+  its decisions unpacked to [T, S] on the device. ``decode_soft_stream`` is the
   chunk-parallel truncated decode of long streams (L-step windows with W
   steps of warm-up and warm-down on each side, batched through the same
   kernels); it stays on the device and only packed bytes come back. It
@@ -30,7 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fec_kernels import viterbi_acs_batched, viterbi_traceback_batched
+from .fec_kernels import (unpack_decisions, viterbi_acs_batched,
+                          viterbi_traceback_batched)
 
 __all__ = ["ConvCode", "ReedSolomon", "RS_CCSDS",
            "CONV_R12_6", "CONV_R12_7", "CONV_R12_8", "CONV_R12_9"]
@@ -125,6 +128,18 @@ class ConvCode:
         return soft[:total * self.rate].to(self.device) \
             .reshape(total, self.rate)
 
+    def acs_decisions(self, soft_bits) -> torch.Tensor:
+        """The add-compare-select lattice alone: [T * R] soft bits -> [T, S]
+        uint8 decisions on the device, nonzero where state n took
+        predecessor (n >> 1) + S / 2 (sdrpp_tpu/ops/fec.py:145). One ACS
+        launch (B5); the packed words are unpacked by shifts and ANDs on
+        the device."""
+        soft = self._soft_steps(soft_bits)
+        start = torch.zeros(1, dtype=torch.int32, device=self.device)
+        words = viterbi_acs_batched(soft, start, soft.shape[0],
+                                    self._expected)[0]
+        return unpack_decisions(words, self.num_states).to(torch.uint8)
+
     def decode_soft(self, soft_bits, flush_bits: int | None = None):
         """Exact Viterbi decode of soft bits (0 = strong 0, 255 = strong 1)
         covering T trellis steps including the flush steps -> uint8 bits
@@ -189,6 +204,22 @@ class ConvCode:
         packed = (flat.reshape(n_pack, 8).to(torch.int32) * weights).sum(-1)
         bits = np.unpackbits(packed.to(torch.uint8).cpu().numpy())[:total]
         return bits[:total - (self.order + 1)]
+
+    def decode_soft_bytes(self, soft_bits) -> np.ndarray:
+        """``decode_soft_np`` packed MSB first into whole bytes (a last
+        partial byte dropped; sdrpp_tpu/ops/fec.py:364)."""
+        bits = self.decode_soft_np(soft_bits)
+        return _bytes_from_bits(bits[:len(bits) // 8 * 8])
+
+    def decode_hard(self, encoded, num_bits: int | None = None) -> np.ndarray:
+        """Hard-decision decode of encoded bytes (the first ``num_bits``
+        coded bits, cut to whole trellis steps) -> message bytes: each bit
+        a soft 0 or 255 (sdrpp_tpu/ops/fec.py:369)."""
+        bits = _bits_from_bytes(encoded)
+        if num_bits is not None:
+            bits = bits[:num_bits]
+        bits = bits[:len(bits) // self.rate * self.rate]
+        return self.decode_soft_bytes(bits.astype(np.float32) * 255.0)
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ import torch
 from ..parallel.spmd import current_channel_axis, local_rows
 from ..utils.blocks import Block
 
-__all__ = ["mix", "mix_ramp", "mix_bank", "mix_bank_tables",
+__all__ = ["mix", "mix_ramp", "mix_dynamic", "mix_bank", "mix_bank_tables",
            "FrequencyXlator", "DynamicFrequencyXlator", "FrequencyXlatorBank",
            "hz_to_rads"]
 
@@ -53,6 +53,26 @@ def mix(phase: torch.Tensor, x: torch.Tensor, omega: float,
     step = float(np.float32(np.mod(n * float(omega), TWO_PI)))
     new_phase = torch.remainder(phase + step, _TWO_PI32)
     return new_phase, y
+
+
+def mix_dynamic(phase: torch.Tensor, x: torch.Tensor, omega_hi: torch.Tensor,
+                omega_lo: torch.Tensor):
+    """Mix block ``x`` with an NCO whose frequency is a tensor: the
+    float32 pair ``omega_hi`` + ``omega_lo`` rad/sample (shaped like
+    ``phase``, x's leading axes), as the JAX package's ``mix_dynamic``
+    (sdrpp_tpu/ops/mix.py:171) takes it. Returns (new_phase, y). The ramp
+    is ``mix``'s, ``(i*omega) mod 2pi`` in float64 from the pair's sum,
+    built on the device (no host read of the frequency), then float32: at
+    a given omega this is ``mix``, bit for bit, where the JAX function
+    leaves a ~5e-3 rad residual a block."""
+    n = x.shape[-1]
+    w = omega_hi.double() + omega_lo.double()
+    i = torch.arange(n, dtype=torch.float64, device=x.device)
+    ramp = torch.remainder(i * w[..., None], TWO_PI).float()
+    ph = torch.remainder(phase[..., None] + ramp, _TWO_PI32)
+    y = x * torch.complex(torch.cos(ph), torch.sin(ph))
+    step = torch.remainder(n * w, TWO_PI).float()
+    return torch.remainder(phase + step, _TWO_PI32), y
 
 
 class FrequencyXlator(Block):
@@ -88,10 +108,9 @@ class DynamicFrequencyXlator(Block):
     changing the rotator's phase step (frequency_xlator.h:51-58).
 
     State: ``phase`` and the offset in rad/sample as the JAX block's
-    float32 pair ``omega_hi`` + ``omega_lo`` (``offset_state``). The ramp
-    is the static mixer's: ``(i*omega) mod 2pi`` in float64 from the sum
-    of the pair, here on the device (no host read of the state), then
-    float32; so at a given offset this mixer is ``FrequencyXlator``."""
+    float32 pair ``omega_hi`` + ``omega_lo`` (``offset_state``), mixed by
+    ``mix_dynamic``; so at a given offset this mixer is
+    ``FrequencyXlator``."""
 
     def __init__(self, offset_hz: float, samplerate: float, lead_shape=(),
                  *, device):
@@ -119,15 +138,9 @@ class DynamicFrequencyXlator(Block):
                 **self.omega_leaves(self.init_offset)}
 
     def __call__(self, state, x):
-        n = x.shape[-1]
-        w = state["omega_hi"].double() + state["omega_lo"].double()
-        i = torch.arange(n, dtype=torch.float64, device=x.device)
-        ramp = torch.remainder(i * w[..., None], TWO_PI).float()
-        phase = state["phase"]
-        ph = torch.remainder(phase[..., None] + ramp, _TWO_PI32)
-        y = x * torch.complex(torch.cos(ph), torch.sin(ph))
-        step = torch.remainder(n * w, TWO_PI).float()
-        return dict(state, phase=torch.remainder(phase + step, _TWO_PI32)), y
+        phase, y = mix_dynamic(state["phase"], x, state["omega_hi"],
+                               state["omega_lo"])
+        return dict(state, phase=phase), y
 
 
 def mix_bank_tables(n: int, omegas: np.ndarray, device):

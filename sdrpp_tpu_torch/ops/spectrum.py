@@ -5,7 +5,8 @@ core/src/signal_path/iq_frontend.cpp:230-296): keep ``nz`` samples of
 every ``nz + skip``, multiply by the unity-gain *centered* window (the
 alternating sign flip puts DC mid-spectrum), zero-pad to ``fft_size``, FFT,
 10*log10(|X|^2 + 1e-20). A whole block's frames go through one batched
-``torch.fft.fft``.
+``torch.fft.fft``. ``fft_zoom`` max-decimates a span of a line into
+display pixels (reference: core/src/gui/widgets/fft_scaler.h:21-64).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from .windows import Window, create_window
 
-__all__ = ["gen_reshape_params", "SpectrumFFT"]
+__all__ = ["gen_reshape_params", "SpectrumFFT", "fft_zoom"]
 
 
 def gen_reshape_params(samplerate: float, size: int, rate: float) -> tuple[int, int]:
@@ -63,3 +64,30 @@ class SpectrumFFT:
         spec = torch.fft.fft(fr * self._window_dev, n=self.fft_size, dim=-1)
         power = spec.real * spec.real + spec.imag * spec.imag
         return 10.0 * torch.log10(power + 1e-20)
+
+
+def fft_zoom(line_db: torch.Tensor, offset: int, width: int,
+             out_width: int) -> torch.Tensor:
+    """Max-decimation zoom of dB lines [..., n] into ``out_width`` pixels:
+    the ``width`` bins from ``offset`` (a negative one counted from the
+    end, then moved to fit inside the line, as the JAX package's
+    ``dynamic_slice`` takes it; sdrpp_tpu/ops/spectrum.py:80),
+    each pixel the max over its bins. An even zoom is a reshape and a max;
+    an uneven one a segment max over the pixel map ``bin * out_width //
+    width``, computed on the host (a pixel with no bin stays -inf). On
+    ``line_db``'s device."""
+    n = line_db.shape[-1]
+    start = int(offset) + (n if offset < 0 else 0)
+    start = min(max(start, 0), n - int(width))
+    seg = line_db[..., start:start + width]
+    if width % out_width == 0:
+        return seg.reshape(*seg.shape[:-1], out_width,
+                           width // out_width).amax(dim=-1)
+    pixel = torch.from_numpy(np.arange(width, dtype=np.int64) * out_width
+                             // width).to(seg.device)
+    flat = seg.reshape(-1, width)
+    out = torch.full((flat.shape[0], out_width), float("-inf"),
+                     dtype=seg.dtype, device=seg.device)
+    out.scatter_reduce_(1, pixel.expand(flat.shape[0], width), flat, "amax",
+                        include_self=False)
+    return out.reshape(*seg.shape[:-1], out_width)

@@ -16,7 +16,8 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Block", "Chain", "state_from_numpy", "state_to_numpy"]
+__all__ = ["Block", "Chain", "scan_blocks", "state_from_numpy",
+           "state_to_numpy"]
 
 State = Any
 
@@ -56,6 +57,30 @@ class Chain(Block):
                 st, x = block(st, x)
             new_states.append(st)
         return tuple(new_states), x
+
+
+def _stack(trees):
+    """A list of like trees of tensors -> one tree of tensors stacked on a
+    new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack([t[i] for t in trees])
+                           for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def scan_blocks(block: Block, state: State, xs):
+    """Run ``block`` over the leading axis of ``xs``, carrying the state
+    from each block to the next -> (final state, the outputs stacked on
+    that axis, trees of tensors as trees); the JAX package's ``lax.scan``
+    form (sdrpp_tpu/utils/blocks.py:70)."""
+    ys = []
+    for x in xs:
+        state, y = block(state, x)
+        ys.append(y)
+    return state, _stack(ys)
 
 
 def state_from_numpy(tree, device) -> State:

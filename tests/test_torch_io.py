@@ -137,8 +137,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     ``cli spectrum``, ``cli scan``, ``cli serve --blocks 2`` to a client,
     a two-block ``ReceiverEngine`` and ``cli preheat --modes nfm,meteor
     --no-variants`` on the CPU, then an import of every module of the port
-    (but ``__main__``, which runs the CLI) and of chip_smoke.py with its
-    kernel wrappers, in a fresh interpreter where
+    (but ``__main__``, which runs the CLI), of chip_smoke.py with its
+    kernel wrappers and of tools/soak_ui_torch.py, in a fresh interpreter
+    where
     websockets and zstandard cannot be imported: every step works, and no
     module named jax, jax.*, sdrpp_tpu or sdrpp_tpu.* is loaded."""
     modules = sorted(
@@ -146,7 +147,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                  .parts).removesuffix(".__init__")
         for p in PACKAGE.rglob("*.py") if p.name != "__main__.py")
     code = f"""
-import importlib, socket, sys, threading, time
+import importlib, importlib.util, socket, sys, threading, time
 for blocked in ('websockets', 'zstandard'):
     sys.modules[blocked] = None  # an import of either raises ImportError
 from sdrpp_tpu_torch.cli import main
@@ -223,6 +224,11 @@ for name in {modules!r}:
     importlib.import_module(name)
 import chip_smoke
 assert set(chip_smoke.kernel_fns()) | set(chip_smoke.GENERAL) == set(chip_smoke.SOURCES)
+spec = importlib.util.spec_from_file_location('soak_ui_torch',
+                                              'tools/soak_ui_torch.py')
+soak_tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(soak_tool)
+assert callable(soak_tool.soak)
 bad = sorted(m for m in sys.modules
              if m in ('jax', 'sdrpp_tpu') or m.startswith(('jax.',
                                                            'sdrpp_tpu.')))
