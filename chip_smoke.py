@@ -97,20 +97,20 @@ exit, no result line) if any phase fails:
    then wrong arguments on the card must raise ValueError and launch
    nothing, and a strided view must give what its copy gives; the three
    walks of csrc/sync_walk.cu (``phase_kernels_walks``): ``line_sync_walk``
-   on the first ATV block's discriminator output [450007] and, off the
-   paths, on ``line_walk_cases``' edge cases (among them a block past
-   the kernel's 1024-line record ring and positions past 2^22), each
-   bit for bit;
+   on the first two ATV blocks' discriminator output behind LineSync's
+   763-sample head ([450763]; the second's head carried out of the first,
+   its first line begun there) and, off the paths, on ``line_walk_cases``'
+   edge cases (among them a block past the kernel's 1024-line record ring
+   and positions past 2^22), each bit for bit;
    ``cyclic_sync_walk`` on the first DAB block [204800] and, off the
    paths, on ``cyclic_walk_cases``' edge cases (ties, a peak every
    sample, sym = 1, a buffer past shared memory, a ragged block with a
    negative since, a carried since >= sym, more emits than max_syms,
    signed zeros, a NaN peak), each bit for bit; and
-   ``chroma_burst_walk`` on [625, 28] bursts of a locked tone at
-   ATV_LOCKING_BW and, off the paths, on bursts whose phases sit at +-pi
-   (``chroma_walk_case``), phases within WALK_TOL, outputs within
-   WALK_OUT_TOL, locked (at the decoder's bandwidth the PLL does not
-   lock, ROADMAP C); each case's ns a sample or us a step beside its
+   ``chroma_burst_walk`` on [625, 28] bursts of a tone at the subcarrier
+   through ATVDecoder's own loop and, off the paths, on bursts whose
+   phases sit at +-pi (``chroma_walk_case``), phases within WALK_TOL,
+   outputs within WALK_OUT_TOL, locked; each case's ns a sample or us a step beside its
    bound's; four wrong arguments must raise and launch nothing. A
    case's ``ms`` is the kernel at ``shape``, its ``plain_ms`` the plain
    version on ``plain_shape`` (the same, or the prefix held); ``path``
@@ -189,13 +189,14 @@ exit, no result line) if any phase fails:
     share where a tap times it, real-time factor, launches):
     hrpt-3M, HRPT_FRAMES seeded minor frames as Manchester BPSK at 3 Msps
     (a carrier phase, HRPT_CARRIER_HZ off) through
-    ``HRPTDecoder(device="cuda")``, its loops and M&M chunked: every
-    frame with 0 sync errors, its spacecraft id, frame number and words
-    exact; lane_scan and mm_symbols_chunked launched; then the loops'
-    chunked and exact routes (the M&M with them) on that signal and on the same frames in noise (HRPT_NOISE a
-    component), each route's frames, sync errors and wrong words printed,
-    the exact route held exact on both (the chunked route's losses in
-    noise are the JAX package's warm-ups, ROADMAP C); falcon9-6M, F9_FRAMES frames
+    ``HRPTDecoder(device="cuda")`` at its own policy (the FastAGC exact,
+    the Costas loop and the M&M chunked): every frame with 0 sync errors,
+    its spacecraft id, frame number and words exact; lane_scan,
+    single_scan and mm_symbols_chunked launched; then the loops' default
+    and exact routes (the M&M with them) on that signal and on the same
+    frames in noise (HRPT_NOISE a component), each route's frames, sync
+    errors and wrong words printed, every route held exact; falcon9-6M,
+    F9_FRAMES frames
     of video and GPS packets as FM at 6 Msps through ``Falcon9Decoder``:
     every packet exact; m17-48k, an LSF and M17_FRAMES stream frames
     shaped by the port's ``RRCInterpolator`` with light noise, through
@@ -271,8 +272,12 @@ exit, no result line) if any phase fails:
     (11.25 Msps, 450,000 samples a block) through ``ATVDecoder(device=
     "cuda")``: frames at the rollovers, per-block CUDA-event and host ms
     and the real-time factor, line_sync_walk and chroma_burst_walk once a
-    block; a CPU decoder on the same blocks must take the same vertical
-    scan; dab-2p048 (``phase_dab``): one second of DAB mode I
+    block, the decoder's own chroma loop locked on ideal PAL lines from
+    the subcarrier and 0.5 % off (mean |burst phase error| below
+    ATV_LOCK_TOL, on the card and the CPU); a CPU decoder on the same
+    blocks must take the same vertical scan and render frames within 1 LSB
+    of the card's; one block's LineSync cut in two must give the whole
+    block's lines (``atv_split_check``); dab-2p048 (``phase_dab``): one second of DAB mode I
     (``dab_signal``: 2048-point symbols, 504-sample prefixes, null symbols,
     the phase reference, a 0.25-bin carrier offset) in DAB_BLOCKS blocks
     through ``CyclicSync(device="cuda")``: every phase-reference symbol
@@ -353,6 +358,7 @@ line and no result line.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -469,7 +475,7 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "muted_bank": (),
             "bank": ("decimating_fir",),
             "bank_fft": (),
-            "hrpt": ("lane_scan", "mm_symbols_chunked"),
+            "hrpt": ("lane_scan", "single_scan", "mm_symbols_chunked"),
             "falcon9": ("mm_symbols",),
             "m17": ("mm_symbols_chunked", "viterbi_acs_batched",
                     "viterbi_traceback_batched"),
@@ -663,8 +669,11 @@ WATCHDOG_SLEEP = 1_000_000_000   # device clock cycles of the slow step
 ATV_FS = 625.0 * 720.0 * 25.0    # 11.25 Msps
 ATV_BLOCK = 450000         # one PAL frame: 625 lines of 720 samples, 40 ms
 ATV_BLOCKS = 3
-ATV_LOCKING_BW = 0.003     # chroma_burst_walk's case: a PLL bandwidth that
-                           # locks at 720-sample lines
+LOOP_PLAIN_STEPS = 65536   # a single loop stream past this is held on its
+#                            prefix (the plain loop takes ~80 us a step)
+LINE_TOL = 2e-2            # LineSync split vs unsplit (the straddling
+#                            line), tests/test_torch_atv_ofdm.py's
+ATV_LOCK_TOL = 0.05        # mean |burst phase error| (rad) of a locked loop
 LINE_FLOOR_CYCLES = 586.7  # LineSync's one-warp chain alone, clock64 cycles a
 #                            line (tools/sync_walk_probe.py, PERF.md 6): the
 #                            probe's figure, logged beside the cases, never
@@ -1104,22 +1113,27 @@ class LoopCase:
 
 def phase_kernels(dev):
     """lane_scan and single_scan at the paths' shapes and layouts (and off
-    them) against their plain versions: bit-exact required. Each case
+    them) against their plain versions: bit-exact required (a single
+    stream longer than LOOP_PLAIN_STEPS, HRPT's exact FastAGC block, on
+    its prefix: the kernel's output there, and the kernel run on the
+    prefix alone, carry included). Each case
     reports the time a call back to back, the device time alone, the host
     time a call and the walker's clock64 cycles per step; the strided
     layouts must equal the kernel on contiguous copies; wrong arguments on
     the card must raise ValueError and launch nothing. Returns (results,
     the path cases' inputs for the A/B: label -> (body, streams, seed))."""
     import torch
+    from sdrpp_tpu_torch.decoders.hrpt import HRPTDecoder
     from sdrpp_tpu_torch.ops import scans_kernels as K
 
     rng = np.random.default_rng(1)
     B = loop_bodies()
+    hrpt_costas_w = HRPTDecoder(HRPT_FS, device="cpu").demod.costas.warmup
     # (entry, body, path launching that call or None, LoopCase args,
     # kind): the receive block's WFM pilot PLL (65,440 samples, K = 128,
-    # W = 128), USB AGC (13,088 samples, K = 6, W = 2048; bursts that clip)
-    # and AM audio AGC (exact, 6,544 samples, from its start at gain 1e7,
-    # which clips); the meteor block's FastAGC and Costas (65,536 IF
+    # W = 128), USB AGC (exact, 13,088 samples: its warm-up of 4 / decay,
+    # 38,400, fits in no lane; bursts that clip) and AM audio AGC (exact,
+    # 6,544 samples, from its start at gain 1e7, which clips); the meteor block's FastAGC and Costas (65,536 IF
     # samples, K = 64, W = 1024, Costas with its 32 seam steps); the SSB
     # bank's exact AGC over 64 channels of 2,048 samples (bursts). Off the
     # paths: the broken-modulation Costas; the exact single-stream branch;
@@ -1129,8 +1143,7 @@ def phase_kernels(dev):
     # is below 2^-60 (every step); PLL and Costas seed phases up to 3e5.
     cases = [
         ("lane_scan", "pll", "receive", ("chunk", 65440, 1, 128, 128), "path"),
-        ("lane_scan", "agc48", "receive", ("chunk", 13088, 1, 6, 2048),
-         "path"),
+        ("single_scan", "agc48", "receive", ("single", 13088), "path"),
         ("single_scan", "agc24", "receive", ("single", 6544), "am"),
         ("lane_scan", "fast_agc", "meteor", ("chunk", 65536, 1, 64, 1024),
          "path"),
@@ -1147,13 +1160,14 @@ def phase_kernels(dev):
         ("single_scan", "fast_agc_rds", "radio", ("single", 1360), "path"),
         ("single_scan", "costas2", "radio", ("single", 1360), "path"),
         ("single_scan", "costas2_baud", "radio", ("single", 1360), "path"),
-        # the HRPT block (262,144 samples at 3 Msps): FastAGC (K = 128,
-        # W = 1024) and the order-2 Costas with its seam steps (K = 128,
-        # W = 512)
-        ("lane_scan", "fast_agc_hrpt", "hrpt",
-         ("chunk", DECODE_BLOCK, 1, 128, 1024), "path"),
+        # the HRPT block (262,144 samples at 3 Msps): FastAGC (exact: its
+        # warm-up of 4 / rate, 200,000 samples, fits in no lane) and the
+        # order-2 Costas with its seam steps (K = 128, W = 1,576, four of
+        # its 2 / alpha)
+        ("single_scan", "fast_agc_hrpt", "hrpt", ("single", DECODE_BLOCK),
+         "path"),
         ("lane_scan", "costas2_hrpt", "hrpt",
-         ("chunk", DECODE_BLOCK, 1, 128, 512, 32), "path"),
+         ("chunk", DECODE_BLOCK, 1, 128, hrpt_costas_w, 32), "path"),
         # MeteorCostas on a 262,144-sample block (K = 128, W = 1024; order
         # 4 with its seam steps, "meteor" without), then a 2,048-sample one
         # (exact), both orders
@@ -1167,6 +1181,10 @@ def phase_kernels(dev):
          ("single", LT_COSTAS_BLOCKS[1]), "path"),
         ("lane_scan", "costas_meteor", None, ("chunk", 65536, 1, 64, 1024),
          "path"),
+        # the full AGC's chunk layout, which the receive block's USB AGC
+        # took before its warm-up was made to span four decay times (K =
+        # 6, W = 2048)
+        ("lane_scan", "agc48", None, ("chunk", 13088, 1, 6, 2048), "path"),
         ("single_scan", "pll", None, ("single", 65440), "path"),
         ("single_scan", "fast_agc", None, ("single", 8192), "path"),
         ("single_scan", "costas4", None, ("single", 8192), "path"),
@@ -1194,11 +1212,22 @@ def phase_kernels(dev):
         case.run(fn, cycles)
         torch.cuda.synchronize()
         cps = float(cycles.double().mean()) / case.steps
+        # a single stream longer than LOOP_PLAIN_STEPS is held on its
+        # prefix: the kernel's output there and the kernel's whole run on
+        # the prefix alone (the carry included) against the plain version
+        held, pre = case, None
+        if case.layout == "single" and case.steps > LOOP_PLAIN_STEPS:
+            held = pre = copy.copy(case)
+            pre.steps, pre.shape = LOOP_PLAIN_STEPS, [LOOP_PLAIN_STEPS]
+            pre.streams = [x[:LOOP_PLAIN_STEPS] for x in case.streams]
         ref = {}
-        plain_ms = cuda_ms(lambda: ref.setdefault("r", case.run(plain)),
+        plain_ms = cuda_ms(lambda: ref.setdefault("r", held.run(plain)),
                            reps=1)
-        exact = all(torch.equal(a, b) for a, b in zip(got, ref["r"]))
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref["r"]))
+        pairs = list(zip(got if pre is None else pre.run(fn), ref["r"]))
+        if pre is not None:
+            pairs.append((got[0][:LOOP_PLAIN_STEPS], ref["r"][0]))
+        exact = all(torch.equal(a, b) for a, b in pairs)
+        err = max(float((a - b).abs().max()) for a, b in pairs)
         nbytes = case.nbytes()
         bms, bby = bound(nbytes, LOOP_OPS[body.name] * case.steps * case.lanes)
         label = f"{entry}[{name}] {case.layout} {case.shape}" + (
@@ -1206,7 +1235,8 @@ def phase_kernels(dev):
         log(f"kernel {label}: {'bit-exact' if exact else 'DIFFERS'} (max abs "
             f"err {err:.3g}), kernel {ms:.4f} ms a call ({dev_ms:.4f} ms on "
             f"the device, {host_us:.1f} us of host time), {cps:.1f} cycles "
-            f"per step (clock64), plain {plain_ms:.1f} ms, bound {bms:.5f} ms "
+            f"per step (clock64), plain {plain_ms:.1f} ms on {held.shape}, "
+            f"bound {bms:.5f} ms "
             f"({bby})")
         if not exact:
             raise AssertionError(f"{label} is not bit-exact against its "
@@ -1219,7 +1249,7 @@ def phase_kernels(dev):
         if path:
             ab_inputs[f"{name} {case.shape}"] = (name, *case.time_major())
         results.append(dict(entry=entry, body=name, shape=case.shape,
-                            plain_shape=case.shape, layout=case.layout,
+                            plain_shape=held.shape, layout=case.layout,
                             kind=kind, path=path, max_abs_err=err, tol=0.0,
                             ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
                             host_us=host_us, cycles_per_step=cps,
@@ -3768,16 +3798,79 @@ def atv_composite(n_lines: int, seed: int = 8) -> np.ndarray:
     return np.exp(1j * np.cumsum(np.pi * video)).astype(np.complex64)
 
 
+def pal_lock(pll, start: float, n_lines: int = 200) -> float:
+    """A decoder's ChromaPLL on ``n_lines`` ideal PAL lines on its device
+    (the burst exp(i(w0 t + ref + 0.3)) at the subcarrier over the burst
+    window, ref the per-line PAL phase, zeros elsewhere), its frequency
+    started ``start`` off w0 (a fraction): the mean |burst phase error|
+    (rad) over the last 20 lines."""
+    import torch
+    from sdrpp_tpu_torch.decoders import atv
+
+    w0 = 2 * np.pi * atv.CHROMA_SUBCARRIER / ATV_FS
+    refs = np.where(np.arange(n_lines) % 2 == 1, atv.A_PHASE,
+                    atv.B_PHASE).astype(np.float32)
+    t = np.arange(n_lines)[:, None] * 720 + np.arange(720)
+    bs, be = atv.BURST_START, atv.BURST_END
+    lines = np.zeros((n_lines, 720), np.complex64)
+    lines[:, bs:be] = np.exp(1j * (w0 * t[:, bs:be] + refs[:, None] + 0.3))
+    st = pll.init_state()
+    st["freq"] = torch.full_like(st["freq"], float(np.float32(
+        w0 * (1 + start))))
+    _, out = pll(st, torch.from_numpy(lines).to(pll.device),
+                 torch.from_numpy(refs).to(pll.device))
+    burst = out[-20:, bs:be].cpu().numpy()
+    return float(np.abs(np.angle(burst * np.exp(-1j * refs[-20:, None])))
+                 .mean())
+
+
+def atv_split_check(dev, y):
+    """One 40-ms block of ATVDecoder's LineSync input ``y`` cut at a third
+    and at half against the block whole, on ``dev``: the same lines, those
+    before the cut bit for bit, the line straddling the cut within
+    LINE_TOL (its part before the cut read from the carried head), every
+    later line locked to its sync tip. Returns {cut: straddling line's max
+    abs difference}."""
+    from sdrpp_tpu_torch.decoders.atv import ATVDecoder
+
+    ls = ATVDecoder(device=dev).sync
+
+    def run(cuts):
+        st, out, first = ls.init_state(), [], []
+        for a, b in zip((0, *cuts), (*cuts, len(y))):
+            st, (lines, valid) = ls(st, y[a:b])
+            first.append(sum(len(o) for o in out))
+            out.append(lines[valid].cpu().numpy())
+        return np.concatenate(out), first[1:]
+
+    whole, _ = run(())
+    res = {}
+    for cut in (len(y) // 3, len(y) // 2):
+        split, (first,) = run((cut,))
+        d = float(np.abs(split[first] - whole[first]).max()) \
+            if len(split) == len(whole) else float("inf")
+        res[cut] = d
+        if not (len(split) == len(whole)
+                and np.array_equal(split[:first], whole[:first])
+                and d <= LINE_TOL
+                and (split[first:, :27] < -0.1).mean(axis=1).min() > 0.9):
+            raise AssertionError(f"atv-11p25: LineSync split at {cut} "
+                                 f"differs from the whole block ({d})")
+    return res
+
+
 def phase_atv(dev):
     """atv-11p25: ATV_BLOCKS blocks of ATV_BLOCK samples (a PAL frame, 40
     ms each) of ``atv_composite`` through ``ATVDecoder(device="cuda")``:
     per-block CUDA-event ms and host ms, the real-time factor, the
     launches (line_sync_walk and chroma_burst_walk once a block), frames
-    of [625, 720, 2] uint8 at the rollovers; then a CPU decoder (the plain
-    walks) on the same blocks: the same vertical scan block by block
-    (ypos, field, frames). The chroma frames themselves are not compared:
-    the decoder's ChromaPLL (bandwidth 0.01) does not lock at 720-sample
-    lines (ROADMAP C), so card and CPU part from their first ulp."""
+    of [625, 720, 2] uint8 at the rollovers, the decoder's own chroma loop
+    locked on ideal PAL lines (``pal_lock``: from w0 and 0.5 % above it,
+    mean |burst phase error| below ATV_LOCK_TOL); then a CPU decoder (the
+    plain walks) on the same blocks: the same vertical scan block by block
+    (ypos, field, frames) and frames within 1 LSB of the card's, and its
+    loop locked alike; then one block's LineSync cut in two against the
+    block whole (``atv_split_check``)."""
     import torch
     from sdrpp_tpu_torch.decoders.atv import ATVDecoder
 
@@ -3800,27 +3893,45 @@ def phase_atv(dev):
         scan.append((dec.assembler.ypos, dec.assembler.even_frame))
     launches = read_counts("atv")
     cpu = ATVDecoder(device="cpu")
+    locked = {where: [pal_lock(d.pll, start) for start in (0.0, 0.005)]
+              for where, d in (("card", dec), ("cpu", cpu))}
     cpu_frames, cpu_scan = [], []
     for b in blocks:
         cpu_frames += cpu.process(b)
         cpu_scan.append((cpu.assembler.ypos, cpu.assembler.even_frame))
+    lsb = max((int(np.abs(a.astype(int) - b.astype(int)).max())
+               for a, b in zip(frames, cpu_frames)), default=None)
+    split = atv_split_check(dev, dec.quad(dec.quad.init_state(),
+                                          x_dev[0])[1])
     block_s = ATV_BLOCK / ATV_FS
     med_wall = float(np.median(wall[1:]))
     res = {"block_ms": ms, "wall_s": wall, "launches": launches,
            "frames": len(frames), "cpu_frames": len(cpu_frames),
            "scan": scan, "cpu_scan": cpu_scan,
+           "burst_err": locked,
+           "card_vs_cpu_lsb": lsb, "split_straddle_diff": split,
            "realtime_factor": block_s / med_wall,
            "median_ms": float(np.median(ms[1:])), "median_wall_s": med_wall}
     log(f"atv-11p25: {len(frames)} frames in {ATV_BLOCKS} blocks, median "
         f"{res['median_ms']:.3f} ms a block (CUDA events) and "
         f"{med_wall * 1e3:.3f} ms of host time against {block_s * 1e3:.1f} "
         f"ms of signal ({res['realtime_factor']:.2f}x real time); vertical "
-        f"scan {scan}, CPU {cpu_scan}; launches {launches}")
+        f"scan {scan}, CPU {cpu_scan}; the chroma loop's mean |burst "
+        f"error| on ideal PAL lines from w0 and 0.5 % off {locked} rad; "
+        f"frames card vs "
+        f"CPU within {lsb} LSB; LineSync split vs whole, straddling line "
+        f"{split}; launches {launches}")
     bad = [f.shape for f in frames if f.shape != (625, 720, 2)
            or f.dtype != np.uint8]
     if len(frames) < ATV_BLOCKS - 1 or bad or scan != cpu_scan \
             or len(cpu_frames) != len(frames):
         raise AssertionError(f"atv-11p25: {res} {bad}")
+    if not max(sum(locked.values(), [])) < ATV_LOCK_TOL:
+        raise AssertionError(f"atv-11p25: the chroma loop did not lock "
+                             f"({locked})")
+    if lsb is None or lsb > 1:
+        raise AssertionError(f"atv-11p25: card and CPU frames differ by "
+                             f"{lsb} LSB")
     if launches["line_sync_walk"] != ATV_BLOCKS \
             or launches["chroma_burst_walk"] != ATV_BLOCKS:
         raise AssertionError(f"atv-11p25: not one launch a block: "
@@ -3988,10 +4099,9 @@ def chroma_walk_case(dev, kind: str):
     frame's lines, the decoder's burst window and free-run segments) and
     the phase the locked outputs sit at:
 
-    - "locked": a tone at the subcarrier, ref 0, the decoder's frequency
-      limits, at ATV_LOCKING_BW (at the decoder's 0.01 the PLL does not
-      lock, ROADMAP C, and its cos / sin / atan2 ulps would grow without
-      bound);
+    - "locked": a tone at the subcarrier, ref 0, ATVDecoder's own loop
+      (bandwidth CHROMA_BANDWIDTH, limits CHROMA_PULL either side of the
+      subcarrier), which locks;
     - "wrap": a tone at 1.8 pi rad a sample (-0.2 pi aliased), limits
       [1.7 pi, 1.9 pi], ref pi, seeded noise at -40 dB: the locked outputs
       sit at +-pi, so atan2 flips across its branch cut and the error's
@@ -4007,7 +4117,7 @@ def chroma_walk_case(dev, kind: str):
     if kind == "locked":
         w0 = 2 * np.pi * atv.CHROMA_SUBCARRIER / ATV_FS
         x = np.exp(1j * (w0 * t + 0.3))
-        lo, hi, ref = w0 * 0.9, w0 * 1.1, 0.0
+        lo, hi, ref = w0 - atv.CHROMA_PULL, w0 + atv.CHROMA_PULL, 0.0
     else:
         w0 = 1.8 * np.pi
         rng = np.random.default_rng(15)
@@ -4015,8 +4125,9 @@ def chroma_walk_case(dev, kind: str):
             rng.standard_normal(t.shape) + 1j * rng.standard_normal(t.shape))
         lo, hi, ref = 1.7 * np.pi, 1.9 * np.pi, np.pi
     burst = torch.from_numpy(x.astype(np.complex64)).to(dev)
-    pll = atv.ChromaPLL(ATV_LOCKING_BW, 720, atv.BURST_START, atv.BURST_END,
-                        init_freq=w0, min_freq=lo, max_freq=hi, device=dev)
+    pll = atv.ChromaPLL(atv.CHROMA_BANDWIDTH, 720, atv.BURST_START,
+                        atv.BURST_END, init_freq=w0, min_freq=lo, max_freq=hi,
+                        device=dev)
     carry = torch.tensor([0.0, np.float32(w0)], dtype=torch.float32,
                          device=dev)
     refs = torch.full((L,), float(np.float32(ref)), dtype=torch.float32,
@@ -4099,22 +4210,26 @@ def cyclic_walk_cases(dev):
 
 
 def line_walk_cases(dev):
-    """``line_sync_walk``'s cases as (name, path, args): the first ATV
-    block ([450007] with the tail, the path's launch), then off the paths:
-    a carried pos near -717 (the first windows clamped to sample 0), freq
-    pinned at either limit (omega_gain 0.05, sync_bias +-1 over an
-    always-met sync level, so err keeps one sign), unlocked lines (a sync
-    level below every sum: err = 0 and locked cleared), max_lines reached
-    before the block's end, a block with no line (pos past n - 720 freq)
-    and jumps past the staging guard (mu_gain 4000 and 40000 over seeded
-    noise: pos moves by hundreds to tens of thousands of samples either
-    way a line, and sits at sample 0 for stretches); a block of
-    LINE_LONG_LINES lines (the record ring wraps: the walker waits for
-    free slots, the drawers for the slot's previous line) and lines whose
-    positions pass LINE_BIG_POS (2^22: located by floorf, not by the
-    kernel's exact float trick), each way: a carried pos just below 2^22
-    in a buffer that holds 40 lines past it, and one near -5e6 (every
-    window clamped to sample 0)."""
+    """``line_sync_walk``'s cases as (name, path, args), each buffer behind
+    a head (LineSync's: ceil(720 max_freq) + 7 = 763 samples, or the
+    7-sample minimum): the first ATV block ([450763], a zero head, the
+    path's first launch) and the second behind the head LineSync carried
+    out of the first, its first line begun in the first block (the path's
+    later launches); then off the paths: a carried pos near -717 (its
+    windows read from the head's samples), the same behind a 7-sample head
+    (clipped to the buffer's first window), freq pinned at either limit
+    (omega_gain 0.05, sync_bias +-1 over an always-met sync level, so err
+    keeps one sign), unlocked lines (a sync level below every sum: err = 0
+    and locked cleared), max_lines reached before the block's end, a block
+    with no line (pos past n - 720 freq) and jumps past the staging guard
+    (mu_gain 4000 and 40000 over seeded noise: pos moves by hundreds to
+    tens of thousands of samples either way a line, and sits at sample 0
+    for stretches); a block of LINE_LONG_LINES lines (the record ring
+    wraps: the walker waits for free slots, the drawers for the slot's
+    previous line) and lines whose positions pass LINE_BIG_POS (2^22:
+    located by floorf, not by the kernel's exact float trick), each way: a
+    carried pos just below 2^22 in a buffer that holds 40 lines past it,
+    and one near -5e6 (every window clipped to the buffer's first)."""
     import torch
     from sdrpp_tpu_torch.decoders import atv
     from sdrpp_tpu_torch.ops.fm import Quadrature
@@ -4123,23 +4238,27 @@ def line_walk_cases(dev):
     ls = atv.LineSync(1.0, omega_gain=1e-6, mu_gain=1.0,
                       omega_rel_limit=0.05, device=dev)
     st = ls.init_state()
+    hl = ls.head_len
 
-    def video(n_lines):  # the discriminator's output with the tail
+    def video(n_lines):  # the discriminator's output of n_lines lines
         iq = torch.from_numpy(atv_composite(n_lines)).to(dev)
-        return torch.cat([st["tail"], quad(quad.init_state(), iq)[1]])
+        return quad(quad.init_state(), iq)[1]
 
-    buf = video(ATV_BLOCK // 720)
-    n = buf.shape[0] - 7
+    y = video(2 * ATV_BLOCK // 720)
+    first, second = y[:ATV_BLOCK], y[ATV_BLOCK:]
+    buf = torch.cat([st["head"], first])
+    carried, _ = ls(st, first)
+    n = ATV_BLOCK
     f32 = torch.float32
 
     def case(carry=(0.0, 1.0), locked=False, b=buf, max_lines=None,
              omega_gain=ls.omega_gain, mu_gain=ls.mu_gain,
-             sync_level=ls.sync_level, sync_bias=ls.sync_bias):
+             sync_level=ls.sync_level, sync_bias=ls.sync_bias, head=hl):
         return (b, ls.bank, torch.tensor(carry, dtype=f32, device=dev),
                 torch.tensor([locked], device=dev),
-                ls.max_lines(b.shape[0] - 7) if max_lines is None
+                ls.max_lines(b.shape[0] - head) if max_lines is None
                 else max_lines, omega_gain, mu_gain, ls.min_freq,
-                ls.max_freq, sync_level, sync_bias)
+                ls.max_freq, sync_level, sync_bias, head)
 
     rng = np.random.default_rng(18)
     noise = torch.from_numpy(rng.standard_normal(n + 7).astype(
@@ -4149,7 +4268,13 @@ def line_walk_cases(dev):
     return [
         ("atv", "atv", case(carry=(float(st["pos"]), float(st["freq"])),
                             locked=bool(st["locked"]))),
+        ("carried", "atv", case(
+            b=torch.cat([carried["head"], second]),
+            carry=(float(carried["pos"]), float(carried["freq"])),
+            locked=bool(carried["locked"]))),
         ("neg_pos", "", case(carry=(-717.25, 1.0))),
+        ("neg_pos_tail", "", case(b=buf[hl - 7:], carry=(-717.25, 1.0),
+                                  head=7)),
         ("freq_hi", "", case(omega_gain=0.05, sync_level=1e9,
                              sync_bias=1.0)),
         ("freq_lo", "", case(omega_gain=0.05, sync_level=1e9,
@@ -4157,11 +4282,13 @@ def line_walk_cases(dev):
         ("unlocked", "", case(locked=True, sync_level=-1e9)),
         ("max_lines", "", case(max_lines=40)),
         ("no_line", "", case(carry=(n - 700.0, 1.0))),
-        ("jump", "", case(b=noise, mu_gain=4000.0, sync_level=1e9)),
-        ("far_jump", "", case(b=noise, mu_gain=40000.0, sync_level=1e9)),
-        ("long", "", case(b=video(LINE_LONG_LINES))),
+        ("jump", "", case(b=noise, mu_gain=4000.0, sync_level=1e9, head=7)),
+        ("far_jump", "", case(b=noise, mu_gain=40000.0, sync_level=1e9,
+                              head=7)),
+        ("long", "", case(b=torch.cat([st["head"],
+                                       video(LINE_LONG_LINES)]))),
         ("big_pos", "", case(b=big, carry=(LINE_BIG_POS - 100.25, 1.0),
-                             sync_level=1e9)),
+                             sync_level=1e9, head=7)),
         ("big_neg", "", case(carry=(-5e6, 1.0), max_lines=40)),
     ]
 
@@ -4193,9 +4320,9 @@ def same_bits(got, ref) -> bool:
 
 def phase_kernels_walks(dev):
     """The three walks against their plain versions on the same inputs:
-    line_sync_walk on every case of ``line_walk_cases`` (the first ATV
-    block's discriminator output, [450007] with the tail, and eleven edge
-    cases; each bit for bit, with its us a line logged beside the one-warp
+    line_sync_walk on every case of ``line_walk_cases`` (the first two
+    ATV blocks' discriminator output behind LineSync's head, [450763],
+    and twelve edge cases; each bit for bit, with its us a line logged beside the one-warp
     chain's floor, the probe's LINE_FLOOR_CYCLES, which this run does not
     measure);
     chroma_burst_walk on
@@ -4229,11 +4356,12 @@ def phase_kernels_walks(dev):
         ref = W.line_sync_walk(*on_cpu(args))
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = 0.0 if same_bits(got, ref) else float("inf")
-        lines, n = int(ref[1]), args[0].shape[0] - 7
-        nbytes = (n + 7) * 4 + 128 * 8 * 4 + args[4] * 720 * 4 + 32
+        lines, total = int(ref[1]), args[0].shape[0]
+        nbytes = total * 4 + 128 * 8 * 4 + args[4] * 720 * 4 + 32
         cases.append(_walk_case(
-            "line_sync_walk", path, [n + 7], [n + 7], err, 0.0, ms, plain_ms,
+            "line_sync_walk", path, [total], [total], err, 0.0, ms, plain_ms,
             nbytes, lines * (720 * 21 + 40), case=kind, lines=lines,
+            head=args[11], carried_pos=float(args[2][0]),
             max_lines=args[4], us_per_line=ms * 1e3 / max(lines, 1),
             bound_us_per_line=bound(nbytes, lines * (720 * 21 + 40))[0]
             * 1e3 / max(lines, 1)))
@@ -4302,7 +4430,7 @@ def phase_kernels_walks(dev):
             ("bank", lambda: W.line_sync_walk(buf, bank[:64], carry[:2],
                                               torch.zeros(1, dtype=torch.bool,
                                                           device=dev), 4,
-                                              0, 0, 0, 0, 0, 0)),
+                                              0, 0, 0, 0, 0, 0, 7)),
             ("complex64 [L, nb]", lambda: W.chroma_burst_walk(
                 burst.real.contiguous(), refs, carry, 1, 1, 0, 0, 0, 0)),
             ("since", lambda: W.cyclic_sync_walk(
@@ -5808,16 +5936,16 @@ def block_report(path, fs, ms, wall, tap, rate_name, mm=None):
 
 
 def phase_hrpt(dev="cuda"):
-    """hrpt-3M: HRPT_FRAMES minor frames through HRPTDecoder on the card,
-    its loops chunked as the JAX package runs them (K = 128): every frame
-    with sync_errors 0, its spacecraft id, frame number and words exact;
-    lane_scan and mm_symbols_chunked launched; the M&M's share of the
-    block from CUDA events on it. Then the loops' two routes (the exact
-    one by lane counts forced to 0, the M&M's too) on that signal and on
-    the same frames in noise (HRPT_NOISE a component): each route's
-    frames, sync errors and wrong words printed; the exact route must be exact on
-    both, the chunked one on the clean signal (the JAX package's
-    warm-ups are short of HRPT's loop time constants, ROADMAP C)."""
+    """hrpt-3M: HRPT_FRAMES minor frames through HRPTDecoder on the card
+    at its own policy (the FastAGC exact, its warm-up of 4 / rate fitting
+    in no lane; the Costas loop chunked, K = 128, over a warm-up of four
+    of its 2 / alpha, 1,576 samples; the M&M chunked): every frame with sync_errors 0, its
+    spacecraft id, frame number and words exact; lane_scan, single_scan
+    and mm_symbols_chunked launched; the M&M's share of the block from
+    CUDA events on it. Then the loops' two routes (the exact one by lane
+    counts forced to 0, the M&M's too) on that signal and on the same
+    frames in noise (HRPT_NOISE a component): each route's frames, sync
+    errors and wrong words printed, and every route must be exact."""
     from sdrpp_tpu_torch.decoders.hrpt import HRPTDecoder
 
     words, iq = hrpt_pass()
@@ -5847,8 +5975,7 @@ def phase_hrpt(dev="cuda"):
             log(f"hrpt-3M {sig} signal, {route} loops: {len(got)} of "
                 f"{len(words)} frames, sync errors "
                 f"{[f.sync_errors for f in got]}, wrong words {wrong}")
-            if route == "exact" or sig == "clean":
-                check_hrpt_frames(got, words, f"hrpt-3M ({sig}, {route})")
+            check_hrpt_frames(got, words, f"hrpt-3M ({sig}, {route})")
     res.update(frames=len(frames), symbols=int(len(tap.all())),
                launches=launches, routes=routes)
     return res, (iq[:2 * DECODE_BLOCK], tap.symbols[:2],

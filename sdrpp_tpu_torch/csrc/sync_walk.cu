@@ -177,11 +177,13 @@ __device__ __forceinline__ float taps8(const float (&w)[kTaps],
   return acc;
 }
 
-// Sample position p's bank row and window start, as the plain version:
-// phase min(max(int(mu * 128), 0), 127), base min(max(int(floor(p)), 0),
-// n - 1).
-__device__ __forceinline__ int window(float p, int n) {
-  return min(max(static_cast<int>(floorf(p)), 0), n - 1);
+// Sample position p's bank row and window start in buf, as the plain
+// version: phase min(max(int(mu * 128), 0), 127), base min(max(int(floor(p))
+// + hoff, 0), nh - 1), where buf = [head | x], hoff = head - 7 and nh = n +
+// hoff: position 0 is x's first sample, and a window reaches back into the
+// head (the clip is a guard no carried line reaches).
+__device__ __forceinline__ int window(float p, int hoff, int nh) {
+  return min(max(static_cast<int>(floorf(p)) + hoff, 0), nh - 1);
 }
 
 // The same without a conversion instruction (F2I / FRND issue at a
@@ -193,19 +195,20 @@ __device__ __forceinline__ int window(float p, int n) {
 // rounded down is 2^23 + floor(mu * 128), the truncation the plain
 // version takes (mu >= 0: no clamp at 0 is needed).
 constexpr float kMagicMax = 4194304.0f;  // 2^22
-__device__ __forceinline__ void locate_small(float p, int n, int& ph,
-                                             int& base) {
+__device__ __forceinline__ void locate_small(float p, int hoff, int nh,
+                                             int& ph, int& base) {
   const float t = __fadd_rd(p, 12582912.0f);
   const float mu = p - (t - 12582912.0f);
   const float u = __fadd_rd(mu * 128.0f, 8388608.0f);
   ph = min(__float_as_int(u) - 0x4B000000, kPhases - 1);
-  base = min(max(__float_as_int(t) - 0x4B400000, 0), n - 1);
+  base = min(max(__float_as_int(t) - 0x4B400000 + hoff, 0), nh - 1);
 }
-__device__ __forceinline__ void locate(float p, int n, int& ph, int& base) {
+__device__ __forceinline__ void locate(float p, int hoff, int nh, int& ph,
+                                       int& base) {
   const float fp = floorf(p);
   const float mu = p - fp;
   ph = min(max(static_cast<int>(mu * 128.0f), 0), kPhases - 1);
-  base = min(max(static_cast<int>(fp), 0), n - 1);
+  base = min(max(static_cast<int>(fp) + hoff, 0), nh - 1);
 }
 
 // One CTA of 16 warps, no CTA barrier after its set-up. Warp 0 walks the
@@ -250,7 +253,7 @@ __device__ __forceinline__ void locate(float p, int n, int& ph, int& base) {
 // finished (s_count >= 0) a drawer past the count zeroes its remaining
 // rows.
 __global__ void __launch_bounds__(kLineThreads, 1)
-line_sync_kernel(const float* __restrict__ buf, int n,
+line_sync_kernel(const float* __restrict__ buf, int n, int head,
                  const float* __restrict__ bank,
                  const float* __restrict__ carry_in,
                  const bool* __restrict__ locked_in,
@@ -275,7 +278,8 @@ line_sync_kernel(const float* __restrict__ buf, int n,
     s_count = -1;
   }
   __syncthreads();
-  const int total = n + kTaps - 1;  // buf's samples
+  const int total = n + head;  // buf's samples
+  const int hoff = head - (kTaps - 1), nh = n + hoff;
   if (warp == 0) {
     WALK_ROUND();
     const int half = lane >> 4, L = lane & 15;
@@ -300,14 +304,15 @@ line_sync_kernel(const float* __restrict__ buf, int n,
       if (small) {
 #pragma unroll
         for (int r = 0; r < 3; ++r)
-          locate_small(pos + kf[r] * freq, n, ph[r], b[r]);
-        locate_small(pos, n, unused, bases[0]);
-        locate_small(pos + 719.0f * freq, n, unused, bases[1]);
+          locate_small(pos + kf[r] * freq, hoff, nh, ph[r], b[r]);
+        locate_small(pos, hoff, nh, unused, bases[0]);
+        locate_small(pos + 719.0f * freq, hoff, nh, unused, bases[1]);
       } else {
 #pragma unroll
-        for (int r = 0; r < 3; ++r) locate(pos + kf[r] * freq, n, ph[r], b[r]);
-        bases[0] = window(pos, n);
-        bases[1] = window(pos + 719.0f * freq, n);
+        for (int r = 0; r < 3; ++r)
+          locate(pos + kf[r] * freq, hoff, nh, ph[r], b[r]);
+        bases[0] = window(pos, hoff, nh);
+        bases[1] = window(pos + 719.0f * freq, hoff, nh);
       }
       // the windows from the ring, whether staged or not (the test below
       // is off the loads' path); device memory when not
@@ -466,7 +471,7 @@ line_sync_kernel(const float* __restrict__ buf, int n,
 #pragma unroll 4
         for (int k = lane; k < kLineLen; k += 32) {
           int ph, b;
-          locate_fn(pos + static_cast<float>(k) * freq, n, ph, b);
+          locate_fn(pos + static_cast<float>(k) * freq, hoff, nh, ph, b);
           float w[kTaps];
 #pragma unroll
           for (int q = 0; q < kTaps; ++q) w[q] = __ldg(buf + b + q);
@@ -474,9 +479,13 @@ line_sync_kernel(const float* __restrict__ buf, int n,
         }
       };
       if (fabsf(pos) < kMagicMax && fabsf(pos + 720.0f * freq) < kMagicMax)
-        draw([](float q, int m, int& a, int& c) { locate_small(q, m, a, c); });
+        draw([](float q, int o, int m, int& a, int& c) {
+          locate_small(q, o, m, a, c);
+        });
       else
-        draw([](float q, int m, int& a, int& c) { locate(q, m, a, c); });
+        draw([](float q, int o, int m, int& a, int& c) {
+          locate(q, o, m, a, c);
+        });
     }
     for (; d < max_lines; d += kLineDrawers) {
       float* out = lines + static_cast<size_t>(d) * kLineLen;
@@ -945,24 +954,28 @@ cyclic_sync_kernel(const float* __restrict__ rcorr,
 
 extern "C" {
 
-// LineSync over one block: buf = [tail(7) | x] float32 [n + 7]; bank
-// [128, 8]; carry_in / carry_out float32 [2] (pos, freq), locked bool [1];
-// lines [max_lines, 720] float32 (rows past the count are 0); count int32.
-int line_sync_walk(const float* buf, int n, const float* bank,
+// LineSync over one block: buf = [head | x] float32 [head + n], head >= 7
+// (the blocks before's last samples: a line carried into this block, at
+// pos down to -720 max_freq, reads them); bank [128, 8]; carry_in /
+// carry_out float32 [2] (pos, freq; pos from x's first sample), locked
+// bool [1]; lines [max_lines, 720] float32 (rows past the count are 0);
+// count int32.
+int line_sync_walk(const float* buf, int n, int head, const float* bank,
                    const float* carry_in, const bool* locked_in,
                    float* carry_out, bool* locked_out, float* lines,
                    int* count, int max_lines, float omega_gain, float mu_gain,
                    float min_freq, float max_freq, float sync_level,
                    float sync_bias, void* stream) {
-  if (n < 1 || max_lines < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || max_lines < 1 || head < kTaps - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t attr = cudaFuncSetAttribute(
       line_sync_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kLineSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   line_sync_kernel<<<1, kLineThreads, kLineSmem,
                      static_cast<cudaStream_t>(stream)>>>(
-      buf, n, bank, carry_in, locked_in, carry_out, locked_out, lines, count,
-      max_lines, omega_gain, mu_gain, min_freq, max_freq, sync_level,
+      buf, n, head, bank, carry_in, locked_in, carry_out, locked_out, lines,
+      count, max_lines, omega_gain, mu_gain, min_freq, max_freq, sync_level,
       sync_bias);
   return static_cast<int>(cudaGetLastError());
 }

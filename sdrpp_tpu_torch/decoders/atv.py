@@ -38,7 +38,8 @@ from ..utils.blocks import Block
 
 __all__ = ["LineSync", "ChromaPLL", "FrameAssembler", "ATVDecoder",
            "chroma_taps", "LINE_LEN", "FRAME_LINES", "SAMPLE_RATE",
-           "CHROMA_SUBCARRIER", "A_PHASE", "B_PHASE"]
+           "CHROMA_SUBCARRIER", "A_PHASE", "B_PHASE", "CHROMA_BANDWIDTH",
+           "CHROMA_PULL"]
 
 LINE_LEN = 720
 FRAME_LINES = 625                       # PAL (main.cpp:159-166)
@@ -61,13 +62,41 @@ CHROMA_FIR_DELAY = (231 - 1) // 2
 BURST_START = 63 + CHROMA_FIR_DELAY
 BURST_END = BURST_START + 28
 
+# ATVDecoder's chroma loop. ChromaPLL corrects over the 28-sample burst and
+# free-runs the rest of the 720-sample line, so per line a phase error e
+# and a frequency error df map as e' = (1 - 28 alpha - 720 28 beta) e + 720
+# df, df' = df - 28 beta e, stable only while 720 28 beta < 4 - 56 alpha.
+# The reference's bandwidth 0.01 (alpha 0.0279, beta 3.94e-4) gives 7.95
+# against 2.44: an eigenvalue near -6.7, and the loop diverges. At 0.003
+# (alpha 0.00845, beta 3.58e-5) it is 0.72 against 3.53: both eigenvalues
+# of modulus 0.87, an e-fold in about 8 lines.
+CHROMA_BANDWIDTH = 0.003
+# A loop that sees the phase once a line cannot tell df from df + 2 pi k /
+# 720: every such offset is a lock as stable as the true one (a false
+# lock: 0.35 % of the subcarrier apart, with the burst's phase ramped by
+# 0.24 rad). The reference's limits, +-10 % of the subcarrier, admit 56 of
+# them, and a loop started 0.5 % off locks 0.35 % off. Limits a quarter of
+# that spacing either side admit none, and a start outside them is
+# clamped nearer the true lock than any false one.
+CHROMA_PULL = float(np.pi) / (2 * LINE_LEN)
+
 
 class LineSync(Block):
     """Horizontal line synchronizer -> (lines[max_lines, 720], valid).
 
-    State: ``tail`` (the last 7 inputs), ``pos`` (the next line's
-    fractional position in the next block), ``freq`` and ``locked``, as
-    the JAX block's. The valid lines are a prefix."""
+    State: ``head`` (the last ``head_len`` inputs), ``pos`` (the next
+    line's fractional position in the next block), ``freq`` and
+    ``locked``. The valid lines are a prefix.
+
+    A block ends where the next whole line no longer fits, so that line
+    is carried into the next block at a negative ``pos``, down to -720
+    max_freq. The JAX block carries only a 7-sample ``tail`` (the
+    interpolator's taps) and clips the window index at 0, so every sample
+    of that line before the block start reads one window: in ATVDecoder
+    (omega 1) about 717 of its 720 samples, once a block. Here the head
+    holds ceil(720 max_freq) + 7 samples, the whole carried line and the
+    taps, and the walk reads its windows back into it: a split run draws
+    the same lines as an unsplit one."""
 
     def __init__(self, omega: float, omega_gain: float = 1e-6,
                  mu_gain: float = 0.01, omega_rel_limit: float = 0.01,
@@ -83,6 +112,8 @@ class LineSync(Block):
         self.sync_bias = np.float32(sync_bias)
         self.phase_count = int(interp_phase_count)
         self.tap_count = int(interp_tap_count)
+        self.head_len = int(np.ceil(LINE_LEN * float(self.max_freq))) + \
+            self.tap_count - 1
         self.device = torch.device(device)
         self.bank = torch.from_numpy(
             _interp_bank(self.phase_count, self.tap_count).astype(
@@ -94,7 +125,7 @@ class LineSync(Block):
     def init_state(self):
         d = self.device
         return {
-            "tail": torch.zeros(self.tap_count - 1, dtype=torch.float32,
+            "head": torch.zeros(self.head_len, dtype=torch.float32,
                                 device=d),
             "pos": torch.zeros((), dtype=torch.float32, device=d),
             "freq": torch.full((), self.omega, dtype=torch.float32, device=d),
@@ -104,15 +135,15 @@ class LineSync(Block):
     def __call__(self, state, x):
         n = x.shape[-1]
         max_lines = self.max_lines(n)
-        buf = torch.cat([state["tail"], x.to(torch.float32)])
+        buf = torch.cat([state["head"], x.to(torch.float32)])
         carry = torch.stack([state["pos"], state["freq"]])
         lines, count, carry, locked = line_sync_walk(
             buf, self.bank, carry, state["locked"].reshape(1), max_lines,
             self.omega_gain, self.mu_gain, self.min_freq, self.max_freq,
-            self.sync_level, self.sync_bias)
+            self.sync_level, self.sync_bias, self.head_len)
         valid = torch.arange(max_lines, device=x.device) < count
         new_state = {
-            "tail": buf[n:],
+            "head": buf[n:],
             "pos": carry[0] - n,
             "freq": carry[1],
             "locked": locked.reshape(()),
@@ -260,7 +291,10 @@ class ATVDecoder:
 
     quadrature FM (dev = fs/2) -> LineSync(omega=1, 1e-6, mu 1.0, ±5%)
     -> [real->complex -> 231-tap chroma band-pass -> ChromaPLL @ 4.4336
-    MHz ±10% with per-line PAL phase] -> FrameAssembler.
+    MHz with per-line PAL phase] -> FrameAssembler. The chroma loop takes
+    CHROMA_BANDWIDTH and limits of CHROMA_PULL either side of the
+    subcarrier, where the reference's (bandwidth 0.01, +-10 %) never lock
+    at 720-sample lines.
 
     ``process(iq)`` consumes complex64 baseband at 11.25 Msps (a numpy
     array, or a tensor on ``device``) and returns any completed
@@ -282,9 +316,10 @@ class ATVDecoder:
         self.sync = LineSync(1.0, omega_gain=1e-6, mu_gain=1.0,
                              omega_rel_limit=0.05, device=self.device)
         w0 = 2.0 * np.pi * CHROMA_SUBCARRIER / self.samplerate
-        self.pll = ChromaPLL(0.01, LINE_LEN, BURST_START, BURST_END,
-                             init_freq=w0, min_freq=w0 * 0.9,
-                             max_freq=w0 * 1.1, device=self.device)
+        self.pll = ChromaPLL(CHROMA_BANDWIDTH, LINE_LEN, BURST_START,
+                             BURST_END, init_freq=w0,
+                             min_freq=w0 - CHROMA_PULL,
+                             max_freq=w0 + CHROMA_PULL, device=self.device)
         self.assembler = FrameAssembler(min_level, span_level)
         self._taps = chroma_taps().astype(np.complex64)
         self._fir_state = torch.zeros(len(self._taps) - 1,

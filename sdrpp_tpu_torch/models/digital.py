@@ -28,15 +28,22 @@ from ..ops import taps as taps_mod
 from ..ops.clock_recovery_chunked import MMClockRecoveryChunked
 from ..ops.fir import FIR
 from ..ops.fm import Quadrature
-from ..ops.scans import FL_PI
-from ..ops.scans_kernels import METEOR_PHASES, CostasChunked, FastAGCChunked
+from ..ops.scans import FL_PI, _critically_damped
+from ..ops.scans_kernels import (METEOR_PHASES, CostasChunked, FastAGCChunked,
+                                 loop_time_constant, settled_warmup)
 from ..utils.blocks import Block
 
 __all__ = ["PSKDemod", "GFSKDemod", "MeteorCostas", "MeteorDemod"]
 
 
 class PSKDemod(Block):
-    """BPSK/QPSK/8PSK demodulator (reference psk.h)."""
+    """BPSK/QPSK/8PSK demodulator (reference psk.h). Its chunked loops
+    warm up over four of their time constants (``settled_warmup``: the
+    FastAGC's 1 / agc_rate, the Costas loop's 2 / alpha), at least the JAX
+    package's 1024 and 512 samples, and a loop whose warm-up no lane of a
+    block holds runs exact. The JAX package's fixed warm-ups leave HRPT's
+    lanes unsettled (its FastAGC's 1 / rate is 50,000 samples, its Costas
+    loop's 2 / alpha 394) and lose words in noise."""
 
     def __init__(self, order: int, symbolrate: float, samplerate: float,
                  rrc_tap_count: int = 31, rrc_beta: float = 0.35,
@@ -47,8 +54,14 @@ class PSKDemod(Block):
         rrc_taps = taps_mod.root_raised_cosine_rate(rrc_tap_count, rrc_beta,
                                                     symbolrate, samplerate)
         self.rrc = FIR(rrc_taps, dtype=torch.complex64, device=device)
-        self.agc = FastAGCChunked(1.0, 10e6, agc_rate, device=device)
-        self.costas = CostasChunked(order, costas_bandwidth, device=device)
+        self.agc = FastAGCChunked(
+            1.0, 10e6, agc_rate, warmup=settled_warmup(1.0 / agc_rate, 1024),
+            device=device)
+        alpha = _critically_damped(costas_bandwidth)[0]
+        self.costas = CostasChunked(
+            order, costas_bandwidth,
+            warmup=settled_warmup(loop_time_constant(alpha), 512),
+            device=device)
         self.recov = MMClockRecoveryChunked(
             samplerate / symbolrate, omega_gain, mu_gain, omega_rel_limit,
             complex_input=True, device=device)

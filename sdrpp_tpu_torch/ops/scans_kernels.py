@@ -55,7 +55,8 @@ __all__ = ["LoopBody", "pll_body", "agc_body", "fast_agc_body", "costas_body",
            "costas_phases", "rotate_back", "suffix_max", "pll_phases_chunked",
            "agc_gains_chunked", "fast_agc_gains_chunked",
            "costas_phases_chunked", "PLLChunked", "AGCChunked",
-           "FastAGCChunked", "CostasChunked"]
+           "FastAGCChunked", "CostasChunked", "WARMUP_TCS",
+           "settled_warmup", "loop_time_constant"]
 
 _TWO_PI = np.float32(2.0) * FL_PI
 
@@ -628,6 +629,28 @@ def costas_phases_chunked(s1, s2, hist1, hist2, phase0, freq0, order, alpha,
             fin[1, :, -1].reshape(lead))
 
 
+# A chunked lane starts from a seed estimated over its warm-up and settles
+# onto the exact loop's trajectory at the loop's own rate, so its payload
+# agrees with the exact loop only once the warm-up spans a few of the
+# loop's time constants: WARMUP_TCS of them leave exp(-WARMUP_TCS) of the
+# seed's error. A warm-up that long which fits in no lane runs the loop
+# exact (``_chunk_lanes_for`` returns 0 when no lane payload holds it).
+WARMUP_TCS = 4
+
+
+def settled_warmup(time_constant: float, least: int = 0) -> int:
+    """The warm-up a chunked lane needs to settle: WARMUP_TCS loop time
+    constants (in samples), and at least ``least``."""
+    return max(int(least), int(np.ceil(WARMUP_TCS * float(time_constant))))
+
+
+def loop_time_constant(alpha: float) -> float:
+    """A second-order phase loop's settling time constant in samples,
+    2 / alpha: the poles of its step (proportional gain alpha, integral
+    gain beta) have modulus sqrt(1 - alpha), about 1 - alpha / 2."""
+    return 2.0 / float(alpha)
+
+
 # "auto": the chunk-parallel loops (and the chunked M&M) for long 1-D
 # blocks; "exact": always the exact recurrences. Read once, at import, as
 # the JAX package reads SDRPP_TPU_LOOPS (scans_pallas.py:57).
@@ -707,11 +730,22 @@ class PLLChunked(PLL):
 class AGCChunked(AGC):
     """Full AGC, chunk-parallel for long blocks and exact otherwise (state
     grows a ``hist`` buffer of the last ``warmup`` input amplitudes). With
-    ``enabled=False`` the manual gain of ``AGC`` runs, at any length."""
+    ``enabled=False`` the manual gain of ``AGC`` runs, at any length.
 
-    def __init__(self, *args, warmup: int = 2048, max_lanes: int = 512,
-                 **kwargs):
+    The default warm-up spans WARMUP_TCS of the loop's slow time constant,
+    1 / decay (at least the JAX package's 2048 samples): a lane seeded at
+    its warm-up's mean amplitude settles onto the exact tracker at the
+    decay rate, and the JAX package's fixed 2048 samples, shorter than
+    1 / decay at the radio's rates (4800 samples at 24 kHz), leave the
+    lanes unsettled. Where that warm-up fits in no lane the AGC runs
+    exact. An explicit ``warmup`` is used as given."""
+
+    def __init__(self, *args, warmup: int | None = None,
+                 max_lanes: int = 512, **kwargs):
         super().__init__(*args, **kwargs)
+        if warmup is None:
+            warmup = (settled_warmup(1.0 / float(self.decay), 2048)
+                      if self.decay > 0 else 2048)
         self.warmup = int(warmup)
         self.max_lanes = int(max_lanes)
 

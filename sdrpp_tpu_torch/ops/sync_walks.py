@@ -82,9 +82,11 @@ def tree_sum44(v: torch.Tensor) -> torch.Tensor:
     return s[..., 0]
 
 
-def _check_line(buf, bank, carry, locked, max_lines):
+def _check_line(buf, bank, carry, locked, max_lines, head):
     if buf.dtype != torch.float32 or buf.ndim != 1:
-        raise ValueError("buf must be float32 [n + 7]")
+        raise ValueError("buf must be float32 [head + n]")
+    if int(head) < LINE_TAPS - 1:
+        raise ValueError(f"head must be at least {LINE_TAPS - 1} samples")
     if bank.dtype != torch.float32 or tuple(bank.shape) != (LINE_PHASES,
                                                            LINE_TAPS):
         raise ValueError(f"bank must be float32 [{LINE_PHASES}, {LINE_TAPS}]")
@@ -92,18 +94,20 @@ def _check_line(buf, bank, carry, locked, max_lines):
         raise ValueError("carry must be float32 [2] (pos, freq)")
     if locked.dtype != torch.bool or locked.numel() != 1:
         raise ValueError("locked must be one bool")
-    n = buf.shape[0] - (LINE_TAPS - 1)
+    n = buf.shape[0] - int(head)
     if n < 1 or int(max_lines) < 1:
         raise ValueError("empty block or no lines")
     return n
 
 
 def line_sync_walk_plain(buf, bank, carry, locked, max_lines, omega_gain,
-                         mu_gain, min_freq, max_freq, sync_level, sync_bias):
+                         mu_gain, min_freq, max_freq, sync_level, sync_bias,
+                         head):
     """Plain version of ``line_sync_walk``: a loop over lines, each line's
     720 samples as float32 torch vectors, the carries as numpy float32
     scalars, every sum in the kernel's order."""
-    n = _check_line(buf, bank, carry, locked, max_lines)
+    n = _check_line(buf, bank, carry, locked, max_lines, head)
+    hoff = int(head) - (LINE_TAPS - 1)
     dev = buf.device
     f32 = np.float32
     b = buf.detach().cpu()
@@ -123,7 +127,7 @@ def line_sync_walk_plain(buf, bank, carry, locked, max_lines, omega_gain,
         fp = torch.floor(p)
         mu = p - fp
         ph = (mu * 128.0).to(torch.int64).clamp(0, LINE_PHASES - 1)
-        base = fp.to(torch.int64).clamp(0, n - 1)
+        base = (fp.to(torch.int64) + hoff).clamp(0, n + hoff - 1)
         w = b[base[:, None] + taps_off]           # [720, 8]
         taps = bk[ph]                             # [720, 8]
         acc = w[:, 0] * taps[:, 0]
@@ -144,23 +148,30 @@ def line_sync_walk_plain(buf, bank, carry, locked, max_lines, omega_gain,
 
 
 # each C entry's argument types, the stream last (cuda_lib.launch appends it)
-_LINE_ARGS = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
-              + [ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+_LINE_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+              + [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_float] * 6
+              + [ctypes.c_void_p])
 
 
 def line_sync_walk(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
-                   min_freq, max_freq, sync_level, sync_bias):
-    """One block of LineSync. ``buf`` float32 [n + 7] ([tail | x]),
-    ``bank`` [128, 8], ``carry`` float32 [2] (pos, freq), ``locked`` bool.
-    Returns (lines [max_lines, 720] float32, the active lines first and
-    zeros after, count int32 (0-d), carry [2] after the block, locked)."""
+                   min_freq, max_freq, sync_level, sync_bias, head):
+    """One block of LineSync. ``buf`` float32 [head + n]: the last ``head``
+    (at least 7) samples of the blocks before, then the block's n; ``bank``
+    [128, 8], ``carry`` float32 [2] (pos, freq; pos counted from the
+    block's first sample, negative for a line that began before it),
+    ``locked`` bool. Output sample k of a line at pos interpolates the 8
+    buf samples from head - 7 + floor(pos + k freq), clipped to [0, head +
+    n - 8]: a head of ceil(720 max_freq) + 7 holds every sample of a line
+    carried from the block before, and the clip is only a guard. Returns
+    (lines [max_lines, 720] float32, the active lines first and zeros
+    after, count int32 (0-d), carry [2] after the block, locked)."""
     dev = _device_of("line_sync_walk", buf, bank, carry, locked)
-    n = _check_line(buf, bank, carry, locked, max_lines)
+    n = _check_line(buf, bank, carry, locked, max_lines, head)
     params = tuple(float(np.float32(v)) for v in (
         omega_gain, mu_gain, min_freq, max_freq, sync_level, sync_bias))
     if dev.type == "cpu":
         return line_sync_walk_plain(buf, bank, carry, locked, max_lines,
-                                    *params)
+                                    *params, head)
     buf, bank, carry, locked = _contig(buf, bank, carry, locked)
     max_lines = int(max_lines)
     lines = buf.new_empty((max_lines, LINE_LEN))
@@ -168,12 +179,12 @@ def line_sync_walk(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
     carry_out = carry.new_empty(2)
     locked_out = torch.empty((), dtype=torch.bool, device=dev)
     fn = cuda_lib.bind("sync_walk", "line_sync_walk", _LINE_ARGS)
-    rc = cuda_lib.launch(fn, dev, buf.data_ptr(), n, bank.data_ptr(),
-                         carry.data_ptr(), locked.data_ptr(),
+    rc = cuda_lib.launch(fn, dev, buf.data_ptr(), n, int(head),
+                         bank.data_ptr(), carry.data_ptr(), locked.data_ptr(),
                          carry_out.data_ptr(), locked_out.data_ptr(),
                          lines.data_ptr(), count.data_ptr(), max_lines,
                          *params)
-    _rc("line_sync_walk", rc, f"n={n}, max_lines={max_lines}")
+    _rc("line_sync_walk", rc, f"n={n}, head={head}, max_lines={max_lines}")
     line_sync_walk.launches += 1
     return lines, count, carry_out, locked_out
 

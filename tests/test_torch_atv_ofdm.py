@@ -34,14 +34,18 @@ Tolerances, each with its reason:
   in another order: within MOD_TOL = 2e-4 of the unit-amplitude output
   (the JAX test's oracle tolerance is 2e-3); PSKMod is the RRC resampler
   (tests/test_torch_psk_gfsk.py's tolerance, 5e-5).
-- ATVDecoder: the same vertical scan; frames within 1 LSB (a line's uint8
-  pixels round the same float32 values) where the chroma PLL locks. The
-  decoder's own ChromaPLL (bandwidth 0.01) does not lock at 720-sample
-  lines, in JAX and the port alike (ROADMAP C): its free run of ~700
-  samples a line multiplies the loop's frequency gain past stability, and
-  the phases of the two packages part chaotically from their first ulp of
-  difference. The frame comparison therefore gives both decoders the same
-  ChromaPLL at LOCKING_BW = 0.003, where it locks.
+- ATVDecoder: the same vertical scan; frames within 1 LSB (a line's
+  uint8 pixels round the same float32 values) where both decoders run the
+  same chroma PLL at LOCKING_BW = 0.003, where it locks. The JAX decoder's
+  own ChromaPLL (bandwidth 0.01) does not lock at 720-sample lines
+  (ROADMAP C): its free run of ~700 samples a line multiplies the loop's
+  frequency gain past stability, and its phases part chaotically from the
+  first ulp of difference. The port's decoder takes bandwidth 0.003 and
+  limits of pi / 1440 either side of the subcarrier, and is held to lock
+  on ideal PAL lines (mean |burst error| below 0.05 rad over the last 20
+  of 200). LineSync carries a head of ceil(720 max_freq) + 7 samples where
+  JAX carries 7, so the line that straddles a block start is held to an
+  unsplit run, not to JAX (ROADMAP C).
 """
 
 import numpy as np
@@ -136,8 +140,27 @@ LINE_CASES = {
 }
 
 
+def _line_sync_lines(ls, y, cuts=()):
+    """LineSync's valid lines over ``y`` [n] float32, cut at ``cuts``, the
+    state carried: (lines [L, 720], the index of each later block's first
+    line)."""
+    st, out, starts = ls.init_state(), [], []
+    for a, b in zip((0, *cuts), (*cuts, len(y))):
+        st, (lines, valid) = ls(st, torch.as_tensor(y[a:b]))
+        starts.append(sum(len(o) for o in out))
+        out.append(lines[valid].numpy())
+    return np.concatenate(out), starts[1:]
+
+
 @pytest.mark.parametrize("case", sorted(LINE_CASES))
 def test_line_sync_matches_jax_over_two_blocks(case):
+    """The lines of two blocks against JAX's, within LINE_TOL, but the
+    second block's first: that line began in the first block (a negative
+    carried pos), and JAX, which carries 7 samples, reads one clipped
+    window for its part before the block start; the port reads it from
+    its head and is held to an unsplit run there. The valid counts, pos,
+    freq and locked against JAX's, and the head's last 7 samples equal to
+    JAX's tail."""
     c = LINE_CASES[case]
     x = make_video(**c["video"])
     jl = jatv.LineSync(**c["kw"])
@@ -145,20 +168,79 @@ def test_line_sync_matches_jax_over_two_blocks(case):
     jf = jax.jit(jl.__call__)
     js, ts = jl.init_state(), tl.init_state()
     half = len(x) // 2
-    for blk in (x[:half], x[half:]):
+    _, (first,) = _line_sync_lines(tl, x, (half,))
+    unsplit, _ = _line_sync_lines(tl, x)
+    for k, blk in enumerate((x[:half], x[half:])):
         js, (jlines, jvalid) = jf(js, jnp.asarray(blk))
+        straddle = k == 1 and float(ts["pos"]) < 0
         ts, (tlines, tvalid) = tl(ts, torch.from_numpy(blk))
         np.testing.assert_array_equal(np.asarray(jvalid), tvalid.numpy())
-        np.testing.assert_allclose(tlines.numpy(), np.asarray(jlines),
+        keep = slice(1, None) if straddle else slice(None)
+        np.testing.assert_allclose(tlines.numpy()[keep],
+                                   np.asarray(jlines)[keep],
                                    atol=LINE_TOL, rtol=0)
+        if straddle:
+            np.testing.assert_allclose(tlines.numpy()[0], unsplit[first],
+                                       atol=LINE_TOL, rtol=0)
     jsn, tsn = _np(js), state_to_numpy(ts)
-    assert set(jsn) == set(tsn)
-    np.testing.assert_array_equal(jsn["tail"], tsn["tail"])
+    assert set(jsn) - {"tail"} == set(tsn) - {"head"}
+    assert tsn["head"].shape == (tl.head_len,)
+    np.testing.assert_array_equal(jsn["tail"], tsn["head"][-7:])
     assert abs(float(jsn["pos"]) - float(tsn["pos"])) <= POS_TOL
     assert abs(float(jsn["freq"]) - float(tsn["freq"])) <= FREQ_TOL
     assert bool(jsn["locked"]) == bool(tsn["locked"])
-    for k in jsn:
+    for k in set(jsn) - {"tail"}:
         assert jsn[k].shape == tsn[k].shape and jsn[k].dtype == tsn[k].dtype
+
+
+def _decoder_video(n_lines):
+    """ATVDecoder's LineSync input: the discriminator's output of
+    ``_atv_iq`` over ``n_lines`` lines."""
+    from sdrpp_tpu_torch.ops.fm import Quadrature
+
+    iq = np.tile(_atv_iq(), -(-n_lines // 80))[:n_lines * LINE_LEN]
+    q = Quadrature(tatv.SAMPLE_RATE / 2.0, tatv.SAMPLE_RATE, device=CPU)
+    return q(q.init_state(), torch.from_numpy(iq))[1].numpy()
+
+
+SPLIT_CASES = ["video_third", "video_half", "video_late", "decoder_third",
+               "decoder_half", "decoder_late"]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_line_sync_split_matches_unsplit(case):
+    """A block cut in two (a third, half, or 2,000 samples before its end
+    in) against the block whole: the same lines, the line that straddles
+    the cut included. "video": the make_video signal of the "atv" case,
+    every line within LINE_TOL. "decoder": ATVDecoder's LineSync on one of
+    its 40-ms blocks of the decoder test's composite (625 lines); the
+    lines before the cut equal bit for bit, the straddling line within
+    LINE_TOL, and every later line locked to its sync tip. (Those later
+    lines are not held to the whole block's: the whole block places them
+    at float32 positions up to 4.5e5, an ulp of 1/32 sample, where the
+    cut block's positions are smaller; the discriminator's sharp edges
+    and chroma carrier turn that into up to ~0.25 on some samples, a
+    property of LineSync's float32 positions, equal in JAX.)"""
+    kind, at = case.split("_")
+    if kind == "video":
+        c = LINE_CASES["atv"]
+        y = make_video(**c["video"])
+        ls = tatv.LineSync(**c["kw"], device=CPU)
+    else:
+        y = _decoder_video(tatv.FRAME_LINES)
+        ls = tatv.ATVDecoder(device=CPU).sync
+    cut = {"third": len(y) // 3, "half": len(y) // 2,
+           "late": len(y) - 2000}[at]
+    whole, _ = _line_sync_lines(ls, y)
+    split, (first,) = _line_sync_lines(ls, y, (cut,))
+    assert len(split) == len(whole) and 0 < first < len(whole)
+    if kind == "video":
+        np.testing.assert_allclose(split, whole, atol=LINE_TOL, rtol=0)
+        return
+    np.testing.assert_array_equal(split[:first], whole[:first])
+    np.testing.assert_allclose(split[first], whole[first], atol=LINE_TOL,
+                               rtol=0)
+    assert (split[first:, :27] < -0.1).mean(axis=1).min() > 0.9
 
 
 def test_line_sync_locks_and_aligns():
@@ -282,6 +364,29 @@ def _atv_iq(n_lines=80, fs=tatv.SAMPLE_RATE):
         .astype(np.complex64)
 
 
+def _pal_iq(n_lines, seed=8):
+    """PAL-like composite video, FM modulated at the decoder's deviation:
+    each line a sync tip, a grey ramp, a colour burst at the subcarrier
+    over the samples the chroma PLL's window reads (the FIR's delay
+    before it), its phase alternating +-135 degrees by line, a chroma
+    carrier over the active region, and seeded noise (chip_smoke.py's
+    atv-11p25 signal)."""
+    k = np.arange(LINE_LEN)
+    line = np.where((k < 71) | (k >= LINE_LEN - 17), -0.3,
+                    0.1 + 0.3 * (k - 71) / (LINE_LEN - 88))
+    t = np.arange(n_lines * LINE_LEN)
+    kk, ll = t % LINE_LEN, t // LINE_LEN
+    w0 = 2 * np.pi * tatv.CHROMA_SUBCARRIER / tatv.SAMPLE_RATE
+    theta = np.where(ll % 2 == 1, tatv.A_PHASE, tatv.B_PHASE)
+    delay = tatv.CHROMA_FIR_DELAY
+    burst = (kk >= tatv.BURST_START - delay) & (kk < tatv.BURST_END - delay)
+    active = (kk >= tatv.BURST_START) & (kk < LINE_LEN - 17)
+    video = (line[kk] + 0.15 * np.cos(w0 * t + theta) * burst
+             + 0.1 * np.cos(w0 * t) * active)
+    video += 0.005 * np.random.default_rng(seed).standard_normal(len(t))
+    return np.exp(1j * np.cumsum(np.pi * video)).astype(np.complex64)
+
+
 def _with_pll(dec, mod, bandwidth, **kw):
     """Give ``dec`` (a decoder of ``mod``) a ChromaPLL of ``bandwidth`` at
     the decoder's own subcarrier settings."""
@@ -295,25 +400,112 @@ def _with_pll(dec, mod, bandwidth, **kw):
     return dec
 
 
+def _pal_lines(n_lines, w0):
+    """Ideal PAL chroma lines: the burst exp(i(w0 t + ref + 0.3)) at the
+    subcarrier over the decoder's burst window, t counted over the lines,
+    ref the per-line PAL phase (B, A, B, ...), zeros elsewhere."""
+    refs = np.where(np.arange(n_lines) % 2 == 1, tatv.A_PHASE,
+                    tatv.B_PHASE).astype(np.float32)
+    t = np.arange(n_lines)[:, None] * LINE_LEN + np.arange(LINE_LEN)
+    lines = np.zeros((n_lines, LINE_LEN), np.complex64)
+    bs, be = tatv.BURST_START, tatv.BURST_END
+    lines[:, bs:be] = np.exp(1j * (w0 * t[:, bs:be] + refs[:, None] + 0.3))
+    return lines, refs
+
+
+@pytest.mark.parametrize("start", [0.0, 0.005])
+def test_atv_decoder_chroma_pll_locks(start):
+    """ATVDecoder's own chroma loop on 200 ideal PAL lines, its frequency
+    started at the subcarrier or 0.5 % above it: the mean |burst phase
+    error| over the last 20 lines below 0.05 rad, and its per-line map
+    stable with margin (720 * 28 * beta well under 4 - 56 alpha). The JAX
+    decoder's loop (bandwidth 0.01, limits +-10 %) ends at 0.77 rad from
+    the subcarrier; one at bandwidth 0.003 with those limits locks there
+    but, started 0.5 % off, locks 2 pi / 720 rad a sample off (0.061 rad
+    of burst error)."""
+    pll = tatv.ATVDecoder(device=CPU).pll
+    nb = tatv.BURST_END - tatv.BURST_START
+    assert LINE_LEN * nb * pll.beta < 0.5 * (4 - 2 * nb * pll.alpha)
+    w0 = 2.0 * np.pi * tatv.CHROMA_SUBCARRIER / tatv.SAMPLE_RATE
+    lines, refs = _pal_lines(200, w0)
+    st = pll.init_state()
+    st["freq"] = torch.tensor(np.float32(w0 * (1 + start)))
+    st, out = pll(st, torch.from_numpy(lines), torch.from_numpy(refs))
+    burst = out.numpy()[-20:, tatv.BURST_START:tatv.BURST_END]
+    err = np.abs(np.angle(burst * np.exp(-1j * refs[-20:, None])))
+    assert float(err.mean()) < 0.05
+    assert abs(float(st["freq"]) - w0) < 1e-5
+
+
+class _Tap:
+    """Wraps a LineSync block: calls it and keeps each block's state, input
+    and valid lines."""
+
+    def __init__(self, block):
+        self.block, self.calls = block, []
+
+    def __getattr__(self, name):
+        return getattr(self.block, name)
+
+    def __call__(self, state, y):
+        st, (lines, valid) = self.block(state, y)
+        self.calls.append((state, y, lines[valid].numpy()))
+        return st, (lines, valid)
+
+
 @pytest.mark.parametrize("bandwidth", [None, LOCKING_BW])
 def test_atv_decoder_matches_jax(bandwidth):
-    """ATVDecoder.process on the JAX test's make_video-style composite, 9
-    calls of 80 lines (one frame rollover), in both packages: the same
-    vertical scan, and, with a chroma PLL that locks (LOCKING_BW in both
-    decoders), the same frames within 1 LSB. At the decoder's own
-    bandwidth (None: 0.01) the PLL does not lock at 720-sample lines (JAX
-    and port alike, ROADMAP C), so its phase, and the frames rendered from
-    it, wander chaotically from the first ulp of difference."""
-    iq = _atv_iq()
+    """ATVDecoder.process on a PAL composite (``_pal_iq``), 9 calls of 80
+    lines (one frame rollover), in both packages: the same line counts and
+    vertical scan, and, with the same chroma PLL in both decoders
+    (LOCKING_BW), the same frames within 1 LSB. Each call's first line
+    after the first call began in the call before, and JAX, which carries
+    7 samples, reads one clipped window for its part before the block
+    start (ROADMAP C); the port's is held within LINE_TOL to its LineSync
+    run unsplit over that call and the one before. So the JAX decoder's
+    process() runs here step by step: its lines held to the port's within
+    LINE_TOL but those two of each call (the line after a straddling one
+    is placed by its sync error, JAX's from the clipped window), and its
+    chroma chain and assembler run on the port's lines. (The JAX test's
+    ``_atv_iq`` has no burst where the PLL's window reads: a loop there
+    hunts at +-0.2 rad and parts chaotically from a perturbation.) At
+    the decoders' own loops (None) the chroma is not compared: the JAX
+    decoder's (bandwidth 0.01) does not lock at 720-sample lines, and the
+    port's does (test_atv_decoder_chroma_pll_locks)."""
+    calls = np.split(_pal_iq(9 * 80), 9)
     jd = jatv.ATVDecoder(span_level=1.0)
     td = tatv.ATVDecoder(span_level=1.0, device=CPU)
     if bandwidth is not None:
         _with_pll(jd, jatv, bandwidth)
         _with_pll(td, tatv, bandwidth, device=CPU)
+    td.sync = tap = _Tap(td.sync)
     jframes, tframes = [], []
-    for _ in range(9):
-        jframes += jd.process(iq)
+    for k, iq in enumerate(calls):
+        jd.state["quad"], jd.state["sync"], jl, jv = jd._front(
+            jd.state["quad"], jd.state["sync"], jnp.asarray(iq))
         tframes += td.process(iq)
+        jlines, tlines = np.asarray(jl)[np.asarray(jv)], tap.calls[-1][2]
+        assert len(jlines) == len(tlines) > 0
+        # past the straddling line and the next, which its sync error
+        # placed (JAX's from the clipped window)
+        np.testing.assert_allclose(tlines[2 if k else 0:],
+                                   jlines[2 if k else 0:], atol=LINE_TOL,
+                                   rtol=0)
+        # the rest of the JAX decoder's process() on the port's lines
+        ypos, aphase, flip_after = jd.assembler.plan(tlines)
+        refs = np.where(aphase, jatv.A_PHASE, jatv.B_PHASE).astype(
+            np.float32)
+        jd._fir_state, jd.state["pll"], mixed = jd._chroma(
+            jd._fir_state, jd.state["pll"], jnp.asarray(tlines),
+            jnp.asarray(refs))
+        jd.assembler.commit(np.asarray(mixed), ypos, flip_after)
+        jframes += jd.assembler.take_frames()
+    # each straddling line against the two calls around it run unsplit
+    for (st, y0, lines0), (_, y1, lines1) in zip(tap.calls, tap.calls[1:]):
+        _, (both, valid) = tap.block(st, torch.cat([y0, y1]))
+        assert int(valid.sum()) == len(lines0) + len(lines1)
+        np.testing.assert_allclose(lines1[0], both[len(lines0)].numpy(),
+                                   atol=LINE_TOL, rtol=0)
     assert len(jframes) == len(tframes) >= 1
     assert (jd.assembler.ypos, jd.assembler.even_frame) == \
         (td.assembler.ypos, td.assembler.even_frame)

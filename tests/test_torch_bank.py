@@ -28,7 +28,10 @@ Tolerances, with their reasons:
   NFM and USB banks agree within 2e-5 of the peak;
 - the NFM-bank golden: below -40 dB from IF sample SETTLE on, the bound
   of tests/test_golden.py (the golden itself starts from zero state);
-- bench.py's chains: the NFM banks' audio within 1e-4 of the peak.
+- bench.py's chains: the NFM banks' audio within 1e-4 of the peak;
+- the state trees: the same structure, dtypes and shapes, but a full
+  AGC's ``hist``, as long as the port's warm-up (four decay times, where
+  JAX's is 2048 samples, ROADMAP C).
 """
 
 from pathlib import Path
@@ -91,12 +94,25 @@ def _rms_db(want, got):
 
 
 def _trees_match(jstate, tstate):
-    jl, jd = jax.tree_util.tree_flatten(jstate)
-    tl, td = jax.tree_util.tree_flatten(state_to_numpy(tstate))
+    _leaves_match(jstate, state_to_numpy(tstate))
+
+
+def _leaves_match(jtree, ttree):
+    """Two state trees: the same structure, and each leaf the same dtype
+    and shape, but a full AGC's ``hist`` (the last input amplitudes its
+    chunked lanes warm up on), which is longer in the port: its warm-up
+    spans four decay times (``scans_kernels.AGCChunked``), JAX's 2048
+    samples (ROADMAP C)."""
+    jl, jd = jax.tree_util.tree_flatten_with_path(jtree)
+    tl, td = jax.tree_util.tree_flatten_with_path(ttree)
     assert jd == td
-    for a, b in zip(jl, tl):
-        a = np.asarray(a)
-        assert a.shape == b.shape and a.dtype == b.dtype
+    for (path, a), (_, b) in zip(jl, tl):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype
+        if a.shape != b.shape:
+            assert getattr(path[-1], "key", None) == "hist", path
+            assert a.shape[:-1] == b.shape[:-1], path
+            assert a.shape[-1] == 2048 < b.shape[-1], path
 
 
 def _interpret(block):

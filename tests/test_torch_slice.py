@@ -13,7 +13,14 @@ decide by ``_chunk_lanes_for``. Tolerances, with their reasons:
   audio sample 1000 on, block 2 whole, at an RMS difference below -60 dB;
 - with the JAX state after block 1 carried into the port
   (``state_from_numpy``), block 2 agrees below -80 dB;
-- the golden chains: below -40 dB, the bound of tests/test_golden.py.
+- the golden chains: below -40 dB, the bound of tests/test_golden.py,
+  the AM chain at its own loop policy too (its AGC's warm-up spans four
+  decay times, or the loop runs exact; JAX's chunked branch, a 2048-sample
+  warm-up, misses the golden by 11 dB, ROADMAP C); the chunked AGC
+  against the exact loop at -40 dB on a carried block, and the USB tone's
+  SNR within 3 dB of the exact loop's;
+- the state trees: the same keys, shapes and dtypes, but the full AGCs'
+  ``hist``, as long as the port's warm-up.
 """
 
 import subprocess
@@ -30,6 +37,7 @@ import jax.numpy as jnp
 from sdrpp_tpu.receiver import Receiver as JaxReceiver
 from sdrpp_tpu_torch.models.analog import WFMDemod
 from sdrpp_tpu_torch.models.radio import RadioChannel
+from sdrpp_tpu_torch.ops.scans_kernels import _chunk_lanes_for
 from sdrpp_tpu_torch.receiver import Receiver
 from sdrpp_tpu_torch.utils.blocks import state_from_numpy, state_to_numpy
 
@@ -49,6 +57,17 @@ def _rms_db(got, want):
     d = np.asarray(got, np.float64) - np.asarray(want, np.float64)
     ref = np.sqrt(np.mean(np.asarray(want, np.float64) ** 2)) + 1e-30
     return 20 * np.log10(np.sqrt(np.mean(d ** 2)) / ref + 1e-30)
+
+
+def _snr_db(audio, fs, f0, halfwidth=20.0):
+    """A tone's SNR in dB: its power within +-halfwidth of f0 against the
+    rest of 100 Hz ... 15 kHz (Hann-windowed spectrum; chip_smoke.py's
+    snr_db)."""
+    p = np.abs(np.fft.rfft(audio * np.hanning(len(audio)))) ** 2
+    f = np.fft.rfftfreq(len(audio), 1.0 / fs)
+    near = np.abs(f - f0) <= halfwidth
+    band = (f >= 100.0) & (f <= 15000.0)
+    return 10 * np.log10(p[near].sum() / max(p[band & ~near].sum(), 1e-30))
 
 
 def _composite(n):
@@ -112,15 +131,29 @@ def test_receiver_matches_jax_over_blocks(jax_run):
         assert np.abs(pj - pt).max() <= 1e-4 * pj.max()
 
 
+def _leaves_match(jtree, ttree):
+    """Two state trees: the same structure, and each leaf the same dtype
+    and shape, but a full AGC's ``hist`` (the last input amplitudes its
+    chunked lanes warm up on), which is longer in the port: its warm-up
+    spans four decay times (``scans_kernels.AGCChunked``), JAX's 2048
+    samples (ROADMAP C)."""
+    jl, jd = jax.tree_util.tree_flatten_with_path(jtree)
+    tl, td = jax.tree_util.tree_flatten_with_path(ttree)
+    assert jd == td
+    for (path, a), (_, b) in zip(jl, tl):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype
+        if a.shape != b.shape:
+            assert getattr(path[-1], "key", None) == "hist", path
+            assert a.shape[:-1] == b.shape[:-1], path
+            assert a.shape[-1] == 2048 < b.shape[-1], path
+
+
 def test_state_tree_matches_jax(jax_run):
     _, want = jax_run
     rx = _receiver(Receiver, device="cpu")
     rx.process_block(jax_run[0][:BLOCK])
-    jleaves, jdef = jax.tree_util.tree_flatten(want[0][2])
-    tleaves, tdef = jax.tree_util.tree_flatten(state_to_numpy(rx._state))
-    assert jdef == tdef
-    for a, b in zip(jleaves, tleaves):
-        assert a.shape == b.shape and a.dtype == b.dtype
+    _leaves_match(want[0][2], state_to_numpy(rx._state))
 
 
 def test_jax_state_carried_into_port(jax_run):
@@ -134,11 +167,11 @@ def test_jax_state_carried_into_port(jax_run):
         assert _rms_db(audio[name].numpy(), want[2][0][name]) < -80.0, name
 
 
-def _golden_am_input():
+def _golden_am_input(seconds: int = 1):
     fs, f_ch, f_aud = 96000.0, 20000.0, 1000.0
     chan = RadioChannel("am", fs, offset=f_ch, audio_rate=48000.0,
                         device="cpu")
-    n = chan.block_multiple * (96000 // chan.block_multiple)
+    n = chan.block_multiple * (seconds * 96000 // chan.block_multiple)
     t = np.arange(n) / fs
     iq = (0.5 * (1 + 0.5 * np.sin(2 * np.pi * f_aud * t))
           * np.exp(2j * np.pi * f_ch * t)).astype(np.complex64)
@@ -146,14 +179,9 @@ def _golden_am_input():
 
 
 def test_golden_am():
-    """tests/test_golden.py's AM chain. The golden was made by the JAX
-    package on the CPU, where every loop runs exact; its 24000-sample IF
-    block would take the chunk-parallel AGC (K = 11, warm-up 2048), whose
-    lanes do not settle within a warm-up shorter than the AGC's decay time
-    (1/decay = 4800 samples) and miss the golden by 11 dB, in the JAX
-    package (its TPU path) and the port alike. So the loop is held exact
-    here (``max_lanes = 1``) to check the chain; the chunked branch is
-    held to the JAX package's chunked branch in the next test.
+    """tests/test_golden.py's AM chain with its audio AGC held exact
+    (``max_lanes = 1``), as the golden was made: the JAX package on the
+    CPU, where every loop runs exact.
 
     The chain starts from zero state: its first output samples are the
     FIR's float32 rounding noise (1e-15), which the AGC (max gain 1e7)
@@ -169,15 +197,79 @@ def test_golden_am():
     assert _rms_db(audio.numpy()[SETTLE:], want[SETTLE:]) < -40.0
 
 
-def test_golden_am_chunked_matches_jax_chunked():
-    from sdrpp_tpu.models.radio import RadioChannel as JaxRadioChannel
-
+def test_golden_am_chunked():
+    """The AM chain at its own loop policy against the golden (the exact
+    loop's output), from SETTLE on at -40 dB. The JAX package's chunked
+    AGC would take K = 11 lanes here over a 2048-sample warm-up, shorter
+    than the AGC's decay time (1 / decay = 4800 samples at the 24 kHz
+    IF), and misses the golden by 11 dB (ROADMAP C); the port's warm-up
+    spans four decay times (19,200 samples), which no lane of this
+    24,000-sample IF block holds, so the loop runs exact."""
     chan, iq = _golden_am_input()
-    jchan = JaxRadioChannel("am", 96000.0, offset=20000.0, audio_rate=48000.0)
-    jchan.demod.audio_agc.interpret = True
-    _, want = jax.jit(jchan)(jchan.init_state(), jnp.asarray(iq))
+    agc = chan.demod.audio_agc
+    assert agc.warmup == 19200
+    assert _chunk_lanes_for(24000, agc.warmup, agc.max_lanes) == 0
     _, audio = chan(chan.init_state(), torch.from_numpy(iq))
-    assert _rms_db(audio.numpy(), np.asarray(want)) < -80.0
+    want = np.load(GOLDEN)["am"]
+    assert _rms_db(audio.numpy()[SETTLE:], want[SETTLE:]) < -40.0
+
+
+def test_am_chunked_agc_matches_exact_loop():
+    """The golden's AM signal in two 4-s blocks (IF blocks of 96,000
+    samples): the audio AGC's warm-up of four decay times fits in K = 5
+    lanes of 19,200, and the chunked chain's second block agrees with the
+    exact loop's (``max_lanes = 1``) at -40 dB, each chain carrying its
+    own state. (The first block starts from zero state, where lane 0's
+    warm-up is the all-zero initial history: it seeds at amplitude 1, as
+    the JAX package's lanes do, where the exact loop starts at 0 and gain
+    1e7; that start-up decays at the decay rate, over about 1 s.)"""
+    chan, iq = _golden_am_input(8)
+    half = len(iq) // 2
+    agc = chan.demod.audio_agc
+    assert _chunk_lanes_for(96000, agc.warmup, agc.max_lanes) == 5
+    exact, _ = _golden_am_input(8)
+    exact.demod.audio_agc.max_lanes = 1
+    st, xt = chan.init_state(), exact.init_state()
+    for blk in (iq[:half], iq[half:]):
+        st, audio = chan(st, torch.from_numpy(blk))
+        xt, want = exact(xt, torch.from_numpy(blk))
+    assert _rms_db(audio.numpy(), want.numpy()) < -40.0
+
+
+def _usb_input(if_samples: int):
+    """A USB channel at 96 kHz (its IF at 48 kHz, the audio rate) on a tone
+    150 Hz above its VFO (a 1.5 kHz audio tone, the slice's) with noise
+    at -34 dB (the tone's SNR about 46 dB): (channel, iq of if_samples IF
+    samples)."""
+    fs = 96000.0
+    chan = RadioChannel("usb", fs, audio_rate=48000.0, device="cpu")
+    n = 2 * if_samples
+    assert n % chan.block_multiple == 0
+    t = np.arange(n) / fs
+    rng = np.random.default_rng(6)
+    iq = 0.05 * np.exp(2j * np.pi * 150.0 * t) + 1e-3 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return chan, iq.astype(np.complex64)
+
+
+@pytest.mark.parametrize("if_samples,lanes", [(13088, 0), (192000, 5)])
+def test_usb_tone_snr_within_3db_of_exact_loop(if_samples, lanes):
+    """The USB tone's SNR at the AGC's own policy within 3 dB of the
+    exact loop's (``max_lanes = 1``). At the slice's 13,088-sample IF
+    block the JAX package chunks the AGC (K = 6, a 2048-sample warm-up)
+    and the SNR falls from 59 to 34 dB (ROADMAP C); the port's warm-up of
+    four decay times (38,400 samples at 48 kHz) fits in no lane there, so
+    it runs exact, and in K = 5 lanes of a 4-s block."""
+    chan, iq = _usb_input(if_samples)
+    agc = chan.demod.agc
+    assert _chunk_lanes_for(if_samples, agc.warmup, agc.max_lanes) == lanes
+    _, audio = chan(chan.init_state(), torch.from_numpy(iq))
+    exact, _ = _usb_input(if_samples)
+    exact.demod.agc.max_lanes = 1
+    _, want = exact(exact.init_state(), torch.from_numpy(iq))
+    got_db = _snr_db(audio.numpy()[SETTLE:], 48000.0, 1500.0)
+    want_db = _snr_db(want.numpy()[SETTLE:], 48000.0, 1500.0)
+    assert want_db > 40.0 and abs(got_db - want_db) <= 3.0
 
 
 def test_golden_wfm_stereo():

@@ -25,7 +25,9 @@ versions there); these tests check the designs' arithmetic here:
   xor shuffles after, the update in every lane; each line's (pos, freq)
   recorded and the lines drawn from the records afterwards. It must equal
   ``line_sync_walk_plain`` bit for bit (lines, count, carry, locked) on
-  chip_smoke.py's line cases at a CPU size.
+  chip_smoke.py's line cases at a CPU size, a carried head of
+  ceil(720 max_freq) + 7 samples that a line before the block start
+  reads among them.
 - ``chroma_model``: the burst walk with atan2 and sin / cos off the chain
   (each burst sample's angle taken before the walk, the error from
   angle - phase, the outputs mixed afterwards from the recorded phases):
@@ -365,12 +367,12 @@ LINE_RING = 16384      # csrc/sync_walk.cu kLineRing
 TAPS = 8
 
 
-def _locate(p, n):
-    """A sample position's bank row and window start, as the kernel and
-    the plain version take them."""
+def _locate(p, n, hoff=0):
+    """A sample position's bank row and window start in buf = [head | x]
+    (hoff = head - 7), as the kernel and the plain version take them."""
     fp = np.floor(p)
     ph = min(max(int(F32(p - fp) * F32(128)), 0), 127)
-    return ph, min(max(int(fp), 0), n - 1)
+    return ph, min(max(int(fp) + hoff, 0), n + hoff - 1)
 
 
 def _taps(w, b):
@@ -381,7 +383,7 @@ def _taps(w, b):
 
 
 def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
-               min_freq, max_freq, sync_level, sync_bias):
+               min_freq, max_freq, sync_level, sync_bias, head):
     """numpy model of the split ``line_sync_kernel``: the walker (one warp)
     interpolates only the 88 sync samples, lanes 0-15 the left half and
     16-31 the right, three a lane (v[L], v[L + 16], v[L + 32]), reading
@@ -396,7 +398,7 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
     of reads from device memory."""
     buf = np.asarray(buf, F32)
     bank = np.asarray(bank, F32)
-    n, total = buf.shape[0] - 7, buf.shape[0]
+    n, total, hoff = buf.shape[0] - head, buf.shape[0], head - 7
     og, mg, lo, hi, level, bias = (F32(x) for x in (
         omega_gain, mu_gain, min_freq, max_freq, sync_level, sync_bias))
     pos, freq = (F32(x) for x in carry)
@@ -420,15 +422,15 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
             if (i & (LINE_RING - 1)) < TAPS:
                 ring[LINE_RING + (i & (LINE_RING - 1))] = buf[i]
         staged = max(staged, end)
-        w0 = _locate(pos, n)[1]
-        w1 = _locate(pos + F32(719) * freq, n)[1]
+        w0 = _locate(pos, n, hoff)[1]
+        w1 = _locate(pos + F32(719) * freq, n, hoff)[1]
         release = max(release, min(w0, w1))
         # the whole line from the ring, or from buf
         ring_line = min(w0, w1) >= release and max(w0, w1) + TAPS <= staged
         v = np.zeros((32, 3), F32)
         for lane in range(32):
             for r in range(3):
-                ph, b = _locate(pos + kf[lane, r] * freq, n)
+                ph, b = _locate(pos + kf[lane, r] * freq, n, hoff)
                 if ring_line:
                     assert b >= release and b + TAPS <= staged
                     w = ring[(b & (LINE_RING - 1)):][:TAPS]
@@ -461,7 +463,7 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
     ks = np.arange(720, dtype=F32)
     for d, (p0, f0) in enumerate(records):
         for k in range(720):
-            ph, b = _locate(p0 + ks[k] * f0, n)
+            ph, b = _locate(p0 + ks[k] * f0, n, hoff)
             lines[d, k] = _taps(buf[b:b + TAPS], bank[ph])
     return (lines, l, np.array([pos, freq], F32), lk), reads
 
@@ -469,7 +471,9 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
 def _line_cases():
     """chip_smoke.line_walk_cases' kinds at CPU sizes (30 lines, the ring
     wrapped once): a PAL-like sync pattern with noise, a carried pos near
-    -717, freq pinned at either limit, unlocked lines, max_lines reached,
+    -717 (behind a 7-sample head: its windows clipped to sample 0; behind
+    LineSync's head of ceil(720 max_freq) + 7: read from the head), freq
+    pinned at either limit, unlocked lines, max_lines reached,
     no line, jumps past the staging guard over noise, and positions past
     2^22 (where the kernel locates them with floorf, not its exact float
     trick) each way."""
@@ -483,16 +487,20 @@ def _line_cases():
                      0.1 + 0.3 * (k - 71) / 632.0)
     y = (video + 0.01 * rng.standard_normal(k.shape)).astype(F32)
     buf = np.concatenate([np.zeros(7, F32), y])
+    # the same block behind the line carried from a block before it
+    headed = np.concatenate([y[-ls.head_len:], y])
     noise = rng.standard_normal(buf.shape).astype(F32)
     big = rng.standard_normal(2 ** 22 + 30 * 720).astype(F32)
     n = buf.shape[0] - 7
     base = dict(buf=buf, carry=(0.0, 1.0), locked=False,
                 max_lines=ls.max_lines(n), omega_gain=ls.omega_gain,
                 mu_gain=ls.mu_gain, sync_level=ls.sync_level,
-                sync_bias=ls.sync_bias)
+                sync_bias=ls.sync_bias, head=7)
     cases = {
         "atv": {},
         "neg_pos": dict(carry=(-717.25, 1.0)),
+        "carried_head": dict(buf=headed, head=ls.head_len,
+                             carry=(-717.25, 1.0)),
         "freq_hi": dict(omega_gain=0.05, sync_level=1e9, sync_bias=1.0),
         "freq_lo": dict(omega_gain=0.05, sync_level=1e9, sync_bias=-1.0),
         "unlocked": dict(locked=True, sync_level=-1e9),
@@ -510,7 +518,7 @@ def _line_cases():
         out[name] = (c["buf"], ls.bank.numpy(), c["carry"], c["locked"],
                      c["max_lines"], c["omega_gain"], c["mu_gain"],
                      ls.min_freq, ls.max_freq, c["sync_level"],
-                     c["sync_bias"])
+                     c["sync_bias"], c["head"])
     return out
 
 
@@ -539,7 +547,9 @@ def test_line_split_design_equals_plain(case):
         assert count == 0 and not lines.any()
     if case == "big_pos":  # the buffer's end, past 2^22, ends the walk
         assert 0 < count < rest[0] and carry_out[0] > 2 ** 22
-    if case in ("atv", "jump", "far_jump"):
+    if case in ("atv", "jump", "far_jump", "carried_head"):
         assert reads["ring"] > 0
+    if case == "carried_head":  # the carried line's windows lie in the head
+        assert count > 0 and carry[0] + 7 < 0 and rest[-1] > 7
     if case in ("jump", "far_jump"):  # some windows fell outside the ring
         assert reads["device"] > 0

@@ -226,7 +226,7 @@ __device__ __forceinline__ float tree44(float a, float b) {
 
 template <int mode>
 __global__ void __launch_bounds__(kLineThreads, 1)
-line_probe_kernel(const float* __restrict__ buf, int n,
+line_probe_kernel(const float* __restrict__ buf, int n, int head,
                   const float* __restrict__ bank,
                   const float* __restrict__ carry_in,
                   const bool* __restrict__ locked_in,
@@ -258,7 +258,8 @@ line_probe_kernel(const float* __restrict__ buf, int n,
       const float fp = floorf(p);
       const float mu = p - fp;
       const int ph = min(max(static_cast<int>(mu * 128.0f), 0), kPhases - 1);
-      const int base = min(max(static_cast<int>(fp), 0), n - 1);
+      const int hoff = head - (kTaps - 1);
+      const int base = min(max(static_cast<int>(fp) + hoff, 0), n + hoff - 1);
       const float* w = buf + base;
       const float* b = sbank + ph * kTaps;
       float acc = ((mode & 1) ? p : w[0]) * b[0];
@@ -320,7 +321,7 @@ line_probe_kernel(const float* __restrict__ buf, int n,
 constexpr int kFloorTile = 4096;
 
 __global__ void __launch_bounds__(32, 1)
-line_floor_kernel(const float* __restrict__ buf, int n,
+line_floor_kernel(const float* __restrict__ buf, int n, int head,
                   const float* __restrict__ bank,
                   const float* __restrict__ carry_in, int max_lines,
                   float omega_gain, float mu_gain, float min_freq,
@@ -357,7 +358,8 @@ line_floor_kernel(const float* __restrict__ buf, int n,
       const float fp = floorf(p);
       const float mu = p - fp;
       const int ph = min(max(static_cast<int>(mu * 128.0f), 0), kPhases - 1);
-      const int base = min(max(static_cast<int>(fp), 0), n - 1);
+      const int hoff = head - (kTaps - 1);
+      const int base = min(max(static_cast<int>(fp) + hoff, 0), n + hoff - 1);
       const float* w = tile + (base & (kFloorTile - 1));
       const float4 b0 = *reinterpret_cast<const float4*>(sbank + ph * kTaps);
       const float4 b1 =
@@ -445,7 +447,7 @@ int cyclic_probe(const float* rcorr, const void* vals, int n,
 
 #define LINE_MODES(X) X(0) X(1) X(2) X(4) X(8) X(16) X(31)
 
-int line_probe(const float* buf, int n, const float* bank,
+int line_probe(const float* buf, int n, int head, const float* bank,
                const float* carry_in, const bool* locked_in,
                float* carry_out, bool* locked_out, float* lines, int* count,
                int max_lines, float omega_gain, float mu_gain,
@@ -456,8 +458,8 @@ int line_probe(const float* buf, int n, const float* bank,
   case m:                                                                   \
     line_probe_kernel<m><<<1, kLineThreads, 0,                              \
                            static_cast<cudaStream_t>(stream)>>>(            \
-        buf, n, bank, carry_in, locked_in, carry_out, locked_out, lines,    \
-        count, max_lines, omega_gain, mu_gain, min_freq, max_freq,          \
+        buf, n, head, bank, carry_in, locked_in, carry_out, locked_out,     \
+        lines, count, max_lines, omega_gain, mu_gain, min_freq, max_freq,   \
         sync_level, sync_bias, cycles);                                     \
     break;
     LINE_MODES(LINE_CASE)
@@ -467,14 +469,14 @@ int line_probe(const float* buf, int n, const float* bank,
   return static_cast<int>(cudaGetLastError());
 }
 
-int line_floor(const float* buf, int n, const float* bank,
+int line_floor(const float* buf, int n, int head, const float* bank,
                const float* carry_in, int max_lines, float omega_gain,
                float mu_gain, float min_freq, float max_freq,
                float sync_level, float sync_bias, float* carry_out,
                long long* cycles, void* stream) {
   line_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      buf, n, bank, carry_in, max_lines, omega_gain, mu_gain, min_freq,
-      max_freq, sync_level, sync_bias, carry_out, cycles);
+      buf, n, head, bank, carry_in, max_lines, omega_gain, mu_gain,
+      min_freq, max_freq, sync_level, sync_bias, carry_out, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -77,9 +77,9 @@ def build_probe() -> ctypes.CDLL:
     lib.chroma_probe.restype = lib.cyclic_probe.restype = ctypes.c_int
     lib.chroma_burst_walk.argtypes = W._BURST_ARGS
     lib.cyclic_sync_walk.argtypes = W._CYCLIC_ARGS
-    lib.line_probe.argtypes = ([p, i] + [p] * 7 + [i] + [f] * 6
+    lib.line_probe.argtypes = ([p, i, i] + [p] * 7 + [i] + [f] * 6
                                + [i, p, p])
-    lib.line_floor.argtypes = [p, i, p, p, i] + [f] * 6 + [p, p, p]
+    lib.line_floor.argtypes = [p, i, i, p, p, i] + [f] * 6 + [p, p, p]
     lib.line_probe.restype = lib.line_floor.restype = ctypes.c_int
     lib.line_sync_walk.argtypes = W._LINE_ARGS
     lib.walk_stamps.argtypes = [p]
@@ -131,18 +131,19 @@ def cyclic_probe(lib, args, mode):
 
 def line_probe(lib, args, mode):
     buf, bank, carry, locked, max_lines = args[:5]
-    n = buf.shape[0] - 7
+    head = args[11]
+    n = buf.shape[0] - head
     dev = buf.device
     lines = buf.new_empty((max_lines, W.LINE_LEN))
     count = torch.empty((), dtype=torch.int32, device=dev)
     carry_out = carry.new_empty(2)
     locked_out = torch.empty((), dtype=torch.bool, device=dev)
     cycles = torch.zeros(2, dtype=torch.int64, device=dev)
-    rc = lib.line_probe(buf.data_ptr(), n, bank.data_ptr(), carry.data_ptr(),
-                        locked.data_ptr(), carry_out.data_ptr(),
-                        locked_out.data_ptr(), lines.data_ptr(),
-                        count.data_ptr(), max_lines,
-                        *(float(np.float32(v)) for v in args[5:]), mode,
+    rc = lib.line_probe(buf.data_ptr(), n, head, bank.data_ptr(),
+                        carry.data_ptr(), locked.data_ptr(),
+                        carry_out.data_ptr(), locked_out.data_ptr(),
+                        lines.data_ptr(), count.data_ptr(), max_lines,
+                        *(float(np.float32(v)) for v in args[5:11]), mode,
                         cycles.data_ptr(), stream())
     assert rc == 0, rc
     return (lines, count, carry_out, locked_out), cycles
@@ -152,13 +153,14 @@ def line_floor(lib, args):
     """The one-warp sync chain alone (``line_floor_kernel``): clock64
     cycles a line."""
     buf, bank, carry, locked, max_lines = args[:5]
+    head = args[11]
     carry_out = carry.new_empty(2)
     cycles = torch.zeros(2, dtype=torch.int64, device=buf.device)
 
     def run():
-        rc = lib.line_floor(buf.data_ptr(), buf.shape[0] - 7, bank.data_ptr(),
-                            carry.data_ptr(), max_lines,
-                            *(float(np.float32(v)) for v in args[5:]),
+        rc = lib.line_floor(buf.data_ptr(), buf.shape[0] - head, head,
+                            bank.data_ptr(), carry.data_ptr(), max_lines,
+                            *(float(np.float32(v)) for v in args[5:11]),
                             carry_out.data_ptr(), cycles.data_ptr(), stream())
         assert rc == 0, rc
     run()
