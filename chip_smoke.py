@@ -100,8 +100,8 @@ exit, no result line) if any phase fails:
    on the first two ATV blocks' discriminator output behind LineSync's
    763-sample head ([450763]; the second's head carried out of the first,
    its first line begun there) and, off the paths, on ``line_walk_cases``'
-   edge cases (among them a block past the kernel's 1024-line record ring
-   and positions past 2^22), each bit for bit;
+   edge cases (among them a block past the kernel's 1024-line record ring,
+   positions past 2^22 and walks from a nonzero base), each bit for bit;
    ``cyclic_sync_walk`` on the first DAB block [204800] and, off the
    paths, on ``cyclic_walk_cases``' edge cases (ties, a peak every
    sample, sym = 1, a buffer past shared memory, a ragged block with a
@@ -111,7 +111,7 @@ exit, no result line) if any phase fails:
    through ATVDecoder's own loop and, off the paths, on bursts whose
    phases sit at +-pi (``chroma_walk_case``), phases within WALK_TOL,
    outputs within WALK_OUT_TOL, locked; each case's ns a sample or us a step beside its
-   bound's; four wrong arguments must raise and launch nothing. A
+   bound's; five wrong arguments must raise and launch nothing. A
    case's ``ms`` is the kernel at ``shape``, its ``plain_ms`` the plain
    version on ``plain_shape`` (the same, or the prefix held); ``path``
    names the path that launches ``shape``; ``bound_ms`` is the least time
@@ -274,10 +274,14 @@ exit, no result line) if any phase fails:
     and the real-time factor, line_sync_walk and chroma_burst_walk once a
     block, the decoder's own chroma loop locked on ideal PAL lines from
     the subcarrier and 0.5 % off (mean |burst phase error| below
-    ATV_LOCK_TOL, on the card and the CPU); a CPU decoder on the same
-    blocks must take the same vertical scan and render frames within 1 LSB
-    of the card's; one block's LineSync cut in two must give the whole
-    block's lines (``atv_split_check``); dab-2p048 (``phase_dab``): one second of DAB mode I
+    ATV_LOCK_TOL, on the card and the CPU) and, through its own band-pass,
+    on the composite's bursts (mean |burst error| of the last block's last
+    ATV_LOCK_LINES lines below ATV_LOCK_TOL, card and CPU); a CPU decoder
+    on the same blocks must take the same vertical scan and render frames
+    within 1 LSB of the card's; one block's LineSync cut at a third, at
+    half and at four points must give the whole block's lines bit for bit
+    (``atv_split_check``); colour bars decoded on the card keep their
+    hues (``atv_bars_check``); dab-2p048 (``phase_dab``): one second of DAB mode I
     (``dab_signal``: 2048-point symbols, 504-sample prefixes, null symbols,
     the phase reference, a 0.25-bin carrier offset) in DAB_BLOCKS blocks
     through ``CyclicSync(device="cuda")``: every phase-reference symbol
@@ -671,17 +675,29 @@ ATV_BLOCK = 450000         # one PAL frame: 625 lines of 720 samples, 40 ms
 ATV_BLOCKS = 3
 LOOP_PLAIN_STEPS = 65536   # a single loop stream past this is held on its
 #                            prefix (the plain loop takes ~80 us a step)
-LINE_TOL = 2e-2            # LineSync split vs unsplit (the straddling
-#                            line), tests/test_torch_atv_ofdm.py's
 ATV_LOCK_TOL = 0.05        # mean |burst phase error| (rad) of a locked loop
+ATV_LOCK_LINES = 100       # lines of the last block the lock is read over
+ATV_HUE_TOL = 0.1          # a colour bar's decoded hue against its encoded
+ATV_SYNC_TIP = 53          # samples of a line's sync tip (4.7 us)
+ATV_ACTIVE = (128, 703)    # a line's active video, after the back porch
+# 75 % colour bars (U, V) = (0.493 (B - Y), 0.877 (R - Y)): yellow, cyan,
+# green, magenta, scaled to a chroma amplitude of ~0.1, and their samples
+ATV_BARS_UV = 0.25 * np.array([(-0.328, 0.075), (0.110, -0.461),
+                               (-0.217, -0.386), (0.217, 0.386)])
+ATV_BAR_EDGES = (130, 240, 350, 460, 570)
+ATV_BAR_MARGIN = 35        # the chroma filter's half width
+LINE_FLOAT_POS_MS = 0.3407  # line_sync_walk at [450763] with float32
+#                             positions from the block start (PERF.md 6;
+#                             NVIDIA H100 80GB HBM3, 700.00 W), logged
+#                             beside this run's, never measured here
 LINE_FLOOR_CYCLES = 586.7  # LineSync's one-warp chain alone, clock64 cycles a
 #                            line (tools/sync_walk_probe.py, PERF.md 6): the
 #                            probe's figure, logged beside the cases, never
 #                            measured here
 LINE_LONG_LINES = 1100     # line_sync_walk's "long" case: past the kernel's
                            # 1024-record ring (csrc/sync_walk.cu kLineRecs)
-LINE_BIG_POS = 4194304.0   # 2^22: past it the kernel locates positions with
-                           # floorf and conversions (locate)
+LINE_BIG_POS = 4194304.0   # 2^22: a carried position past it is rebased by
+                           # floorf and a conversion (rebase)
 WALK_TOL = 3.6e-6          # chroma_burst_walk card vs plain: phases (rad)
 WALK_OUT_TOL = 1e-5        # and the burst's unit-amplitude outputs
 CHROMA_OPS_PER_STEP = 40   # float operations a burst step: the complex mix
@@ -3772,30 +3788,87 @@ def phase_mp3(dev):
     return {"available": True, "frames": int(data.shape[0]), "rate": rate}
 
 
-def atv_composite(n_lines: int, seed: int = 8) -> np.ndarray:
+def atv_composite(n_lines: int, seed: int = 8,
+                  bars: bool = False) -> np.ndarray:
     """PAL-like composite video at 11.25 Msps (720 samples a line), FM
     modulated with a deviation of fs / 2 (the decoder's): each line a sync
-    tip (samples [0, 71) and [703, 720) at -0.3), a grey ramp, a colour
-    burst at the subcarrier over the samples the chroma PLL's window
-    reads, its phase alternating +-135 degrees by line (the PAL phases),
-    a chroma carrier over the active region, and seeded noise."""
+    tip (samples [0, 53) at -0.3), blanking (0) on the porches, the colour
+    burst (0.15, at the subcarrier) on the back porch over the samples the
+    chroma PLL's window reads (the FIR's delay before it), its phase
+    alternating +-135 degrees by line (A_PHASE on odd lines), and active
+    video in [128, 703): a grey ramp with a chroma carrier of 0.1, or
+    (``bars``) luma 0.3 under four colour bars of ATV_BARS_UV with V
+    negated on the B_PHASE lines (the PAL V-switch); then seeded noise.
+    tests/test_torch_atv_repairs.py's ``pal_composite``."""
     from sdrpp_tpu_torch.decoders import atv
 
     L = atv.LINE_LEN
     k = np.arange(L)
-    line = np.where((k < 71) | (k >= L - 17), -0.3,
-                    0.1 + 0.3 * (k - 71) / (L - 88))
+    line = np.where(k < ATV_SYNC_TIP, -0.3, 0.0)
+    a0, a1 = ATV_ACTIVE
+    act = (k >= a0) & (k < a1)
+    line[act] = 0.3 if bars else 0.1 + 0.3 * (k[act] - a0) / (a1 - a0)
     t = np.arange(n_lines * L)
     kk, ll = t % L, t // L
     w0 = 2 * np.pi * atv.CHROMA_SUBCARRIER / ATV_FS
-    theta = np.where(ll % 2 == 1, atv.A_PHASE, atv.B_PHASE)
+    a_line = ll % 2 == 1
+    theta = np.where(a_line, atv.A_PHASE, atv.B_PHASE)
     delay = atv.CHROMA_FIR_DELAY
     burst = (kk >= atv.BURST_START - delay) & (kk < atv.BURST_END - delay)
-    active = (kk >= atv.BURST_START) & (kk < L - 17)
-    video = (line[kk] + 0.15 * np.cos(w0 * t + theta) * burst
-             + 0.1 * np.cos(w0 * t) * active)
+    video = line[kk] + 0.15 * np.cos(w0 * t + theta) * burst
+    if bars:
+        for (u, v), b0, b1 in zip(ATV_BARS_UV, ATV_BAR_EDGES,
+                                  ATV_BAR_EDGES[1:]):
+            on = (kk >= b0) & (kk < b1)
+            c = u + 1j * np.where(a_line, v, -v)
+            video = video + np.real(c * np.exp(1j * w0 * t)) * on
+    else:
+        video = video + 0.1 * np.cos(w0 * t) * act[kk]
     video += 0.005 * np.random.default_rng(seed).standard_normal(len(t))
     return np.exp(1j * np.cumsum(np.pi * video)).astype(np.complex64)
+
+
+class ChromaTap:
+    """Wraps a decoder's ChromaPLL: calls it and keeps the last call's
+    mixed lines and reference phases (numpy)."""
+
+    def __init__(self, pll):
+        self.pll, self.last = pll, None
+
+    def __getattr__(self, name):
+        return getattr(self.pll, name)
+
+    def __call__(self, state, lines, refs):
+        st, mixed = self.pll(state, lines, refs)
+        self.last = (mixed.cpu().numpy(), refs.cpu().numpy())
+        return st, mixed
+
+
+def burst_error(mixed, refs) -> float:
+    """The mean over lines of |a line's burst error|: the angle of its
+    mixed burst samples summed, against its reference phase (the sum
+    weighs the samples at the window's edges, on the filtered burst's rise
+    and fall, by their amplitude)."""
+    from sdrpp_tpu_torch.decoders import atv
+
+    b = mixed[:, atv.BURST_START:atv.BURST_END].sum(axis=1)
+    return float(np.abs(np.angle(b * np.exp(-1j * refs))).mean())
+
+
+def bar_hues(mixed, refs) -> np.ndarray:
+    """Each colour bar's decoded hue against the first bar's (rad): each
+    bar's interior (ATV_BAR_MARGIN in from its edges, the chroma filter's
+    delay on) averaged over a line, conjugated on the B_PHASE lines (the
+    V-switch undone), averaged over the lines."""
+    from sdrpp_tpu_torch.decoders import atv
+
+    d = atv.CHROMA_FIR_DELAY
+    a_line = refs == np.float32(atv.A_PHASE)
+    m = np.stack([mixed[:, b0 + d + ATV_BAR_MARGIN:b1 + d - ATV_BAR_MARGIN]
+                  .mean(axis=1) for b0, b1 in zip(ATV_BAR_EDGES,
+                                                  ATV_BAR_EDGES[1:])], axis=1)
+    m = np.where(a_line[:, None], m, np.conj(m)).mean(axis=0)
+    return np.angle(m * np.conj(m[0]))
 
 
 def pal_lock(pll, start: float, n_lines: int = 200) -> float:
@@ -3825,12 +3898,12 @@ def pal_lock(pll, start: float, n_lines: int = 200) -> float:
 
 
 def atv_split_check(dev, y):
-    """One 40-ms block of ATVDecoder's LineSync input ``y`` cut at a third
-    and at half against the block whole, on ``dev``: the same lines, those
-    before the cut bit for bit, the line straddling the cut within
-    LINE_TOL (its part before the cut read from the carried head), every
-    later line locked to its sync tip. Returns {cut: straddling line's max
-    abs difference}."""
+    """One 40-ms block of ATVDecoder's LineSync input ``y`` cut at a third,
+    at half and at four points (tests/test_torch_atv_ofdm.py's
+    ``split_cuts``) against the block whole, on ``dev``: the same lines,
+    every one bit for bit, the lines straddling the cuts included, and
+    every line past the first cut locked to its sync tip. Returns {cuts:
+    lines compared}."""
     from sdrpp_tpu_torch.decoders.atv import ATVDecoder
 
     ls = ATVDecoder(device=dev).sync
@@ -3844,19 +3917,39 @@ def atv_split_check(dev, y):
         return np.concatenate(out), first[1:]
 
     whole, _ = run(())
+    n = len(y)
     res = {}
-    for cut in (len(y) // 3, len(y) // 2):
-        split, (first,) = run((cut,))
-        d = float(np.abs(split[first] - whole[first]).max()) \
-            if len(split) == len(whole) else float("inf")
-        res[cut] = d
-        if not (len(split) == len(whole)
-                and np.array_equal(split[:first], whole[:first])
-                and d <= LINE_TOL
-                and (split[first:, :27] < -0.1).mean(axis=1).min() > 0.9):
-            raise AssertionError(f"atv-11p25: LineSync split at {cut} "
-                                 f"differs from the whole block ({d})")
+    for cuts in ((n // 3,), (n // 2,),
+                 (int(0.17 * n), int(0.39 * n), int(0.69 * n),
+                  int(0.69 * n) + 500)):
+        split, first = run(cuts)
+        same = len(split) == len(whole) and np.array_equal(
+            split.view(np.uint32), whole.view(np.uint32))
+        res[str(cuts)] = len(split)
+        if not (same and (split[first[0]:, :ATV_SYNC_TIP // 2] < -0.1)
+                .mean(axis=1).min() > 0.9):
+            raise AssertionError(f"atv-11p25: LineSync cut at {cuts} "
+                                 f"differs from the whole block")
     return res
+
+
+def atv_bars_check(dev):
+    """Two frames of ``atv_composite(bars=True)`` through ATVDecoder on
+    ``dev``: over the last block's last ATV_LOCK_LINES lines, each colour
+    bar's hue against the first bar's within ATV_HUE_TOL of the encoded
+    angle, and the burst locked. Returns (hue errors, burst error)."""
+    from sdrpp_tpu_torch.decoders.atv import ATVDecoder
+
+    iq = atv_composite(2 * ATV_BLOCK // 720, bars=True)
+    dec = ATVDecoder(device=dev)
+    dec.pll = tap = ChromaTap(dec.pll)
+    for k in range(2):
+        dec.process(iq[k * ATV_BLOCK:(k + 1) * ATV_BLOCK])
+    mixed, refs = (a[-ATV_LOCK_LINES:] for a in tap.last)
+    uv = ATV_BARS_UV[:, 0] + 1j * ATV_BARS_UV[:, 1]
+    err = np.angle(np.exp(1j * (bar_hues(mixed, refs)
+                                - np.angle(uv * np.conj(uv[0])))))
+    return [float(e) for e in err], burst_error(mixed, refs)
 
 
 def phase_atv(dev):
@@ -3866,11 +3959,15 @@ def phase_atv(dev):
     launches (line_sync_walk and chroma_burst_walk once a block), frames
     of [625, 720, 2] uint8 at the rollovers, the decoder's own chroma loop
     locked on ideal PAL lines (``pal_lock``: from w0 and 0.5 % above it,
-    mean |burst phase error| below ATV_LOCK_TOL); then a CPU decoder (the
-    plain walks) on the same blocks: the same vertical scan block by block
-    (ypos, field, frames) and frames within 1 LSB of the card's, and its
-    loop locked alike; then one block's LineSync cut in two against the
-    block whole (``atv_split_check``)."""
+    mean |burst phase error| below ATV_LOCK_TOL) and, through its own
+    chroma band-pass, on the composite's bursts (``burst_error`` of the
+    last block's last ATV_LOCK_LINES lines below ATV_LOCK_TOL); then a CPU
+    decoder (the plain walks) on the same blocks: the same vertical scan
+    block by block (ypos, field, frames) and frames within 1 LSB of the
+    card's, and its loops locked alike; then one block's LineSync cut at a
+    third, at half and at four points against the block whole, every line
+    bit for bit (``atv_split_check``); then colour bars on the card
+    (``atv_bars_check``)."""
     import torch
     from sdrpp_tpu_torch.decoders.atv import ATVDecoder
 
@@ -3878,6 +3975,7 @@ def phase_atv(dev):
     blocks = [iq[k * ATV_BLOCK:(k + 1) * ATV_BLOCK] for k in range(ATV_BLOCKS)]
     x_dev = [torch.from_numpy(b).to(dev) for b in blocks]
     dec = ATVDecoder(device=dev)
+    dec.pll = tap = ChromaTap(dec.pll)
     reset_counts()
     frames, ms, wall, scan = [], [], [], []
     for x in x_dev:
@@ -3893,7 +3991,8 @@ def phase_atv(dev):
         scan.append((dec.assembler.ypos, dec.assembler.even_frame))
     launches = read_counts("atv")
     cpu = ATVDecoder(device="cpu")
-    locked = {where: [pal_lock(d.pll, start) for start in (0.0, 0.005)]
+    cpu.pll = cpu_tap = ChromaTap(cpu.pll)
+    locked = {where: [pal_lock(d.pll.pll, start) for start in (0.0, 0.005)]
               for where, d in (("card", dec), ("cpu", cpu))}
     cpu_frames, cpu_scan = [], []
     for b in blocks:
@@ -3901,15 +4000,19 @@ def phase_atv(dev):
         cpu_scan.append((cpu.assembler.ypos, cpu.assembler.even_frame))
     lsb = max((int(np.abs(a.astype(int) - b.astype(int)).max())
                for a, b in zip(frames, cpu_frames)), default=None)
+    burst = {where: burst_error(*(a[-ATV_LOCK_LINES:] for a in t.last))
+             for where, t in (("card", tap), ("cpu", cpu_tap))}
     split = atv_split_check(dev, dec.quad(dec.quad.init_state(),
                                           x_dev[0])[1])
+    hues, bars_burst = atv_bars_check(dev)
     block_s = ATV_BLOCK / ATV_FS
     med_wall = float(np.median(wall[1:]))
     res = {"block_ms": ms, "wall_s": wall, "launches": launches,
            "frames": len(frames), "cpu_frames": len(cpu_frames),
            "scan": scan, "cpu_scan": cpu_scan,
-           "burst_err": locked,
-           "card_vs_cpu_lsb": lsb, "split_straddle_diff": split,
+           "burst_err": locked, "composite_burst_err": burst,
+           "card_vs_cpu_lsb": lsb, "split_lines": split,
+           "bar_hue_err": hues, "bars_burst_err": bars_burst,
            "realtime_factor": block_s / med_wall,
            "median_ms": float(np.median(ms[1:])), "median_wall_s": med_wall}
     log(f"atv-11p25: {len(frames)} frames in {ATV_BLOCKS} blocks, median "
@@ -3917,18 +4020,24 @@ def phase_atv(dev):
         f"{med_wall * 1e3:.3f} ms of host time against {block_s * 1e3:.1f} "
         f"ms of signal ({res['realtime_factor']:.2f}x real time); vertical "
         f"scan {scan}, CPU {cpu_scan}; the chroma loop's mean |burst "
-        f"error| on ideal PAL lines from w0 and 0.5 % off {locked} rad; "
-        f"frames card vs "
-        f"CPU within {lsb} LSB; LineSync split vs whole, straddling line "
-        f"{split}; launches {launches}")
+        f"error| on ideal PAL lines from w0 and 0.5 % off {locked} rad, "
+        f"through its band-pass on the composite's last {ATV_LOCK_LINES} "
+        f"lines {burst} rad; frames card vs CPU within {lsb} LSB; LineSync "
+        f"cut vs whole, every line bit for bit: {split}; colour bars on "
+        f"the card: hue errors {hues} rad, burst error {bars_burst} rad; "
+        f"launches {launches}")
     bad = [f.shape for f in frames if f.shape != (625, 720, 2)
            or f.dtype != np.uint8]
     if len(frames) < ATV_BLOCKS - 1 or bad or scan != cpu_scan \
             or len(cpu_frames) != len(frames):
         raise AssertionError(f"atv-11p25: {res} {bad}")
-    if not max(sum(locked.values(), [])) < ATV_LOCK_TOL:
+    if not max(sum(locked.values(), []) + list(burst.values())
+               + [bars_burst]) < ATV_LOCK_TOL:
         raise AssertionError(f"atv-11p25: the chroma loop did not lock "
-                             f"({locked})")
+                             f"({locked}, {burst}, {bars_burst})")
+    if not max(abs(e) for e in hues) < ATV_HUE_TOL:
+        raise AssertionError(f"atv-11p25: colour bars decoded off their "
+                             f"hues ({hues})")
     if lsb is None or lsb > 1:
         raise AssertionError(f"atv-11p25: card and CPU frames differ by "
                              f"{lsb} LSB")
@@ -4229,7 +4338,12 @@ def line_walk_cases(dev):
     previous line) and lines whose positions pass LINE_BIG_POS (2^22:
     located by floorf, not by the kernel's exact float trick), each way: a
     carried pos just below 2^22 in a buffer that holds 40 lines past it,
-    and one near -5e6 (every window clipped to the buffer's first)."""
+    and one near -5e6 (every window clipped to the buffer's first); and
+    walks from a nonzero base on the first block: from its middle (base
+    224,640, a line's start, pos 0.375) and with a frequency remainder
+    carried in. Carried
+    positions are given whole as pos with base 0 (the kernel's entry
+    rebase splits them) but in "mid_base" and "carried"."""
     import torch
     from sdrpp_tpu_torch.decoders import atv
     from sdrpp_tpu_torch.ops.fm import Quadrature
@@ -4251,10 +4365,11 @@ def line_walk_cases(dev):
     n = ATV_BLOCK
     f32 = torch.float32
 
-    def case(carry=(0.0, 1.0), locked=False, b=buf, max_lines=None,
-             omega_gain=ls.omega_gain, mu_gain=ls.mu_gain,
+    def case(carry=(0.0, 1.0, 0.0), base=0, locked=False, b=buf,
+             max_lines=None, omega_gain=ls.omega_gain, mu_gain=ls.mu_gain,
              sync_level=ls.sync_level, sync_bias=ls.sync_bias, head=hl):
         return (b, ls.bank, torch.tensor(carry, dtype=f32, device=dev),
+                torch.tensor([base], device=dev),
                 torch.tensor([locked], device=dev),
                 ls.max_lines(b.shape[0] - head) if max_lines is None
                 else max_lines, omega_gain, mu_gain, ls.min_freq,
@@ -4266,14 +4381,15 @@ def line_walk_cases(dev):
     big = torch.from_numpy(rng.standard_normal(
         int(LINE_BIG_POS) + 40 * 720).astype(np.float32)).to(dev)
     return [
-        ("atv", "atv", case(carry=(float(st["pos"]), float(st["freq"])),
-                            locked=bool(st["locked"]))),
+        ("atv", "atv", case(carry=[float(st[k]) for k in (
+            "pos", "freq", "freq_lo")], base=int(st["base"]),
+            locked=bool(st["locked"]))),
         ("carried", "atv", case(
             b=torch.cat([carried["head"], second]),
-            carry=(float(carried["pos"]), float(carried["freq"])),
-            locked=bool(carried["locked"]))),
-        ("neg_pos", "", case(carry=(-717.25, 1.0))),
-        ("neg_pos_tail", "", case(b=buf[hl - 7:], carry=(-717.25, 1.0),
+            carry=[float(carried[k]) for k in ("pos", "freq", "freq_lo")],
+            base=int(carried["base"]), locked=bool(carried["locked"]))),
+        ("neg_pos", "", case(carry=(-717.25, 1.0, 0.0))),
+        ("neg_pos_tail", "", case(b=buf[hl - 7:], carry=(-717.25, 1.0, 0.0),
                                   head=7)),
         ("freq_hi", "", case(omega_gain=0.05, sync_level=1e9,
                              sync_bias=1.0)),
@@ -4281,15 +4397,17 @@ def line_walk_cases(dev):
                              sync_bias=-1.0)),
         ("unlocked", "", case(locked=True, sync_level=-1e9)),
         ("max_lines", "", case(max_lines=40)),
-        ("no_line", "", case(carry=(n - 700.0, 1.0))),
+        ("no_line", "", case(carry=(n - 700.0, 1.0, 0.0))),
         ("jump", "", case(b=noise, mu_gain=4000.0, sync_level=1e9, head=7)),
         ("far_jump", "", case(b=noise, mu_gain=40000.0, sync_level=1e9,
                               head=7)),
         ("long", "", case(b=torch.cat([st["head"],
                                        video(LINE_LONG_LINES)]))),
-        ("big_pos", "", case(b=big, carry=(LINE_BIG_POS - 100.25, 1.0),
-                             sync_level=1e9, head=7)),
-        ("big_neg", "", case(carry=(-5e6, 1.0), max_lines=40)),
+        ("big_pos", "", case(b=big, carry=(LINE_BIG_POS - 100.25, 1.0,
+                                           0.0), sync_level=1e9, head=7)),
+        ("big_neg", "", case(carry=(-5e6, 1.0, 0.0), max_lines=40)),
+        ("mid_base", "", case(carry=(0.375, 1.0, 0.0), base=312 * 720)),
+        ("freq_rem", "", case(carry=(0.0, 1.0, 5e-8))),
     ]
 
 
@@ -4322,7 +4440,7 @@ def phase_kernels_walks(dev):
     """The three walks against their plain versions on the same inputs:
     line_sync_walk on every case of ``line_walk_cases`` (the first two
     ATV blocks' discriminator output behind LineSync's head, [450763],
-    and twelve edge cases; each bit for bit, with its us a line logged beside the one-warp
+    and fourteen edge cases; each bit for bit, with its us a line logged beside the one-warp
     chain's floor, the probe's LINE_FLOOR_CYCLES, which this run does not
     measure);
     chroma_burst_walk on
@@ -4357,14 +4475,19 @@ def phase_kernels_walks(dev):
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = 0.0 if same_bits(got, ref) else float("inf")
         lines, total = int(ref[1]), args[0].shape[0]
-        nbytes = total * 4 + 128 * 8 * 4 + args[4] * 720 * 4 + 32
+        nbytes = total * 4 + 128 * 8 * 4 + args[5] * 720 * 4 + 64
         cases.append(_walk_case(
             "line_sync_walk", path, [total], [total], err, 0.0, ms, plain_ms,
             nbytes, lines * (720 * 21 + 40), case=kind, lines=lines,
-            head=args[11], carried_pos=float(args[2][0]),
-            max_lines=args[4], us_per_line=ms * 1e3 / max(lines, 1),
+            head=args[12], carried_pos=int(args[3][0]) + float(args[2][0]),
+            max_lines=args[5], us_per_line=ms * 1e3 / max(lines, 1),
             bound_us_per_line=bound(nbytes, lines * (720 * 21 + 40))[0]
             * 1e3 / max(lines, 1)))
+        if kind == "atv":
+            log(f"line_sync_walk [{total}]: {ms:.4f} ms against "
+                f"{LINE_FLOAT_POS_MS} ms with float32 positions from the "
+                f"block start (PERF.md 6, NVIDIA H100 80GB HBM3, 700.00 W; "
+                f"not measured in this run)")
     # chroma_burst_walk
     for kind, path in (("locked", "atv"), ("wrap", "")):
         args, ref_phase = chroma_walk_case(dev, kind)
@@ -4419,7 +4542,7 @@ def phase_kernels_walks(dev):
             max_syms=max_syms, emits=int(ref[1]), ns_per_sample=ms * 1e6 / n,
             bound_ns_per_sample=bound(nbytes, ops)[0] * 1e6 / n))
     # wrong arguments raise ValueError and launch nothing
-    buf, bank, carry = line_walk_cases(dev)[0][2][:3]
+    buf, bank, lcarry, lbase = line_walk_cases(dev)[0][2][:4]
     args, _ = chroma_walk_case(dev, "locked")
     burst, refs, carry = args[:3]
     _, _, args = cyclic_walk_cases(dev)[0]
@@ -4427,10 +4550,14 @@ def phase_kernels_walks(dev):
     before = {n: f.launches for n, f in kernel_fns().items()}
     f32 = torch.float32
     for what, call in (
-            ("bank", lambda: W.line_sync_walk(buf, bank[:64], carry[:2],
+            ("bank", lambda: W.line_sync_walk(buf, bank[:64], lcarry, lbase,
                                               torch.zeros(1, dtype=torch.bool,
                                                           device=dev), 4,
                                               0, 0, 0, 0, 0, 0, 7)),
+            ("base must be one int64", lambda: W.line_sync_walk(
+                buf, bank, lcarry, lbase.to(torch.int32),
+                torch.zeros(1, dtype=torch.bool, device=dev), 4, 0, 0, 0, 0,
+                0, 0, 7)),
             ("complex64 [L, nb]", lambda: W.chroma_burst_walk(
                 burst.real.contiguous(), refs, carry, 1, 1, 0, 0, 0, 0)),
             ("since", lambda: W.cyclic_sync_walk(
@@ -4447,7 +4574,7 @@ def phase_kernels_walks(dev):
             raise AssertionError(f"a walk took bad arguments ({what})")
     if {n: f.launches for n, f in kernel_fns().items()} != before:
         raise AssertionError("a walk counted a launch it refused")
-    log("the walks on CUDA: four wrong arguments raise ValueError, nothing "
+    log("the walks on CUDA: five wrong arguments raise ValueError, nothing "
         "launched")
     return cases
 

@@ -20,8 +20,10 @@
 // - LineSync: one warp walks only the sync chain (the 88 samples of the
 //   two 44-sample sync regions, from a shared-memory ring another warp
 //   stages ahead with cp.async, summed by the plain version's tree, and
-//   the update in registers), recording each line's (pos, freq); eleven
-//   warps draw the 720-sample lines from those records behind it. No CTA
+//   the update in registers), recording each line's (pos, freq) and window
+//   base; eleven warps draw the 720-sample lines from those records behind
+//   it. The position is an integer base and a float fraction, rebased
+//   every line, so the float parts stay below 2^22 in any block. No CTA
 //   barrier after the set-up (line_sync_kernel). Measured by clock64
 //   ablation before the redesign (tools/sync_walk_probe.py, PERF.md): the
 //   736-thread form lost its time to the windows' device loads, the two
@@ -43,7 +45,7 @@
 // Numerics: built with --fmad=false and no fast math, so every product and
 // sum rounds once. LineSync and CyclicSync use only + - * / floor and
 // comparisons (LineSync takes a floor by a rounded-down add where that is
-// exact, locate_small), in the order of their plain PyTorch versions
+// exact, locate and rebase), in the order of their plain PyTorch versions
 // (ops/sync_walks.py), and match them bit for bit. ChromaPLL calls
 // sincosf and atan2f, which differ from the host's cos / sin / arctan2 by
 // ulps, and takes the mixed sample's angle as a difference of angles: it
@@ -111,13 +113,15 @@ constexpr int kLineThreads = 512;   // 16 warps, see line_sync_kernel
 constexpr int kLineDrawers = 11;    // warps 2 ... 15 but 4, 8 and 12
 constexpr int kLineStager = 1;      // the stager's warp
 constexpr int kLineRing = 16384;    // buf samples staged (a power of two)
-constexpr int kLineRecs = 1024;     // (pos, freq) records (a power of two)
+constexpr int kLineRecs = 1024;     // line records (a power of two)
 constexpr int kStageGroup = 1024;   // samples a stager copy group
 constexpr int kStageDepth = 8;      // stager groups in flight
 constexpr unsigned kLinePoll = 256;  // ns between a waiting warp's polls
 constexpr unsigned long long kNoRec = ~0ull;  // an empty record (pos NaN)
 constexpr int kLineSmem =           // dynamic: bank, ring + mirror, records
-    (kPhases * kTaps + kLineRing + kTaps) * 4 + kLineRecs * 8;
+    (kPhases * kTaps + kLineRing + kTaps) * 4 + kLineRecs * 16;
+constexpr float kFreqLimit = 4096.0f;  // |freq| a line is drawn at
+constexpr int kBaseClip = 1 << 23;     // the window base's guard band
 
 // A wait on another warp that has not ended after 2^32 cycles (about two
 // seconds) is a protocol fault: trap, so the launch fails instead of
@@ -177,38 +181,66 @@ __device__ __forceinline__ float taps8(const float (&w)[kTaps],
   return acc;
 }
 
-// Sample position p's bank row and window start in buf, as the plain
-// version: phase min(max(int(mu * 128), 0), 127), base min(max(int(floor(p))
-// + hoff, 0), nh - 1), where buf = [head | x], hoff = head - 7 and nh = n +
-// hoff: position 0 is x's first sample, and a window reaches back into the
-// head (the clip is a guard no carried line reaches).
-__device__ __forceinline__ int window(float p, int hoff, int nh) {
-  return min(max(static_cast<int>(floorf(p)) + hoff, 0), nh - 1);
-}
-
-// The same without a conversion instruction (F2I / FRND issue at a
-// quarter of the rate and sit on the walker's chain), for |p| < 2^22: t =
-// p + 1.5 * 2^23 rounded down lies in [2^23, 2^24), where floats are the
-// integers, so t = 1.5 * 2^23 + floor(p) exactly; its bits minus those of
-// 1.5 * 2^23 are floor(p), and t - 1.5 * 2^23 is floor(p) as a float
-// (exact, Sterbenz). mu * 128 is exact and in [0, 128], so 2^23 + mu * 128
-// rounded down is 2^23 + floor(mu * 128), the truncation the plain
-// version takes (mu >= 0: no clamp at 0 is needed).
+// Sample position base + p's bank row and window start in buf = [head |
+// x], as the plain version: phase min(max(int(mu * 128), 0), 127) of mu =
+// p - floor(p), window min(max(floor(p) + base + hoff, 0), nh - 1), where
+// hoff = head - 7 and nh = n + hoff (position 0 is x's first sample; a
+// window reaches back into the head, and the clip is a guard no carried
+// line reaches). bc = base + hoff clipped to [-kBaseClip, nh + kBaseClip]:
+// with |floor(p)| < 2^22 the window's clip is the same, in int32.
+// No conversion instruction (F2I / FRND issue at a quarter of the rate
+// and sit on the walker's chain), for |p| < 2^22: t = p + 1.5 * 2^23
+// rounded down lies in [2^23, 2^24), where floats are the integers, so t =
+// 1.5 * 2^23 + floor(p) exactly; its bits minus those of 1.5 * 2^23 are
+// floor(p), and t - 1.5 * 2^23 is floor(p) as a float (exact, Sterbenz).
+// mu * 128 is exact and in [0, 128], so 2^23 + mu * 128 rounded down is
+// 2^23 + floor(mu * 128), the truncation the plain version takes (mu >= 0:
+// no clamp at 0 is needed). Every p here is pos + k freq with pos in [0,
+// 1] and |freq| <= kFreqLimit: |p| <= 1 + 720 * 4096 < 2^22.
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+constexpr int kMagicBits = 0x4B400000;
 constexpr float kMagicMax = 4194304.0f;  // 2^22
-__device__ __forceinline__ void locate_small(float p, int hoff, int nh,
-                                             int& ph, int& base) {
-  const float t = __fadd_rd(p, 12582912.0f);
-  const float mu = p - (t - 12582912.0f);
+__device__ __forceinline__ void locate(float p, int bc, int nh, int& ph,
+                                       int& win) {
+  const float t = __fadd_rd(p, kMagic);
+  const float mu = p - (t - kMagic);
   const float u = __fadd_rd(mu * 128.0f, 8388608.0f);
   ph = min(__float_as_int(u) - 0x4B000000, kPhases - 1);
-  base = min(max(__float_as_int(t) - 0x4B400000 + hoff, 0), nh - 1);
+  win = min(max(__float_as_int(t) - kMagicBits + bc, 0), nh - 1);
 }
-__device__ __forceinline__ void locate(float p, int hoff, int nh, int& ph,
-                                       int& base) {
-  const float fp = floorf(p);
-  const float mu = p - fp;
-  ph = min(max(static_cast<int>(mu * 128.0f), 0), kPhases - 1);
-  base = min(max(static_cast<int>(fp) + hoff, 0), nh - 1);
+
+// The plain version's rebase: (pos, base) -> (pos - fl, base + fl), fl =
+// floor(pos) (+0 for -0); by the rounded-down add below 2^22 (every line
+// of a walk but a jump of millions of samples), by floorf and a 64-bit
+// conversion (exact for integers) below 2^62, else pos = NaN (the walk
+// ends).
+__device__ __forceinline__ void rebase(float& pos, long long& base) {
+  if (fabsf(pos) < kMagicMax) {
+    const float t = __fadd_rd(pos, kMagic);
+    pos = pos - (t - kMagic);
+    base += __float_as_int(t) - kMagicBits;
+  } else if (fabsf(pos) < 4.611686018427387904e18f) {  // 2^62
+    const float fl = floorf(pos) + 0.0f;
+    pos = pos - fl;
+    base += static_cast<long long>(fl);
+  } else {
+    pos = __int_as_float(0x7fc00000);
+  }
+}
+
+// q < m for an integer m, exactly, where |q| < 2^22 (or NaN: false): m
+// clipped to [-2^22, 2^22] is a float by the rounded-down add's inverse
+__device__ __forceinline__ bool less_than(float q, long long m) {
+  const int c = static_cast<int>(max(min(m, 4194304ll), -4194304ll));
+  return q < __int_as_float(kMagicBits + c) - kMagic;
+}
+
+// bc: base + hoff clipped to the guard band (see locate)
+__device__ __forceinline__ int window_base(long long base, int hoff,
+                                           int nh) {
+  return static_cast<int>(max(min(base + hoff,
+                                  static_cast<long long>(nh) + kBaseClip),
+                              static_cast<long long>(-kBaseClip)));
 }
 
 // One CTA of 16 warps, no CTA barrier after its set-up. Warp 0 walks the
@@ -234,9 +266,14 @@ __device__ __forceinline__ void locate(float p, int hoff, int nh, int& ph,
 // a wrong value. The ring is read first, speculatively, so the 24 loads
 // wait for nothing but the positions; the test follows, and a line that
 // fails it reads again from device memory. Positions are located without
-// conversion instructions where |p| < 2^22 (locate_small). Lane 0 puts
-// each line's (pos, freq) into a record ring, waiting for a free slot
-// only past kLineRecs lines.
+// conversion instructions (locate). Lane 0 puts
+// each line's record into a ring, waiting for a free slot only past
+// kLineRecs lines: (pos, freq) in one 64-bit word, then (bc, the line's
+// index) in a second, written first; a drawer takes the record when both
+// words show its line (each word is read whole), so the two need no
+// fence between them. After a line's update it rebases the position
+// (rebase) and keeps the frequency integrator's remainder (freq_lo, a
+// Fast2Sum), as the plain version.
 //
 // The stager: copies buf in groups of kStageGroup samples with cp.async
 // (16 bytes where buf is 16-byte aligned, else 4), up to kStageDepth
@@ -248,16 +285,19 @@ __device__ __forceinline__ void locate(float p, int hoff, int nh, int& ph,
 //
 // A drawer takes lines j, j + 11, ...: waits for the record (past
 // kLineRecs lines, also for the slot's previous line to have been taken),
-// frees its slot, and interpolates the line's 720 samples from device
-// memory into `lines`, as the plain version does. When the walker has
-// finished (s_count >= 0) a drawer past the count zeroes its remaining
-// rows.
+// frees its slot, and interpolates the line's 720 samples at base + (pos
+// + k freq) from device memory into `lines`, as the plain version does.
+// When the walker has finished (s_count >= 0) a drawer past the count
+// zeroes its remaining rows.
 __global__ void __launch_bounds__(kLineThreads, 1)
 line_sync_kernel(const float* __restrict__ buf, int n, int head,
                  const float* __restrict__ bank,
                  const float* __restrict__ carry_in,
+                 const long long* __restrict__ base_in,
                  const bool* __restrict__ locked_in,
-                 float* __restrict__ carry_out, bool* __restrict__ locked_out,
+                 float* __restrict__ carry_out,
+                 long long* __restrict__ base_out,
+                 bool* __restrict__ locked_out,
                  float* __restrict__ lines, int* __restrict__ count,
                  int max_lines, float omega_gain, float mu_gain,
                  float min_freq, float max_freq, float sync_level,
@@ -267,10 +307,11 @@ line_sync_kernel(const float* __restrict__ buf, int n, int head,
   float* const ring = lsm + kPhases * kTaps;
   unsigned long long* const recs = reinterpret_cast<unsigned long long*>(
       ring + kLineRing + kTaps);
+  unsigned long long* const tags = recs + kLineRecs;  // (bc, line index)
   __shared__ int s_hi, s_release, s_count, s_next[kLineDrawers];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   for (int i = tid; i < kPhases * kTaps; i += kLineThreads) sbank[i] = bank[i];
-  for (int i = tid; i < kLineRecs; i += kLineThreads) recs[i] = kNoRec;
+  for (int i = tid; i < 2 * kLineRecs; i += kLineThreads) recs[i] = kNoRec;
   if (tid < kLineDrawers) s_next[tid] = tid;  // each drawer's next line
   if (tid == 0) {
     s_hi = 0;
@@ -290,30 +331,23 @@ line_sync_kernel(const float* __restrict__ buf, int n, int head,
       const int i = r < 2 || third ? L + 16 * r : L;
       kf[r] = static_cast<float>(half ? 27 + i : (i < 17 ? 703 + i : i - 17));
     }
-    float pos = carry_in[0], freq = carry_in[1];
+    float pos = carry_in[0], freq = carry_in[1], freq_lo = carry_in[2];
+    long long base = base_in[0];
+    rebase(pos, base);
     bool locked = locked_in[0];
-    const float fn = static_cast<float>(n);
+    const bool fits = fabsf(freq) <= kFreqLimit;
     int release = 0, l = 0;
-    for (; l < max_lines; ++l) {
-      if (!(pos + 720.0f * freq < fn)) break;
+    for (; l < max_lines && fits; ++l) {
+      if (!less_than(pos + 720.0f * freq, n - base)) break;
       const int hi = ld_acquire(&s_hi);  // before the ring loads
+      const int bc = window_base(base, hoff, nh);
       // the line's positions lie between pos and pos + 720 freq
-      const bool small =
-          fabsf(pos) < kMagicMax && fabsf(pos + 720.0f * freq) < kMagicMax;
       int ph[3], b[3], bases[2], unused;
-      if (small) {
 #pragma unroll
-        for (int r = 0; r < 3; ++r)
-          locate_small(pos + kf[r] * freq, hoff, nh, ph[r], b[r]);
-        locate_small(pos, hoff, nh, unused, bases[0]);
-        locate_small(pos + 719.0f * freq, hoff, nh, unused, bases[1]);
-      } else {
-#pragma unroll
-        for (int r = 0; r < 3; ++r)
-          locate(pos + kf[r] * freq, hoff, nh, ph[r], b[r]);
-        bases[0] = window(pos, hoff, nh);
-        bases[1] = window(pos + 719.0f * freq, hoff, nh);
-      }
+      for (int r = 0; r < 3; ++r)
+        locate(pos + kf[r] * freq, bc, nh, ph[r], b[r]);
+      locate(pos, bc, nh, unused, bases[0]);
+      locate(pos + 719.0f * freq, bc, nh, unused, bases[1]);
       // the windows from the ring, whether staged or not (the test below
       // is off the loads' path); device memory when not
       float w[3][kTaps];
@@ -345,6 +379,9 @@ line_sync_kernel(const float* __restrict__ buf, int n, int head,
           const long long since = clock64();
           while (ld_rec(slot) != kNoRec) check_wait(since);
         }
+        st_rec(tags + (l & (kLineRecs - 1)),
+               static_cast<unsigned long long>(static_cast<unsigned>(bc)) |
+                   (static_cast<unsigned long long>(l) << 32));
         st_rec(slot, static_cast<unsigned long long>(__float_as_uint(pos)) |
                          (static_cast<unsigned long long>(
                               __float_as_uint(freq))
@@ -360,15 +397,20 @@ line_sync_kernel(const float* __restrict__ buf, int n, int head,
       const float right = (half ? t : o) / 44.0f;
       const bool ok = (left < sync_level) && (right < sync_level);
       const float err = ok ? (left + sync_bias) - right : 0.0f;
-      const float nf =
-          fminf(fmaxf(freq + omega_gain * err, min_freq), max_freq);
+      const float y = omega_gain * err + freq_lo;
+      const float fy = freq + y;
+      const float nf = fminf(fmaxf(fy, min_freq), max_freq);
+      freq_lo = nf == fy ? y - (fy - freq) : 0.0f;
       pos = ((pos + 719.0f * freq) + nf) + mu_gain * err;
+      rebase(pos, base);
       freq = nf;
       locked = ok;
     }
     if (lane == 0) {
       carry_out[0] = pos;
       carry_out[1] = freq;
+      carry_out[2] = freq_lo;
+      base_out[0] = base;
       locked_out[0] = locked;
       count[0] = l;
       __threadfence_block();
@@ -442,6 +484,8 @@ line_sync_kernel(const float* __restrict__ buf, int n, int head,
       // drawer must have taken it (s_next) before this one reads the slot
       const int prev = d - kLineRecs;
       unsigned long long rec = kNoRec;
+      int bc = 0;
+      bool got = false;
       const long long since = clock64();
       for (;;) {
         check_wait(since);
@@ -450,14 +494,20 @@ line_sync_kernel(const float* __restrict__ buf, int n, int head,
         if (prev < 0 || __shfl_sync(kAll, ld_flag(s_next + prev % kLineDrawers),
                                     0) > prev) {
           __threadfence_block();
+          const unsigned long long tag =
+              __shfl_sync(kAll, ld_rec(tags + (d & (kLineRecs - 1))), 0);
           rec = __shfl_sync(kAll, ld_rec(slot), 0);
-          if (rec != kNoRec) break;
+          if (rec != kNoRec && static_cast<int>(tag >> 32) == d) {
+            bc = static_cast<int>(static_cast<unsigned>(tag));
+            got = true;
+            break;
+          }
         }
         // a line takes the walker ~0.5 us: poll rarely, so the waiting
         // drawers keep off the shared-memory pipe the walker reads through
         __nanosleep(kLinePoll);
       }
-      if (rec == kNoRec) break;
+      if (!got) break;
       __syncwarp();
       if (lane == 0) {
         st_rec(slot, kNoRec);
@@ -467,25 +517,15 @@ line_sync_kernel(const float* __restrict__ buf, int n, int head,
       const float pos = __uint_as_float(static_cast<unsigned>(rec));
       const float freq = __uint_as_float(static_cast<unsigned>(rec >> 32));
       float* out = lines + static_cast<size_t>(d) * kLineLen;
-      auto draw = [&](auto locate_fn) {
 #pragma unroll 4
-        for (int k = lane; k < kLineLen; k += 32) {
-          int ph, b;
-          locate_fn(pos + static_cast<float>(k) * freq, hoff, nh, ph, b);
-          float w[kTaps];
+      for (int k = lane; k < kLineLen; k += 32) {
+        int ph, b;
+        locate(pos + static_cast<float>(k) * freq, bc, nh, ph, b);
+        float w[kTaps];
 #pragma unroll
-          for (int q = 0; q < kTaps; ++q) w[q] = __ldg(buf + b + q);
-          out[k] = taps8(w, sbank + ph * kTaps);
-        }
-      };
-      if (fabsf(pos) < kMagicMax && fabsf(pos + 720.0f * freq) < kMagicMax)
-        draw([](float q, int o, int m, int& a, int& c) {
-          locate_small(q, o, m, a, c);
-        });
-      else
-        draw([](float q, int o, int m, int& a, int& c) {
-          locate(q, o, m, a, c);
-        });
+        for (int q = 0; q < kTaps; ++q) w[q] = __ldg(buf + b + q);
+        out[k] = taps8(w, sbank + ph * kTaps);
+      }
     }
     for (; d < max_lines; d += kLineDrawers) {
       float* out = lines + static_cast<size_t>(d) * kLineLen;
@@ -955,18 +995,23 @@ cyclic_sync_kernel(const float* __restrict__ rcorr,
 extern "C" {
 
 // LineSync over one block: buf = [head | x] float32 [head + n], head >= 7
-// (the blocks before's last samples: a line carried into this block, at
-// pos down to -720 max_freq, reads them); bank [128, 8]; carry_in /
-// carry_out float32 [2] (pos, freq; pos from x's first sample), locked
-// bool [1]; lines [max_lines, 720] float32 (rows past the count are 0);
-// count int32.
+// (the blocks before's last samples: a line carried into this block, at a
+// position down to -720 max_freq, reads them); bank [128, 8]; carry_in /
+// carry_out float32 [3] (pos, freq, freq_lo) and base_in / base_out int64
+// [1]: the next line's position base + pos from x's first sample, the
+// frequency freq + freq_lo; locked bool [1]; lines [max_lines, 720]
+// float32 (rows past the count are 0); count int32. |min_freq| and
+// |max_freq| at most 4096; head + n below 2^31 - 2^24.
 int line_sync_walk(const float* buf, int n, int head, const float* bank,
-                   const float* carry_in, const bool* locked_in,
-                   float* carry_out, bool* locked_out, float* lines,
+                   const float* carry_in, const long long* base_in,
+                   const bool* locked_in, float* carry_out,
+                   long long* base_out, bool* locked_out, float* lines,
                    int* count, int max_lines, float omega_gain, float mu_gain,
                    float min_freq, float max_freq, float sync_level,
                    float sync_bias, void* stream) {
-  if (n < 1 || max_lines < 1 || head < kTaps - 1)
+  if (n < 1 || max_lines < 1 || head < kTaps - 1 ||
+      static_cast<long long>(n) + head > (1ll << 31) - (1ll << 24) ||
+      !(fabsf(min_freq) <= kFreqLimit && fabsf(max_freq) <= kFreqLimit))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t attr = cudaFuncSetAttribute(
       line_sync_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -974,9 +1019,9 @@ int line_sync_walk(const float* buf, int n, int head, const float* bank,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   line_sync_kernel<<<1, kLineThreads, kLineSmem,
                      static_cast<cudaStream_t>(stream)>>>(
-      buf, n, head, bank, carry_in, locked_in, carry_out, locked_out, lines,
-      count, max_lines, omega_gain, mu_gain, min_freq, max_freq, sync_level,
-      sync_bias);
+      buf, n, head, bank, carry_in, base_in, locked_in, carry_out, base_out,
+      locked_out, lines, count, max_lines, omega_gain, mu_gain, min_freq,
+      max_freq, sync_level, sync_bias);
   return static_cast<int>(cudaGetLastError());
 }
 

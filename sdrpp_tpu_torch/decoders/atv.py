@@ -20,8 +20,9 @@ and the free-run segments are parallel mixes on the phases it records.
 
 ``FrameAssembler`` (vertical scan, vsync, rendering) is host code, copied.
 ``ATVDecoder`` chains the port's ``Quadrature``, ``LineSync``, the 231-tap
-complex chroma FIR (``ops.fir.fir_correlate``) and ``ChromaPLL`` with the
-per-line PAL phases, on ``device`` (default ``cuda``).
+complex chroma band-pass (``ops.fir.fir_correlate`` on the reversed taps)
+and ``ChromaPLL`` with the per-line PAL phases, on ``device`` (default
+``cuda``).
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from ..ops.sync_walks import chroma_burst_walk, line_sync_walk
 from ..utils.blocks import Block
 
 __all__ = ["LineSync", "ChromaPLL", "FrameAssembler", "ATVDecoder",
-           "chroma_taps", "LINE_LEN", "FRAME_LINES", "SAMPLE_RATE",
-           "CHROMA_SUBCARRIER", "A_PHASE", "B_PHASE", "CHROMA_BANDWIDTH",
+           "chroma_taps", "chroma_filter_taps", "LINE_LEN", "FRAME_LINES",
+           "SAMPLE_RATE", "CHROMA_SUBCARRIER", "A_PHASE", "B_PHASE", "CHROMA_BANDWIDTH",
            "CHROMA_PULL"]
 
 LINE_LEN = 720
@@ -53,8 +54,21 @@ B_PHASE = (-135.0 / 180.0) * float(FL_PI)
 
 def chroma_taps() -> np.ndarray:
     """231-tap complex chroma band-pass FIR (chrominance_filter.h; a copy
-    of the JAX package's coefficient table)."""
+    of the JAX package's coefficient table), in the table's order."""
     return np.load(Path(__file__).parent / "atv_chroma_taps.npz")["taps"]
+
+
+def chroma_filter_taps() -> np.ndarray:
+    """The taps ATVDecoder gives ``fir_correlate``: the table reversed.
+    ``fir_correlate`` is the reference's sliding correlation, y[i] = sum_j
+    taps[j] x[i + j], whose gain at w is |sum_j taps[j] exp(i w j)|: on the
+    table's order 6.6e-6 at the subcarrier +w0 and 0.9946 at -w0, so the
+    burst would reach ChromaPLL (which tracks +w0) as its negative image.
+    Reversed, the correlation is the convolution the taps were designed
+    for: 0.9946 at +w0, 6.6e-6 at -w0. The table's envelope exp(-i w0 k)
+    table[k] is symmetric (to 4.4e-7), so the delay stays
+    CHROMA_FIR_DELAY."""
+    return np.ascontiguousarray(chroma_taps()[::-1])
 
 
 CHROMA_FIR_DELAY = (231 - 1) // 2
@@ -84,12 +98,26 @@ CHROMA_PULL = float(np.pi) / (2 * LINE_LEN)
 class LineSync(Block):
     """Horizontal line synchronizer -> (lines[max_lines, 720], valid).
 
-    State: ``head`` (the last ``head_len`` inputs), ``pos`` (the next
-    line's fractional position in the next block), ``freq`` and
+    State: ``head`` (the last ``head_len`` inputs), the next line's
+    position in the next block as ``base`` (int64) + ``pos`` (float32, in
+    [0, 1]), the frequency as ``freq`` + ``freq_lo`` (float32 each), and
     ``locked``. The valid lines are a prefix.
 
+    JAX carries the position as one float32 counted from the block start:
+    at 40-ms blocks it reaches 4.5e5, an ulp of 1/32 sample, and where the
+    sync error is 0 (the window in a flat sync tip) nothing corrects the
+    rounding, so a block cut in two drew other lines than the block whole
+    (up to 0.25 apart). Here the walk rebases the position after every
+    line (``ops.sync_walks.rebase``): a sample's position base + (pos + k
+    freq) has a float part below 760, and a block cut anywhere draws the
+    whole block's lines bit for bit. JAX's float32 frequency also holds
+    still under the integrator's steps (omega_gain 1e-6 times a sync error
+    of 1e-2 is 1e-8, under half an ulp of 1.0), 0.2 sample off a float64
+    loop over a 40-ms block; ``freq_lo`` keeps those steps (a compensated
+    sum), within 2e-3 sample of the float64 loop.
+
     A block ends where the next whole line no longer fits, so that line
-    is carried into the next block at a negative ``pos``, down to -720
+    is carried into the next block at a negative position, down to -720
     max_freq. The JAX block carries only a 7-sample ``tail`` (the
     interpolator's taps) and clips the window index at 0, so every sample
     of that line before the block start reads one window: in ATVDecoder
@@ -127,8 +155,10 @@ class LineSync(Block):
         return {
             "head": torch.zeros(self.head_len, dtype=torch.float32,
                                 device=d),
+            "base": torch.zeros((), dtype=torch.int64, device=d),
             "pos": torch.zeros((), dtype=torch.float32, device=d),
             "freq": torch.full((), self.omega, dtype=torch.float32, device=d),
+            "freq_lo": torch.zeros((), dtype=torch.float32, device=d),
             "locked": torch.zeros((), dtype=torch.bool, device=d),
         }
 
@@ -136,16 +166,19 @@ class LineSync(Block):
         n = x.shape[-1]
         max_lines = self.max_lines(n)
         buf = torch.cat([state["head"], x.to(torch.float32)])
-        carry = torch.stack([state["pos"], state["freq"]])
-        lines, count, carry, locked = line_sync_walk(
-            buf, self.bank, carry, state["locked"].reshape(1), max_lines,
-            self.omega_gain, self.mu_gain, self.min_freq, self.max_freq,
-            self.sync_level, self.sync_bias, self.head_len)
+        carry = torch.stack([state["pos"], state["freq"], state["freq_lo"]])
+        lines, count, carry, base, locked = line_sync_walk(
+            buf, self.bank, carry, state["base"].reshape(1),
+            state["locked"].reshape(1), max_lines, self.omega_gain,
+            self.mu_gain, self.min_freq, self.max_freq, self.sync_level,
+            self.sync_bias, self.head_len)
         valid = torch.arange(max_lines, device=x.device) < count
         new_state = {
             "head": buf[n:],
-            "pos": carry[0] - n,
+            "base": base - n,
+            "pos": carry[0],
             "freq": carry[1],
+            "freq_lo": carry[2],
             "locked": locked.reshape(()),
         }
         return new_state, (lines, valid)
@@ -294,7 +327,9 @@ class ATVDecoder:
     MHz with per-line PAL phase] -> FrameAssembler. The chroma loop takes
     CHROMA_BANDWIDTH and limits of CHROMA_PULL either side of the
     subcarrier, where the reference's (bandwidth 0.01, +-10 %) never lock
-    at 720-sample lines.
+    at 720-sample lines; the band-pass takes the taps reversed
+    (``chroma_filter_taps``), so it passes the subcarrier the loop tracks
+    where the reference's correlation passes its negative image.
 
     ``process(iq)`` consumes complex64 baseband at 11.25 Msps (a numpy
     array, or a tensor on ``device``) and returns any completed
@@ -321,7 +356,7 @@ class ATVDecoder:
                              min_freq=w0 - CHROMA_PULL,
                              max_freq=w0 + CHROMA_PULL, device=self.device)
         self.assembler = FrameAssembler(min_level, span_level)
-        self._taps = chroma_taps().astype(np.complex64)
+        self._taps = chroma_filter_taps().astype(np.complex64)
         self._fir_state = torch.zeros(len(self._taps) - 1,
                                       dtype=torch.complex64,
                                       device=self.device)

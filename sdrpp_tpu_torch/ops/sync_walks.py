@@ -7,7 +7,11 @@ Pallas kernels), each a CUDA kernel of ``csrc/sync_walk.cu`` here:
   (sdrpp_tpu/decoders/atv.py:97-127): per line, the 720-point fractional
   interpolation at a uniform step through the 128 x 8 bank, the sync
   error from the two 44-sample halves of the sync region, the
-  phase-control update of pos / freq / locked;
+  phase-control update of pos / freq / locked; the position carried as
+  an integer base and a float32 fraction where JAX carries one float32
+  (whose ulp reaches 1/32 sample at 4.5e5), the frequency with the
+  remainder of its compensated sum (steps below half an ulp of freq
+  would be lost);
 - ``chroma_burst_walk``: ``ChromaPLL``'s burst carry
   (sdrpp_tpu/decoders/atv.py:178-203): per line, the free-run phase to the
   burst, 28 locked steps over the colour burst, the free-run phase past
@@ -39,13 +43,17 @@ import torch
 
 from ..utils import cuda_lib
 
-__all__ = ["line_sync_walk", "line_sync_walk_plain", "chroma_burst_walk",
-           "chroma_burst_walk_plain", "cyclic_sync_walk",
-           "cyclic_sync_walk_plain", "LINE_LEN", "SYNC_TREE"]
+__all__ = ["line_sync_walk", "line_sync_walk_plain", "rebase",
+           "chroma_burst_walk", "chroma_burst_walk_plain",
+           "cyclic_sync_walk", "cyclic_sync_walk_plain", "LINE_LEN",
+           "SYNC_TREE", "FREQ_LIMIT"]
 
 LINE_LEN = 720
 LINE_PHASES, LINE_TAPS = 128, 8   # the interpolation bank the kernel takes
 SYNC_TREE = 64                    # the sync sums' tree width (44 zero-padded)
+FREQ_LIMIT = 4096.0               # |freq|: 720 |freq| + 1 stays below 2^22
+POS_LIMIT = 2.0 ** 62             # |pos| a rebase takes (int64 with room)
+BUF_LIMIT = 2 ** 31 - 2 ** 24     # buf's samples (int32 window indices)
 FL_PI = np.float32(3.1415926535)
 _TWO_PI = np.float32(2) * FL_PI
 
@@ -82,31 +90,54 @@ def tree_sum44(v: torch.Tensor) -> torch.Tensor:
     return s[..., 0]
 
 
-def _check_line(buf, bank, carry, locked, max_lines, head):
+def _check_line(buf, bank, carry, base, locked, max_lines, head, min_freq,
+                max_freq):
     if buf.dtype != torch.float32 or buf.ndim != 1:
         raise ValueError("buf must be float32 [head + n]")
     if int(head) < LINE_TAPS - 1:
         raise ValueError(f"head must be at least {LINE_TAPS - 1} samples")
+    if buf.shape[0] > BUF_LIMIT:
+        raise ValueError(f"buf must hold at most {BUF_LIMIT} samples")
     if bank.dtype != torch.float32 or tuple(bank.shape) != (LINE_PHASES,
                                                            LINE_TAPS):
         raise ValueError(f"bank must be float32 [{LINE_PHASES}, {LINE_TAPS}]")
-    if carry.dtype != torch.float32 or tuple(carry.shape) != (2,):
-        raise ValueError("carry must be float32 [2] (pos, freq)")
+    if carry.dtype != torch.float32 or tuple(carry.shape) != (3,):
+        raise ValueError("carry must be float32 [3] (pos, freq, freq_lo)")
+    if base.dtype != torch.int64 or base.numel() != 1:
+        raise ValueError("base must be one int64")
     if locked.dtype != torch.bool or locked.numel() != 1:
         raise ValueError("locked must be one bool")
+    if not (abs(float(min_freq)) <= FREQ_LIMIT
+            and abs(float(max_freq)) <= FREQ_LIMIT):
+        raise ValueError(f"min_freq and max_freq must lie within "
+                         f"+-{FREQ_LIMIT}")
     n = buf.shape[0] - int(head)
     if n < 1 or int(max_lines) < 1:
         raise ValueError("empty block or no lines")
     return n
 
 
-def line_sync_walk_plain(buf, bank, carry, locked, max_lines, omega_gain,
-                         mu_gain, min_freq, max_freq, sync_level, sync_bias,
-                         head):
+def rebase(pos, base):
+    """(pos, base) -> (pos - fl, base + fl), fl = floor(pos) (+0 where pos
+    is -0): the position base + pos unchanged, pos in [0, 1] after it
+    (exact where pos >= 0; a negative pos - fl rounds, to 1 at most). A pos
+    of magnitude POS_LIMIT or more, or NaN, becomes NaN, which ends the
+    walk."""
+    pos = np.float32(pos)
+    if not abs(pos) < POS_LIMIT:
+        return np.float32(np.nan), base
+    fl = np.floor(pos) + np.float32(0)
+    return np.float32(pos - fl), base + int(fl)
+
+
+def line_sync_walk_plain(buf, bank, carry, base, locked, max_lines,
+                         omega_gain, mu_gain, min_freq, max_freq, sync_level,
+                         sync_bias, head):
     """Plain version of ``line_sync_walk``: a loop over lines, each line's
     720 samples as float32 torch vectors, the carries as numpy float32
-    scalars, every sum in the kernel's order."""
-    n = _check_line(buf, bank, carry, locked, max_lines, head)
+    scalars and a Python int, every sum in the kernel's order."""
+    n = _check_line(buf, bank, carry, base, locked, max_lines, head,
+                    min_freq, max_freq)
     hoff = int(head) - (LINE_TAPS - 1)
     dev = buf.device
     f32 = np.float32
@@ -114,21 +145,24 @@ def line_sync_walk_plain(buf, bank, carry, locked, max_lines, omega_gain,
     bk = bank.detach().cpu()
     ks = torch.arange(LINE_LEN, dtype=torch.float32)
     taps_off = torch.arange(LINE_TAPS)
-    pos, freq = (f32(v) for v in carry.detach().cpu().numpy())
+    pos, freq, freq_lo = (f32(v) for v in carry.detach().cpu().numpy())
+    pos, at = rebase(pos, int(base.reshape(()).item()))
     lock = bool(locked.reshape(()).item())
     og, mg, lo, hi, level, bias = (f32(v) for v in (
         omega_gain, mu_gain, min_freq, max_freq, sync_level, sync_bias))
-    fn, c720, c719, c44 = f32(n), f32(720), f32(719), f32(44)
+    c720, c719, c44 = f32(720), f32(719), f32(44)
     lines = torch.zeros(int(max_lines), LINE_LEN, dtype=torch.float32)
     count = 0
-    while count < max_lines and pos + c720 * freq < fn:
+    fits = bool(abs(freq) <= FREQ_LIMIT)
+    # float(q) < int compares exactly
+    while fits and count < max_lines and float(pos + c720 * freq) < n - at:
         p = torch.from_numpy(np.array(pos)) + ks * torch.from_numpy(
             np.array(freq))
         fp = torch.floor(p)
         mu = p - fp
         ph = (mu * 128.0).to(torch.int64).clamp(0, LINE_PHASES - 1)
-        base = (fp.to(torch.int64) + hoff).clamp(0, n + hoff - 1)
-        w = b[base[:, None] + taps_off]           # [720, 8]
+        win = (fp.to(torch.int64) + (at + hoff)).clamp(0, n + hoff - 1)
+        w = b[win[:, None] + taps_off]            # [720, 8]
         taps = bk[ph]                             # [720, 8]
         acc = w[:, 0] * taps[:, 0]
         for j in range(1, LINE_TAPS):
@@ -138,55 +172,78 @@ def line_sync_walk_plain(buf, bank, carry, locked, max_lines, omega_gain,
         right = f32(tree_sum44(acc[27:71]).item()) / c44
         ok = bool(left < level and right < level)
         err = (left + bias) - right if ok else f32(0)
-        nf = min(max(freq + og * err, lo), hi)
-        pos = ((pos + c719 * freq) + nf) + mg * err
+        # the frequency integrator, compensated (Fast2Sum): freq_lo keeps
+        # what of og * err freq cannot hold, 0 where the limits clamp
+        y = og * err + freq_lo
+        t = freq + y
+        nf = min(max(t, lo), hi)
+        freq_lo = y - (t - freq) if nf == t else f32(0)
+        pos, at = rebase(((pos + c719 * freq) + nf) + mg * err, at)
         freq, lock = f32(nf), ok
         count += 1
     return (lines.to(dev), torch.tensor(count, dtype=torch.int32, device=dev),
-            torch.tensor([pos, freq], dtype=torch.float32, device=dev),
+            torch.tensor([pos, freq, freq_lo], dtype=torch.float32,
+                         device=dev),
+            torch.tensor(at, dtype=torch.int64, device=dev),
             torch.tensor(lock, device=dev))
 
 
 # each C entry's argument types, the stream last (cuda_lib.launch appends it)
 _LINE_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-              + [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_float] * 6
+              + [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_float] * 6
               + [ctypes.c_void_p])
 
 
-def line_sync_walk(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
-                   min_freq, max_freq, sync_level, sync_bias, head):
+def line_sync_walk(buf, bank, carry, base, locked, max_lines, omega_gain,
+                   mu_gain, min_freq, max_freq, sync_level, sync_bias, head):
     """One block of LineSync. ``buf`` float32 [head + n]: the last ``head``
     (at least 7) samples of the blocks before, then the block's n; ``bank``
-    [128, 8], ``carry`` float32 [2] (pos, freq; pos counted from the
-    block's first sample, negative for a line that began before it),
-    ``locked`` bool. Output sample k of a line at pos interpolates the 8
-    buf samples from head - 7 + floor(pos + k freq), clipped to [0, head +
-    n - 8]: a head of ceil(720 max_freq) + 7 holds every sample of a line
-    carried from the block before, and the clip is only a guard. Returns
-    (lines [max_lines, 720] float32, the active lines first and zeros
-    after, count int32 (0-d), carry [2] after the block, locked)."""
-    dev = _device_of("line_sync_walk", buf, bank, carry, locked)
-    n = _check_line(buf, bank, carry, locked, max_lines, head)
+    [128, 8]; the next line's position is ``base + carry[0]``, counted from
+    the block's first sample (negative for a line that began before it):
+    ``base`` int64 [1], ``carry`` float32 [3] (pos, freq, freq_lo),
+    ``locked`` bool. The position is carried as an integer and a
+    fraction: rebased on entry and after every line (``rebase``), so pos
+    stays in [0, 1] and a sample's position base + (pos + k freq) keeps
+    its float part below 1 + 720 |freq| (an ulp of 6e-5 sample at freq ~1)
+    anywhere in any block; a block cut moves base by an integer and
+    leaves the fractions' sequence as it was. The frequency is freq +
+    freq_lo: the integrator's steps omega_gain * err (1e-8 and less at the
+    decoder's omega_gain of 1e-6) fall below half an ulp of freq ~1, so
+    freq alone would hold still where a float64 loop moves; freq_lo
+    carries what freq cannot hold (Fast2Sum), and the lines take freq. Output sample k of a line interpolates
+    the 8 buf samples from head - 7 + base + floor(pos + k freq), clipped
+    to [0, head + n - 8]: a head of ceil(720 max_freq) + 7 holds every
+    sample of a line carried from the block before, and the clip is only
+    a guard. |freq|, min_freq and max_freq must lie within FREQ_LIMIT
+    (the limits are checked here; a carried freq outside draws no line).
+    Returns (lines [max_lines, 720] float32, the active lines first and
+    zeros after, count int32 (0-d), carry [3] and base int64 (0-d) after
+    the block, locked)."""
+    dev = _device_of("line_sync_walk", buf, bank, carry, base, locked)
+    n = _check_line(buf, bank, carry, base, locked, max_lines, head,
+                    min_freq, max_freq)
     params = tuple(float(np.float32(v)) for v in (
         omega_gain, mu_gain, min_freq, max_freq, sync_level, sync_bias))
     if dev.type == "cpu":
-        return line_sync_walk_plain(buf, bank, carry, locked, max_lines,
-                                    *params, head)
-    buf, bank, carry, locked = _contig(buf, bank, carry, locked)
+        return line_sync_walk_plain(buf, bank, carry, base, locked,
+                                    max_lines, *params, head)
+    buf, bank, carry, base, locked = _contig(buf, bank, carry, base, locked)
     max_lines = int(max_lines)
     lines = buf.new_empty((max_lines, LINE_LEN))
     count = torch.empty((), dtype=torch.int32, device=dev)
-    carry_out = carry.new_empty(2)
+    carry_out = carry.new_empty(3)
+    base_out = torch.empty((), dtype=torch.int64, device=dev)
     locked_out = torch.empty((), dtype=torch.bool, device=dev)
     fn = cuda_lib.bind("sync_walk", "line_sync_walk", _LINE_ARGS)
     rc = cuda_lib.launch(fn, dev, buf.data_ptr(), n, int(head),
-                         bank.data_ptr(), carry.data_ptr(), locked.data_ptr(),
-                         carry_out.data_ptr(), locked_out.data_ptr(),
+                         bank.data_ptr(), carry.data_ptr(), base.data_ptr(),
+                         locked.data_ptr(), carry_out.data_ptr(),
+                         base_out.data_ptr(), locked_out.data_ptr(),
                          lines.data_ptr(), count.data_ptr(), max_lines,
                          *params)
     _rc("line_sync_walk", rc, f"n={n}, head={head}, max_lines={max_lines}")
     line_sync_walk.launches += 1
-    return lines, count, carry_out, locked_out
+    return lines, count, carry_out, base_out, locked_out
 
 
 line_sync_walk.launches = 0

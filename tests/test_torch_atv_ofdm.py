@@ -7,15 +7,24 @@ The walks are checked here through their plain versions (the CPU path of
 ``ops.sync_walks``); chip_smoke.py holds the CUDA kernels to these.
 
 Tolerances, each with its reason:
-- LineSync: the per-line update (pos, freq, locked) rounds in JAX's
-  float32 order, but XLA sums the 44-sample half of the sync region in an
-  order of its own (its vectorised reduction), which the port does not
-  copy; the port sums it in a fixed tree, the same in the kernel. An ulp
-  of difference in the error moves pos by an ulp, and a sample whose
-  fractional position sits on a boundary of the 128 interpolation phases
-  can take the neighbouring phase: 1/128 of a sample step, within
-  LINE_TOL = 2e-2 on the test ramp's steepest edge (the valid line count
-  is exact, pos within 5e-2 of a sample, freq within 1e-5, locked equal).
+- LineSync: the port carries the position as an integer base and a
+  float32 fraction and the frequency as freq + freq_lo (a compensated
+  sum), where JAX carries one float32 each (its position loses bits as it
+  grows through a block, its frequency holds still under steps below half
+  an ulp); the JAX side runs with its position and frequency in float64
+  (``_jax_sync64``), the same repair applied from the test. XLA sums the
+  44-sample half of the sync region in an order of its own (its
+  vectorised reduction), which the port does not copy; the port sums it
+  in a fixed tree, the same in the kernel. An ulp of difference in the
+  error moves the position by an ulp, and a sample whose fractional
+  position sits on a boundary of the 128 interpolation phases can take
+  the neighbouring phase: 1/128 of a sample step, within LINE_TOL = 2e-2
+  on the test ramp's steepest edge (the valid line count is exact, the
+  position within POS_TOL = 5e-2 of a sample, the frequency within
+  FREQ_TOL = 1e-5, locked equal). Against ``line_sync_model64`` (all in
+  float64) the carried positions agree within POS64_TOL = 1e-2 of a
+  sample over a 40-ms block; a block cut anywhere equals the block whole
+  bit for bit.
 - ChromaPLL: cos / sin / atan2 of numpy and of XLA differ by ulps; the
   frequency carry agrees within PLL_TOL = 3.6e-6 rad of a locked tone
   (the tolerance tests/test_torch_scans.py pins for the PLLs); the phase
@@ -43,9 +52,11 @@ Tolerances, each with its reason:
   first ulp of difference. The port's decoder takes bandwidth 0.003 and
   limits of pi / 1440 either side of the subcarrier, and is held to lock
   on ideal PAL lines (mean |burst error| below 0.05 rad over the last 20
-  of 200). LineSync carries a head of ceil(720 max_freq) + 7 samples where
-  JAX carries 7, so the line that straddles a block start is held to an
-  unsplit run, not to JAX (ROADMAP C).
+  of 200), and through its own band-pass on a PAL composite
+  (tests/test_torch_atv_repairs.py); the JAX decoder here takes the
+  port's reversed chroma taps. LineSync carries a head of ceil(720
+  max_freq) + 7 samples where JAX carries 7, so the line that straddles a
+  block start is held to an unsplit run, not to JAX (ROADMAP C).
 """
 
 import numpy as np
@@ -70,6 +81,7 @@ torch.set_num_threads(1)
 
 LINE_TOL = 2e-2
 POS_TOL = 5e-2
+POS64_TOL = 1e-2
 FREQ_TOL = 1e-5
 PLL_TOL = 3.6e-6
 PHASE_TOL = 1.6e-5
@@ -128,6 +140,21 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+def _jax_sync64(block):
+    """A JAX LineSync's call and initial state with its position and
+    frequency carried in float64 (its arithmetic otherwise its own): the
+    call runs with 64-bit types on and returns numpy arrays."""
+    with jax.enable_x64(True):
+        f = jax.jit(block.__call__)
+        state = dict(block.init_state(), pos=jnp.zeros((), jnp.float64),
+                     freq=jnp.full((), block.omega, jnp.float64))
+
+    def call(st, x):
+        with jax.enable_x64(True):
+            return _np(f(st, x))
+    return call, state
+
+
 # ---------------------------------------------------------------- LineSync
 
 LINE_CASES = {
@@ -156,23 +183,27 @@ def _line_sync_lines(ls, y, cuts=()):
 def test_line_sync_matches_jax_over_two_blocks(case):
     """The lines of two blocks against JAX's, within LINE_TOL, but the
     second block's first: that line began in the first block (a negative
-    carried pos), and JAX, which carries 7 samples, reads one clipped
+    carried position), and JAX, which carries 7 samples, reads one clipped
     window for its part before the block start; the port reads it from
-    its head and is held to an unsplit run there. The valid counts, pos,
-    freq and locked against JAX's, and the head's last 7 samples equal to
-    JAX's tail."""
+    its head and is held to an unsplit run there. The valid counts, the
+    position (JAX's pos, the port's base + pos), the frequency (the port's
+    freq + freq_lo) and locked against JAX's, and the head's last 7
+    samples equal to JAX's tail. JAX's LineSync runs with its position and
+    frequency carried in float64 (``_jax_sync64``): in float32 its
+    position loses bits as it grows and its frequency holds still under
+    the integrator's small steps, the two faults the port repairs."""
     c = LINE_CASES[case]
     x = make_video(**c["video"])
     jl = jatv.LineSync(**c["kw"])
     tl = tatv.LineSync(**c["kw"], device=CPU)
-    jf = jax.jit(jl.__call__)
-    js, ts = jl.init_state(), tl.init_state()
+    jf, js = _jax_sync64(jl)
+    ts = tl.init_state()
     half = len(x) // 2
     _, (first,) = _line_sync_lines(tl, x, (half,))
     unsplit, _ = _line_sync_lines(tl, x)
     for k, blk in enumerate((x[:half], x[half:])):
         js, (jlines, jvalid) = jf(js, jnp.asarray(blk))
-        straddle = k == 1 and float(ts["pos"]) < 0
+        straddle = k == 1 and int(ts["base"]) + float(ts["pos"]) < 0
         ts, (tlines, tvalid) = tl(ts, torch.from_numpy(blk))
         np.testing.assert_array_equal(np.asarray(jvalid), tvalid.numpy())
         keep = slice(1, None) if straddle else slice(None)
@@ -183,14 +214,18 @@ def test_line_sync_matches_jax_over_two_blocks(case):
             np.testing.assert_allclose(tlines.numpy()[0], unsplit[first],
                                        atol=LINE_TOL, rtol=0)
     jsn, tsn = _np(js), state_to_numpy(ts)
-    assert set(jsn) - {"tail"} == set(tsn) - {"head"}
+    assert set(jsn) - {"tail"} == set(tsn) - {"head", "base", "freq_lo"}
     assert tsn["head"].shape == (tl.head_len,)
+    assert tsn["base"].dtype == np.int64 and 0 <= tsn["pos"] <= 1
     np.testing.assert_array_equal(jsn["tail"], tsn["head"][-7:])
-    assert abs(float(jsn["pos"]) - float(tsn["pos"])) <= POS_TOL
-    assert abs(float(jsn["freq"]) - float(tsn["freq"])) <= FREQ_TOL
+    assert abs(float(jsn["pos"]) - (int(tsn["base"]) + float(tsn["pos"]))) \
+        <= POS_TOL
+    assert abs(float(jsn["freq"]) - (float(tsn["freq"])
+                                     + float(tsn["freq_lo"]))) <= FREQ_TOL
     assert bool(jsn["locked"]) == bool(tsn["locked"])
     for k in set(jsn) - {"tail"}:
-        assert jsn[k].shape == tsn[k].shape and jsn[k].dtype == tsn[k].dtype
+        assert jsn[k].shape == tsn[k].shape
+        assert tsn[k].dtype == (np.bool_ if k == "locked" else np.float32)
 
 
 def _decoder_video(n_lines):
@@ -204,23 +239,30 @@ def _decoder_video(n_lines):
 
 
 SPLIT_CASES = ["video_third", "video_half", "video_late", "decoder_third",
-               "decoder_half", "decoder_late"]
+               "decoder_half", "decoder_late", "decoder_four"]
+
+
+def split_cuts(n: int, at: str) -> tuple:
+    """The cuts of an n-sample block: a third, half, 2,000 samples before
+    its end, or four cuts (blocks of 0.17, 0.22, 0.3, 0.01 and 0.3 of it,
+    one shorter than a line)."""
+    return {"third": (n // 3,), "half": (n // 2,), "late": (n - 2000,),
+            "four": (int(0.17 * n), int(0.39 * n), int(0.69 * n),
+                     int(0.69 * n) + 500)}[at]
 
 
 @pytest.mark.parametrize("case", SPLIT_CASES)
 def test_line_sync_split_matches_unsplit(case):
     """A block cut in two (a third, half, or 2,000 samples before its end
-    in) against the block whole: the same lines, the line that straddles
-    the cut included. "video": the make_video signal of the "atv" case,
-    every line within LINE_TOL. "decoder": ATVDecoder's LineSync on one of
-    its 40-ms blocks of the decoder test's composite (625 lines); the
-    lines before the cut equal bit for bit, the straddling line within
-    LINE_TOL, and every later line locked to its sync tip. (Those later
-    lines are not held to the whole block's: the whole block places them
-    at float32 positions up to 4.5e5, an ulp of 1/32 sample, where the
-    cut block's positions are smaller; the discriminator's sharp edges
-    and chroma carrier turn that into up to ~0.25 on some samples, a
-    property of LineSync's float32 positions, equal in JAX.)"""
+    in) or at four points against the block whole: the same lines bit for
+    bit, every line, each straddling line included. "video": the
+    make_video signal of the "atv" case; "decoder": ATVDecoder's LineSync
+    on one of its 40-ms blocks of the decoder test's composite (625
+    lines), where every line past the first cut is also locked to its
+    sync tip. The whole
+    block's positions reach 4.5e5; the walk carries them as an integer
+    base and a fraction, so a cut moves base by an integer and leaves
+    every fraction as it was."""
     kind, at = case.split("_")
     if kind == "video":
         c = LINE_CASES["atv"]
@@ -229,18 +271,69 @@ def test_line_sync_split_matches_unsplit(case):
     else:
         y = _decoder_video(tatv.FRAME_LINES)
         ls = tatv.ATVDecoder(device=CPU).sync
-    cut = {"third": len(y) // 3, "half": len(y) // 2,
-           "late": len(y) - 2000}[at]
+    cuts = split_cuts(len(y), at)
     whole, _ = _line_sync_lines(ls, y)
-    split, (first,) = _line_sync_lines(ls, y, (cut,))
-    assert len(split) == len(whole) and 0 < first < len(whole)
-    if kind == "video":
-        np.testing.assert_allclose(split, whole, atol=LINE_TOL, rtol=0)
-        return
-    np.testing.assert_array_equal(split[:first], whole[:first])
-    np.testing.assert_allclose(split[first], whole[first], atol=LINE_TOL,
-                               rtol=0)
-    assert (split[first:, :27] < -0.1).mean(axis=1).min() > 0.9
+    split, firsts = _line_sync_lines(ls, y, cuts)
+    assert len(split) == len(whole) and 0 < firsts[0] < len(whole)
+    assert np.array_equal(split.view(np.uint32), whole.view(np.uint32))
+    if kind == "decoder":
+        assert (split[firsts[0]:, :27] < -0.1).mean(axis=1).min() > 0.9
+
+
+def line_sync_model64(ls, y):
+    """LineSync in float64 over ``y``, the stream's first block (a zero
+    head): the same interpolation bank, phases and sync regions, every
+    position, sum and update in float64. Returns each drawn line's (pos,
+    freq) and the carried one's, positions from the block's start."""
+    bank = ls.bank.numpy().astype(np.float64)
+    hoff = ls.head_len - 7
+    buf = np.concatenate([np.zeros(ls.head_len), y]).astype(np.float64)
+    n = len(y)
+    og, mg, lo, hi, level, bias = (float(v) for v in (
+        ls.omega_gain, ls.mu_gain, ls.min_freq, ls.max_freq, ls.sync_level,
+        ls.sync_bias))
+    pos, freq = 0.0, float(np.float32(ls.omega))
+    ks, drawn = np.arange(LINE_LEN), []
+    while pos + LINE_LEN * freq < n:
+        p = pos + ks * freq
+        fp = np.floor(p)
+        ph = np.clip(((p - fp) * 128).astype(int), 0, 127)
+        win = np.clip(fp.astype(int) + hoff, 0, n + hoff - 1)
+        line = (buf[win[:, None] + np.arange(7 + 1)] * bank[ph]).sum(axis=1)
+        left = (line[703:].sum() + line[:27].sum()) / 44
+        right = line[27:71].sum() / 44
+        ok = left < level and right < level
+        err = left + bias - right if ok else 0.0
+        nf = min(max(freq + og * err, lo), hi)
+        drawn.append((pos, freq))
+        pos, freq = pos + 719 * freq + nf + mg * err, nf
+    return drawn, (pos, freq)
+
+
+def test_line_sync_positions_match_float64():
+    """ATVDecoder's LineSync over one 40-ms block of the decoder test's
+    composite (positions up to 4.5e5), cut at the four cuts of
+    ``split_cuts``, against ``line_sync_model64``: at each cut and at the
+    block's end, the carried position (the cut plus base + pos) within
+    POS64_TOL of the model's and each block's valid line count exact.
+    Positions, not lines, are compared: a position 1e-3 away can take the
+    neighbouring one of the 128 interpolation phases, which on this
+    signal's edges moves a sample by more than LINE_TOL."""
+    y = _decoder_video(tatv.FRAME_LINES)
+    ls = tatv.ATVDecoder(device=CPU).sync
+    drawn, last = line_sync_model64(ls, y)
+    starts = [p for p, _ in drawn] + [last[0]]
+    ends = [p + LINE_LEN * f for p, f in drawn] + [last[0] + LINE_LEN * last[1]]
+    cuts = split_cuts(len(y), "four")
+    st, done = ls.init_state(), 0
+    for a, b in zip((0, *cuts), (*cuts, len(y))):
+        st, (_, valid) = ls(st, torch.from_numpy(y[a:b]))
+        count = int(np.searchsorted(ends, b))   # the model's lines before b
+        assert int(valid.sum()) == count - done
+        done = count
+        carried = b + int(st["base"]) + float(st["pos"])
+        assert abs(carried - starts[count]) <= POS64_TOL
+    assert done == len(drawn)
 
 
 def test_line_sync_locks_and_aligns():
@@ -369,8 +462,10 @@ def _pal_iq(n_lines, seed=8):
     each line a sync tip, a grey ramp, a colour burst at the subcarrier
     over the samples the chroma PLL's window reads (the FIR's delay
     before it), its phase alternating +-135 degrees by line, a chroma
-    carrier over the active region, and seeded noise (chip_smoke.py's
-    atv-11p25 signal)."""
+    carrier over the active region, and seeded noise. Its sync tip fills
+    LineSync's 88-sample window and overlaps the burst's first samples
+    (test_torch_atv_repairs.py's ``pal_composite`` puts the burst on the
+    back porch)."""
     k = np.arange(LINE_LEN)
     line = np.where((k < 71) | (k >= LINE_LEN - 17), -0.3,
                     0.1 + 0.3 * (k - 71) / (LINE_LEN - 88))
@@ -458,11 +553,18 @@ def test_atv_decoder_matches_jax(bandwidth):
     """ATVDecoder.process on a PAL composite (``_pal_iq``), 9 calls of 80
     lines (one frame rollover), in both packages: the same line counts and
     vertical scan, and, with the same chroma PLL in both decoders
-    (LOCKING_BW), the same frames within 1 LSB. Each call's first line
+    (LOCKING_BW), the same frames within 1 LSB. The JAX decoder takes the
+    port's two repairs from here, no JAX file changing: its ``_taps`` are
+    set to the reversed table (``chroma_filter_taps``) before its first
+    call, and its LineSync runs with its position and frequency carried
+    in float64 (``_jax_sync64``; JAX counts the position in float32 from
+    the block start: 5.7e4 at the end of a call, an ulp of 1/256 sample,
+    and its lines part from exact positions' by up to 0.029 on the sync
+    edges). Each call's first line
     after the first call began in the call before, and JAX, which carries
     7 samples, reads one clipped window for its part before the block
-    start (ROADMAP C); the port's is held within LINE_TOL to its LineSync
-    run unsplit over that call and the one before. So the JAX decoder's
+    start (ROADMAP C); the port's is held bit for bit to its LineSync run
+    unsplit over that call and the one before. So the JAX decoder's
     process() runs here step by step: its lines held to the port's within
     LINE_TOL but those two of each call (the line after a straddling one
     is placed by its sync error, JAX's from the clipped window), and its
@@ -474,6 +576,9 @@ def test_atv_decoder_matches_jax(bandwidth):
     port's does (test_atv_decoder_chroma_pll_locks)."""
     calls = np.split(_pal_iq(9 * 80), 9)
     jd = jatv.ATVDecoder(span_level=1.0)
+    jd._taps = jnp.asarray(tatv.chroma_filter_taps(), jnp.complex64)
+    jquad = jax.jit(jd.quad.__call__)
+    jsync, jd.state["sync"] = _jax_sync64(jd.sync)
     td = tatv.ATVDecoder(span_level=1.0, device=CPU)
     if bandwidth is not None:
         _with_pll(jd, jatv, bandwidth)
@@ -481,10 +586,11 @@ def test_atv_decoder_matches_jax(bandwidth):
     td.sync = tap = _Tap(td.sync)
     jframes, tframes = [], []
     for k, iq in enumerate(calls):
-        jd.state["quad"], jd.state["sync"], jl, jv = jd._front(
-            jd.state["quad"], jd.state["sync"], jnp.asarray(iq))
+        jd.state["quad"], y = jquad(jd.state["quad"], jnp.asarray(iq))
+        jd.state["sync"], (jl, jv) = jsync(jd.state["sync"], y)
+        jlines = jl[jv]
         tframes += td.process(iq)
-        jlines, tlines = np.asarray(jl)[np.asarray(jv)], tap.calls[-1][2]
+        tlines = tap.calls[-1][2]
         assert len(jlines) == len(tlines) > 0
         # past the straddling line and the next, which its sync error
         # placed (JAX's from the clipped window)
@@ -504,8 +610,7 @@ def test_atv_decoder_matches_jax(bandwidth):
     for (st, y0, lines0), (_, y1, lines1) in zip(tap.calls, tap.calls[1:]):
         _, (both, valid) = tap.block(st, torch.cat([y0, y1]))
         assert int(valid.sum()) == len(lines0) + len(lines1)
-        np.testing.assert_allclose(lines1[0], both[len(lines0)].numpy(),
-                                   atol=LINE_TOL, rtol=0)
+        np.testing.assert_array_equal(lines1[0], both[len(lines0)].numpy())
     assert len(jframes) == len(tframes) >= 1
     assert (jd.assembler.ypos, jd.assembler.even_frame) == \
         (td.assembler.ypos, td.assembler.even_frame)

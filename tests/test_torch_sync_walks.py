@@ -367,12 +367,13 @@ LINE_RING = 16384      # csrc/sync_walk.cu kLineRing
 TAPS = 8
 
 
-def _locate(p, n, hoff=0):
+def _locate(p, nh, bc):
     """A sample position's bank row and window start in buf = [head | x]
-    (hoff = head - 7), as the kernel and the plain version take them."""
+    (nh = n + head - 7; bc = base + head - 7, the line's window base), as
+    the kernel and the plain version take them."""
     fp = np.floor(p)
     ph = min(max(int(F32(p - fp) * F32(128)), 0), 127)
-    return ph, min(max(int(fp) + hoff, 0), n + hoff - 1)
+    return ph, min(max(int(fp) + bc, 0), nh - 1)
 
 
 def _taps(w, b):
@@ -382,8 +383,8 @@ def _taps(w, b):
     return acc
 
 
-def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
-               min_freq, max_freq, sync_level, sync_bias, head):
+def line_model(buf, bank, carry, base, locked, max_lines, omega_gain,
+               mu_gain, min_freq, max_freq, sync_level, sync_bias, head):
     """numpy model of the split ``line_sync_kernel``: the walker (one warp)
     interpolates only the 88 sync samples, lanes 0-15 the left half and
     16-31 the right, three a lane (v[L], v[L + 16], v[L + 32]), reading
@@ -392,16 +393,20 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
     staged (a greedy stager: up to the last published release plus the
     ring), else from ``buf``; sums
     each half by the tree's first two levels in the lane and xor
-    shuffles 8, 4, 2, 1 and 16 (every lane's copy checked equal); records
-    each line's (pos, freq); the lines are drawn afterwards from the
-    records. Returns the kernel's outputs and the count of ring reads and
-    of reads from device memory."""
+    shuffles 8, 4, 2, 1 and 16 (every lane's copy checked equal); updates
+    the frequency with its compensated remainder and rebases the
+    position (an integer base and a fraction) after every line; records
+    each line's (pos, freq) and window base; the lines are drawn
+    afterwards from the records. Returns the kernel's outputs and the
+    count of ring reads and of reads from device memory."""
     buf = np.asarray(buf, F32)
     bank = np.asarray(bank, F32)
     n, total, hoff = buf.shape[0] - head, buf.shape[0], head - 7
+    nh = n + hoff
     og, mg, lo, hi, level, bias = (F32(x) for x in (
         omega_gain, mu_gain, min_freq, max_freq, sync_level, sync_bias))
-    pos, freq = (F32(x) for x in carry)
+    pos, freq, flo = (F32(x) for x in carry)
+    pos, at = W.rebase(pos, int(base))
     lk = bool(locked)
     ring = np.full(LINE_RING + TAPS, np.nan, F32)
     staged, published, release = 0, 0, 0
@@ -413,7 +418,13 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
             kf[lane, r] = 27 + i if half else (703 + i if i < 17 else i - 17)
     records, reads = [], {"ring": 0, "device": 0}
     l = 0
-    while l < max_lines and pos + F32(720) * freq < F32(n):
+    fits = abs(freq) <= W.FREQ_LIMIT
+    while fits and l < max_lines:
+        # the kernel's exact test: the integer n - at clipped to +-2^22
+        if not pos + F32(720) * freq < F32(min(max(n - at, -2 ** 22),
+                                               2 ** 22)):
+            break
+        bc = min(max(at + hoff, -2 ** 23), nh + 2 ** 23)
         # the stager, as far as the published release allows
         staged = max(staged, published)
         end = min(total, published + LINE_RING)
@@ -422,15 +433,15 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
             if (i & (LINE_RING - 1)) < TAPS:
                 ring[LINE_RING + (i & (LINE_RING - 1))] = buf[i]
         staged = max(staged, end)
-        w0 = _locate(pos, n, hoff)[1]
-        w1 = _locate(pos + F32(719) * freq, n, hoff)[1]
+        w0 = _locate(pos, nh, bc)[1]
+        w1 = _locate(pos + F32(719) * freq, nh, bc)[1]
         release = max(release, min(w0, w1))
         # the whole line from the ring, or from buf
         ring_line = min(w0, w1) >= release and max(w0, w1) + TAPS <= staged
         v = np.zeros((32, 3), F32)
         for lane in range(32):
             for r in range(3):
-                ph, b = _locate(pos + kf[lane, r] * freq, n, hoff)
+                ph, b = _locate(pos + kf[lane, r] * freq, nh, bc)
                 if ring_line:
                     assert b >= release and b + TAPS <= staged
                     w = ring[(b & (LINE_RING - 1)):][:TAPS]
@@ -441,7 +452,7 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
                     w = buf[b:b + TAPS]
                     reads["device"] += 1
                 v[lane, r] = _taps(w, bank[ph])
-        records.append((pos, freq))
+        records.append((pos, freq, bc))
         published = release
         third = (np.arange(32) & 15) + 32 < 44
         t = (v[:, 0] + np.where(third, v[:, 2], F32(0))) + (v[:, 1] + F32(0))
@@ -455,17 +466,20 @@ def line_model(buf, bank, carry, locked, max_lines, omega_gain, mu_gain,
         left, right = sl[0] / F32(44), sr[0] / F32(44)
         ok = bool(left < level and right < level)
         err = (left + bias) - right if ok else F32(0)
-        nf = min(max(freq + og * err, lo), hi)
-        pos = ((pos + F32(719) * freq) + nf) + mg * err
+        y = og * err + flo
+        fy = freq + y
+        nf = min(max(fy, lo), hi)
+        flo = y - (fy - freq) if nf == fy else F32(0)
+        pos, at = W.rebase(((pos + F32(719) * freq) + nf) + mg * err, at)
         freq, lk = F32(nf), ok
         l += 1
     lines = np.zeros((max_lines, 720), F32)
     ks = np.arange(720, dtype=F32)
-    for d, (p0, f0) in enumerate(records):
+    for d, (p0, f0, bc) in enumerate(records):
         for k in range(720):
-            ph, b = _locate(p0 + ks[k] * f0, n, hoff)
+            ph, b = _locate(p0 + ks[k] * f0, nh, bc)
             lines[d, k] = _taps(buf[b:b + TAPS], bank[ph])
-    return (lines, l, np.array([pos, freq], F32), lk), reads
+    return (lines, l, np.array([pos, freq, flo], F32), at, lk), reads
 
 
 def _line_cases():
@@ -474,9 +488,11 @@ def _line_cases():
     -717 (behind a 7-sample head: its windows clipped to sample 0; behind
     LineSync's head of ceil(720 max_freq) + 7: read from the head), freq
     pinned at either limit, unlocked lines, max_lines reached,
-    no line, jumps past the staging guard over noise, and positions past
-    2^22 (where the kernel locates them with floorf, not its exact float
-    trick) each way."""
+    no line, jumps past the staging guard over noise, positions past 2^22
+    each way (rebased on entry: the kernel's floorf path below -2^22), a
+    nonzero base (the walk starts mid-block) and a carried frequency
+    remainder. Carried positions are given whole as carry[0] with base 0
+    (the entry's rebase splits them) but in "mid_base"."""
     from sdrpp_tpu_torch.decoders import atv
 
     ls = atv.LineSync(1.0, omega_gain=1e-6, mu_gain=1.0,
@@ -492,31 +508,33 @@ def _line_cases():
     noise = rng.standard_normal(buf.shape).astype(F32)
     big = rng.standard_normal(2 ** 22 + 30 * 720).astype(F32)
     n = buf.shape[0] - 7
-    base = dict(buf=buf, carry=(0.0, 1.0), locked=False,
+    base = dict(buf=buf, carry=(0.0, 1.0, 0.0), base=0, locked=False,
                 max_lines=ls.max_lines(n), omega_gain=ls.omega_gain,
                 mu_gain=ls.mu_gain, sync_level=ls.sync_level,
                 sync_bias=ls.sync_bias, head=7)
     cases = {
         "atv": {},
-        "neg_pos": dict(carry=(-717.25, 1.0)),
+        "neg_pos": dict(carry=(-717.25, 1.0, 0.0)),
         "carried_head": dict(buf=headed, head=ls.head_len,
-                             carry=(-717.25, 1.0)),
+                             carry=(-717.25, 1.0, 0.0)),
         "freq_hi": dict(omega_gain=0.05, sync_level=1e9, sync_bias=1.0),
         "freq_lo": dict(omega_gain=0.05, sync_level=1e9, sync_bias=-1.0),
         "unlocked": dict(locked=True, sync_level=-1e9),
         "max_lines": dict(max_lines=7),
-        "no_line": dict(carry=(n - 700.0, 1.0)),
+        "no_line": dict(carry=(n - 700.0, 1.0, 0.0)),
         "jump": dict(buf=noise, mu_gain=4000.0, sync_level=1e9),
         "far_jump": dict(buf=noise, mu_gain=40000.0, sync_level=1e9),
-        "big_pos": dict(buf=big, carry=(2.0 ** 22 - 100.25, 1.0),
+        "big_pos": dict(buf=big, carry=(2.0 ** 22 - 100.25, 1.0, 0.0),
                         max_lines=40, sync_level=1e9),
-        "big_neg": dict(carry=(-5e6, 1.0), max_lines=7),
+        "big_neg": dict(carry=(-5e6, 1.0, 0.0), max_lines=7),
+        "mid_base": dict(carry=(0.375, 1.0, 0.0), base=9000),
+        "freq_rem": dict(carry=(0.0, 1.0, 5e-8)),
     }
     out = {}
     for name, kw in cases.items():
         c = {**base, **kw}
-        out[name] = (c["buf"], ls.bank.numpy(), c["carry"], c["locked"],
-                     c["max_lines"], c["omega_gain"], c["mu_gain"],
+        out[name] = (c["buf"], ls.bank.numpy(), c["carry"], c["base"],
+                     c["locked"], c["max_lines"], c["omega_gain"], c["mu_gain"],
                      ls.min_freq, ls.max_freq, c["sync_level"],
                      c["sync_bias"], c["head"])
     return out
@@ -524,19 +542,20 @@ def _line_cases():
 
 @pytest.mark.parametrize("case", sorted(_line_cases()))
 def test_line_split_design_equals_plain(case):
-    buf, bank, carry, locked, *rest = _line_cases()[case]
-    (lines, count, carry_out, lk), reads = line_model(buf, bank, carry,
-                                                      locked, *rest)
+    buf, bank, carry, base, locked, *rest = _line_cases()[case]
+    (lines, count, carry_out, at, lk), reads = line_model(
+        buf, bank, carry, base, locked, *rest)
     ref = W.line_sync_walk_plain(
         torch.from_numpy(buf), torch.from_numpy(bank),
-        torch.tensor(carry, dtype=torch.float32),
+        torch.tensor(carry, dtype=torch.float32), torch.tensor([base]),
         torch.tensor([locked]), *rest)
     assert np.array_equal(lines.view(np.uint32), ref[0].numpy().view(
         np.uint32))
     assert count == int(ref[1])
     assert np.array_equal(carry_out.view(np.uint32),
                           ref[2].numpy().view(np.uint32))
-    assert lk == bool(ref[3])
+    assert at == int(ref[3]) and lk == bool(ref[4])
+    assert 0 <= carry_out[0] <= 1
     if case == "max_lines":
         assert count == rest[0]
     if case in ("freq_hi", "freq_lo"):   # freq pinned at the limit
@@ -546,7 +565,12 @@ def test_line_split_design_equals_plain(case):
     if case == "no_line":
         assert count == 0 and not lines.any()
     if case == "big_pos":  # the buffer's end, past 2^22, ends the walk
-        assert 0 < count < rest[0] and carry_out[0] > 2 ** 22
+        assert 0 < count < rest[0] and at + carry_out[0] > 2 ** 22
+    if case == "mid_base":  # from the block's middle to its end
+        assert count == (len(buf) - 7 - 9000) // 720
+        assert at + carry_out[0] > len(buf) - 7 - 760
+    if case == "freq_rem":  # the remainder reaches freq
+        assert carry_out[1] != F32(1) or carry_out[2] != F32(5e-8)
     if case in ("atv", "jump", "far_jump", "carried_head"):
         assert reads["ring"] > 0
     if case == "carried_head":  # the carried line's windows lie in the head

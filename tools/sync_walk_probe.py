@@ -14,11 +14,14 @@ cases (``line_walk_cases``, ``chroma_walk_case``, ``cyclic_walk_cases``):
    or sample; mode 0 is the baseline kernel; for LineSync also the chain
    floor (``line_floor``: the one-warp sync chain alone);
 2. the package's kernels against mode 0 on every case: outputs bit for
-   bit (``equal``, and by output ``equal_fields``; LineSync and
-   CyclicSync must be equal, ChromaPLL's design differs by ulps:
-   ``max_abs_diff``), times side by side in turns (baseline, package,
-   package, baseline); for LineSync also the package's time in
-   SPREAD_ROUNDS rounds (``package_spread_ms``);
+   bit (``equal``, and by output ``equal_fields``; CyclicSync must be
+   equal, ChromaPLL's design differs by ulps: ``max_abs_diff``), times
+   side by side in turns (baseline, package, package, baseline); LineSync
+   is held bit for bit to its plain version instead (the baseline counts
+   positions in float32 from the block start, given here the case's base
+   + pos, where the package carries an integer base and a fraction and a
+   compensated frequency), and its time also taken in SPREAD_ROUNDS
+   rounds (``package_spread_ms``);
 3. the package's kernels built with their stamps (``stamped``): each
    role's clock64() cycles a line, step or sample, outputs equal the
    package's.
@@ -129,9 +132,16 @@ def cyclic_probe(lib, args, mode):
     return (emits, count, carry_out, since_out, symbuf_out), cycles
 
 
+def baseline_carry(carry, base):
+    """The baseline kernels' carry: float32 [2] (base + pos, freq)."""
+    return torch.stack([(base[0].double() + carry[0].double()).float(),
+                        carry[1]])
+
+
 def line_probe(lib, args, mode):
-    buf, bank, carry, locked, max_lines = args[:5]
-    head = args[11]
+    buf, bank, carry, base, locked, max_lines = args[:6]
+    carry = baseline_carry(carry, base)
+    head = args[12]
     n = buf.shape[0] - head
     dev = buf.device
     lines = buf.new_empty((max_lines, W.LINE_LEN))
@@ -143,7 +153,7 @@ def line_probe(lib, args, mode):
                         carry.data_ptr(), locked.data_ptr(),
                         carry_out.data_ptr(), locked_out.data_ptr(),
                         lines.data_ptr(), count.data_ptr(), max_lines,
-                        *(float(np.float32(v)) for v in args[5:11]), mode,
+                        *(float(np.float32(v)) for v in args[6:12]), mode,
                         cycles.data_ptr(), stream())
     assert rc == 0, rc
     return (lines, count, carry_out, locked_out), cycles
@@ -152,15 +162,16 @@ def line_probe(lib, args, mode):
 def line_floor(lib, args):
     """The one-warp sync chain alone (``line_floor_kernel``): clock64
     cycles a line."""
-    buf, bank, carry, locked, max_lines = args[:5]
-    head = args[11]
+    buf, bank, carry, base, locked, max_lines = args[:6]
+    carry = baseline_carry(carry, base)
+    head = args[12]
     carry_out = carry.new_empty(2)
     cycles = torch.zeros(2, dtype=torch.int64, device=buf.device)
 
     def run():
         rc = lib.line_floor(buf.data_ptr(), buf.shape[0] - head, head,
                             bank.data_ptr(), carry.data_ptr(), max_lines,
-                            *(float(np.float32(v)) for v in args[5:11]),
+                            *(float(np.float32(v)) for v in args[6:12]),
                             carry_out.data_ptr(), cycles.data_ptr(), stream())
         assert rc == 0, rc
     run()
@@ -233,11 +244,12 @@ def split(fn, steps):
     return res
 
 
-def versus(probe, package):
+def versus(probe, package, plain=None):
     """The baseline kernel (probe mode 0) against the package's on the same
-    arguments: equal bit for bit, and both timed in turns."""
-    ref, _ = probe(0)
-    got = package()
+    arguments: equal bit for bit (to ``plain``'s outputs where given, the
+    plain version's on the CPU), and both timed in turns."""
+    ref = plain() if plain else probe(0)[0]
+    got = tuple(g.cpu() for g in package()) if plain else package()
     torch.cuda.synchronize()
     equal = same_bits(got, ref)
     fields = [bool(torch.equal(bits_of(g), bits_of(r)))
@@ -294,14 +306,18 @@ def main() -> int:
         if kind == "atv":
             entry["floor"] = line_floor(lib, args)
             print(f"  chain floor {entry['floor']}", flush=True)
-        entry.update(versus(probe, lambda a=args: W.line_sync_walk(*a)))
+        entry.update(versus(
+            probe, lambda a=args: W.line_sync_walk(*a),
+            plain=lambda a=args: W.line_sync_walk_plain(*(
+                x.cpu() if isinstance(x, torch.Tensor) else x for x in a))))
         entry["package_spread_ms"] = spread(
             lambda a=args: W.line_sync_walk(*a))
         entry["stamped"] = stamped(lib, "line_sync_walk", W.line_sync_walk,
                                    args, max(lines, 1),
                                    (("walker", 1), ("stager", 1),
                                     ("drawer", 11)))
-        print(f"  package vs baseline: {entry}", flush=True)
+        print(f"  package vs plain, and timed beside the baseline: {entry}",
+              flush=True)
         result["line"][kind] = entry
     for kind in ("locked", "wrap") if "chroma" in only else ():
         args, _ = C.chroma_walk_case(dev, kind)
