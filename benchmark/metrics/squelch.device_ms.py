@@ -1,0 +1,8 @@
+"""IF chain (``ops/scans.Squelch``): device ms of the kernels launched
+inside the ``squelch`` range, a traced block."""
+
+
+def read(ctx):
+    s = ctx.trace.layer_s("squelch") if ctx.trace is not None else None
+    per = ctx.per_block_s(s)
+    return None if per is None else per * 1e3
