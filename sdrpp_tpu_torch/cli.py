@@ -14,7 +14,10 @@ The counterparts of ``sdrpp_tpu``'s commands (sdrpp_tpu/cli.py):
   throughput line is logged; ``--mode raw`` records the baseband IQ as
   stereo WAV on the host, as the JAX command does;
 - ``bank``: many channels at once through the batched ``ScannerBank``, one
-  WAV, FLAC or MP3 recording per channel (cli.py:257-331);
+  WAV, FLAC or MP3 recording per channel (cli.py:257-331); ``--trace
+  LOGDIR`` writes the Chrome trace and logs the program's spans by name
+  (``utils.tracing.summary``: count, and host ms, device ms, self device
+  ms and value a block);
 - ``spectrum``: the ``IQFrontEnd``'s waterfall dB lines to .npy, and the
   palette-mapped framebuffer with ``--framebuffer`` (cli.py:334-387);
 - ``scan``: the scanner's sweep over the front end's FFT lines, reporting
@@ -192,22 +195,33 @@ def _stream(step, state, src, block: int, max_blocks: int, device, write,
             monitor=None, label: str | None = None, offset: int = 0):
     """The device loop of ``run`` and ``bank``: each block of ``src``
     (``_blocks``, from stream position ``offset``) through ``step`` (state,
-    x) -> (state, y), inside ``monitor.block`` (a ``StreamMonitor``) and an
-    ``annotate(label)`` trace region when given, each y handed to
-    ``write`` on the host one block late (``DeferredWriter``). Returns
-    (final state, stream position)."""
+    x) -> (state, y), inside an ``annotate(label)`` span when given, each
+    y handed to ``write`` on the host one block late (``DeferredWriter``).
+    ``monitor`` (a ``StreamMonitor``) counts a block when its y reaches
+    the host, timed from its step's start. Returns (final state, stream
+    position)."""
     from .utils.pipeline import DeferredWriter
     from .utils.tracing import annotate
 
-    writer = DeferredWriter(write)
+    def deliver(y):
+        write(y)
+        if monitor:
+            monitor.done(block)
+
+    writer = DeferredWriter(deliver)
     for x in _blocks(src, block, max_blocks, device, start=offset):
-        with (monitor.block(block) if monitor else contextlib.nullcontext()), \
-                (annotate(label) if label else contextlib.nullcontext()):
+        if monitor:
+            monitor.start()
+        with (annotate(label) if label else contextlib.nullcontext()):
             state, y = step(state, x)
             writer.push(y)
         offset += block
     writer.flush()
     return state, offset
+
+
+def _ms(v) -> str:
+    return "n/a" if v is None else f"{v:.3f}"
 
 
 def _add_device_arg(p):
@@ -492,6 +506,9 @@ def cmd_bank(argv):
                    help="recording container (the recorder's WAV/FLAC/MP3)")
     p.add_argument("--blocks", type=int, default=4)
     p.add_argument("--block-size", type=int, default=262144)
+    p.add_argument("--trace", default=None, metavar="LOGDIR",
+                   help="write a torch.profiler Chrome trace of the run "
+                        "to LOGDIR and log the program's spans a block")
     _add_device_arg(p)
     args = p.parse_args(argv)
 
@@ -499,7 +516,7 @@ def cmd_bank(argv):
 
     from .io.sinks import RecorderSink
     from .parallel.vfo_bank import ScannerBank
-    from .utils.tracing import StreamMonitor
+    from .utils.tracing import StreamMonitor, summary, trace
 
     device = torch.device(args.device)
     src = _make_source(args.source, args.tone)
@@ -524,13 +541,22 @@ def cmd_bank(argv):
              for i, o in enumerate(offsets)]
     state = bank.init_state()
     mon = StreamMonitor(samplerate=fs)
-    _stream(bank, state, src, block, args.blocks, device,
-            lambda a: [sink.write(a[i]) for i, sink in enumerate(sinks)],
-            monitor=mon)
+    with (trace(args.trace) if args.trace else contextlib.nullcontext()):
+        _stream(bank, state, src, block, args.blocks, device,
+                lambda a: [sink.write(a[i]) for i, sink in enumerate(sinks)],
+                monitor=mon)
     for sink in sinks:
         sink.close()
     log.info("%s (x%d channels = %.1f Maggsamp/s)", mon, len(offsets),
              mon.samples_per_sec * len(offsets) / 1e6)
+    if args.trace:
+        log.info("profiler trace -> %s; spans, each a block: count, host "
+                 "ms, device ms, self device ms, value (prefetch.wait's: "
+                 "blocks ready)", args.trace)
+        for name, s in summary().items():
+            log.info("span %-15s %6d %10.3f %10s %10s %8s", name, s["count"],
+                     s["host_ms"], _ms(s["device_ms"]),
+                     _ms(s["self_device_ms"]), _ms(s["value"]))
     log.info("%d channel recordings -> %s/", len(sinks), out_dir)
     return 0
 

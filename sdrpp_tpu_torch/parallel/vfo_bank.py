@@ -32,6 +32,7 @@ from ..ops.mix import FrequencyXlatorBank
 from ..ops.resample import RationalResampler
 from ..ops.scans import Squelch
 from ..utils.blocks import Block
+from ..utils.tracing import annotate
 from .mesh import replicated, shard_placements
 from .spmd import axis_size, channel_shard, local_rows
 
@@ -82,11 +83,14 @@ class VFOBank(Block):
         }
 
     def __call__(self, state, x):
-        xs, y = self.xlator(state["xlator"], x)
-        rs, y = self.resamp(state["resamp"], y)
+        with annotate("vfo.mix", device=True):
+            xs, y = self.xlator(state["xlator"], x)
+        with annotate("vfo.resample", device=True):
+            rs, y = self.resamp(state["resamp"], y)
         fs = ()
         if self.filter is not None:
-            fs, y = self.filter(state["filter"], y)
+            with annotate("vfo.filter", device=True):
+                fs, y = self.filter(state["filter"], y)
         return {"xlator": xs, "resamp": rs, "filter": fs}, y
 
 
@@ -119,6 +123,12 @@ class ScannerBank(Block):
     integer in/IF rate ratio). Output: [C, n_audio] float32 audio per
     channel ([C, n_audio, 2] for WFM). The device defaults to ``cuda``;
     without a card construction raises rather than falling back.
+
+    Spans (``utils.tracing.annotate``): ``bank`` around a call, carrying
+    its number (``calls``) as the block id of every span beneath it, and
+    ``bank.vfo``, ``bank.squelch``, ``bank.demod``, ``bank.af`` around
+    its stages; ``VFOBank`` adds ``vfo.mix``, ``vfo.resample`` and
+    ``vfo.filter``. All are timed on the card's stream too.
     """
 
     def __init__(self, offsets_hz, in_samplerate: float, mode: str = "usb",
@@ -128,6 +138,7 @@ class ScannerBank(Block):
                  device="cuda"):
         self.channels = len(np.asarray(offsets_hz))
         self.mode = mode
+        self.calls = 0  # blocks run: the block id of the bank's spans
         ls = (self.channels,)
         if channelizer == "fft":
             self.vfo = FFTChannelizerBank(offsets_hz, in_samplerate, if_rate,
@@ -168,16 +179,22 @@ class ScannerBank(Block):
         }
 
     def __call__(self, state, x):
-        vs, y = self.vfo(state["vfo"], x)
-        ss = ()
-        if self.squelch is not None:
-            ss, y = self.squelch(state["squelch"], y)
-        ds, audio = self.demod(state["demod"], y)
-        afs = ()
-        if self.af is not None:
-            # [C, n, 2] stereo -> [C, 2, n] planes -> resample -> back
-            afs, planes = self.af(state["af"], audio.transpose(-1, -2))
-            audio = planes.transpose(-1, -2)
+        block, self.calls = self.calls, self.calls + 1
+        with annotate("bank", block, device=True):
+            with annotate("bank.vfo", device=True):
+                vs, y = self.vfo(state["vfo"], x)
+            ss = ()
+            if self.squelch is not None:
+                with annotate("bank.squelch", device=True):
+                    ss, y = self.squelch(state["squelch"], y)
+            with annotate("bank.demod", device=True):
+                ds, audio = self.demod(state["demod"], y)
+            afs = ()
+            if self.af is not None:
+                with annotate("bank.af", device=True):
+                    # [C, n, 2] stereo -> [C, 2, n] planes -> resample -> back
+                    afs, planes = self.af(state["af"], audio.transpose(-1, -2))
+                    audio = planes.transpose(-1, -2)
         return {"vfo": vs, "squelch": ss, "demod": ds, "af": afs}, audio
 
     def _leaf_spec(self, leaf, axis="channels"):

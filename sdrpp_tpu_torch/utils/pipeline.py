@@ -17,6 +17,15 @@ between source and graph, core/src/dsp/buffer/frame_buffer.h:10-133):
 
 Together, read | device | write run as a 3-stage pipeline with the same
 (state, x) -> (state, y) step and the same outputs, byte for byte.
+
+Spans (``utils.tracing.annotate``; each carries the block's number, the
+Prefetcher's reads and the DeferredWriter's pushes counted from 0, which
+in a streaming loop of objects built for it are the step's calls):
+``prefetch.wait`` (the queue, with the blocks ready as its value),
+``prefetch.stage`` (the pinned slot freed and filled), ``prefetch.h2d``
+(the copy enqueued on the side stream); ``writer.d2h`` (the pinned
+buffer and the copy on the compute stream, timed on the card too) and
+``writer.wait`` (a block's copy waited for and handed to ``write_fn``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import threading
 
 import numpy as np
 import torch
+
+from .tracing import annotate
 
 __all__ = ["DEPTH", "Prefetcher", "DeferredWriter"]
 
@@ -58,6 +69,7 @@ class Prefetcher:
             self._copied = [torch.cuda.Event() for _ in range(slots)]
             self._side = torch.cuda.Stream(self.device)
             self._next = 0
+        self._reads = 0
         self._thread = threading.Thread(target=self._fill, daemon=True,
                                         name="prefetcher")
         self._thread.start()
@@ -98,16 +110,19 @@ class Prefetcher:
         if n != self.block:
             raise ValueError(f"Prefetcher reads blocks of {self.block}, "
                              f"not {n}")
-        chunk = np.ascontiguousarray(self._chunk(), np.complex64)
+        block, self._reads = self._reads, self._reads + 1
+        with annotate("prefetch.wait", block, value=self._q.qsize()):
+            chunk = np.ascontiguousarray(self._chunk(), np.complex64)
         if self.device.type != "cuda":
             return torch.from_numpy(chunk).to(self.device)
         k = self._next
         self._next = (k + 1) % len(self._slots)
-        self._copied[k].synchronize()  # the slot's last copy has finished
-        slot = self._slots[k][:len(chunk)]  # a file's last block may be short
-        slot.numpy()[:] = chunk
+        with annotate("prefetch.stage", block):
+            self._copied[k].synchronize()  # the slot's last copy is done
+            slot = self._slots[k][:len(chunk)]  # short at a file's end
+            slot.numpy()[:] = chunk
         compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._side):
+        with torch.cuda.stream(self._side), annotate("prefetch.h2d", block):
             x = torch.empty(len(chunk), dtype=torch.complex64,
                             device=self.device)
             x.copy_(slot, non_blocking=True)
@@ -138,26 +153,31 @@ class DeferredWriter:
     def __init__(self, write_fn):
         self.write_fn = write_fn
         self._pending = None
+        self._pushes = 0
 
     def push(self, out):
-        out = torch.as_tensor(out)
-        if out.is_cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(out.device))
-            item = (host, done)
-        else:
-            item = (out, None)
+        block, self._pushes = self._pushes, self._pushes + 1
+        with annotate("writer.d2h", block, device=True):
+            out = torch.as_tensor(out)
+            if out.is_cuda:
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(out.device))
+                item = (host, done, block)
+            else:
+                item = (out, None, block)
         prev, self._pending = self._pending, item
         if prev is not None:
             self._write(prev)
 
     def _write(self, item):
-        host, done = item
-        if done is not None:
-            done.synchronize()
-        self.write_fn(host.numpy())
+        host, done, block = item
+        with annotate("writer.wait", block):
+            if done is not None:
+                done.synchronize()
+            self.write_fn(host.numpy())
 
     def flush(self):
         if self._pending is not None:

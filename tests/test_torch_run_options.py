@@ -435,4 +435,6 @@ def test_run_and_bank_arguments_match_jax(cmd):
     j, t = _options(jcli, cmd), _options(tcli, cmd)
     assert t.pop(("--device",))[1] == "cuda"
     j.pop(("--cpu",))
+    if cmd == "bank":  # the port's bank also writes a trace, as run does
+        assert t.pop(("--trace",)) == ("trace", None, ())
     assert t == j
