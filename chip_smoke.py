@@ -17,9 +17,9 @@ exit, no result line) if any phase fails:
 
 1. device: a CUDA card is required; prints nvidia-smi's name and power limit;
 2. build: compiles csrc/loop_scan.cu, mm_clock.cu, viterbi.cu,
-   decim_fir.cu and sync_walk.cu for sm_90a from this checkout, one nvcc
-   each, tools/viterbi_probe.cu (the general ACS's old kernel and chain
-   floors, for ``phase_acs_redesign``) and the
+   decim_fir.cu, sync_walk.cu and mix.cu for sm_90a from this checkout,
+   one nvcc each, tools/viterbi_probe.cu (the general ACS's old kernel
+   and chain floors, for ``phase_acs_redesign``) and the
    kernels' compiled host paths, csrc/kernels_host.cpp, with the host
    compiler, all at once;
 3. kernels: every entry against its plain PyTorch version on the card,
@@ -116,7 +116,18 @@ exit, no result line) if any phase fails:
    through ATVDecoder's own loop and, off the paths, on bursts whose
    phases sit at +-pi (``chroma_walk_case``), phases within WALK_TOL,
    outputs within WALK_OUT_TOL, locked; each case's ns a sample or us a step beside its
-   bound's; five wrong arguments must raise and launch nothing. A
+   bound's; five wrong arguments must raise and launch nothing;
+   ``mix_bank`` of csrc/mix.cu (``phase_kernels_mix``): the benchmark
+   cells' [64, 2^24] bank with the shared input, two blocks with the
+   phase carried, and off the paths a [16, 2^20] per-channel input (rows
+   16-byte aligned, and rows an odd stride apart), a channel shard's rows
+   (rank 2 of 4), K = 256, 16 and 1 (an odd n), an x 8 bytes off 16-byte
+   alignment and 4096 channels of phases over [-1e4, 1e4], against
+   ``mix_bank_plain`` on the card: outputs within MIX_TOL of max |x|
+   (random tables, so an entry taken from a wrong index shows), the
+   carried phase bit for bit, one launch a call; each case's kernel time
+   beside its bound and the plain version's time; four wrong arguments
+   must raise and launch nothing. A
    case's ``ms`` is the kernel at ``shape``, its ``plain_ms`` the plain
    version on ``plain_shape`` (the same, or the prefix held); ``path``
    names the path that launches ``shape``; ``bound_ms`` is the least time
@@ -162,7 +173,7 @@ exit, no result line) if any phase fails:
 13. the entry point: ``cli.main(["bank", ...])`` with no --device (the
     card): 64 NFM channels from test:6144000, --channelizer time and fft,
     4 blocks each, 64 WAVs each; on the time channelizer decimating_fir
-    launches on 64 rows;
+    launches on 64 rows and mix_bank once a block;
 14. tests/test_golden.py's NFM bank through ``ScannerBank`` on the card
     against the committed golden, below -40 dB after the settle;
 15. the radio-options path: a 2.4 Msps composite (WFM stereo with a
@@ -452,7 +463,8 @@ SOURCES = {"lane_scan": "sdrpp_tpu_torch/csrc/loop_scan.cu",
            "decimating_fir": "sdrpp_tpu_torch/csrc/decim_fir.cu",
            "line_sync_walk": "sdrpp_tpu_torch/csrc/sync_walk.cu",
            "chroma_burst_walk": "sdrpp_tpu_torch/csrc/sync_walk.cu",
-           "cyclic_sync_walk": "sdrpp_tpu_torch/csrc/sync_walk.cu"}
+           "cyclic_sync_walk": "sdrpp_tpu_torch/csrc/sync_walk.cu",
+           "mix_bank": "sdrpp_tpu_torch/csrc/mix.cu"}
 REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
             "single_scan": "sdrpp_tpu/ops/scans_pallas.py:68",
             "mm_symbols": "sdrpp_tpu/ops/clock_recovery_pallas.py:35",
@@ -467,7 +479,9 @@ REPLACES = {"lane_scan": "sdrpp_tpu/ops/scans_pallas.py:147",
             "cyclic_sync_walk": "sdrpp_tpu/ops/ofdm.py:109",
             "mm_symbols_chunked":
                 "sdrpp_tpu/ops/clock_recovery_chunked.py:92",
-            "fd_symbols": "sdrpp_tpu/ops/clock_recovery.py:162"}
+            "fd_symbols": "sdrpp_tpu/ops/clock_recovery.py:162",
+            # XLA elementwise code, no kernel of the JAX package
+            "mix_bank": "none (sdrpp_tpu/ops/mix.py mix_bank)"}
 # rows counted by a wrapper's second count: the general kernels' launches
 # (S > 64, or R > 4 for the ACS), as the host path reports them
 GENERAL = {"viterbi_acs_general": "viterbi_acs_batched",
@@ -482,7 +496,7 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "wideband": ("decimating_fir",),
             "ssb_bank": ("lane_scan",),
             "muted_bank": (),
-            "bank": ("decimating_fir",),
+            "bank": ("decimating_fir", "mix_bank"),
             "bank_fft": (),
             "hrpt": ("lane_scan", "single_scan", "mm_symbols_chunked"),
             "falcon9": ("mm_symbols",),
@@ -500,7 +514,7 @@ REQUIRED = {"receive": ("lane_scan", "single_scan", "decimating_fir"),
             "run_am": ("single_scan", "decimating_fir"),
             "atv": ("line_sync_walk", "chroma_burst_walk"),
             "dab": ("cyclic_sync_walk",),
-            "multidevice": ("lane_scan", "decimating_fir"),
+            "multidevice": ("lane_scan", "decimating_fir", "mix_bank"),
             "fec_bytes": ("viterbi_acs_batched", "viterbi_traceback_batched",
                           "viterbi_acs_general", "viterbi_traceback_general"),
             "acs_decisions": ("viterbi_acs_batched", "viterbi_acs_general"),
@@ -577,6 +591,14 @@ PROFILE_CALLS = 20
 # equal to torch.cos / torch.sin on the card) and the Viterbi entries are
 # held bit-exact; the M&M and the FIR within 1e-6 of their largest output.
 KERNEL_TOL = 1e-6
+# mix_bank against its plain version, as a share of max |x|: the phase is
+# the same float32 value, sincosf and the complex product differ by ulps.
+# On an H100 at [64, 2^24] (max |x| ~4.1) the kernel read 3.4e-7 (8e-8 of
+# max |x|) and the same kernel with __sincosf 2.6e-6 (6e-7): the limit
+# lies between, so the fast intrinsic fails it.
+MIX_TOL = 2.5e-7
+# the benchmark cells' bank: 64 NCOs over linspace(-0.4, 0.4) of 6.144 Msps
+MIX_CELL = (64, 1 << 24, 6144000.0)
 # mm_symbols on the meteor path: [1, tail + 65536 IF samples]
 MM_TAIL = 7
 MM_BLOCK = 65536
@@ -841,6 +863,7 @@ def kernel_fns():
     from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
     from sdrpp_tpu_torch.ops import fec_kernels as FK
     from sdrpp_tpu_torch.ops import fir_kernels as DK
+    from sdrpp_tpu_torch.ops import mix as MX
     from sdrpp_tpu_torch.ops import scans_kernels as K
     from sdrpp_tpu_torch.ops import sync_walks as W
 
@@ -853,7 +876,8 @@ def kernel_fns():
             "decimating_fir": DK.decimating_fir,
             "line_sync_walk": W.line_sync_walk,
             "chroma_burst_walk": W.chroma_burst_walk,
-            "cyclic_sync_walk": W.cyclic_sync_walk}
+            "cyclic_sync_walk": W.cyclic_sync_walk,
+            "mix_bank": MX.mix_bank}
 
 
 def reset_counts():
@@ -4441,6 +4465,184 @@ def same_bits(got, ref) -> bool:
     return all(torch.equal(bits(g), bits(r)) for g, r in zip(got, ref))
 
 
+def phase_kernels_mix(dev):
+    """mix_bank (csrc/mix.cu) against mix_bank_plain on the card: the
+    cells' bank and the shapes off the paths (see the module docstring),
+    one launch a call, the carried phase bit for bit; each case's kernel
+    time beside its bound and the plain version's time."""
+    import torch
+    from sdrpp_tpu_torch.ops import mix as MX
+    from sdrpp_tpu_torch.parallel.spmd import channel_shard
+
+    class Mesh:  # rank 2 of a one-dim mesh of 4, as local_rows reads it
+        shape, mesh_dim_names = (4,), ("chip",)
+
+        @staticmethod
+        def get_local_rank(name):
+            return 2
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def cx(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.complex64,
+                           device=dev)
+
+    def angles(*shape, lo=0.0, hi=2 * np.pi):
+        return (torch.rand(shape, generator=gen, device=dev) * (hi - lo)
+                + lo).float()
+
+    def held(label, phase, x, tables, shard=False):
+        """One kernel call against the plain version on its rows; returns
+        (err, tol, new_phase, call, plain): call() is the kernel's call,
+        plain() the plain version's."""
+        def call():
+            if not shard:
+                return MX.mix_bank(phase, x, None, tables)
+            with channel_shard("chip", Mesh()):
+                return MX.mix_bank(phase, x, None, tables)
+
+        rows = tables
+        if shard:
+            c = phase.shape[0]
+            rows = tuple(t[2 * c:3 * c] for t in tables)
+        before = MX.mix_bank.launches
+        got_p, got = call()
+        if MX.mix_bank.launches != before + 1:
+            raise AssertionError(f"mix_bank {label}: "
+                                 f"{MX.mix_bank.launches - before} launches")
+        want_p, want = MX.mix_bank_plain(phase, x, *rows)
+        err = float((got - want).abs().max())
+        tol = MIX_TOL * float(x.abs().max())
+        log(f"kernel mix_bank {label}: C {phase.shape[0]}, n "
+            f"{x.shape[-1]}, K {rows[1].shape[1]}: max abs err "
+            f"{err:.3g} (tol {tol:.3g}), carried phase "
+            f"{'bit-equal' if torch.equal(got_p, want_p) else 'DIFFERS'}")
+        if not err <= tol:
+            raise AssertionError(f"mix_bank {label} disagrees with its "
+                                 f"plain version: {err} > {tol}")
+        if not torch.equal(got_p, want_p):
+            raise AssertionError(f"mix_bank {label}: carried phase differs "
+                                 f"from torch.remainder's")
+        return err, tol, got_p, call, lambda: MX.mix_bank_plain(phase, x,
+                                                                *rows)
+
+    def case_bytes(x, c, n, tables):
+        """x read once, y written once, the tables read once"""
+        return (x.numel() * 8 + c * n * 8
+                + sum(t.numel() * 4 for t in tables))
+
+    results = []
+    # the cells' bank: two blocks, the phase carried
+    c, n, fs = MIX_CELL
+    bank = MX.FrequencyXlatorBank(-np.linspace(-0.4, 0.4, c) * fs, fs,
+                                  device=dev)
+    x = cx(n)
+    tables = bank._tables[n] = MX.mix_bank_tables(n, bank.omegas, dev)
+    phase = angles(c)
+    errs = []
+    for block in range(2):
+        err, tol, phase = held(f"cells block {block}", phase, x, tables)[:3]
+        errs.append(err)
+    ms = float(np.median([cuda_ms(lambda: MX.mix_bank(phase, x, None,
+                                                      tables), reps=10)
+                          for _ in range(3)]))
+    dev_ms = device_ms(lambda: MX.mix_bank(phase, x, None, tables))
+    plain_ms = cuda_ms(lambda: MX.mix_bank_plain(phase, x, *tables), reps=2)
+    fill = torch.empty((c, n), dtype=torch.complex64, device=dev)
+    fill_ms = cuda_ms(lambda: fill.fill_(1.0), reps=10)
+    del fill
+    nbytes = case_bytes(x, c, n, tables)
+    bms, bby = bound(nbytes, 0.0)
+    reset_counts()
+    state = bank.init_state()
+    for _ in range(3):
+        state, _y = bank(state, x)
+    if MX.mix_bank.launches != 3:
+        raise AssertionError(f"FrequencyXlatorBank: {MX.mix_bank.launches} "
+                             f"launches in 3 calls")
+    del _y
+    log(f"kernel mix_bank [{c}, {n}] shared x (the cells'): {ms:.4f} ms a "
+        f"call ({dev_ms:.4f} ms on the device alone), bound {bms:.4f} ms "
+        f"({bby}, {nbytes / 1e9:.3f} GB), {bms / ms * 100:.1f} % of it; "
+        f"plain {plain_ms:.3f} ms; a [{c}, {n}] complex64 fill_ "
+        f"{fill_ms:.4f} ms; one launch a bank call")
+    results.append(dict(entry="mix_bank", body="shared", shape=[c, n],
+                        plain_shape=[c, n], path="bank", max_abs_err=max(errs),
+                        tol=tol, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                        library_ms=None, fill_ms=fill_ms, bound_ms=bms,
+                        bound_by=bby, bytes=nbytes))
+    del x
+    # off the paths, each timed as the cells' case is
+    def off_path(label, phase, x, tables, shard=False):
+        err, tol, _, call, plain = held(label, phase, x, tables, shard)
+        c, n = phase.shape[0], x.shape[-1]
+        warm(call, secs=0.05, calls=20)
+        ms = cuda_ms(call, reps=10)
+        plain_ms = cuda_ms(plain, reps=2)
+        nbytes = case_bytes(x, c, n, tables if not shard else
+                            tuple(t[:c] for t in tables))
+        bms, bby = bound(nbytes, 0.0)
+        log(f"kernel mix_bank {label}: {ms:.4f} ms a call, bound "
+            f"{bms:.4f} ms ({bby}), plain {plain_ms:.3f} ms")
+        results.append(dict(entry="mix_bank", body=label, shape=[c, n],
+                            plain_shape=[c, n], path=None, max_abs_err=err,
+                            tol=tol, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=bms, bound_by=bby,
+                            bytes=nbytes))
+
+    w = 64
+    for label, c, n, make in (
+            ("per-channel rows", 16, 1 << 20, lambda c, n: cx(c, n)),
+            ("rows an even stride apart", 16, 1 << 20,
+             lambda c, n: cx(c, n + 2)[:, :n]),
+            ("rows an odd stride apart", 16, 1 << 20,
+             lambda c, n: cx(c, n + 1)[:, :n]),
+            ("K 256", 8, 96000, lambda c, n: cx(n)),
+            ("K 16", 8, 6000, lambda c, n: cx(n)),
+            ("odd n, K 1", 8, 3001, lambda c, n: cx(n)),
+            ("x 8 bytes off alignment", 8, 1 << 16,
+             lambda c, n: cx(n + 1)[1:]),
+            ("wide phases", 4096, w, lambda c, n: cx(n))):
+        x = make(c, n)
+        omegas = np.random.default_rng(c + n).uniform(-np.pi, np.pi, c)
+        hi, lo, step = MX.mix_bank_tables(n, omegas, dev)
+        # random tables: an entry taken from a wrong index shows
+        tables = (angles(*hi.shape), angles(*lo.shape), step)
+        phase = (angles(c, lo=-1e4, hi=1e4) if label == "wide phases"
+                 else angles(c))
+        if label == "wide phases":
+            phase[:8] = torch.tensor([0.0, -0.0, float(np.float32(2 * np.pi)),
+                                      -float(np.float32(2 * np.pi)), 1e30,
+                                      -1e30, 3e-45, -3e-45], device=dev)
+        off_path(label, phase, x, tables)
+    c, n = 64, 1 << 18
+    hi, lo, step = MX.mix_bank_tables(n, np.linspace(-1, 1, c), dev)
+    off_path("shard rows (rank 2 of 4)", angles(c // 4), cx(n),
+             (angles(*hi.shape), angles(*lo.shape), step), shard=True)
+    # wrong arguments raise on the card and launch nothing
+    c, n = 4, 64
+    hi, lo, step = MX.mix_bank_tables(n, np.linspace(-1, 1, c), dev)
+    x, phase = cx(n), angles(c)
+    before = MX.mix_bank.launches
+    for what, args in (("complex64 x", (phase, x.to(torch.complex128))),
+                       ("float32 phase", (phase.double(), x)),
+                       ("one device", (phase.cpu(), x)),
+                       ("contiguous along n", (phase, cx(2 * n)[::2]))):
+        try:
+            MX.mix_bank(*args, None, (hi, lo, step))
+        except ValueError as e:
+            if what not in str(e):
+                raise AssertionError(f"mix_bank on CUDA raised {e!r}, "
+                                     f"expected {what!r}") from e
+        else:
+            raise AssertionError(f"mix_bank on CUDA took bad arguments "
+                                 f"({what})")
+    if MX.mix_bank.launches != before:
+        raise AssertionError("mix_bank counted a launch it refused")
+    log("mix_bank on CUDA: four wrong arguments raise ValueError")
+    return results
+
+
 def phase_kernels_walks(dev):
     """The three walks against their plain versions on the same inputs:
     line_sync_walk on every case of ``line_walk_cases`` (the first two
@@ -7155,7 +7357,8 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    names = ("loop_scan", "mm_clock", "viterbi", "decim_fir", "sync_walk")
+    names = ("loop_scan", "mm_clock", "viterbi", "decim_fir", "sync_walk",
+             "mix")
     hosts = ("kernels_host",)
     vp = _viterbi_probe()
     with ThreadPoolExecutor(len(names) + len(hosts) + 1) as pool:
@@ -7182,7 +7385,8 @@ def main() -> int:
                + phase_kernels_decode_mm(dev)
                + phase_kernels_chunked_mm(dev) + viterbi
                + phase_kernels_fec(dev, k9[1], k6[1])
-               + phase_kernels_fir(dev) + phase_kernels_walks(dev))
+               + phase_kernels_fir(dev) + phase_kernels_walks(dev)
+               + phase_kernels_mix(dev))
 
     acs_redesign = phase_acs_redesign(dev, gpu, vp.load_probe(probe_path))
 

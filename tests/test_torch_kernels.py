@@ -18,6 +18,11 @@ versions, and the wrappers' checks.
   tail carries into the Pallas block. Outputs within 2e-5 of the peak
   (the Pallas kernel sums phase by phase, the port tap by tap), tails
   exact.
+- ``mix.mix_bank`` on the CPU is the torch expression it ran before the
+  kernel (``mix_bank_plain``), bit for bit, output and carried phase, for
+  a shared and a per-channel x and a channel shard's rows; a CPU call
+  launches nothing. The kernel's exact wrap (``fmodf``, then 2pi added
+  where negative) is ``torch.remainder`` bit for bit.
 - The wrappers raise on a wrong device, dtype or shape and never fall
   back; ``cuda_lib.bind`` sets an entry's types once; a kernel or host
   module is compiled once, and a failed build raises and leaves nothing.
@@ -36,7 +41,9 @@ from sdrpp_tpu.ops import fir as jfir
 from sdrpp_tpu.ops import resample as jresample
 from sdrpp_tpu_torch.ops import clock_recovery_kernels as MK
 from sdrpp_tpu_torch.ops import fir_kernels as FK
+from sdrpp_tpu_torch.ops import mix as MX
 from sdrpp_tpu_torch.ops.clock_recovery import MMClockRecovery
+from sdrpp_tpu_torch.parallel.spmd import channel_shard
 from sdrpp_tpu_torch.utils import cuda_lib
 
 torch.set_num_threads(1)
@@ -201,6 +208,113 @@ def test_decimating_fir_wrapper_raises_on_wrong_inputs():
     a = FK.decimating_fir(tail.real.contiguous(), xs, w, r)
     b = FK.decimating_fir(tail.real.contiguous(), xs.contiguous(), w, r)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _bank_expression(phase, x, omegas, hi, lo, step):
+    """``mix_bank``'s body as it stood before the kernel."""
+    c, n = phase.shape[0], x.shape[-1]
+    two_pi = float(np.float32(2.0 * np.pi))
+    new_phase = torch.remainder(phase + step, two_pi)
+    ph = phase[:, None, None] + hi[:, :, None] + lo[:, None, :]
+    ph = torch.remainder(ph, two_pi).reshape(c, n)
+    return new_phase, x * torch.complex(torch.cos(ph), torch.sin(ph))
+
+
+class _Mesh:
+    """A one-dim mesh of 4 ranks seen from rank 2 (what ``local_rows``
+    reads of a DeviceMesh)."""
+    shape, mesh_dim_names = (4,), ("chip",)
+
+    @staticmethod
+    def get_local_rank(name):
+        return 2
+
+
+@pytest.mark.parametrize("case", ["shared", "rows", "shard", "odd"])
+def test_mix_bank_cpu_is_the_plain_expression(case):
+    rng = np.random.default_rng(11)
+    c, n = 8, (3 * 1001 if case == "odd" else 6000)
+    omegas = rng.uniform(-np.pi, np.pi, c)
+    tables = MX.mix_bank_tables(n, omegas, "cpu")
+    hi, lo, step = tables
+    shape = (c, n) if case == "rows" else (n,)
+    x = torch.from_numpy((rng.standard_normal(shape)
+                          + 1j * rng.standard_normal(shape)
+                          ).astype(np.complex64))
+    phase = torch.from_numpy(rng.uniform(0, 2 * np.pi, c).astype(np.float32))
+    before = MX.mix_bank.launches
+    if case == "shard":
+        rows = slice(4, 6)  # rank 2 of 4 holds rows 4 and 5
+        with channel_shard("chip", _Mesh()):
+            got = MX.mix_bank(phase[rows], x, omegas, tables)
+        want = _bank_expression(phase[rows], x, omegas, hi[rows], lo[rows],
+                                step[rows])
+    else:
+        want = _bank_expression(phase, x, omegas, *tables)
+        got = MX.mix_bank(phase, x, omegas, tables)
+        # a second block from the carried phase, the tables built inside
+        want2 = _bank_expression(want[0], x, omegas, *tables)
+        got2 = MX.mix_bank(got[0], x, omegas)
+        for u, v in zip(want2, got2):
+            assert torch.equal(u, v)
+    for u, v in zip(want, got):
+        assert u.dtype == v.dtype and torch.equal(u, v)
+    assert MX.mix_bank.launches == before
+
+
+def test_mix_bank_kernel_wrap_is_remainder():
+    """csrc/mix.cu's wrap_2pi, in numpy float32: fmodf plus 2pi where
+    negative; equal to torch.remainder bit for bit (ties at k 2pi, -0.0,
+    large and negative angles)."""
+    two = np.float32(2.0 * np.pi)
+    rng = np.random.default_rng(5)
+    steps = two * np.arange(5, dtype=np.float32)
+    s = np.concatenate([
+        rng.uniform(0, 4 * two, 200000), rng.uniform(-1e4, 1e4, 20000),
+        steps, np.nextafter(steps, np.float32(-1)),
+        np.nextafter(steps, np.float32(99)), [-0.0, 1e30, -1e30]
+    ]).astype(np.float32)
+    r = np.fmod(s, two)
+    r = np.where(r < 0, r + two, r).astype(np.float32)
+    want = torch.remainder(torch.from_numpy(s), float(two)).numpy()
+    np.testing.assert_array_equal(r.view(np.int32), want.view(np.int32))
+
+
+def test_mix_bank_wrapper_raises_and_never_falls_back():
+    c, n = 4, 64
+    omegas = np.linspace(-1, 1, c)
+    hi, lo, step = MX.mix_bank_tables(n, omegas, "cpu")
+    x = torch.zeros(n, dtype=torch.complex64)
+    phase = torch.zeros(c)
+    before = MX.mix_bank.launches
+    with pytest.raises(ValueError, match="complex64 x"):
+        MX.mix_bank(phase, x.to(torch.complex128), omegas, (hi, lo, step))
+    with pytest.raises(ValueError, match="complex64 x"):
+        MX.mix_bank(phase, x.real.contiguous(), omegas, (hi, lo, step))
+    with pytest.raises(ValueError, match="float32 phase"):
+        MX.mix_bank(phase.double(), x, omegas, (hi, lo, step))
+    with pytest.raises(ValueError, match="float32 lo"):
+        MX.mix_bank(phase, x, omegas, (hi, lo.double(), step))
+    with pytest.raises(ValueError, match="shapes"):
+        MX.mix_bank(phase, x[:-1], omegas, (hi, lo, step))
+    with pytest.raises(ValueError, match="shapes"):
+        MX.mix_bank(phase, torch.zeros((c + 1, n), dtype=torch.complex64),
+                    omegas, (hi, lo, step))
+    with pytest.raises(ValueError, match="shapes"):
+        MX.mix_bank(phase[:2], x, omegas, (hi, lo, step))
+    with pytest.raises(ValueError, match="phase"):
+        MX.mix_bank(phase[None], x, omegas, (hi, lo, step))
+    with pytest.raises(ValueError, match="phase"):
+        MX.mix_bank(phase, x[None, None], omegas, (hi, lo, step))
+    with pytest.raises(ValueError, match="shapes"):  # K = 12
+        MX.mix_bank(phase, x[:48], omegas, (torch.zeros((c, 4)),
+                                            torch.zeros((c, 12)), step))
+    with pytest.raises(ValueError, match="one device"):
+        MX.mix_bank(phase.to("meta"), x, omegas, (hi, lo, step))
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        MX.mix_bank(phase.to("meta"), x.to("meta"), omegas,
+                    tuple(t.to("meta") for t in (hi, lo, step)))
+    assert MX.mix_bank.launches == before
 
 
 def test_cuda_lib_bind_sets_the_types_once(monkeypatch):
