@@ -500,6 +500,9 @@ def cmd_bank(argv):
     p.add_argument("--channelizer", default="time", choices=["time", "fft"],
                    help="'fft' = shared-FFT channelizer (one wideband FFT "
                         "for all channels; needs integer fs/if ratio)")
+    p.add_argument("--deemphasis", default=None,
+                   choices=["22us", "50us", "75us"],
+                   help="WFM: de-emphasis after the AF resampler")
     p.add_argument("--out-dir", default="bank_audio")
     p.add_argument("--container", default="wav",
                    choices=["wav", "flac", "mp3"],
@@ -524,7 +527,8 @@ def cmd_bank(argv):
     offsets = np.array([float(o) for o in args.offsets.split(",")])
     bank = ScannerBank(offsets, fs, mode=args.mode, if_rate=args.if_rate,
                        bandwidth=args.bandwidth, squelch_level=args.squelch,
-                       channelizer=args.channelizer, device=device)
+                       channelizer=args.channelizer,
+                       deemphasis=args.deemphasis, device=device)
     bm = bank.block_multiple
     block = max(bm, (args.block_size // bm) * bm)
     log.info("%d-channel %s bank, fs=%g, block=%d, device=%s", len(offsets),

@@ -27,6 +27,7 @@ from ..ops.resample import RationalResampler
 from ..ops.scans import DCBlocker
 from ..ops.scans_kernels import AGCChunked as AGC, PLLChunked as PLL
 from ..utils.blocks import Block
+from ..utils.tracing import annotate
 
 __all__ = ["AMDemod", "SSBDemod", "CWDemod", "NFMDemod", "WFMDemod"]
 
@@ -258,7 +259,10 @@ class WFMDemod(Block):
     (``low_pass``). ``stereo=False`` outputs the (low-passed) MPX on both
     channels. The RDS tap (``rds_out``) translates the complex MPX by
     -57 kHz and resamples it to 5 kHz. Returns stereo [..., n, 2], with
-    ``rds_out`` as (stereo, rds baseband).
+    ``rds_out`` as (stereo, rds baseband). Spans
+    (``utils.tracing.annotate``): ``wfm.pilot`` around the pilot's
+    band-pass and loop, ``wfm.stereo`` around the delays, the 38-kHz
+    product, the matrix and the audio low-passes.
     """
 
     def __init__(self, deviation: float = 100000.0, samplerate: float = 240000.0,
@@ -341,19 +345,24 @@ class WFMDemod(Block):
         cmpx = convert.real_to_complex(mpx)
         rds = self._rds(st, state, cmpx) if self.rds_out else None
         if self.stereo:
-            st["pilot_fir"], pilot = self.pilot_fir(state["pilot_fir"], cmpx)
-            st["pilot_pll"], vco = self.pilot_pll(state["pilot_pll"], pilot)
-            st["lpr_delay"], lpr = self.lpr_delay(state["lpr_delay"], mpx)
-            st["lmr_delay"], lmr_c = self.lmr_delay(state["lmr_delay"], cmpx)
-            vco_c = torch.conj(vco)
-            lmr_c = lmr_c * vco_c * vco_c  # downconvert 38 kHz L-R
-            lmr = convert.complex_to_real(lmr_c) * 2.0
-            l = lpr + lmr
-            r = lpr - lmr
-            if self.low_pass:
-                st["al_fir"], l = self.al_fir(state["al_fir"], l)
-                st["ar_fir"], r = self.ar_fir(state["ar_fir"], r)
-            out = convert.l_r_to_stereo(l, r)
+            with annotate("wfm.pilot", device=True):
+                st["pilot_fir"], pilot = self.pilot_fir(state["pilot_fir"],
+                                                        cmpx)
+                st["pilot_pll"], vco = self.pilot_pll(state["pilot_pll"],
+                                                      pilot)
+            with annotate("wfm.stereo", device=True):
+                st["lpr_delay"], lpr = self.lpr_delay(state["lpr_delay"], mpx)
+                st["lmr_delay"], lmr_c = self.lmr_delay(state["lmr_delay"],
+                                                        cmpx)
+                vco_c = torch.conj(vco)
+                lmr_c = lmr_c * vco_c * vco_c  # downconvert 38 kHz L-R
+                lmr = convert.complex_to_real(lmr_c) * 2.0
+                l = lpr + lmr
+                r = lpr - lmr
+                if self.low_pass:
+                    st["al_fir"], l = self.al_fir(state["al_fir"], l)
+                    st["ar_fir"], r = self.ar_fir(state["ar_fir"], r)
+                out = convert.l_r_to_stereo(l, r)
         else:
             audio = mpx
             if self.low_pass:

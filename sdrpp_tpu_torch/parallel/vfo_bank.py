@@ -25,12 +25,13 @@ import numpy as np
 import torch
 
 from ..models.analog import AMDemod, CWDemod, NFMDemod, SSBDemod, WFMDemod
+from ..models.radio import DEEMP_TAUS
 from ..ops import taps as taps_mod
 from ..ops.channelizer import FFTChannelizerBank
 from ..ops.fir import FIR
 from ..ops.mix import FrequencyXlatorBank
 from ..ops.resample import RationalResampler
-from ..ops.scans import Squelch
+from ..ops.scans import Deemphasis, Squelch
 from ..utils.blocks import Block
 from ..utils.tracing import annotate
 from .mesh import replicated, shard_placements
@@ -124,18 +125,31 @@ class ScannerBank(Block):
     channel ([C, n_audio, 2] for WFM). The device defaults to ``cuda``;
     without a card construction raises rather than falling back.
 
+    WFM's AF stage is the radio's (radio_module.h:81-88): the stereo
+    pair resampled from the IF rate to ``audio_rate``, then, with
+    ``deemphasis`` (a key of ``models.radio.DEEMP_TAUS``: "22us", "50us",
+    "75us"), the de-emphasis filter, whose last outputs the state carries
+    under ``deemph``. ``deemphasis`` is a broadcast-FM stage: other modes
+    refuse it, and without it the state has no ``deemph`` key.
+
     Spans (``utils.tracing.annotate``): ``bank`` around a call, carrying
     its number (``calls``) as the block id of every span beneath it, and
-    ``bank.vfo``, ``bank.squelch``, ``bank.demod``, ``bank.af`` around
-    its stages; ``VFOBank`` adds ``vfo.mix``, ``vfo.resample`` and
-    ``vfo.filter``. All are timed on the card's stream too.
+    ``bank.vfo``, ``bank.squelch``, ``bank.demod``, ``bank.af`` (the
+    resampler and the de-emphasis) around its stages; ``VFOBank`` adds
+    ``vfo.mix``, ``vfo.resample`` and ``vfo.filter``, ``WFMDemod``
+    ``wfm.pilot`` and ``wfm.stereo``, and the de-emphasis ``af.deemph``.
+    All are timed on the card's stream too.
     """
 
     def __init__(self, offsets_hz, in_samplerate: float, mode: str = "usb",
                  if_rate: float = 48000.0, bandwidth: float = 2700.0,
                  squelch_level: float | None = None,
-                 audio_rate: float = 48000.0, channelizer: str = "time", *,
-                 device="cuda"):
+                 audio_rate: float = 48000.0, channelizer: str = "time",
+                 deemphasis: str | None = None, *, device="cuda"):
+        if deemphasis is not None and mode != "wfm":
+            raise ValueError(f"de-emphasis is WFM's AF stage; the {mode} "
+                             f"bank has none")
+        tau = DEEMP_TAUS[deemphasis]
         self.channels = len(np.asarray(offsets_hz))
         self.mode = mode
         self.calls = 0  # blocks run: the block id of the bank's spans
@@ -160,6 +174,9 @@ class ScannerBank(Block):
                                         dtype=torch.float32,
                                         lead_shape=(self.channels, 2),
                                         device=device)
+        self.deemph = (Deemphasis(tau, audio_rate, stereo=True, lead_shape=ls,
+                                  device=device)
+                       if tau is not None else None)
         self.block_multiple = self.vfo.block_multiple
         if self.af is not None:
             # the input block must give an IF count divisible by the AF
@@ -171,12 +188,15 @@ class ScannerBank(Block):
                                    * (af_bm // int(np.gcd(q, af_bm))))
 
     def init_state(self):
-        return {
+        st = {
             "vfo": self.vfo.init_state(),
             "squelch": self.squelch.init_state() if self.squelch else (),
             "demod": self.demod.init_state(),
             "af": self.af.init_state() if self.af else (),
         }
+        if self.deemph is not None:
+            st["deemph"] = self.deemph.init_state()
+        return st
 
     def __call__(self, state, x):
         block, self.calls = self.calls, self.calls + 1
@@ -189,13 +209,20 @@ class ScannerBank(Block):
                     ss, y = self.squelch(state["squelch"], y)
             with annotate("bank.demod", device=True):
                 ds, audio = self.demod(state["demod"], y)
-            afs = ()
-            if self.af is not None:
+            st = {"vfo": vs, "squelch": ss, "demod": ds, "af": ()}
+            if self.af is not None or self.deemph is not None:
                 with annotate("bank.af", device=True):
-                    # [C, n, 2] stereo -> [C, 2, n] planes -> resample -> back
-                    afs, planes = self.af(state["af"], audio.transpose(-1, -2))
-                    audio = planes.transpose(-1, -2)
-        return {"vfo": vs, "squelch": ss, "demod": ds, "af": afs}, audio
+                    if self.af is not None:
+                        # [C, n, 2] stereo -> [C, 2, n] planes -> resample
+                        # -> back
+                        st["af"], planes = self.af(state["af"],
+                                                   audio.transpose(-1, -2))
+                        audio = planes.transpose(-1, -2)
+                    if self.deemph is not None:
+                        with annotate("af.deemph", device=True):
+                            st["deemph"], audio = self.deemph(
+                                state["deemph"], audio)
+        return st, audio
 
     def _leaf_spec(self, leaf, axis="channels"):
         """``axis`` for a leaf whose leading dim is the channel count (it

@@ -230,10 +230,13 @@ class _Mesh:
         return 2
 
 
-@pytest.mark.parametrize("case", ["shared", "rows", "shard", "odd"])
+@pytest.mark.parametrize("case", ["shared", "rows", "shard", "odd", "c100"])
 def test_mix_bank_cpu_is_the_plain_expression(case):
+    """``c100``: the FM band's 100 channels, six 16-channel groups and a
+    partial seventh of 4 on the card."""
     rng = np.random.default_rng(11)
-    c, n = 8, (3 * 1001 if case == "odd" else 6000)
+    c, n = (100 if case == "c100" else 8), (3 * 1001 if case == "odd"
+                                            else 6000)
     omegas = rng.uniform(-np.pi, np.pi, c)
     tables = MX.mix_bank_tables(n, omegas, "cpu")
     hi, lo, step = tables

@@ -435,6 +435,9 @@ def test_run_and_bank_arguments_match_jax(cmd):
     j, t = _options(jcli, cmd), _options(tcli, cmd)
     assert t.pop(("--device",))[1] == "cuda"
     j.pop(("--cpu",))
-    if cmd == "bank":  # the port's bank also writes a trace, as run does
+    if cmd == "bank":  # the port's bank also writes a trace, as run does,
+        # and de-emphasises a WFM bank, as run does
         assert t.pop(("--trace",)) == ("trace", None, ())
+        assert t.pop(("--deemphasis",)) == ("deemphasis", None,
+                                            ("22us", "50us", "75us"))
     assert t == j

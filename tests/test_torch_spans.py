@@ -36,7 +36,7 @@ PARENT = {"bank": None, "bank.vfo": "bank", "vfo.mix": "bank.vfo",
           "bank.squelch": "bank", "bank.demod": "bank"}
 # the ranges the benchmark's harness opens around its own calls
 HARNESS = {"bench.block", "pipeline.read", "entry", "pipeline.push",
-           "vfo_bank", "squelch", "demod"}
+           "vfo_bank", "squelch", "demod", "af"}
 
 
 @pytest.fixture(autouse=True)
@@ -107,6 +107,33 @@ def test_bank_spans_parents_and_block_ids(tmp_path):
              json.loads(path.read_text())["traceEvents"]]
     for name in BANK:
         assert names.count(name) == 3
+
+
+def test_wfm_bank_spans_pilot_stereo_and_deemphasis():
+    """A de-emphasised WFM bank adds ``wfm.pilot`` and ``wfm.stereo``
+    under ``bank.demod``, and ``af.deemph`` under ``bank.af``, once a
+    block each."""
+    fs, n = 2.5e6, 50000
+    bank = ScannerBank([-300e3, 300e3], fs, mode="wfm", if_rate=240e3,
+                       bandwidth=200e3, deemphasis="75us", device="cpu")
+    rng = np.random.default_rng(2)
+    x = (1e-2 * (rng.standard_normal(2 * n) + 1j * rng.standard_normal(
+        2 * n))).astype(np.complex64)
+
+    def run():
+        st = bank.init_state()
+        for j in range(2):
+            st, _ = bank(st, torch.from_numpy(x[j * n:(j + 1) * n]))
+
+    _profiled(run)
+    recs = spans()
+    by_id = {r["id"]: r for r in recs}
+    parent = {"wfm.pilot": "bank.demod", "wfm.stereo": "bank.demod",
+              "af.deemph": "bank.af", "bank.af": "bank"}
+    for name, up in parent.items():
+        mine = [r for r in recs if r["name"] == name]
+        assert sorted(r["block"] for r in mine) == [0, 1], name
+        assert all(by_id[r["parent"]]["name"] == up for r in mine), name
 
 
 def test_pipeline_spans_share_the_blocks_ids():

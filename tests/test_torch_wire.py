@@ -797,8 +797,10 @@ def test_cli_arguments_match_jax():
         j, t = options(jcli, cmd), options(tcli, cmd)
         assert t.pop("device") == "cuda"
         j.pop("cpu")
-        if cmd == "bank":  # the port's bank also writes a trace, as run does
+        if cmd == "bank":  # the port's bank also writes a trace, as run
+            # does, and de-emphasises a WFM bank, as run does
             assert t.pop("trace") is None
+            assert t.pop("deemphasis") is None
         assert t == j, cmd
     assert set(tcli.COMMANDS) == set(jcli.COMMANDS) - {"bench"}
     assert tcli.BACKEND_FATAL_EXIT == jcli.BACKEND_FATAL_EXIT == 86
